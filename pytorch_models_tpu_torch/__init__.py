@@ -1,0 +1,16 @@
+"""pytorch_models_tpu_torch — the PyTorch + CUDA port of pytorch_models_tpu.
+
+It grows beside the JAX package, which stays as the reference it is tested
+against, one slice at a time. Parameters keep the JAX package's layouts
+(``(in, out)`` linears, merged-head ``(B, L, H*D)`` projections and KV
+caches), plain tensor code is PyTorch, and every Pallas kernel on a ported
+path becomes a hand-written CUDA kernel for Hopper (``csrc/``), built at
+first use with ``nvcc`` and bound with ``ctypes``. Each kernel keeps a plain
+PyTorch version beside it; its wrapper runs that version only for CPU
+tensors.
+
+Ported so far: GPT-2 (``models.text.GPT2``) with greedy batched generation
+and scoring (``models.text.DecoderGenerator``).
+"""
+
+__version__ = "0.1.0"

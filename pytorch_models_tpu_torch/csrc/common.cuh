@@ -1,0 +1,45 @@
+// Shared helpers for the port's hand-written Hopper kernels.
+//
+// Every kernel file exposes `extern "C"` launchers that take raw pointers and
+// a cudaStream_t as void*, launch on that stream without synchronising, and
+// return cudaGetLastError() so the Python wrapper can raise on a refused
+// launch. Element types: float (code 0) and __nv_bfloat16 (code 1).
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace pmt {
+
+enum DType { DT_F32 = 0, DT_BF16 = 1 };
+
+constexpr float NEG_INF = -1e30f;  // finite "minus infinity", as in the JAX kernels
+
+// true -inf (for argmax seeds; the attention kernels use the finite NEG_INF)
+__device__ __forceinline__ float neg_inf() { return __int_as_float(static_cast<int>(0xff800000u)); }
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) { return __float2bfloat16_rn(x); }
+
+// Round an fp32 value through T (identity for float): the "compute dtype"
+// rounding that the bf16 paths apply at fixed points.
+template <typename T>
+__device__ __forceinline__ float round_to(float x) { return to_f32(from_f32<T>(x)); }
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+    return v;
+}
+
+inline cudaStream_t as_stream(void* s) { return reinterpret_cast<cudaStream_t>(s); }
+
+}  // namespace pmt

@@ -1,0 +1,88 @@
+"""Scaled dot-product attention and the kernel dispatch flags (PyTorch port
+of ``pytorch_models_tpu/ops/attention.py``).
+
+The head-split entry point (:func:`sdpa`) is plain PyTorch. The hand-written
+CUDA kernels (encoder_attention, decode_attention, greedy_head, gather) are
+selected UPSTREAM in transformer.py and the generator on merged-head layouts,
+through the flags below.
+
+Each flag: ``None`` = auto, which means "the tensor lies on a CUDA device";
+``True`` forces the kernel's wrapper (on a CPU tensor the wrapper runs the
+kernel's plain version, which is how the CPU tests reach the dispatch);
+``False`` forces the plain PyTorch path of the JAX package's XLA route.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+# single-position self-attention decode (ops/decode_attention.py)
+USE_DECODE_KERNEL: bool | None = None
+# merged-head dense/causal attention with no bias (ops/encoder_attention.py)
+USE_ENCODER_KERNEL: bool | None = None
+# argmax(x @ emb.T) without the (B, V) logits (ops/greedy_head.py); auto
+# engages at batch >= 4, the JAX package's rule. On an H100 80GB (700 W,
+# GPT-2 head, V=50257, d=768, bf16) the kernel took 71.0 us at B=1 against
+# 50.7 us for the head matmul + argmax it replaces, and 85.0 us against
+# 121.6 us at B=8 (chip_smoke.py's greedy-head phase); the crossover
+# between is not measured. In fp32 it lost at both (129.7 vs 70.9 us,
+# 142.7 vs 109.5 us).
+USE_GREEDY_HEAD: bool | None = None
+
+
+def _on_cuda(t: torch.Tensor) -> bool:
+    """Takes the place of the JAX package's ``_on_tpu()``: the kernels run
+    where the data lies."""
+    return t.is_cuda
+
+
+def use_greedy_head(batch: int, t: torch.Tensor) -> bool:
+    if USE_GREEDY_HEAD is not None:
+        return USE_GREEDY_HEAD
+    return batch >= 4 and _on_cuda(t)
+
+
+def use_decode_kernel(t: torch.Tensor) -> bool:
+    """Gate for the decode kernel on the merged-head cache ``t``. No shape
+    condition: on a CUDA tensor the wrapper launches the kernel or raises."""
+    return _on_cuda(t) if USE_DECODE_KERNEL is None else USE_DECODE_KERNEL
+
+
+def use_encoder_kernel(q_m: torch.Tensor) -> bool:
+    """Gate for merged-head encoder attention on (..., L, H*D) projections.
+    No shape condition: on a CUDA tensor the wrapper launches the kernel or
+    raises."""
+    return _on_cuda(q_m) if USE_ENCODER_KERNEL is None else USE_ENCODER_KERNEL
+
+
+def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, attn_bias: torch.Tensor | None = None,
+         causal: bool = False) -> torch.Tensor:
+    """Attention over ``(..., n_heads, L, head_dim)`` tensors.
+
+    ``attn_bias`` is an additive mask/bias broadcastable to ``(..., H, Lq, Lk)``.
+    ``causal`` masks key positions ``j > i`` (top-left aligned).
+
+    fp32 inputs get an fp32 softmax. bf16 inputs keep the scores in bf16 but
+    accumulate the softmax normaliser in fp32 — the JAX package's rule
+    (attention.py:196-220), so numerics do not jump at kernel boundaries.
+    """
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    acc_dtype = torch.float32 if q.dtype == torch.float32 else q.dtype
+    logits = torch.matmul(q, k.transpose(-1, -2)).to(acc_dtype)
+    logits = logits * torch.tensor(scale, dtype=acc_dtype)
+    if attn_bias is not None:
+        logits = logits + attn_bias.to(acc_dtype)
+    if causal:
+        lq, lk = logits.shape[-2], logits.shape[-1]
+        keep = torch.ones(lq, lk, dtype=torch.bool, device=q.device).tril()
+        logits = logits.masked_fill(~keep, float("-inf"))
+    if acc_dtype == torch.float32:
+        probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    else:
+        m = logits.amax(-1, keepdim=True)
+        e = torch.exp(logits - m)
+        denom = e.float().sum(-1, keepdim=True)
+        probs = (e.float() / denom).to(q.dtype)
+    return torch.matmul(probs, v)

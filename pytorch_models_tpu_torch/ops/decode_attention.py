@@ -1,0 +1,92 @@
+"""Single-position decode attention against a merged-head KV cache (PyTorch
+port of ``pytorch_models_tpu/ops/decode_attention.py``).
+
+:func:`decode_attention` launches the hand-written CUDA kernel
+(``csrc/decode_attention.cu``) on CUDA tensors and runs
+:func:`decode_attention_plain` on CPU tensors. Row ``b`` attends to cache
+positions ``[pad_lens[b], ends[b])`` with an fp32 softmax; an empty range
+gives zeros. The key-major additive bias of the JAX kernel (T5) is not
+ported yet.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from . import _build
+
+NEG_INF = -1e30
+SUPPORTED_HEAD_DIMS = (64,)  # every family of the JAX package uses 64
+
+
+def _row_i32(x, b: int, device) -> torch.Tensor:
+    """(B,) int32 contiguous on ``device``; a tensor already so passes as is
+    (the generator keeps ``pad_lens`` that way, so decode steps cast nothing)."""
+    if isinstance(x, torch.Tensor) and x.dtype == torch.int32 and x.shape == (b,) and x.device == device:
+        return x.contiguous()
+    return torch.as_tensor(x, device=device).reshape(-1).to(torch.int32).expand(b).contiguous()
+
+
+def decode_attention_plain(q, k_cache, v_cache, ends, n_heads: int, pad_lens=None):
+    """The kernel's math in plain PyTorch: q scaled in fp32 and rounded to
+    the input dtype, fp32 scores and softmax with the safe max, fp32 P @ V."""
+    b, _, hd = q.shape
+    l_max = k_cache.shape[-2]
+    d = hd // n_heads
+    qf = (q.float() * (1.0 / math.sqrt(d))).to(q.dtype).float().reshape(b, n_heads, d)
+    kf = k_cache.float().reshape(b, l_max, n_heads, d)
+    vf = v_cache.float().reshape(b, l_max, n_heads, d)
+    s = torch.einsum("bhd,blhd->bhl", qf, kf)
+    col = torch.arange(l_max, device=q.device)[None, :]
+    pads = torch.zeros(b, dtype=torch.int32, device=q.device) if pad_lens is None else _row_i32(pad_lens, b, q.device)
+    valid = (col >= pads[:, None]) & (col < _row_i32(ends, b, q.device)[:, None])
+    s = s.masked_fill(~valid[:, None, :], NEG_INF)
+    m = s.amax(-1, keepdim=True).clamp_min(NEG_INF / 2)
+    p = torch.exp(s - m)
+    denom = p.sum(-1, keepdim=True)
+    denom = torch.where(denom == 0, torch.ones_like(denom), denom)
+    out = torch.einsum("bhl,blhd->bhd", p, vf) / denom
+    return out.reshape(b, 1, hd).to(q.dtype)
+
+
+def decode_attention(q, k_cache, v_cache, ends, n_heads: int, pad_lens=None):
+    """q: (B, 1, H*D); k_cache/v_cache: (B, L, H*D); ends: int or (B,) int.
+
+    Attention over cache positions ``[pad_lens[b], ends[b])`` per row;
+    returns the (B, 1, H*D) merged-head context. For self-attention decode at
+    position ``pos`` pass ``ends = pos + 1``.
+    """
+    if not q.is_cuda:
+        return decode_attention_plain(q, k_cache, v_cache, ends, n_heads, pad_lens)
+    b, lq, hd = q.shape
+    l_max = k_cache.shape[-2]
+    d = hd // n_heads
+    req = _build.require
+    req(lq == 1, "decode_attention: single-position queries only")
+    req(hd % n_heads == 0 and d in SUPPORTED_HEAD_DIMS, f"decode_attention: head_dim {hd}/{n_heads} unsupported")
+    req(k_cache.shape == (b, l_max, hd) and v_cache.shape == (b, l_max, hd), "decode_attention: cache shape")
+    req(k_cache.dtype == q.dtype and v_cache.dtype == q.dtype, "decode_attention: q and caches must share a dtype")
+    req(all(t.is_cuda and t.is_contiguous() for t in (q, k_cache, v_cache)),
+        "decode_attention: q and caches must be contiguous CUDA tensors")
+    dev = q.device
+    ends_t, end_scalar = None, 0
+    if isinstance(ends, int):
+        end_scalar = ends
+    else:
+        ends_t = _row_i32(ends, b, dev)
+    pads_t = None if pad_lens is None else _row_i32(pad_lens, b, dev)
+    out = torch.empty_like(q)
+    lib = _build.load_library()
+    code = lib.pmt_decode_attention(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
+        None if ends_t is None else ends_t.data_ptr(), end_scalar,
+        None if pads_t is None else pads_t.data_ptr(),
+        b, l_max, n_heads, d, 1.0 / math.sqrt(d), _build.dtype_code(q), _build.stream_ptr(q))
+    _build.check("pmt_decode_attention", code)
+    decode_attention.launches += 1
+    return out
+
+
+decode_attention.launches = 0

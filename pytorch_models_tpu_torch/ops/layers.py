@@ -1,0 +1,75 @@
+"""Elementary functional layers over parameter dicts (PyTorch port of
+``pytorch_models_tpu/ops/layers.py``).
+
+Conventions match the JAX package so parameters transfer unchanged:
+- Linear: ``{"w": (in, out), "b": (out,)}``; ``y = x @ w + b``.
+- LayerNorm: ``{"scale": (d,), "bias": (d,)}``; eps inside the sqrt like torch.
+
+Activations mirror the reference's MLP table: "gelu" is exact (erf) GELU,
+"approximate_gelu" is tanh GELU. Weight-only int8 and w8a8 linears are not
+ported yet.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+
+def _gelu_exact(x: torch.Tensor) -> torch.Tensor:
+    """Exact (erf) GELU in fp32. bf16 serving takes tanh-GELU, the JAX
+    package's default policy (its FAST_GELU_BF16): |tanh-GELU - erf-GELU|
+    peaks near 5e-4, below bf16's own rounding."""
+    if x.dtype == torch.bfloat16:
+        return F.gelu(x, approximate="tanh")
+    return F.gelu(x)
+
+
+ACT_FNS = {
+    "gelu": _gelu_exact,
+    "approximate_gelu": lambda x: F.gelu(x, approximate="tanh"),
+    "relu": F.relu,
+    "silu": F.silu,
+    "identity": lambda x: x,
+}
+
+
+def linear_init(gen: torch.Generator, in_dim: int, out_dim: int, bias: bool = True) -> dict:
+    """torch-style default init: U(-1/sqrt(in), 1/sqrt(in)) for weight and bias
+    (drawn on the CPU from ``gen``, so a seed gives the same weights on any device)."""
+    bound = 1.0 / math.sqrt(in_dim)
+    p = {"w": torch.empty(in_dim, out_dim).uniform_(-bound, bound, generator=gen)}
+    if bias:
+        p["b"] = torch.empty(out_dim).uniform_(-bound, bound, generator=gen)
+    return p
+
+
+def ln_init(dim: int) -> dict:
+    return {"scale": torch.ones(dim), "bias": torch.zeros(dim)}
+
+
+def linear(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """``x @ w + b``. The compute dtype follows the PARAMS, not the input:
+    bf16 params force bf16 compute even for fp32 inputs."""
+    w = p["w"]
+    if x.is_floating_point() and x.dtype != w.dtype:
+        x = x.to(w.dtype)
+    y = torch.matmul(x, w)
+    if "b" in p:
+        y = y + p["b"].to(y.dtype)
+    return y
+
+
+def layer_norm(p: dict | None, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the last axis in fp32 (biased variance, eps in the sqrt),
+    cast back to the input dtype."""
+    dtype = x.dtype
+    x32 = x.float()
+    mean = x32.mean(-1, keepdim=True)
+    var = (x32 - mean).square().mean(-1, keepdim=True)
+    y = (x32 - mean) * torch.rsqrt(var + eps)
+    if p is not None:
+        y = y * p["scale"].float() + p["bias"].float()
+    return y.to(dtype)

@@ -1,0 +1,240 @@
+"""Shared transformer core: MHA, MLP and decoder layers and stacks (PyTorch
+port of ``pytorch_models_tpu/transformer.py``).
+
+Parameters are plain dicts of tensors in the JAX package's layouts; a layer
+stack is a list of per-layer dicts run as a Python loop. KV caches are
+merged-head ``(B, L_max, H*D)`` per layer — the shape the K/V projections
+produce — with ``L_max = padded_cache_len(max_seq_len)``, so a cache built
+here holds the same values at the same places as the JAX package's.
+
+Where the JAX package returns a new cache from ``dynamic_update_slice``,
+this port writes the new K/V into the cache IN PLACE and returns the same
+cache object: PyTorch tensors are mutable, and a copy per step would move
+the whole cache.
+
+Cross-attention, additive attention biases, the int8 paths and tensor
+parallelism are not ported yet.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from .ops import ACT_FNS, layer_norm, linear, linear_init, ln_init, sdpa
+from .ops import attention as _attn
+
+
+def resolve_heads(d_model: int, n_heads: int | None = None, head_dim: int | None = None) -> tuple[int, int]:
+    """Head-count/dim inference exactly as the reference (transformer.py:20-26)."""
+    if head_dim is None and n_heads is None:
+        head_dim = 64
+        n_heads = d_model // head_dim
+    elif head_dim is None:
+        head_dim = d_model // n_heads
+    elif n_heads is None:
+        n_heads = d_model // head_dim
+    return n_heads, head_dim
+
+
+@dataclass(frozen=True)
+class LayerConfig:
+    """Static hyperparameters of one decoder layer."""
+
+    d_model: int
+    n_heads: int
+    head_dim: int
+    bias: bool = True
+    mlp_ratio: float = 4.0
+    act: str = "gelu"
+    pre_norm: bool = True
+    norm_eps: float = 1e-5
+
+    @staticmethod
+    def make(d_model, n_heads=None, head_dim=None, **kw) -> "LayerConfig":
+        n_heads, head_dim = resolve_heads(d_model, n_heads, head_dim)
+        return LayerConfig(d_model, n_heads, head_dim, **kw)
+
+
+# ---------------------------------------------------------------------------
+# Multi-head self-attention
+# ---------------------------------------------------------------------------
+
+
+def mha_init(gen: torch.Generator, cfg: LayerConfig) -> dict:
+    inner = cfg.n_heads * cfg.head_dim
+    return {
+        "q": linear_init(gen, cfg.d_model, inner, cfg.bias),
+        "k": linear_init(gen, cfg.d_model, inner, cfg.bias),
+        "v": linear_init(gen, cfg.d_model, inner, cfg.bias),
+        "o": linear_init(gen, inner, cfg.d_model, cfg.bias),
+    }
+
+
+def split_heads(x: torch.Tensor, n_heads: int, head_dim: int) -> torch.Tensor:
+    """(..., L, H*D) -> (..., H, L, D)"""
+    return x.reshape(*x.shape[:-1], n_heads, head_dim).transpose(-2, -3)
+
+
+def merge_heads(x: torch.Tensor) -> torch.Tensor:
+    """(..., H, L, D) -> (..., L, H*D)"""
+    x = x.transpose(-2, -3)
+    return x.reshape(*x.shape[:-2], -1)
+
+
+def mha_apply(
+    p: dict,
+    cfg: LayerConfig,
+    x: torch.Tensor,
+    causal: bool = False,
+    cache: dict | None = None,
+    cache_pos: int | None = None,
+    pad_lens: torch.Tensor | None = None,
+):
+    """Self-attention with an optional causal mask or KV cache.
+
+    With ``cache`` and ``cache_pos``, the chunk's new K/V are written at
+    cache slots ``[pos, pos+S)`` and attention is masked to
+    ``key_pos <= pos + i``; returns ``(out, cache)``. ``pad_lens`` (B,) masks
+    each row's left-pad slots ``< pad_lens[b]``.
+
+    Dispatch, as in the JAX package: a single cached position goes to the
+    decode kernel; longer cached chunks (prefill) take the masked plain path
+    with the pad bias; an uncached call goes to the encoder-attention kernel.
+    On a CUDA tensor a kernel wrapper launches its kernel or raises for a
+    shape it does not serve; ``USE_*_KERNEL = False`` selects :func:`sdpa`.
+    """
+    if cache is not None:
+        k_new = linear(p["k"], x)  # (B, S, H*D) — merged, matches the cache
+        v_new = linear(p["v"], x)
+        # in place, where the JAX package returns a dynamic_update_slice copy
+        s = x.shape[-2]
+        cache["k"][..., cache_pos:cache_pos + s, :] = k_new.to(cache["k"].dtype)
+        cache["v"][..., cache_pos:cache_pos + s, :] = v_new.to(cache["v"].dtype)
+        ck, cv = cache["k"], cache["v"]
+        l_max = ck.shape[-2]
+
+        if s == 1 and _attn.use_decode_kernel(ck):
+            from .ops.decode_attention import decode_attention
+
+            q_m = linear(p["q"], x)  # (B, 1, H*D) — the kernel takes merged heads
+            out = decode_attention(q_m, ck.to(q_m.dtype), cv.to(q_m.dtype), cache_pos + 1, cfg.n_heads, pad_lens)
+            return linear(p["o"], out), cache
+
+        qh = split_heads(linear(p["q"], x), cfg.n_heads, cfg.head_dim)
+        kh = split_heads(ck.to(qh.dtype), cfg.n_heads, cfg.head_dim)
+        vh = split_heads(cv.to(qh.dtype), cfg.n_heads, cfg.head_dim)
+        row = torch.arange(s, device=x.device)[:, None]
+        col = torch.arange(l_max, device=x.device)[None, :]
+        zero = torch.zeros((), dtype=torch.float32, device=x.device)
+        bias = torch.where(col <= cache_pos + row, zero, float("-inf"))
+        if pad_lens is not None:
+            # finite -1e30 (not -inf): a left-padded row's pad-region queries
+            # see no valid keys; -inf would make their (discarded) softmax NaN
+            pad_bias = torch.where(col >= pad_lens.to(torch.int64)[:, None], zero, -1e30)
+            bias = bias + pad_bias[:, None, None, :]
+        out = sdpa(qh, kh, vh, bias)
+        return linear(p["o"], merge_heads(out)), cache
+
+    q_m = linear(p["q"], x)
+    k_m = linear(p["k"], x)
+    v_m = linear(p["v"], x)
+    if _attn.use_encoder_kernel(q_m):
+        from .ops.encoder_attention import encoder_attention
+
+        return linear(p["o"], encoder_attention(q_m, k_m, v_m, cfg.n_heads, causal))
+    qh = split_heads(q_m, cfg.n_heads, cfg.head_dim)
+    kh = split_heads(k_m, cfg.n_heads, cfg.head_dim)
+    vh = split_heads(v_m, cfg.n_heads, cfg.head_dim)
+    return linear(p["o"], merge_heads(sdpa(qh, kh, vh, None, causal)))
+
+
+# ---------------------------------------------------------------------------
+# MLP and layers
+# ---------------------------------------------------------------------------
+
+
+def mlp_init(gen: torch.Generator, in_dim: int, hidden_dim: int) -> dict:
+    return {"fc1": linear_init(gen, in_dim, hidden_dim), "fc2": linear_init(gen, hidden_dim, in_dim)}
+
+
+def mlp_apply(p: dict, x: torch.Tensor, act: str = "gelu") -> torch.Tensor:
+    return linear(p["fc2"], ACT_FNS[act](linear(p["fc1"], x)))
+
+
+def layer_init(gen: torch.Generator, cfg: LayerConfig) -> dict:
+    return {
+        "sa_norm": ln_init(cfg.d_model),
+        "sa": mha_init(gen, cfg),
+        "mlp_norm": ln_init(cfg.d_model),
+        "mlp": mlp_init(gen, cfg.d_model, int(cfg.d_model * cfg.mlp_ratio)),
+    }
+
+
+def decoder_layer_apply(
+    p: dict,
+    cfg: LayerConfig,
+    x: torch.Tensor,
+    self_cache: dict | None = None,
+    pos: int | None = None,
+    pad_lens: torch.Tensor | None = None,
+):
+    """Causal self-attention + MLP, pre- or post-norm. Returns ``x``, or
+    ``(x, cache)`` when a self-cache is given."""
+    eps = cfg.norm_eps
+    cached = self_cache is not None
+
+    def sa(h):
+        if cached:
+            return mha_apply(p["sa"], cfg, h, cache=self_cache, cache_pos=pos, pad_lens=pad_lens)
+        return mha_apply(p["sa"], cfg, h, causal=True), None
+
+    if cfg.pre_norm:
+        out, new_cache = sa(layer_norm(p["sa_norm"], x, eps))
+        x = x + out
+        x = x + mlp_apply(p["mlp"], layer_norm(p["mlp_norm"], x, eps), cfg.act)
+    else:
+        out, new_cache = sa(x)
+        x = layer_norm(p["sa_norm"], x + out, eps)
+        x = layer_norm(p["mlp_norm"], x + mlp_apply(p["mlp"], x, cfg.act), eps)
+    return (x, new_cache) if cached else x
+
+
+def decoder_init(gen: torch.Generator, n_layers: int, cfg: LayerConfig) -> dict:
+    return {"layers": [layer_init(gen, cfg) for _ in range(n_layers)]}
+
+
+def decoder_apply(
+    p: dict,
+    cfg: LayerConfig,
+    x: torch.Tensor,
+    self_caches: list | None = None,
+    pos: int | None = None,
+    pad_lens: torch.Tensor | None = None,
+):
+    """Decoder stack over ``p["layers"]``, optionally KV-cached with a LIST of
+    per-layer caches (the JAX package's unrolled decode path); returns
+    ``(x, caches)`` when caching."""
+    if self_caches is None:
+        for lp in p["layers"]:
+            x = decoder_layer_apply(lp, cfg, x)
+        return x
+    for lp, cache in zip(p["layers"], self_caches, strict=True):
+        x, _ = decoder_layer_apply(lp, cfg, x, self_cache=cache, pos=pos, pad_lens=pad_lens)
+    return x, self_caches
+
+
+def padded_cache_len(max_len: int) -> int:
+    """KV-cache lengths are rounded up to a 128 multiple, as in the JAX
+    package; slots beyond the true maximum are never attended."""
+    return -(-max_len // 128) * 128
+
+
+def make_kv_cache(n_layers: int, batch_shape: tuple, n_heads: int, max_len: int, head_dim: int,
+                  dtype: torch.dtype = torch.float32, device=None) -> list[dict]:
+    """Preallocate a zeroed merged-head KV cache ``(*batch, Lp, H*D)`` for each
+    layer, as a list of per-layer caches."""
+    shape = (*batch_shape, padded_cache_len(max_len), n_heads * head_dim)
+    return [{"k": torch.zeros(shape, dtype=dtype, device=device), "v": torch.zeros(shape, dtype=dtype, device=device)}
+            for _ in range(n_layers)]

@@ -1,0 +1,25 @@
+"""Model-class conveniences for drop-in compatibility with the reference API."""
+
+import torch
+
+from .params import cast_tree
+
+
+class InferenceModel:
+    """Mixin giving the torch-style mode switches (models here are always
+    inference-mode functions over a parameter tree) plus serving-dtype casts."""
+
+    def eval(self):
+        return self
+
+    def train(self, mode: bool = True):
+        raise NotImplementedError("training is not supported (matches the reference, README.md:9)")
+
+    def to_bf16(self):
+        """Cast floating params to bfloat16 — the serving fast path."""
+        self.params = cast_tree(self.params, torch.bfloat16)
+        return self
+
+    def to_fp32(self):
+        self.params = cast_tree(self.params, torch.float32)
+        return self

@@ -1,0 +1,103 @@
+"""Parameter trees and checkpoint state-dict handling (PyTorch port).
+
+Parameters are plain nested dicts of tensors with the JAX package's layouts:
+linear weights ``(in, out)``, LayerNorm ``{"scale", "bias"}``, merged-head
+projections. The one structural difference: a layer stack is a LIST of
+per-layer dicts (``p["decoder"]["layers"][i]``) instead of leaves stacked
+along a leading layer axis, because PyTorch runs the stack as a Python loop
+rather than a ``lax.scan``.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+_MISSING = object()
+
+
+def to_tensor(x: Any, device=None) -> torch.Tensor:
+    """numpy array / tensor / array-like -> tensor (no copy where possible)."""
+    if isinstance(x, torch.Tensor):
+        t = x.detach()
+    else:
+        a = np.ascontiguousarray(np.asarray(x))
+        t = torch.from_numpy(a if a.flags.writeable else a.copy())
+    return t.to(device=device)
+
+
+def tree_map(fn, tree: Any) -> Any:
+    """Apply ``fn`` to every tensor/array leaf of a dict/list/tuple tree."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def cast_tree(tree: Any, dtype: torch.dtype) -> Any:
+    """Cast all floating leaves of a parameter tree to ``dtype``."""
+    return tree_map(lambda t: t.to(dtype) if t.is_floating_point() else t, tree)
+
+
+def from_jax_params(np_tree: Any, device=None) -> Any:
+    """The JAX package's parameter pytree, as numpy arrays, -> the port's tree.
+
+    Every subtree under a ``"layers"`` key holds layer-stacked leaves
+    ``(L, ...)``; it becomes a list of ``L`` per-layer dicts.
+    """
+
+    def convert(tree, key=None):
+        if isinstance(tree, dict):
+            if key == "layers":
+                n = _stack_len(tree)
+                return [convert(_index_tree(tree, i)) for i in range(n)]
+            return {k: convert(v, k) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return [convert(v) for v in tree]
+        return to_tensor(tree, device)
+
+    return convert(np_tree)
+
+
+def _stack_len(tree: dict) -> int:
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return int(np.asarray(tree).shape[0])
+
+
+def _index_tree(tree: Any, i: int) -> Any:
+    if isinstance(tree, dict):
+        return {k: _index_tree(v, i) for k, v in tree.items()}
+    return np.asarray(tree)[i]
+
+
+class StateDict:
+    """A source checkpoint wrapper with strict-consumption semantics.
+
+    ``pop`` returns tensors on the CPU; ``finalize`` raises if
+    any key is left over (the counterpart of the JAX package's
+    ``utils.params.StateDict``).
+    """
+
+    def __init__(self, d: dict[str, Any]):
+        self._d = dict(d)
+
+    def keys(self):
+        return self._d.keys()
+
+    def pop(self, key: str, default: Any = _MISSING) -> torch.Tensor:
+        if key not in self._d:
+            if default is _MISSING:
+                raise KeyError(f"missing checkpoint key: {key!r}")
+            return default
+        return to_tensor(self._d.pop(key))
+
+    def pop_ln(self, key_prefix: str) -> dict:
+        return {"scale": self.pop(f"{key_prefix}.weight"), "bias": self.pop(f"{key_prefix}.bias")}
+
+    def finalize(self) -> None:
+        if self._d:
+            raise ValueError(f"unconsumed checkpoint keys: {sorted(self._d.keys())}")

@@ -1,0 +1,195 @@
+"""PyTorch port ops vs the JAX package, on the CPU.
+
+Every kernel module of the port keeps a plain PyTorch version beside its CUDA
+kernel; on CPU tensors the wrapper runs that version. Here it is held against
+the JAX kernel function, run in Pallas interpret mode as the JAX package's
+own tests run it (``tests/ops/test_*.py``). Inputs come from
+``numpy.random.default_rng(seed)`` and go to both packages.
+
+The kernels themselves need an NVIDIA GPU: tests/test_torch_cuda.py holds
+each kernel against its plain version on the card.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from pytorch_models_tpu.ops import layers as jax_layers
+from pytorch_models_tpu.ops.attention import _sdpa_xla
+from pytorch_models_tpu.ops.decode_attention import decode_attention as jax_decode_attention
+from pytorch_models_tpu.ops.encoder_attention import encoder_attention as jax_encoder_attention
+from pytorch_models_tpu.ops.gather import gather_rows as jax_gather_rows
+from pytorch_models_tpu.ops.greedy_head import greedy_argmax_tied as jax_greedy_argmax_tied
+from pytorch_models_tpu_torch.ops import attention as attn
+from pytorch_models_tpu_torch.ops import layers
+from pytorch_models_tpu_torch.ops.decode_attention import decode_attention, decode_attention_plain
+from pytorch_models_tpu_torch.ops.encoder_attention import encoder_attention, encoder_attention_plain
+from pytorch_models_tpu_torch.ops.gather import embed_rows, gather_rows, gather_rows_plain
+from pytorch_models_tpu_torch.ops.greedy_head import greedy_argmax_tied, greedy_argmax_tied_plain
+
+torch.set_num_threads(1)
+
+# fp32 attention on both sides: full-precision dots and an fp32 softmax, so
+# the outputs differ only by summation order (~1e-6 relative at these sizes);
+# 2e-5 is the JAX package's own kernel-vs-einsum tolerance.
+ATTN_TOL = 2e-5
+
+
+def _randn(r, *shape):
+    return r.standard_normal(shape).astype(np.float32)
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+# ---------------------------------------------------------------------------
+# K1 encoder attention
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("b,l,h,causal", [
+    (2, 197, 2, False),  # ViT length: one K block in the JAX kernel (_kernel_single)
+    (2, 600, 2, True),   # two K blocks: the online-softmax path (nk > 1)
+])
+def test_encoder_attention_matches_jax(b, l, h, causal):
+    r = np.random.default_rng(11)
+    q, k, v = (_randn(r, b, l, h * 64) for _ in range(3))
+    with pltpu.force_tpu_interpret_mode():
+        expected = np.asarray(jax_encoder_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), h, causal))
+    got = encoder_attention(_t(q), _t(k), _t(v), h, causal)
+    np.testing.assert_allclose(got.numpy(), expected, rtol=ATTN_TOL, atol=ATTN_TOL)
+    np.testing.assert_array_equal(got.numpy(), encoder_attention_plain(_t(q), _t(k), _t(v), h, causal).numpy())
+
+
+def test_encoder_attention_unbatched():
+    r = np.random.default_rng(12)
+    q, k, v = (_randn(r, 50, 128) for _ in range(3))
+    got = encoder_attention(_t(q), _t(k), _t(v), 2, True)
+    full = encoder_attention(_t(q)[None], _t(k)[None], _t(v)[None], 2, True)[0]
+    assert got.shape == (50, 128)
+    np.testing.assert_array_equal(got.numpy(), full.numpy())
+
+
+# ---------------------------------------------------------------------------
+# K2 decode attention
+# ---------------------------------------------------------------------------
+
+
+def test_decode_attention_matches_jax_per_row_ranges():
+    r = np.random.default_rng(21)
+    b, h, l_max, d = 4, 2, 256, 64
+    q = _randn(r, b, 1, h * d)
+    k, v = _randn(r, b, l_max, h * d), _randn(r, b, l_max, h * d)
+    ends = np.asarray([256, 100, 5, 130], np.int32)
+    pads = np.asarray([0, 7, 5, 129], np.int32)  # row 2: empty range -> zeros
+    with pltpu.force_tpu_interpret_mode():
+        expected = np.asarray(jax_decode_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                                   jnp.asarray(ends), h, pad_lens=jnp.asarray(pads)))
+    got = decode_attention(_t(q), _t(k), _t(v), _t(ends), h, _t(pads))
+    np.testing.assert_allclose(got.numpy(), expected, rtol=ATTN_TOL, atol=ATTN_TOL)
+    assert not got[2].any()
+
+
+def test_decode_attention_shared_end_matches_jax():
+    r = np.random.default_rng(22)
+    b, h, l_max, d = 2, 2, 128, 64
+    q = _randn(r, b, 1, h * d)
+    k, v = _randn(r, b, l_max, h * d), _randn(r, b, l_max, h * d)
+    with pltpu.force_tpu_interpret_mode():
+        expected = np.asarray(jax_decode_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), 78, h))
+    got = decode_attention(_t(q), _t(k), _t(v), 78, h)
+    np.testing.assert_allclose(got.numpy(), expected, rtol=ATTN_TOL, atol=ATTN_TOL)
+
+
+# ---------------------------------------------------------------------------
+# K3 gather
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gather_rows_matches_jax_with_out_of_range_ids(dtype):
+    r = np.random.default_rng(31)
+    table = _randn(r, 300, 128)
+    idx = np.asarray([0, 299, 7, -3, 350, 42, 7], np.int32)  # -3 and 350 clamp like jnp.take
+    jt = jnp.asarray(table, jnp.dtype(dtype))
+    with pltpu.force_tpu_interpret_mode():
+        expected = np.asarray(jax_gather_rows(jt, jnp.asarray(idx)).astype(jnp.float32))
+    tt = _t(table).to(getattr(torch, dtype))
+    got = gather_rows(tt, _t(idx))
+    np.testing.assert_array_equal(got.float().numpy(), expected)  # a copy: exact
+    np.testing.assert_array_equal(embed_rows(tt, _t(idx).reshape(7, 1)).float().numpy()[:, 0], expected)
+
+
+# ---------------------------------------------------------------------------
+# K4 greedy head
+# ---------------------------------------------------------------------------
+
+
+def test_greedy_argmax_matches_jax_ragged_vocab_and_tie():
+    r = np.random.default_rng(41)
+    b, d, v = 4, 128, 9001  # the JAX kernel takes 6144-row chunks in fp32: 2 chunks, ragged edge
+    x = _randn(r, b, d)
+    emb = _randn(r, v, d)
+    emb[10] = emb[9000] = 3.0 * x[0]  # forced exact tie for row 0 across chunks: lowest index wins
+    emb[8999] = 3.0 * x[1]  # row 1's winner sits in the ragged last chunk
+    with pltpu.force_tpu_interpret_mode():
+        expected = np.asarray(jax_greedy_argmax_tied(jnp.asarray(x), jnp.asarray(emb)))
+    got = greedy_argmax_tied(_t(x), _t(emb))
+    assert got.dtype == torch.int64
+    np.testing.assert_array_equal(got.numpy(), expected)
+    assert got[0] == 10 and got[1] == 8999
+
+
+def test_greedy_argmax_plain_bf16_rounds_scores():
+    """bf16: scores round to bf16 before the argmax, so near-equal fp32
+    scores tie and the lowest index wins (the JAX kernel's rule)."""
+    x = torch.ones(1, 4, dtype=torch.bfloat16)
+    emb = torch.tensor([[1.0, 1.0, 1.0, 1.0], [1.0, 1.0, 1.0, 1.0078125]], dtype=torch.bfloat16)
+    # fp32 scores 4.0 and 4.0078125 both round to 4.0 in bf16 -> index 0
+    assert greedy_argmax_tied_plain(x, emb).item() == 0
+    assert greedy_argmax_tied_plain(x.float(), emb.float()).item() == 1
+
+
+# ---------------------------------------------------------------------------
+# layers and plain attention
+# ---------------------------------------------------------------------------
+
+
+def test_linear_and_layer_norm_match_jax():
+    r = np.random.default_rng(51)
+    x = _randn(r, 2, 5, 16)
+    p = {"w": _randn(r, 16, 8), "b": _randn(r, 8)}
+    ln = {"scale": _randn(r, 16), "bias": _randn(r, 16)}
+    tp = {k: _t(a) for k, a in p.items()}
+    tln = {k: _t(a) for k, a in ln.items()}
+    jp = {k: jnp.asarray(a) for k, a in p.items()}
+    jln = {k: jnp.asarray(a) for k, a in ln.items()}
+    # fp32 on both sides; summation order differs by a few ulps
+    np.testing.assert_allclose(layers.linear(tp, _t(x)).numpy(), np.asarray(jax_layers.linear(jp, jnp.asarray(x))),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(layers.layer_norm(tln, _t(x)).numpy(),
+                               np.asarray(jax_layers.layer_norm(jln, jnp.asarray(x))), rtol=1e-5, atol=1e-5)
+    # bf16 params force bf16 compute on an fp32 input, as in the JAX package
+    y = layers.linear({k: a.bfloat16() for k, a in tp.items()}, _t(x))
+    assert y.dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("act", ["gelu", "approximate_gelu", "relu", "silu"])
+def test_act_fns_match_jax(act):
+    x = _randn(np.random.default_rng(52), 64)
+    np.testing.assert_allclose(layers.ACT_FNS[act](_t(x)).numpy(), np.asarray(jax_layers.ACT_FNS[act](jnp.asarray(x))),
+                               rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("causal,with_bias", [(True, False), (False, True)])
+def test_sdpa_matches_jax(causal, with_bias):
+    r = np.random.default_rng(53)
+    q, k, v = (_randn(r, 2, 3, 20, 16) for _ in range(3))
+    bias = _randn(r, 2, 1, 20, 20) if with_bias else None
+    expected = np.asarray(_sdpa_xla(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                    None if bias is None else jnp.asarray(bias), causal))
+    got = attn.sdpa(_t(q), _t(k), _t(v), None if bias is None else _t(bias), causal)
+    np.testing.assert_allclose(got.numpy(), expected, rtol=ATTN_TOL, atol=ATTN_TOL)
