@@ -10,7 +10,10 @@ PyTorch version beside it; its wrapper runs that version only for CPU
 tensors.
 
 Ported so far: GPT-2 (``models.text.GPT2``) with greedy batched generation
-and scoring (``models.text.DecoderGenerator``).
+and scoring (``models.text.DecoderGenerator``); Whisper
+(``models.audio2text.Whisper``) with its log-mel frontend
+(``WhisperPreprocessor``) and greedy single, batched and long-form
+transcription (``WhisperGenerator``).
 """
 
 __version__ = "0.1.0"

@@ -1,0 +1,3 @@
+from .whisper import Whisper, WhisperGenerator, WhisperPreprocessor
+
+__all__ = ["Whisper", "WhisperGenerator", "WhisperPreprocessor"]

@@ -1,0 +1,420 @@
+"""Whisper speech recognition (PyTorch port of
+``pytorch_models_tpu/models/audio2text/whisper.py``, per-op path).
+
+Encoder: Conv1d stem (stride 1 then 2) + GELU, position embeddings stored as
+a loaded buffer, pre-norm encoder stack, final LayerNorm. Decoder: token +
+learned position embeddings, pre-norm decoder stack with cross-attention,
+weight-tied logits. ``WhisperGenerator`` transcribes 30 s segments greedily
+with KV-cached self-attention and cross-attention K/V projected once per
+segment.
+
+This is the JAX package's per-op configuration (its ``_whisper_fused_ok``
+False: every platform but the TPU). The one-kernel fused decode step, beam
+search, speculative decoding, int8 cross-KV, continuous batching and the
+tokenizer are not ported yet.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ... import transformer as tfm
+from ...ops import ACT_FNS, layer_norm
+from ...ops import attention as _attn
+from ...ops.gather import embed_rows
+from ...ops.greedy_head import greedy_argmax_tied
+from ...ops.layers import conv1d, conv1d_init
+from ...ops.mel import log_mel_spectrogram, use_mel_kernel
+from ...utils import StateDict, tree_map
+from ...utils.module import InferenceModel
+from ..audio.spectrogram import MelSpectrogram
+from ..text.generator import DONE_CHECK_EVERY
+
+ENC_MAX_LEN = 3000  # mel frames
+DEC_MAX_LEN = 448
+
+# (n_layers, d_model)
+VARIANTS = {
+    "tiny": (4, 384),
+    "tiny.en": (4, 384),
+    "base": (8, 512),
+    "base.en": (8, 512),
+    "small": (12, 768),
+    "small.en": (12, 768),
+    "medium": (24, 1024),
+    "medium.en": (24, 1024),
+    "large-v1": (32, 1280),
+    "large-v2": (32, 1280),
+    "large-v3": (32, 1280),
+}
+
+
+@dataclass(frozen=True)
+class WhisperConfig:
+    vocab_size: int
+    n_layers: int
+    d_model: int
+    n_mels: int = 80
+
+    @property
+    def enc_layer(self) -> tfm.LayerConfig:
+        return tfm.LayerConfig.make(self.d_model)
+
+    @property
+    def dec_layer(self) -> tfm.LayerConfig:
+        return tfm.LayerConfig.make(self.d_model, cross_attn=True)
+
+
+def whisper_init(gen: torch.Generator, cfg: WhisperConfig, device=None) -> dict:
+    """Random parameters drawn on the CPU from ``gen`` with the JAX init's
+    distributions (N(0, 1) token embeddings, zero position embeddings,
+    torch-default uniform linears and convs), then moved to ``device``."""
+    d = cfg.d_model
+    p = {
+        "encoder": {
+            "conv1": conv1d_init(gen, 3, cfg.n_mels, d),
+            "conv2": conv1d_init(gen, 3, d, d),
+            "pos_embs": torch.zeros(ENC_MAX_LEN // 2, d),
+            **tfm.encoder_init(gen, cfg.n_layers, cfg.enc_layer),
+            "norm": tfm.ln_init(d),
+        },
+        "decoder": {
+            "token_embs": torch.randn(cfg.vocab_size, d, generator=gen),
+            "pos_embs": torch.zeros(DEC_MAX_LEN, d),
+            **tfm.decoder_init(gen, cfg.n_layers, cfg.dec_layer),
+            "norm": tfm.ln_init(d),
+        },
+    }
+    return tree_map(lambda t: t.to(device), p)
+
+
+def whisper_encode(params: dict, cfg: WhisperConfig, mel: torch.Tensor) -> torch.Tensor:
+    """(B, n_mels, T) mel -> (B, T//2, d) memory."""
+    p = params["encoder"]
+    x = mel.transpose(1, 2)  # NLC
+    x = ACT_FNS["gelu"](conv1d(p["conv1"], x, stride=1, padding=1))
+    x = ACT_FNS["gelu"](conv1d(p["conv2"], x, stride=2, padding=1))
+    x = x + p["pos_embs"][: x.shape[1]].to(x.dtype)
+    x = tfm.encoder_apply(p, cfg.enc_layer, x)
+    return layer_norm(p["norm"], x)
+
+
+def _head(p: dict, x: torch.Tensor) -> torch.Tensor:
+    return torch.matmul(x, p["token_embs"].to(x.dtype).t())
+
+
+def whisper_decode(params: dict, cfg: WhisperConfig, tokens: torch.Tensor, memory: torch.Tensor) -> torch.Tensor:
+    """Teacher-forced decode: tokens (B, L) int -> logits (B, L, V)."""
+    p = params["decoder"]
+    x = p["token_embs"][tokens]
+    x = x + p["pos_embs"][: tokens.shape[-1]].to(x.dtype)
+    x = tfm.decoder_apply(p, cfg.dec_layer, x, memory=memory)
+    return _head(p, layer_norm(p["norm"], x))
+
+
+def _decoder_hidden_chunk(p: dict, lc: tfm.LayerConfig, cross: list, tokens: torch.Tensor, caches: list, pos: int):
+    """Embeddings + KV-cached decoder + final LayerNorm for a (B, S) chunk
+    at positions ``[pos, pos+S)``. Returns ``(hidden (B, S, d), caches)``."""
+    s = tokens.shape[-1]
+    x = embed_rows(p["token_embs"], tokens)
+    x = x + p["pos_embs"][pos:pos + s].to(x.dtype)
+    x, caches = tfm.decoder_apply(p, lc, x, self_caches=caches, cross_caches=cross, pos=pos)
+    return layer_norm(p["norm"], x), caches
+
+
+def _decoder_logits_chunk(p: dict, lc: tfm.LayerConfig, cross: list, tokens: torch.Tensor, caches: list, pos: int):
+    """:func:`_decoder_hidden_chunk` + tied-embedding logits."""
+    hn, caches = _decoder_hidden_chunk(p, lc, cross, tokens, caches, pos)
+    return _head(p, hn), caches
+
+
+@torch.inference_mode()
+def _generate_batch(params: dict, cfg: WhisperConfig, memory: torch.Tensor, initial_tokens: torch.Tensor,
+                    max_tokens: int, eot_id: int):
+    """Batched greedy transcription: ``memory`` (B, T, d), shared initial
+    tokens, all rows in lockstep; finished rows park on EOT. Returns
+    ``(tokens (B, max_tokens), lengths (B,))`` on the host."""
+    p = params["decoder"]
+    lc = cfg.dec_layer
+    b = memory.shape[0]
+    n_init = initial_tokens.shape[0]
+    dev = memory.device
+
+    self_caches = tfm.make_kv_cache(cfg.n_layers, (b,), lc.n_heads, max_tokens, lc.head_dim,
+                                    dtype=p["token_embs"].dtype, device=dev)
+    cross = tfm.precompute_cross_caches(p, lc, memory)
+
+    buf = torch.zeros((b, max_tokens), dtype=torch.int64, device=dev)
+    init_rows = initial_tokens.to(dev).expand(b, n_init)
+    buf[:, :n_init] = init_rows
+    logits, self_caches = _decoder_logits_chunk(p, lc, cross, init_rows, self_caches, 0)
+    first = torch.argmax(logits[:, n_init - 1], dim=-1)
+    if n_init < max_tokens:
+        buf[:, n_init] = first
+    done = first == eot_id
+    eot = torch.full_like(first, eot_id)
+    greedy_head = _attn.use_greedy_head(b, memory)
+
+    pos = n_init + 1
+    while pos < max_tokens:
+        # rows done early keep stepping (parked on EOT) until the next check:
+        # the output is the same, and the host reads the flag less often
+        if (pos - n_init - 1) % DONE_CHECK_EVERY == 0 and bool(done.all()):
+            break
+        tok = buf[:, pos - 1:pos]
+        if greedy_head:
+            hn, self_caches = _decoder_hidden_chunk(p, lc, cross, tok, self_caches, pos - 1)
+            nxt = greedy_argmax_tied(hn[:, 0], p["token_embs"].to(hn.dtype))
+        else:
+            logits, self_caches = _decoder_logits_chunk(p, lc, cross, tok, self_caches, pos - 1)
+            nxt = torch.argmax(logits[:, 0], dim=-1)
+        nxt = torch.where(done, eot, nxt)
+        buf[:, pos] = nxt
+        done = done | (nxt == eot_id)
+        pos += 1
+
+    # per-row length: first EOT among actually generated slots, else `pos`
+    out = buf.cpu().numpy()
+    gen = out[:, n_init:pos]
+    is_eot = gen == eot_id
+    lengths = np.where(is_eot.any(axis=1), n_init + is_eot.argmax(axis=1) + 1, pos)
+    return out, lengths
+
+
+class Whisper(InferenceModel):
+    def __init__(self, vocab_size: int, n_layers: int, d_model: int, n_mels: int = 80, rng: int = 0,
+                 device=None) -> None:
+        self.cfg = WhisperConfig(vocab_size, n_layers, d_model, n_mels)
+        self.device = torch.device("cpu") if device is None else torch.device(device)
+        self.params = whisper_init(torch.Generator().manual_seed(rng), self.cfg, self.device)
+
+    @torch.inference_mode()
+    def encode(self, mel) -> torch.Tensor:
+        return whisper_encode(self.params, self.cfg, torch.as_tensor(mel, device=self.device))
+
+    @torch.inference_mode()
+    def __call__(self, mel, targets) -> torch.Tensor:
+        targets = torch.as_tensor(targets, device=self.device).long()
+        return whisper_decode(self.params, self.cfg, targets, self.encode(mel))
+
+    forward = __call__
+
+    @staticmethod
+    def from_openai(model_tag: str, *, pretrained: bool = False, **kwargs) -> "Whisper":
+        n_layers, d_model = VARIANTS[model_tag]
+        if model_tag == "large-v3":
+            n_mels, vocab_size = 128, 51866
+        else:
+            n_mels, vocab_size = 80, 51864 if model_tag.endswith(".en") else 51865
+        if pretrained:
+            raise NotImplementedError("pretrained Whisper weights need a download; load a state dict with "
+                                      "load_openai_state_dict instead")
+        return Whisper(vocab_size, n_layers, d_model, n_mels, **kwargs)
+
+    def load_openai_state_dict(self, state_dict: dict) -> None:
+        """OpenAI checkpoint keys (``key`` projections have no bias)."""
+        sd = StateDict(state_dict)
+        cfg = self.cfg
+
+        def attn(pfx: str) -> dict:
+            return {
+                "q": sd.pop_linear(f"{pfx}.query"),
+                "k": {"w": sd.pop(f"{pfx}.key.weight").t().contiguous(),
+                      "b": sd.pop(f"{pfx}.key.bias", torch.zeros(cfg.d_model))},
+                "v": sd.pop_linear(f"{pfx}.value"),
+                "o": sd.pop_linear(f"{pfx}.out"),
+            }
+
+        def block(pfx: str, cross: bool) -> dict:
+            lp = {
+                "sa": attn(f"{pfx}.attn"),
+                "sa_norm": sd.pop_ln(f"{pfx}.attn_ln"),
+                "mlp": {"fc1": sd.pop_linear(f"{pfx}.mlp.0"), "fc2": sd.pop_linear(f"{pfx}.mlp.2")},
+                "mlp_norm": sd.pop_ln(f"{pfx}.mlp_ln"),
+            }
+            if cross:
+                lp["ca"] = attn(f"{pfx}.cross_attn")
+                lp["ca_norm"] = sd.pop_ln(f"{pfx}.cross_attn_ln")
+            return lp
+
+        enc = {
+            "conv1": sd.pop_conv1d("encoder.conv1"),
+            "conv2": sd.pop_conv1d("encoder.conv2"),
+            "pos_embs": sd.pop("encoder.positional_embedding"),
+            "layers": [block(f"encoder.blocks.{i}", False) for i in range(cfg.n_layers)],
+            "norm": sd.pop_ln("encoder.ln_post"),
+        }
+        dec = {
+            "token_embs": sd.pop("decoder.token_embedding.weight"),
+            "pos_embs": sd.pop("decoder.positional_embedding"),
+            "layers": [block(f"decoder.blocks.{i}", True) for i in range(cfg.n_layers)],
+            "norm": sd.pop_ln("decoder.ln"),
+        }
+        if "decoder.positional_embedding_mask" in sd:  # not modeled
+            sd.pop("decoder.positional_embedding_mask")
+        sd.finalize()
+        self.params = tree_map(lambda t: t.to(device=self.device, dtype=torch.float32),
+                               {"encoder": enc, "decoder": dec})
+
+
+class WhisperPreprocessor(MelSpectrogram):
+    """Log-mel frontend matching ``whisper.log_mel_spectrogram``.
+
+    ``fused=None`` takes the log-mel kernel (``ops/mel.py``) when the input
+    lies on a CUDA device (``USE_MEL_KERNEL`` overrides); ``fused=True``
+    always takes its wrapper, ``fused=False`` the rFFT route of the JAX
+    package's XLA path. The clip at the
+    global max − 8 and the ``(x + 4) / 4`` scale stay plain, as in JAX.
+    """
+
+    def __init__(self, variant: str = "tiny", fused: bool | None = None) -> None:
+        n_mels = 128 if variant == "large-v3" else 80
+        super().__init__(400, 160, n_mels, 16_000)
+        self.n_mels = n_mels
+        self.fused = fused
+
+    def __call__(self, x) -> torch.Tensor:
+        x = torch.as_tensor(x, dtype=torch.float32)
+        fused = use_mel_kernel(x) if self.fused is None else self.fused
+        if fused:
+            x = log_mel_spectrogram(x.contiguous(), self.n_fft, self.hop_length, self.n_mels)[..., :-1]
+        else:
+            x = torch.log10(super().__call__(x)[..., :-1].clamp_min(0))
+        global_max = x.reshape(*x.shape[:-2], -1).amax(-1)[..., None, None]
+        x = torch.maximum(x, global_max - 8)
+        return (x + 4) / 4
+
+
+def _strip_generated(tokens: list[int], n_prompt: int, eot_id: int) -> list[int]:
+    """Drop the initial prompt and the trailing EOT from a decode result."""
+    gen = tokens[n_prompt:]
+    if gen and gen[-1] == eot_id:
+        gen = gen[:-1]
+    return gen
+
+
+def split_windows(audio, n_samples: int) -> np.ndarray:
+    """Waveform (n,) -> (n_windows, n_samples) fixed windows, last padded."""
+    audio = np.asarray(audio, np.float32)
+    if audio.ndim != 1:
+        raise ValueError(f"long-form transcription takes a single (n,) waveform, got {audio.shape}")
+    n_w = max(1, -(-len(audio) // n_samples))
+    padded = np.zeros((n_w * n_samples,), np.float32)
+    padded[: len(audio)] = audio
+    return padded.reshape(n_w, n_samples)
+
+
+class WhisperGenerator:
+    """Greedy KV-cached transcription of 30 s segments: log-mel frontend,
+    encoder, then a batched decode loop (a single segment is a batch of one)."""
+
+    SAMPLE_RATE = 16_000
+    N_SAMPLES = 30 * 16_000  # 30-second segments
+
+    def __init__(self, model: Whisper, tokenizer=None) -> None:
+        self.model = model
+        self.tokenizer = tokenizer
+        self.preprocessor = WhisperPreprocessor("large-v3" if model.cfg.n_mels == 128 else "tiny")
+
+    def _stage_batch(self, audios) -> torch.Tensor:
+        """Segments -> (B, N_SAMPLES) fp32 on the model's device, each cut
+        or zero-padded to 30 s; a tensor already so shaped on that device
+        passes as is."""
+        dev = self.model.device
+        if (isinstance(audios, torch.Tensor) and audios.ndim == 2 and audios.shape[1] == self.N_SAMPLES
+                and audios.device == dev):
+            return audios.float()
+        n = self.N_SAMPLES
+        rows = [np.asarray(a.cpu() if isinstance(a, torch.Tensor) else a, np.float32)[:n] for a in audios]
+        return torch.from_numpy(np.stack([np.pad(a, (0, n - len(a))) for a in rows])).to(dev)
+
+    @torch.inference_mode()
+    def _transcribe_batch(self, wav: torch.Tensor, initial_tokens: list[int], eot_id: int, max_tokens: int):
+        if max_tokens > DEC_MAX_LEN:
+            raise ValueError(f"max_tokens={max_tokens} exceeds the decoder position table ({DEC_MAX_LEN})")
+        if not 0 < len(initial_tokens) <= max_tokens:
+            raise ValueError(f"transcription needs 1 to max_tokens={max_tokens} initial tokens")
+        m = self.model
+        memory = whisper_encode(m.params, m.cfg, self.preprocessor(wav))
+        init = torch.tensor(initial_tokens, dtype=torch.int64, device=m.device)
+        return _generate_batch(m.params, m.cfg, memory, init, max_tokens, eot_id)
+
+    def transcribe_tokens(self, audio, initial_tokens: list[int], eot_id: int,
+                          max_tokens: int = DEC_MAX_LEN) -> list[int]:
+        """Waveform (n,) -> transcribed token ids (greedy, one 30 s segment)."""
+        buf, lengths = self._transcribe_batch(self._stage_batch([audio]), initial_tokens, eot_id, max_tokens)
+        return buf[0, : lengths[0]].tolist()
+
+    def transcribe_tokens_batch(self, audios, initial_tokens: list[int], eot_id: int,
+                                max_tokens: int = DEC_MAX_LEN) -> list[list[int]]:
+        """Batched greedy transcription of several 30 s segments."""
+        if len(audios) == 0:
+            raise ValueError("transcription needs at least one segment")
+        buf, lengths = self._transcribe_batch(self._stage_batch(audios), initial_tokens, eot_id, max_tokens)
+        return [buf[i, : lengths[i]].tolist() for i in range(len(audios))]
+
+    def transcribe(self, audio, initial_tokens: list[int] | None = None, eot_id: int | None = None,
+                   max_tokens: int = DEC_MAX_LEN, language: str = "en", task: str = "transcribe") -> str:
+        """Waveform -> text; needs a tokenizer (``sot_sequence``, ``eot``,
+        ``decode``). Without one use :meth:`transcribe_tokens`."""
+        if self.tokenizer is None:
+            raise ValueError("transcribe() returns text and needs a tokenizer; "
+                             "use transcribe_tokens(...) for raw token ids")
+        if initial_tokens is None or eot_id is None:
+            initial_tokens = self.tokenizer.sot_sequence(language, task)
+            eot_id = self.tokenizer.eot
+        return self.tokenizer.decode(self.transcribe_tokens(audio, initial_tokens, eot_id, max_tokens))
+
+    # ---------------------------------------------------------------- long-form
+
+    def transcribe_long_tokens(self, audio, initial_tokens: list[int], eot_id: int,
+                               sot_prev_id: int | None = None, ctx_tokens: int = 64,
+                               max_tokens: int = DEC_MAX_LEN, batch_size: int = 8) -> list[list[int]]:
+        """Long-form (> 30 s) greedy transcription over fixed 30 s windows;
+        returns per-window GENERATED token ids (prompt and EOT stripped).
+
+        - ``sot_prev_id=None``: windows are independent and decode in
+          batches of ``batch_size`` (a short tail batch is padded by
+          repeating its last window when there is more than one batch).
+        - ``sot_prev_id`` given: windows decode in order, each conditioned on
+          ``[sot_prev_id] + last ctx_tokens generated + initial_tokens`` once
+          ``ctx_tokens`` tokens have accumulated.
+        """
+        windows = split_windows(audio, self.N_SAMPLES)
+        if sot_prev_id is None:
+            outs: list[list[int]] = []
+            for i in range(0, len(windows), batch_size):
+                sl = windows[i: i + batch_size]
+                n_real = len(sl)
+                if n_real < batch_size and len(windows) > batch_size:
+                    sl = np.concatenate([sl, np.repeat(sl[-1:], batch_size - n_real, 0)])
+                outs += self.transcribe_tokens_batch(sl, initial_tokens, eot_id, max_tokens)[:n_real]
+            return [_strip_generated(o, len(initial_tokens), eot_id) for o in outs]
+
+        results: list[list[int]] = []
+        text_accum: list[int] = []
+        for w in windows:
+            if len(text_accum) >= ctx_tokens:
+                prompt = [sot_prev_id] + text_accum[-ctx_tokens:] + list(initial_tokens)
+            else:
+                prompt = list(initial_tokens)
+            gen = _strip_generated(self.transcribe_tokens(w, prompt, eot_id, max_tokens), len(prompt), eot_id)
+            results.append(gen)
+            text_accum += gen
+        return results
+
+    def transcribe_long(self, audio, language: str = "en", task: str = "transcribe",
+                        condition_on_previous_text: bool = True, ctx_tokens: int = 64,
+                        max_tokens: int = DEC_MAX_LEN, batch_size: int = 8) -> str:
+        """Long-form waveform -> text via fixed 30 s windows (needs a tokenizer)."""
+        if self.tokenizer is None:
+            raise ValueError("transcribe_long() returns text and needs a tokenizer; "
+                             "use transcribe_long_tokens(...) for raw ids")
+        initial_tokens = self.tokenizer.sot_sequence(language, task)
+        sot_prev = self.tokenizer.special_tokens["<|startofprev|>"] if condition_on_previous_text else None
+        outs = self.transcribe_long_tokens(audio, initial_tokens, self.tokenizer.eot, sot_prev, ctx_tokens,
+                                           max_tokens, batch_size)
+        return "".join(self.tokenizer.decode(o) for o in outs)

@@ -44,6 +44,7 @@ _SIGNATURES = {
     "pmt_greedy_argmax_tied": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "pmt_greedy_chunk_rows": [],
     "pmt_encoder_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P],
+    "pmt_log_mel": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lib: ctypes.CDLL | None = None

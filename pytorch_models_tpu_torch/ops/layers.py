@@ -4,6 +4,7 @@
 Conventions match the JAX package so parameters transfer unchanged:
 - Linear: ``{"w": (in, out), "b": (out,)}``; ``y = x @ w + b``.
 - LayerNorm: ``{"scale": (d,), "bias": (d,)}``; eps inside the sqrt like torch.
+- Conv1d: ``{"w": (k, in, out), "b": (out,)}`` over NLC inputs.
 
 Activations mirror the reference's MLP table: "gelu" is exact (erf) GELU,
 "approximate_gelu" is tanh GELU. Weight-only int8 and w8a8 linears are not
@@ -60,6 +61,26 @@ def linear(p: dict, x: torch.Tensor) -> torch.Tensor:
     if "b" in p:
         y = y + p["b"].to(y.dtype)
     return y
+
+
+def conv1d_init(gen: torch.Generator, k: int, in_ch: int, out_ch: int) -> dict:
+    """torch-style default init of a ``(k, in, out)`` kernel and its bias:
+    U(-1/sqrt(fan_in), 1/sqrt(fan_in))."""
+    bound = 1.0 / math.sqrt(k * in_ch)
+    return {"w": torch.empty(k, in_ch, out_ch).uniform_(-bound, bound, generator=gen),
+            "b": torch.empty(out_ch).uniform_(-bound, bound, generator=gen)}
+
+
+def conv1d(p: dict, x: torch.Tensor, stride: int = 1, padding: int = 0) -> torch.Tensor:
+    """NLC conv over ``(B, L, in)`` with a ``(k, in, out)`` kernel (the JAX
+    package's layouts) and torch-style symmetric ``padding``. As in
+    :func:`linear`, the compute dtype follows the params."""
+    w = p["w"]
+    if x.dtype != w.dtype:
+        x = x.to(w.dtype)
+    b = p["b"].to(w.dtype) if "b" in p else None
+    y = F.conv1d(x.transpose(1, 2), w.permute(2, 1, 0), b, stride=stride, padding=padding)
+    return y.transpose(1, 2)
 
 
 def layer_norm(p: dict | None, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:

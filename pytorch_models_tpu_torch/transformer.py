@@ -1,19 +1,21 @@
-"""Shared transformer core: MHA, MLP and decoder layers and stacks (PyTorch
-port of ``pytorch_models_tpu/transformer.py``).
+"""Shared transformer core: MHA, MLP, encoder/decoder layers and stacks
+(PyTorch port of ``pytorch_models_tpu/transformer.py``).
 
 Parameters are plain dicts of tensors in the JAX package's layouts; a layer
 stack is a list of per-layer dicts run as a Python loop. KV caches are
 merged-head ``(B, L_max, H*D)`` per layer — the shape the K/V projections
 produce — with ``L_max = padded_cache_len(max_seq_len)``, so a cache built
 here holds the same values at the same places as the JAX package's.
+Cross-attention caches (:func:`precompute_cross_caches`) are a list of
+per-layer ``{"k", "v", "len"}`` dicts, written once per encoded input.
 
 Where the JAX package returns a new cache from ``dynamic_update_slice``,
 this port writes the new K/V into the cache IN PLACE and returns the same
 cache object: PyTorch tensors are mutable, and a copy per step would move
 the whole cache.
 
-Cross-attention, additive attention biases, the int8 paths and tensor
-parallelism are not ported yet.
+Additive attention biases, the int8 paths and tensor parallelism are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -40,11 +42,12 @@ def resolve_heads(d_model: int, n_heads: int | None = None, head_dim: int | None
 
 @dataclass(frozen=True)
 class LayerConfig:
-    """Static hyperparameters of one decoder layer."""
+    """Static hyperparameters of one encoder/decoder layer."""
 
     d_model: int
     n_heads: int
     head_dim: int
+    cross_attn: bool = False
     bias: bool = True
     mlp_ratio: float = 4.0
     act: str = "gelu"
@@ -58,7 +61,7 @@ class LayerConfig:
 
 
 # ---------------------------------------------------------------------------
-# Multi-head self-attention
+# Multi-head attention
 # ---------------------------------------------------------------------------
 
 
@@ -83,33 +86,57 @@ def merge_heads(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(*x.shape[:-2], -1)
 
 
+def mha_project_kv(p: dict, cfg: LayerConfig, kv: torch.Tensor) -> dict:
+    """Project ``kv`` (B, L, d) into a cross-attention cache ``{"k", "v",
+    "len"}``: merged-head (B, Lp, H*D) K/V of the memory zero-padded to
+    ``padded_cache_len(L)`` rows (as in the JAX package, so the caches hold
+    the same values), and ``len`` (B,) int32 = L, which masks the padding on
+    every read path."""
+    length = kv.shape[-2]
+    kv_p = torch.nn.functional.pad(kv, (0, 0, 0, padded_cache_len(length) - length))
+    lens = torch.full(kv.shape[:-2], length, dtype=torch.int32, device=kv.device)
+    return {"k": linear(p["k"], kv_p), "v": linear(p["v"], kv_p), "len": lens}
+
+
 def mha_apply(
     p: dict,
     cfg: LayerConfig,
-    x: torch.Tensor,
+    q: torch.Tensor,
+    k: torch.Tensor | None = None,
+    v: torch.Tensor | None = None,
     causal: bool = False,
     cache: dict | None = None,
     cache_pos: int | None = None,
     pad_lens: torch.Tensor | None = None,
 ):
-    """Self-attention with an optional causal mask or KV cache.
+    """Self- or cross-attention with an optional causal mask or KV cache.
 
-    With ``cache`` and ``cache_pos``, the chunk's new K/V are written at
-    cache slots ``[pos, pos+S)`` and attention is masked to
-    ``key_pos <= pos + i``; returns ``(out, cache)``. ``pad_lens`` (B,) masks
-    each row's left-pad slots ``< pad_lens[b]``.
+    ``k`` defaults to ``q`` and ``v`` to ``k``; cross-attention passes the
+    encoder memory as ``k``. With ``cache`` and ``cache_pos`` (self-attention),
+    the chunk's new K/V are written at cache slots ``[pos, pos+S)`` and
+    attention is masked to ``key_pos <= pos + i``; returns ``(out, cache)``.
+    ``pad_lens`` (B,) masks each row's left-pad slots ``< pad_lens[b]``. With
+    ``cache`` but no ``cache_pos``, the cache is a precomputed cross-attention
+    cache (:func:`mha_project_kv`) used as is; its ``len`` masks the padding.
 
-    Dispatch, as in the JAX package: a single cached position goes to the
-    decode kernel; longer cached chunks (prefill) take the masked plain path
-    with the pad bias; an uncached call goes to the encoder-attention kernel.
-    On a CUDA tensor a kernel wrapper launches its kernel or raises for a
-    shape it does not serve; ``USE_*_KERNEL = False`` selects :func:`sdpa`.
+    Dispatch, as in the JAX package: a single cached position (self or
+    cross) goes to the decode kernel; longer cached chunks (prefill) take
+    the masked plain path; an uncached call (self, or cross over ``memory``
+    with Lq != Lk) goes to the encoder-attention kernel. On a CUDA tensor a
+    kernel wrapper launches its kernel or raises for a shape it does not
+    serve; ``USE_*_KERNEL = False`` selects :func:`sdpa`.
     """
+    k = q if k is None else k
+    v = k if v is None else v
+
+    if cache is not None and cache_pos is None:  # precomputed cross-attention K/V
+        return _cross_cached_apply(p, cfg, q, cache)
+
     if cache is not None:
-        k_new = linear(p["k"], x)  # (B, S, H*D) — merged, matches the cache
-        v_new = linear(p["v"], x)
+        k_new = linear(p["k"], k)  # (B, S, H*D) — merged, matches the cache
+        v_new = linear(p["v"], v)
         # in place, where the JAX package returns a dynamic_update_slice copy
-        s = x.shape[-2]
+        s = q.shape[-2]
         cache["k"][..., cache_pos:cache_pos + s, :] = k_new.to(cache["k"].dtype)
         cache["v"][..., cache_pos:cache_pos + s, :] = v_new.to(cache["v"].dtype)
         ck, cv = cache["k"], cache["v"]
@@ -118,16 +145,16 @@ def mha_apply(
         if s == 1 and _attn.use_decode_kernel(ck):
             from .ops.decode_attention import decode_attention
 
-            q_m = linear(p["q"], x)  # (B, 1, H*D) — the kernel takes merged heads
+            q_m = linear(p["q"], q)  # (B, 1, H*D) — the kernel takes merged heads
             out = decode_attention(q_m, ck.to(q_m.dtype), cv.to(q_m.dtype), cache_pos + 1, cfg.n_heads, pad_lens)
             return linear(p["o"], out), cache
 
-        qh = split_heads(linear(p["q"], x), cfg.n_heads, cfg.head_dim)
+        qh = split_heads(linear(p["q"], q), cfg.n_heads, cfg.head_dim)
         kh = split_heads(ck.to(qh.dtype), cfg.n_heads, cfg.head_dim)
         vh = split_heads(cv.to(qh.dtype), cfg.n_heads, cfg.head_dim)
-        row = torch.arange(s, device=x.device)[:, None]
-        col = torch.arange(l_max, device=x.device)[None, :]
-        zero = torch.zeros((), dtype=torch.float32, device=x.device)
+        row = torch.arange(s, device=q.device)[:, None]
+        col = torch.arange(l_max, device=q.device)[None, :]
+        zero = torch.zeros((), dtype=torch.float32, device=q.device)
         bias = torch.where(col <= cache_pos + row, zero, float("-inf"))
         if pad_lens is not None:
             # finite -1e30 (not -inf): a left-padded row's pad-region queries
@@ -137,9 +164,9 @@ def mha_apply(
         out = sdpa(qh, kh, vh, bias)
         return linear(p["o"], merge_heads(out)), cache
 
-    q_m = linear(p["q"], x)
-    k_m = linear(p["k"], x)
-    v_m = linear(p["v"], x)
+    q_m = linear(p["q"], q)
+    k_m = linear(p["k"], k)
+    v_m = linear(p["v"], v)
     if _attn.use_encoder_kernel(q_m):
         from .ops.encoder_attention import encoder_attention
 
@@ -148,6 +175,26 @@ def mha_apply(
     kh = split_heads(k_m, cfg.n_heads, cfg.head_dim)
     vh = split_heads(v_m, cfg.n_heads, cfg.head_dim)
     return linear(p["o"], merge_heads(sdpa(qh, kh, vh, None, causal)))
+
+
+def _cross_cached_apply(p: dict, cfg: LayerConfig, q: torch.Tensor, cache: dict) -> torch.Tensor:
+    """Attention over a precomputed cross cache: one position -> the decode
+    kernel with per-row ``ends = len``; several (the prefill) -> :func:`sdpa`
+    with a finite -1e30 bias on slots ``>= len``."""
+    ck, cv, lens = cache["k"], cache["v"], cache["len"]
+    s, l_max = q.shape[-2], ck.shape[-2]
+    q_m = linear(p["q"], q)
+    if s == 1 and _attn.use_decode_kernel(ck):
+        from .ops.decode_attention import decode_attention
+
+        return linear(p["o"], decode_attention(q_m, ck.to(q_m.dtype), cv.to(q_m.dtype), lens, cfg.n_heads))
+    qh = split_heads(q_m, cfg.n_heads, cfg.head_dim)
+    kh = split_heads(ck.to(qh.dtype), cfg.n_heads, cfg.head_dim)
+    vh = split_heads(cv.to(qh.dtype), cfg.n_heads, cfg.head_dim)
+    col = torch.arange(l_max, device=q.device)
+    zero = torch.zeros((), dtype=torch.float32, device=q.device)
+    len_bias = torch.where(col < lens.to(torch.int64)[:, None], zero, -1e30)[:, None, None, :]
+    return linear(p["o"], merge_heads(sdpa(qh, kh, vh, len_bias)))
 
 
 # ---------------------------------------------------------------------------
@@ -164,23 +211,42 @@ def mlp_apply(p: dict, x: torch.Tensor, act: str = "gelu") -> torch.Tensor:
 
 
 def layer_init(gen: torch.Generator, cfg: LayerConfig) -> dict:
-    return {
+    p = {
         "sa_norm": ln_init(cfg.d_model),
         "sa": mha_init(gen, cfg),
         "mlp_norm": ln_init(cfg.d_model),
         "mlp": mlp_init(gen, cfg.d_model, int(cfg.d_model * cfg.mlp_ratio)),
     }
+    if cfg.cross_attn:
+        p["ca_norm"] = ln_init(cfg.d_model)
+        p["ca"] = mha_init(gen, cfg)
+    return p
+
+
+def encoder_layer_apply(p: dict, cfg: LayerConfig, x: torch.Tensor) -> torch.Tensor:
+    """Bidirectional self-attention + MLP, pre- or post-norm."""
+    eps = cfg.norm_eps
+    if cfg.pre_norm:
+        x = x + mha_apply(p["sa"], cfg, layer_norm(p["sa_norm"], x, eps))
+        x = x + mlp_apply(p["mlp"], layer_norm(p["mlp_norm"], x, eps), cfg.act)
+    else:
+        x = layer_norm(p["sa_norm"], x + mha_apply(p["sa"], cfg, x), eps)
+        x = layer_norm(p["mlp_norm"], x + mlp_apply(p["mlp"], x, cfg.act), eps)
+    return x
 
 
 def decoder_layer_apply(
     p: dict,
     cfg: LayerConfig,
     x: torch.Tensor,
+    memory: torch.Tensor | None = None,
     self_cache: dict | None = None,
+    cross_cache: dict | None = None,
     pos: int | None = None,
     pad_lens: torch.Tensor | None = None,
 ):
-    """Causal self-attention + MLP, pre- or post-norm. Returns ``x``, or
+    """Causal self-attention [+ cross-attention over ``memory`` or a
+    precomputed ``cross_cache``] + MLP, pre- or post-norm. Returns ``x``, or
     ``(x, cache)`` when a self-cache is given."""
     eps = cfg.norm_eps
     cached = self_cache is not None
@@ -190,15 +256,34 @@ def decoder_layer_apply(
             return mha_apply(p["sa"], cfg, h, cache=self_cache, cache_pos=pos, pad_lens=pad_lens)
         return mha_apply(p["sa"], cfg, h, causal=True), None
 
+    def ca(h):
+        if cross_cache is not None:
+            return mha_apply(p["ca"], cfg, h, cache=cross_cache)
+        return mha_apply(p["ca"], cfg, h, memory)
+
     if cfg.pre_norm:
         out, new_cache = sa(layer_norm(p["sa_norm"], x, eps))
         x = x + out
+        if cfg.cross_attn:
+            x = x + ca(layer_norm(p["ca_norm"], x, eps))
         x = x + mlp_apply(p["mlp"], layer_norm(p["mlp_norm"], x, eps), cfg.act)
     else:
         out, new_cache = sa(x)
         x = layer_norm(p["sa_norm"], x + out, eps)
+        if cfg.cross_attn:
+            x = layer_norm(p["ca_norm"], x + ca(x), eps)
         x = layer_norm(p["mlp_norm"], x + mlp_apply(p["mlp"], x, cfg.act), eps)
     return (x, new_cache) if cached else x
+
+
+def encoder_init(gen: torch.Generator, n_layers: int, cfg: LayerConfig) -> dict:
+    return {"layers": [layer_init(gen, cfg) for _ in range(n_layers)]}
+
+
+def encoder_apply(p: dict, cfg: LayerConfig, x: torch.Tensor) -> torch.Tensor:
+    for lp in p["layers"]:
+        x = encoder_layer_apply(lp, cfg, x)
+    return x
 
 
 def decoder_init(gen: torch.Generator, n_layers: int, cfg: LayerConfig) -> dict:
@@ -209,19 +294,22 @@ def decoder_apply(
     p: dict,
     cfg: LayerConfig,
     x: torch.Tensor,
+    memory: torch.Tensor | None = None,
     self_caches: list | None = None,
+    cross_caches: list | None = None,
     pos: int | None = None,
     pad_lens: torch.Tensor | None = None,
 ):
     """Decoder stack over ``p["layers"]``, optionally KV-cached with a LIST of
-    per-layer caches (the JAX package's unrolled decode path); returns
-    ``(x, caches)`` when caching."""
+    per-layer self caches (the JAX package's unrolled decode path) and a
+    list of per-layer cross caches; returns ``(x, caches)`` when caching."""
     if self_caches is None:
         for lp in p["layers"]:
-            x = decoder_layer_apply(lp, cfg, x)
+            x = decoder_layer_apply(lp, cfg, x, memory)
         return x
-    for lp, cache in zip(p["layers"], self_caches, strict=True):
-        x, _ = decoder_layer_apply(lp, cfg, x, self_cache=cache, pos=pos, pad_lens=pad_lens)
+    crosses = [None] * len(self_caches) if cross_caches is None else cross_caches
+    for lp, cache, cc in zip(p["layers"], self_caches, crosses, strict=True):
+        x, _ = decoder_layer_apply(lp, cfg, x, memory, self_cache=cache, cross_cache=cc, pos=pos, pad_lens=pad_lens)
     return x, self_caches
 
 
@@ -238,3 +326,9 @@ def make_kv_cache(n_layers: int, batch_shape: tuple, n_heads: int, max_len: int,
     shape = (*batch_shape, padded_cache_len(max_len), n_heads * head_dim)
     return [{"k": torch.zeros(shape, dtype=dtype, device=device), "v": torch.zeros(shape, dtype=dtype, device=device)}
             for _ in range(n_layers)]
+
+
+def precompute_cross_caches(p: dict, cfg: LayerConfig, memory: torch.Tensor) -> list[dict]:
+    """Project encoder ``memory`` (B, L, d) into every decoder layer's
+    cross-attention K/V once: a list of per-layer :func:`mha_project_kv` caches."""
+    return [mha_project_kv(lp["ca"], cfg, memory) for lp in p["layers"]]

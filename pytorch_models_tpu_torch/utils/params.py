@@ -85,6 +85,9 @@ class StateDict:
     def __init__(self, d: dict[str, Any]):
         self._d = dict(d)
 
+    def __contains__(self, key: str) -> bool:
+        return key in self._d
+
     def keys(self):
         return self._d.keys()
 
@@ -95,8 +98,17 @@ class StateDict:
             return default
         return to_tensor(self._d.pop(key))
 
+    def pop_linear(self, key_prefix: str) -> dict:
+        """Pop a torch ``nn.Linear``'s (out, in) weight and bias as an (in, out) kernel."""
+        return {"w": self.pop(f"{key_prefix}.weight").t().contiguous(), "b": self.pop(f"{key_prefix}.bias")}
+
     def pop_ln(self, key_prefix: str) -> dict:
         return {"scale": self.pop(f"{key_prefix}.weight"), "bias": self.pop(f"{key_prefix}.bias")}
+
+    def pop_conv1d(self, key_prefix: str) -> dict:
+        """Pop a torch ``nn.Conv1d``'s (out, in, k) weight and bias as a (k, in, out) kernel."""
+        w = self.pop(f"{key_prefix}.weight").permute(2, 1, 0).contiguous()
+        return {"w": w, "b": self.pop(f"{key_prefix}.bias")}
 
     def finalize(self) -> None:
         if self._d:

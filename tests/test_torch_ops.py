@@ -64,6 +64,16 @@ def test_encoder_attention_matches_jax(b, l, h, causal):
     np.testing.assert_array_equal(got.numpy(), encoder_attention_plain(_t(q), _t(k), _t(v), h, causal).numpy())
 
 
+def test_encoder_attention_cross_matches_jax():
+    """Lq != Lk: teacher-forced cross-attention over encoder memory."""
+    r = np.random.default_rng(13)
+    q, k, v = _randn(r, 2, 20, 128), _randn(r, 2, 300, 128), _randn(r, 2, 300, 128)
+    with pltpu.force_tpu_interpret_mode():
+        expected = np.asarray(jax_encoder_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), 2, False))
+    got = encoder_attention(_t(q), _t(k), _t(v), 2)
+    np.testing.assert_allclose(got.numpy(), expected, rtol=ATTN_TOL, atol=ATTN_TOL)
+
+
 def test_encoder_attention_unbatched():
     r = np.random.default_rng(12)
     q, k, v = (_randn(r, 50, 128) for _ in range(3))
