@@ -4,27 +4,40 @@
     python3 chip_smoke.py                   # what the checks need
     python3 chip_smoke.py --profile DIR     # and torch.profiler summaries in DIR
 
-Builds the port's CUDA kernels from ``pytorch_models_tpu_torch/csrc/``,
-holds each kernel against its plain PyTorch version at the GPT-2 and
-Whisper serving shapes, then drives the port's two main paths and checks
-that each went through its kernels:
+Builds the port's CUDA kernels from ``pytorch_models_tpu_torch/csrc/`` (one
+``nvcc`` per source, in parallel), holds each kernel against its plain
+PyTorch version at the GPT-2 and Whisper serving shapes (the fused decode
+step K7 at full GPT-2-small and Whisper-base width, fp32 and bf16), then
+drives the port's two main paths and checks that each went through its
+kernels:
 
 - GPT-2 small at full width (12 layers, d_model 768, vocab 50257, context
-  1024, random weights from a seed) through
-  ``DecoderGenerator.generate_tokens_batch`` and ``score_tokens_batch``;
+  1024, random weights from a seed) through ``score_tokens_batch``, then,
+  rescaled so that greedy streams move, ``generate_tokens_batch``;
 - Whisper-base at full width (8 + 8 layers, d_model 512, vocab 51865, 80
   mels, random weights from a seed) transcribing eight 5-30 s waveforms
   through ``WhisperGenerator.transcribe_tokens_batch`` and
   ``transcribe_tokens`` (log-mel kernel, conv stem, encoder, cross-attention
   decoder).
 
+Each main path runs three decode routes: fused (every flag auto: one K7
+launch per greedy step), per-op kernels (``USE_FUSED_STEP = False``) and
+plain (every flag False). fp32 tokens must be identical across the three,
+up to the first step where the plain top-2 logits are closer than
+``GAP_TOL`` (a near-tie that summation order may decide; such a step is
+printed with its gap), and K7 must launch once per decode step.
+
 Prints one line per phase; the line before the last is a JSON summary of
 the kernels (``max_abs_err`` is the largest |kernel - plain| output over
 every shape and dtype checked; for the greedy head, whose outputs are ids,
 it is the largest score regret ``s[plain id] - s[kernel id]``; for the
 log-mel kernel it is taken where the plain value is at least its global
-max - 8, the part the Whisper frontend keeps; ``launches`` sums both main
-paths), and the last line is
+max - 8, the part the Whisper frontend keeps; ``launches`` counts both main
+paths' runs, with every count set to 0 just before each path; ``bound_ms``
+is the larger of the bytes the call must move over 3.35 TB/s and its
+operations over the card's peak for their type; ``library_ms`` is one
+PyTorch call computing the same function, where there is one), the line
+before it the card's name and power limit, and the last line is
 ``{"ok": true, "device": {"platform": "gpu", ...}}``. Any failed check
 raises, so the exit code is non-zero and no result is printed. Without a
 CUDA device it exits with code 2.
@@ -59,6 +72,25 @@ SCORE_TOL = 1e-3  # fp32 log-probs after 12 layers: attention sums differ in ord
 # plain version itself departs from a float64 reference by up to 2.1e-4
 # (a CPU reading); the kernel is allowed ten times that.
 MEL_TOL = 2e-3
+
+# K7 (fused decode step) vs its plain version over 12 (GPT-2) or 8 (Whisper)
+# layers, elementwise atol + rtol * |ref| on x_out and the K/V written at pos.
+# fp32: both sum in fp32, in other orders; the error grows with depth, so
+# each layer's 1e-7-relative noise is given room to compound (readings on an
+# H100: at most 2.4e-6). bf16: both round at the same points, but an fp32 sum
+# that straddles a rounding boundary lands one bf16 step (2^-8 relative)
+# apart and carries through the later layers; residual values reach |x| ~ 16,
+# where one step is 0.0625 (readings: at most 0.078, at |x| > 16). The phase
+# prints the largest |kernel - plain| / (atol + rtol * |plain|). The first
+# layer's K/V at pos are one projection of the step's own input, with no
+# earlier layer to carry a difference: they are held to TOL, one bf16 step.
+DS_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2.0 ** -3, 2.0 ** -5)}
+# fp32 routes (fused, per-op kernels, plain) may part only at a step whose
+# plain top-2 logits lie closer than this: fp32 summation order moves a logit
+# by ~1e-5 of its size through 12 layers.
+GAP_TOL = (1e-3, 1e-4)  # atol, rtol * |top logit|
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # CUDA-core fp32; tensor-core bf16 (dense)
 
 # Whisper-base main path: <|startoftranscript|><|en|><|transcribe|><|notimestamps|>
 W_INIT = [50258, 50259, 50359, 50363]
@@ -98,6 +130,18 @@ def _ab_ms(kernel_fns, plain_fns, iters: int) -> tuple[float, float]:
     k2 = _time_ms(kernel_fns, iters)
     p2 = _time_ms(plain_fns, iters)
     return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def _rec(err: float, ms: float, plain_ms: float, nbytes: float, flops: float, dn: str,
+         library_ms: float | None = None) -> dict:
+    """A kernel's numbers at one shape: its bound is the larger of the bytes
+    it must move over the HBM rate and its operations over the peak for the
+    dtype (inputs read once, outputs written once, data-dependent work as
+    these inputs need it)."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dn] * 1e3
+    return {"err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": library_ms}
 
 
 def _check_close(name: str, got, ref, tol: tuple[float, float]) -> float:
@@ -153,11 +197,16 @@ def kernel_phases(dev, card: str) -> dict:
     from pytorch_models_tpu_torch.ops.gather import gather_rows, gather_rows_plain
     from pytorch_models_tpu_torch.ops.greedy_head import greedy_argmax_tied, greedy_argmax_tied_plain
 
+    import torch.nn.functional as F
+
     g = torch.Generator(device=dev).manual_seed(SEED)
     res = {}
 
     def rnd(*shape, dtype):
         return torch.randn(*shape, generator=g, device=dev).to(dtype)
+
+    def heads(t):  # (B, L, H*D) -> the split-head (B, H, L, D) view SDPA takes
+        return t.unflatten(-1, (12, 64)).transpose(1, 2)
 
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).removeprefix("torch.")
@@ -173,7 +222,10 @@ def kernel_phases(dev, card: str) -> dict:
                                             encoder_attention_plain(q, k, v, 12, causal), tol))
         k1_ms, k1_plain = _ab_ms([lambda: encoder_attention(q, k, v, 12, True)],
                                  [lambda: encoder_attention_plain(q, k, v, 12, True)], 20)
-        res[("encoder_attention", dn)] = (err, k1_ms, k1_plain)
+        k1_lib = _time_ms([lambda: F.scaled_dot_product_attention(heads(q), heads(k), heads(v), is_causal=True)], 20)
+        # q, k, v read and out written once; causal: half of the 2 x 2*L*L*H*D multiply-adds
+        res[("encoder_attention", dn)] = _rec(err, k1_ms, k1_plain, 4 * q.numel() * q.element_size(),
+                                              2 * 2 * 1024 * 1024 * 768, dn, k1_lib)
         print(f"phase kernel encoder_attention {dn}: B=2 L=7,197,1024 dense+causal max_abs_err={err:.3g} "
               f"(atol, rtol)={tol} | causal L=1024 kernel {k1_ms * 1e3:.1f} us, plain {k1_plain * 1e3:.1f} us [{card}]")
 
@@ -189,7 +241,13 @@ def kernel_phases(dev, card: str) -> dict:
             raise AssertionError("decode_attention: an empty [pad, end) row must give zeros")
         k2_ms, k2_plain = _ab_ms([lambda c=c: decode_attention(*c, ends, 12, pads) for c in copies],
                                  [lambda c=c: decode_attention_plain(*c, ends, 12, pads) for c in copies], 50)
-        res[("decode_attention", dn)] = (err, k2_ms, k2_plain)
+        col = torch.arange(1024, device=dev)
+        mask = ((col >= pads[:, None]) & (col < ends[:, None]))[:, None, None, :]
+        k2_lib = _time_ms([lambda c=c: F.scaled_dot_product_attention(heads(c[0]), heads(c[1]), heads(c[2]),
+                                                                     attn_mask=mask) for c in copies], 50)
+        keys = int((ends - pads).clamp_min(0).sum())  # the valid [pad, end) ranges only
+        res[("decode_attention", dn)] = _rec(err, k2_ms, k2_plain, (2 * keys + 2 * 8) * 768 * q1.element_size(),
+                                             4 * keys * 768, dn, k2_lib)
         print(f"phase kernel decode_attention {dn}: B=8 L=1024 H=12 mixed pads/ends + empty row "
               f"max_abs_err={err:.3g} (atol, rtol)={tol} | kernel {k2_ms * 1e3:.1f} us, plain {k2_plain * 1e3:.1f} us [{card}]")
 
@@ -201,7 +259,10 @@ def kernel_phases(dev, card: str) -> dict:
             err = max(err, _check_close(f"gather_rows V={V} {dn}", gather_rows(table, idx),
                                         gather_rows_plain(table, idx), (0.0, 0.0)))
         k3_ms, k3_plain = _ab_ms([lambda: gather_rows(table, idx)], [lambda: gather_rows_plain(table, idx)], 200)
-        res[("gather_rows", dn)] = (err, k3_ms, k3_plain)
+        idx_c = idx.clamp(0, table.shape[0] - 1)  # the same lookups, ids in range (embedding does not clamp)
+        k3_lib = _time_ms([lambda: F.embedding(idx_c, table)], 200)
+        res[("gather_rows", dn)] = _rec(err, k3_ms, k3_plain, 2 * 8 * 768 * table.element_size() + 8 * 8, 0, dn,
+                                        k3_lib)
         print(f"phase kernel gather_rows {dn}: V=1024,50257 N=8 ids incl. out-of-range: max_abs_err={err} (exact) | "
               f"kernel {k3_ms * 1e3:.1f} us, plain {k3_plain * 1e3:.1f} us [{card}]")
 
@@ -210,7 +271,8 @@ def kernel_phases(dev, card: str) -> dict:
         emb[7] = emb[50000] = x[0] * 4
         err, decided = _check_greedy(f"greedy_argmax_tied {dn}", x, emb, 7)
         k4_ms, k4_plain = _ab_ms([lambda: greedy_argmax_tied(x, emb)], [lambda: greedy_argmax_tied_plain(x, emb)], 50)
-        res[("greedy_argmax_tied", dn)] = (err, k4_ms, k4_plain)
+        res[("greedy_argmax_tied", dn)] = _rec(err, k4_ms, k4_plain, (emb.numel() + x.numel()) * x.element_size(),
+                                               2 * 8 * emb.numel(), dn)  # no single PyTorch call
         # what the batch gate (ops/attention.py use_greedy_head) chooses between:
         # the kernel, or the model's own head matmul in its dtype + argmax
         head = {}
@@ -255,11 +317,16 @@ def whisper_kernel_phases(dev, card: str) -> dict:
     from pytorch_models_tpu_torch.ops.greedy_head import greedy_argmax_tied, greedy_argmax_tied_plain
     from pytorch_models_tpu_torch.ops.mel import log_mel_spectrogram, log_mel_spectrogram_plain
 
+    import torch.nn.functional as F
+
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
     res = {}
 
     def rnd(*shape, dtype):
         return torch.randn(*shape, generator=g, device=dev).to(dtype)
+
+    def heads(t):  # (B, L, H*D) -> the split-head (B, H, L, D) view SDPA takes
+        return t.unflatten(-1, (8, 64)).transpose(1, 2)
 
     # K5: B=8 x 30 s, n_mels 80 and 128
     wav = torch.from_numpy(_waveforms(8, [30.0] * 8, SEED + 2)).to(dev)
@@ -284,7 +351,11 @@ def whisper_kernel_phases(dev, card: str) -> dict:
     ref = (torch.maximum(ref, ref.amax((-2, -1), keepdim=True) - 8) + 4) / 4
     pre_err = _check_close("WhisperPreprocessor(fused=True)", pre, ref, (MEL_TOL / 4, 0.0))
     k5_ms, k5_plain = _ab_ms([lambda: log_mel_spectrogram(wav)], [lambda: log_mel_spectrogram_plain(wav)], 20)
-    res[("log_mel_spectrogram", "float32")] = (max(err, pre_err), k5_ms, k5_plain)
+    # waveform in, (8, 80, 3001) out; the DFT as the kernel computes it (3001 frames x 400 samples x 402 real
+    # outputs per row) plus the 201 -> 80 mel product; no single PyTorch call
+    k5_flops = 2 * 8 * 3001 * (400 * 402 + 201 * 80)
+    res[("log_mel_spectrogram", "float32")] = _rec(max(err, pre_err), k5_ms, k5_plain,
+                                                   (wav.numel() + 8 * 80 * 3001) * 4, k5_flops, "float32")
     print(f"phase kernel log_mel_spectrogram float32: B=8 x 30 s (3001 frames), n_mels 80/128, -inf frames equal "
           f"({n_inf[80]}/{n_inf[128]} values), max |kernel - plain| where plain >= max-8: {err:.3g}, preprocessor "
           f"{pre_err:.3g} (tol {MEL_TOL}, {MEL_TOL / 4}) | n_mels 80 kernel {k5_ms * 1e3:.1f} us, plain "
@@ -302,10 +373,17 @@ def whisper_kernel_phases(dev, card: str) -> dict:
                           encoder_attention_plain(qx, k, v, 8), tol)
         dense = _ab_ms([lambda: encoder_attention(q, k, v, 8)], [lambda: encoder_attention_plain(q, k, v, 8)], 10)
         cross = _ab_ms([lambda: encoder_attention(qx, k, v, 8)], [lambda: encoder_attention_plain(qx, k, v, 8)], 10)
-        res[("encoder_attention", dn)] = (max(e1, e2), *dense)
+        lib = [_time_ms([lambda a=a: F.scaled_dot_product_attention(heads(a), heads(k), heads(v))], 10) for a in (q, qx)]
+        # q, k, v read and out written once; 2 x 2*L*L*H*D multiply-adds
+        rec = res[("encoder_attention", dn)] = _rec(max(e1, e2), *dense, 4 * q.numel() * q.element_size(),
+                                                    4 * 8 * 1500 * 1500 * 512, dn, lib[0])
+        cross_bound = _rec(0.0, *cross, (2 * qx.numel() + 2 * k.numel()) * k.element_size(),
+                           4 * 8 * 448 * 1500 * 512, dn)["bound_ms"]
         print(f"phase kernel encoder_attention {dn} (Whisper): B=8 H=8 dense L=1500 max_abs_err={e1:.3g}, cross "
               f"Lq=448 Lk=1500 {e2:.3g} (atol, rtol)={tol} | dense kernel {dense[0] * 1e3:.1f} us, plain "
-              f"{dense[1] * 1e3:.1f} us; cross kernel {cross[0] * 1e3:.1f} us, plain {cross[1] * 1e3:.1f} us [{card}]")
+              f"{dense[1] * 1e3:.1f} us, SDPA {lib[0] * 1e3:.1f} us, bound {rec['bound_ms'] * 1e3:.1f} us "
+              f"({rec['bound_by']}); cross kernel {cross[0] * 1e3:.1f} us, plain {cross[1] * 1e3:.1f} us, SDPA "
+              f"{lib[1] * 1e3:.1f} us, bound {cross_bound * 1e3:.1f} us [{card}]")
 
         # K2: one query per row over the write-once cross cache, ends = len
         ends = torch.full((8,), 1500, dtype=torch.int32, device=dev)
@@ -315,7 +393,8 @@ def whisper_kernel_phases(dev, card: str) -> dict:
                          decode_attention_plain(*copies[0], ends, 8), tol)
         k2 = _ab_ms([lambda c=c: decode_attention(*c, ends, 8) for c in copies],
                     [lambda c=c: decode_attention_plain(*c, ends, 8) for c in copies], 50)
-        res[("decode_attention", dn)] = (e, *k2)
+        res[("decode_attention", dn)] = _rec(e, *k2, (2 * 8 * 1500 + 2 * 8) * 512 * copies[0][0].element_size(),
+                                             4 * 8 * 1500 * 512, dn)
         print(f"phase kernel decode_attention {dn} (Whisper cross): B=8 L=1536 H=8 ends=1500 max_abs_err={e:.3g} "
               f"(atol, rtol)={tol} | kernel {k2[0] * 1e3:.1f} us, plain {k2[1] * 1e3:.1f} us [{card}]")
 
@@ -324,10 +403,158 @@ def whisper_kernel_phases(dev, card: str) -> dict:
         emb[11] = emb[51000] = x[0] * 4
         e, decided = _check_greedy(f"greedy_argmax_tied (Whisper) {dn}", x, emb, 11)
         k4 = _ab_ms([lambda: greedy_argmax_tied(x, emb)], [lambda: greedy_argmax_tied_plain(x, emb)], 50)
-        res[("greedy_argmax_tied", dn)] = (e, *k4)
+        res[("greedy_argmax_tied", dn)] = _rec(e, *k4, (emb.numel() + x.numel()) * x.element_size(),
+                                               2 * 8 * emb.numel(), dn)
         print(f"phase kernel greedy_argmax_tied {dn} (Whisper): B=8 V=51865 d=512 tie->lowest ok, ids equal on "
               f"{decided}/8 decided rows, max score regret {e:.3g} | kernel {k4[0] * 1e3:.1f} us, plain "
               f"{k4[1] * 1e3:.1f} us [{card}]")
+    torch.cuda.synchronize()
+    return res
+
+
+def _k7_model(dev, kind: str):
+    """Full-width random layers for the K7 phase (init scale, from a seed):
+    GPT-2 small (12 layers, d 768, tanh GELU, vocab 50257) or the Whisper-base
+    decoder (8 layers, d 512, cross-attention, exact GELU, vocab 51865)."""
+    import torch
+
+    from pytorch_models_tpu_torch import transformer as tfm
+    from pytorch_models_tpu_torch.utils import tree_map
+
+    n_layers, d, vocab, cross = (12, 768, 50257, False) if kind == "gpt2" else (8, 512, 51865, True)
+    cfg = tfm.LayerConfig.make(d, cross_attn=cross, act="approximate_gelu" if kind == "gpt2" else "gelu")
+    gen = torch.Generator().manual_seed(SEED + 5)
+    layers = tree_map(lambda t: t.to(dev), [tfm.layer_init(gen, cfg) for _ in range(n_layers)])
+    g = torch.Generator(device=dev).manual_seed(SEED + 8)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+
+    for lp in layers:  # norms off their identity init, so the check covers their parameters
+        for name in [k for k in lp if k.endswith("norm")]:
+            lp[name] = {"scale": 1 + 0.1 * rnd(d), "bias": 0.1 * rnd(d)}
+    emb = rnd(vocab, d)
+    final = {"scale": 1 + 0.1 * rnd(d), "bias": 0.1 * rnd(d)}
+    return cfg, layers, emb, final
+
+
+def decode_step_phases(dev, card: str) -> dict:
+    """K7 against its plain version at the full GPT-2-small and Whisper-base
+    shapes, B=8, fp32 and bf16: mixed left pads with one row whose cached
+    range is empty until pos, per-row cross lengths (1500, 1500, 7, ...);
+    x_out and the K/V written at pos elementwise, tok as the greedy head is
+    checked. Times: the kernel, its plain version, and the per-op step it
+    replaces (kernels on; layer stack + final norm + greedy head), in turns."""
+    import torch
+
+    from pytorch_models_tpu_torch import transformer as tfm
+    from pytorch_models_tpu_torch.ops import layer_norm
+    from pytorch_models_tpu_torch.ops.decode_step import (
+        fused_cross_decode_step,
+        fused_decode_step,
+        fused_decode_step_plain,
+        pack_decode_weights,
+        pack_greedy_head,
+    )
+    from pytorch_models_tpu_torch.ops.greedy_head import greedy_argmax_tied
+    from pytorch_models_tpu_torch.utils import cast_tree
+
+    res = {}
+    g = torch.Generator(device=dev).manual_seed(SEED + 6)
+    b = 8
+    for kind in ("gpt2", "whisper"):
+        cfg32, layers32, emb32, final32 = _k7_model(dev, kind)
+        cross = kind == "whisper"
+        name = "fused_cross_decode_step" if cross else "fused_decode_step"
+        n_layers, d, hd = len(layers32), cfg32.d_model, cfg32.n_heads * cfg32.head_dim
+        l_max, pos = (1024, 127) if kind == "gpt2" else (128, 40)
+        pads = torch.tensor([0, 5, pos, 3, 0, pos // 2, 1, 17], dtype=torch.int32, device=dev)  # row 2: only pos
+        lens = torch.tensor([1500, 1500, 7, 1500, 1200, 1500, 300, 1500], dtype=torch.int32, device=dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            dn = str(dtype).removeprefix("torch.")
+            layers = cast_tree(layers32, dtype)
+            packed = pack_decode_weights(layers, dtype, cross=cross)
+            head = pack_greedy_head(emb32, final32, dtype)
+            x = torch.randn(b, d, generator=g, device=dev).to(dtype)
+            kc, vc = (torch.randn(n_layers, b, l_max, hd, generator=g, device=dev).to(dtype) for _ in range(2))
+            xk, xv = ((torch.randn(n_layers, b, 1536, hd, generator=g, device=dev).to(dtype) for _ in range(2))
+                      if cross else (None, None))
+            ck = dict(cross_k=xk, cross_v=xv, cross_lens=lens) if cross else {}
+
+            def kernel(kc=kc, vc=vc):
+                if cross:
+                    return fused_cross_decode_step(x, packed, kc, vc, xk, xv, lens, pos, pads, cfg32.n_heads,
+                                                   cfg32.act, cfg32.norm_eps, head=head)
+                return fused_decode_step(x, packed, kc, vc, pos, pads, cfg32.n_heads, cfg32.act, cfg32.norm_eps,
+                                         head=head)
+
+            def plain(kc=kc, vc=vc):
+                return fused_decode_step_plain(x, packed, kc, vc, pos, pads, cfg32.n_heads, cfg32.act,
+                                               cfg32.norm_eps, head, **ck)
+
+            kc_p, vc_p = kc.clone(), vc.clone()
+            ref_x, ref_tok = plain(kc_p, vc_p)
+            got_x, got_tok = kernel()
+            torch.cuda.synchronize()
+            tol = DS_TOL[dn]
+            err = _check_close(f"{name} x_out {dn}", got_x, ref_x, tol)
+            use = ((got_x.float() - ref_x.float()).abs() / (tol[0] + tol[1] * ref_x.float().abs())).max().item()
+            kv0 = 0.0  # layer 0's K/V at pos, to one bf16 step; the deeper layers' to DS_TOL
+            for c, c_ref, what in ((kc, kc_p, "k"), (vc, vc_p, "v")):
+                kv0 = max(kv0, _check_close(f"{name} layer 0 {what} at pos {dn}", c[0, :, pos], c_ref[0, :, pos],
+                                            TOL[dn]))
+                err = max(err, _check_close(f"{name} {what} at pos {dn}", c[1:, :, pos], c_ref[1:, :, pos], tol))
+                if not torch.equal(c[:, :, :pos], c_ref[:, :, :pos]):
+                    raise AssertionError(f"{name} {dn}: the cache changed outside pos")
+            err = max(err, kv0)
+            # tok as the greedy head is checked: the plain scores, ids equal where the top-2 gap exceeds the
+            # tolerance, the score regret within it on every row
+            s = torch.matmul(layer_norm(final32, ref_x).float(), head["emb"].float().t())
+            if dtype == torch.bfloat16:
+                s = s.to(dtype).float()
+            top2 = s.topk(2, dim=-1).values
+            gap_tol = GAP_TOL[0] + GAP_TOL[1] * top2[:, 0].abs() if dtype == torch.float32 else \
+                2.0 ** -5 * top2[:, 0].abs()
+            decided = top2[:, 0] - top2[:, 1] > gap_tol
+            rows = torch.arange(b, device=dev)
+            regret = s[rows, ref_tok] - s[rows, got_tok]
+            if not torch.equal(got_tok[decided], ref_tok[decided]) or bool((regret.abs() > gap_tol).any()):
+                raise AssertionError(f"{name} {dn}: tok {got_tok.tolist()} != plain {ref_tok.tolist()}, "
+                                     f"regret {regret.tolist()}")
+
+            # the per-op step K7 replaces, on the same buffers (views of the stacked caches)
+            p = {"layers": layers}
+            views = [{"k": kc[i], "v": vc[i]} for i in range(n_layers)]
+            cross_views = ([{"k": xk[i], "v": xv[i], "len": lens} for i in range(n_layers)] if cross else None)
+            final = cast_tree(final32, dtype)
+
+            def per_op():
+                h, _ = tfm.decoder_apply(p, cfg32, x[:, None], self_caches=views, cross_caches=cross_views,
+                                         pos=pos, pad_lens=pads)
+                return greedy_argmax_tied(layer_norm(final, h[:, 0], cfg32.norm_eps), head["emb"])
+
+            with torch.inference_mode():
+                ms, plain_ms = _ab_ms([kernel], [plain], 10)
+                ms2, op_ms = _ab_ms([kernel], [per_op], 20)
+            item = x.element_size()
+            w_el = sum(t.numel() for k, t in packed.items() if k.startswith("w"))
+            small = sum(t.numel() for k, t in packed.items() if not k.startswith("w")) + 2 * d
+            self_keys = int((pos - pads.clamp(max=pos)).sum())  # cached keys read, per layer
+            cross_keys = int(lens.sum()) if cross else 0
+            nbytes = ((w_el + head["emb"].numel()) * item + small * 4 + 2 * b * d * item
+                      + 2 * n_layers * (self_keys + cross_keys) * hd * item + 2 * n_layers * b * hd * item + 8 * b)
+            flops = 2 * b * (w_el + head["emb"].numel()) + 4 * n_layers * hd * (self_keys + b + cross_keys)
+            res[(name, dn)] = _rec(err, ms, plain_ms, nbytes, flops, dn)
+            res[(name, dn)]["per_op_ms"] = op_ms
+            r = res[(name, dn)]
+            print(f"phase kernel {name} {dn}: {kind} {n_layers} layers d={d} B=8 pos={pos} pads {pads.tolist()}"
+                  + (f" cross lens {lens.tolist()} of 1536" if cross else "")
+                  + f" | max |kernel - plain| (x_out, K/V at pos) {err:.3g} (atol, rtol)={tol}, x_out at {use:.2f} of its "
+                  f"tolerance, layer 0 K/V at pos {kv0:.3g} (atol, rtol)={TOL[dn]}; tok {got_tok.tolist()}"
+                  f" ({int(decided.sum())}/8 decided, equal), max regret {regret.abs().max().item():.3g} | kernel "
+                  f"{ms * 1e3:.1f} us ({ms2 * 1e3:.1f} us in the second pair), plain {plain_ms * 1e3:.1f} us, "
+                  f"per-op step {op_ms * 1e3:.1f} us, bound {r['bound_ms'] * 1e3:.1f} us ({r['bound_by']}, "
+                  f"{nbytes / 1e6:.1f} MB) [{card}]")
     torch.cuda.synchronize()
     return res
 
@@ -336,17 +563,30 @@ class _Tok:
     eos_token_id = None
 
 
-def _set_flags(on: bool | None) -> None:
+# decode routes: (every dispatch flag, USE_FUSED_STEP)
+ROUTES = {"fused": (None, None), "per-op": (None, False), "plain": (False, False)}
+
+
+def _set_flags(on: bool | None, fused: bool | None = None) -> None:
+    """Every dispatch flag to ``on``, ``USE_FUSED_STEP`` to ``fused``."""
     from pytorch_models_tpu_torch.ops import attention as attn
     from pytorch_models_tpu_torch.ops import gather, mel
 
     attn.USE_DECODE_KERNEL = attn.USE_ENCODER_KERNEL = attn.USE_GREEDY_HEAD = gather.USE_GATHER_KERNEL = on
     mel.USE_MEL_KERNEL = on
+    attn.USE_FUSED_STEP = fused
+
+
+def _route(name: str) -> None:
+    """fused: every flag auto (one K7 launch per greedy step); per-op: the
+    kernels with USE_FUSED_STEP False; plain: every flag False."""
+    _set_flags(*ROUTES[name])
 
 
 def _kernels() -> dict:
     """Every kernel wrapper of the port, by name (each carries a launch count)."""
     from pytorch_models_tpu_torch.ops.decode_attention import decode_attention
+    from pytorch_models_tpu_torch.ops.decode_step import fused_cross_decode_step, fused_decode_step
     from pytorch_models_tpu_torch.ops.encoder_attention import encoder_attention
     from pytorch_models_tpu_torch.ops.gather import gather_rows
     from pytorch_models_tpu_torch.ops.greedy_head import greedy_argmax_tied
@@ -354,7 +594,38 @@ def _kernels() -> dict:
 
     return {"encoder_attention": encoder_attention, "decode_attention": decode_attention,
             "gather_rows": gather_rows, "greedy_argmax_tied": greedy_argmax_tied,
-            "log_mel_spectrogram": log_mel_spectrogram}
+            "log_mel_spectrogram": log_mel_spectrogram, "fused_decode_step": fused_decode_step,
+            "fused_cross_decode_step": fused_cross_decode_step}
+
+
+def _make_streams_move(dev, seed: int, embeddings: dict, stacks: list) -> None:
+    """Random weights at the init's scale make the tied greedy head repeat its
+    input token forever (the residual stays the token's own embedding), so
+    token identity across routes would compare a constant stream. Seeded
+    position embeddings at scale 3 (``embeddings["pos_embs"]``) and every
+    layer matrix of ``stacks`` at 4x the init's scale make the streams move.
+    At 6x Whisper amplifies fp32 rounding so much that kernel and plain part
+    at near-ties (top-2 logits 0.0136 apart at 88.2, measured on an H100),
+    which says nothing about the kernels."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    pos = embeddings["pos_embs"]
+    embeddings["pos_embs"] = 3.0 * torch.randn(pos.shape, generator=g, device=dev)
+    for layers in stacks:
+        for lp in layers:
+            for block in lp.values():
+                for lin in block.values():
+                    if isinstance(lin, dict):
+                        lin["w"] *= 4.0
+
+
+def _check_moving(what: str, rows, n_init) -> list[int]:
+    """Distinct new tokens per row; raises unless every row has at least 3."""
+    distinct = [len(set(r[n:])) for r, n in zip(rows, n_init)]
+    if min(distinct) < 3:
+        raise AssertionError(f"{what}: a greedy stream barely moves (distinct new tokens per row {distinct})")
+    return distinct
 
 
 def _event_ms(fn) -> tuple[float, object]:
@@ -369,9 +640,50 @@ def _event_ms(fn) -> tuple[float, object]:
     return start.elapsed_time(end), out
 
 
+def _decode_steps(n_generated: list[int], total: int, all_stopped: bool) -> int:
+    """Decode steps the generators' loops ran for rows that generated
+    ``n_generated`` tokens each (the prefill's first included): ``total``
+    unless every row stopped at EOS; then up to the first all-done check
+    (every DONE_CHECK_EVERY steps) after the last row stopped."""
+    from pytorch_models_tpu_torch.models.text.generator import DONE_CHECK_EVERY
+
+    if not all_stopped:
+        return total
+    last = max(n_generated) - 1
+    return min(-(-last // DONE_CHECK_EVERY) * DONE_CHECK_EVERY, total)
+
+
+def _check_routes(what: str, outs: dict, gap_fn) -> str:
+    """fp32 token rows of every route against the plain route's, row by row.
+    A row may part only at a step whose plain top-2 logits lie within
+    GAP_TOL (``gap_fn(row, prefix)`` gives the plain (top logit, top-2 gap)
+    after ``prefix``); the parting is printed. Returns the partings."""
+    notes = []
+    for route, rows in outs.items():
+        for i, (row, ref) in enumerate(zip(rows, outs["plain"])):
+            if row == ref:
+                continue
+            n = min(len(row), len(ref))
+            j = next((k for k in range(n) if row[k] != ref[k]), n)
+            top, gap = gap_fn(i, ref[:j])
+            note = f"{route} row {i} parts from plain at token {j}: plain top-2 logits {gap:.4g} apart at {top:.6g}"
+            print(f"phase {what}: {note}")
+            if gap >= GAP_TOL[0] + GAP_TOL[1] * abs(top):
+                raise AssertionError(f"{what}: {note}, above the near-tie tolerance {GAP_TOL}")
+            notes.append(note)
+    return "; ".join(notes) or "none"
+
+
+def _top2(logits) -> tuple[float, float]:
+    t = logits.float().topk(2).values
+    return t[0].item(), (t[0] - t[1]).item()
+
+
 def main_path(dev, card: str, profile_dir: str | None = None) -> dict:
-    """GPT-2 small at full width through the port's entry points; with
-    ``profile_dir``, then a profiled bf16 generation (:func:`profile_phase`)."""
+    """GPT-2 small at full width through the port's entry points: fp32
+    generation by the three routes (token identity, K7 once per step),
+    scoring, bf16 agreement and the bf16 time phase; with ``profile_dir``,
+    profiled bf16 generations (fused and per-op)."""
     import torch
 
     from pytorch_models_tpu_torch.models.text import GPT2, DecoderGenerator
@@ -386,75 +698,105 @@ def main_path(dev, card: str, profile_dir: str | None = None) -> dict:
     gen = DecoderGenerator(model, _Tok())
     c = model.cfg
     print(f"phase main: GPT2({c.n_layers}, {c.d_model}) vocab {c.vocab_size} ctx {c.max_seq_len} "
-          f"built from seed {SEED} on {dev} "
-          f"in {time.perf_counter() - t0:.1f} s")
+          f"built from seed {SEED} on {dev} in {time.perf_counter() - t0:.1f} s")
 
-    # plain references first (every USE_* flag False: no kernel launches)
-    _set_flags(False)
-    plain32 = gen.generate_tokens_batch(prompts, max_tokens=N_NEW)
+    def generate():
+        return gen.generate_tokens_batch(prompts, max_tokens=N_NEW)
+
+    def gap_fn(i, prefix):
+        _route("plain")
+        with torch.inference_mode():
+            return _top2(model(torch.tensor(prefix))[-1])
+
+    # plain reference first (every flag False: no kernel launches)
+    _route("plain")
     plain_scores = gen.score_tokens_batch(seqs)
 
-    # the main path with the kernels (flags auto = on for CUDA tensors)
-    _set_flags(None)
+    # the main path, counts from 0: scoring at the init's scale (SCORE_TOL was set there: the rescaled model
+    # below amplifies fp32 summation order to 1.43e-3 in a log-prob, an H100 reading); then the streams made to
+    # move, and generation by the plain (no launches), fused and per-op routes, fp32 and bf16
     for fn in kernels.values():
         fn.launches = 0
-    out32 = gen.generate_tokens_batch(prompts, max_tokens=N_NEW)
+    _route("fused")
     scores = gen.score_tokens_batch(seqs)
+    _make_streams_move(dev, SEED + 7, model.params, [model.params["decoder"]["layers"]])
+    _route("plain")
+    outs32 = {"plain": generate()}
+    _route("fused")
+    outs32["fused"] = generate()
+    k7_launches = kernels["fused_decode_step"].launches
+    _route("per-op")
+    outs32["per-op"] = generate()
+    torch.cuda.synchronize()
+    for route, rows in outs32.items():
+        for row, p in zip(rows, prompts):
+            if row[:len(p)] != p or len(row) != len(p) + N_NEW or not all(0 <= t < 50257 for t in row):
+                raise AssertionError(f"fp32 generation ({route}): malformed row")
+    steps = _decode_steps([N_NEW] * len(prompts), N_NEW - 1, False)  # no EOS: every step to the limit
+    if k7_launches != steps:
+        raise AssertionError(f"fused route: K7 launched {k7_launches} times for {steps} decode steps")
+    distinct = _check_moving("main fp32 generate_tokens_batch", outs32["fused"], PROMPT_LENS)
+    partings = _check_routes("main fp32", outs32, gap_fn)
+    print(f"phase main fp32 generate_tokens_batch (position embeddings at scale 3, layer matrices at 4x the "
+          f"init's): {len(prompts)} prompts of {min(PROMPT_LENS)}-{max(PROMPT_LENS)} "
+          f"tokens, {N_NEW} new each: fused, per-op kernels and plain (every flag False) token-identical "
+          f"(partings at near-ties: {partings}); K7 launched {k7_launches} times = {steps} decode steps; distinct "
+          f"new tokens per row {distinct}")
+    _route("fused")
     model.to_bf16()
-    out16 = gen.generate_tokens_batch(prompts, max_tokens=N_NEW)
+    out16 = {"fused": generate()}
+    _route("per-op")
+    out16["per-op"] = generate()
     torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in kernels.items()}
-
-    for row, p in zip(out32, prompts):
-        if row[:len(p)] != p or len(row) != len(p) + N_NEW or not all(0 <= t < 50257 for t in row):
-            raise AssertionError("fp32 generation: malformed row")
-    if out32 != plain32:
-        raise AssertionError("fp32 generation with kernels differs from the plain path")
-    print(f"phase main fp32 generate_tokens_batch: {len(prompts)} prompts of {min(PROMPT_LENS)}-{max(PROMPT_LENS)} tokens, "
-          f"{N_NEW} new each: tokens identical to the plain path (every USE_* flag False)")
 
     err = max(float(np.max(np.abs(np.asarray(a) - np.asarray(b)))) for a, b in zip(scores, plain_scores))
     if not all(np.isfinite(s).all() and len(s) == 1023 for s in scores) or err > SCORE_TOL:
         raise AssertionError(f"score_tokens_batch: max |kernel - plain| = {err} > {SCORE_TOL}")
-    print(f"phase main fp32 score_tokens_batch: 2 x 1024 tokens, max |kernel - plain| log-prob = {err:.3g} "
-          f"(tol {SCORE_TOL})")
+    print(f"phase main fp32 score_tokens_batch (init-scale weights): 2 x 1024 tokens, max |kernel - plain| "
+          f"log-prob = {err:.3g} (tol {SCORE_TOL})")
 
-    _set_flags(False)
-    plain16 = gen.generate_tokens_batch(prompts, max_tokens=N_NEW)
-    _set_flags(None)
-    new16 = [a[len(p):] for a, p in zip(out16, prompts)]
-    agree = np.mean([x == y for a, b, p in zip(out16, plain16, prompts) for x, y in zip(a[len(p):], b[len(p):])])
-    if not all(len(a) == N_NEW and all(0 <= t < 50257 for t in a) for a in new16):
-        raise AssertionError("bf16 generation: malformed row")
-    print(f"phase main bf16 generate_tokens_batch: {agree:.4f} of new tokens agree with the plain bf16 path")
+    _route("plain")
+    out16["plain"] = generate()
+    _route("fused")
+    agree = {}
+    for route in ("fused", "per-op"):
+        agree[route] = np.mean([x == y for a, b, p in zip(out16[route], out16["plain"], prompts)
+                                for x, y in zip(a[len(p):], b[len(p):])])
+        if not all(len(a) - len(p) == N_NEW and all(0 <= t < 50257 for t in a) for a, p in zip(out16[route], prompts)):
+            raise AssertionError(f"bf16 generation ({route}): malformed row")
+    print(f"phase main bf16 generate_tokens_batch: new tokens agreeing with the plain bf16 path: fused "
+          f"{agree['fused']:.4f}, per-op kernels {agree['per-op']:.4f}")
     print("phase main launches: " + " ".join(f"{k}={v}" for k, v in launches.items()))
-    missing = [k for k, v in launches.items() if v <= 0 and k != "log_mel_spectrogram"]
+    missing = [k for k, v in launches.items() if v <= 0 and k not in ("log_mel_spectrogram", "fused_cross_decode_step")]
     if missing:
         raise AssertionError(f"main path never launched: {missing}")
 
-    # bf16 end-to-end rate, kernels vs plain in turns
+    # bf16 end-to-end rate of the three routes, in turns
     n_tok = len(prompts) * N_NEW
     times = {}
-    for label, flag in (("plain", False), ("kernels", None), ("kernels", None), ("plain", False)):
-        _set_flags(flag)
-        ms, _ = _event_ms(lambda: gen.generate_tokens_batch(prompts, max_tokens=N_NEW))
-        times.setdefault(label, []).append(ms)
-    _set_flags(None)
+    for route in ("plain", "per-op", "fused", "fused", "per-op", "plain"):
+        _route(route)
+        ms, _ = _event_ms(generate)
+        times.setdefault(route, []).append(ms)
+    _route("fused")
     tps = {k: n_tok / (np.mean(v) / 1e3) for k, v in times.items()}
-    print(f"phase time bf16 generate_tokens_batch B={len(prompts)} x {N_NEW} new: kernels {tps['kernels']:.1f} tok/s, "
-          f"plain {tps['plain']:.1f} tok/s (prefill included, CUDA events) [{card}]")
+    print(f"phase time bf16 generate_tokens_batch B={len(prompts)} x {N_NEW} new (prefill included, CUDA events): "
+          + ", ".join(f"{k} {tps[k]:.1f} tok/s ({np.mean(times[k]):.1f} ms)" for k in ROUTES) + f" [{card}]")
     if profile_dir is not None:
-        profile_phase(lambda: gen.generate_tokens_batch(prompts, max_tokens=N_NEW),
-                      f"bf16 generate_tokens_batch B={len(prompts)} x {N_NEW} new, kernels on",
-                      "profile_bf16_generate.json", profile_dir, card)
+        for route in ("fused", "per-op"):
+            _route(route)
+            profile_phase(generate, f"bf16 generate_tokens_batch B={len(prompts)} x {N_NEW} new, {route} route",
+                          f"profile_bf16_generate_{route}.json", profile_dir, card, lambda out: N_NEW - 1)
+        _route("fused")
     return launches
 
 
 def whisper_path(dev, card: str, profile_dir: str | None = None) -> dict:
     """Whisper-base at full width through the port's entry points: fp32
-    batched and single transcription (kernels vs every flag False), bf16
-    agreement, then a bf16 time phase; with ``profile_dir``, a profiled
-    bf16 batch. Returns the launches of the fp32 and bf16 runs."""
+    batched and single transcription by the three routes (token identity,
+    K7 once per step), bf16 agreement, then the bf16 time phase; with
+    ``profile_dir``, profiled bf16 batches. Returns the launches."""
     import torch
 
     from pytorch_models_tpu_torch.audio2text import Whisper, WhisperGenerator
@@ -463,107 +805,116 @@ def whisper_path(dev, card: str, profile_dir: str | None = None) -> dict:
     kernels = _kernels()
     t0 = time.perf_counter()
     model = Whisper.from_openai("base", rng=SEED, device=dev)
-    # Random weights at the init's scale make the tied greedy head repeat its
-    # input token forever. Seeded position embeddings at scale 3 and the
-    # layers' matrices at 4x the init's scale make the streams move, so token
-    # identity compares something. At 6x the model amplifies fp32 rounding so
-    # much that kernel and plain part at near-ties (top-2 logits 0.0136 apart
-    # at 88.2, measured on an H100), which says nothing about the kernels.
-    g = torch.Generator(device=dev).manual_seed(SEED + 3)
-    pos = model.params["decoder"]["pos_embs"]
-    model.params["decoder"]["pos_embs"] = 3.0 * torch.randn(pos.shape, generator=g, device=dev)
-    for side in ("encoder", "decoder"):
-        for lp in model.params[side]["layers"]:
-            for block in lp.values():
-                for lin in block.values():
-                    if isinstance(lin, dict):
-                        lin["w"] *= 4.0
+    _make_streams_move(dev, SEED + 3, model.params["decoder"],
+                       [model.params["encoder"]["layers"], model.params["decoder"]["layers"]])
     gen = WhisperGenerator(model)
     c = model.cfg
     audio = _waveforms(8, W_SECONDS, SEED + 4)
     wav = torch.from_numpy(audio).to(dev)
     max_tokens = len(W_INIT) + N_NEW
+    n_init = len(W_INIT)
     print(f"phase whisper: Whisper({c.n_layers}+{c.n_layers} layers, {c.d_model}) vocab {c.vocab_size} "
           f"n_mels {c.n_mels} built from seed {SEED} on {dev} in {time.perf_counter() - t0:.1f} s; 8 waveforms of "
-          f"{min(W_SECONDS)}-{max(W_SECONDS)} s, {len(W_INIT)} initial tokens, {N_NEW} new at most")
+          f"{min(W_SECONDS)}-{max(W_SECONDS)} s, {n_init} initial tokens, {N_NEW} new at most")
 
     def transcribe():
         return gen.transcribe_tokens_batch(wav, W_INIT, W_EOT, max_tokens)
 
-    _set_flags(False)
-    plain32 = transcribe()
-    _set_flags(None)
+    def gap_fn(i, prefix):
+        _route("plain")
+        with torch.inference_mode():
+            return _top2(model(gen.preprocessor(wav[i:i + 1]), torch.tensor([prefix], device=dev))[0, -1])
+
+    _route("plain")
+    outs32 = {"plain": transcribe()}
     for fn in kernels.values():
         fn.launches = 0
-    out32 = transcribe()
+    _route("fused")
+    outs32["fused"] = transcribe()
+    k7_launches = kernels["fused_cross_decode_step"].launches
     single = gen.transcribe_tokens(audio[0][: int(W_SECONDS[0] * 16_000)], W_INIT, W_EOT, max_tokens)
+    _route("per-op")
+    outs32["per-op"] = transcribe()
+    torch.cuda.synchronize()
+    for rows in outs32.values():
+        for row in rows:
+            if (row[:n_init] != W_INIT or not n_init < len(row) <= max_tokens
+                    or not all(0 <= t < c.vocab_size for t in row)):
+                raise AssertionError(f"whisper transcription: malformed row {row}")
+    fused = outs32["fused"]
+    steps = _decode_steps([len(r) - n_init for r in fused], max_tokens - n_init - 1,
+                          all(W_EOT in r[n_init:] for r in fused))
+    if k7_launches != steps:
+        raise AssertionError(f"whisper fused route: K7 launched {k7_launches} times for {steps} decode steps")
+    distinct = _check_moving("whisper fp32 transcribe_tokens_batch", fused, [n_init] * len(fused))
+    partings = _check_routes("whisper fp32", {**outs32, "single (fused)": [single]}, gap_fn)
+    print(f"phase whisper fp32 transcribe_tokens_batch: fused, per-op kernels and plain (every flag False) "
+          f"token-identical, and transcribe_tokens(row 0) equals its batch row (partings at near-ties: "
+          f"{partings}); K7 launched {k7_launches} times = {steps} decode steps; generated lengths "
+          f"{[len(r) - n_init for r in fused]}, distinct tokens per row {distinct}")
+
+    _route("fused")
     model.to_bf16()
-    out16 = transcribe()
+    out16 = {"fused": transcribe()}
+    _route("per-op")
+    out16["per-op"] = transcribe()
     torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in kernels.items()}
+    for row in out16["fused"] + out16["per-op"]:
+        if row[:n_init] != W_INIT or not n_init < len(row) <= max_tokens:
+            raise AssertionError(f"whisper bf16 transcription: malformed row {row}")
 
-    for row in out32 + out16:
-        if (row[:len(W_INIT)] != W_INIT or not len(W_INIT) < len(row) <= max_tokens
-                or not all(0 <= t < c.vocab_size for t in row)):
-            raise AssertionError(f"whisper transcription: malformed row {row}")
-    if out32 != plain32:
-        raise AssertionError("fp32 transcription with kernels differs from the plain path")
-    if single != out32[0]:
-        raise AssertionError("transcribe_tokens of row 0 differs from its row in the batch")
-    distinct = [len(set(r[len(W_INIT):])) for r in out32]
-    print(f"phase whisper fp32 transcribe_tokens_batch: tokens identical to the plain path (every USE_* flag "
-          f"False); transcribe_tokens(row 0) equals batch row 0; generated lengths "
-          f"{[len(r) - len(W_INIT) for r in out32]}, distinct tokens per row {distinct}")
-
-    _set_flags(False)
-    plain16 = transcribe()
-    _set_flags(None)
-    agree = np.mean([x == y for a, b in zip(out16, plain16) for x, y in zip(a[len(W_INIT):], b[len(W_INIT):])])
-    print(f"phase whisper bf16 transcribe_tokens_batch: {agree:.4f} of generated tokens agree with the plain bf16 path")
+    _route("plain")
+    out16["plain"] = transcribe()
+    _route("fused")
+    agree = {k: np.mean([x == y for a, b in zip(out16[k], out16["plain"]) for x, y in zip(a[n_init:], b[n_init:])])
+             for k in ("fused", "per-op")}
+    print(f"phase whisper bf16 transcribe_tokens_batch: generated tokens agreeing with the plain bf16 path: fused "
+          f"{agree['fused']:.4f}, per-op kernels {agree['per-op']:.4f}")
     print("phase whisper launches: " + " ".join(f"{k}={v}" for k, v in launches.items()))
-    missing = [k for k, v in launches.items() if v <= 0]
+    missing = [k for k, v in launches.items() if v <= 0 and k != "fused_decode_step"]
     if missing:
         raise AssertionError(f"whisper path never launched: {missing}")
 
-    # bf16 end-to-end rate, kernels vs plain in turns; then the kernels
-    # path's stages (frontend, + encoder; the rest is the decode loop)
+    # bf16 end-to-end rate of the three routes in turns; then the fused
+    # route's stages (frontend, + encoder; the rest is the decode loop)
     times, n_gen = {}, {}
-    for label, flag in (("plain", False), ("kernels", None), ("kernels", None), ("plain", False)):
-        _set_flags(flag)
+    for route in ("plain", "per-op", "fused", "fused", "per-op", "plain"):
+        _route(route)
         ms, out = _event_ms(transcribe)
-        times.setdefault(label, []).append(ms)
-        n_gen[label] = sum(len(r) - len(W_INIT) for r in out)
-    _set_flags(None)
+        times.setdefault(route, []).append(ms)
+        n_gen[route] = sum(len(r) - n_init for r in out)
+    _route("fused")
     with torch.inference_mode():
-        mel_ms, mel = _event_ms(lambda: gen.preprocessor(wav))
+        mel_ms, _ = _event_ms(lambda: gen.preprocessor(wav))
         enc_ms, _ = _event_ms(lambda: whisper_encode(model.params, c, gen.preprocessor(wav)))
-    rate = {}
-    for k, v in times.items():
-        sec = np.mean(v) / 1e3
-        rate[k] = (8 / sec, sum(W_SECONDS) / sec, n_gen[k] / sec, np.mean(v))
+    parts = []
+    for k in ROUTES:
+        sec = np.mean(times[k]) / 1e3
+        parts.append(f"{k} {8 / sec:.2f} segments/s, {sum(W_SECONDS) / sec:.1f} audio-s/s, {n_gen[k] / sec:.1f} "
+                     f"generated tok/s ({sec * 1e3:.1f} ms, {n_gen[k]} tokens)")
     print(f"phase time bf16 transcribe_tokens_batch B=8 (30 s segments holding {sum(W_SECONDS)} s of audio), CUDA "
-          f"events: kernels {rate['kernels'][0]:.2f} segments/s, {rate['kernels'][1]:.1f} audio-s/s, "
-          f"{rate['kernels'][2]:.1f} generated tok/s ({rate['kernels'][3]:.1f} ms, {n_gen['kernels']} tokens); plain "
-          f"{rate['plain'][0]:.2f} segments/s, {rate['plain'][1]:.1f} audio-s/s, {rate['plain'][2]:.1f} tok/s "
-          f"({rate['plain'][3]:.1f} ms, {n_gen['plain']} tokens); kernels path stages: log-mel {mel_ms:.2f} ms, "
-          f"log-mel + encoder {enc_ms:.2f} ms [{card}]")
+          f"events: " + "; ".join(parts) + f"; fused route stages: log-mel {mel_ms:.2f} ms, log-mel + encoder "
+          f"{enc_ms:.2f} ms [{card}]")
     if profile_dir is not None:
-        profile_phase(transcribe, "bf16 transcribe_tokens_batch B=8, kernels on", "profile_bf16_whisper.json",
-                      profile_dir, card)
-        _set_flags(False)
-        profile_phase(transcribe, "bf16 transcribe_tokens_batch B=8, every USE_* flag False",
-                      "profile_bf16_whisper_plain.json", profile_dir, card)
-        _set_flags(None)
+        for route in ROUTES:
+            _route(route)
+            profile_phase(transcribe, f"bf16 transcribe_tokens_batch B=8, {route} route",
+                          f"profile_bf16_whisper_{route}.json", profile_dir, card,
+                          lambda out: _decode_steps([len(r) - n_init for r in out], max_tokens - n_init - 1,
+                                                    all(W_EOT in r[n_init:] for r in out)))
+        _route("fused")
     return launches
 
 
-def profile_phase(fn, what: str, fname: str, out_dir: str, card: str) -> None:
+def profile_phase(fn, what: str, fname: str, out_dir: str, card: str, steps_fn) -> None:
     """One call of ``fn`` (after a warm-up call) under torch.profiler.
 
     Reads the Chrome trace: device busy time is the union of the kernel,
     memcpy and memset intervals, the span runs from the first to the last
     event of the trace, and the idle share is 1 - busy / span (profiler
-    overhead included). Writes the summary, with device time per kernel
+    overhead included); device events per decode step divide by
+    ``steps_fn(output)``. Writes the summary, with device time per kernel
     name, to ``out_dir/fname``; the trace itself is deleted.
     """
     import os
@@ -576,9 +927,10 @@ def profile_phase(fn, what: str, fname: str, out_dir: str, card: str) -> None:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        fn()
+        out = fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    steps = steps_fn(out)
     trace = os.path.join(out_dir, "trace.json")
     prof.export_chrome_trace(trace)
     with open(trace) as f:
@@ -605,13 +957,14 @@ def profile_phase(fn, what: str, fname: str, out_dir: str, card: str) -> None:
         acc[1] += e["dur"]
     top = sorted(per_name.items(), key=lambda kv: -kv[1][1])
     summary = {"card": card, "what": what, "wall_ms": wall_ms, "span_ms": span / 1e3, "device_busy_ms": busy / 1e3,
-               "idle_share": 1 - busy / span, "device_events": len(dev_events),
+               "idle_share": 1 - busy / span, "device_events": len(dev_events), "decode_steps": steps,
                "by_name": [{"name": n, "calls": c, "ms": d / 1e3} for n, (c, d) in top]}
     with open(os.path.join(out_dir, fname), "w") as f:
         json.dump(summary, f, indent=1)
     print(f"phase profile {what}: wall {wall_ms:.2f} ms profiled, trace span "
           f"{span / 1e3:.2f} ms, device busy {busy / 1e3:.2f} ms, idle share {1 - busy / span:.4f}, "
-          f"{len(dev_events)} device events; top: "
+          f"{len(dev_events)} device events ({len(dev_events) / max(steps, 1):.1f} per decode step, {steps} steps, "
+          f"prefill included); top: "
           + "; ".join(f"{n[:60]} {c}x {d / 1e3:.2f} ms" for n, (c, d) in top[:6]) + f" [{card}]")
 
 
@@ -643,24 +996,28 @@ def main() -> int:
 
     res = kernel_phases(dev, card)
     res_w = whisper_kernel_phases(dev, card)
+    res_k7 = decode_step_phases(dev, card)
     launches = main_path(dev, card, args.profile)
     launches_w = whisper_path(dev, card, args.profile)
 
-    # name: (source, TPU kernel it replaces, the dtype whose times are reported)
+    # name: (source, TPU kernel it replaces, the dtype whose times are reported; the shapes are GPT-2's for
+    # K1-K4 and the fused decode step, Whisper's for K5 and the fused cross step)
     meta = {
         "encoder_attention": ("encoder_attention.cu", "pytorch_models_tpu/ops/encoder_attention.py:166", "bfloat16"),
         "decode_attention": ("decode_attention.cu", "pytorch_models_tpu/ops/decode_attention.py:193", "bfloat16"),
         "gather_rows": ("gather.cu", "pytorch_models_tpu/ops/gather.py:87", "bfloat16"),
         "greedy_argmax_tied": ("greedy_head.cu", "pytorch_models_tpu/ops/greedy_head.py:85", "bfloat16"),
         "log_mel_spectrogram": ("mel.cu", "pytorch_models_tpu/ops/mel.py:66", "float32"),
+        "fused_decode_step": ("decode_step.cu", "pytorch_models_tpu/ops/decode_step.py:1359", "bfloat16"),
+        "fused_cross_decode_step": ("decode_step.cu", "pytorch_models_tpu/ops/decode_step.py:1397", "bfloat16"),
     }
     entries = []
     for name, (src, replaces, timed) in meta.items():
-        err = max(v[0] for r in (res, res_w) for (k, _), v in r.items() if k == name)
-        _, ms, plain_ms = res.get((name, timed)) or res_w[(name, timed)]
+        err = max(v["err"] for r in (res, res_w, res_k7) for (k, _), v in r.items() if k == name)
+        rec = res.get((name, timed)) or res_w.get((name, timed)) or res_k7[(name, timed)]
         entries.append({"name": name, "route": "cuda", "source": f"pytorch_models_tpu_torch/csrc/{src}",
                         "replaces": replaces, "launches": launches[name] + launches_w[name], "max_abs_err": err,
-                        "ms": ms, "plain_ms": plain_ms})
+                        **{k: rec[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}})
     print(card)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,10 +8,13 @@ weight-tied logits. ``WhisperGenerator`` transcribes 30 s segments greedily
 with KV-cached self-attention and cross-attention K/V projected once per
 segment.
 
-This is the JAX package's per-op configuration (its ``_whisper_fused_ok``
-False: every platform but the TPU). The one-kernel fused decode step, beam
-search, speculative decoding, int8 cross-KV, continuous batching and the
-tokenizer are not ported yet.
+Each greedy decode step runs as the JAX package runs it on its TPU: ONE
+fused kernel (``ops/decode_step.py``: self-attention, cross-attention and
+MLP of every layer, final LayerNorm, tied greedy head) over layer-stacked
+self and cross caches, when ``USE_FUSED_STEP`` (auto: CUDA tensors) and the
+kernel's shape rules allow; otherwise the per-op step. Beam search,
+speculative decoding, int8 cross-KV, continuous batching and the tokenizer
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ from ...ops.greedy_head import greedy_argmax_tied
 from ...ops.layers import conv1d, conv1d_init
 from ...ops.mel import log_mel_spectrogram, use_mel_kernel
 from ...utils import StateDict, tree_map
-from ...utils.module import InferenceModel
+from ...utils.module import InferenceModel, resolve_device
 from ..audio.spectrogram import MelSpectrogram
 from ..text.generator import DONE_CHECK_EVERY
 
@@ -131,6 +134,30 @@ def _decoder_logits_chunk(p: dict, lc: tfm.LayerConfig, cross: list, tokens: tor
     return _head(p, hn), caches
 
 
+def _whisper_fused_ok(p: dict, cfg: WhisperConfig, batch: int) -> bool:
+    """Gate for the one-kernel fused decode step (ops/decode_step.py)."""
+    from ...ops.decode_step import fused_step_eligible
+
+    return _attn.use_fused_step(p["token_embs"]) and fused_step_eligible(p["layers"], cfg.dec_layer, batch, cross=True)
+
+
+def _fused_whisper_step(p: dict, packed: dict, head: dict, cfg: WhisperConfig, tok: torch.Tensor, caches: dict,
+                        cross: dict, pos: int) -> torch.Tensor:
+    """One fused decode step: embeddings (K3) -> ONE kernel over the whole
+    layer stack (self + cross attention + MLP + final LN + greedy argmax).
+    ``caches``/``cross`` hold (L, B, Lp|Lx, H*D) stacked buffers (``cross``
+    also ``len`` (B,)); this step's K/V are written at ``pos``. Returns the
+    next token ids (B,)."""
+    from ...ops.decode_step import fused_cross_decode_step
+
+    x = embed_rows(p["token_embs"], tok[:, 0])
+    x = x + p["pos_embs"][pos].to(x.dtype)
+    lc = cfg.dec_layer
+    _, nxt = fused_cross_decode_step(x, packed, caches["k"], caches["v"], cross["k"], cross["v"], cross["len"], pos,
+                                     None, lc.n_heads, lc.act, lc.norm_eps, head=head)
+    return nxt
+
+
 @torch.inference_mode()
 def _generate_batch(params: dict, cfg: WhisperConfig, memory: torch.Tensor, initial_tokens: torch.Tensor,
                     max_tokens: int, eot_id: int):
@@ -143,9 +170,16 @@ def _generate_batch(params: dict, cfg: WhisperConfig, memory: torch.Tensor, init
     n_init = initial_tokens.shape[0]
     dev = memory.device
 
-    self_caches = tfm.make_kv_cache(cfg.n_layers, (b,), lc.n_heads, max_tokens, lc.head_dim,
-                                    dtype=p["token_embs"].dtype, device=dev)
-    cross = tfm.precompute_cross_caches(p, lc, memory)
+    # stacked buffers: the per-op path reads and writes per-layer views of them, the fused step the buffers
+    self_caches, stacked = tfm.make_kv_cache(cfg.n_layers, (b,), lc.n_heads, max_tokens, lc.head_dim,
+                                             dtype=p["token_embs"].dtype, device=dev)
+    cross, cross_stacked = tfm.precompute_cross_caches(p, lc, memory)
+    fused = _whisper_fused_ok(p, cfg, b)
+    if fused:
+        from ...ops.decode_step import pack_decode_weights, pack_greedy_head
+
+        packed = pack_decode_weights(p["layers"], p["token_embs"].dtype, cross=True)
+        head = pack_greedy_head(p["token_embs"], p["norm"], p["token_embs"].dtype)
 
     buf = torch.zeros((b, max_tokens), dtype=torch.int64, device=dev)
     init_rows = initial_tokens.to(dev).expand(b, n_init)
@@ -165,7 +199,9 @@ def _generate_batch(params: dict, cfg: WhisperConfig, memory: torch.Tensor, init
         if (pos - n_init - 1) % DONE_CHECK_EVERY == 0 and bool(done.all()):
             break
         tok = buf[:, pos - 1:pos]
-        if greedy_head:
+        if fused:
+            nxt = _fused_whisper_step(p, packed, head, cfg, tok, stacked, cross_stacked, pos - 1)
+        elif greedy_head:
             hn, self_caches = _decoder_hidden_chunk(p, lc, cross, tok, self_caches, pos - 1)
             nxt = greedy_argmax_tied(hn[:, 0], p["token_embs"].to(hn.dtype))
         else:
@@ -188,7 +224,7 @@ class Whisper(InferenceModel):
     def __init__(self, vocab_size: int, n_layers: int, d_model: int, n_mels: int = 80, rng: int = 0,
                  device=None) -> None:
         self.cfg = WhisperConfig(vocab_size, n_layers, d_model, n_mels)
-        self.device = torch.device("cpu") if device is None else torch.device(device)
+        self.device = resolve_device(device)  # None: the CUDA card
         self.params = whisper_init(torch.Generator().manual_seed(rng), self.cfg, self.device)
 
     @torch.inference_mode()
@@ -264,20 +300,26 @@ class WhisperPreprocessor(MelSpectrogram):
     """Log-mel frontend matching ``whisper.log_mel_spectrogram``.
 
     ``fused=None`` takes the log-mel kernel (``ops/mel.py``) when the input
-    lies on a CUDA device (``USE_MEL_KERNEL`` overrides); ``fused=True``
-    always takes its wrapper, ``fused=False`` the rFFT route of the JAX
-    package's XLA path. The clip at the
-    global max − 8 and the ``(x + 4) / 4`` scale stay plain, as in JAX.
+    lies on (or, as an array, goes to) a CUDA device (``USE_MEL_KERNEL``
+    overrides); ``fused=True`` always takes its wrapper, ``fused=False`` the
+    rFFT route of the JAX package's XLA path. The clip at the global max − 8
+    and the ``(x + 4) / 4`` scale stay plain, as in JAX.
     """
 
-    def __init__(self, variant: str = "tiny", fused: bool | None = None) -> None:
+    def __init__(self, variant: str = "tiny", fused: bool | None = None, device=None) -> None:
         n_mels = 128 if variant == "large-v3" else 80
         super().__init__(400, 160, n_mels, 16_000)
         self.n_mels = n_mels
         self.fused = fused
+        self.device = device
 
     def __call__(self, x) -> torch.Tensor:
-        x = torch.as_tensor(x, dtype=torch.float32)
+        """A tensor stays on its device; an array or list goes to ``device``
+        (None: the CUDA card, as the models' default)."""
+        if isinstance(x, torch.Tensor):
+            x = x.float()
+        else:
+            x = torch.as_tensor(np.asarray(x, np.float32), device=resolve_device(self.device))
         fused = use_mel_kernel(x) if self.fused is None else self.fused
         if fused:
             x = log_mel_spectrogram(x.contiguous(), self.n_fft, self.hop_length, self.n_mels)[..., :-1]
@@ -317,7 +359,8 @@ class WhisperGenerator:
     def __init__(self, model: Whisper, tokenizer=None) -> None:
         self.model = model
         self.tokenizer = tokenizer
-        self.preprocessor = WhisperPreprocessor("large-v3" if model.cfg.n_mels == 128 else "tiny")
+        self.preprocessor = WhisperPreprocessor("large-v3" if model.cfg.n_mels == 128 else "tiny",
+                                                device=model.device)
 
     def _stage_batch(self, audios) -> torch.Tensor:
         """Segments -> (B, N_SAMPLES) fp32 on the model's device, each cut

@@ -6,9 +6,13 @@ the same cache slot; one prefill fills the caches, then a Python loop runs
 fixed-shape single-token steps. The step follows the JAX package's
 ``_generate_batch_body`` / ``_decode_rows``: per-row position ids clipped at
 0, the pad mask threaded to attention, finished rows parked on EOS, and each
-row's length cut at its first generated EOS. Sampling, beam search,
-parallel samples and speculative decoding are not ported yet; a CUDA graph
-for the step is later work.
+row's length cut at its first generated EOS. The caches are layer-stacked
+buffers with per-layer views. When the fused step serves the model and
+batch (``ops/attention.py`` ``USE_FUSED_STEP``, auto on CUDA tensors), the
+weights are packed once per call and each greedy step is ONE kernel launch
+(layer stack + final norm + argmax) after the two embedding gathers. Sampling, beam search, parallel
+samples and speculative decoding are not ported yet; a CUDA graph for the
+step is later work.
 """
 
 from __future__ import annotations
@@ -21,8 +25,11 @@ from ...ops.greedy_head import greedy_argmax_tied
 from ._decoder_lm import (
     decoder_lm_apply,
     decoder_lm_forward_cached_batch,
+    decoder_lm_fused_ok,
+    decoder_lm_fused_tok_batch,
     decoder_lm_hidden_cached_batch,
     decoder_lm_make_cache,
+    decoder_lm_pack,
 )
 
 PROMPT_BUCKET = 64  # prompts are padded to a multiple of this (the JAX package's bucket)
@@ -47,7 +54,11 @@ def _generate_batch(params, cfg, prompt_buf: torch.Tensor, pad_lens: torch.Tenso
     pos_ids = (torch.arange(p_len, device=dev)[None, :] - pad_lens[:, None].long()).clamp_min(0)
 
     cache_dtype = params["token_embs"].dtype
-    caches = decoder_lm_make_cache(cfg, (b,), dtype=cache_dtype, device=dev)
+    fused = decoder_lm_fused_ok(params, cfg, b)
+    # the per-op prefill writes through per-layer views of the stacked buffers the fused step reads
+    caches, stacked = decoder_lm_make_cache(cfg, (b,), dtype=cache_dtype, device=dev)
+    if fused:
+        packed, head = decoder_lm_pack(params, cfg)
     logits, caches = decoder_lm_forward_cached_batch(params, cfg, prompt_buf, pos_ids, caches, 0, pad_lens)
 
     buf = torch.zeros((b, cfg.max_seq_len), dtype=torch.int64, device=dev)
@@ -66,7 +77,9 @@ def _generate_batch(params, cfg, prompt_buf: torch.Tensor, pad_lens: torch.Tenso
             break
         tok = buf[:, pos - 1:pos]
         p_ids = (pos - 1 - pad_lens.long())[:, None]
-        if greedy_head:
+        if fused:  # layer stack + final norm + argmax in ONE kernel
+            nxt = decoder_lm_fused_tok_batch(params, packed, head, cfg, tok, p_ids, stacked, pos - 1, pad_lens)
+        elif greedy_head:
             hidden, caches = decoder_lm_hidden_cached_batch(params, cfg, tok, p_ids, caches, pos - 1, pad_lens)
             nxt = greedy_argmax_tied(hidden[:, 0], params["token_embs"].to(hidden.dtype))
         else:
@@ -109,9 +122,17 @@ class DecoderGenerator:
         self.tokenizer = tokenizer
 
     def generate_tokens(self, tokens: list[int], max_tokens: int = 100) -> list[int]:
-        """Greedy generation of one prompt, served as a batch of one with no
-        bucket padding, so its token budget ``min(n + max_tokens,
-        max_seq_len)`` is the JAX package's single-prompt budget."""
+        """Greedy generation of one prompt, as in the JAX package: when the
+        fused step serves the model it runs as a batch of one through
+        :meth:`generate_tokens_batch` (``PROMPT_BUCKET`` padding: the budget
+        is ``min(pad + max_tokens, max_seq_len)`` and a prompt whose padded
+        length reaches the context generates nothing); otherwise with no
+        bucket padding, so the budget is ``min(n + max_tokens,
+        max_seq_len)``."""
+        if max_tokens <= 0 or len(tokens) >= self.model.cfg.max_seq_len:
+            return list(tokens)
+        if decoder_lm_fused_ok(self.model.params, self.model.cfg, 1):
+            return self.generate_tokens_batch([tokens], max_tokens)[0]
         return self._generate_left_padded([tokens], max_tokens, bucket=1)[0]
 
     def generate_tokens_batch(self, token_lists: list[list[int]], max_tokens: int = 100) -> list[list[int]]:

@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 
 from ...utils import StateDict
-from ...utils.module import InferenceModel
+from ...utils.module import InferenceModel, resolve_device
 from ._decoder_lm import DecoderLMConfig, decoder_lm_apply, decoder_lm_init
 
 VARIANTS = {
@@ -36,7 +36,7 @@ class GPT2(InferenceModel):
             final_norm=True,
             act="approximate_gelu",
         )
-        self.device = torch.device("cpu") if device is None else torch.device(device)
+        self.device = resolve_device(device)  # None: the CUDA card
         self.params = decoder_lm_init(torch.Generator().manual_seed(rng), self.cfg, self.device)
 
     @torch.inference_mode()

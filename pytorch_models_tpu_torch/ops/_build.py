@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
-All ``csrc/*.cu`` sources compile with ``nvcc`` for ``sm_90a`` (Hopper) into
-ONE shared library with a plain C interface, loaded with ``ctypes``. No
-PyTorch header is included, so the build takes seconds, not minutes.
+All ``csrc/*.cu`` sources compile with ``nvcc`` for ``sm_90a`` (Hopper), one
+``nvcc`` process per source, all started together, and link into ONE shared
+library with a plain C interface, loaded with ``ctypes``. No PyTorch header
+is included, so the build takes seconds, not minutes.
 
 The build runs at first use, from the package's own sources only, into
 ``build/kernels/`` at the repository root (listed in ``.gitignore``). The
@@ -27,8 +28,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC"]
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xptxas=-v", "-Xcompiler", "-fPIC"]
 
 # dtype codes shared with csrc/common.cuh
 DT_F32 = 0
@@ -45,10 +45,13 @@ _SIGNATURES = {
     "pmt_greedy_chunk_rows": [],
     "pmt_encoder_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P],
     "pmt_log_mel": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # both take a pointer to ops/decode_step.py's _Args structure
+    "pmt_decode_step_workspace": [_P, _P],
+    "pmt_decode_step": [_P],
 }
 
 _lib: ctypes.CDLL | None = None
-build_seconds: float | None = None  # wall time of the nvcc run, None when loaded from disk
+build_seconds: float | None = None  # wall time of the nvcc runs and the link, None when loaded from disk
 
 
 def _find_nvcc() -> str:
@@ -80,14 +83,33 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sorted(CSRC_DIR.glob("*.cu")))]
+    nvcc = _find_nvcc()
+    tag = f"{out.stem}.{os.getpid()}"
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []
+    for src in sorted(CSRC_DIR.glob("*.cu")):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    log, failed = [], []
+    for cmd, _, proc in jobs:
+        text, _ = proc.communicate()
+        log.append(" ".join(cmd) + "\n" + text)
+        if proc.returncode != 0:
+            failed.append(text)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    if not failed:
+        cmd = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp), *(str(o) for _, o, _ in jobs)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(" ".join(cmd) + "\n" + res.stdout + res.stderr)
+        if res.returncode != 0:
+            failed.append(res.stderr)
+    for _, obj, _ in jobs:
+        obj.unlink(missing_ok=True)
     build_seconds = time.perf_counter() - t0
-    (BUILD_DIR / "build.log").write_text(" ".join(cmd) + "\n" + res.stdout + res.stderr)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr[-8000:]}")
+    (BUILD_DIR / "build.log").write_text("\n".join(log))
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(f[-8000:] for f in failed))
     os.replace(tmp, out)
     return out
 

@@ -2,14 +2,16 @@
 of ``pytorch_models_tpu/ops/attention.py``).
 
 The head-split entry point (:func:`sdpa`) is plain PyTorch. The hand-written
-CUDA kernels (encoder_attention, decode_attention, greedy_head, gather) are
-selected UPSTREAM in transformer.py and the generator on merged-head layouts,
-through the flags below.
+CUDA kernels (encoder_attention, decode_attention, greedy_head, gather,
+decode_step) are selected UPSTREAM in transformer.py and the generators on
+merged-head layouts, through the flags below.
 
 Each flag: ``None`` = auto, which means "the tensor lies on a CUDA device";
 ``True`` forces the kernel's wrapper (on a CPU tensor the wrapper runs the
 kernel's plain version, which is how the CPU tests reach the dispatch);
-``False`` forces the plain PyTorch path of the JAX package's XLA route.
+``False`` forces the plain PyTorch path of the JAX package's XLA route
+(for ``USE_FUSED_STEP``: the per-op decode step, whose own kernels follow
+their own flags).
 """
 
 from __future__ import annotations
@@ -30,6 +32,12 @@ USE_ENCODER_KERNEL: bool | None = None
 # between is not measured. In fp32 it lost at both (129.7 vs 70.9 us,
 # 142.7 vs 109.5 us).
 USE_GREEDY_HEAD: bool | None = None
+# the whole greedy decode step in one kernel (ops/decode_step.py): layer
+# stack [+ cross-attention] + final LayerNorm + tied greedy head. Auto takes
+# it for CUDA tensors, as the JAX package takes it on its TPU; a model or
+# batch the kernel does not serve (decode_step.fused_step_eligible) decodes
+# per-op.
+USE_FUSED_STEP: bool | None = None
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -42,6 +50,11 @@ def use_greedy_head(batch: int, t: torch.Tensor) -> bool:
     if USE_GREEDY_HEAD is not None:
         return USE_GREEDY_HEAD
     return batch >= 4 and _on_cuda(t)
+
+
+def use_fused_step(t: torch.Tensor) -> bool:
+    """Gate for the fused decode step on the model's tensor ``t``."""
+    return _on_cuda(t) if USE_FUSED_STEP is None else USE_FUSED_STEP
 
 
 def use_decode_kernel(t: torch.Tensor) -> bool:

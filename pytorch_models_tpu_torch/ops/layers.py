@@ -51,15 +51,16 @@ def ln_init(dim: int) -> dict:
     return {"scale": torch.ones(dim), "bias": torch.zeros(dim)}
 
 
-def linear(p: dict, x: torch.Tensor) -> torch.Tensor:
+def linear(p: dict, x: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
     """``x @ w + b``. The compute dtype follows the PARAMS, not the input:
-    bf16 params force bf16 compute even for fp32 inputs."""
+    bf16 params force bf16 compute even for fp32 inputs. With ``out`` the
+    result is written into it."""
     w = p["w"]
     if x.is_floating_point() and x.dtype != w.dtype:
         x = x.to(w.dtype)
-    y = torch.matmul(x, w)
+    y = torch.matmul(x, w, out=out)
     if "b" in p:
-        y = y + p["b"].to(y.dtype)
+        y += p["b"].to(y.dtype)
     return y
 
 

@@ -7,7 +7,11 @@ merged-head ``(B, L_max, H*D)`` per layer — the shape the K/V projections
 produce — with ``L_max = padded_cache_len(max_seq_len)``, so a cache built
 here holds the same values at the same places as the JAX package's.
 Cross-attention caches (:func:`precompute_cross_caches`) are a list of
-per-layer ``{"k", "v", "len"}`` dicts, written once per encoded input.
+per-layer ``{"k", "v", "len"}`` dicts, written once per encoded input. Both
+kinds of cache live in ONE layer-stacked ``(L, B, Lp, H*D)`` buffer each for
+K and V, and the per-layer dicts hold views of it: the per-op path reads and
+writes through the views, the fused decode step (``ops/decode_step.py``)
+reads the buffers, and neither copies.
 
 Where the JAX package returns a new cache from ``dynamic_update_slice``,
 this port writes the new K/V into the cache IN PLACE and returns the same
@@ -86,16 +90,18 @@ def merge_heads(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(*x.shape[:-2], -1)
 
 
-def mha_project_kv(p: dict, cfg: LayerConfig, kv: torch.Tensor) -> dict:
+def mha_project_kv(p: dict, cfg: LayerConfig, kv: torch.Tensor, out: dict | None = None) -> dict:
     """Project ``kv`` (B, L, d) into a cross-attention cache ``{"k", "v",
     "len"}``: merged-head (B, Lp, H*D) K/V of the memory zero-padded to
     ``padded_cache_len(L)`` rows (as in the JAX package, so the caches hold
     the same values), and ``len`` (B,) int32 = L, which masks the padding on
-    every read path."""
+    every read path. With ``out`` (``{"k", "v"}`` tensors of that shape) the
+    projections are written into them."""
     length = kv.shape[-2]
     kv_p = torch.nn.functional.pad(kv, (0, 0, 0, padded_cache_len(length) - length))
     lens = torch.full(kv.shape[:-2], length, dtype=torch.int32, device=kv.device)
-    return {"k": linear(p["k"], kv_p), "v": linear(p["v"], kv_p), "len": lens}
+    out = out or {"k": None, "v": None}
+    return {"k": linear(p["k"], kv_p, out["k"]), "v": linear(p["v"], kv_p, out["v"]), "len": lens}
 
 
 def mha_apply(
@@ -320,15 +326,29 @@ def padded_cache_len(max_len: int) -> int:
 
 
 def make_kv_cache(n_layers: int, batch_shape: tuple, n_heads: int, max_len: int, head_dim: int,
-                  dtype: torch.dtype = torch.float32, device=None) -> list[dict]:
-    """Preallocate a zeroed merged-head KV cache ``(*batch, Lp, H*D)`` for each
-    layer, as a list of per-layer caches."""
-    shape = (*batch_shape, padded_cache_len(max_len), n_heads * head_dim)
-    return [{"k": torch.zeros(shape, dtype=dtype, device=device), "v": torch.zeros(shape, dtype=dtype, device=device)}
-            for _ in range(n_layers)]
+                  dtype: torch.dtype = torch.float32, device=None):
+    """Preallocate zeroed merged-head KV caches: ONE layer-stacked ``(L,
+    *batch, Lp, H*D)`` buffer each for K and V. Returns ``(caches,
+    stacked)``: the per-layer list of ``{"k": K[l], "v": V[l]}`` views that
+    the per-op path reads and writes, and the ``{"k": K, "v": V}`` buffers
+    the fused decode step reads."""
+    shape = (n_layers, *batch_shape, padded_cache_len(max_len), n_heads * head_dim)
+    stacked = {k: torch.zeros(shape, dtype=dtype, device=device) for k in ("k", "v")}
+    return [{"k": stacked["k"][i], "v": stacked["v"][i]} for i in range(n_layers)], stacked
 
 
-def precompute_cross_caches(p: dict, cfg: LayerConfig, memory: torch.Tensor) -> list[dict]:
+def precompute_cross_caches(p: dict, cfg: LayerConfig, memory: torch.Tensor):
     """Project encoder ``memory`` (B, L, d) into every decoder layer's
-    cross-attention K/V once: a list of per-layer :func:`mha_project_kv` caches."""
-    return [mha_project_kv(lp["ca"], cfg, memory) for lp in p["layers"]]
+    cross-attention K/V once, straight into ONE layer-stacked ``(L, B, Lp,
+    H*D)`` buffer each for K and V. Returns ``(caches, stacked)``: the
+    per-layer list of :func:`mha_project_kv` caches, whose ``k``/``v`` are
+    views of the buffers, and ``{"k", "v", "len"}`` with the buffers and the
+    (B,) lengths every layer shares."""
+    layers = p["layers"]
+    shape = (len(layers), *memory.shape[:-2], padded_cache_len(memory.shape[-2]), cfg.n_heads * cfg.head_dim)
+    dtype = layers[0]["ca"]["k"]["w"].dtype
+    stacked = {k: torch.empty(shape, dtype=dtype, device=memory.device) for k in ("k", "v")}
+    caches = [mha_project_kv(lp["ca"], cfg, memory, {"k": stacked["k"][i], "v": stacked["v"][i]})
+              for i, lp in enumerate(layers)]
+    stacked["len"] = caches[0]["len"]
+    return caches, stacked

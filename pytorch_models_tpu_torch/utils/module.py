@@ -5,6 +5,18 @@ import torch
 from .params import cast_tree
 
 
+def resolve_device(device) -> torch.device:
+    """A model's device: ``None`` means the CUDA card, as the port's entry
+    points run on the card unless the caller asks for the CPU. Without a
+    GPU that raises; it never falls back to the CPU."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the port's models run on the GPU by default; "
+                           "pass device='cpu' to run the plain PyTorch paths on the CPU")
+    return torch.device("cuda")
+
+
 class InferenceModel:
     """Mixin giving the torch-style mode switches (models here are always
     inference-mode functions over a parameter tree) plus serving-dtype casts."""

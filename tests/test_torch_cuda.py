@@ -9,11 +9,18 @@ import pytest
 import torch
 
 from pytorch_models_tpu_torch.ops.decode_attention import decode_attention, decode_attention_plain
+from pytorch_models_tpu_torch.ops.decode_step import (
+    fused_cross_decode_step,
+    fused_decode_step,
+    fused_step_eligible,
+    pack_decode_weights,
+    pack_greedy_head,
+)
 from pytorch_models_tpu_torch.ops.encoder_attention import encoder_attention, encoder_attention_plain
 from pytorch_models_tpu_torch.ops.gather import gather_rows, gather_rows_plain
 from pytorch_models_tpu_torch.ops.greedy_head import greedy_argmax_tied
 from pytorch_models_tpu_torch.ops.mel import log_mel_spectrogram, log_mel_spectrogram_plain
-from pytorch_models_tpu_torch.transformer import LayerConfig, mha_apply, mha_init
+from pytorch_models_tpu_torch.transformer import LayerConfig, layer_init, mha_apply, mha_init
 
 torch.set_num_threads(1)
 
@@ -129,3 +136,74 @@ def test_dispatch_raises_for_unsupported_head_dim(cuda, cached):
             mha_apply(p, cfg, x, cache=cache, cache_pos=0)
         else:
             mha_apply(p, cfg, x, causal=True)
+
+
+def _step_inputs(cuda, dtype, cross: bool, b=4, d=128, n_layers=2, l_max=128, lx=96, vocab=1000):
+    cfg = LayerConfig.make(d, n_heads=d // 64, cross_attn=cross)
+    gen = torch.Generator().manual_seed(3)
+    layers = [layer_init(gen, cfg) for _ in range(n_layers)]
+    packed = {k: t.to(cuda) for k, t in pack_decode_weights(layers, dtype, cross=cross).items()}
+    head = {k: t.to(cuda) for k, t in pack_greedy_head(torch.randn(vocab, d, generator=gen),
+                                                       {"scale": 1 + 0.1 * torch.randn(d, generator=gen)},
+                                                       dtype).items()}
+    x = torch.randn(b, d, generator=gen).to(cuda, dtype)
+    caches = [torch.randn(n_layers, b, l_max, d, generator=gen).to(cuda, dtype) for _ in range(2)]
+    xkv = [torch.randn(n_layers, b, lx, d, generator=gen).to(cuda, dtype) for _ in range(2)]
+    return cfg, packed, head, x, caches, xkv
+
+
+# K7 vs its plain version, 2 layers: fp32 differs by summation order only;
+# bf16 rounds at the same points, but a value summed in another order can
+# land one bf16 step apart and carry that through the later layers.
+@pytest.mark.parametrize("dtype,atol,rtol", [(torch.float32, 1e-4, 0.0), (torch.bfloat16, 0.05, 2.0 ** -6)])
+@pytest.mark.parametrize("cross", [False, True])
+def test_fused_decode_step_matches_plain(cuda, dtype, atol, rtol, cross):
+    from pytorch_models_tpu_torch.ops.decode_step import fused_decode_step_plain
+
+    cfg, packed, head, x, (kc, vc), (xk, xv) = _step_inputs(cuda, dtype, cross)
+    pos, pads = 70, torch.tensor([0, 5, 70, 3], dtype=torch.int32, device=cuda)  # row 2: only pos itself
+    lens = torch.tensor([96, 7, 0, 50], dtype=torch.int32, device=cuda)  # row 2: empty cross range
+    kw = dict(cross_k=xk, cross_v=xv, cross_lens=lens) if cross else {}
+    kc2, vc2 = kc.clone(), vc.clone()
+    ref_x, ref_tok = fused_decode_step_plain(x, packed, kc2, vc2, pos, pads, cfg.n_heads, cfg.act, cfg.norm_eps,
+                                             head, **kw)
+    if cross:
+        got_x, got_tok = fused_cross_decode_step(x, packed, kc, vc, xk, xv, lens, pos, pads, cfg.n_heads, cfg.act,
+                                                 cfg.norm_eps, head=head)
+    else:
+        got_x, got_tok = fused_decode_step(x, packed, kc, vc, pos, pads, cfg.n_heads, cfg.act, cfg.norm_eps,
+                                           head=head)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got_x.float(), ref_x.float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(kc[:, :, pos].float(), kc2[:, :, pos].float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(vc.float(), vc2.float(), atol=atol, rtol=rtol)
+    assert (got_tok == ref_tok).float().mean().item() >= 0.75
+
+
+def test_fused_decode_step_refuses_unsupported_input(cuda):
+    cfg, packed, head, x, (kc, vc), _ = _step_inputs(cuda, torch.float32, False)
+    with pytest.raises(ValueError):  # 9 rows: more than the kernel serves
+        fused_decode_step(x.repeat(3, 1)[:9].contiguous(), packed, kc, vc, 5, None, cfg.n_heads)
+    with pytest.raises(ValueError):  # head_dim 32
+        fused_decode_step(x, packed, kc, vc, 5, None, 4)
+    with pytest.raises(ValueError):  # bf16 x against fp32 weights
+        fused_decode_step(x.bfloat16(), packed, kc, vc, 5, None, cfg.n_heads)
+    with pytest.raises(ValueError):  # pos outside the cache
+        fused_decode_step(x, packed, kc, vc, 128, None, cfg.n_heads)
+
+
+def test_fused_step_eligible_asks_the_kernels_planner(cuda):
+    """A phase input larger than a block's shared memory is refused by the
+    kernel's own planner (dff 8192: 8 rows x 8192 x 4 B > 227 KiB, 1 row
+    fits), and the refusal does not fail the next launch."""
+    cfg = LayerConfig.make(128, n_heads=2, mlp_ratio=64.0)
+    gen = torch.Generator().manual_seed(4)
+    wide = [{blk: {name: {k: t.to(cuda) for k, t in leaf.items()} for name, leaf in sub.items()}
+             if blk in ("sa", "mlp") else {k: t.to(cuda) for k, t in sub.items()}
+             for blk, sub in layer_init(gen, cfg).items()}]
+    assert fused_step_eligible(wide, cfg, 1)
+    assert not fused_step_eligible(wide, cfg, 8)
+    small_cfg, packed, head, x, (kc, vc), _ = _step_inputs(cuda, torch.float32, False)
+    _, tok = fused_decode_step(x, packed, kc, vc, 5, None, small_cfg.n_heads, head=head)
+    torch.cuda.synchronize()
+    assert tok.shape == (x.shape[0],)

@@ -62,11 +62,11 @@ def _hf_state_dict(seed=7):
     return sd
 
 
-def _small(cls):
+def _small(cls, **kw):
     old = (cls.vocab_size, cls.max_seq_len)
     cls.vocab_size, cls.max_seq_len = VOCAB, CTX
     try:
-        return cls(N_LAYERS, D)
+        return cls(N_LAYERS, D, **kw)
     finally:
         cls.vocab_size, cls.max_seq_len = old
 
@@ -75,7 +75,7 @@ def _small(cls):
 def models():
     ref = _small(jax_text.GPT2)
     ref.load_hf_state_dict(_hf_state_dict())
-    ours = _small(GPT2)
+    ours = _small(GPT2, device="cpu")
     ours.params = from_jax_params(jax.tree.map(to_np, ref.params))
     return ref, ours
 
@@ -152,7 +152,7 @@ def test_score_tokens_batch_matches_jax(models, jax_outputs, flags):
 
 def test_load_hf_state_dict_matches_jax(models):
     ref, _ = models
-    ours = _small(GPT2)
+    ours = _small(GPT2, device="cpu")
     ours.load_hf_state_dict(_hf_state_dict())
     expected = from_jax_params(jax.tree.map(to_np, ref.params))
     flat_got = jax.tree_util.tree_leaves_with_path(jax.tree.map(lambda t: t.numpy(), ours.params))
@@ -167,7 +167,7 @@ def test_bf16_logits_match_jax(models, jax_outputs):
     ref_bf16 = _small(jax_text.GPT2)
     ref_bf16.params = ref.params
     ref_bf16.to_bf16()
-    ours_bf16 = _small(GPT2)
+    ours_bf16 = _small(GPT2, device="cpu")
     ours_bf16.params = ours.params
     ours_bf16.to_bf16()
     tokens = jax_outputs["tokens"]
@@ -191,3 +191,19 @@ def test_empty_token_lists_raise(models):
         gen.generate_tokens_batch([])
     with pytest.raises(ValueError):
         gen.score_tokens_batch([])
+
+
+@pytest.mark.parametrize("make", ["gpt2", "whisper"])
+def test_entry_points_default_to_the_card(make):
+    """``device=None`` means the CUDA card: without one the constructor
+    raises instead of landing on the CPU."""
+    from pytorch_models_tpu_torch.audio2text import Whisper
+
+    def build():
+        return _small(GPT2) if make == "gpt2" else Whisper(100, 1, 64)
+
+    if torch.cuda.is_available():
+        assert build().device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build()

@@ -102,7 +102,7 @@ def models():
     sd = _openai_state_dict()
     ref = jax_a2t.Whisper(**TINY)
     ref.load_openai_state_dict(sd)
-    ours = Whisper(**TINY)
+    ours = Whisper(**TINY, device="cpu")
     ours.params = from_jax_params(jax.tree.map(to_np, ref.params))
     return ref, ours, sd
 
@@ -152,7 +152,7 @@ def test_greedy_streams_are_not_trivial(jax_outputs):
 
 def test_load_openai_state_dict_matches_jax(models):
     ref, _, sd = models
-    ours = Whisper(**TINY)
+    ours = Whisper(**TINY, device="cpu")
     ours.load_openai_state_dict(sd)
     expected = from_jax_params(jax.tree.map(to_np, ref.params))
     flat_got = jax.tree_util.tree_leaves_with_path(jax.tree.map(lambda t: t.numpy(), ours.params))
@@ -176,7 +176,7 @@ def test_encode_and_logits_match_jax(models, jax_outputs, flags):
 def test_preprocessor_batch_matches_jax(jax_outputs, flags):
     audios = jax_outputs["audios"]
     padded = np.stack([np.pad(a, (0, WhisperGenerator.N_SAMPLES - len(a))) for a in audios])
-    got = WhisperPreprocessor()(padded).numpy()
+    got = WhisperPreprocessor(device="cpu")(padded).numpy()
     np.testing.assert_allclose(got, jax_outputs["mel"], atol=1e-4, rtol=1e-4)
 
 
@@ -204,7 +204,7 @@ def test_bf16_logits_match_jax(models, jax_outputs):
     ref_bf16 = jax_a2t.Whisper(**TINY)
     ref_bf16.params = ref.params
     ref_bf16.to_bf16()
-    ours_bf16 = Whisper(**TINY)
+    ours_bf16 = Whisper(**TINY, device="cpu")
     ours_bf16.params = ours.params
     ours_bf16.to_bf16()
     mel_in, targets = jax_outputs["mel"], jax_outputs["targets"]
@@ -223,7 +223,7 @@ def test_bf16_logits_match_jax(models, jax_outputs):
 
 
 def test_from_openai_and_text_entry_points(models, jax_outputs):
-    m = Whisper.from_openai("tiny.en")
+    m = Whisper.from_openai("tiny.en", device="cpu")
     assert (m.cfg.n_layers, m.cfg.d_model, m.cfg.vocab_size, m.cfg.n_mels) == (4, 384, 51864, 80)
     with pytest.raises(NotImplementedError):
         Whisper.from_openai("base", pretrained=True)
