@@ -6,10 +6,11 @@
 
 Builds the port's CUDA kernels from ``pytorch_models_tpu_torch/csrc/`` (one
 ``nvcc`` per source, in parallel), holds each kernel against its plain
-PyTorch version at the GPT-2 and Whisper serving shapes (the fused decode
-step K7 at full GPT-2-small and Whisper-base width, fp32 and bf16), then
-drives the port's two main paths and checks that each went through its
-kernels:
+PyTorch version at the GPT-2, Whisper and T5 serving shapes (the fused
+decode step K7 at full GPT-2-small, Whisper-base and T5-base width, fp32 and
+bf16; the biased decode attention and the untied greedy head at T5-base's),
+then drives the port's three main paths and checks that each went through
+its kernels:
 
 - GPT-2 small at full width (12 layers, d_model 768, vocab 50257, context
   1024, random weights from a seed) through ``score_tokens_batch``, then,
@@ -18,11 +19,17 @@ kernels:
   mels, random weights from a seed) transcribing eight 5-30 s waveforms
   through ``WhisperGenerator.transcribe_tokens_batch`` and
   ``transcribe_tokens`` (log-mel kernel, conv stem, encoder, cross-attention
-  decoder).
+  decoder);
+- T5-base at full width (Flan-T5 shapes: 12 + 12 layers, d_model 768, 12
+  heads, GEGLU mlp 2048, vocab 32128; random weights from a seed, layer
+  matrices at 2x the init's scale, rel-pos tables seeded at scale 2) greedily
+  continuing eight prompts of 5-64 tokens through
+  ``T5Generator.generate_tokens_batch`` (64 tokens at most).
 
 Each main path runs three decode routes: fused (every flag auto: one K7
-launch per greedy step), per-op kernels (``USE_FUSED_STEP = False``) and
-plain (every flag False). fp32 tokens must be identical across the three,
+launch per greedy step), per-op kernels (``USE_FUSED_STEP = False``; for T5
+the decode kernel with its rel-pos bias and the untied greedy head must
+launch) and plain (every flag False). fp32 tokens must be identical across the three,
 up to the first step where the plain top-2 logits are closer than
 ``GAP_TOL`` (a near-tie that summation order may decide; such a step is
 printed with its gap), and K7 must launch once per decode step.
@@ -32,8 +39,12 @@ the kernels (``max_abs_err`` is the largest |kernel - plain| output over
 every shape and dtype checked; for the greedy head, whose outputs are ids,
 it is the largest score regret ``s[plain id] - s[kernel id]``; for the
 log-mel kernel it is taken where the plain value is at least its global
-max - 8, the part the Whisper frontend keeps; ``launches`` counts both main
-paths' runs, with every count set to 0 just before each path; ``bound_ms``
+max - 8, the part the Whisper frontend keeps; ``ms``, ``plain_ms`` and
+``library_ms`` are device times per call (see ``_time_ms``); ``launches`` counts the main
+paths' runs, with every count set to 0 just before each path; a variant
+counts its own launches: ``decode_attention`` those without a bias,
+``decode_attention_bias`` those with one, ``fused_cross_decode_step``
+Whisper's, ``fused_cross_decode_step_t5`` T5's; ``bound_ms``
 is the larger of the bytes the call must move over 3.35 TB/s and its
 operations over the card's peak for their type; ``library_ms`` is one
 PyTorch call computing the same function, where there is one), the line
@@ -98,6 +109,13 @@ W_EOT = 50257
 W_SECONDS = (5.0, 8.5, 12.0, 15.5, 19.0, 22.5, 26.0, 30.0)
 W_SAMPLES = 30 * 16_000
 
+# T5-base main path: right-padded prompts, decoding from the pad token; Flan-T5's pad and EOS ids
+T5_PROMPT_LENS = (5, 12, 23, 31, 40, 47, 55, 64)
+T5_PAD, T5_EOS = 0, 1
+T5_MAX = 64  # tokens per output row, the pad token included
+T5_WEIGHT_SCALE = 2.0  # layer matrices, x the init's scale
+T5_BIAS_SCALE = 2.0  # rel-pos tables, seeded N(0, 1) x this (the init's are zeros)
+
 
 def _card() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -106,21 +124,49 @@ def _card() -> str:
 
 
 def _time_ms(fns, iters: int) -> float:
-    """Mean ms per call over ``iters`` calls cycling through ``fns`` (several
-    input copies keep a cache-sized working set out of L2), after warm-up,
-    timed with CUDA events."""
+    """Mean device ms per call over ``iters`` calls cycling through ``fns``
+    (several input copies keep a cache-sized working set out of L2), after
+    warm-up, timed with CUDA events. The calls are queued behind a device-side
+    spin (``torch.cuda._sleep``) of twice the host's time to queue them, so
+    the wrappers' host overhead does not throttle the loop and the events time
+    what the device did (a call that waits for the device would still count
+    the host's time)."""
     import torch
 
     for f in fns:
         f()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(iters):
+        fns[i % len(fns)]()
+    queue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2 * queue_s * _spin_cycles_per_s()) + 100_000)
     start.record()
     for i in range(iters):
         fns[i % len(fns)]()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+_SPIN_RATE: list[float] = []
+
+
+def _spin_cycles_per_s() -> float:
+    """Cycles per second of ``torch.cuda._sleep``, measured once."""
+    import torch
+
+    if not _SPIN_RATE:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(1000)  # warm
+        start.record()
+        torch.cuda._sleep(10_000_000)
+        end.record()
+        torch.cuda.synchronize()
+        _SPIN_RATE.append(10_000_000 / (start.elapsed_time(end) / 1e3))
+    return _SPIN_RATE[0]
 
 
 def _ab_ms(kernel_fns, plain_fns, iters: int) -> tuple[float, float]:
@@ -158,9 +204,10 @@ def _check_close(name: str, got, ref, tol: tuple[float, float]) -> float:
     return diff.max().item()
 
 
-def _check_greedy(name: str, x, emb, tie: int) -> tuple[float, int]:
+def _check_greedy(name: str, x, emb, tie: int, untied: bool = False) -> tuple[float, int]:
     """Greedy head kernel vs plain on ``x`` (B, d), ``emb`` (V, d) whose rows
-    ``tie`` and a later one hold the same best score for batch row 0.
+    ``tie`` and a later one hold the same best score for batch row 0 (with
+    ``untied``: the (d, V) classifier and its columns, K4-untied).
 
     Measured error: the score regret ``s[b, plain id] - s[b, kernel id]``
     over all rows, held to the fp32 summation-order noise of a score (fp32)
@@ -169,11 +216,13 @@ def _check_greedy(name: str, x, emb, tie: int) -> tuple[float, int]:
     Returns (max |regret|, rows with a decided top-2)."""
     import torch
 
-    from pytorch_models_tpu_torch.ops.greedy_head import greedy_argmax_tied, greedy_argmax_tied_plain
+    from pytorch_models_tpu_torch.ops import greedy_head as gh
 
-    got = greedy_argmax_tied(x, emb)
-    ref = greedy_argmax_tied_plain(x, emb)
-    s = torch.matmul(x.float(), emb.float().t())
+    if untied:
+        got, ref, s = gh.greedy_argmax(x, emb), gh.greedy_argmax_plain(x, emb), torch.matmul(x.float(), emb.float())
+    else:
+        got, ref = gh.greedy_argmax_tied(x, emb), gh.greedy_argmax_tied_plain(x, emb)
+        s = torch.matmul(x.float(), emb.float().t())
     if x.dtype == torch.bfloat16:
         s = s.to(x.dtype).float()
     top2 = s.topk(2, dim=-1).values
@@ -412,42 +461,143 @@ def whisper_kernel_phases(dev, card: str) -> dict:
     return res
 
 
+def t5_kernel_phases(dev, card: str) -> dict:
+    """The T5-only kernel variants at T5-base's decode shapes: K2 with a
+    key-major rel-pos bias (B=8, H=12, caches of 128 and 1024; a shared
+    (1, L, H) bias, and a per-row (B, L, H) one with left pads), and K4 over
+    the untied (d, V) classifier (B=8, 16 and 32, V=32128, d=768)."""
+    import torch
+    import torch.nn.functional as F
+
+    from pytorch_models_tpu_torch.ops.decode_attention import decode_attention, decode_attention_plain
+    from pytorch_models_tpu_torch.ops.greedy_head import greedy_argmax, greedy_argmax_plain
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 11)
+    res = {}
+
+    def rnd(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=g, device=dev).to(dtype)
+
+    def heads(t):  # (B, L, H*D) -> the split-head (B, H, L, D) view SDPA takes
+        return t.unflatten(-1, (12, 64)).transpose(1, 2)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).removeprefix("torch.")
+        tol = TOL[dn]
+        err, moved, times, no_bias = 0.0, [], {}, {}
+        for L, end in ((128, 41), (1024, 1000)):
+            ends = torch.tensor([end, end // 2, 1, end, 7, end - 3, 64, 2], dtype=torch.int32, device=dev)
+            pads = torch.tensor([0, 3, 0, end // 4, 6, 0, 63, 1], dtype=torch.int32, device=dev)
+            copies = [(rnd(8, 1, 768, dtype=dtype), rnd(8, L, 768, dtype=dtype), rnd(8, L, 768, dtype=dtype))
+                      for _ in range(4)]
+            shared, per_row = T5_BIAS_SCALE * rnd(1, L, 12), T5_BIAS_SCALE * rnd(8, L, 12)
+            for what, e, p, bias in (("shared", end, None, shared), ("per-row + pads", ends, pads, per_row)):
+                got = decode_attention(*copies[0], e, 12, p, bias)
+                err = max(err, _check_close(f"decode_attention bias L={L} {what} {dn}", got,
+                                            decode_attention_plain(*copies[0], e, 12, p, bias), tol))
+                moved.append((got.float() - decode_attention(*copies[0], e, 12, p).float()).abs().max().item())
+            # the T5 decode step's call: every row at the same position, one shared bias
+            times[L] = _ab_ms([lambda c=c: decode_attention(*c, end, 12, None, shared) for c in copies],
+                              [lambda c=c: decode_attention_plain(*c, end, 12, None, shared) for c in copies], 50)
+            no_bias[L] = _time_ms([lambda c=c: decode_attention(*c, end, 12) for c in copies], 50)
+            if L == 128:
+                col = torch.arange(L, device=dev)
+                mask = (shared.transpose(1, 2)[:, :, None, :] + torch.where(col < end, 0.0, float("-inf"))).to(dtype)
+                lib = _time_ms([lambda c=c: F.scaled_dot_product_attention(heads(c[0]), heads(c[1]), heads(c[2]),
+                                                                           attn_mask=mask)
+                                for c in copies], 50)
+                # q and out once, the valid K/V prefix and its bias rows once
+                rec = _rec(err, *times[L], (2 * 8 * end + 2 * 8) * 768 * copies[0][0].element_size() + end * 12 * 4,
+                           4 * 8 * end * 768, dn, lib)
+        if dtype == torch.float32 and min(moved) <= 100 * tol[0]:
+            raise AssertionError(f"decode_attention bias: the bias moved the output only {min(moved)}")
+        rec["err"] = err
+        res[("decode_attention_bias", dn)] = rec
+        print(f"phase kernel decode_attention_bias {dn}: B=8 H=12 L=128 (ends 41) and 1024 (ends 1000), shared "
+              f"(1, L, H) and per-row (B, L, H) + pads, bias N(0, 1) x {T5_BIAS_SCALE}: max_abs_err={err:.3g} "
+              f"(atol, rtol)={tol}; the bias moves the output by >= {min(moved):.3g} | shared L=128 kernel "
+              f"{times[128][0] * 1e3:.1f} us, plain {times[128][1] * 1e3:.1f} us, SDPA with the bias as a float mask "
+              f"{rec['library_ms'] * 1e3:.1f} us, bound {rec['bound_ms'] * 1e3:.2f} us ({rec['bound_by']}), the "
+              f"kernel without the bias {no_bias[128] * 1e3:.1f} us; L=1024 kernel {times[1024][0] * 1e3:.1f} us, "
+              f"plain {times[1024][1] * 1e3:.1f} us, without the bias {no_bias[1024] * 1e3:.1f} us [{card}]")
+
+        # K4-untied: the (d, V) classifier read as it lies, forced tie at columns 7 and 32000 for row 0; B=8 is
+        # the T5 main path's batch, 16 and 32 the per-op route's (batches above the fused step's 8 rows)
+        w = rnd(768, 32128, dtype=dtype)
+        parts = []
+        for nb in (8, 16, 32):
+            x = rnd(nb, 768, dtype=dtype)
+            w[:, 7] = w[:, 32000] = x[0] * 4
+            e, decided = _check_greedy(f"greedy_argmax (untied) B={nb} {dn}", x, w, 7, untied=True)
+            k4 = _ab_ms([lambda x=x: greedy_argmax(x, w)], [lambda x=x: greedy_argmax_plain(x, w)], 50)
+            head = _time_ms([lambda x=x: torch.argmax(torch.matmul(x, w), dim=-1)], 50)
+            r = _rec(e, *k4, (w.numel() + x.numel()) * x.element_size(), 2 * nb * w.numel(), dn)  # no single call
+            if nb == 8:
+                rec = res[("greedy_argmax", dn)] = r
+            else:
+                rec["err"] = max(rec["err"], e)
+            parts.append(f"B={nb}: {decided}/{nb} decided rows equal, max score regret {e:.3g}, kernel "
+                         f"{k4[0] * 1e3:.1f} us, plain {k4[1] * 1e3:.1f} us, head matmul + argmax {head * 1e3:.1f} us, "
+                         f"bound {r['bound_ms'] * 1e3:.1f} us ({r['bound_by']})")
+        print(f"phase kernel greedy_argmax {dn} (untied, T5): V=32128 d=768, tie->lowest ok | " + "; ".join(parts)
+              + f" [{card}]")
+    torch.cuda.synchronize()
+    return res
+
+
 def _k7_model(dev, kind: str):
     """Full-width random layers for the K7 phase (init scale, from a seed):
-    GPT-2 small (12 layers, d 768, tanh GELU, vocab 50257) or the Whisper-base
-    decoder (8 layers, d 512, cross-attention, exact GELU, vocab 51865)."""
+    GPT-2 small (12 layers, d 768, tanh GELU, tied vocab 50257), the
+    Whisper-base decoder (8 layers, d 512, cross-attention, exact GELU, tied
+    vocab 51865) or the T5-base decoder (12 layers, d 768, RMSNorm, GEGLU
+    mlp 2048, cross-attention, untied (d, V) classifier, vocab 32128). Norms
+    are drawn off their identity init, so the check covers their parameters.
+    Returns ``(layer config, layers, head table, final norm)``."""
     import torch
 
     from pytorch_models_tpu_torch import transformer as tfm
+    from pytorch_models_tpu_torch.models.text.t5 import T5Config, t5_block_init
     from pytorch_models_tpu_torch.utils import tree_map
 
-    n_layers, d, vocab, cross = (12, 768, 50257, False) if kind == "gpt2" else (8, 512, 51865, True)
-    cfg = tfm.LayerConfig.make(d, cross_attn=cross, act="approximate_gelu" if kind == "gpt2" else "gelu")
     gen = torch.Generator().manual_seed(SEED + 5)
-    layers = tree_map(lambda t: t.to(dev), [tfm.layer_init(gen, cfg) for _ in range(n_layers)])
+    if kind == "t5":
+        t5 = T5Config(32128, 768, 12, 12, 2048)
+        cfg = tfm.LayerConfig(768, 12, 64, bias=False, act="approximate_gelu")
+        layers = [t5_block_init(gen, t5, True) for _ in range(t5.n_layers)]
+        vocab = t5.vocab_size
+    else:
+        n_layers, d, vocab, cross = (12, 768, 50257, False) if kind == "gpt2" else (8, 512, 51865, True)
+        cfg = tfm.LayerConfig.make(d, cross_attn=cross, act="approximate_gelu" if kind == "gpt2" else "gelu")
+        layers = [tfm.layer_init(gen, cfg) for _ in range(n_layers)]
+    layers = tree_map(lambda t: t.to(dev), layers)
+    d = cfg.d_model
     g = torch.Generator(device=dev).manual_seed(SEED + 8)
 
     def rnd(*shape):
         return torch.randn(*shape, generator=g, device=dev)
 
-    for lp in layers:  # norms off their identity init, so the check covers their parameters
+    def norm():  # T5's norms have no bias
+        return {"scale": 1 + 0.1 * rnd(d)} | ({} if kind == "t5" else {"bias": 0.1 * rnd(d)})
+
+    for lp in layers:
         for name in [k for k in lp if k.endswith("norm")]:
-            lp[name] = {"scale": 1 + 0.1 * rnd(d), "bias": 0.1 * rnd(d)}
-    emb = rnd(vocab, d)
-    final = {"scale": 1 + 0.1 * rnd(d), "bias": 0.1 * rnd(d)}
-    return cfg, layers, emb, final
+            lp[name] = norm()
+    return cfg, layers, rnd(d, vocab) if kind == "t5" else rnd(vocab, d), norm()
 
 
 def decode_step_phases(dev, card: str) -> dict:
-    """K7 against its plain version at the full GPT-2-small and Whisper-base
-    shapes, B=8, fp32 and bf16: mixed left pads with one row whose cached
-    range is empty until pos, per-row cross lengths (1500, 1500, 7, ...);
-    x_out and the K/V written at pos elementwise, tok as the greedy head is
+    """K7 against its plain version at the full GPT-2-small, Whisper-base and
+    T5-base shapes, B=8, fp32 and bf16: mixed left pads with one row whose
+    cached range is empty until pos (GPT-2, Whisper; T5 decodes without
+    pads), per-row cross lengths with a short row, T5's seeded rel-pos self
+    bias (which must move fp32 x_out by far more than its tolerance); x_out
+    and the K/V written at pos elementwise, tok as the greedy head is
     checked. Times: the kernel, its plain version, and the per-op step it
     replaces (kernels on; layer stack + final norm + greedy head), in turns."""
     import torch
 
     from pytorch_models_tpu_torch import transformer as tfm
+    from pytorch_models_tpu_torch.models.text.t5 import T5Config, _t5_decode_layers, relative_position_bias, rms_norm
     from pytorch_models_tpu_torch.ops import layer_norm
     from pytorch_models_tpu_torch.ops.decode_step import (
         fused_cross_decode_step,
@@ -456,41 +606,52 @@ def decode_step_phases(dev, card: str) -> dict:
         pack_decode_weights,
         pack_greedy_head,
     )
-    from pytorch_models_tpu_torch.ops.greedy_head import greedy_argmax_tied
+    from pytorch_models_tpu_torch.ops.greedy_head import greedy_argmax, greedy_argmax_tied
     from pytorch_models_tpu_torch.utils import cast_tree
 
     res = {}
     g = torch.Generator(device=dev).manual_seed(SEED + 6)
     b = 8
-    for kind in ("gpt2", "whisper"):
+    for kind in ("gpt2", "whisper", "t5"):
         cfg32, layers32, emb32, final32 = _k7_model(dev, kind)
-        cross = kind == "whisper"
-        name = "fused_cross_decode_step" if cross else "fused_decode_step"
+        cross, t5 = kind != "gpt2", kind == "t5"
+        name = {"gpt2": "fused_decode_step", "whisper": "fused_cross_decode_step",
+                "t5": "fused_cross_decode_step_t5"}[kind]
         n_layers, d, hd = len(layers32), cfg32.d_model, cfg32.n_heads * cfg32.head_dim
         l_max, pos = (1024, 127) if kind == "gpt2" else (128, 40)
-        pads = torch.tensor([0, 5, pos, 3, 0, pos // 2, 1, 17], dtype=torch.int32, device=dev)  # row 2: only pos
-        lens = torch.tensor([1500, 1500, 7, 1500, 1200, 1500, 300, 1500], dtype=torch.int32, device=dev)
+        if t5:  # T5 decodes without left pads; its cross rows are prompts of 7-64 tokens in a 128-slot cache
+            pads, lx = None, 128
+            lens = torch.tensor([64, 64, 7, 64, 50, 64, 12, 64], dtype=torch.int32, device=dev)
+            table = T5_BIAS_SCALE * torch.randn(12, 32, generator=g, device=dev)  # a seeded rel-pos table
+            t5cfg = T5Config(32128, 768, 12, 12, 2048)
+            bias_hl = relative_position_bias(table, torch.arange(l_max, device=dev), torch.arange(l_max, device=dev),
+                                             False, t5cfg)[:, pos]  # (H, Lp): query pos, every key
+            variant = dict(norm="rms", gated=True, sbias=bias_hl.t().contiguous())
+        else:
+            pads = torch.tensor([0, 5, pos, 3, 0, pos // 2, 1, 17], dtype=torch.int32, device=dev)
+            lx, variant = 1536, {}
+            lens = torch.tensor([1500, 1500, 7, 1500, 1200, 1500, 300, 1500], dtype=torch.int32, device=dev)
         for dtype in (torch.float32, torch.bfloat16):
             dn = str(dtype).removeprefix("torch.")
             layers = cast_tree(layers32, dtype)
-            packed = pack_decode_weights(layers, dtype, cross=cross)
-            head = pack_greedy_head(emb32, final32, dtype)
+            packed = pack_decode_weights(layers, dtype, cross=cross, gated=t5)
+            head = pack_greedy_head(emb32, final32, dtype, tied=not t5)
             x = torch.randn(b, d, generator=g, device=dev).to(dtype)
             kc, vc = (torch.randn(n_layers, b, l_max, hd, generator=g, device=dev).to(dtype) for _ in range(2))
-            xk, xv = ((torch.randn(n_layers, b, 1536, hd, generator=g, device=dev).to(dtype) for _ in range(2))
+            xk, xv = ((torch.randn(n_layers, b, lx, hd, generator=g, device=dev).to(dtype) for _ in range(2))
                       if cross else (None, None))
-            ck = dict(cross_k=xk, cross_v=xv, cross_lens=lens) if cross else {}
 
-            def kernel(kc=kc, vc=vc):
+            def kernel(kc=kc, vc=vc, variant=variant):
                 if cross:
                     return fused_cross_decode_step(x, packed, kc, vc, xk, xv, lens, pos, pads, cfg32.n_heads,
-                                                   cfg32.act, cfg32.norm_eps, head=head)
+                                                   cfg32.act, cfg32.norm_eps, head=head, **variant)
                 return fused_decode_step(x, packed, kc, vc, pos, pads, cfg32.n_heads, cfg32.act, cfg32.norm_eps,
                                          head=head)
 
             def plain(kc=kc, vc=vc):
+                ck = dict(cross_k=xk, cross_v=xv, cross_lens=lens) if cross else {}
                 return fused_decode_step_plain(x, packed, kc, vc, pos, pads, cfg32.n_heads, cfg32.act,
-                                               cfg32.norm_eps, head, **ck)
+                                               cfg32.norm_eps, head, **ck, **variant)
 
             kc_p, vc_p = kc.clone(), vc.clone()
             ref_x, ref_tok = plain(kc_p, vc_p)
@@ -507,9 +668,17 @@ def decode_step_phases(dev, card: str) -> dict:
                 if not torch.equal(c[:, :, :pos], c_ref[:, :, :pos]):
                     raise AssertionError(f"{name} {dn}: the cache changed outside pos")
             err = max(err, kv0)
+            moved = ""
+            if t5:  # the self bias must matter: without it fp32 x_out leaves its tolerance far behind
+                no_bias_x, _ = kernel(kc.clone(), vc.clone(), dict(variant, sbias=None))
+                shift = (no_bias_x.float() - got_x.float()).abs().max().item()
+                if dtype == torch.float32 and shift <= 100 * tol[0]:
+                    raise AssertionError(f"{name}: the rel-pos self bias moved x_out only {shift}")
+                moved = f"; without the self bias x_out moves by {shift:.3g}"
             # tok as the greedy head is checked: the plain scores, ids equal where the top-2 gap exceeds the
             # tolerance, the score regret within it on every row
-            s = torch.matmul(layer_norm(final32, ref_x).float(), head["emb"].float().t())
+            final_x = rms_norm(final32, ref_x) if t5 else layer_norm(final32, ref_x)
+            s = torch.matmul(final_x.float(), head["emb"].float().t())
             if dtype == torch.bfloat16:
                 s = s.to(dtype).float()
             top2 = s.topk(2, dim=-1).values
@@ -527,8 +696,12 @@ def decode_step_phases(dev, card: str) -> dict:
             views = [{"k": kc[i], "v": vc[i]} for i in range(n_layers)]
             cross_views = ([{"k": xk[i], "v": xv[i], "len": lens} for i in range(n_layers)] if cross else None)
             final = cast_tree(final32, dtype)
+            emb = cast_tree(emb32, dtype)
 
             def per_op():
+                if t5:
+                    h = _t5_decode_layers(p, t5cfg, x[:, None], views, cross_views, bias_hl[:, None], pos)
+                    return greedy_argmax(rms_norm(final, h[:, 0]), emb)
                 h, _ = tfm.decoder_apply(p, cfg32, x[:, None], self_caches=views, cross_caches=cross_views,
                                          pos=pos, pad_lens=pads)
                 return greedy_argmax_tied(layer_norm(final, h[:, 0], cfg32.norm_eps), head["emb"])
@@ -539,7 +712,9 @@ def decode_step_phases(dev, card: str) -> dict:
             item = x.element_size()
             w_el = sum(t.numel() for k, t in packed.items() if k.startswith("w"))
             small = sum(t.numel() for k, t in packed.items() if not k.startswith("w")) + 2 * d
-            self_keys = int((pos - pads.clamp(max=pos)).sum())  # cached keys read, per layer
+            small += variant["sbias"].numel() if t5 else 0
+            # cached keys read, per layer
+            self_keys = b * pos if pads is None else int((pos - pads.clamp(max=pos)).sum())
             cross_keys = int(lens.sum()) if cross else 0
             nbytes = ((w_el + head["emb"].numel()) * item + small * 4 + 2 * b * d * item
                       + 2 * n_layers * (self_keys + cross_keys) * hd * item + 2 * n_layers * b * hd * item + 8 * b)
@@ -547,10 +722,12 @@ def decode_step_phases(dev, card: str) -> dict:
             res[(name, dn)] = _rec(err, ms, plain_ms, nbytes, flops, dn)
             res[(name, dn)]["per_op_ms"] = op_ms
             r = res[(name, dn)]
-            print(f"phase kernel {name} {dn}: {kind} {n_layers} layers d={d} B=8 pos={pos} pads {pads.tolist()}"
-                  + (f" cross lens {lens.tolist()} of 1536" if cross else "")
+            print(f"phase kernel {name} {dn}: {kind} {n_layers} layers d={d} B=8 pos={pos} "
+                  + (f"pads {pads.tolist()}" if pads is not None else "no pads")
+                  + (f" cross lens {lens.tolist()} of {lx}" if cross else "")
+                  + (f", rel-pos table N(0, 1) x {T5_BIAS_SCALE}, untied head" if t5 else "")
                   + f" | max |kernel - plain| (x_out, K/V at pos) {err:.3g} (atol, rtol)={tol}, x_out at {use:.2f} of its "
-                  f"tolerance, layer 0 K/V at pos {kv0:.3g} (atol, rtol)={TOL[dn]}; tok {got_tok.tolist()}"
+                  f"tolerance, layer 0 K/V at pos {kv0:.3g} (atol, rtol)={TOL[dn]}{moved}; tok {got_tok.tolist()}"
                   f" ({int(decided.sum())}/8 decided, equal), max regret {regret.abs().max().item():.3g} | kernel "
                   f"{ms * 1e3:.1f} us ({ms2 * 1e3:.1f} us in the second pair), plain {plain_ms * 1e3:.1f} us, "
                   f"per-op step {op_ms * 1e3:.1f} us, bound {r['bound_ms'] * 1e3:.1f} us ({r['bound_by']}, "
@@ -589,13 +766,32 @@ def _kernels() -> dict:
     from pytorch_models_tpu_torch.ops.decode_step import fused_cross_decode_step, fused_decode_step
     from pytorch_models_tpu_torch.ops.encoder_attention import encoder_attention
     from pytorch_models_tpu_torch.ops.gather import gather_rows
-    from pytorch_models_tpu_torch.ops.greedy_head import greedy_argmax_tied
+    from pytorch_models_tpu_torch.ops.greedy_head import greedy_argmax, greedy_argmax_tied
     from pytorch_models_tpu_torch.ops.mel import log_mel_spectrogram
 
     return {"encoder_attention": encoder_attention, "decode_attention": decode_attention,
-            "gather_rows": gather_rows, "greedy_argmax_tied": greedy_argmax_tied,
+            "gather_rows": gather_rows, "greedy_argmax_tied": greedy_argmax_tied, "greedy_argmax": greedy_argmax,
             "log_mel_spectrogram": log_mel_spectrogram, "fused_decode_step": fused_decode_step,
             "fused_cross_decode_step": fused_cross_decode_step}
+
+
+def _reset_launches() -> None:
+    kernels = _kernels()
+    for fn in kernels.values():
+        fn.launches = 0
+    kernels["decode_attention"].bias_launches = 0
+
+
+def _launches(required: set) -> dict:
+    """Every wrapper's launches since :func:`_reset_launches`, K2's with a
+    bias also on their own; raises unless each ``required`` one launched."""
+    kernels = _kernels()
+    counts = {name: fn.launches for name, fn in kernels.items()}
+    counts["decode_attention_bias"] = kernels["decode_attention"].bias_launches
+    missing = sorted(k for k in required if counts[k] <= 0)
+    if missing:
+        raise AssertionError(f"a main path never launched: {missing}")
+    return counts
 
 
 def _make_streams_move(dev, seed: int, embeddings: dict, stacks: list) -> None:
@@ -613,11 +809,16 @@ def _make_streams_move(dev, seed: int, embeddings: dict, stacks: list) -> None:
     pos = embeddings["pos_embs"]
     embeddings["pos_embs"] = 3.0 * torch.randn(pos.shape, generator=g, device=dev)
     for layers in stacks:
-        for lp in layers:
-            for block in lp.values():
-                for lin in block.values():
-                    if isinstance(lin, dict):
-                        lin["w"] *= 4.0
+        _scale_matrices(layers, 4.0)
+
+
+def _scale_matrices(layers: list, factor: float) -> None:
+    """Every linear weight ``{"w": ...}`` of the layers' blocks, times ``factor``."""
+    for lp in layers:
+        for block in lp.values():
+            for lin in block.values():
+                if isinstance(lin, dict):
+                    lin["w"] *= factor
 
 
 def _check_moving(what: str, rows, n_init) -> list[int]:
@@ -715,8 +916,7 @@ def main_path(dev, card: str, profile_dir: str | None = None) -> dict:
     # the main path, counts from 0: scoring at the init's scale (SCORE_TOL was set there: the rescaled model
     # below amplifies fp32 summation order to 1.43e-3 in a log-prob, an H100 reading); then the streams made to
     # move, and generation by the plain (no launches), fused and per-op routes, fp32 and bf16
-    for fn in kernels.values():
-        fn.launches = 0
+    _reset_launches()
     _route("fused")
     scores = gen.score_tokens_batch(seqs)
     _make_streams_move(dev, SEED + 7, model.params, [model.params["decoder"]["layers"]])
@@ -748,7 +948,8 @@ def main_path(dev, card: str, profile_dir: str | None = None) -> dict:
     _route("per-op")
     out16["per-op"] = generate()
     torch.cuda.synchronize()
-    launches = {name: fn.launches for name, fn in kernels.items()}
+    launches = _launches({"encoder_attention", "decode_attention", "gather_rows", "greedy_argmax_tied",
+                          "fused_decode_step"})
 
     err = max(float(np.max(np.abs(np.asarray(a) - np.asarray(b)))) for a, b in zip(scores, plain_scores))
     if not all(np.isfinite(s).all() and len(s) == 1023 for s in scores) or err > SCORE_TOL:
@@ -768,9 +969,6 @@ def main_path(dev, card: str, profile_dir: str | None = None) -> dict:
     print(f"phase main bf16 generate_tokens_batch: new tokens agreeing with the plain bf16 path: fused "
           f"{agree['fused']:.4f}, per-op kernels {agree['per-op']:.4f}")
     print("phase main launches: " + " ".join(f"{k}={v}" for k, v in launches.items()))
-    missing = [k for k, v in launches.items() if v <= 0 and k not in ("log_mel_spectrogram", "fused_cross_decode_step")]
-    if missing:
-        raise AssertionError(f"main path never launched: {missing}")
 
     # bf16 end-to-end rate of the three routes, in turns
     n_tok = len(prompts) * N_NEW
@@ -827,8 +1025,7 @@ def whisper_path(dev, card: str, profile_dir: str | None = None) -> dict:
 
     _route("plain")
     outs32 = {"plain": transcribe()}
-    for fn in kernels.values():
-        fn.launches = 0
+    _reset_launches()
     _route("fused")
     outs32["fused"] = transcribe()
     k7_launches = kernels["fused_cross_decode_step"].launches
@@ -859,7 +1056,8 @@ def whisper_path(dev, card: str, profile_dir: str | None = None) -> dict:
     _route("per-op")
     out16["per-op"] = transcribe()
     torch.cuda.synchronize()
-    launches = {name: fn.launches for name, fn in kernels.items()}
+    launches = _launches({"encoder_attention", "decode_attention", "gather_rows", "greedy_argmax_tied",
+                          "log_mel_spectrogram", "fused_cross_decode_step"})
     for row in out16["fused"] + out16["per-op"]:
         if row[:n_init] != W_INIT or not n_init < len(row) <= max_tokens:
             raise AssertionError(f"whisper bf16 transcription: malformed row {row}")
@@ -872,9 +1070,6 @@ def whisper_path(dev, card: str, profile_dir: str | None = None) -> dict:
     print(f"phase whisper bf16 transcribe_tokens_batch: generated tokens agreeing with the plain bf16 path: fused "
           f"{agree['fused']:.4f}, per-op kernels {agree['per-op']:.4f}")
     print("phase whisper launches: " + " ".join(f"{k}={v}" for k, v in launches.items()))
-    missing = [k for k, v in launches.items() if v <= 0 and k != "fused_decode_step"]
-    if missing:
-        raise AssertionError(f"whisper path never launched: {missing}")
 
     # bf16 end-to-end rate of the three routes in turns; then the fused
     # route's stages (frontend, + encoder; the rest is the decode loop)
@@ -903,6 +1098,130 @@ def whisper_path(dev, card: str, profile_dir: str | None = None) -> dict:
                           f"profile_bf16_whisper_{route}.json", profile_dir, card,
                           lambda out: _decode_steps([len(r) - n_init for r in out], max_tokens - n_init - 1,
                                                     all(W_EOT in r[n_init:] for r in out)))
+        _route("fused")
+    return launches
+
+
+def _make_t5_streams_move(dev, seed: int, params: dict) -> None:
+    """T5's rel-pos tables start at zero, which would leave every bias path
+    unexercised: seed both stacks' tables at N(0, 1) x T5_BIAS_SCALE, and
+    scale every layer matrix by T5_WEIGHT_SCALE, as the GPT-2 and Whisper
+    smoke models are scaled. (At the init's scale T5's untied head already
+    moves; a CPU run of the port at d 256 and full depth gave 33-58 distinct
+    tokens of 63 per row at these scales, fp32 and float64 token-identical.)"""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    for side in ("encoder", "decoder"):
+        stack = params[side]
+        stack["attn_bias"] = T5_BIAS_SCALE * torch.randn(stack["attn_bias"].shape, generator=g, device=dev)
+        _scale_matrices(stack["layers"], T5_WEIGHT_SCALE)
+
+
+def t5_path(dev, card: str, profile_dir: str | None = None) -> dict:
+    """T5-base at full width through ``T5Generator.generate_tokens_batch``:
+    fp32 generation by the three routes (token identity, K7 once per step;
+    the per-op route launches K2 with the rel-pos bias and the untied head),
+    bf16 agreement and the bf16 time phase; with ``profile_dir``, profiled
+    bf16 generations. Returns the launches."""
+    import torch
+
+    from pytorch_models_tpu_torch.text import T5Generator, T5Model
+
+    kernels = _kernels()
+    t0 = time.perf_counter()
+    model = T5Model.from_t5x("flan_t5-base", rng=SEED, device=dev)
+    _make_t5_streams_move(dev, SEED + 9, model.params)
+    gen = T5Generator(model=model)
+    c = model.cfg
+    r = np.random.default_rng(SEED + 10)
+    prompts = [r.integers(2, c.vocab_size, n).tolist() for n in T5_PROMPT_LENS]  # no pad, no EOS
+    print(f"phase t5: T5Model({c.n_layers}+{c.n_layers} layers, d {c.dim}, {c.n_heads} heads, mlp {c.mlp_dim}) vocab "
+          f"{c.vocab_size} built from seed {SEED} on {dev} in {time.perf_counter() - t0:.1f} s (layer matrices at "
+          f"{T5_WEIGHT_SCALE}x the init's, rel-pos tables N(0, 1) x {T5_BIAS_SCALE}); {len(prompts)} prompts of "
+          f"{min(T5_PROMPT_LENS)}-{max(T5_PROMPT_LENS)} tokens, rows of {T5_MAX} tokens at most, EOS {T5_EOS}")
+
+    def generate():
+        return gen.generate_tokens_batch(prompts, T5_MAX, T5_PAD, T5_EOS)
+
+    def gap_fn(i, prefix):
+        _route("plain")
+        return _top2(model(torch.tensor([prompts[i]], device=dev), torch.tensor([prefix], device=dev))[0, -1])
+
+    def steps_of(rows):
+        return _decode_steps([len(row) for row in rows], T5_MAX - 1, all(T5_EOS in row[1:] for row in rows))
+
+    _route("plain")
+    outs32 = {"plain": generate()}
+    _reset_launches()
+    _route("fused")
+    outs32["fused"] = generate()
+    k7_launches = kernels["fused_cross_decode_step"].launches
+    single = gen.generate_tokens(prompts[0], T5_MAX, T5_PAD, T5_EOS)
+    k7_single = kernels["fused_cross_decode_step"].launches - k7_launches
+    _route("per-op")
+    before = (kernels["decode_attention"].bias_launches, kernels["greedy_argmax"].launches)
+    outs32["per-op"] = generate()
+    torch.cuda.synchronize()
+    per_op = (kernels["decode_attention"].bias_launches - before[0], kernels["greedy_argmax"].launches - before[1])
+    for route, rows in outs32.items():
+        for row in rows:
+            if row[0] != T5_PAD or not 1 < len(row) <= T5_MAX or not all(0 <= t < c.vocab_size for t in row):
+                raise AssertionError(f"t5 fp32 generation ({route}): malformed row {row}")
+    fused = outs32["fused"]
+    steps = steps_of(fused)
+    if k7_launches != steps or k7_single != steps_of([single]):
+        raise AssertionError(f"t5 fused route: K7 launched {k7_launches} times for {steps} decode steps "
+                             f"({k7_single} for {steps_of([single])} of the single prompt)")
+    if min(per_op) <= 0:
+        raise AssertionError(f"t5 per-op route: K2 with a bias launched {per_op[0]}, K4-untied {per_op[1]} times")
+    distinct = _check_moving("t5 fp32 generate_tokens_batch", fused, [1] * len(fused))
+    if len({tuple(row) for row in fused}) < len(fused):
+        raise AssertionError("t5 fp32: two prompts gave the same row: the encoder barely reaches the decoder")
+    partings = _check_routes("t5 fp32", {**outs32, "single (fused)": [single]}, gap_fn)
+    print(f"phase t5 fp32 generate_tokens_batch: fused, per-op kernels and plain (every flag False) "
+          f"token-identical, and generate_tokens(prompt 0) equals its batch row (partings at near-ties: "
+          f"{partings}); K7 launched {k7_launches} times = {steps} decode steps; per-op route: K2 with the rel-pos "
+          f"bias {per_op[0]} launches, K4-untied {per_op[1]}; row lengths {[len(row) for row in fused]}, distinct "
+          f"new tokens per row {distinct}")
+
+    _route("fused")
+    model.to_bf16()
+    out16 = {"fused": generate()}
+    _route("per-op")
+    out16["per-op"] = generate()
+    torch.cuda.synchronize()
+    launches = _launches({"decode_attention", "decode_attention_bias", "gather_rows", "greedy_argmax",
+                          "fused_cross_decode_step"})
+    _route("plain")
+    out16["plain"] = generate()
+    _route("fused")
+    for row in out16["fused"] + out16["per-op"] + out16["plain"]:
+        if row[0] != T5_PAD or not 1 < len(row) <= T5_MAX:
+            raise AssertionError(f"t5 bf16 generation: malformed row {row}")
+    agree = {k: np.mean([x == y for a, b in zip(out16[k], out16["plain"]) for x, y in zip(a[1:], b[1:])])
+             for k in ("fused", "per-op")}
+    print(f"phase t5 bf16 generate_tokens_batch: new tokens agreeing with the plain bf16 path: fused "
+          f"{agree['fused']:.4f}, per-op kernels {agree['per-op']:.4f}")
+    print("phase t5 launches: " + " ".join(f"{k}={v}" for k, v in launches.items()))
+
+    # bf16 end-to-end rate of the three routes, in turns (encoder included)
+    times, n_gen = {}, {}
+    for route in ("plain", "per-op", "fused", "fused", "per-op", "plain"):
+        _route(route)
+        ms, out = _event_ms(generate)
+        times.setdefault(route, []).append(ms)
+        n_gen[route] = sum(len(row) - 1 for row in out)
+    _route("fused")
+    print(f"phase time bf16 t5 generate_tokens_batch B={len(prompts)}, rows of {T5_MAX} at most (encoder included, "
+          f"CUDA events): " + ", ".join(f"{k} {n_gen[k] / (np.mean(times[k]) / 1e3):.1f} generated tok/s "
+                                        f"({np.mean(times[k]):.1f} ms, {n_gen[k]} tokens)" for k in ROUTES)
+          + f" [{card}]")
+    if profile_dir is not None:
+        for route in ("fused", "per-op"):
+            _route(route)
+            profile_phase(generate, f"bf16 t5 generate_tokens_batch B={len(prompts)}, {route} route",
+                          f"profile_bf16_t5_{route}.json", profile_dir, card, steps_of)
         _route("fused")
     return launches
 
@@ -996,27 +1315,44 @@ def main() -> int:
 
     res = kernel_phases(dev, card)
     res_w = whisper_kernel_phases(dev, card)
+    res_t5 = t5_kernel_phases(dev, card)
     res_k7 = decode_step_phases(dev, card)
-    launches = main_path(dev, card, args.profile)
-    launches_w = whisper_path(dev, card, args.profile)
+    paths = {"gpt2": main_path(dev, card, args.profile), "whisper": whisper_path(dev, card, args.profile),
+             "t5": t5_path(dev, card, args.profile)}
 
-    # name: (source, TPU kernel it replaces, the dtype whose times are reported; the shapes are GPT-2's for
-    # K1-K4 and the fused decode step, Whisper's for K5 and the fused cross step)
+    # name: (source, TPU kernel it replaces, the dtype whose times are reported, its launches over the main paths;
+    # the shapes are GPT-2's for K1-K4 and the fused decode step, Whisper's for K5 and the fused cross step,
+    # T5-base's for the biased K2, the untied K4 and the T5 variant of the fused cross step)
+    def total(name):
+        return sum(counts[name] for counts in paths.values())
+
     meta = {
-        "encoder_attention": ("encoder_attention.cu", "pytorch_models_tpu/ops/encoder_attention.py:166", "bfloat16"),
-        "decode_attention": ("decode_attention.cu", "pytorch_models_tpu/ops/decode_attention.py:193", "bfloat16"),
-        "gather_rows": ("gather.cu", "pytorch_models_tpu/ops/gather.py:87", "bfloat16"),
-        "greedy_argmax_tied": ("greedy_head.cu", "pytorch_models_tpu/ops/greedy_head.py:85", "bfloat16"),
-        "log_mel_spectrogram": ("mel.cu", "pytorch_models_tpu/ops/mel.py:66", "float32"),
-        "fused_decode_step": ("decode_step.cu", "pytorch_models_tpu/ops/decode_step.py:1359", "bfloat16"),
-        "fused_cross_decode_step": ("decode_step.cu", "pytorch_models_tpu/ops/decode_step.py:1397", "bfloat16"),
+        "encoder_attention": ("encoder_attention.cu", "pytorch_models_tpu/ops/encoder_attention.py:166", "bfloat16",
+                              total("encoder_attention")),
+        "decode_attention": ("decode_attention.cu", "pytorch_models_tpu/ops/decode_attention.py:193", "bfloat16",
+                             total("decode_attention") - total("decode_attention_bias")),
+        "decode_attention_bias": ("decode_attention.cu", "pytorch_models_tpu/ops/decode_attention.py:193", "bfloat16",
+                                  total("decode_attention_bias")),
+        "gather_rows": ("gather.cu", "pytorch_models_tpu/ops/gather.py:87", "bfloat16", total("gather_rows")),
+        "greedy_argmax_tied": ("greedy_head.cu", "pytorch_models_tpu/ops/greedy_head.py:85", "bfloat16",
+                               total("greedy_argmax_tied")),
+        "greedy_argmax": ("greedy_head.cu", "pytorch_models_tpu/ops/greedy_head.py:91", "bfloat16",
+                          total("greedy_argmax")),
+        "log_mel_spectrogram": ("mel.cu", "pytorch_models_tpu/ops/mel.py:66", "float32", total("log_mel_spectrogram")),
+        "fused_decode_step": ("decode_step.cu", "pytorch_models_tpu/ops/decode_step.py:1359", "bfloat16",
+                              total("fused_decode_step")),
+        "fused_cross_decode_step": ("decode_step.cu", "pytorch_models_tpu/ops/decode_step.py:1397", "bfloat16",
+                                    paths["whisper"]["fused_cross_decode_step"]),
+        "fused_cross_decode_step_t5": ("decode_step.cu", "pytorch_models_tpu/ops/decode_step.py:1397", "bfloat16",
+                                       paths["t5"]["fused_cross_decode_step"]),
     }
+    results = (res, res_w, res_t5, res_k7)
     entries = []
-    for name, (src, replaces, timed) in meta.items():
-        err = max(v["err"] for r in (res, res_w, res_k7) for (k, _), v in r.items() if k == name)
-        rec = res.get((name, timed)) or res_w.get((name, timed)) or res_k7[(name, timed)]
+    for name, (src, replaces, timed, launches) in meta.items():
+        err = max(v["err"] for r in results for (k, _), v in r.items() if k == name)
+        rec = next(r[(name, timed)] for r in results if (name, timed) in r)
         entries.append({"name": name, "route": "cuda", "source": f"pytorch_models_tpu_torch/csrc/{src}",
-                        "replaces": replaces, "launches": launches[name] + launches_w[name], "max_abs_err": err,
+                        "replaces": replaces, "launches": launches, "max_abs_err": err,
                         **{k: rec[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}})
     print(card)
     print(json.dumps({"kernels": entries}))

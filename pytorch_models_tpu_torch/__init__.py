@@ -13,9 +13,10 @@ Ported so far: GPT-2 (``models.text.GPT2``) with greedy batched generation
 and scoring (``models.text.DecoderGenerator``); Whisper
 (``models.audio2text.Whisper``) with its log-mel frontend
 (``WhisperPreprocessor``) and greedy single, batched and long-form
-transcription (``WhisperGenerator``). Both greedy decode loops run each step
-as ONE fused kernel (``ops/decode_step.py``) where it serves the model and
-batch. The models and frontends run on the CUDA card unless the caller
+transcription (``WhisperGenerator``); T5 (``models.text.T5Model``) with
+greedy generation and teacher-forced scoring (``T5Generator``). The greedy
+decode loops run each step as ONE fused kernel (``ops/decode_step.py``)
+where it serves the model and batch. The models and frontends run on the CUDA card unless the caller
 passes ``device="cpu"``.
 """
 

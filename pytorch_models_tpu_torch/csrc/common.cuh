@@ -40,6 +40,23 @@ __device__ __forceinline__ float warp_sum(float v) {
     return v;
 }
 
+// 16-byte read-only loads widened to fp32 (4 floats or 8 bf16 values)
+__device__ __forceinline__ void widen(uint4 u, float* o) {
+    const unsigned w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        o[2 * i] = __uint_as_float(w[i] << 16);
+        o[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+}
+__device__ __forceinline__ void ld16(const float* p, float* o) {
+    const float4 v = __ldg(reinterpret_cast<const float4*>(p));
+    o[0] = v.x, o[1] = v.y, o[2] = v.z, o[3] = v.w;
+}
+__device__ __forceinline__ void ld16(const __nv_bfloat16* p, float* o) {
+    widen(__ldg(reinterpret_cast<const uint4*>(p)), o);
+}
+
 inline cudaStream_t as_stream(void* s) { return reinterpret_cast<cudaStream_t>(s); }
 
 }  // namespace pmt

@@ -1,14 +1,17 @@
 // Fused greedy decode step: the whole decoder layer stack for one token
-// [+ a cross-attention phase] [+ final LayerNorm and the tied greedy head]
-// in ONE kernel launch.
+// [+ a cross-attention phase] [+ the final norm and the greedy head] in ONE
+// kernel launch.
 //
 // Replaces pytorch_models_tpu/ops/decode_step.py `fused_decode_step` and
 // `fused_cross_decode_step` (both reaching the Pallas call of `_call_fused`)
-// in their base variant: pre-norm LayerNorm, biased projections, GELU (exact
+// in their base variant (pre-norm LayerNorm, biased projections, GELU exact
 // or tanh), the cross-attention phase over (L, B, Lx, H*D) caches with
-// per-row lengths, and the tied greedy head. Not here: RMSNorm, GEGLU, the
-// key-major self bias (T5), int8 weights, a8, int8 KV, the untied head, and
-// the in-kernel embed phase.
+// per-row lengths, T5's variant (`norm="rms"`: RMSNorm without mean
+// subtraction; `gated`: GEGLU over fc1 = [wi_0 | wi_1]; `sbias`: a key-major
+// (Lp, H) fp32 rel-pos bias added to the self-attention scores), and the
+// greedy head over a (V, d) table (tied, or an untied classifier the caller
+// transposed once). Not here: int8 weights, a8, int8 KV, and the in-kernel
+// embed phase.
 //
 // What bounds it on the H100: bytes. At batch <= 8 a step reads every layer
 // weight once (GPT-2 small bf16: 170 MB + a 77 MB head) and does 2*B FLOPs
@@ -37,6 +40,9 @@
 //   (c) O projection + bias + residual, by column slab.
 //   (d) cross only: LN_c + q_c projection | cross attention | O_c + residual.
 //   (e) LN2 + fc1 + bias + GELU into (B, dff) scratch | fc2 + bias + residual.
+//       GEGLU: fc1 writes the raw (B, 2*dff) pair (a + bias | g), and the fc2
+//       phase applies round(gelu(a)) * g while it loads its input, as (b)'s
+//       partials are merged by (c): no extra barrier.
 // Head: final LN; each block scores a contiguous vocab chunk (rounded to
 // bf16 in bf16, as the logits of a bf16 head matmul would be) and keeps the
 // best (value, lowest index) per row | block 0 reduces the blocks' bests with
@@ -79,11 +85,13 @@ struct Args {
     void *k_cache, *v_cache;
     const void* pads;
     const void *xk, *xv, *xlens;
+    const void* sbias;  // key-major (l_max, n_heads) fp32 self bias, or null
     const void *emb, *fn_s, *fn_b;
     void* tok;
     void* workspace;
     void* stream;
     int n_layers, b, d, hd, dff, n_heads, l_max, lx, pos, vocab, act, dtype, has_cross, has_head;
+    int norm, gated;  // norm 0: LayerNorm, 1: RMSNorm; gated: GEGLU MLP
     float eps, scale;
 };
 
@@ -96,23 +104,10 @@ struct Plan {
 
 // ---------------------------------------------------------------- loads
 
-// 16-byte loads widened to fp32: read-only path (weights) and L2 path
-// (data written inside this kernel)
-__device__ __forceinline__ void widen(uint4 u, float* o) {
-    const unsigned w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        o[2 * i] = __uint_as_float(w[i] << 16);
-        o[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-    }
-}
-__device__ __forceinline__ void ld16(const float* p, float* o) {
-    const float4 v = __ldg(reinterpret_cast<const float4*>(p));
-    o[0] = v.x, o[1] = v.y, o[2] = v.z, o[3] = v.w;
-}
-__device__ __forceinline__ void ld16(const __nv_bfloat16* p, float* o) {
-    widen(__ldg(reinterpret_cast<const uint4*>(p)), o);
-}
+// 16-byte loads widened to fp32: read-only path (weights; common.cuh) and L2
+// path (data written inside this kernel)
+using pmt::ld16;
+using pmt::widen;
 __device__ __forceinline__ void ld16cg(const float* p, float* o) {
     const float4 v = __ldcg(reinterpret_cast<const float4*>(p));
     o[0] = v.x, o[1] = v.y, o[2] = v.z, o[3] = v.w;
@@ -150,9 +145,10 @@ __device__ __forceinline__ bool better(float s, int i, float bs, int bi) {
 // thread: one scalar load per iteration would make each phase wait out tens
 // of L2 round trips in a row.
 
-// xs[b, :] = round_T(LayerNorm(x[b, :])) as fp32; statistics in fp32
+// xs[b, :] = round_T(norm(x[b, :]) * s + bias) as fp32, statistics in fp32:
+// LayerNorm, or with `rms` RMSNorm (mean taken as 0: no mean subtraction)
 template <typename T>
-__device__ void load_ln(const T* x, const float* s, const float* bias, int B, int d, float eps, float* xs) {
+__device__ void load_ln(const T* x, const float* s, const float* bias, int B, int d, float eps, int rms, float* xs) {
     constexpr int VEC = 16 / sizeof(T);
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
     for (int b = warp; b < B; b += NW) {
@@ -168,7 +164,7 @@ __device__ void load_ln(const T* x, const float* s, const float* bias, int B, in
                 sum += v[e];
             }
         }
-        const float mean = pmt::warp_sum(sum) / d;
+        const float mean = rms ? 0.f : pmt::warp_sum(sum) / d;
         __syncwarp();
         float sq = 0.f;
         for (int c = lane; c < d; c += 32) {
@@ -185,6 +181,23 @@ __device__ void load_ln(const T* x, const float* s, const float* bias, int B, in
             row[c + 2] = pmt::round_to<T>((row[c + 2] - mean) * rstd * sv.z + bv.z);
             row[c + 3] = pmt::round_to<T>((row[c + 3] - mean) * rstd * sv.w + bv.w);
         }
+    }
+    __syncthreads();
+}
+
+// GEGLU input of fc2: xs[b, k] = round_T(round_T(gelu(a)) * g) from the
+// (B, 2*dff) pair h[b] = [a | g] that fc1 wrote
+template <typename T>
+__device__ void load_gated(const T* h, int B, int dff, int act, float* xs) {
+    constexpr int VEC = 16 / sizeof(T);
+#pragma unroll 2
+    for (int i = threadIdx.x * VEC; i < B * dff; i += NT * VEC) {
+        const int b = i / dff, k = i % dff;  // dff % 64 == 0: a 16-byte run stays in one row
+        float a[VEC], g[VEC];
+        ld16cg(h + static_cast<int64_t>(b) * 2 * dff + k, a);
+        ld16cg(h + static_cast<int64_t>(b) * 2 * dff + dff + k, g);
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) xs[i + e] = pmt::round_to<T>(pmt::round_to<T>(gelu(a[e], act)) * g[e]);
     }
     __syncthreads();
 }
@@ -315,10 +328,11 @@ __device__ void matvec(const T* __restrict__ W, int K, int N, int B, int lpr, co
 // ---------------------------------------------------------------- attention
 
 // Units (row b, head h, key split s) over keys [start_b, end_b) of a
-// (B, Lk, H*64) cache; writes (max, sum, unnormalised acc) partials.
+// (B, Lk, H*64) cache, [+ sb[j * H + h], a key-major fp32 bias shared by the
+// rows, on key j's score]; writes (max, sum, unnormalised acc) partials.
 template <typename T, typename Range>
 __device__ void attention(const T* q, const T* kc, const T* vc, int Lk, int B, int H, int S, float scale, Range range,
-                          float* pm, float* pl, float* pacc, float* sm) {
+                          const float* sb, float* pm, float* pl, float* pacc, float* sm) {
     const int hd = H * HEAD_D;
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
     const int grp = lane / 8, e0 = (lane % 8) * 8;
@@ -366,6 +380,7 @@ __device__ void attention(const T* q, const T* kc, const T* vc, int Lk, int B, i
                 sc += __shfl_xor_sync(0xffffffffu, sc, 2);
                 sc += __shfl_xor_sync(0xffffffffu, sc, 4);
                 if (ok[t]) {
+                    if (sb) sc += __ldg(sb + static_cast<int64_t>(jb + grp + t * NW * 4) * H + h);
                     const float m_new = fmaxf(m, sc);
                     const float alpha = expf(m - m_new), p = expf(sc - m_new);
                     l = l * alpha + p;
@@ -435,7 +450,7 @@ __device__ void prefetch_weights(const Args& a, int i) {
         case 1: base = a.wo, n = static_cast<int64_t>(hd) * d; break;
         case 2: base = a.wqc, n = static_cast<int64_t>(d) * hd; break;
         case 3: base = a.woc, n = static_cast<int64_t>(hd) * d; break;
-        case 4: base = a.w1, n = static_cast<int64_t>(d) * dff; break;
+        case 4: base = a.w1, n = static_cast<int64_t>(d) * dff * (a.gated ? 2 : 1); break;
         default: base = a.w2, n = static_cast<int64_t>(dff) * d; break;
     }
     const char* p = static_cast<const char*>(base) + l * n * static_cast<int64_t>(sizeof(T));
@@ -489,7 +504,7 @@ __global__ void __launch_bounds__(NT, 1) decode_step_kernel(Args a, Plan p) {
 
         // (a) LN1 + QKV; k/v land in the cache at pos
         prefetch_weights<T>(a, mv++ + 2);
-        load_ln(xp, fp(a.ln1_s) + l * d, fp(a.ln1_b) + l * d, B, d, a.eps, xs);
+        load_ln(xp, fp(a.ln1_s) + l * d, fp(a.ln1_b) + l * d, B, d, a.eps, a.norm, xs);
         const float* bqkv = fp(a.bqkv) + static_cast<int64_t>(l) * 3 * hd;
         matvec(wt(a.wqkv) + static_cast<int64_t>(l) * d * 3 * hd, d, 3 * hd, B, p.lpr_qkv, xs, red,
                [=](int b, int c, float v) {
@@ -509,7 +524,7 @@ __global__ void __launch_bounds__(NT, 1) decode_step_kernel(Args a, Plan p) {
                          start = pads ? min(max(__ldg(pads + b), 0), pos) : 0;
                          end = pos + 1;
                      },
-                     pm, pl, pacc, red);
+                     static_cast<const float*>(a.sbias), pm, pl, pacc, red);
         grid.sync();
 
         // (c) O projection + residual
@@ -522,7 +537,7 @@ __global__ void __launch_bounds__(NT, 1) decode_step_kernel(Args a, Plan p) {
         if (a.has_cross) {
             // (d) LN_c + q_c | cross-attention over [0, len_b) | O_c + residual
             prefetch_weights<T>(a, mv++ + 2);
-            load_ln(static_cast<const T*>(xr), fp(a.lnc_s) + l * d, fp(a.lnc_b) + l * d, B, d, a.eps, xs);
+            load_ln(static_cast<const T*>(xr), fp(a.lnc_s) + l * d, fp(a.lnc_b) + l * d, B, d, a.eps, a.norm, xs);
             const float* bqc = fp(a.bqc) + static_cast<int64_t>(l) * hd;
             matvec(wt(a.wqc) + static_cast<int64_t>(l) * d * hd, d, hd, B, p.lpr_hd, xs, red,
                    [=](int b, int c, float v) { qs[b * hd + c] = pmt::from_f32<T>(v + __ldg(bqc + c)); });
@@ -534,7 +549,7 @@ __global__ void __launch_bounds__(NT, 1) decode_step_kernel(Args a, Plan p) {
                              start = 0;
                              end = min(max(__ldg(xlens + b), 0), lx);
                          },
-                         pm, pl, pacc, red);
+                         nullptr, pm, pl, pacc, red);
             grid.sync();
             prefetch_weights<T>(a, mv++ + 2);
             load_merge<T>(pm, pl, pacc, B, H, p.split, xs, red);
@@ -543,18 +558,24 @@ __global__ void __launch_bounds__(NT, 1) decode_step_kernel(Args a, Plan p) {
             grid.sync();
         }
 
-        // (e) LN2 + fc1 + GELU | fc2 + residual
+        // (e) LN2 + fc1 + GELU | fc2 + residual (GEGLU: fc1 writes the pair, fc2's load gates it)
         prefetch_weights<T>(a, mv++ + 2);
-        load_ln(static_cast<const T*>(xr), fp(a.ln2_s) + l * d, fp(a.ln2_b) + l * d, B, d, a.eps, xs);
+        load_ln(static_cast<const T*>(xr), fp(a.ln2_s) + l * d, fp(a.ln2_b) + l * d, B, d, a.eps, a.norm, xs);
         const float* b1 = fp(a.b1) + static_cast<int64_t>(l) * dff;
-        const int act = a.act;
-        matvec(wt(a.w1) + static_cast<int64_t>(l) * d * dff, d, dff, B, p.lpr_ff, xs, red,
+        const int act = a.act, gated = a.gated, n1 = gated ? 2 * dff : dff;
+        matvec(wt(a.w1) + static_cast<int64_t>(l) * d * n1, d, n1, B, p.lpr_ff, xs, red,
                [=](int b, int c, float v) {
-                   hbuf[b * dff + c] = pmt::from_f32<T>(gelu(pmt::round_to<T>(v + __ldg(b1 + c)), act));
+                   if (gated)
+                       hbuf[b * n1 + c] = pmt::from_f32<T>(c < dff ? v + __ldg(b1 + c) : v);
+                   else
+                       hbuf[b * dff + c] = pmt::from_f32<T>(gelu(pmt::round_to<T>(v + __ldg(b1 + c)), act));
                });
         grid.sync();
         prefetch_weights<T>(a, mv++ + 2);
-        load_plain(static_cast<const T*>(hbuf), B * dff, xs);
+        if (gated)
+            load_gated(static_cast<const T*>(hbuf), B, dff, act, xs);
+        else
+            load_plain(static_cast<const T*>(hbuf), B * dff, xs);
         matvec(wt(a.w2) + static_cast<int64_t>(l) * dff * d, dff, d, B, p.lpr_2, xs, red,
                residual(xr, fp(a.b2) + l * d));
         grid.sync();
@@ -564,7 +585,7 @@ __global__ void __launch_bounds__(NT, 1) decode_step_kernel(Args a, Plan p) {
     // head: final LN, then each block's vocab chunk -> best (value, index) per row
     float* hv = reinterpret_cast<float*>(ws + p.off_hv);
     int* hi = reinterpret_cast<int*>(ws + p.off_hi);
-    load_ln(static_cast<const T*>(xr), fp(a.fn_s), fp(a.fn_b), B, d, a.eps, xs);
+    load_ln(static_cast<const T*>(xr), fp(a.fn_s), fp(a.fn_b), B, d, a.eps, a.norm, xs);
     {
         constexpr int VEC = 16 / sizeof(T);
         const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, grp = lane / 8, gl = lane % 8;
@@ -714,13 +735,13 @@ int plan(const Args& a, Plan& p) {
     p.lpr_qkv = pick_lpr(3 * a.hd, a.d, VEC, p.grid);
     p.lpr_hd = pick_lpr(a.hd, a.d, VEC, p.grid);
     p.lpr_d = pick_lpr(a.d, a.hd, VEC, p.grid);
-    p.lpr_ff = pick_lpr(a.dff, a.d, VEC, p.grid);
+    p.lpr_ff = pick_lpr(a.gated ? 2 * a.dff : a.dff, a.d, VEC, p.grid);
     p.lpr_2 = pick_lpr(a.d, a.dff, VEC, p.grid);
 
     const size_t n_units = static_cast<size_t>(units) * p.split;
     size_t off = 0;
     p.off_q = off, off += align256(static_cast<size_t>(a.b) * a.hd * sizeof(T));
-    p.off_h = off, off += align256(static_cast<size_t>(a.b) * a.dff * sizeof(T));
+    p.off_h = off, off += align256(static_cast<size_t>(a.b) * a.dff * (a.gated ? 2 : 1) * sizeof(T));
     p.off_pm = off, off += align256(n_units * 4);
     p.off_pl = off, off += align256(n_units * 4);
     p.off_pacc = off, off += align256(n_units * HEAD_D * 4);

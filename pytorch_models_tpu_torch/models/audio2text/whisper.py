@@ -190,7 +190,7 @@ def _generate_batch(params: dict, cfg: WhisperConfig, memory: torch.Tensor, init
         buf[:, n_init] = first
     done = first == eot_id
     eot = torch.full_like(first, eot_id)
-    greedy_head = _attn.use_greedy_head(b, memory)
+    greedy_head = _attn.use_greedy_head(b, p["token_embs"])
 
     pos = n_init + 1
     while pos < max_tokens:

@@ -67,7 +67,7 @@ def _generate_batch(params, cfg, prompt_buf: torch.Tensor, pad_lens: torch.Tenso
     buf[:, p_len] = nxt
     done = nxt == eos_id
     eos = torch.full_like(nxt, eos_id)
-    greedy_head = _attn.use_greedy_head(b, prompt_buf)
+    greedy_head = _attn.use_greedy_head(b, params["token_embs"])
 
     pos = p_len + 1
     while pos < limit:

@@ -40,9 +40,12 @@ _F = ctypes.c_float
 # C signatures: every function returns a cudaError_t as int
 _SIGNATURES = {
     "pmt_gather_rows": [_P, _P, _P, _I, _I, _I, _P],
-    "pmt_decode_attention": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _F, _I, _P],
+    "pmt_decode_attention": [_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
     "pmt_greedy_argmax_tied": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "pmt_greedy_chunk_rows": [],
+    "pmt_greedy_argmax_untied": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "pmt_greedy_untied_cols": [_I],
+    "pmt_greedy_fits": [_I, _I, _I, _I],
     "pmt_encoder_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P],
     "pmt_log_mel": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # both take a pointer to ops/decode_step.py's _Args structure

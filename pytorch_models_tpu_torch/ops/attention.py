@@ -24,7 +24,8 @@ import torch
 USE_DECODE_KERNEL: bool | None = None
 # merged-head dense/causal attention with no bias (ops/encoder_attention.py)
 USE_ENCODER_KERNEL: bool | None = None
-# argmax(x @ emb.T) without the (B, V) logits (ops/greedy_head.py); auto
+# argmax(x @ emb.T), or argmax(x @ w) over an untied (d, V) classifier,
+# without the (B, V) logits (ops/greedy_head.py); auto
 # engages at batch >= 4, the JAX package's rule. On an H100 80GB (700 W,
 # GPT-2 head, V=50257, d=768, bf16) the kernel took 71.0 us at B=1 against
 # 50.7 us for the head matmul + argmax it replaces, and 85.0 us against
@@ -33,7 +34,7 @@ USE_ENCODER_KERNEL: bool | None = None
 # 142.7 vs 109.5 us).
 USE_GREEDY_HEAD: bool | None = None
 # the whole greedy decode step in one kernel (ops/decode_step.py): layer
-# stack [+ cross-attention] + final LayerNorm + tied greedy head. Auto takes
+# stack [+ cross-attention] + final norm + greedy head. Auto takes
 # it for CUDA tensors, as the JAX package takes it on its TPU; a model or
 # batch the kernel does not serve (decode_step.fused_step_eligible) decodes
 # per-op.
@@ -46,10 +47,17 @@ def _on_cuda(t: torch.Tensor) -> bool:
     return t.is_cuda
 
 
-def use_greedy_head(batch: int, t: torch.Tensor) -> bool:
+def use_greedy_head(batch: int, w: torch.Tensor, tied: bool = True) -> bool:
+    """Gate for the greedy head over the head weight ``w`` (tied ``(V, d)``
+    or untied ``(d, V)``). Auto refuses a batch the kernel cannot serve
+    (``greedy_head_fits``), which then takes the head matmul + argmax."""
     if USE_GREEDY_HEAD is not None:
         return USE_GREEDY_HEAD
-    return batch >= 4 and _on_cuda(t)
+    if batch < 4 or not _on_cuda(w):
+        return False
+    from .greedy_head import greedy_head_fits
+
+    return greedy_head_fits(batch, w, tied)
 
 
 def use_fused_step(t: torch.Tensor) -> bool:
@@ -63,10 +71,14 @@ def use_decode_kernel(t: torch.Tensor) -> bool:
     return _on_cuda(t) if USE_DECODE_KERNEL is None else USE_DECODE_KERNEL
 
 
-def use_encoder_kernel(q_m: torch.Tensor) -> bool:
+def use_encoder_kernel(q_m: torch.Tensor, attn_bias: torch.Tensor | None = None) -> bool:
     """Gate for merged-head encoder attention on (..., L, H*D) projections.
-    No shape condition: on a CUDA tensor the wrapper launches the kernel or
-    raises."""
+    The kernel takes no additive bias: a call with one (T5's rel-pos and pad
+    biases) goes to :func:`sdpa` whatever the flag says, as in the JAX
+    package (``encoder_attention_eligible``). No shape condition: on a CUDA
+    tensor the wrapper launches the kernel or raises."""
+    if attn_bias is not None:
+        return False
     return _on_cuda(q_m) if USE_ENCODER_KERNEL is None else USE_ENCODER_KERNEL
 
 

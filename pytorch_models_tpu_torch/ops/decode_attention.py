@@ -5,8 +5,11 @@ port of ``pytorch_models_tpu/ops/decode_attention.py``).
 (``csrc/decode_attention.cu``) on CUDA tensors and runs
 :func:`decode_attention_plain` on CPU tensors. Row ``b`` attends to cache
 positions ``[pad_lens[b], ends[b])`` with an fp32 softmax; an empty range
-gives zeros. The key-major additive bias of the JAX kernel (T5) is not
-ported yet.
+gives zeros. An optional additive fp32 bias in the JAX kernel's key-major
+layout, ``(1, L, H)`` shared across rows or ``(B, L, H)`` per row (T5's
+rel-pos decode bias), is added to each fp32 score after the q scale and
+before the mask. The JAX kernel pads the bias to 128 lanes (a Mosaic DMA
+rule); the port takes it unpadded.
 """
 
 from __future__ import annotations
@@ -29,9 +32,10 @@ def _row_i32(x, b: int, device) -> torch.Tensor:
     return torch.as_tensor(x, device=device).reshape(-1).to(torch.int32).expand(b).contiguous()
 
 
-def decode_attention_plain(q, k_cache, v_cache, ends, n_heads: int, pad_lens=None):
+def decode_attention_plain(q, k_cache, v_cache, ends, n_heads: int, pad_lens=None, bias=None):
     """The kernel's math in plain PyTorch: q scaled in fp32 and rounded to
-    the input dtype, fp32 scores and softmax with the safe max, fp32 P @ V."""
+    the input dtype, fp32 scores [+ the fp32 key-major bias] and softmax
+    with the safe max, fp32 P @ V."""
     b, _, hd = q.shape
     l_max = k_cache.shape[-2]
     d = hd // n_heads
@@ -39,6 +43,8 @@ def decode_attention_plain(q, k_cache, v_cache, ends, n_heads: int, pad_lens=Non
     kf = k_cache.float().reshape(b, l_max, n_heads, d)
     vf = v_cache.float().reshape(b, l_max, n_heads, d)
     s = torch.einsum("bhd,blhd->bhl", qf, kf)
+    if bias is not None:
+        s = s + bias.float().transpose(1, 2)  # (1|B, L, H) -> (1|B, H, L)
     col = torch.arange(l_max, device=q.device)[None, :]
     pads = torch.zeros(b, dtype=torch.int32, device=q.device) if pad_lens is None else _row_i32(pad_lens, b, q.device)
     valid = (col >= pads[:, None]) & (col < _row_i32(ends, b, q.device)[:, None])
@@ -51,15 +57,17 @@ def decode_attention_plain(q, k_cache, v_cache, ends, n_heads: int, pad_lens=Non
     return out.reshape(b, 1, hd).to(q.dtype)
 
 
-def decode_attention(q, k_cache, v_cache, ends, n_heads: int, pad_lens=None):
-    """q: (B, 1, H*D); k_cache/v_cache: (B, L, H*D); ends: int or (B,) int.
+def decode_attention(q, k_cache, v_cache, ends, n_heads: int, pad_lens=None, bias=None):
+    """q: (B, 1, H*D); k_cache/v_cache: (B, L, H*D); ends: int or (B,) int;
+    bias: None or fp32 ``(1|B, L, H)``.
 
     Attention over cache positions ``[pad_lens[b], ends[b])`` per row;
     returns the (B, 1, H*D) merged-head context. For self-attention decode at
-    position ``pos`` pass ``ends = pos + 1``.
+    position ``pos`` pass ``ends = pos + 1``. ``launches`` counts every
+    launch, ``bias_launches`` those with a bias.
     """
     if not q.is_cuda:
-        return decode_attention_plain(q, k_cache, v_cache, ends, n_heads, pad_lens)
+        return decode_attention_plain(q, k_cache, v_cache, ends, n_heads, pad_lens, bias)
     b, lq, hd = q.shape
     l_max = k_cache.shape[-2]
     d = hd // n_heads
@@ -70,6 +78,11 @@ def decode_attention(q, k_cache, v_cache, ends, n_heads: int, pad_lens=None):
     req(k_cache.dtype == q.dtype and v_cache.dtype == q.dtype, "decode_attention: q and caches must share a dtype")
     req(all(t.is_cuda and t.is_contiguous() for t in (q, k_cache, v_cache)),
         "decode_attention: q and caches must be contiguous CUDA tensors")
+    if bias is not None:
+        req(bias.ndim == 3 and bias.shape[0] in (1, b) and tuple(bias.shape[1:]) == (l_max, n_heads),
+            f"decode_attention: bias must be (1|{b}, {l_max}, {n_heads}), got {tuple(bias.shape)}")
+        req(bias.dtype == torch.float32 and bias.is_cuda and bias.is_contiguous(),
+            "decode_attention: bias must be a contiguous fp32 CUDA tensor")
     dev = q.device
     ends_t, end_scalar = None, 0
     if isinstance(ends, int):
@@ -83,10 +96,14 @@ def decode_attention(q, k_cache, v_cache, ends, n_heads: int, pad_lens=None):
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
         None if ends_t is None else ends_t.data_ptr(), end_scalar,
         None if pads_t is None else pads_t.data_ptr(),
+        None if bias is None else bias.data_ptr(), 0 if bias is None or bias.shape[0] == 1 else l_max * n_heads,
         b, l_max, n_heads, d, 1.0 / math.sqrt(d), _build.dtype_code(q), _build.stream_ptr(q))
     _build.check("pmt_decode_attention", code)
     decode_attention.launches += 1
+    if bias is not None:
+        decode_attention.bias_launches += 1
     return out
 
 
 decode_attention.launches = 0
+decode_attention.bias_launches = 0

@@ -18,8 +18,11 @@ this port writes the new K/V into the cache IN PLACE and returns the same
 cache object: PyTorch tensors are mutable, and a copy per step would move
 the whole cache.
 
-Additive attention biases, the int8 paths and tensor parallelism are not
-ported yet.
+Additive attention biases (T5's rel-pos and pad biases) follow the JAX
+package's dispatch: a single-position self-attention bias goes to the
+decode kernel in its key-major layout; a biased cross or uncached call takes
+plain :func:`sdpa`, since neither kernel takes a bias there. The int8 paths
+and tensor parallelism are not ported yet.
 """
 
 from __future__ import annotations
@@ -90,18 +93,34 @@ def merge_heads(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(*x.shape[:-2], -1)
 
 
-def mha_project_kv(p: dict, cfg: LayerConfig, kv: torch.Tensor, out: dict | None = None) -> dict:
+def mha_project_kv(p: dict, cfg: LayerConfig, kv: torch.Tensor, valid_lens=None, out: dict | None = None) -> dict:
     """Project ``kv`` (B, L, d) into a cross-attention cache ``{"k", "v",
     "len"}``: merged-head (B, Lp, H*D) K/V of the memory zero-padded to
     ``padded_cache_len(L)`` rows (as in the JAX package, so the caches hold
-    the same values), and ``len`` (B,) int32 = L, which masks the padding on
-    every read path. With ``out`` (``{"k", "v"}`` tensors of that shape) the
-    projections are written into them."""
+    the same values), and ``len`` (B,) int32, each row's count of valid
+    memory positions (``valid_lens``, e.g. T5's right-padded prompts, or L),
+    which masks the rest on every read path. With ``out`` (``{"k", "v"}``
+    tensors of that shape) the projections are written into them."""
     length = kv.shape[-2]
     kv_p = torch.nn.functional.pad(kv, (0, 0, 0, padded_cache_len(length) - length))
-    lens = torch.full(kv.shape[:-2], length, dtype=torch.int32, device=kv.device)
+    if valid_lens is None:
+        lens = torch.full(kv.shape[:-2], length, dtype=torch.int32, device=kv.device)
+    else:
+        lens = torch.as_tensor(valid_lens, device=kv.device).to(torch.int32).expand(kv.shape[:-2]).contiguous()
     out = out or {"k": None, "v": None}
     return {"k": linear(p["k"], kv_p, out["k"]), "v": linear(p["v"], kv_p, out["v"]), "len": lens}
+
+
+def _decode_kernel_bias(attn_bias: torch.Tensor | None, l_max: int, n_heads: int):
+    """A single-position additive bias shared by the batch (T5's rel-pos
+    decode bias) in the decode kernel's key-major layout: (H, 1, L) -> (1, L,
+    H), contiguous fp32. Returns ``(kernel_bias, convertible)``; another
+    shape is not convertible and takes the plain path."""
+    if attn_bias is None:
+        return None, True
+    if attn_bias.shape != (n_heads, 1, l_max):
+        return None, False
+    return attn_bias.movedim(0, -1).to(torch.float32).contiguous(), True
 
 
 def mha_apply(
@@ -110,25 +129,29 @@ def mha_apply(
     q: torch.Tensor,
     k: torch.Tensor | None = None,
     v: torch.Tensor | None = None,
+    attn_bias: torch.Tensor | None = None,
     causal: bool = False,
     cache: dict | None = None,
     cache_pos: int | None = None,
     pad_lens: torch.Tensor | None = None,
 ):
-    """Self- or cross-attention with an optional causal mask or KV cache.
+    """Self- or cross-attention with an optional additive bias, causal mask
+    or KV cache.
 
     ``k`` defaults to ``q`` and ``v`` to ``k``; cross-attention passes the
-    encoder memory as ``k``. With ``cache`` and ``cache_pos`` (self-attention),
+    encoder memory as ``k``. ``attn_bias`` is added to the scores,
+    broadcastable to ``(..., H, Lq, Lk)``. With ``cache`` and ``cache_pos`` (self-attention),
     the chunk's new K/V are written at cache slots ``[pos, pos+S)`` and
     attention is masked to ``key_pos <= pos + i``; returns ``(out, cache)``.
     ``pad_lens`` (B,) masks each row's left-pad slots ``< pad_lens[b]``. With
     ``cache`` but no ``cache_pos``, the cache is a precomputed cross-attention
     cache (:func:`mha_project_kv`) used as is; its ``len`` masks the padding.
 
-    Dispatch, as in the JAX package: a single cached position (self or
-    cross) goes to the decode kernel; longer cached chunks (prefill) take
-    the masked plain path; an uncached call (self, or cross over ``memory``
-    with Lq != Lk) goes to the encoder-attention kernel. On a CUDA tensor a
+    Dispatch, as in the JAX package: a single cached position goes to the
+    decode kernel (self-attention with its bias in key-major layout; cross
+    only without a bias); longer cached chunks (prefill) take the masked
+    plain path; an uncached call (self, or cross over ``memory`` with Lq !=
+    Lk) goes to the encoder-attention kernel when there is no bias. On a CUDA tensor a
     kernel wrapper launches its kernel or raises for a shape it does not
     serve; ``USE_*_KERNEL = False`` selects :func:`sdpa`.
     """
@@ -136,7 +159,7 @@ def mha_apply(
     v = k if v is None else v
 
     if cache is not None and cache_pos is None:  # precomputed cross-attention K/V
-        return _cross_cached_apply(p, cfg, q, cache)
+        return _cross_cached_apply(p, cfg, q, cache, attn_bias)
 
     if cache is not None:
         k_new = linear(p["k"], k)  # (B, S, H*D) — merged, matches the cache
@@ -149,11 +172,14 @@ def mha_apply(
         l_max = ck.shape[-2]
 
         if s == 1 and _attn.use_decode_kernel(ck):
-            from .ops.decode_attention import decode_attention
+            kernel_bias, convertible = _decode_kernel_bias(attn_bias, l_max, cfg.n_heads)
+            if convertible:
+                from .ops.decode_attention import decode_attention
 
-            q_m = linear(p["q"], q)  # (B, 1, H*D) — the kernel takes merged heads
-            out = decode_attention(q_m, ck.to(q_m.dtype), cv.to(q_m.dtype), cache_pos + 1, cfg.n_heads, pad_lens)
-            return linear(p["o"], out), cache
+                q_m = linear(p["q"], q)  # (B, 1, H*D) — the kernel takes merged heads
+                out = decode_attention(q_m, ck.to(q_m.dtype), cv.to(q_m.dtype), cache_pos + 1, cfg.n_heads,
+                                       pad_lens, kernel_bias)
+                return linear(p["o"], out), cache
 
         qh = split_heads(linear(p["q"], q), cfg.n_heads, cfg.head_dim)
         kh = split_heads(ck.to(qh.dtype), cfg.n_heads, cfg.head_dim)
@@ -167,30 +193,34 @@ def mha_apply(
             # see no valid keys; -inf would make their (discarded) softmax NaN
             pad_bias = torch.where(col >= pad_lens.to(torch.int64)[:, None], zero, -1e30)
             bias = bias + pad_bias[:, None, None, :]
+        if attn_bias is not None:
+            bias = attn_bias + bias
         out = sdpa(qh, kh, vh, bias)
         return linear(p["o"], merge_heads(out)), cache
 
     q_m = linear(p["q"], q)
     k_m = linear(p["k"], k)
     v_m = linear(p["v"], v)
-    if _attn.use_encoder_kernel(q_m):
+    if _attn.use_encoder_kernel(q_m, attn_bias):
         from .ops.encoder_attention import encoder_attention
 
         return linear(p["o"], encoder_attention(q_m, k_m, v_m, cfg.n_heads, causal))
     qh = split_heads(q_m, cfg.n_heads, cfg.head_dim)
     kh = split_heads(k_m, cfg.n_heads, cfg.head_dim)
     vh = split_heads(v_m, cfg.n_heads, cfg.head_dim)
-    return linear(p["o"], merge_heads(sdpa(qh, kh, vh, None, causal)))
+    return linear(p["o"], merge_heads(sdpa(qh, kh, vh, attn_bias, causal)))
 
 
-def _cross_cached_apply(p: dict, cfg: LayerConfig, q: torch.Tensor, cache: dict) -> torch.Tensor:
-    """Attention over a precomputed cross cache: one position -> the decode
-    kernel with per-row ``ends = len``; several (the prefill) -> :func:`sdpa`
-    with a finite -1e30 bias on slots ``>= len``."""
+def _cross_cached_apply(p: dict, cfg: LayerConfig, q: torch.Tensor, cache: dict,
+                        attn_bias: torch.Tensor | None = None) -> torch.Tensor:
+    """Attention over a precomputed cross cache: one position without a
+    bias -> the decode kernel with per-row ``ends = len``; otherwise (the
+    prefill, or a bias) -> :func:`sdpa` with a finite -1e30 bias on slots
+    ``>= len`` [+ ``attn_bias``]."""
     ck, cv, lens = cache["k"], cache["v"], cache["len"]
     s, l_max = q.shape[-2], ck.shape[-2]
     q_m = linear(p["q"], q)
-    if s == 1 and _attn.use_decode_kernel(ck):
+    if s == 1 and attn_bias is None and _attn.use_decode_kernel(ck):
         from .ops.decode_attention import decode_attention
 
         return linear(p["o"], decode_attention(q_m, ck.to(q_m.dtype), cv.to(q_m.dtype), lens, cfg.n_heads))
@@ -200,7 +230,8 @@ def _cross_cached_apply(p: dict, cfg: LayerConfig, q: torch.Tensor, cache: dict)
     col = torch.arange(l_max, device=q.device)
     zero = torch.zeros((), dtype=torch.float32, device=q.device)
     len_bias = torch.where(col < lens.to(torch.int64)[:, None], zero, -1e30)[:, None, None, :]
-    return linear(p["o"], merge_heads(sdpa(qh, kh, vh, len_bias)))
+    bias = len_bias if attn_bias is None else attn_bias + len_bias
+    return linear(p["o"], merge_heads(sdpa(qh, kh, vh, bias)))
 
 
 # ---------------------------------------------------------------------------
@@ -337,18 +368,20 @@ def make_kv_cache(n_layers: int, batch_shape: tuple, n_heads: int, max_len: int,
     return [{"k": stacked["k"][i], "v": stacked["v"][i]} for i in range(n_layers)], stacked
 
 
-def precompute_cross_caches(p: dict, cfg: LayerConfig, memory: torch.Tensor):
+def precompute_cross_caches(p: dict, cfg: LayerConfig, memory: torch.Tensor, valid_lens=None):
     """Project encoder ``memory`` (B, L, d) into every decoder layer's
     cross-attention K/V once, straight into ONE layer-stacked ``(L, B, Lp,
-    H*D)`` buffer each for K and V. Returns ``(caches, stacked)``: the
-    per-layer list of :func:`mha_project_kv` caches, whose ``k``/``v`` are
-    views of the buffers, and ``{"k", "v", "len"}`` with the buffers and the
-    (B,) lengths every layer shares."""
+    H*D)`` buffer each for K and V. ``valid_lens`` (B,) marks each row's
+    count of valid memory positions (right-padded batches; default: L).
+    Returns ``(caches, stacked)``: the per-layer list of
+    :func:`mha_project_kv` caches, whose ``k``/``v`` are views of the
+    buffers, and ``{"k", "v", "len"}`` with the buffers and the (B,) lengths
+    every layer shares."""
     layers = p["layers"]
     shape = (len(layers), *memory.shape[:-2], padded_cache_len(memory.shape[-2]), cfg.n_heads * cfg.head_dim)
     dtype = layers[0]["ca"]["k"]["w"].dtype
     stacked = {k: torch.empty(shape, dtype=dtype, device=memory.device) for k in ("k", "v")}
-    caches = [mha_project_kv(lp["ca"], cfg, memory, {"k": stacked["k"][i], "v": stacked["v"][i]})
+    caches = [mha_project_kv(lp["ca"], cfg, memory, valid_lens, {"k": stacked["k"][i], "v": stacked["v"][i]})
               for i, lp in enumerate(layers)]
     stacked["len"] = caches[0]["len"]
     return caches, stacked

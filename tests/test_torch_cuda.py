@@ -8,6 +8,7 @@ with ``python -m pytest --noconftest tests/test_torch_cuda.py -q``.
 import pytest
 import torch
 
+from pytorch_models_tpu_torch.ops import attention as _attn
 from pytorch_models_tpu_torch.ops.decode_attention import decode_attention, decode_attention_plain
 from pytorch_models_tpu_torch.ops.decode_step import (
     fused_cross_decode_step,
@@ -18,7 +19,7 @@ from pytorch_models_tpu_torch.ops.decode_step import (
 )
 from pytorch_models_tpu_torch.ops.encoder_attention import encoder_attention, encoder_attention_plain
 from pytorch_models_tpu_torch.ops.gather import gather_rows, gather_rows_plain
-from pytorch_models_tpu_torch.ops.greedy_head import greedy_argmax_tied
+from pytorch_models_tpu_torch.ops.greedy_head import greedy_argmax, greedy_argmax_plain, greedy_argmax_tied
 from pytorch_models_tpu_torch.ops.mel import log_mel_spectrogram, log_mel_spectrogram_plain
 from pytorch_models_tpu_torch.transformer import LayerConfig, layer_init, mha_apply, mha_init
 
@@ -89,6 +90,58 @@ def test_attention_kernels_at_whisper_shapes(cuda, dtype, atol, rtol):
     torch.testing.assert_close(decode_attention(q1, kc, vc, ends, 8).float(),
                                decode_attention_plain(q1, kc, vc, ends, 8).float(), rtol=rtol, atol=atol)
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype,atol,rtol", [(torch.float32, 1e-5, 0.0), (torch.bfloat16, 1e-5, 2.0 ** -7)])
+@pytest.mark.parametrize("l_max", [128, 1024])
+def test_decode_attention_bias_matches_plain(cuda, dtype, atol, rtol, l_max):
+    """K2-bias at T5's decode shape (B=8, H=12): a shared (1, L, H) bias and a
+    per-row (B, L, H) one with left pads, at a scale where it matters."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q1, kc, vc = (torch.randn(*s, generator=g, device=cuda).to(dtype) for s in ((8, 1, 768), (8, l_max, 768),
+                                                                                   (8, l_max, 768)))
+    ends = torch.tensor([l_max, 41, 1, l_max - 3, 64, 7, 100, 2], dtype=torch.int32, device=cuda)
+    pads = torch.tensor([0, 3, 0, 17, 63, 0, 99, 0], dtype=torch.int32, device=cuda)
+    for rows, p in ((1, None), (8, pads)):
+        bias = 3.0 * torch.randn(rows, l_max, 12, generator=g, device=cuda)
+        got = decode_attention(q1, kc, vc, ends, 12, p, bias)
+        ref = decode_attention_plain(q1, kc, vc, ends, 12, p, bias)
+        torch.testing.assert_close(got.float(), ref.float(), rtol=rtol, atol=atol)
+        assert (got.float() - decode_attention(q1, kc, vc, ends, 12, p).float()).abs().max() > 0.1
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("v", [5001, 32128])  # 5001: bf16 rows not 4-byte aligned, the kernel's scalar loads
+@pytest.mark.parametrize("b, d", [(8, 768), (16, 768), (40, 768), (5, 100)])  # 40: a second group of rows
+def test_greedy_argmax_untied_matches_plain(cuda, dtype, v, b, d):
+    """K4-untied over a (d, V) classifier: a forced tie goes to the lowest
+    index; elsewhere the kernel's pick scores within summation noise (fp32)
+    or one bf16 step (bf16) of the plain pick."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    x, w = torch.randn(b, d, generator=g, device=cuda).to(dtype), torch.randn(d, v, generator=g, device=cuda)
+    w = w.to(dtype)
+    w[:, 3] = w[:, v - 2] = x[0] * 2
+    got, ref = greedy_argmax(x, w), greedy_argmax_plain(x, w)
+    assert got.dtype == torch.int64 and got.shape == (b,) and got[0].item() == 3
+    s = torch.matmul(x.float(), w.float())
+    if dtype == torch.bfloat16:
+        s = s.to(dtype).float()
+    rows = torch.arange(b, device=cuda)
+    tol = 1e-3 if dtype == torch.float32 else 2.0 ** -7 * s.max(-1).values.abs()
+    assert bool(((s[rows, ref] - s[rows, got]).abs() <= tol).all())
+    torch.cuda.synchronize()
+
+
+def test_greedy_head_gate_refuses_what_the_kernel_cannot_serve(cuda):
+    """Auto takes the kernel only for a batch its planner accepts: the tied
+    kernel holds every row in shared memory (200 rows of 768 do not fit), the
+    untied one a group of rows at a time (any batch)."""
+    emb, cls = torch.zeros(1000, 768, device=cuda), torch.zeros(768, 1000, device=cuda)
+    assert _attn.use_greedy_head(8, emb) and not _attn.use_greedy_head(200, emb)
+    assert _attn.use_greedy_head(200, cls, tied=False) and not _attn.use_greedy_head(2, cls, tied=False)
+    with pytest.raises(ValueError):
+        greedy_argmax_tied(torch.zeros(200, 768, device=cuda), emb)
 
 
 @pytest.mark.parametrize("n_mels", [80, 128])
@@ -176,6 +229,42 @@ def test_fused_decode_step_matches_plain(cuda, dtype, atol, rtol, cross):
     torch.cuda.synchronize()
     torch.testing.assert_close(got_x.float(), ref_x.float(), atol=atol, rtol=rtol)
     torch.testing.assert_close(kc[:, :, pos].float(), kc2[:, :, pos].float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(vc.float(), vc2.float(), atol=atol, rtol=rtol)
+    assert (got_tok == ref_tok).float().mean().item() >= 0.75
+
+
+@pytest.mark.parametrize("dtype,atol,rtol", [(torch.float32, 1e-4, 0.0), (torch.bfloat16, 0.05, 2.0 ** -6)])
+def test_fused_t5_step_matches_plain(cuda, dtype, atol, rtol):
+    """K7-T5: RMSNorm, GEGLU, the key-major self bias, cross-attention and
+    the untied head, 2 layers, against the plain twin."""
+    from pytorch_models_tpu_torch.models.text.t5 import T5Config, t5_block_init
+    from pytorch_models_tpu_torch.ops.decode_step import fused_decode_step_plain
+
+    cfg = T5Config(vocab_size=1000, dim=128, n_heads=2, n_layers=2, mlp_dim=256)
+    gen = torch.Generator().manual_seed(7)
+    layers = [t5_block_init(gen, cfg, True) for _ in range(2)]
+    for lp in layers:
+        for name in ("sa_norm", "ca_norm", "mlp_norm"):
+            lp[name]["scale"] = 1 + 0.1 * torch.randn(128, generator=gen)
+    packed = {k: t.to(cuda) for k, t in pack_decode_weights(layers, dtype, cross=True, gated=True).items()}
+    head = {k: t.to(cuda) for k, t in pack_greedy_head(torch.randn(128, 1000, generator=gen),
+                                                       {"scale": 1 + 0.1 * torch.randn(128, generator=gen)}, dtype,
+                                                       tied=False).items()}
+    b, pos = 4, 70
+    x = torch.randn(b, 128, generator=gen).to(cuda, dtype)
+    kc, vc = (torch.randn(2, b, 128, 128, generator=gen).to(cuda, dtype) for _ in range(2))
+    xk, xv = (torch.randn(2, b, 128, 128, generator=gen).to(cuda, dtype) for _ in range(2))
+    lens = torch.tensor([64, 7, 0, 50], dtype=torch.int32, device=cuda)
+    sbias = 2.0 * torch.randn(128, 2, generator=gen).to(cuda)
+    kw = dict(norm="rms", gated=True, sbias=sbias)
+    kc2, vc2 = kc.clone(), vc.clone()
+    ref_x, ref_tok = fused_decode_step_plain(x, packed, kc2, vc2, pos, None, 2, "approximate_gelu", 1e-5, head,
+                                             xk, xv, lens, **kw)
+    got_x, got_tok = fused_cross_decode_step(x, packed, kc, vc, xk, xv, lens, pos, None, 2, "approximate_gelu", 1e-5,
+                                             head=head, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got_x.float(), ref_x.float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(kc.float(), kc2.float(), atol=atol, rtol=rtol)
     torch.testing.assert_close(vc.float(), vc2.float(), atol=atol, rtol=rtol)
     assert (got_tok == ref_tok).float().mean().item() >= 0.75
 

@@ -24,6 +24,7 @@ import pytorch_models_tpu.models.text as jax_text
 import pytorch_models_tpu.ops.attention as jax_attn
 import pytorch_models_tpu.ops.decode_step as jax_ds
 import pytorch_models_tpu.transformer as jax_tfm
+from pytorch_models_tpu.models.text import t5 as jax_t5
 from pytorch_models_tpu.utils.params import to_np
 from pytorch_models_tpu_torch import transformer as tfm
 from pytorch_models_tpu_torch.audio2text import Whisper, WhisperGenerator
@@ -77,6 +78,28 @@ def test_pack_decode_weights_matches_jax(cross):
     expected = jax_ds.pack_decode_weights(jp["layers"], jnp.float32, cross=cross)
     got = ds.pack_decode_weights(ours, torch.float32, cross=cross)
     assert set(got) == set(expected)
+    for k, v in expected.items():
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(v), err_msg=k)
+
+
+def _t5_layers(seed: int = 2):
+    """A T5 decoder stack (RMSNorm, GEGLU, cross-attention) from the JAX init,
+    with its rel-pos table seeded at scale 2 (the init's is zeros, which would
+    hide a dropped bias) and its norms perturbed off their unit init."""
+    cfg = jax_t5.T5Config(vocab_size=300, dim=D, n_heads=2, n_layers=N_LAYERS, mlp_dim=256)
+    dec = jax_t5.t5_stack_init(jax.random.PRNGKey(seed), cfg, cross_attn=True)
+    r = np.random.default_rng(seed)
+    dec["attn_bias"] = jnp.asarray(2.0 * r.standard_normal((2, 32)), jnp.float32)
+    for name in ("sa_norm", "ca_norm", "mlp_norm"):
+        dec["layers"][name]["scale"] = jnp.asarray(1 + 0.1 * r.standard_normal((N_LAYERS, D)), jnp.float32)
+    return cfg, dec, from_jax_params(jax.tree.map(to_np, dec))["layers"]
+
+
+def test_pack_decode_weights_gated_matches_jax():
+    _, dec, ours = _t5_layers()
+    expected = jax_ds.pack_decode_weights(dec["layers"], jnp.float32, gated=True, cross=True, norm="rms")
+    got = ds.pack_decode_weights(ours, torch.float32, cross=True, gated=True)
+    assert set(got) == set(expected) and got["w1"].shape == (N_LAYERS, D, 512)
     for k, v in expected.items():
         np.testing.assert_array_equal(got[k].numpy(), np.asarray(v), err_msg=k)
 
@@ -184,6 +207,57 @@ def test_fused_cross_step_matches_jax(l_max, pos, l_mem, valid_lens, with_head):
         assert tok.tolist() == np.asarray(out[3]).tolist()
 
 
+# (pos, pads): T5's first step (pos 0, zero caches: only the current key), a
+# later step; and a later step with left pads (the kernel serves them for T5 too)
+@pytest.mark.parametrize("pos,pads", [(0, None), (13, None), (37, (0, 2, 37, 1))])
+def test_fused_t5_step_matches_jax(pos, pads):
+    """K7-T5: RMSNorm, GEGLU, the key-major rel-pos self bias, cross-attention
+    over per-row lengths and the untied head, vs the JAX kernel in interpret
+    mode (tests/ops/test_decode_step.py's T5 case, with the head added)."""
+    r = np.random.default_rng(194)
+    cfg, dec, ours = _t5_layers()
+    lc = cfg.layer
+    l_max, l_mem = 128, 24
+    x = r.standard_normal((B, D)).astype(np.float32)
+    k, v = _caches(r, l_max)
+    if pos == 0:
+        k[:], v[:] = 0.0, 0.0
+    memory = r.standard_normal((B, l_mem, D)).astype(np.float32)
+    valid = np.asarray([24, 9, 24, 3], np.int32)
+    cross = jax_tfm.precompute_cross_caches(dec, lc, jnp.asarray(memory), valid_lens=jnp.asarray(valid))
+    table = jax_t5.relative_position_bias(dec["attn_bias"], jnp.arange(48), jnp.arange(l_max), False, cfg)
+    sbias = np.ascontiguousarray(np.asarray(table)[:, pos, :].T)  # (Lp, H) key-major
+    w = (0.3 * r.standard_normal((D, 300))).astype(np.float32)  # untied (d, V) classifier
+    fs = (1 + 0.1 * r.standard_normal(D)).astype(np.float32)
+    head, head_v = jax_ds.pack_greedy_head(jnp.asarray(w), {"scale": jnp.asarray(fs)}, jnp.float32, tied=False)
+    pads_np = None if pads is None else np.asarray(pads, np.int32)
+    with pltpu.force_tpu_interpret_mode():
+        out = jax_ds.fused_cross_decode_step(
+            jnp.asarray(x), jax_ds.pack_decode_weights(dec["layers"], jnp.float32, gated=True, cross=True, norm="rms"),
+            jnp.asarray(k), jnp.asarray(v), cross["k"], cross["v"], cross["len"][0], pos,
+            None if pads is None else jnp.asarray(pads_np), n_heads=2, act="approximate_gelu", eps=1e-5, norm="rms",
+            gated=True, sbias=jnp.pad(jnp.asarray(sbias), ((0, 0), (0, 126))), head=head, head_v=head_v)
+
+    packed = ds.pack_decode_weights(ours, torch.float32, cross=True, gated=True)
+    ours_head = ds.pack_greedy_head(_t(w), {"scale": _t(fs)}, torch.float32, tied=False)
+
+    def step(sb):
+        kc, vc = _t(k), _t(v)
+        x_out, tok = ds.fused_cross_decode_step(
+            _t(x), packed, kc, vc, _t(cross["k"]), _t(cross["v"]), _t(valid), pos,
+            None if pads is None else _t(pads_np), 2, "approximate_gelu", 1e-5, head=ours_head, norm="rms",
+            gated=True, sbias=sb)
+        return x_out, tok, kc, vc
+
+    x_out, tok, kc, vc = step(_t(sbias))
+    np.testing.assert_allclose(x_out.numpy(), np.asarray(out[0]), rtol=3e-4, atol=3e-4)
+    np.testing.assert_allclose(kc[:, :, pos].numpy(), np.asarray(out[1]), rtol=KV_TOL, atol=KV_TOL)
+    np.testing.assert_allclose(vc[:, :, pos].numpy(), np.asarray(out[2]), rtol=KV_TOL, atol=KV_TOL)
+    assert tok.tolist() == np.asarray(out[3]).tolist()
+    if pos > 0:  # the bias matters (at pos 0 it shifts the one score of each head and cancels)
+        assert np.abs(step(None)[0].numpy() - np.asarray(out[0])).max() > 100 * 3e-4
+
+
 def test_stacked_caches_are_views_of_one_buffer():
     """The per-op prefill written through the per-layer views of the stacked
     caches equals one written into separate per-layer tensors, and the
@@ -226,6 +300,10 @@ def test_fused_step_eligible_states_the_kernels_shapes():
     assert not ds.fused_step_eligible(layers, tfm.LayerConfig.make(D, n_heads=2, act="relu"), 4)
     no_cross = [{k: v for k, v in lp.items() if k not in ("ca", "ca_norm")} for lp in layers]
     assert ds.fused_step_eligible(no_cross, lc, 4) and not ds.fused_step_eligible(no_cross, lc, 4, cross=True)
+    cfg, _, t5_layers = _t5_layers()  # GEGLU mlp.{w, v, wo}: served only as gated
+    assert ds.fused_step_eligible(t5_layers, cfg.layer, 4, cross=True, gated=True)
+    assert not ds.fused_step_eligible(t5_layers, cfg.layer, 4, cross=True)
+    assert not ds.fused_step_eligible(layers, lc, 4, cross=True, gated=True)
 
 
 # ---------------------------------------------------------------------------

@@ -21,13 +21,20 @@ from pytorch_models_tpu.ops.attention import _sdpa_xla
 from pytorch_models_tpu.ops.decode_attention import decode_attention as jax_decode_attention
 from pytorch_models_tpu.ops.encoder_attention import encoder_attention as jax_encoder_attention
 from pytorch_models_tpu.ops.gather import gather_rows as jax_gather_rows
+from pytorch_models_tpu.ops.greedy_head import greedy_argmax as jax_greedy_argmax
 from pytorch_models_tpu.ops.greedy_head import greedy_argmax_tied as jax_greedy_argmax_tied
+from pytorch_models_tpu_torch import transformer as tfm
 from pytorch_models_tpu_torch.ops import attention as attn
 from pytorch_models_tpu_torch.ops import layers
 from pytorch_models_tpu_torch.ops.decode_attention import decode_attention, decode_attention_plain
 from pytorch_models_tpu_torch.ops.encoder_attention import encoder_attention, encoder_attention_plain
 from pytorch_models_tpu_torch.ops.gather import embed_rows, gather_rows, gather_rows_plain
-from pytorch_models_tpu_torch.ops.greedy_head import greedy_argmax_tied, greedy_argmax_tied_plain
+from pytorch_models_tpu_torch.ops.greedy_head import (
+    greedy_argmax,
+    greedy_argmax_plain,
+    greedy_argmax_tied,
+    greedy_argmax_tied_plain,
+)
 
 torch.set_num_threads(1)
 
@@ -114,6 +121,45 @@ def test_decode_attention_shared_end_matches_jax():
     np.testing.assert_allclose(got.numpy(), expected, rtol=ATTN_TOL, atol=ATTN_TOL)
 
 
+@pytest.mark.parametrize("per_row", [False, True])
+def test_decode_attention_bias_matches_jax(per_row):
+    """K2-bias: a key-major additive bias, (1, L, H) shared (T5's rel-pos
+    decode bias) or (B, L, H) per row with left pads, at a scale (3.0) where
+    it changes the output far beyond the tolerance."""
+    r = np.random.default_rng(23)
+    b, h, l_max, d = 4, 2, 256, 64
+    q = _randn(r, b, 1, h * d)
+    k, v = _randn(r, b, l_max, h * d), _randn(r, b, l_max, h * d)
+    bias = 3.0 * _randn(r, b if per_row else 1, l_max, h)
+    ends = np.asarray([256, 100, 37, 130], np.int32) if per_row else np.int32(77)
+    pads = np.asarray([0, 7, 36, 129], np.int32) if per_row else None
+    with pltpu.force_tpu_interpret_mode():
+        expected = np.asarray(jax_decode_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(ends), h,
+                                                   pad_lens=None if pads is None else jnp.asarray(pads),
+                                                   bias=jnp.asarray(bias)))
+    args = (_t(q), _t(k), _t(v), _t(ends) if per_row else 77, h, None if pads is None else _t(pads))
+    got = decode_attention(*args, bias=_t(bias))
+    np.testing.assert_allclose(got.numpy(), expected, rtol=ATTN_TOL, atol=ATTN_TOL)
+    np.testing.assert_array_equal(got.numpy(), decode_attention_plain(*args, bias=_t(bias)).numpy())
+    assert np.abs(decode_attention(*args).numpy() - expected).max() > 1000 * ATTN_TOL  # the bias matters
+
+
+def test_encoder_gate_refuses_a_bias(monkeypatch):
+    """K1 takes no bias: with one, the uncached path runs plain SDPA even
+    with the kernel flag forced on (a CUDA launch would drop the bias)."""
+    r = np.random.default_rng(24)
+    cfg = tfm.LayerConfig.make(128, n_heads=2)
+    p = tfm.mha_init(torch.Generator().manual_seed(0), cfg)
+    x = _t(_randn(r, 2, 9, 128))
+    bias = _t(3.0 * _randn(r, 2, 9, 9))
+    monkeypatch.setattr(attn, "USE_ENCODER_KERNEL", True)
+    assert attn.use_encoder_kernel(x, None) and not attn.use_encoder_kernel(x, bias)
+    got = tfm.mha_apply(p, cfg, x, attn_bias=bias)
+    monkeypatch.setattr(attn, "USE_ENCODER_KERNEL", False)
+    torch.testing.assert_close(got, tfm.mha_apply(p, cfg, x, attn_bias=bias), rtol=0, atol=0)
+    assert (got - tfm.mha_apply(p, cfg, x)).abs().max() > 0.1
+
+
 # ---------------------------------------------------------------------------
 # K3 gather
 # ---------------------------------------------------------------------------
@@ -151,6 +197,23 @@ def test_greedy_argmax_matches_jax_ragged_vocab_and_tie():
     assert got.dtype == torch.int64
     np.testing.assert_array_equal(got.numpy(), expected)
     assert got[0] == 10 and got[1] == 8999
+
+
+def test_greedy_argmax_untied_matches_jax_ragged_vocab_and_tie():
+    """K4-untied: a (d, V) classifier (T5), ragged vocabulary, a forced tie."""
+    r = np.random.default_rng(42)
+    b, d, v = 4, 128, 9001  # the JAX kernel takes 6144-column chunks in fp32: 2 chunks, ragged edge
+    x = _randn(r, b, d)
+    w = _randn(r, d, v)
+    w[:, 10] = w[:, 9000] = 3.0 * x[0]  # forced exact tie for row 0 across chunks: lowest index wins
+    w[:, 8999] = 3.0 * x[1]  # row 1's winner sits in the ragged last chunk
+    with pltpu.force_tpu_interpret_mode():
+        expected = np.asarray(jax_greedy_argmax(jnp.asarray(x), jnp.asarray(w)))
+    got = greedy_argmax(_t(x), _t(w))
+    assert got.dtype == torch.int64
+    np.testing.assert_array_equal(got.numpy(), expected)
+    assert got[0] == 10 and got[1] == 8999
+    np.testing.assert_array_equal(greedy_argmax_plain(_t(x), _t(w)).numpy(), expected)
 
 
 def test_greedy_argmax_plain_bf16_rounds_scores():
