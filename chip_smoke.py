@@ -34,9 +34,25 @@ up to the first step where the plain top-2 logits are closer than
 ``GAP_TOL`` (a near-tie that summation order may decide; such a step is
 printed with its gap), and K7 must launch once per decode step.
 
+int8 serving: K6 (the int8 decode attention) against its plain version at
+the GPT-2, Whisper-cross and T5 (rel-pos bias) shapes; K7's int8 variants
+(w8a16 + int8 self-KV, w8a8 + the int8 head, Whisper's int8 self + cross
+KV, T5's w8a8 + int8 self + cross KV with its self bias, the embed phase)
+against the plain twin per step at full width, layer by layer from the
+kernel's own input (each differing int8 K/V level traced to a rounding
+boundary) and with the token held against the plain head on the kernel's
+x_out (the a8 head exactly); the per-op int8 step (12 GPT-2-small layers
+through ``transformer.decoder_apply``, one K6 launch each) against K7 on a
+copy of the same caches; and the three models in int8 serving through their
+generators: fp32 every step's token held against the plain head on the
+kernel route's own x_out, K7 once per decode step, where the rows part from
+the generator driving K7's plain twin (a reading), bf16 agreement with the
+unquantized bf16 route and the routes' times.
+
 Prints one line per phase; the line before the last is a JSON summary of
 the kernels (``max_abs_err`` is the largest |kernel - plain| output over
-every shape and dtype checked; for the greedy head, whose outputs are ids,
+every shape and dtype checked, for K7's int8 variants on x after each layer
+from the kernel's own input; for the greedy head, whose outputs are ids,
 it is the largest score regret ``s[plain id] - s[kernel id]``; for the
 log-mel kernel it is taken where the plain value is at least its global
 max - 8, the part the Whisper frontend keeps; ``ms``, ``plain_ms`` and
@@ -44,7 +60,12 @@ max - 8, the part the Whisper frontend keeps; ``ms``, ``plain_ms`` and
 paths' runs, with every count set to 0 just before each path; a variant
 counts its own launches: ``decode_attention`` those without a bias,
 ``decode_attention_bias`` those with one, ``fused_cross_decode_step``
-Whisper's, ``fused_cross_decode_step_t5`` T5's; ``bound_ms``
+Whisper's, ``fused_cross_decode_step_t5`` T5's, ``int8_kv`` K6's on the
+per-op int8 step, ``fused_decode_step_int8`` / ``_a8`` / ``_embed`` and
+``fused_cross_decode_step_int8`` / ``_t5_a8`` K7's int8 serving launches
+(int8 KV without w8a8, w8a8, the embed phase; Whisper's int8 KV, T5's
+w8a8) on the int8 serving paths; ``limit`` is ``max_abs_err``'s bound;
+``bound_ms``
 is the larger of the bytes the call must move over 3.35 TB/s and its
 operations over the card's peak for their type; ``library_ms`` is one
 PyTorch call computing the same function, where there is one), the line
@@ -101,7 +122,8 @@ DS_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2.0 ** -3, 2.0 ** -5)}
 # by ~1e-5 of its size through 12 layers.
 GAP_TOL = (1e-3, 1e-4)  # atol, rtol * |top logit|
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # CUDA-core fp32; tensor-core bf16 (dense)
+# CUDA-core fp32; tensor-core bf16 and int8 (dense): the bound of fp32, bf16 and int8 arithmetic
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
 
 # Whisper-base main path: <|startoftranscript|><|en|><|transcribe|><|notimestamps|>
 W_INIT = [50258, 50259, 50359, 50363]
@@ -484,7 +506,7 @@ def t5_kernel_phases(dev, card: str) -> dict:
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).removeprefix("torch.")
         tol = TOL[dn]
-        err, moved, times, no_bias = 0.0, [], {}, {}
+        err, moved, times, no_bias, recs = 0.0, [], {}, {}, {}
         for L, end in ((128, 41), (1024, 1000)):
             ends = torch.tensor([end, end // 2, 1, end, 7, end - 3, 64, 2], dtype=torch.int32, device=dev)
             pads = torch.tensor([0, 3, 0, end // 4, 6, 0, 63, 1], dtype=torch.int32, device=dev)
@@ -500,15 +522,15 @@ def t5_kernel_phases(dev, card: str) -> dict:
             times[L] = _ab_ms([lambda c=c: decode_attention(*c, end, 12, None, shared) for c in copies],
                               [lambda c=c: decode_attention_plain(*c, end, 12, None, shared) for c in copies], 50)
             no_bias[L] = _time_ms([lambda c=c: decode_attention(*c, end, 12) for c in copies], 50)
-            if L == 128:
-                col = torch.arange(L, device=dev)
-                mask = (shared.transpose(1, 2)[:, :, None, :] + torch.where(col < end, 0.0, float("-inf"))).to(dtype)
-                lib = _time_ms([lambda c=c: F.scaled_dot_product_attention(heads(c[0]), heads(c[1]), heads(c[2]),
-                                                                           attn_mask=mask)
-                                for c in copies], 50)
-                # q and out once, the valid K/V prefix and its bias rows once
-                rec = _rec(err, *times[L], (2 * 8 * end + 2 * 8) * 768 * copies[0][0].element_size() + end * 12 * 4,
+            col = torch.arange(L, device=dev)
+            mask = (shared.transpose(1, 2)[:, :, None, :] + torch.where(col < end, 0.0, float("-inf"))).to(dtype)
+            lib = _time_ms([lambda c=c: F.scaled_dot_product_attention(heads(c[0]), heads(c[1]), heads(c[2]),
+                                                                       attn_mask=mask)
+                            for c in copies], 50)
+            # q and out once, the valid K/V prefix and its bias rows once
+            recs[L] = _rec(err, *times[L], (2 * 8 * end + 2 * 8) * 768 * copies[0][0].element_size() + end * 12 * 4,
                            4 * 8 * end * 768, dn, lib)
+        rec = recs[128]
         if dtype == torch.float32 and min(moved) <= 100 * tol[0]:
             raise AssertionError(f"decode_attention bias: the bias moved the output only {min(moved)}")
         rec["err"] = err
@@ -519,7 +541,9 @@ def t5_kernel_phases(dev, card: str) -> dict:
               f"{times[128][0] * 1e3:.1f} us, plain {times[128][1] * 1e3:.1f} us, SDPA with the bias as a float mask "
               f"{rec['library_ms'] * 1e3:.1f} us, bound {rec['bound_ms'] * 1e3:.2f} us ({rec['bound_by']}), the "
               f"kernel without the bias {no_bias[128] * 1e3:.1f} us; L=1024 kernel {times[1024][0] * 1e3:.1f} us, "
-              f"plain {times[1024][1] * 1e3:.1f} us, without the bias {no_bias[1024] * 1e3:.1f} us [{card}]")
+              f"plain {times[1024][1] * 1e3:.1f} us, SDPA with the bias as a float mask "
+              f"{recs[1024]['library_ms'] * 1e3:.1f} us, bound {recs[1024]['bound_ms'] * 1e3:.2f} us "
+              f"({recs[1024]['bound_by']}), without the bias {no_bias[1024] * 1e3:.1f} us [{card}]")
 
         # K4-untied: the (d, V) classifier read as it lies, forced tie at columns 7 and 32000 for row 0; B=8 is
         # the T5 main path's batch, 16 and 32 the per-op route's (batches above the fused step's 8 rows)
@@ -767,12 +791,13 @@ def _kernels() -> dict:
     from pytorch_models_tpu_torch.ops.encoder_attention import encoder_attention
     from pytorch_models_tpu_torch.ops.gather import gather_rows
     from pytorch_models_tpu_torch.ops.greedy_head import greedy_argmax, greedy_argmax_tied
+    from pytorch_models_tpu_torch.ops.int8_kv import int8_decode_attention
     from pytorch_models_tpu_torch.ops.mel import log_mel_spectrogram
 
     return {"encoder_attention": encoder_attention, "decode_attention": decode_attention,
             "gather_rows": gather_rows, "greedy_argmax_tied": greedy_argmax_tied, "greedy_argmax": greedy_argmax,
             "log_mel_spectrogram": log_mel_spectrogram, "fused_decode_step": fused_decode_step,
-            "fused_cross_decode_step": fused_cross_decode_step}
+            "fused_cross_decode_step": fused_cross_decode_step, "int8_kv": int8_decode_attention}
 
 
 def _reset_launches() -> None:
@@ -780,14 +805,20 @@ def _reset_launches() -> None:
     for fn in kernels.values():
         fn.launches = 0
     kernels["decode_attention"].bias_launches = 0
+    for name in ("fused_decode_step", "fused_cross_decode_step"):
+        kernels[name].variant_launches = dict.fromkeys(kernels[name].variant_launches, 0)
 
 
 def _launches(required: set) -> dict:
     """Every wrapper's launches since :func:`_reset_launches`, K2's with a
-    bias also on their own; raises unless each ``required`` one launched."""
+    bias also on their own, and K7's with int8 KV, with w8a8 and with the
+    embed phase (``fused_decode_step_kv_int8``, ...); raises unless each
+    ``required`` one launched."""
     kernels = _kernels()
     counts = {name: fn.launches for name, fn in kernels.items()}
     counts["decode_attention_bias"] = kernels["decode_attention"].bias_launches
+    for name in ("fused_decode_step", "fused_cross_decode_step"):
+        counts.update({f"{name}_{k}": v for k, v in kernels[name].variant_launches.items()})
     missing = sorted(k for k in required if counts[k] <= 0)
     if missing:
         raise AssertionError(f"a main path never launched: {missing}")
@@ -1226,6 +1257,764 @@ def t5_path(dev, card: str, profile_dir: str | None = None) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# int8 serving: K6 and K7's int8 variants, then the three models in int8 serving
+# ---------------------------------------------------------------------------
+
+# The per-op int8 stack vs K7 with int8 self-KV (both fp32 weights): both quantize the same values, but a
+# projection summed in another order can move a value across an int8 rounding boundary, and one q or
+# probability level then moves a head's context by about 1/127 of its scale, through the later layers. x_out
+# is held to I8_DS_TOL (atol, rtol) (reading: 2.9e-3); the K/V written at pos: layer 0's int8 levels exactly,
+# the later layers' one level apart at most, on at least I8_LEVELS_EQUAL of the values (reading: 0.9984).
+I8_DS_TOL = (5e-2, 2e-2)
+I8_LEVELS_EQUAL = 0.99
+# K7's int8 variants vs the plain twin, layer by layer (_trace_layers): every layer runs once as the kernel
+# and once as the twin from the kernel's own input, so no difference is carried from an earlier layer (whole
+# stack, w8a8 fp32: 4.7e-2, every later layer's K/V moved). Each int8 K/V level the two write at pos that
+# differs must be one level apart and lie within I8_MARGIN of a rounding boundary (in levels; bf16: or one
+# bf16 step of the value, the two rounding their fp32 sums to bf16 apart), either as the twin computes it or
+# with one w8a8 input level of the QKV phase that lies that close to its own boundary moved to its other side
+# (readings: 3 levels in 12 layers of w8a16, all at a boundary, none needing a moved input; 0 elsewhere). x
+# after the layer is held to I8_LAYER_TOL (atol, rtol): most layers sit at fp32 noise (2.4e-7 to 9.5e-7),
+# and a layer where a phase input, q or probability level moved reads up to 6.5e-3 (GPT-2 w8a8, one layer
+# of 12; T5 w8a8 3.3e-3); bf16 layers read 0 or one bf16 step of x (up to 0.016).
+I8_LAYER_TOL = {"float32": (2e-2, 0.0), "bfloat16": (2e-2, 2.0 ** -7)}
+I8_MARGIN = 1e-3
+# the a8 head, held exactly on the kernel's own x_out: its final norm, summed in another order than the plain
+# one, is taken as uncertain by this share of the row's absmax; an 8-bit hidden level within it of a rounding
+# boundary may be either level, and the kernel's id must be the plain argmax for one such choice
+A8_NORM_NOISE = 1e-6
+A8_MAX_UNCERTAIN = 8
+
+
+def _int8_levels(name: str, got, ref) -> float:
+    """int8 caches written by two routes at one position: at most one level
+    apart and equal on at least I8_LEVELS_EQUAL of the values. Returns the
+    share of equal levels."""
+    d = (got.int() - ref.int()).abs()
+    equal = (d == 0).float().mean().item()
+    if d.max().item() > 1 or equal < I8_LEVELS_EQUAL:
+        raise AssertionError(f"{name}: int8 levels {d.max().item()} apart, {equal:.4f} equal "
+                             f"(limit 1 level, {I8_LEVELS_EQUAL} equal)")
+    return equal
+
+
+def int8_kernel_phases(dev, card: str) -> dict:
+    """K6 (int8 decode attention) vs its plain version, fp32 and bf16: at
+    GPT-2's shape (B=8, H=12, cache 1024, K2's mixed ranges with an empty row,
+    without and with the current position), Whisper-base's cross shape (B=8,
+    H=8, 1500 frames in a 1536 cache, per-row lengths 0-1500) and T5-base's
+    (B=8, H=12, cache 128 at pos 41 and 1024 at pos 1000, the current position
+    and the key-major rel-pos bias). Library call: masked SDPA over the
+    dequantized cache in the serving dtype (a yardstick: it reads twice the
+    bytes and quantizes nothing)."""
+    import torch
+    import torch.nn.functional as F
+
+    from pytorch_models_tpu_torch.ops.int8_kv import (
+        int8_decode_attention,
+        int8_decode_attention_plain,
+        quantize_kv_caches,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 12)
+    res = {}
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+
+    def caches(b, lk, hd, n):
+        return [quantize_kv_caches({"k": rnd(b, lk, hd), "v": rnd(b, lk, hd)}) for _ in range(n)]
+
+    def kv(c):
+        return c["k"], c["v"], c["ks"], c["vs"]
+
+    def deq(c, key, dtype, n_heads):  # the split-head (B, H, L, D) view of a dequantized cache
+        return (c[key].float() * c[key + "s"][..., None]).to(dtype).unflatten(-1, (n_heads, 64)).transpose(1, 2)
+
+    def bound(keys, b, hd, item, cur=False, bias_rows=0):
+        # int8 K/V and their fp32 scales for the keys read, q and out (and the current K/V) once
+        nbytes = keys * (2 * hd + 8) + (4 if cur else 2) * b * hd * item + bias_rows * 4
+        return nbytes, 4 * (keys + (b if cur else 0)) * hd  # int8 multiply-adds: scores and P @ V
+
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).removeprefix("torch.")
+        tol = TOL[dn]
+        item = torch.finfo(dtype).bits // 8
+
+        # GPT-2: K2's mixed ranges (3,189 keys), without and with the current position
+        ends = torch.tensor([1024, 700, 5, 64, 1, 300, 1000, 512], dtype=torch.int32, device=dev)
+        pads = torch.tensor([0, 10, 5, 0, 0, 299, 3, 100], dtype=torch.int32, device=dev)  # row 2 empty
+        cs = caches(8, 1024, 768, 4)
+        qs = [(rnd(8, 1, 768).to(dtype), rnd(8, 768).to(dtype), rnd(8, 768).to(dtype)) for _ in cs]
+        err = 0.0
+        for cur in (False, True):
+            kw = dict(cur_k=qs[0][1], cur_v=qs[0][2]) if cur else {}
+            got = int8_decode_attention(qs[0][0], *kv(cs[0]), ends, 12, pads, **kw)
+            err = max(err, _check_close(f"int8_decode_attention cur={cur} {dn}", got,
+                                        int8_decode_attention_plain(qs[0][0], *kv(cs[0]), ends, 12, pads, **kw), tol))
+            if not cur and got[2].abs().max().item() != 0.0:
+                raise AssertionError("int8_decode_attention: an empty [pad, end) row must give zeros")
+        times = _ab_ms([lambda c=c, q=q: int8_decode_attention(q[0], *kv(c), ends, 12, pads) for c, q in zip(cs, qs)],
+                       [lambda c=c, q=q: int8_decode_attention_plain(q[0], *kv(c), ends, 12, pads)
+                        for c, q in zip(cs, qs)], 50)
+        cur_ms = _time_ms([lambda c=c, q=q: int8_decode_attention(q[0], *kv(c), ends, 12, pads, q[1], q[2])
+                           for c, q in zip(cs, qs)], 50)
+        col = torch.arange(1024, device=dev)
+        mask = ((col >= pads[:, None]) & (col < ends[:, None]))[:, None, None, :]
+        dq = [(q[0].unflatten(-1, (12, 64)).transpose(1, 2), deq(c, "k", dtype, 12), deq(c, "v", dtype, 12))
+              for c, q in zip(cs, qs)]
+        lib = _time_ms([lambda t=t: F.scaled_dot_product_attention(*t, attn_mask=mask) for t in dq], 50)
+        keys = int((ends - pads).clamp_min(0).sum())
+        nbytes, ops = bound(keys, 8, 768, item)
+        rec = res[("int8_kv", dn)] = _rec(err, *times, nbytes, ops, "int8", lib)
+        print(f"phase kernel int8_kv {dn}: B=8 Lk=1024 H=12 K2's pads/ends ({keys} keys) + empty row, without and "
+              f"with the current position: max_abs_err={err:.3g} (atol, rtol)={tol} | kernel {times[0] * 1e3:.1f} us "
+              f"({cur_ms * 1e3:.1f} us with the current position), plain {times[1] * 1e3:.1f} us, masked SDPA over "
+              f"the dequantized cache {lib * 1e3:.1f} us, bound {rec['bound_ms'] * 1e3:.2f} us ({rec['bound_by']}, "
+              f"{nbytes / 1e6:.2f} MB) [{card}]")
+
+        # Whisper-base cross: 1500 frames in a 1536 cache, per-row lengths with a short and an empty row
+        lens = torch.tensor([1500, 1500, 7, 1500, 1200, 0, 300, 1500], dtype=torch.int32, device=dev)
+        cs = caches(8, 1536, 512, 4)
+        qx = [rnd(8, 1, 512).to(dtype) for _ in cs]
+        got = int8_decode_attention(qx[0], *kv(cs[0]), lens, 8)
+        e = _check_close(f"int8_decode_attention cross {dn}", got,
+                         int8_decode_attention_plain(qx[0], *kv(cs[0]), lens, 8), tol)
+        if got[5].abs().max().item() != 0.0:
+            raise AssertionError("int8_decode_attention cross: an empty row must give zeros")
+        rec["err"] = max(rec["err"], e)
+        tx = _ab_ms([lambda c=c, q=q: int8_decode_attention(q, *kv(c), lens, 8) for c, q in zip(cs, qx)],
+                    [lambda c=c, q=q: int8_decode_attention_plain(q, *kv(c), lens, 8) for c, q in zip(cs, qx)], 50)
+        xmask = (torch.arange(1536, device=dev)[None, :] < lens[:, None])[:, None, None, :]
+        dqx = [(q.unflatten(-1, (8, 64)).transpose(1, 2), deq(c, "k", dtype, 8), deq(c, "v", dtype, 8))
+               for c, q in zip(cs, qx)]
+        libx = _time_ms([lambda t=t: F.scaled_dot_product_attention(*t, attn_mask=xmask) for t in dqx], 50)
+        xkeys = int(lens.sum())
+        xb, xo = bound(xkeys, 8, 512, item)
+        rx = _rec(e, *tx, xb, xo, "int8", libx)
+        print(f"phase kernel int8_kv {dn} (Whisper cross): B=8 Lk=1536 H=8 lens {lens.tolist()} ({xkeys} keys): "
+              f"max_abs_err={e:.3g} (atol, rtol)={tol} | kernel {tx[0] * 1e3:.1f} us, plain {tx[1] * 1e3:.1f} us, "
+              f"masked SDPA over the dequantized cache {libx * 1e3:.1f} us, bound {rx['bound_ms'] * 1e3:.2f} us "
+              f"({rx['bound_by']}, {xb / 1e6:.2f} MB) [{card}]")
+
+        # T5-base: the self-attention step at pos with the current position and the rel-pos bias
+        parts = []
+        for lk, pos in ((128, 41), (1024, 1000)):
+            cs = caches(8, lk, 768, 4)
+            qt = [(rnd(8, 1, 768).to(dtype), rnd(8, 768).to(dtype), rnd(8, 768).to(dtype)) for _ in cs]
+            sb = T5_BIAS_SCALE * rnd(lk, 12)
+            got = int8_decode_attention(qt[0][0], *kv(cs[0]), pos, 12, None, qt[0][1], qt[0][2], sb)
+            e = _check_close(f"int8_decode_attention bias Lk={lk} {dn}", got,
+                             int8_decode_attention_plain(qt[0][0], *kv(cs[0]), pos, 12, None, qt[0][1], qt[0][2], sb),
+                             tol)
+            moved = (got.float() - int8_decode_attention(qt[0][0], *kv(cs[0]), pos, 12, None, qt[0][1],
+                                                         qt[0][2]).float()).abs().max().item()
+            if dtype == torch.float32 and moved <= 100 * tol[0]:
+                raise AssertionError(f"int8_decode_attention: the bias moved the output only {moved}")
+            rec["err"] = max(rec["err"], e)
+            tt = _ab_ms([lambda c=c, q=q: int8_decode_attention(q[0], *kv(c), pos, 12, None, q[1], q[2], sb)
+                         for c, q in zip(cs, qt)],
+                        [lambda c=c, q=q: int8_decode_attention_plain(q[0], *kv(c), pos, 12, None, q[1], q[2], sb)
+                         for c, q in zip(cs, qt)], 50)
+            tb, to = bound(8 * pos, 8, 768, item, cur=True, bias_rows=(pos + 1) * 12)
+            rt = _rec(e, *tt, tb, to, "int8")
+            parts.append(f"Lk={lk} pos={pos}: max_abs_err={e:.3g}, the bias moves the output by {moved:.3g}, kernel "
+                         f"{tt[0] * 1e3:.1f} us, plain {tt[1] * 1e3:.1f} us, bound {rt['bound_ms'] * 1e3:.2f} us "
+                         f"({rt['bound_by']})")
+        print(f"phase kernel int8_kv {dn} (T5 self + current + rel-pos bias N(0, 1) x {T5_BIAS_SCALE}), B=8 H=12: "
+              + "; ".join(parts) + f" (atol, rtol)={tol} [{card}]")
+    torch.cuda.synchronize()
+    return res
+
+
+def int8_stack_path(dev, card: str) -> dict:
+    """The per-op int8 decode route: one GPT-2-small decode step (12 layers,
+    d 768, B=8, pos 127 in a 1024 cache, left pads) through
+    ``transformer.decoder_apply`` over per-layer int8 caches, where each
+    layer's self-attention is one K6 launch, held against K7 with int8
+    self-KV (``kv_scales``) on a copy of the same caches: one layer stack run
+    twice, two kernels against each other. Counts from 0 before the per-op
+    run; returns K6's launches there."""
+    import torch
+
+    from pytorch_models_tpu_torch import transformer as tfm
+    from pytorch_models_tpu_torch.ops.decode_step import fused_decode_step, pack_decode_weights
+    from pytorch_models_tpu_torch.ops.int8_kv import int8_decode_attention, quantize_kv_caches
+
+    cfg, layers, _, _ = _k7_model(dev, "gpt2")
+    g = torch.Generator(device=dev).manual_seed(SEED + 13)
+    pos = 127
+    pads = torch.tensor([0, 5, pos, 3, 0, pos // 2, 1, 17], dtype=torch.int32, device=dev)
+    x = torch.randn(8, 768, generator=g, device=dev)
+    c = quantize_kv_caches({k: torch.randn(12, 8, 1024, 768, generator=g, device=dev) for k in ("k", "v")})
+    c2 = {k: t.clone() for k, t in c.items()}
+    views = [{k: t[i] for k, t in c.items()} for i in range(12)]
+    _reset_launches()
+    with torch.inference_mode():
+        h, _ = tfm.decoder_apply({"layers": layers}, cfg, x[:, None], self_caches=views, pos=pos, pad_lens=pads)
+    torch.cuda.synchronize()
+    k6 = int8_decode_attention.launches
+    if k6 != 12:
+        raise AssertionError(f"per-op int8 step: K6 launched {k6} times for 12 layers")
+    x_out, _ = fused_decode_step(x, pack_decode_weights(layers, torch.float32), c2["k"], c2["v"], pos, pads,
+                                 cfg.n_heads, cfg.act, cfg.norm_eps, kv_scales={"ks": c2["ks"], "vs": c2["vs"]})
+    torch.cuda.synchronize()
+    err = _check_close("per-op int8 step vs K7 int8-KV x_out", x_out, h[:, 0], I8_DS_TOL)
+    equal = min(_int8_levels(f"per-op int8 step vs K7 {key} at pos", c2[key][1:, :, pos], c[key][1:, :, pos])
+                for key in ("k", "v"))
+    for key in ("k", "v"):
+        if not torch.equal(c2[key][0, :, pos], c[key][0, :, pos]):
+            raise AssertionError(f"per-op int8 step vs K7: layer 0's {key} at pos differs")
+        if not torch.equal(c2[key][:, :, :pos], c[key][:, :, :pos]):
+            raise AssertionError("per-op int8 step vs K7: a cache changed outside pos")
+    print(f"phase int8 per-op step: GPT-2 small fp32, 12 layers, B=8 pos={pos} pads {pads.tolist()}, int8 caches of "
+          f"1024: transformer.decoder_apply (K6 launched {k6} times, once per layer) vs K7 with int8 self-KV on a "
+          f"copy: "
+          f"x_out max |diff| {err:.3g} (atol, rtol)={I8_DS_TOL}, int8 K/V at pos equal on layer 0 and on "
+          f">= {equal:.4f} of the later layers' values (one level at most) [{card}]")
+    return {"int8_kv": k6}
+
+
+def _head_check(name: str, head: dict, x, tok, eps: float, norm: str) -> tuple[int, float]:
+    """The step's token ``tok`` (B,) against the plain head run on the
+    kernel's own ``x`` (B, d). The a8 head exactly: the int8 hidden levels
+    (their row scale unapplied) times the int8 table, summed exactly in
+    float64, times ``emb_s`` in fp32, argmax with ties to the lowest index;
+    a level within ``A8_NORM_NOISE`` of a rounding boundary may be either
+    (see the constant). A float head as the K7 phase checks it: ids equal
+    where the top-2 gap exceeds GAP_TOL (fp32) or 2^-5 of the top score
+    (bf16), the score regret within it. Returns (hidden levels taken as
+    uncertain, max score regret)."""
+    import itertools
+
+    import torch
+
+    from pytorch_models_tpu_torch.ops.decode_step import _norm
+
+    rows = torch.arange(x.shape[0], device=x.device)
+    if "emb_s" not in head:
+        s = torch.matmul(_norm(head["fn_s"], head["fn_b"], x, eps, norm).float(), head["emb"].float().t())
+        if x.dtype == torch.bfloat16:
+            s = s.to(x.dtype).float()
+        top2 = s.topk(2, dim=-1).values
+        gap_tol = GAP_TOL[0] + GAP_TOL[1] * top2[:, 0].abs() if x.dtype == torch.float32 else \
+            2.0 ** -5 * top2[:, 0].abs()
+        plain = s.argmax(dim=-1)
+        regret = s[rows, plain] - s[rows, tok]
+        decided = top2[:, 0] - top2[:, 1] > gap_tol
+        if not torch.equal(tok[decided], plain[decided]) or bool((regret.abs() > gap_tol).any()):
+            raise AssertionError(f"{name}: tok {tok.tolist()} != plain head {plain.tolist()} on the kernel's x_out, "
+                                 f"regret {regret.tolist()}")
+        return 0, regret.abs().max().item()
+    # the a8 head: the plain norm in fp32 before its rounding to x's dtype, the kernel's within the noise of it
+    y = _norm(head["fn_s"], head["fn_b"], x.float(), eps, norm)
+    noise = A8_NORM_NOISE * y.abs().amax(dim=-1, keepdim=True)
+    absmax = y.to(x.dtype).float().abs().amax(dim=-1, keepdim=True)
+    r = torch.where(absmax == 0, torch.ones_like(absmax), absmax) * (1.0 / 127.0)
+    lo = torch.round((y - noise).to(x.dtype).float() / (r * (1 + A8_NORM_NOISE))).clamp(-127, 127)
+    hi = torch.round((y + noise).to(x.dtype).float() / (r * (1 - A8_NORM_NOISE))).clamp(-127, 127)
+    lo, hi = torch.minimum(lo, hi), torch.maximum(lo, hi)
+    table = head["emb"].double().t()
+    n_uncertain = 0
+    for i in range(x.shape[0]):
+        mid = torch.round(y[i].to(x.dtype).float() / r[i]).clamp(-127, 127)
+        open_ = (lo[i] != hi[i]).nonzero().flatten()
+        n_uncertain += len(open_)
+        if len(open_) > A8_MAX_UNCERTAIN:
+            raise AssertionError(f"{name}: row {i} has {len(open_)} hidden levels within the norm's noise")
+        ids = []
+        for pick in itertools.product((0, 1), repeat=len(open_)):
+            q = mid.clone()
+            if len(open_):
+                q[open_] = torch.where(torch.tensor(pick, device=x.device) == 1, hi[i, open_], lo[i, open_])
+            ids.append((torch.matmul(q.double(), table).float() * head["emb_s"]).argmax().item())
+            if ids[-1] == tok[i].item():
+                break
+        else:
+            raise AssertionError(f"{name}: row {i} id {tok[i].item()} is not the a8 head's argmax {ids} on the "
+                                 f"kernel's x_out ({len(open_)} hidden levels within the norm's noise)")
+    return n_uncertain, 0.0
+
+
+def _qkv_replica(packed: dict, i: int, x, eps: float, norm: str, a8: bool, h_q=None):
+    """Layer ``i``'s QKV phase as the plain twin computes it, from the
+    layer's input ``x``: ``(q|k|v (B, 3*H*D) in x's dtype, its w8a8 input
+    levels and row scales or None)``; ``h_q`` replaces the input levels."""
+    import torch
+
+    from pytorch_models_tpu_torch.ops.decode_step import _norm
+    from pytorch_models_tpu_torch.ops.int8_kv import quantize_rows
+
+    h = _norm(packed["ln1_s"][i], packed["ln1_b"][i], x, eps, norm)
+    w = packed["wqkv"][i]
+    levels = None
+    if w.dtype == torch.int8 and a8:
+        hq, r = quantize_rows(h)
+        levels = (hq if h_q is None else h_q, r, h)
+        acc = torch.matmul(levels[0].double(), w.double()).float() * r
+    else:
+        acc = torch.matmul(h.float(), w.float())
+    if w.dtype == torch.int8:
+        acc = acc * packed["s_qkv"][i]
+    return (acc + packed["bqkv"][i].float()).to(x.dtype), levels
+
+
+def _near(t, dt):
+    """Which quantizer inputs ``t`` (in levels) lie within I8_MARGIN of a
+    rounding boundary (bf16: or within one bf16 step of the value)."""
+    import torch
+
+    margin = (t - t.floor() - 0.5).abs()
+    window = I8_MARGIN if dt == torch.float32 else torch.clamp(t.abs() * 2.0 ** -7, min=I8_MARGIN)
+    return margin < window
+
+
+def _explain_kv(name: str, packed: dict, i: int, x, eps: float, norm: str, a8: bool, kern: dict, twin: dict,
+                hd: int) -> dict:
+    """Layer ``i``'s int8 K/V at pos, the kernel's (``kern``: ``{"k", "v",
+    "ks", "vs"}`` rows) against the twin's (``twin``), both from the same
+    input ``x``: every differing level must be one apart and within
+    I8_MARGIN of a rounding boundary of the twin's value, or of the twin's
+    value with one w8a8 QKV input level near its own boundary moved (the
+    kernel's norm, summed in another order, rounding it the other way), and
+    the scales must agree to 1e-5 of the explaining value's. Returns the
+    counts of differing levels and of rows explained by a moved input
+    level."""
+    import torch
+
+    from pytorch_models_tpu_torch.ops.int8_kv import quantize_rows
+
+    qkv, levels = _qkv_replica(packed, i, x, eps, norm, a8)
+    dt = x.dtype
+
+    def kv_of(qkv_rows):
+        out = {}
+        for j, key in ((1, "k"), (2, "v")):
+            new = qkv_rows[..., j * hd:(j + 1) * hd]
+            q8, sc = quantize_rows(new)
+            out[key], out[key + "s"], out[key + "t"] = q8, sc[..., 0], new.float() / sc
+        return out
+
+    mine = kv_of(qkv)
+    for key in ("k", "v", "ks", "vs"):
+        if not torch.equal(mine[key], twin[key]):
+            raise AssertionError(f"{name}: the QKV replica does not reproduce the twin's layer {i} {key}")
+
+    def fits(ref, row) -> bool:
+        for key in ("k", "v"):
+            off = kern[key][row].int() - ref[key][row].int()
+            if off.abs().max().item() > 1 or not bool(_near(ref[key + "t"][row], dt)[off != 0].all()):
+                return False
+            if abs(kern[key + "s"][row].item() - ref[key + "s"][row].item()) > 1e-5 * ref[key + "s"][row].item():
+                return False
+        return True
+
+    n_diff, moved = 0, 0
+    for row in range(x.shape[0]):
+        diff = sum(int((kern[key][row] != mine[key][row]).sum()) for key in ("k", "v"))
+        scale_diff = any(kern[key][row].item() != mine[key][row].item() for key in ("ks", "vs"))
+        if not diff and not scale_diff:
+            continue
+        n_diff += diff
+        if fits(mine, row):
+            continue
+        ok = False
+        if levels is not None:  # one w8a8 input level of the QKV phase moved across its boundary
+            hq, r, h = levels
+            t = h[row].float() / r[row]
+            for j in _near(t, dt).nonzero().flatten().tolist():
+                alt = hq.clone()
+                alt[row, j] = int(torch.floor(t[j]).item()) + (0 if alt[row, j].item() > t[j].item() else 1)
+                if fits(kv_of(_qkv_replica(packed, i, x, eps, norm, a8, h_q=alt)[0]), row):
+                    ok, moved = True, moved + 1
+                    break
+        if not ok:
+            raise AssertionError(f"{name}: layer {i} row {row}: {diff} int8 K/V levels at pos differ from the twin's "
+                                 f"away from any rounding boundary")
+    return {"levels": n_diff, "moved_inputs": moved}
+
+
+def _trace_layers(name: str, run, n_layers: int, pre: dict, got: tuple, sc: dict, pos: int, packed: dict,
+                  x_in, eps: float, norm: str, a8: bool, kv: bool, hd: int) -> dict:
+    """K7 layer by layer from the same caches ``pre`` (as they stood before
+    the step): the kernel over layer i's slice from its own layer-i input,
+    chained, must equal the whole-stack launch ``got = (x_out, tok)`` and its
+    caches ``sc`` bit for bit; the twin over the same slice from the same
+    input is then held to I8_LAYER_TOL on x and, with int8 self-KV, by
+    :func:`_explain_kv` on the K/V at pos. Returns the readings."""
+    import torch
+
+    ck = {k: t.clone() for k, t in pre.items()}
+    cp = {k: t.clone() for k, t in pre.items()}
+    dn = str(x_in.dtype).removeprefix("torch.")
+    xi, err, dx, n_levels, n_moved = x_in, 0.0, [], 0, 0
+    for i in range(n_layers):
+        last = i == n_layers - 1
+        xk, tk = run(ck, False, slice(i, i + 1), xi, last)
+        xp, _ = run(cp, True, slice(i, i + 1), xi, False)
+        e = _check_close(f"{name} layer {i} x (kernel vs twin from the kernel's input)", xk, xp, I8_LAYER_TOL[dn])
+        err = max(err, e)
+        dx.append(e)
+        if kv:
+            rows = {d: {key: c[key][i, :, pos] for key in ("k", "v", "ks", "vs")} for d, c in (("k", ck), ("p", cp))}
+            got_kv = _explain_kv(name, packed, i, xi, eps, norm, a8, rows["k"], rows["p"], hd)
+            n_levels += got_kv["levels"]
+            n_moved += got_kv["moved_inputs"]
+        xi = xk
+    if not torch.equal(xk, got[0]) or not torch.equal(tk, got[1]):
+        raise AssertionError(f"{name}: the kernel layer by layer differs from its whole-stack launch")
+    for key in sc:
+        if not torch.equal(ck[key], sc[key]):
+            raise AssertionError(f"{name}: the kernel layer by layer wrote other {key} caches than its whole stack")
+    return {"err": err, "dx": dx, "levels": n_levels, "moved_inputs": n_moved}
+
+
+# K7's int8 variants: (name in the kernels line, model, w8a8 (+ a8 head), int8 self-KV, int8 cross-KV,
+# weight-only int8, embed phase)
+I8_VARIANTS = (
+    ("fused_decode_step_int8", "gpt2", False, True, False, True, False),
+    ("fused_decode_step_a8", "gpt2", True, True, False, True, False),
+    ("fused_cross_decode_step_int8", "whisper", False, True, True, False, False),
+    ("fused_cross_decode_step_t5_a8", "t5", True, True, True, True, False),
+    ("fused_decode_step_embed", "gpt2", False, False, False, False, True),
+)
+
+
+def int8_decode_step_phases(dev, card: str) -> dict:
+    """K7's int8 serving variants against the plain twin at full width, B=8,
+    fp32 and bf16, one step: GPT-2 small w8a16 + int8 self-KV, and w8a8 with
+    the int8 head + int8 self-KV (pos 127 in a 1024 cache, left pads);
+    Whisper-base int8 self + cross KV (pos 40, 1500 frames in 1536, per-row
+    lengths); T5-base w8a8 + int8 self + cross KV with the rel-pos self bias
+    (pos 40, prompts of 7-64 tokens); GPT-2 with the embed phase. The int8
+    variants layer by layer (:func:`_trace_layers`), the embed phase's x_out
+    and K/V at pos to DS_TOL; the token against the plain head on the
+    kernel's x_out (:func:`_head_check`); times kernel and plain."""
+    import torch
+
+    from pytorch_models_tpu_torch.models.text.t5 import T5Config, relative_position_bias
+    from pytorch_models_tpu_torch.ops.decode_step import (
+        fused_cross_decode_step,
+        fused_decode_step,
+        pack_decode_weights,
+        pack_embed_tables,
+        pack_greedy_head,
+    )
+    from pytorch_models_tpu_torch.ops.int8_kv import quantize_kv_caches
+    from pytorch_models_tpu_torch.utils import cast_tree, quantize_tree_int8
+
+    res = {}
+    g = torch.Generator(device=dev).manual_seed(SEED + 14)
+    b = 8
+    models = {}
+    for name, kind, a8, kv, kvx, q8, embed in I8_VARIANTS:
+        if kind not in models:
+            models[kind] = _k7_model(dev, kind)
+        cfg32, layers32, emb32, final32 = models[kind]
+        cross, t5 = kind != "gpt2", kind == "t5"
+        n_layers, d, hd = len(layers32), cfg32.d_model, cfg32.n_heads * cfg32.head_dim
+        l_max, pos = (1024, 127) if kind == "gpt2" else (128, 40)
+        variant = {}
+        if t5:
+            pads, lx = None, 128
+            lens = torch.tensor([64, 64, 7, 64, 50, 64, 12, 64], dtype=torch.int32, device=dev)
+            table = T5_BIAS_SCALE * torch.randn(12, 32, generator=g, device=dev)
+            bias_hl = relative_position_bias(table, torch.arange(l_max, device=dev), torch.arange(l_max, device=dev),
+                                             False, T5Config(32128, 768, 12, 12, 2048))[:, pos]
+            variant = dict(norm="rms", gated=True, sbias=bias_hl.t().contiguous())
+        else:
+            pads = torch.tensor([0, 5, pos, 3, 0, pos // 2, 1, 17], dtype=torch.int32, device=dev)
+            lx = 1536
+            lens = torch.tensor([1500, 1500, 7, 1500, 1200, 1500, 300, 1500], dtype=torch.int32, device=dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            dn = str(dtype).removeprefix("torch.")
+            layers = cast_tree(layers32, dtype)
+            if q8:  # the JAX package's serving order: to_bf16(), then quantize_int8()
+                layers = quantize_tree_int8(layers)
+            packed = pack_decode_weights(layers, dtype, cross=cross, gated=t5)
+            head = pack_greedy_head(emb32, final32, dtype, tied=not t5, a8=a8)
+            x = torch.randn(b, d, generator=g, device=dev).to(dtype)
+            raw = {k: torch.randn(n_layers, b, l_max, hd, generator=g, device=dev) for k in ("k", "v")}
+            sc = quantize_kv_caches(raw) if kv else {k: t.to(dtype) for k, t in raw.items()}
+            kw = dict(a8=a8, kv_scales={"ks": sc["ks"], "vs": sc["vs"]} if kv else None)
+            if cross:
+                xraw = {k: torch.randn(n_layers, b, lx, hd, generator=g, device=dev) for k in ("k", "v")}
+                xc = quantize_kv_caches(xraw) if kvx else {k: t.to(dtype) for k, t in xraw.items()}
+                kw["kv_scales_x"] = {"ks": xc["ks"], "vs": xc["vs"]} if kvx else None
+            x_in = x
+            if embed:  # the embed phase: x is built from the tables (ids clamped, one out of range)
+                tabs = pack_embed_tables(torch.randn(50257, d, generator=g, device=dev),
+                                         3.0 * torch.randn(1024, d, generator=g, device=dev), dtype)
+                ids = torch.tensor([5, 50256, 0, 17, 99999, 1234, 42, 7], device=dev)
+                prow = (pos - torch.where(pads > pos, pos, pads)).to(torch.int64)
+                kw.update(emb=tabs, tok_ids=ids, pos_rows=prow)
+                x_in = None
+
+            def run(c, plain, sl=slice(None), x_in=x_in, with_head=True, kw=kw, variant=variant, packed=packed,
+                    head=head, xc=xc if cross else None):
+                # the step over the layers ``sl`` of the weights and caches (a layer's slice for the trace)
+                cs = {k: t[sl] for k, t in c.items()}
+                args = dict(kw, kv_scales={"ks": cs["ks"], "vs": cs["vs"]} if kv else None, plain=plain,
+                            head=head if with_head else None)
+                pk = {k: t[sl] for k, t in packed.items()}
+                if cross:
+                    xs = {k: t[sl] for k, t in xc.items()}
+                    args["kv_scales_x"] = {"ks": xs["ks"], "vs": xs["vs"]} if kvx else None
+                    return fused_cross_decode_step(x_in, pk, cs["k"], cs["v"], xs["k"], xs["v"], lens, pos, pads,
+                                                   cfg32.n_heads, cfg32.act, cfg32.norm_eps, **variant, **args)
+                return fused_decode_step(x_in, pk, cs["k"], cs["v"], pos, pads, cfg32.n_heads, cfg32.act,
+                                         cfg32.norm_eps, **args)
+
+            pre = {k: t.clone() for k, t in sc.items()}
+            ref_c = {k: t.clone() for k, t in sc.items()}
+            ref_x, ref_tok = run(ref_c, True)
+            got_x, got_tok = run(sc, False)
+            torch.cuda.synchronize()
+            norm = "rms" if t5 else "ln"
+            for key in ("k", "v"):
+                if not torch.equal(sc[key][:, :, :pos], pre[key][:, :, :pos]):
+                    raise AssertionError(f"{name} {dn}: the cache changed outside pos")
+            if kv or q8:
+                # layer by layer from the kernel's own inputs; the whole stack against the twin's is a reading
+                trace = _trace_layers(f"{name} {dn}", run, n_layers, pre, (got_x, got_tok), sc, pos, packed, x,
+                                      cfg32.norm_eps, norm, a8, kv, hd)
+                err, tol = trace["err"], I8_LAYER_TOL[dn]
+                stack = (got_x.float() - ref_x.float()).abs().max().item()
+                checked = (f"layer by layer from the kernel's own input: max |kernel - twin| on x {err:.3g} "
+                           f"(atol, rtol)={tol} (per layer {', '.join(f'{e:.2g}' for e in trace['dx'])})"
+                           + (f", int8 K/V levels at pos differing {trace['levels']} (each one level apart at a "
+                              f"rounding boundary; {trace['moved_inputs']} rows by a moved w8a8 input level)"
+                              if kv else "")
+                           + f"; the whole stack bit-equal to the layers chained; whole stack vs twin (carried "
+                             f"through the layers, not held): x_out max |diff| {stack:.3g}")
+            else:
+                tol = DS_TOL[dn]
+                err = _check_close(f"{name} x_out {dn}", got_x, ref_x, tol)
+                for key in ("k", "v"):
+                    err = max(err, _check_close(f"{name} {key} at pos {dn}", sc[key][:, :, pos],
+                                                ref_c[key][:, :, pos], tol))
+                checked = f"max |kernel - plain| (x_out, K/V at pos) {err:.3g} (atol, rtol)={tol}"
+            # the token: the plain head on the kernel's own x_out (the a8 head exactly)
+            uncertain, regret = _head_check(f"{name} {dn}", head, got_x, got_tok, cfg32.norm_eps, norm)
+            with torch.inference_mode():
+                ms, plain_ms = _ab_ms([lambda: run(sc, False)], [lambda: run(ref_c, True)], 10)
+            # bytes: every weight (int8: 1 byte + an fp32 scale per column) and the head table once, the small
+            # params, the cached keys' K/V (int8 + 8 bytes of scales per key) and the K/V written
+            w_bytes = sum(t.numel() * t.element_size() for k, t in packed.items())
+            h_bytes = sum(t.numel() * t.element_size() for t in head.values())
+            self_keys = b * pos if pads is None else int((pos - pads.clamp(max=pos)).sum())
+            cross_keys = int(lens.sum()) if cross else 0
+            kv_item = 1 if kv else dtype.itemsize
+            xkv_item = (1 if kvx else dtype.itemsize) if cross else 0
+            nbytes = (w_bytes + h_bytes + 2 * b * d * dtype.itemsize
+                      + n_layers * self_keys * (2 * hd * kv_item + (8 if kv else 0))
+                      + n_layers * cross_keys * (2 * hd * xkv_item + (8 if kvx else 0))
+                      + n_layers * b * (2 * hd * kv_item + (8 if kv else 0)) + 8 * b)
+            if embed:
+                nbytes += 2 * b * d * dtype.itemsize
+            w_el = sum(t.numel() for k, t in packed.items() if k.startswith("w")) + head["emb"].numel()
+            ops = 2 * b * w_el + 4 * n_layers * hd * (self_keys + b + cross_keys)
+            rec = res[(name, dn)] = _rec(err, ms, plain_ms, nbytes, ops, "int8" if a8 else dn)
+            features = [f for f, on in (("w8a8 + int8 head", a8), ("w8a16", q8 and not a8), ("int8 self-KV", kv),
+                                        ("int8 cross-KV", kvx), ("embed phase (ids incl. one out of range)", embed),
+                                        ("rel-pos self bias", t5)) if on]
+            print(f"phase kernel {name} {dn}: {kind} {n_layers} layers d={d} B=8 pos={pos}, " + ", ".join(features)
+                  + f" | {checked}; tok {got_tok.tolist()} = the plain head on the kernel's x_out ("
+                  + (f"exact, {uncertain} hidden levels within the norm's noise" if a8 else
+                     f"max score regret {regret:.3g}") + f"; the twin's own {ref_tok.tolist()})"
+                  f" | kernel {ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, bound "
+                  f"{rec['bound_ms'] * 1e3:.1f} us ({rec['bound_by']}, {nbytes / 1e6:.1f} MB) [{card}]")
+    torch.cuda.synchronize()
+    return res
+
+
+class _StepSpy:
+    """While active, the fused steps the generators launch (they import the
+    wrappers at call time) go through a spy: with ``plain``, the plain twin
+    runs in the kernel's place; else each step's token is held against the
+    plain head on the kernel route's own x_out (:func:`_head_check`; the a8
+    head exactly). Counts the steps and the hidden levels taken as
+    uncertain."""
+
+    def __init__(self, plain: bool):
+        self.plain, self.steps, self.uncertain, self.regret = plain, 0, 0, 0.0
+
+    def __enter__(self):
+        import functools
+        import inspect
+
+        from pytorch_models_tpu_torch.ops import decode_step as ds
+
+        self._orig = {n: getattr(ds, n) for n in ("fused_decode_step", "fused_cross_decode_step")}
+        for n, fn in self._orig.items():
+            if self.plain:
+                setattr(ds, n, functools.partial(fn, plain=True))
+                continue
+
+            def spy(*args, _fn=fn, _sig=inspect.signature(fn), **kw):
+                x, tok = _fn(*args, **kw)
+                a = _sig.bind(*args, **kw).arguments
+                u, r = _head_check(f"step {self.steps}", a["head"], x, tok, a["eps"], a.get("norm", "ln"))
+                self.steps, self.uncertain, self.regret = self.steps + 1, self.uncertain + u, max(self.regret, r)
+                return x, tok
+
+            spy.__dict__ = fn.__dict__  # the wrapper counts its launches on its module name: one shared count
+            setattr(ds, n, spy)
+        return self
+
+    def __exit__(self, *exc):
+        from pytorch_models_tpu_torch.ops import decode_step as ds
+
+        for n, fn in self._orig.items():
+            setattr(ds, n, fn)
+
+
+def _parting(got: list, ref: list) -> str:
+    """Where each row of the kernel route first parts from the twin's (a
+    reading: the int8 state the two routes carry drifts apart a level at a
+    time, so their streams need not stay together)."""
+    firsts = [next((k for k in range(min(len(a), len(b))) if a[k] != b[k]), min(len(a), len(b))) if a != b
+              else None
+              for a, b in zip(got, ref)]
+    same = sum(f is None for f in firsts)
+    return f"{same}/{len(got)} rows identical" + ("" if same == len(got) else ", others part at tokens "
+                                                  + ", ".join(str(f) for f in firsts if f is not None))
+
+
+def _int8_flags(kv: bool = False, kv_cross: bool = False, a8: bool = False, embed: bool | None = None,
+                fused=None) -> None:
+    from pytorch_models_tpu_torch.ops import attention as attn
+
+    attn.USE_INT8_KV, attn.USE_INT8_KV_CROSS, attn.USE_A8_DECODE, attn.USE_FUSED_EMBED = kv, kv_cross, a8, embed
+    attn.USE_FUSED_STEP = fused
+
+
+def int8_paths(dev, card: str) -> dict:
+    """GPT-2 small, Whisper-base and T5-base at full width in int8 serving,
+    through the generators: GPT-2 after ``quantize_int8()`` with int8 self-KV,
+    w8a8 and the int8 head (and once more in w8a16 with the embed phase);
+    Whisper with int8 self- and cross-KV; T5 after ``quantize_int8()`` with
+    w8a8, the int8 head over its dequantized classifier and int8 self- and
+    cross-KV. fp32: every step's token held against the plain head on the
+    kernel route's own x_out (the a8 head exactly), K7 launched once per
+    decode step, >= 3 distinct new tokens per row, and where the rows part
+    from the same generator driving K7's plain twin (a reading); bf16:
+    agreement with the unquantized bf16 fused route and the time of both, and
+    of the int8 per-op route. Counts from 0 before each model. Returns each
+    model's launches."""
+    import torch
+
+    from pytorch_models_tpu_torch.audio2text import Whisper, WhisperGenerator
+    from pytorch_models_tpu_torch.models.text import GPT2, DecoderGenerator
+    from pytorch_models_tpu_torch.ops.decode_step import fused_cross_decode_step, fused_decode_step
+    from pytorch_models_tpu_torch.text import T5Generator, T5Model
+
+    out = {}
+    r = np.random.default_rng(SEED)
+    prompts = [r.integers(0, 50257, n).tolist() for n in PROMPT_LENS]
+    r5 = np.random.default_rng(SEED + 10)
+    t5_prompts = [r5.integers(2, 32128, n).tolist() for n in T5_PROMPT_LENS]
+    audio = _waveforms(8, W_SECONDS, SEED + 4)
+    wav = torch.from_numpy(audio).to(dev)
+    n_init, w_max = len(W_INIT), len(W_INIT) + N_NEW
+
+    def build(kind, quantize: bool, bf16: bool):
+        if kind == "gpt2":
+            m = GPT2.from_hf("gpt2", rng=SEED, device=dev)
+            _make_streams_move(dev, SEED + 7, m.params, [m.params["decoder"]["layers"]])
+            gen = DecoderGenerator(m, _Tok())
+            fn = (lambda: gen.generate_tokens_batch(prompts, max_tokens=N_NEW))
+            new = lambda rows: [row[len(p):] for row, p in zip(rows, prompts)]  # noqa: E731
+            steps = lambda rows: _decode_steps([N_NEW] * len(prompts), N_NEW - 1, False)  # noqa: E731
+        elif kind == "whisper":
+            m = Whisper.from_openai("base", rng=SEED, device=dev)
+            _make_streams_move(dev, SEED + 3, m.params["decoder"],
+                               [m.params["encoder"]["layers"], m.params["decoder"]["layers"]])
+            gen = WhisperGenerator(m)
+            fn = (lambda: gen.transcribe_tokens_batch(wav, W_INIT, W_EOT, w_max))
+            new = lambda rows: [row[n_init:] for row in rows]  # noqa: E731
+            steps = lambda rows: _decode_steps([len(x) - n_init for x in rows], w_max - n_init - 1,  # noqa: E731
+                                               all(W_EOT in x[n_init:] for x in rows))
+        else:
+            m = T5Model.from_t5x("flan_t5-base", rng=SEED, device=dev)
+            _make_t5_streams_move(dev, SEED + 9, m.params)
+            gen = T5Generator(model=m)
+            fn = (lambda: gen.generate_tokens_batch(t5_prompts, T5_MAX, T5_PAD, T5_EOS))
+            new = lambda rows: [row[1:] for row in rows]  # noqa: E731
+            steps = lambda rows: _decode_steps([len(x) for x in rows], T5_MAX - 1,  # noqa: E731
+                                               all(T5_EOS in x[1:] for x in rows))
+        if bf16:
+            m.to_bf16()
+        if quantize:
+            m.quantize_int8()
+        return fn, new, steps
+
+    # (model, its int8 serving flags, weight-only int8?, the K7 wrapper it launches, more runs of the GPT-2 path)
+    plans = (("gpt2", dict(kv=True, a8=True), True, fused_decode_step),
+             ("whisper", dict(kv=True, kv_cross=True), False, fused_cross_decode_step),
+             ("t5", dict(kv=True, kv_cross=True, a8=True), True, fused_cross_decode_step))
+    for kind, flags, quantize, k7 in plans:
+        fn, new, steps_of = build(kind, quantize, bf16=False)
+        a8 = flags.get("a8", False)
+        runs = [("", flags)] + ([("w8a16 + embed phase", dict(kv=True, embed=True))] if kind == "gpt2" else [])
+        _reset_launches()
+        notes, distinct, k7_launches, k7_steps = [], None, 0, 0
+        for label, fl in runs:
+            _int8_flags(**fl)
+            with _StepSpy(plain=True):
+                ref = fn()
+            before = k7.launches
+            with _StepSpy(plain=False) as spy:
+                got = fn()
+            torch.cuda.synchronize()
+            k7_launches += k7.launches - before
+            k7_steps += steps_of(got)
+            if spy.steps != k7.launches - before:
+                raise AssertionError(f"int8 {kind}: {spy.steps} steps checked of {k7.launches - before} K7 launches")
+            notes.append(f"{label or 'serving'}: every step's token = the plain head on the kernel route's x_out ("
+                         + (f"exact, {spy.uncertain} hidden levels within the norm's noise" if fl.get("a8") else
+                            f"max score regret {spy.regret:.3g}") + f"); vs the twin driven alone: {_parting(got, ref)}")
+            if distinct is None:
+                distinct = _check_moving(f"int8 {kind} fp32", new(got), [0] * len(got))
+        if k7_launches != k7_steps:
+            raise AssertionError(f"int8 {kind}: K7 launched {k7_launches} times for {k7_steps} decode steps")
+        # bf16: int8 serving against the unquantized bf16 fused route, and the times of the routes
+        fn16, new16, _ = build(kind, quantize, bf16=True)
+        base16, _, _ = build(kind, False, bf16=True)
+        _int8_flags(**flags)
+        rows_i8 = fn16()
+        _int8_flags()
+        rows_base = base16()
+        agree = np.mean([a == b for x, y in zip(new16(rows_i8), new16(rows_base)) for a, b in zip(x, y)])
+        times = {}
+        for route in ("bf16 fused", "int8 fused", "int8 per-op", "int8 per-op", "int8 fused", "bf16 fused"):
+            if route == "bf16 fused":
+                _int8_flags()
+                ms, rows = _event_ms(base16)
+            else:
+                _int8_flags(**flags, fused=None if route == "int8 fused" else False)
+                ms, rows = _event_ms(fn16)
+            times.setdefault(route, []).append((ms, sum(len(x) for x in new16(rows))))
+        _int8_flags()
+        torch.cuda.synchronize()
+        launches = _launches(set())
+        out[kind] = launches
+        rate = {k: ", ".join(f"{n / (ms / 1e3):.1f} tok/s ({ms:.1f} ms, {n} tokens)" for ms, n in v)
+                for k, v in times.items()}
+        unit = "segments" if kind == "whisper" else "rows"
+        print(f"phase int8 {kind}: {'quantize_int8() + ' if quantize else ''}"
+              + ", ".join(k for k, on in (("int8 self-KV", flags.get("kv")), ("int8 cross-KV", flags.get("kv_cross")),
+                                          ("w8a8 + int8 head", a8)) if on)
+              + f" | fp32 {'; '.join(notes)}; "
+              f"K7 launched {k7_launches} times = {k7_steps} decode steps; distinct new tokens per row {distinct} | "
+              f"bf16 new tokens agreeing with the unquantized bf16 fused route {agree:.4f} | bf16 8 {unit}, CUDA "
+              f"events, generated tokens per second by route: " + "; ".join(f"{k}: {v}" for k, v in rate.items())
+              + f" [{card}]")
+        print(f"phase int8 {kind} launches: " + " ".join(f"{k}={v}" for k, v in launches.items()))
+    return out
+
+
 def profile_phase(fn, what: str, fname: str, out_dir: str, card: str, steps_fn) -> None:
     """One call of ``fn`` (after a warm-up call) under torch.profiler.
 
@@ -1317,8 +2106,12 @@ def main() -> int:
     res_w = whisper_kernel_phases(dev, card)
     res_t5 = t5_kernel_phases(dev, card)
     res_k7 = decode_step_phases(dev, card)
+    res_i8 = int8_kernel_phases(dev, card)
+    res_i8k7 = int8_decode_step_phases(dev, card)
     paths = {"gpt2": main_path(dev, card, args.profile), "whisper": whisper_path(dev, card, args.profile),
              "t5": t5_path(dev, card, args.profile)}
+    k6_path = int8_stack_path(dev, card)
+    i8 = int8_paths(dev, card)
 
     # name: (source, TPU kernel it replaces, the dtype whose times are reported, its launches over the main paths;
     # the shapes are GPT-2's for K1-K4 and the fused decode step, Whisper's for K5 and the fused cross step,
@@ -1345,14 +2138,40 @@ def main() -> int:
                                     paths["whisper"]["fused_cross_decode_step"]),
         "fused_cross_decode_step_t5": ("decode_step.cu", "pytorch_models_tpu/ops/decode_step.py:1397", "bfloat16",
                                        paths["t5"]["fused_cross_decode_step"]),
+        # int8 serving: K6 on the per-op int8 step's path, K7's variants on the int8 serving paths
+        "int8_kv": ("int8_kv.cu", "pytorch_models_tpu/ops/int8_kv.py:353", "bfloat16", k6_path["int8_kv"]),
+        "fused_decode_step_int8": ("decode_step.cu", "pytorch_models_tpu/ops/decode_step.py:1359", "bfloat16",
+                                   i8["gpt2"]["fused_decode_step_kv_int8"] - i8["gpt2"]["fused_decode_step_a8"]),
+        "fused_decode_step_a8": ("decode_step.cu", "pytorch_models_tpu/ops/decode_step.py:1359", "bfloat16",
+                                 i8["gpt2"]["fused_decode_step_a8"]),
+        "fused_cross_decode_step_int8": ("decode_step.cu", "pytorch_models_tpu/ops/decode_step.py:1397", "bfloat16",
+                                         i8["whisper"]["fused_cross_decode_step_kv_int8"]),
+        "fused_cross_decode_step_t5_a8": ("decode_step.cu", "pytorch_models_tpu/ops/decode_step.py:1397", "bfloat16",
+                                          i8["t5"]["fused_cross_decode_step_a8"]),
+        "fused_decode_step_embed": ("decode_step.cu", "pytorch_models_tpu/ops/decode_step.py:1359", "bfloat16",
+                                    i8["gpt2"]["fused_decode_step_embed"]),
     }
-    results = (res, res_w, res_t5, res_k7)
+    # each kernel's limit on max_abs_err: elementwise (atol, rtol) by dtype; for the greedy heads, whose outputs
+    # are ids, the score regret is held to the top-2 gap tolerance instead
+    limits = {name: {dn: list(TOL[dn]) for dn in TOL} for name in meta}
+    limits["log_mel_spectrogram"] = {"float32": [MEL_TOL, 0.0]}
+    for name in ("greedy_argmax_tied", "greedy_argmax"):
+        limits[name] = {"float32": "score regret <= 1e-3", "bfloat16": "score regret <= one bf16 step of the top"}
+    for name in ("fused_decode_step", "fused_cross_decode_step", "fused_cross_decode_step_t5",
+                 "fused_decode_step_embed"):
+        limits[name] = {dn: list(DS_TOL[dn]) for dn in DS_TOL}
+    for name in ("fused_decode_step_int8", "fused_decode_step_a8", "fused_cross_decode_step_int8",
+                 "fused_cross_decode_step_t5_a8"):  # on x after each layer, from the kernel's own input
+        limits[name] = {dn: list(I8_LAYER_TOL[dn]) for dn in I8_LAYER_TOL}
+    results = (res, res_w, res_t5, res_k7, res_i8, res_i8k7)
     entries = []
     for name, (src, replaces, timed, launches) in meta.items():
+        if launches <= 0:
+            raise AssertionError(f"{name}: no launch on its main path")
         err = max(v["err"] for r in results for (k, _), v in r.items() if k == name)
         rec = next(r[(name, timed)] for r in results if (name, timed) in r)
         entries.append({"name": name, "route": "cuda", "source": f"pytorch_models_tpu_torch/csrc/{src}",
-                        "replaces": replaces, "launches": launches, "max_abs_err": err,
+                        "replaces": replaces, "launches": launches, "max_abs_err": err, "limit": limits[name],
                         **{k: rec[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}})
     print(card)
     print(json.dumps({"kernels": entries}))

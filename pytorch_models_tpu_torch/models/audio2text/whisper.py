@@ -12,9 +12,13 @@ Each greedy decode step runs as the JAX package runs it on its TPU: ONE
 fused kernel (``ops/decode_step.py``: self-attention, cross-attention and
 MLP of every layer, final LayerNorm, tied greedy head) over layer-stacked
 self and cross caches, when ``USE_FUSED_STEP`` (auto: CUDA tensors) and the
-kernel's shape rules allow; otherwise the per-op step. Beam search,
-speculative decoding, int8 cross-KV, continuous batching and the tokenizer
-are not ported yet.
+kernel's shape rules allow; otherwise the per-op step. int8 serving, as
+in the JAX package: ``model.quantize_int8()`` (w8a16; ``USE_A8_DECODE`` for
+w8a8 and the int8 head), ``USE_INT8_KV`` (the self cache quantized after
+the initial tokens' prefill) and ``USE_INT8_KV_CROSS`` (the cross caches
+quantized once for the decode loop; the prefill reads them in full
+precision), on the fused route. Beam search, speculative decoding,
+continuous batching and the tokenizer are not ported yet.
 """
 
 from __future__ import annotations
@@ -138,23 +142,41 @@ def _whisper_fused_ok(p: dict, cfg: WhisperConfig, batch: int) -> bool:
     """Gate for the one-kernel fused decode step (ops/decode_step.py)."""
     from ...ops.decode_step import fused_step_eligible
 
-    return _attn.use_fused_step(p["token_embs"]) and fused_step_eligible(p["layers"], cfg.dec_layer, batch, cross=True)
+    return _attn.use_fused_step(p["token_embs"]) and fused_step_eligible(p["layers"], cfg.dec_layer, batch, cross=True,
+                                                                         dtype=p["token_embs"].dtype)
+
+
+def _whisper_embed_or_fold(p: dict, tok: torch.Tensor, pos: int):
+    """Decoder embeddings for a fused step at ``pos``: ``(x (B, d), {})``
+    through the gather kernel and a position slice, or with
+    ``USE_FUSED_EMBED`` ``(None, kwargs)`` for the step's embed phase."""
+    from ...ops.decode_step import pack_embed_tables
+
+    if _attn.use_fused_embed(tok.shape[0]):
+        return None, {"emb": pack_embed_tables(p["token_embs"], p["pos_embs"], p["token_embs"].dtype),
+                      "tok_ids": tok[:, 0], "pos_rows": pos}
+    x = embed_rows(p["token_embs"], tok[:, 0])
+    return x + p["pos_embs"][pos].to(x.dtype), {}
 
 
 def _fused_whisper_step(p: dict, packed: dict, head: dict, cfg: WhisperConfig, tok: torch.Tensor, caches: dict,
-                        cross: dict, pos: int) -> torch.Tensor:
-    """One fused decode step: embeddings (K3) -> ONE kernel over the whole
-    layer stack (self + cross attention + MLP + final LN + greedy argmax).
-    ``caches``/``cross`` hold (L, B, Lp|Lx, H*D) stacked buffers (``cross``
-    also ``len`` (B,)); this step's K/V are written at ``pos``. Returns the
-    next token ids (B,)."""
+                        cross: tuple, lens: torch.Tensor, pos: int) -> torch.Tensor:
+    """One fused decode step: embeddings (K3, or the step's embed phase) ->
+    ONE kernel over the whole layer stack (self + cross attention + MLP +
+    final LN + greedy argmax). ``caches`` holds (L, B, Lp, H*D) stacked
+    buffers (int8 with ``ks``/``vs``); ``cross`` is
+    ``_decoder_lm.cross_operands``' ``(ck, cv, kv_scales_x)``, ``lens``
+    (B,); this step's K/V are written at ``pos``. Returns the next token
+    ids (B,)."""
     from ...ops.decode_step import fused_cross_decode_step
+    from ..text._decoder_lm import kv_scales
 
-    x = embed_rows(p["token_embs"], tok[:, 0])
-    x = x + p["pos_embs"][pos].to(x.dtype)
+    x, emb_kw = _whisper_embed_or_fold(p, tok, pos)
     lc = cfg.dec_layer
-    _, nxt = fused_cross_decode_step(x, packed, caches["k"], caches["v"], cross["k"], cross["v"], cross["len"], pos,
-                                     None, lc.n_heads, lc.act, lc.norm_eps, head=head)
+    ck, cv, kvx = cross
+    _, nxt = fused_cross_decode_step(x, packed, caches["k"], caches["v"], ck, cv, lens, pos, None, lc.n_heads, lc.act,
+                                     lc.norm_eps, head=head, a8=_attn.use_a8_decode(packed["wqkv"].dtype),
+                                     kv_scales=kv_scales(caches), kv_scales_x=kvx, **emb_kw)
     return nxt
 
 
@@ -177,14 +199,22 @@ def _generate_batch(params: dict, cfg: WhisperConfig, memory: torch.Tensor, init
     fused = _whisper_fused_ok(p, cfg, b)
     if fused:
         from ...ops.decode_step import pack_decode_weights, pack_greedy_head
+        from ...ops.int8_kv import quantize_kv_caches
+        from ..text._decoder_lm import cross_operands
 
-        packed = pack_decode_weights(p["layers"], p["token_embs"].dtype, cross=True)
-        head = pack_greedy_head(p["token_embs"], p["norm"], p["token_embs"].dtype)
+        cdt = p["token_embs"].dtype
+        packed = pack_decode_weights(p["layers"], cdt, cross=True)
+        head = pack_greedy_head(p["token_embs"], p["norm"], cdt, a8=_attn.use_a8_decode(packed["wqkv"].dtype))
+        # int8 cross-KV: the decode loop reads quantized caches, the prefill below the full-precision ones
+        dec_cross = quantize_kv_caches(cross_stacked) if _attn.use_int8_kv_cross(b) else cross_stacked
+        cross_ops = cross_operands(dec_cross, cdt)
 
     buf = torch.zeros((b, max_tokens), dtype=torch.int64, device=dev)
     init_rows = initial_tokens.to(dev).expand(b, n_init)
     buf[:, :n_init] = init_rows
     logits, self_caches = _decoder_logits_chunk(p, lc, cross, init_rows, self_caches, 0)
+    if fused and _attn.use_int8_kv(b):  # int8 self-KV: the prefilled cache quantized once
+        stacked = quantize_kv_caches(stacked)
     first = torch.argmax(logits[:, n_init - 1], dim=-1)
     if n_init < max_tokens:
         buf[:, n_init] = first
@@ -200,7 +230,7 @@ def _generate_batch(params: dict, cfg: WhisperConfig, memory: torch.Tensor, init
             break
         tok = buf[:, pos - 1:pos]
         if fused:
-            nxt = _fused_whisper_step(p, packed, head, cfg, tok, stacked, cross_stacked, pos - 1)
+            nxt = _fused_whisper_step(p, packed, head, cfg, tok, stacked, cross_ops, cross_stacked["len"], pos - 1)
         elif greedy_head:
             hn, self_caches = _decoder_hidden_chunk(p, lc, cross, tok, self_caches, pos - 1)
             nxt = greedy_argmax_tied(hn[:, 0], p["token_embs"].to(hn.dtype))

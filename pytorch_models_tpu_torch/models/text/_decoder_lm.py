@@ -4,7 +4,8 @@
 Token + learned position embeddings -> causal decoder stack -> weight-tied
 logits, plus the KV-cached batched forward the generator's decode loop runs,
 per-op or as the fused one-kernel step (``ops/decode_step.py``) over
-layer-stacked caches. The int8 helpers of the JAX module are not ported yet.
+layer-stacked caches, and the int8 serving helpers the generators share
+(the w8a8 head pack, int8 caches, cross operands, the embed fold).
 """
 
 from __future__ import annotations
@@ -106,49 +107,79 @@ def decoder_lm_fused_ok(params: dict, cfg: DecoderLMConfig, batch: int) -> bool:
 
     if not _attn.use_fused_step(params["token_embs"]) or not cfg.pre_norm:
         return False
-    return fused_step_eligible(params["decoder"]["layers"], cfg.layer, batch)
+    return fused_step_eligible(params["decoder"]["layers"], cfg.layer, batch, dtype=params["token_embs"].dtype)
 
 
 def decoder_lm_pack(params: dict, cfg: DecoderLMConfig) -> tuple[dict, dict]:
     """Pack the layer stack and the tied greedy head for the fused step, once
-    per generate call. Returns ``(packed, head)``; without a final norm the
-    head's norm is unit scale and zero bias."""
+    per generate call (the head per vocab row in int8 when the step runs
+    w8a8, ``ops.attention.USE_A8_DECODE``). Returns ``(packed, head)``;
+    without a final norm the head's norm is unit scale and zero bias."""
     from ...ops.decode_step import pack_decode_weights, pack_greedy_head
 
     dtype = params["token_embs"].dtype
     packed = pack_decode_weights(params["decoder"]["layers"], dtype)
     fnorm = params["norm"] if cfg.final_norm else {"scale": torch.ones(cfg.d_model, device=params["token_embs"].device)}
-    return packed, pack_greedy_head(params["token_embs"], fnorm, dtype)
+    return packed, pack_greedy_head(params["token_embs"], fnorm, dtype, a8=_attn.use_a8_decode(packed["wqkv"].dtype))
 
 
-def _fused_embed(params, tokens, pos_ids):
-    """(B, 1) tokens and position ids -> (B, d) embeddings through K3 (the
-    in-kernel embed phase of the JAX kernel is not ported)."""
-    x = embed_rows(params["token_embs"], tokens[:, 0])
-    return x + embed_rows(params["pos_embs"], pos_ids[:, 0]).to(x.dtype)
+def kv_scales(caches: dict) -> dict | None:
+    """The int8 scale planes of layer-stacked caches, or None."""
+    return {"ks": caches["ks"], "vs": caches["vs"]} if "ks" in caches else None
+
+
+def cross_operands(cross: dict, cdt: torch.dtype):
+    """``(ck, cv, kv_scales_x)`` for a fused cross-attention step: int8
+    caches (:func:`quantize_kv_caches`) pass through with their scale
+    planes; full-precision ones in the compute dtype (an int8-weight model's
+    bf16 projections into an fp32 step are cast once, by the caller, per
+    generate call)."""
+    if "ks" in cross:
+        return cross["k"], cross["v"], kv_scales(cross)
+    return cross["k"].to(cdt), cross["v"].to(cdt), None
+
+
+def embed_or_fold(token_embs: torch.Tensor, pos_embs: torch.Tensor | None, tokens: torch.Tensor, pos_ids) -> tuple:
+    """Embeddings for a fused decode step: ``(x (B, d), {})`` through the
+    gather kernel (K3), or, with ``ops.attention.USE_FUSED_EMBED``, ``(None,
+    kwargs)`` for the step's embed phase (``emb``, ``tok_ids`` (B,) and,
+    with a position table, ``pos_rows``). ``tokens``: (B, 1); ``pos_ids``:
+    (B, 1) ids into ``pos_embs``, or None without a position table."""
+    from ...ops.decode_step import pack_embed_tables
+
+    if _attn.use_fused_embed(tokens.shape[0]):
+        kw = {"emb": pack_embed_tables(token_embs, pos_embs, token_embs.dtype), "tok_ids": tokens[:, 0]}
+        if pos_embs is not None:
+            kw["pos_rows"] = pos_ids[:, 0]
+        return None, kw
+    x = embed_rows(token_embs, tokens[:, 0])
+    if pos_embs is not None:
+        x = x + embed_rows(pos_embs, pos_ids[:, 0]).to(x.dtype)
+    return x, {}
+
+
+def _fused_call(params, packed, cfg: DecoderLMConfig, tokens, pos_ids, caches: dict, pos: int, pad_lens, head):
+    from ...ops.decode_step import fused_decode_step
+
+    lc = cfg.layer
+    x, emb_kw = embed_or_fold(params["token_embs"], params["pos_embs"], tokens, pos_ids)
+    return fused_decode_step(x, packed, caches["k"], caches["v"], pos, pad_lens, lc.n_heads, lc.act, cfg.norm_eps,
+                             head=head, a8=_attn.use_a8_decode(packed["wqkv"].dtype), kv_scales=kv_scales(caches),
+                             **emb_kw)
 
 
 def decoder_lm_fused_tok_batch(params, packed, head, cfg: DecoderLMConfig, tokens, pos_ids, caches: dict, pos: int,
                                pad_lens):
     """Fused decode step WITH the greedy head: embeddings -> one kernel (layer
     stack + final norm + argmax) -> next token ids ``(B,)``. ``caches`` is the
-    layer-stacked ``{"k", "v"}: (L, B, Lp, H*D)``; this step's K/V are
-    written at ``pos`` in place."""
-    from ...ops.decode_step import fused_decode_step
-
-    lc = cfg.layer
-    _, tok = fused_decode_step(_fused_embed(params, tokens, pos_ids), packed, caches["k"], caches["v"], pos, pad_lens,
-                               lc.n_heads, lc.act, cfg.norm_eps, head=head)
-    return tok
+    layer-stacked ``{"k", "v"}: (L, B, Lp, H*D)`` (int8 with ``{"ks",
+    "vs"}``); this step's K/V are written at ``pos`` in place."""
+    return _fused_call(params, packed, cfg, tokens, pos_ids, caches, pos, pad_lens, head)[1]
 
 
 def decoder_lm_hidden_fused_batch(params, packed, cfg: DecoderLMConfig, tokens, pos_ids, caches: dict, pos: int,
                                   pad_lens):
     """One fused decode step without the head: the final (normed) hidden
     state ``(B, 1, d)``; caches as in :func:`decoder_lm_fused_tok_batch`."""
-    from ...ops.decode_step import fused_decode_step
-
-    lc = cfg.layer
-    x, _ = fused_decode_step(_fused_embed(params, tokens, pos_ids), packed, caches["k"], caches["v"], pos, pad_lens,
-                             lc.n_heads, lc.act, cfg.norm_eps)
+    x, _ = _fused_call(params, packed, cfg, tokens, pos_ids, caches, pos, pad_lens, None)
     return _final_hidden(params, cfg, x)[:, None, :]

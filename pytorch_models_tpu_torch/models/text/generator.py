@@ -10,9 +10,13 @@ row's length cut at its first generated EOS. The caches are layer-stacked
 buffers with per-layer views. When the fused step serves the model and
 batch (``ops/attention.py`` ``USE_FUSED_STEP``, auto on CUDA tensors), the
 weights are packed once per call and each greedy step is ONE kernel launch
-(layer stack + final norm + argmax) after the two embedding gathers. Sampling, beam search, parallel
-samples and speculative decoding are not ported yet; a CUDA graph for the
-step is later work.
+(layer stack + final norm + argmax) after the two embedding gathers (or
+with them, ``USE_FUSED_EMBED``). int8 serving: ``model.quantize_int8()``
+(w8a16 weights; ``USE_A8_DECODE`` for w8a8 and the int8 head) and
+``USE_INT8_KV`` (the prefilled cache quantized once, as in the JAX package:
+on the fused route only). Sampling, beam search, parallel samples and
+speculative decoding are not ported yet; a CUDA graph for the step is later
+work.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import torch
 
 from ...ops import attention as _attn
 from ...ops.greedy_head import greedy_argmax_tied
+from ...ops.int8_kv import quantize_kv_caches
 from ._decoder_lm import (
     decoder_lm_apply,
     decoder_lm_forward_cached_batch,
@@ -60,6 +65,10 @@ def _generate_batch(params, cfg, prompt_buf: torch.Tensor, pad_lens: torch.Tenso
     if fused:
         packed, head = decoder_lm_pack(params, cfg)
     logits, caches = decoder_lm_forward_cached_batch(params, cfg, prompt_buf, pos_ids, caches, 0, pad_lens)
+    if fused and _attn.use_int8_kv(b):
+        # int8 self-KV (ops/attention.py USE_INT8_KV): the prefilled cache is quantized once; each fused step
+        # writes its K/V quantized
+        stacked = quantize_kv_caches(stacked)
 
     buf = torch.zeros((b, cfg.max_seq_len), dtype=torch.int64, device=dev)
     buf[:, :p_len] = prompt_buf

@@ -14,11 +14,16 @@ bias, cross-attention, GEGLU, final RMSNorm and the untied greedy head) when
 ``USE_FUSED_STEP`` (auto: CUDA tensors) and the kernel's shape rules allow,
 otherwise the per-op step (the decode kernel with the key-major bias, the
 untied greedy head kernel). A single prompt runs as a batch of one.
-Teacher-forced scoring runs the uncached encoder-decoder. Not ported yet:
-beam search, ``SpeculativeT5Generator``, continuous batching, int8 KV and
-w8a8, the t5x checkpoint reader (``from_t5x(pretrained=True)``) and the
-sentencepiece tokenizer: the string methods need a tokenizer the caller
-passes in.
+int8 serving on the fused route, as in the JAX package:
+``model.quantize_int8()`` (w8a16; ``USE_A8_DECODE`` for w8a8 and the a8
+head over the dequantized classifier), ``USE_INT8_KV`` (the empty self
+cache starts int8; at most 128 (row, head) pairs per group of 8 rows, the
+JAX package's routing rule) and ``USE_INT8_KV_CROSS``. An int8 classifier
+takes the head matmul + argmax on the per-op route. Teacher-forced scoring
+runs the uncached encoder-decoder. Not ported yet: beam search,
+``SpeculativeT5Generator``, continuous batching, the t5x checkpoint reader
+(``from_t5x(pretrained=True)``) and the sentencepiece tokenizer: the string
+methods need a tokenizer the caller passes in.
 """
 
 from __future__ import annotations
@@ -234,35 +239,43 @@ def _pad_bias(n_enc: torch.Tensor, p_len: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _t5_fused_ok(dec: dict, cfg: T5Config, batch: int) -> bool:
+def _t5_fused_ok(params: dict, cfg: T5Config, batch: int) -> bool:
     """Gate for the one-kernel fused decode step (ops/decode_step.py)."""
     from ...ops.decode_step import fused_step_eligible
 
-    if not _attn.use_fused_step(dec["layers"][0]["sa"]["q"]["w"]):
+    if not _attn.use_fused_step(params["token_embs"]):
         return False
-    return fused_step_eligible(dec["layers"], cfg.layer, batch, cross=True, gated=True)
+    return fused_step_eligible(params["decoder"]["layers"], cfg.layer, batch, cross=True, gated=True,
+                               dtype=params["token_embs"].dtype)
 
 
 def _t5_key_major_bias(bias_table: torch.Tensor) -> torch.Tensor:
     """(H, P, L) rel-pos decode bias -> key-major (P, L, H) fp32: row ``pos``
     is the fused step's ``sbias``. Not lane-padded (the JAX package pads it
-    to 128 lanes for Mosaic)."""
+    to 128 lanes for Mosaic), and never group-tiled: the JAX package tiles
+    it ``g`` times for its grouped int8 kernel (a TPU lane layout); the
+    port's int8 units read ``(L, H)`` as it is."""
     return bias_table.permute(1, 2, 0).float().contiguous()
 
 
 def _fused_t5_step(params: dict, packed: dict, head: dict, cfg: T5Config, tok: torch.Tensor, caches: dict,
-                   cross: dict, bias_km: torch.Tensor, pos: int) -> torch.Tensor:
-    """One fused decode step: embeddings (K3) -> ONE kernel (RMSNorm + rel-pos
-    self bias + cross-attention + GEGLU, every layer, + final RMSNorm +
-    untied greedy argmax) over the stacked caches; this step's K/V are
-    written at ``pos``. Returns the next token ids (B,)."""
+                   cross: tuple, lens: torch.Tensor, bias_km: torch.Tensor, pos: int) -> torch.Tensor:
+    """One fused decode step: embeddings (K3, or the embed phase) -> ONE
+    kernel (RMSNorm + rel-pos self bias + cross-attention + GEGLU, every
+    layer, + final RMSNorm + untied greedy argmax) over the stacked caches
+    (int8 with ``ks``/``vs``); ``cross`` is ``_decoder_lm.cross_operands``'
+    ``(ck, cv, kv_scales_x)``; this step's K/V are written at ``pos``.
+    Returns the next token ids (B,)."""
     from ...ops.decode_step import fused_cross_decode_step
+    from ._decoder_lm import embed_or_fold, kv_scales
 
     lc = cfg.layer
-    _, nxt = fused_cross_decode_step(embed_rows(params["token_embs"], tok), packed, caches["k"], caches["v"],
-                                     cross["k"], cross["v"], cross["len"], pos, None, lc.n_heads,
-                                     "approximate_gelu", 1e-5, head=head, norm="rms", gated=True,
-                                     sbias=bias_km[pos])
+    x, emb_kw = embed_or_fold(params["token_embs"], None, tok[:, None], None)  # T5's decoder has no position table
+    ck, cv, kvx = cross
+    _, nxt = fused_cross_decode_step(x, packed, caches["k"], caches["v"], ck, cv, lens, pos, None, lc.n_heads,
+                                     "approximate_gelu", 1e-5, head=head, norm="rms", gated=True, sbias=bias_km[pos],
+                                     a8=_attn.use_a8_decode(packed["wqkv"].dtype), kv_scales=kv_scales(caches),
+                                     kv_scales_x=kvx, **emb_kw)
     return nxt
 
 
@@ -297,14 +310,25 @@ def _t5_generate_batch(params: dict, cfg: T5Config, enc_tokens: torch.Tensor, n_
     l_pad = tfm.padded_cache_len(max_tokens)
     bias_table = relative_position_bias(dec["attn_bias"], torch.arange(max_tokens, device=dev),
                                         torch.arange(l_pad, device=dev), False, cfg)
-    fused = _t5_fused_ok(dec, cfg, b)
+    fused = _t5_fused_ok(params, cfg, b)
     if fused:
         from ...ops.decode_step import pack_decode_weights, pack_greedy_head
+        from ...ops.int8_kv import quantize_kv_caches
+        from ._decoder_lm import cross_operands
 
         packed = pack_decode_weights(dec["layers"], dtype, cross=True, gated=True)
-        head = pack_greedy_head(params["classifier"]["w"], dec["norm"], dtype, tied=False)
+        head = pack_greedy_head(params["classifier"]["w"], dec["norm"], dtype, tied=False,
+                                a8=_attn.use_a8_decode(packed["wqkv"].dtype))
         bias_km = _t5_key_major_bias(bias_table)
-    greedy_head = _attn.use_greedy_head(b, params["classifier"]["w"], tied=False)
+        # int8 self-KV: the cache starts empty (decoding starts at the pad token), so the quantized zeros are
+        # its int8 state; the JAX package's rule of at most 128 (row, head) pairs per group of 8 rows decides
+        if _attn.use_int8_kv(b) and min(b, 8) * lc.n_heads <= 128:
+            stacked = quantize_kv_caches(stacked)
+        # int8 cross-KV: T5 has no cross prefill, so the quantized caches are the only ones the loop reads
+        cross_ops = cross_operands(quantize_kv_caches(cross_stacked) if _attn.use_int8_kv_cross(b) else cross_stacked,
+                                   dtype)
+    w_cls = params["classifier"]["w"]
+    greedy_head = not isinstance(w_cls, dict) and _attn.use_greedy_head(b, w_cls, tied=False)
 
     buf = torch.zeros((b, max_tokens), dtype=torch.int64, device=dev)
     buf[:, 0] = pad_id
@@ -318,7 +342,7 @@ def _t5_generate_batch(params: dict, cfg: T5Config, enc_tokens: torch.Tensor, n_
             break
         tok = buf[:, pos]
         if fused:
-            nxt = _fused_t5_step(params, packed, head, cfg, tok, stacked, cross_stacked, bias_km, pos)
+            nxt = _fused_t5_step(params, packed, head, cfg, tok, stacked, cross_ops, cross_stacked["len"], bias_km, pos)
         else:
             h = embed_rows(params["token_embs"], tok[:, None])
             h = _t5_decode_layers(dec, cfg, h, self_caches, cross, bias_table[:, pos:pos + 1], pos)

@@ -39,6 +39,24 @@ USE_GREEDY_HEAD: bool | None = None
 # batch the kernel does not serve (decode_step.fused_step_eligible) decodes
 # per-op.
 USE_FUSED_STEP: bool | None = None
+# w8a8 decode (ops/decode_step.py ``a8=True``): when the fused step streams
+# int8 weights (``model.quantize_int8()``), each phase also quantizes its
+# input per row and multiplies int8 x int8 -> int32, and the greedy head
+# runs over a per-vocab-row int8 table. Opt-in, as in the JAX package: it
+# changes numerics, so int8 models keep w8a16 unless this is True.
+USE_A8_DECODE: bool = False
+# in-kernel embed phase of the fused step (ops/decode_step.py ``emb=``):
+# layer 0 reads ``tok_emb[id] + pos_emb[p]`` itself instead of taking ``x``
+# from two gather launches. None = auto, which is off, as in the JAX package
+# (measured negative on its TPU); True forces it on.
+USE_FUSED_EMBED: bool | None = None
+# int8 self-KV caches for the fused step (ops/decode_step.py ``kv_scales=``,
+# the arithmetic of ops/int8_kv.py): the prefilled cache is quantized once per
+# key, and each step writes its K/V quantized. Opt-in: it changes numerics.
+USE_INT8_KV: bool = False
+# int8 cross-KV caches (``kv_scales_x=``): Whisper's and T5's write-once
+# encoder caches, quantized once for the decode loop. Opt-in.
+USE_INT8_KV_CROSS: bool = False
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -60,9 +78,32 @@ def use_greedy_head(batch: int, w: torch.Tensor, tied: bool = True) -> bool:
     return greedy_head_fits(batch, w, tied)
 
 
+def use_a8_decode(packed_wqkv_dtype: torch.dtype) -> bool:
+    """True only when the mode is on AND the packed weights are int8."""
+    return USE_A8_DECODE and packed_wqkv_dtype == torch.int8
+
+
+def use_fused_embed(batch: int) -> bool:
+    return bool(USE_FUSED_EMBED)
+
+
+def _int8_kv_gate(flag: bool, batch: int) -> bool:
+    """The JAX package's int8-KV batch rule (a batch of at most 8 rows, or a
+    multiple of 8), kept because it decides routing."""
+    return flag and (batch <= 8 or batch % 8 == 0)
+
+
+def use_int8_kv(batch: int) -> bool:
+    return _int8_kv_gate(USE_INT8_KV, batch)
+
+
+def use_int8_kv_cross(batch: int) -> bool:
+    return _int8_kv_gate(USE_INT8_KV_CROSS, batch)
+
+
 def use_fused_step(t: torch.Tensor) -> bool:
     """Gate for the fused decode step on the model's tensor ``t``."""
-    return _on_cuda(t) if USE_FUSED_STEP is None else USE_FUSED_STEP
+    return _on_cuda(t) if USE_FUSED_STEP is None else bool(USE_FUSED_STEP)
 
 
 def use_decode_kernel(t: torch.Tensor) -> bool:

@@ -7,8 +7,10 @@ Conventions match the JAX package so parameters transfer unchanged:
 - Conv1d: ``{"w": (k, in, out), "b": (out,)}`` over NLC inputs.
 
 Activations mirror the reference's MLP table: "gelu" is exact (erf) GELU,
-"approximate_gelu" is tanh GELU. Weight-only int8 and w8a8 linears are not
-ported yet.
+"approximate_gelu" is tanh GELU. A weight-only int8 linear (``{"w": {"w_q",
+"w_s"}}``, ``utils.params.quantize_tree_int8``) dequantizes to bf16 and
+multiplies in bf16, as the JAX package's does; its w8a8 variant
+(``USE_A8_LINEAR``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -51,11 +53,20 @@ def ln_init(dim: int) -> dict:
     return {"scale": torch.ones(dim), "bias": torch.zeros(dim)}
 
 
+def linear_dtype(p: dict) -> torch.dtype:
+    """The dtype :func:`linear` computes and returns in for these params."""
+    w = p["w"]
+    return torch.bfloat16 if isinstance(w, dict) else w.dtype
+
+
 def linear(p: dict, x: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
     """``x @ w + b``. The compute dtype follows the PARAMS, not the input:
-    bf16 params force bf16 compute even for fp32 inputs. With ``out`` the
-    result is written into it."""
+    bf16 params force bf16 compute even for fp32 inputs, and so do int8
+    ones, which dequantize as ``w_q.bf16 * w_s.bf16`` (one bf16 rounding)
+    first. With ``out`` the result is written into it."""
     w = p["w"]
+    if isinstance(w, dict):  # weight-only int8: dequantize, then the bf16 matmul
+        w = w["w_q"].to(torch.bfloat16) * w["w_s"].to(torch.bfloat16)
     if x.is_floating_point() and x.dtype != w.dtype:
         x = x.to(w.dtype)
     y = torch.matmul(x, w, out=out)

@@ -21,8 +21,14 @@ the whole cache.
 Additive attention biases (T5's rel-pos and pad biases) follow the JAX
 package's dispatch: a single-position self-attention bias goes to the
 decode kernel in its key-major layout; a biased cross or uncached call takes
-plain :func:`sdpa`, since neither kernel takes a bias there. The int8 paths
-and tensor parallelism are not ported yet.
+plain :func:`sdpa`, since neither kernel takes a bias there.
+
+An int8 KV cache (``{"k", "v"}`` int8 + ``{"ks", "vs"}`` fp32 per-key
+scales, ``ops/int8_kv.py``) sends a single-position read to the int8 decode
+kernel: self-attention attends over the cached ``[pad, pos)`` with this
+step's K/V unquantized as the current position, then writes them quantized
+at ``pos``; cross-attention reads its write-once int8 cache. Tensor
+parallelism is not ported yet.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ import torch
 
 from .ops import ACT_FNS, layer_norm, linear, linear_init, ln_init, sdpa
 from .ops import attention as _attn
+from .ops.layers import linear_dtype
 
 
 def resolve_heads(d_model: int, n_heads: int | None = None, head_dim: int | None = None) -> tuple[int, int]:
@@ -158,6 +165,15 @@ def mha_apply(
     k = q if k is None else k
     v = k if v is None else v
 
+    if cache is not None and "ks" in cache:  # int8 KV cache: single-position decode only
+        if attn_bias is not None:
+            raise ValueError("int8 per-op attention takes no bias (as in the JAX package)")
+        if q.shape[-2] != 1:
+            raise ValueError("int8 KV caches serve single-position decode only")
+        if cache_pos is not None:
+            return _int8_self_decode_apply(p, cfg, k, v, q, cache, cache_pos, pad_lens), cache
+        return _int8_cross_decode_apply(p, cfg, q, cache)
+
     if cache is not None and cache_pos is None:  # precomputed cross-attention K/V
         return _cross_cached_apply(p, cfg, q, cache, attn_bias)
 
@@ -209,6 +225,37 @@ def mha_apply(
     kh = split_heads(k_m, cfg.n_heads, cfg.head_dim)
     vh = split_heads(v_m, cfg.n_heads, cfg.head_dim)
     return linear(p["o"], merge_heads(sdpa(qh, kh, vh, attn_bias, causal)))
+
+
+def _int8_self_decode_apply(p: dict, cfg: LayerConfig, k, v, q, cache: dict, pos: int, pad_lens) -> torch.Tensor:
+    """One position of self-attention over an int8 cache holding ``[0,
+    pos)``: the int8 decode kernel attends with this step's K/V unquantized
+    as the current position (K scored with the cache-write rule, so a key
+    scores the same now and later from the cache), then the K/V are written
+    quantized at ``pos``, in place."""
+    from .ops.int8_kv import int8_decode_attention, quantize_rows
+
+    k_new = linear(p["k"], k)  # (B, 1, H*D)
+    v_new = linear(p["v"], v)
+    q_m = linear(p["q"], q)
+    cur_k, cur_v = (t[:, 0].to(q_m.dtype).contiguous() for t in (k_new, v_new))
+    out = int8_decode_attention(q_m, cache["k"], cache["v"], cache["ks"], cache["vs"], pos, cfg.n_heads, pad_lens,
+                                cur_k, cur_v)
+    for key, new in (("k", k_new), ("v", v_new)):
+        q8, sc = quantize_rows(new[:, 0])
+        cache[key][:, pos] = q8
+        cache[key + "s"][:, pos] = sc[:, 0]
+    return linear(p["o"], out)
+
+
+def _int8_cross_decode_apply(p: dict, cfg: LayerConfig, q, cache: dict) -> torch.Tensor:
+    """One position of cross-attention over a write-once int8 cache; its
+    ``len`` masks each row's memory (an empty row gives zeros)."""
+    from .ops.int8_kv import int8_decode_attention
+
+    q_m = linear(p["q"], q)
+    return linear(p["o"], int8_decode_attention(q_m, cache["k"], cache["v"], cache["ks"], cache["vs"], cache["len"],
+                                                cfg.n_heads))
 
 
 def _cross_cached_apply(p: dict, cfg: LayerConfig, q: torch.Tensor, cache: dict,
@@ -379,7 +426,7 @@ def precompute_cross_caches(p: dict, cfg: LayerConfig, memory: torch.Tensor, val
     every layer shares."""
     layers = p["layers"]
     shape = (len(layers), *memory.shape[:-2], padded_cache_len(memory.shape[-2]), cfg.n_heads * cfg.head_dim)
-    dtype = layers[0]["ca"]["k"]["w"].dtype
+    dtype = linear_dtype(layers[0]["ca"]["k"])
     stacked = {k: torch.empty(shape, dtype=dtype, device=memory.device) for k in ("k", "v")}
     caches = [mha_project_kv(lp["ca"], cfg, memory, valid_lens, {"k": stacked["k"][i], "v": stacked["v"][i]})
               for i, lp in enumerate(layers)]

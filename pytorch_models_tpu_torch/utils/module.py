@@ -2,7 +2,7 @@
 
 import torch
 
-from .params import cast_tree
+from .params import cast_tree, quantize_tree_int8
 
 
 def resolve_device(device) -> torch.device:
@@ -34,4 +34,13 @@ class InferenceModel:
 
     def to_fp32(self):
         self.params = cast_tree(self.params, torch.float32)
+        return self
+
+    def quantize_int8(self):
+        """Weight-only int8 serving mode: every projection kernel becomes
+        ``{"w_q", "w_s"}`` (``utils.params.quantize_tree_int8``); embeddings,
+        norms and convs keep their dtype. ``to_bf16`` after it casts the
+        fp32 scales too, as in the JAX package: keep the JAX order of the two
+        calls to hold the same weights."""
+        self.params = quantize_tree_int8(self.params)
         return self

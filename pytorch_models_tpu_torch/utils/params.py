@@ -24,6 +24,8 @@ def to_tensor(x: Any, device=None) -> torch.Tensor:
         t = x.detach()
     else:
         a = np.ascontiguousarray(np.asarray(x))
+        if a.dtype.name == "bfloat16":  # JAX's (ml_dtypes) bfloat16: exact through fp32
+            return torch.from_numpy(a.astype(np.float32)).to(device=device, dtype=torch.bfloat16)
         t = torch.from_numpy(a if a.flags.writeable else a.copy())
     return t.to(device=device)
 
@@ -42,11 +44,45 @@ def cast_tree(tree: Any, dtype: torch.dtype) -> Any:
     return tree_map(lambda t: t.to(dtype) if t.is_floating_point() else t, tree)
 
 
+# the linear kernels weight-only int8 quantizes: a ``"w"`` leaf whose key
+# path names one of these (the JAX package's ``quantize_tree_int8`` list)
+_PROJ_KEYS = ("q", "k", "v", "o", "fc1", "fc2", "wo", "mlp", "proj", "classifier", "upsample")
+
+
+def quantize_tree_int8(tree: Any, _path: tuple = ()) -> Any:
+    """Weight-only int8: every linear kernel ``["w"]`` (ndim >= 2, floating,
+    under a projection key of ``_PROJ_KEYS``) becomes ``{"w_q": int8, "w_s":
+    fp32 (1, out)}``, symmetric per output channel, as the JAX package's
+    ``quantize_tree_int8`` does: ``w_s = absmax / 127`` over the input dim in
+    the weight's own dtype (1 where the column is zero), then cast to fp32;
+    ``w_q = clip(round(w / w_s), -127, 127)``. Conv kernels, embeddings and
+    norms keep their tensors. ``ops.layers.linear`` dequantizes on the fly."""
+    if isinstance(tree, dict):
+        return {k: quantize_tree_int8(v, _path + (k,)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(quantize_tree_int8(v, _path) for v in tree)
+    leaf = tree
+    if (not _path or _path[-1] != "w" or not isinstance(leaf, torch.Tensor) or leaf.ndim < 2
+            or not leaf.is_floating_point() or not any(k in _PROJ_KEYS for k in _path)):
+        return leaf
+    scale = leaf.abs().amax(dim=leaf.ndim - 2, keepdim=True) / 127.0
+    scale = torch.where(scale == 0, torch.ones_like(scale), scale).float()
+    q = torch.round(leaf.float() / scale).clamp(-127, 127).to(torch.int8)
+    return {"w_q": q, "w_s": scale}
+
+
+def is_int8(lin: dict) -> bool:
+    """True for a linear whose kernel weight-only int8 quantized."""
+    return isinstance(lin.get("w"), dict) and "w_q" in lin["w"]
+
+
 def from_jax_params(np_tree: Any, device=None) -> Any:
     """The JAX package's parameter pytree, as numpy arrays, -> the port's tree.
 
     Every subtree under a ``"layers"`` key holds layer-stacked leaves
-    ``(L, ...)``; it becomes a list of ``L`` per-layer dicts.
+    ``(L, ...)``; it becomes a list of ``L`` per-layer dicts. Weight-only
+    int8 leaves (``{"w_q", "w_s"}``) carry across as they are: int8 and fp32
+    tensors.
     """
 
     def convert(tree, key=None):

@@ -296,3 +296,126 @@ def test_fused_step_eligible_asks_the_kernels_planner(cuda):
     _, tok = fused_decode_step(x, packed, kc, vc, 5, None, small_cfg.n_heads, head=head)
     torch.cuda.synchronize()
     assert tok.shape == (x.shape[0],)
+
+
+# K6 (int8 decode attention) vs its plain version: the int8 levels depend on
+# elementwise values only (the same IEEE operations on both sides), so the
+# outputs differ by the fp32 order of the softmax denominator's sum; bf16
+# outputs round once at the end (one bf16 step of their value apart at most)
+@pytest.mark.parametrize("dtype,atol,rtol", [(torch.float32, 1e-5, 0.0), (torch.bfloat16, 1e-5, 2.0 ** -7)])
+def test_int8_attention_matches_plain(cuda, dtype, atol, rtol):
+    from pytorch_models_tpu_torch.ops.int8_kv import (
+        int8_decode_attention,
+        int8_decode_attention_plain,
+        quantize_kv_caches,
+    )
+
+    g = torch.Generator(device=cuda).manual_seed(5)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=cuda)
+
+    c = quantize_kv_caches({"k": rnd(8, 1024, 768), "v": rnd(8, 1024, 768)})
+    q, cur_k, cur_v = rnd(8, 1, 768).to(dtype), rnd(8, 768).to(dtype), rnd(8, 768).to(dtype)
+    ends = torch.tensor([1024, 700, 5, 64, 1, 300, 1000, 512], dtype=torch.int32, device=cuda)
+    pads = torch.tensor([0, 10, 5, 0, 0, 299, 3, 100], dtype=torch.int32, device=cuda)  # row 2 empty
+    bias = 2 * rnd(1024, 12)
+    args = (q, c["k"], c["v"], c["ks"], c["vs"])
+    for kw in ({"pad_lens": pads}, {"pad_lens": pads, "cur_k": cur_k, "cur_v": cur_v},
+               {"cur_k": cur_k, "cur_v": cur_v, "bias": bias}):
+        e = 700 if "bias" in kw else ends
+        got = int8_decode_attention(*args, e, 12, **kw)
+        torch.testing.assert_close(got.float(), int8_decode_attention_plain(*args, e, 12, **kw).float(),
+                                   atol=atol, rtol=rtol)
+        if "cur_k" not in kw:
+            assert not got[2].any()  # empty [pad, end) row
+
+
+def _int8_step_inputs(dev, dtype, kind, a8):
+    """2 layers at d 128 (2 heads of 64), int8 weights, B=4, int8 self caches
+    of 256 keys (and int8 cross caches, Whisper / T5), for K7's variants."""
+    from pytorch_models_tpu_torch.models.text.t5 import T5Config, t5_block_init
+    from pytorch_models_tpu_torch.ops.int8_kv import quantize_kv_caches
+    from pytorch_models_tpu_torch.utils import quantize_tree_int8
+
+    gen = torch.Generator().manual_seed(11)
+    t5 = kind == "t5"
+    if t5:
+        cfg = LayerConfig(128, 2, 64, bias=False, act="approximate_gelu")
+        layers = [t5_block_init(gen, T5Config(1000, 128, 2, 2, 256), True) for _ in range(2)]
+    else:
+        cfg = LayerConfig.make(128, n_heads=2, cross_attn=kind == "whisper",
+                               act="gelu" if kind == "whisper" else "approximate_gelu")
+        layers = [layer_init(gen, cfg) for _ in range(2)]
+    packed = pack_decode_weights(quantize_tree_int8(layers), dtype, cross=kind != "gpt2", gated=t5)
+    w_head = torch.randn(128, 1000, generator=gen) if t5 else torch.randn(1000, 128, generator=gen)
+    head = pack_greedy_head(w_head, {"scale": 1 + 0.1 * torch.randn(128, generator=gen)}, dtype, tied=not t5, a8=a8)
+    b = 4
+    x = torch.randn(b, 128, generator=gen).to(dtype)
+    self_c = quantize_kv_caches({"k": torch.randn(2, b, 256, 128, generator=gen),
+                                 "v": torch.randn(2, b, 256, 128, generator=gen)})
+    cross_c = quantize_kv_caches({"k": torch.randn(2, b, 256, 128, generator=gen),
+                                  "v": torch.randn(2, b, 256, 128, generator=gen)})
+    sbias = 2.0 * torch.randn(256, 2, generator=gen) if t5 else None
+    move = lambda d: {k: t.to(dev) for k, t in d.items()}  # noqa: E731
+    sbias = None if sbias is None else sbias.to(dev)
+    return cfg, move(packed), move(head), x.to(dev), move(self_c), move(cross_c), sbias
+
+
+# K7's int8 variants vs the plain twin, 2 layers. fp32: the projections sum
+# in other orders (1e-7 relative), which can move a value across an int8
+# rounding boundary: a q or probability level may then differ by one step,
+# moving a context value by about 1/127 of its head's scale; the K/V written
+# at pos are held to one int8 level at most, on at least 99% of the values
+@pytest.mark.parametrize("dtype,atol,rtol", [(torch.float32, 5e-3, 5e-3), (torch.bfloat16, 0.05, 2.0 ** -6)])
+@pytest.mark.parametrize("kind,a8", [("gpt2", False), ("gpt2", True), ("whisper", False), ("t5", True)])
+def test_fused_step_int8_variants_match_plain(cuda, dtype, atol, rtol, kind, a8):
+    from pytorch_models_tpu_torch.ops.decode_step import fused_decode_step_plain
+
+    cfg, packed, head, x, sc, xc, sbias = _int8_step_inputs(cuda, dtype, kind, a8)
+    pos = 200
+    pads = None if kind == "t5" else torch.tensor([0, 5, 200, 130], dtype=torch.int32, device=cuda)
+    lens = torch.tensor([256, 7, 0, 130], dtype=torch.int32, device=cuda)  # row 2: empty cross range
+    kws = {"ks": sc["ks"], "vs": sc["vs"]}
+    ref_c = {k: t.clone() for k, t in sc.items()}
+    common = dict(a8=a8, kv_scales=kws)
+    variant = {}
+    if kind != "gpt2":
+        variant = dict(cross_k=xc["k"], cross_v=xc["v"], cross_lens=lens, kv_scales_x={"ks": xc["ks"], "vs": xc["vs"]})
+    if kind == "t5":
+        variant.update(norm="rms", gated=True, sbias=sbias)
+    ref_x, ref_tok = fused_decode_step_plain(x, packed, ref_c["k"], ref_c["v"], pos, pads, 2, cfg.act, 1e-5, head,
+                                             **variant, a8=a8, kv_scales={"ks": ref_c["ks"], "vs": ref_c["vs"]})
+    if kind == "gpt2":
+        got_x, got_tok = fused_decode_step(x, packed, sc["k"], sc["v"], pos, pads, 2, cfg.act, 1e-5, head=head,
+                                           **common)
+    else:
+        v = dict(variant)
+        xk, xv, xl = v.pop("cross_k"), v.pop("cross_v"), v.pop("cross_lens")
+        got_x, got_tok = fused_cross_decode_step(x, packed, sc["k"], sc["v"], xk, xv, xl, pos, pads, 2, cfg.act, 1e-5,
+                                                 head=head, **v, **common)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got_x.float(), ref_x.float(), atol=atol, rtol=rtol)
+    for key in ("k", "v"):
+        d = (sc[key][:, :, pos].int() - ref_c[key][:, :, pos].int()).abs()
+        assert d.max().item() <= 1 and (d == 0).float().mean().item() >= 0.99
+        assert torch.equal(sc[key][:, :, :pos], ref_c[key][:, :, :pos])  # nothing else written
+    assert (got_tok == ref_tok).float().mean().item() >= 0.75
+
+
+def test_fused_step_embed_phase_equals_gathered_input(cuda):
+    """The embed phase is bit-identical to taking x = tok[id] + pos[p] from
+    outside (the same rounding of the fp32 sum), ids clamped."""
+    cfg, packed, head, _, (kc, vc), _ = _step_inputs(cuda, torch.bfloat16, False)
+    from pytorch_models_tpu_torch.ops.decode_step import pack_embed_tables
+
+    g = torch.Generator(device=cuda).manual_seed(3)
+    tok, pos_tab = (torch.randn(n, 128, generator=g, device=cuda).to(torch.bfloat16) for n in (1000, 128))
+    ids = torch.tensor([3, 999, 5000, -2], device=cuda)
+    prow = torch.tensor([70, 69, 0, 5], device=cuda)
+    x = tok[ids.clamp(0, 999)] + pos_tab[prow]
+    ref = fused_decode_step(x, packed, kc.clone(), vc.clone(), 70, None, cfg.n_heads, cfg.act, head=head)
+    got = fused_decode_step(None, packed, kc.clone(), vc.clone(), 70, None, cfg.n_heads, cfg.act, head=head,
+                            emb=pack_embed_tables(tok, pos_tab), tok_ids=ids, pos_rows=prow)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
