@@ -8,9 +8,11 @@ Builds the port's CUDA kernels from ``pytorch_models_tpu_torch/csrc/`` (one
 ``nvcc`` per source, in parallel), holds each kernel against its plain
 PyTorch version at the GPT-2, Whisper and T5 serving shapes (the fused
 decode step K7 at full GPT-2-small, Whisper-base and T5-base width, fp32 and
-bf16; the biased decode attention and the untied greedy head at T5-base's),
-then drives the port's three main paths and checks that each went through
-its kernels:
+bf16; the biased decode attention and the untied greedy head at T5-base's;
+the encoder attention K1 also at ViT-B/16's B=128 x 197 tokens and at head
+widths 32, 80 and 128, with its tensor-core instructions per instantiation
+counted by ``cuobjdump -sass``), then drives the port's three main paths and
+checks that each went through its kernels:
 
 - GPT-2 small at full width (12 layers, d_model 768, vocab 50257, context
   1024, random weights from a seed) through ``score_tokens_batch``, then,
@@ -48,6 +50,11 @@ generators: fp32 every step's token held against the plain head on the
 kernel route's own x_out, K7 once per decode step, where the rows part from
 the generator driving K7's plain twin (a reading), bf16 agreement with the
 unquantized bf16 route and the routes' times.
+
+K1 in bf16: an output row beyond TOL passes only where p values that lie
+at a bf16 rounding boundary, moved to their other rounding, explain every
+column of the row, and within 2^-8 * (P @ |V|) / l + 2^-7 * |o| + 1e-6
+(``_check_k1``): the kernel and its twin sum the scores in other orders.
 
 Prints one line per phase; the line before the last is a JSON summary of
 the kernels (``max_abs_err`` is the largest |kernel - plain| output over
@@ -92,10 +99,11 @@ N_NEW = 64
 PROMPT_LENS = (5, 12, 23, 31, 40, 47, 55, 60)
 # kernel vs plain version on the same inputs, elementwise |got - ref| <=
 # atol + rtol * |ref|. fp32 differs by summation order only (readings on an
-# H100: 5.96e-7 encoder, 2.98e-7 decode attention). Both bf16 paths keep fp32
-# inside and round once at the end, so an output may land one bf16 step of its
-# own value (at most 2^-7 relative) apart (readings: 1.95e-3 encoder,
-# 3.8e-6 decode attention).
+# H100: 2.98e-7 decode attention; the encoder attention, whose products run
+# as 3xTF32 and exp as ex2, 9.24e-6). Both bf16 paths keep fp32 inside and
+# round once at the end, so an output may land one bf16 step of its own value
+# (at most 2^-7 relative) apart (readings: 3.91e-3 encoder, 3.8e-6 decode
+# attention); the encoder attention also rounds p, see _check_k1.
 TOL = {"float32": (2e-5, 0.0), "bfloat16": (1e-5, 2.0 ** -7)}
 SCORE_TOL = 1e-3  # fp32 log-probs after 12 layers: attention sums differ in order
 # log10 mel power, log-mel kernel vs plain where the plain value is at least
@@ -124,6 +132,7 @@ GAP_TOL = (1e-3, 1e-4)  # atol, rtol * |top logit|
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 # CUDA-core fp32; tensor-core bf16 and int8 (dense): the bound of fp32, bf16 and int8 arithmetic
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
+PEAK_TF32 = 495e12  # tensor-core TF32 (dense); 3xTF32 runs each fp32 product as three of these
 
 # Whisper-base main path: <|startoftranscript|><|en|><|transcribe|><|notimestamps|>
 W_INIT = [50258, 50259, 50359, 50363]
@@ -201,13 +210,17 @@ def _ab_ms(kernel_fns, plain_fns, iters: int) -> tuple[float, float]:
 
 
 def _rec(err: float, ms: float, plain_ms: float, nbytes: float, flops: float, dn: str,
-         library_ms: float | None = None) -> dict:
+         library_ms: float | None = None, tf32x3: bool = False) -> dict:
     """A kernel's numbers at one shape: its bound is the larger of the bytes
     it must move over the HBM rate and its operations over the peak for the
     dtype (inputs read once, outputs written once, data-dependent work as
-    these inputs need it)."""
+    these inputs need it). ``tf32x3``: an fp32 kernel whose products run as
+    3xTF32 on the tensor cores may take the smaller of the CUDA-core fp32 time
+    and three times the TF32 time for its operations."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dn] * 1e3
+    if tf32x3 and dn == "float32":
+        t_ops = min(t_ops, 3 * flops / PEAK_TF32 * 1e3)
     return {"err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": library_ms}
 
@@ -259,12 +272,157 @@ def _check_greedy(name: str, x, emb, tie: int, untied: bool = False) -> tuple[fl
     return regret.abs().max().item(), int(decided.sum())
 
 
+K1_NEAR = 4e-6  # a p within this (relative) of a bf16 rounding boundary may round either way in kernel and twin
+K1_MAX_NEAR = 10  # at most this many such p in a row whose output differs beyond TOL (3^10 sets searched)
+
+
+def _k1_flips(q, k, v, n_heads: int, causal: bool, b: int, r: int, h: int, d_got, d_ref) -> tuple[bool, float, int]:
+    """Whether the bf16 output row (b, query r, head h) of K1 differs from
+    its twin only by p values that lie at a bf16 rounding boundary: replay
+    the twin's tile walk for the row in fp32, take each p within ``K1_NEAR``
+    of a boundary (the replay's own scores are summed in another order, so
+    either side may be the twin's), and find one move of each such p by the
+    step between its two roundings, up, down or none (times the row's later
+    rescales, over l), that brings every column of the row within TOL: one
+    set of moves for all columns. Also holds the row to the per-element bound
+    2^-8 * (P @ |V|) / l + 2^-7 * |o| + 1e-6 (P from the fp32 scores).
+    Returns (explained, max excess over that bound, p near a boundary)."""
+    import math
+
+    import torch
+
+    from pytorch_models_tpu_torch.ops.encoder_attention import K_TILE, NEG_INF
+
+    d = q.shape[-1] // n_heads
+    cols = slice(h * d, (h + 1) * d)
+    qv, kk, vv = q[b, r, cols].float(), k[b, :, cols].float(), v[b, :, cols].float()
+    n = min(k.shape[1], r + 1) if causal else k.shape[1]
+    s = (kk[:n] @ qv) * (1.0 / math.sqrt(d))
+    m, m_tile = NEG_INF, torch.empty_like(s)
+    for kt in range(0, n, K_TILE[torch.bfloat16]):  # the running max each tile's p was taken against
+        m = max(m, s[kt:kt + K_TILE[torch.bfloat16]].max().item())
+        m_tile[kt:kt + K_TILE[torch.bfloat16]] = m
+    p = torch.exp(s - m_tile)
+    later = torch.exp(m_tile - m)  # the rescales after each key's tile
+    l = (p * later).sum()
+    bits = p.to(torch.bfloat16).view(torch.int16)  # p >= 0: the neighbours are one bit pattern up and down
+    pr = bits.view(torch.bfloat16).float()
+    up, down = ((bits + step).view(torch.bfloat16).float() for step in (1, -1))
+    other = torch.where(p >= pr, up, down)  # the neighbour on p's side of its rounding
+    near = ((p - (pr + other) / 2).abs() <= K1_NEAR * p).nonzero().flatten().tolist()
+    atol, rtol = TOL["bfloat16"]
+    diff, allow = d_got.float() - d_ref.float(), atol + rtol * d_ref.float().abs()
+    p_final = torch.exp(s - m)
+    bound = 2.0 ** -8 * (p_final @ vv[:n].abs()) / p_final.sum() + 2.0 ** -7 * d_ref.float().abs() + 1e-6
+    excess = (diff.abs() - bound).max().item()
+    if len(near) > K1_MAX_NEAR:
+        return False, excess, len(near)
+    if not near:
+        return False, excess, 0
+    steps = torch.stack([(other[j] - pr[j]).abs() * later[j] * vv[j] / l for j in near])  # (near, D)
+    signs = torch.tensor([-1.0, 0.0, 1.0], device=steps.device)
+    moves = torch.cartesian_prod(*[signs] * len(near)).reshape(-1, len(near))  # every up / none / down choice
+    explained = bool(((diff[None] - moves @ steps).abs() <= allow[None]).all(-1).any())
+    return explained and excess <= 0, excess, len(near)
+
+
+def _check_k1(name: str, q, k, v, n_heads: int, causal: bool) -> tuple[float, int]:
+    """K1 against its twin: every element within TOL, or, in bf16, every row
+    beyond TOL explained by p values at a rounding boundary (``_k1_flips``).
+    Returns (max |kernel - plain|, rows so explained)."""
+    import torch
+
+    from pytorch_models_tpu_torch.ops.encoder_attention import encoder_attention, encoder_attention_plain
+
+    got, ref = encoder_attention(q, k, v, n_heads, causal), encoder_attention_plain(q, k, v, n_heads, causal)
+    dn = str(q.dtype).removeprefix("torch.")
+    atol, rtol = TOL[dn]
+    diff = (got.float() - ref.float()).abs()
+    bad = diff > atol + rtol * ref.float().abs()
+    if not torch.isfinite(got.float()).all():
+        raise AssertionError(f"{name}: non-finite output")
+    if not bad.any():
+        return diff.max().item(), 0
+    if q.dtype != torch.bfloat16:
+        raise AssertionError(f"{name}: {int(bad.sum())} elements off, max |kernel - plain| = {diff.max().item()} "
+                             f"(atol {atol}, rtol {rtol})")
+    d = q.shape[-1] // n_heads
+    rows = sorted({(bi, r, c // d) for bi, r, c in bad.nonzero().tolist()})
+    for bi, r, h in rows:
+        ok, excess, n_near = _k1_flips(q, k, v, n_heads, causal, bi, r, h, got[bi, r, h * d:(h + 1) * d],
+                                       ref[bi, r, h * d:(h + 1) * d])
+        if not ok:
+            raise AssertionError(f"{name}: row (b={bi}, q={r}, head={h}) differs beyond TOL and not by p at a "
+                                 f"rounding boundary ({n_near} p near one; excess over the per-element bound "
+                                 f"{excess:.3g}); max |kernel - plain| = {diff.max().item()}")
+    return diff.max().item(), len(rows)
+
+
+def _k1_case(name: str, q, k, v, n_heads: int, causal: bool, iters: int) -> dict:
+    """K1 at one shape: the kernel against its plain twin (``_check_k1``), then
+    the device times of the kernel, the twin and SDPA on the split-head view
+    (a yardstick the port never calls), and the bound: q, k, v read and the
+    output written once; 2 x 2 multiply-adds per (query, key, channel) pair
+    that the mask keeps; fp32 as 3xTF32."""
+    import torch.nn.functional as F
+
+    from pytorch_models_tpu_torch.ops.encoder_attention import encoder_attention, encoder_attention_plain
+
+    def heads(t):  # (B, L, H*D) -> the split-head (B, H, L, D) view SDPA takes
+        return t.unflatten(-1, (n_heads, -1)).transpose(1, 2)
+
+    dn = str(q.dtype).removeprefix("torch.")
+    err, flipped = _check_k1(name, q, k, v, n_heads, causal)
+    ms, plain_ms = _ab_ms([lambda: encoder_attention(q, k, v, n_heads, causal)],
+                          [lambda: encoder_attention_plain(q, k, v, n_heads, causal)], iters)
+    lib = _time_ms([lambda: F.scaled_dot_product_attention(heads(q), heads(k), heads(v), is_causal=causal)], iters)
+    b, lq, hd = q.shape
+    lk = k.shape[1]
+    pairs = sum(min(i + 1, lk) for i in range(lq)) if causal else lq * lk
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    return {**_rec(err, ms, plain_ms, nbytes, 4 * b * pairs * hd, dn, lib, tf32x3=True), "flipped": flipped}
+
+
+def _k1_times(rec: dict) -> str:
+    return (f"{rec['flipped']} rows beyond TOL by p at a rounding boundary | kernel {rec['ms'] * 1e3:.1f} us, "
+            f"plain {rec['plain_ms'] * 1e3:.1f} us, SDPA {rec['library_ms'] * 1e3:.1f} us, "
+            f"bound {rec['bound_ms'] * 1e3:.2f} us ({rec['bound_by']})")
+
+
+def _sass_tensor_core_counts(lib_path) -> dict | None:
+    """Tensor-core instructions (``HMMA`` / ``HGMMA``) in each K1
+    instantiation of the built library, from ``cuobjdump -sass``; None where
+    the toolkit has no cuobjdump."""
+    import re
+    import shutil
+    from pathlib import Path
+
+    from pytorch_models_tpu_torch.ops import _build
+
+    tool = shutil.which("cuobjdump") or str(Path(_build._find_nvcc()).parent / "cuobjdump")
+    if not Path(tool).exists():
+        return None
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    counts, cur = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            m = re.search(r"encoder_attention_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E", line)
+            cur = None if m is None else f"{'fp32' if m.group(1) == 'f' else 'bf16'} D={m.group(2)} MT={m.group(3)}"
+            if cur is not None:
+                counts[cur] = 0
+        elif cur is not None and re.search(r"\bHG?MMA\.", line):
+            counts[cur] += 1
+    return counts
+
+
 def kernel_phases(dev, card: str) -> dict:
     """Each kernel vs its plain version at the slice's shapes, fp32 and bf16."""
     import torch
 
+    from pytorch_models_tpu_torch.ops import _build
     from pytorch_models_tpu_torch.ops.decode_attention import decode_attention, decode_attention_plain
-    from pytorch_models_tpu_torch.ops.encoder_attention import encoder_attention, encoder_attention_plain
+    from pytorch_models_tpu_torch.ops.encoder_attention import K_TILE
     from pytorch_models_tpu_torch.ops.gather import gather_rows, gather_rows_plain
     from pytorch_models_tpu_torch.ops.greedy_head import greedy_argmax_tied, greedy_argmax_tied_plain
 
@@ -283,22 +441,40 @@ def kernel_phases(dev, card: str) -> dict:
         dn = str(dtype).removeprefix("torch.")
         tol = TOL[dn]
 
-        # K1: B=2, L in {7, 197, 1024}, dense and causal, H*D = 768
-        err = 0.0
+        # K1: the twin walks the kernel's key tiles; B=2, L in {7, 197, 1024}, dense and causal, H*D = 768
+        k_tile = _build.load_library().pmt_encoder_attention_k_tile(_build.dtype_code(torch.zeros(1, dtype=dtype)))
+        if k_tile != K_TILE[dtype]:
+            raise AssertionError(f"encoder_attention {dn}: the kernel's key tile {k_tile} != K_TILE {K_TILE[dtype]}")
+        err, flipped = 0.0, 0
         for L in (7, 197, 1024):
             q, k, v = (rnd(2, L, 768, dtype=dtype) for _ in range(3))
             for causal in (False, True):
-                err = max(err, _check_close(f"encoder_attention L={L} causal={causal} {dn}",
-                                            encoder_attention(q, k, v, 12, causal),
-                                            encoder_attention_plain(q, k, v, 12, causal), tol))
-        k1_ms, k1_plain = _ab_ms([lambda: encoder_attention(q, k, v, 12, True)],
-                                 [lambda: encoder_attention_plain(q, k, v, 12, True)], 20)
-        k1_lib = _time_ms([lambda: F.scaled_dot_product_attention(heads(q), heads(k), heads(v), is_causal=True)], 20)
-        # q, k, v read and out written once; causal: half of the 2 x 2*L*L*H*D multiply-adds
-        res[("encoder_attention", dn)] = _rec(err, k1_ms, k1_plain, 4 * q.numel() * q.element_size(),
-                                              2 * 2 * 1024 * 1024 * 768, dn, k1_lib)
+                e, f = _check_k1(f"encoder_attention L={L} causal={causal} {dn}", q, k, v, 12, causal)
+                err, flipped = max(err, e), flipped + f
+        rec = res[("encoder_attention", dn)] = _k1_case(f"encoder_attention GPT-2 causal {dn}", q, k, v, 12, True, 20)
+        rec["err"] = err = max(err, rec["err"])
         print(f"phase kernel encoder_attention {dn}: B=2 L=7,197,1024 dense+causal max_abs_err={err:.3g} "
-              f"(atol, rtol)={tol} | causal L=1024 kernel {k1_ms * 1e3:.1f} us, plain {k1_plain * 1e3:.1f} us [{card}]")
+              f"(atol, rtol)={tol}, {flipped} rows beyond it by p at a rounding boundary, key tile {k_tile} | "
+              f"GPT-2 causal B=2 H=12 L=1024 {_k1_times(rec)} [{card}]")
+        # the other head widths the kernel is built for: DETR's 32, ViT-H's 80, 128
+        errs, flipped = {}, 0
+        for d, h in ((32, 8), (80, 16), (128, 4)):
+            for L in (7, 65, 300):
+                qd, kd, vd = (rnd(2, L, h * d, dtype=dtype) for _ in range(3))
+                for causal in (False, True):
+                    e, f = _check_k1(f"encoder_attention D={d} L={L} causal={causal} {dn}", qd, kd, vd, h, causal)
+                    errs[d], flipped = max(errs.get(d, 0.0), e), flipped + f
+        rec["err"] = max(rec["err"], *errs.values())
+        print(f"phase kernel encoder_attention {dn} (head widths): B=2 L=7,65,300 dense+causal, max_abs_err "
+              + ", ".join(f"D={d} (H={h}) {errs[d]:.3g}" for d, h in ((32, 8), (80, 16), (128, 4)))
+              + f" (atol, rtol)={tol}, {flipped} rows beyond it by p at a rounding boundary [{card}]")
+        # ViT-B/16: the JAX kernel's design shape, B=128 images of 197 tokens, 12 heads of 64
+        qv, kv_, vv = (rnd(128, 197, 768, dtype=dtype) for _ in range(3))
+        vit = _k1_case(f"encoder_attention ViT-B/16 {dn}", qv, kv_, vv, 12, False, 10)
+        rec["err"] = max(rec["err"], vit["err"])
+        print(f"phase kernel encoder_attention {dn} (ViT-B/16): B=128 L=197 H=12 D=64 dense max_abs_err="
+              f"{vit['err']:.3g} (atol, rtol)={tol} | {_k1_times(vit)} [{card}]")
+        del qv, kv_, vv
 
         # K2: B=8, L=1024, mixed pads/ends, one empty row
         ends = torch.tensor([1024, 700, 5, 64, 1, 300, 1000, 512], dtype=torch.int32, device=dev)
@@ -384,20 +560,14 @@ def whisper_kernel_phases(dev, card: str) -> dict:
 
     from pytorch_models_tpu_torch.audio2text import WhisperPreprocessor
     from pytorch_models_tpu_torch.ops.decode_attention import decode_attention, decode_attention_plain
-    from pytorch_models_tpu_torch.ops.encoder_attention import encoder_attention, encoder_attention_plain
     from pytorch_models_tpu_torch.ops.greedy_head import greedy_argmax_tied, greedy_argmax_tied_plain
     from pytorch_models_tpu_torch.ops.mel import log_mel_spectrogram, log_mel_spectrogram_plain
-
-    import torch.nn.functional as F
 
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
     res = {}
 
     def rnd(*shape, dtype):
         return torch.randn(*shape, generator=g, device=dev).to(dtype)
-
-    def heads(t):  # (B, L, H*D) -> the split-head (B, H, L, D) view SDPA takes
-        return t.unflatten(-1, (8, 64)).transpose(1, 2)
 
     # K5: B=8 x 30 s, n_mels 80 and 128
     wav = torch.from_numpy(_waveforms(8, [30.0] * 8, SEED + 2)).to(dev)
@@ -438,23 +608,12 @@ def whisper_kernel_phases(dev, card: str) -> dict:
         # K1: the encoder's dense L=1500, and teacher-forced cross Lq=448, Lk=1500
         q, k, v = (rnd(8, 1500, 512, dtype=dtype) for _ in range(3))
         qx = rnd(8, 448, 512, dtype=dtype)
-        e1 = _check_close(f"encoder_attention dense L=1500 {dn}", encoder_attention(q, k, v, 8),
-                          encoder_attention_plain(q, k, v, 8), tol)
-        e2 = _check_close(f"encoder_attention cross 448x1500 {dn}", encoder_attention(qx, k, v, 8),
-                          encoder_attention_plain(qx, k, v, 8), tol)
-        dense = _ab_ms([lambda: encoder_attention(q, k, v, 8)], [lambda: encoder_attention_plain(q, k, v, 8)], 10)
-        cross = _ab_ms([lambda: encoder_attention(qx, k, v, 8)], [lambda: encoder_attention_plain(qx, k, v, 8)], 10)
-        lib = [_time_ms([lambda a=a: F.scaled_dot_product_attention(heads(a), heads(k), heads(v))], 10) for a in (q, qx)]
-        # q, k, v read and out written once; 2 x 2*L*L*H*D multiply-adds
-        rec = res[("encoder_attention", dn)] = _rec(max(e1, e2), *dense, 4 * q.numel() * q.element_size(),
-                                                    4 * 8 * 1500 * 1500 * 512, dn, lib[0])
-        cross_bound = _rec(0.0, *cross, (2 * qx.numel() + 2 * k.numel()) * k.element_size(),
-                           4 * 8 * 448 * 1500 * 512, dn)["bound_ms"]
+        rec = res[("encoder_attention", dn)] = _k1_case(f"encoder_attention dense L=1500 {dn}", q, k, v, 8, False, 10)
+        cross = _k1_case(f"encoder_attention cross 448x1500 {dn}", qx, k, v, 8, False, 10)
+        e1, e2 = rec["err"], cross["err"]
+        rec["err"] = max(e1, e2)
         print(f"phase kernel encoder_attention {dn} (Whisper): B=8 H=8 dense L=1500 max_abs_err={e1:.3g}, cross "
-              f"Lq=448 Lk=1500 {e2:.3g} (atol, rtol)={tol} | dense kernel {dense[0] * 1e3:.1f} us, plain "
-              f"{dense[1] * 1e3:.1f} us, SDPA {lib[0] * 1e3:.1f} us, bound {rec['bound_ms'] * 1e3:.1f} us "
-              f"({rec['bound_by']}); cross kernel {cross[0] * 1e3:.1f} us, plain {cross[1] * 1e3:.1f} us, SDPA "
-              f"{lib[1] * 1e3:.1f} us, bound {cross_bound * 1e3:.1f} us [{card}]")
+              f"Lq=448 Lk=1500 {e2:.3g} (atol, rtol)={tol} | dense {_k1_times(rec)}; cross {_k1_times(cross)} [{card}]")
 
         # K2: one query per row over the write-once cross cache, ends = len
         ends = torch.full((8,), 1500, dtype=torch.int32, device=dev)
@@ -1418,9 +1577,19 @@ def int8_kernel_phases(dev, card: str) -> dict:
                         [lambda c=c, q=q: int8_decode_attention_plain(q[0], *kv(c), pos, 12, None, q[1], q[2], sb)
                          for c, q in zip(cs, qt)], 50)
             tb, to = bound(8 * pos, 8, 768, item, cur=True, bias_rows=(pos + 1) * 12)
-            rt = _rec(e, *tt, tb, to, "int8")
+
+            def dequantized(c, q):  # (q, K, V) split-head: the dequantized cache [0, pos), the current K/V at pos
+                kd, vd = (deq(c, key, dtype, 12)[:, :, :pos + 1].clone() for key in ("k", "v"))
+                kd[:, :, pos], vd[:, :, pos] = q[1].unflatten(-1, (12, 64)), q[2].unflatten(-1, (12, 64))
+                return q[0].unflatten(-1, (12, 64)).transpose(1, 2), kd, vd
+
+            tmask = sb[:pos + 1].t()[None, :, None, :].to(dtype)  # the key-major bias as a float mask
+            dqt = [dequantized(c, q) for c, q in zip(cs, qt)]
+            libt = _time_ms([lambda t=t: F.scaled_dot_product_attention(*t, attn_mask=tmask) for t in dqt], 50)
+            rt = _rec(e, *tt, tb, to, "int8", libt)
             parts.append(f"Lk={lk} pos={pos}: max_abs_err={e:.3g}, the bias moves the output by {moved:.3g}, kernel "
-                         f"{tt[0] * 1e3:.1f} us, plain {tt[1] * 1e3:.1f} us, bound {rt['bound_ms'] * 1e3:.2f} us "
+                         f"{tt[0] * 1e3:.1f} us, plain {tt[1] * 1e3:.1f} us, SDPA over the dequantized cache with "
+                         f"the bias as a float mask {libt * 1e3:.1f} us, bound {rt['bound_ms'] * 1e3:.2f} us "
                          f"({rt['bound_by']})")
         print(f"phase kernel int8_kv {dn} (T5 self + current + rel-pos bias N(0, 1) x {T5_BIAS_SCALE}), B=8 H=12: "
               + "; ".join(parts) + f" (atol, rtol)={tol} [{card}]")
@@ -2102,6 +2271,14 @@ def main() -> int:
           f"{torch.__version__} CUDA {torch.version.cuda}; kernels built in {time.perf_counter() - t0:.1f} s "
           f"(nvcc {_build.build_seconds if _build.build_seconds is not None else 'cached'}) -> {lib_path.name}")
 
+    from pytorch_models_tpu_torch.ops.encoder_attention import SUPPORTED_HEAD_DIMS
+
+    sass = _sass_tensor_core_counts(lib_path)
+    served = {f"{dn} D={d}" for dn in ("fp32", "bf16") for d in SUPPORTED_HEAD_DIMS}
+    if sass is not None and ({key.rsplit(" ", 1)[0] for key in sass} != served or min(sass.values()) == 0):
+        raise AssertionError(f"encoder_attention: every (dtype, head width) must run on the tensor cores: {sass}")
+    print("phase sass encoder_attention: tensor-core instructions (HMMA/HGMMA) per instantiation "
+          + ("not measured (no cuobjdump)" if sass is None else json.dumps(sass)))
     res = kernel_phases(dev, card)
     res_w = whisper_kernel_phases(dev, card)
     res_t5 = t5_kernel_phases(dev, card)

@@ -47,6 +47,7 @@ _SIGNATURES = {
     "pmt_greedy_untied_cols": [_I],
     "pmt_greedy_fits": [_I, _I, _I, _I],
     "pmt_encoder_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P],
+    "pmt_encoder_attention_k_tile": [_I],
     "pmt_log_mel": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "pmt_int8_attention": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
     # both take a pointer to ops/decode_step.py's _Args structure

@@ -6,7 +6,8 @@ CUDA kernels (encoder_attention, decode_attention, greedy_head, gather,
 decode_step) are selected UPSTREAM in transformer.py and the generators on
 merged-head layouts, through the flags below.
 
-Each flag: ``None`` = auto, which means "the tensor lies on a CUDA device";
+Each flag: ``None`` = auto, which means "the tensor lies on a CUDA device"
+(and, for the attention kernels, "the shape is one the kernel serves");
 ``True`` forces the kernel's wrapper (on a CPU tensor the wrapper runs the
 kernel's plain version, which is how the CPU tests reach the dispatch);
 ``False`` forces the plain PyTorch path of the JAX package's XLA route
@@ -106,21 +107,37 @@ def use_fused_step(t: torch.Tensor) -> bool:
     return _on_cuda(t) if USE_FUSED_STEP is None else bool(USE_FUSED_STEP)
 
 
-def use_decode_kernel(t: torch.Tensor) -> bool:
-    """Gate for the decode kernel on the merged-head cache ``t``. No shape
-    condition: on a CUDA tensor the wrapper launches the kernel or raises."""
-    return _on_cuda(t) if USE_DECODE_KERNEL is None else USE_DECODE_KERNEL
+def use_decode_kernel(t: torch.Tensor, n_heads: int) -> bool:
+    """Gate for the decode kernel on the merged-head cache ``t``. Auto takes
+    it on a CUDA tensor whose shape the kernel serves
+    (``decode_attention_fits``); any other shape goes to :func:`sdpa`, as in
+    the JAX package. A forced ``True`` reaches the wrapper, which raises for a
+    shape it does not serve."""
+    if USE_DECODE_KERNEL is not None:
+        return USE_DECODE_KERNEL
+    if not _on_cuda(t):
+        return False
+    from .decode_attention import decode_attention_fits
+
+    return decode_attention_fits(t, n_heads)
 
 
-def use_encoder_kernel(q_m: torch.Tensor, attn_bias: torch.Tensor | None = None) -> bool:
+def use_encoder_kernel(q_m: torch.Tensor, n_heads: int, attn_bias: torch.Tensor | None = None) -> bool:
     """Gate for merged-head encoder attention on (..., L, H*D) projections.
     The kernel takes no additive bias: a call with one (T5's rel-pos and pad
     biases) goes to :func:`sdpa` whatever the flag says, as in the JAX
-    package (``encoder_attention_eligible``). No shape condition: on a CUDA
-    tensor the wrapper launches the kernel or raises."""
+    package. Auto takes the kernel on a CUDA tensor whose shape it serves
+    (``encoder_attention_eligible``), else :func:`sdpa`; a forced ``True``
+    reaches the wrapper, which raises for a shape it does not serve."""
     if attn_bias is not None:
         return False
-    return _on_cuda(q_m) if USE_ENCODER_KERNEL is None else USE_ENCODER_KERNEL
+    if USE_ENCODER_KERNEL is not None:
+        return USE_ENCODER_KERNEL
+    if not _on_cuda(q_m):
+        return False
+    from .encoder_attention import encoder_attention_eligible
+
+    return encoder_attention_eligible(q_m, n_heads)
 
 
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, attn_bias: torch.Tensor | None = None,

@@ -21,7 +21,17 @@ import torch
 from . import _build
 
 NEG_INF = -1e30
-SUPPORTED_HEAD_DIMS = (64,)  # every family of the JAX package uses 64
+SUPPORTED_HEAD_DIMS = (64,)  # GPT-2, Whisper, T5: the decoders of the JAX package
+
+
+def decode_attention_fits(cache: torch.Tensor, n_heads: int) -> bool:
+    """The kernel's shape rule on a merged-head ``(B, L, H*D)`` cache: a head
+    width it is built for. The JAX gate's ``H*D % 128`` and ``KV_BLOCK``
+    rules are TPU layout rules and are not carried over."""
+    if cache.ndim != 3:
+        return False
+    hd = cache.shape[-1]
+    return hd % n_heads == 0 and hd // n_heads in SUPPORTED_HEAD_DIMS
 
 
 def _row_i32(x, b: int, device) -> torch.Tensor:
@@ -73,7 +83,7 @@ def decode_attention(q, k_cache, v_cache, ends, n_heads: int, pad_lens=None, bia
     d = hd // n_heads
     req = _build.require
     req(lq == 1, "decode_attention: single-position queries only")
-    req(hd % n_heads == 0 and d in SUPPORTED_HEAD_DIMS, f"decode_attention: head_dim {hd}/{n_heads} unsupported")
+    req(decode_attention_fits(k_cache, n_heads), f"decode_attention: head_dim {hd}/{n_heads} unsupported")
     req(k_cache.shape == (b, l_max, hd) and v_cache.shape == (b, l_max, hd), "decode_attention: cache shape")
     req(k_cache.dtype == q.dtype and v_cache.dtype == q.dtype, "decode_attention: q and caches must share a dtype")
     req(all(t.is_cuda and t.is_contiguous() for t in (q, k_cache, v_cache)),

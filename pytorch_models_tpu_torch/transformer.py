@@ -158,9 +158,11 @@ def mha_apply(
     decode kernel (self-attention with its bias in key-major layout; cross
     only without a bias); longer cached chunks (prefill) take the masked
     plain path; an uncached call (self, or cross over ``memory`` with Lq !=
-    Lk) goes to the encoder-attention kernel when there is no bias. On a CUDA tensor a
-    kernel wrapper launches its kernel or raises for a shape it does not
-    serve; ``USE_*_KERNEL = False`` selects :func:`sdpa`.
+    Lk) goes to the encoder-attention kernel when there is no bias. On a
+    CUDA tensor the auto gates take a kernel only for a shape it serves
+    (``encoder_attention_eligible``, ``decode_attention_fits``), else
+    :func:`sdpa`; a forced ``USE_*_KERNEL = True`` reaches the wrapper, which
+    raises for such a shape; ``False`` selects :func:`sdpa`.
     """
     k = q if k is None else k
     v = k if v is None else v
@@ -187,7 +189,7 @@ def mha_apply(
         ck, cv = cache["k"], cache["v"]
         l_max = ck.shape[-2]
 
-        if s == 1 and _attn.use_decode_kernel(ck):
+        if s == 1 and _attn.use_decode_kernel(ck, cfg.n_heads):
             kernel_bias, convertible = _decode_kernel_bias(attn_bias, l_max, cfg.n_heads)
             if convertible:
                 from .ops.decode_attention import decode_attention
@@ -217,7 +219,7 @@ def mha_apply(
     q_m = linear(p["q"], q)
     k_m = linear(p["k"], k)
     v_m = linear(p["v"], v)
-    if _attn.use_encoder_kernel(q_m, attn_bias):
+    if _attn.use_encoder_kernel(q_m, cfg.n_heads, attn_bias):
         from .ops.encoder_attention import encoder_attention
 
         return linear(p["o"], encoder_attention(q_m, k_m, v_m, cfg.n_heads, causal))
@@ -267,7 +269,7 @@ def _cross_cached_apply(p: dict, cfg: LayerConfig, q: torch.Tensor, cache: dict,
     ck, cv, lens = cache["k"], cache["v"], cache["len"]
     s, l_max = q.shape[-2], ck.shape[-2]
     q_m = linear(p["q"], q)
-    if s == 1 and attn_bias is None and _attn.use_decode_kernel(ck):
+    if s == 1 and attn_bias is None and _attn.use_decode_kernel(ck, cfg.n_heads):
         from .ops.decode_attention import decode_attention
 
         return linear(p["o"], decode_attention(q_m, ck.to(q_m.dtype), cv.to(q_m.dtype), lens, cfg.n_heads))

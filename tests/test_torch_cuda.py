@@ -17,7 +17,12 @@ from pytorch_models_tpu_torch.ops.decode_step import (
     pack_decode_weights,
     pack_greedy_head,
 )
-from pytorch_models_tpu_torch.ops.encoder_attention import encoder_attention, encoder_attention_plain
+from pytorch_models_tpu_torch.ops.encoder_attention import (
+    K_TILE,
+    SUPPORTED_HEAD_DIMS,
+    encoder_attention,
+    encoder_attention_plain,
+)
 from pytorch_models_tpu_torch.ops.gather import gather_rows, gather_rows_plain
 from pytorch_models_tpu_torch.ops.greedy_head import greedy_argmax, greedy_argmax_plain, greedy_argmax_tied
 from pytorch_models_tpu_torch.ops.mel import log_mel_spectrogram, log_mel_spectrogram_plain
@@ -37,11 +42,41 @@ def cuda():
     return torch.device("cuda")
 
 
+# K1 vs its plain twin, which walks the same key tiles: fp32 differs by
+# summation order, exp and 3xTF32's 2^-21 per product; bf16 rounds p and the
+# output at the same points, so an output may land one bf16 step apart. In
+# bf16 a p that lies at a rounding boundary may round one way in the kernel
+# and the other in the twin (their scores are summed in other orders): one
+# step of p times |v| / l, which exceeds 2^-7 of an output near zero (an
+# H100 reading: 20 of 384,000 outputs at D = 32, L = 1500, up to 1.1e-4).
+# There each element is held to that rounding's bound instead:
+# 2^-8 * (P @ |V|) / l + 2^-7 * |o| + 1e-6, P from the fp32 scores.
+K1_TOL = [(torch.float32, 1e-5, 0.0), (torch.bfloat16, 1e-5, 2.0 ** -7)]
+
+
+def _assert_k1_close(got, ref, q, k, v, n_heads, causal, atol, rtol):
+    diff, allowed = (got.float() - ref.float()).abs(), atol + rtol * ref.float().abs()
+    assert torch.isfinite(got.float()).all()
+    if q.dtype == torch.bfloat16 and bool((diff > allowed).any()):
+        unbatched = q.ndim == 2
+        b, lq, hd = (1, *q.shape) if unbatched else q.shape
+        lk, d = k.shape[-2], hd // n_heads
+        qh, kh, vh = (t.float().reshape(b, -1, n_heads, d).transpose(1, 2) for t in (q, k, v))
+        s = torch.matmul(qh, kh.transpose(-1, -2)) * (1.0 / d ** 0.5)
+        if causal:
+            s = s.masked_fill(torch.ones(lq, lk, dtype=torch.bool, device=s.device).tril().logical_not(), -1e30)
+        p = torch.exp(s - s.amax(-1, keepdim=True))
+        spread = (torch.matmul(p, vh.abs()) / p.sum(-1, keepdim=True)).transpose(1, 2).reshape(got.shape)
+        allowed = torch.maximum(allowed, 2.0 ** -8 * spread + 2.0 ** -7 * ref.float().abs() + 1e-6)
+    assert bool((diff <= allowed).all()), f"{int((diff > allowed).sum())} elements off, max diff {diff.max().item()}"
+
+
 # kernel vs plain on the same inputs: fp32 differs by summation order only
-# (readings on an H100: 5.96e-7 encoder, 2.98e-7 decode attention); both bf16
-# paths keep fp32 inside and round once, so an output may land one bf16 step
-# of its own value (2^-7 relative at most) apart (readings: 1.95e-3 encoder,
-# 3.8e-6 decode attention)
+# (readings on an H100: 2.98e-7 decode attention; the encoder attention, in
+# 3xTF32, up to 9.24e-6); both bf16 paths keep fp32 inside and round once, so
+# an output may land one bf16 step of its own value (2^-7 relative at most)
+# apart (readings: 3.91e-3 encoder, 3.8e-6 decode attention); for the encoder
+# attention's rounded p see K1_TOL
 @pytest.mark.parametrize("dtype,atol,rtol", [(torch.float32, 1e-5, 0.0), (torch.bfloat16, 1e-5, 2.0 ** -7)])
 def test_kernels_match_plain(cuda, dtype, atol, rtol):
     g = torch.Generator(device=cuda).manual_seed(0)
@@ -52,7 +87,7 @@ def test_kernels_match_plain(cuda, dtype, atol, rtol):
     q, k, v = rnd(2, 197, 768), rnd(2, 197, 768), rnd(2, 197, 768)
     for causal in (False, True):
         got, ref = encoder_attention(q, k, v, 12, causal), encoder_attention_plain(q, k, v, 12, causal)
-        torch.testing.assert_close(got.float(), ref.float(), rtol=rtol, atol=atol)
+        _assert_k1_close(got, ref, q, k, v, 12, causal, atol, rtol)
 
     q1, kc, vc = rnd(8, 1, 768), rnd(8, 1024, 768), rnd(8, 1024, 768)
     ends = torch.tensor([1024, 700, 5, 64, 1, 300, 1000, 512], dtype=torch.int32, device=cuda)
@@ -83,8 +118,8 @@ def test_attention_kernels_at_whisper_shapes(cuda, dtype, atol, rtol):
 
     k, v = rnd(2, 1500, 512), rnd(2, 1500, 512)
     for q in (rnd(2, 448, 512), rnd(2, 1500, 512)):
-        torch.testing.assert_close(encoder_attention(q, k, v, 8).float(), encoder_attention_plain(q, k, v, 8).float(),
-                                   rtol=rtol, atol=atol)
+        _assert_k1_close(encoder_attention(q, k, v, 8), encoder_attention_plain(q, k, v, 8), q, k, v, 8, False, atol,
+                         rtol)
     q1, kc, vc = rnd(4, 1, 512), rnd(4, 1536, 512), rnd(4, 1536, 512)
     ends = torch.tensor([1500, 1500, 7, 1536], dtype=torch.int32, device=cuda)
     torch.testing.assert_close(decode_attention(q1, kc, vc, ends, 8).float(),
@@ -163,9 +198,11 @@ def test_log_mel_kernel_matches_plain(cuda, n_mels):
 
 
 def test_kernel_wrappers_reject_unsupported_input(cuda):
-    q = torch.zeros(1, 1, 96, device=cuda)  # head_dim 32 with 3 heads: no kernel instantiation
+    q = torch.zeros(1, 1, 144, device=cuda)  # head_dim 48 with 3 heads: no kernel instantiation
     with pytest.raises(ValueError):
-        decode_attention(q, torch.zeros(1, 128, 96, device=cuda), torch.zeros(1, 128, 96, device=cuda), 5, 3)
+        decode_attention(q, torch.zeros(1, 128, 144, device=cuda), torch.zeros(1, 128, 144, device=cuda), 5, 3)
+    with pytest.raises(ValueError):
+        encoder_attention(q, q, q, 3)
     with pytest.raises(ValueError):
         gather_rows(torch.zeros(4, 8, device=cuda), torch.zeros(2, device=cuda))
     wav = torch.zeros(2, 16000, device=cuda)
@@ -176,19 +213,85 @@ def test_kernel_wrappers_reject_unsupported_input(cuda):
 
 
 @pytest.mark.parametrize("cached", [False, True])
-def test_dispatch_raises_for_unsupported_head_dim(cuda, cached):
-    """Auto dispatch on a CUDA tensor never falls back to plain attention: a
-    head dim the kernels do not serve (32 here) raises in the wrapper."""
-    cfg = LayerConfig.make(64, n_heads=2)
+def test_dispatch_raises_for_unsupported_head_dim(cuda, cached, monkeypatch):
+    """A head width no kernel serves (48 here): under the auto flags the call
+    runs through sdpa, matches the plain route and launches nothing, as the
+    JAX package falls back; with the kernel flag forced True the wrapper
+    raises instead of falling back."""
+    cfg = LayerConfig.make(96, n_heads=2)
     p = mha_init(torch.Generator().manual_seed(0), cfg)
     p = {name: {k: t.to(cuda) for k, t in lin.items()} for name, lin in p.items()}
-    x = torch.randn(1, 1, 64, device=cuda)
-    with pytest.raises(ValueError):
+    x = torch.randn(1, 1 if cached else 9, 96, device=cuda)
+
+    def run():
         if cached:
-            cache = {"k": torch.zeros(1, 128, 64, device=cuda), "v": torch.zeros(1, 128, 64, device=cuda)}
-            mha_apply(p, cfg, x, cache=cache, cache_pos=0)
-        else:
-            mha_apply(p, cfg, x, causal=True)
+            cache = {"k": torch.zeros(1, 128, 96, device=cuda), "v": torch.zeros(1, 128, 96, device=cuda)}
+            return mha_apply(p, cfg, x, cache=cache, cache_pos=0)[0]
+        return mha_apply(p, cfg, x, causal=True)
+
+    flag = "USE_DECODE_KERNEL" if cached else "USE_ENCODER_KERNEL"
+    launched = (decode_attention.launches, encoder_attention.launches)
+    got = run()
+    assert (decode_attention.launches, encoder_attention.launches) == launched
+    monkeypatch.setattr(_attn, flag, False)
+    torch.testing.assert_close(got, run(), rtol=0, atol=0)
+    monkeypatch.setattr(_attn, flag, True)
+    with pytest.raises(ValueError):
+        run()
+
+
+@pytest.mark.parametrize("dtype,atol,rtol", K1_TOL)
+@pytest.mark.parametrize("d", SUPPORTED_HEAD_DIMS)
+def test_encoder_attention_matches_plain_at_each_head_width(cuda, dtype, atol, rtol, d):
+    """Ragged lengths (one key, under and over a tile, Whisper's 1500), dense
+    and causal, cross Lq != Lk both ways, an unbatched call, no keys at all
+    (zeros), the launch count."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    hd = 4 * d
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=cuda).to(dtype)
+
+    def check(q, k, v, causal):
+        launches = encoder_attention.launches
+        got = encoder_attention(q, k, v, 4, causal)
+        assert encoder_attention.launches == launches + 1 and got.shape == q.shape and got.dtype == dtype
+        _assert_k1_close(got, encoder_attention_plain(q, k, v, 4, causal), q, k, v, 4, causal, atol, rtol)
+
+    for L in (1, 7, 63, 65, 1500):
+        q, k, v = rnd(2, L, hd), rnd(2, L, hd), rnd(2, L, hd)
+        for causal in (False, True):
+            check(q, k, v, causal)
+    for lq, lk in ((65, 300), (300, 65)):
+        q, k, v = rnd(2, lq, hd), rnd(2, lk, hd), rnd(2, lk, hd)
+        for causal in (False, True):
+            check(q, k, v, causal)
+    check(rnd(63, hd), rnd(63, hd), rnd(63, hd), True)
+    empty = rnd(2, 0, hd)
+    assert not encoder_attention(rnd(2, 5, hd), empty, empty, 4).any()
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype,atol,rtol", K1_TOL)
+@pytest.mark.parametrize("d", [32, 64])
+def test_encoder_attention_fills_the_card(cuda, dtype, atol, rtol, d):
+    """B * H = 256 (head, row) pairs of 512 queries: 1,024 to 2,048 blocks,
+    many waves over 132 SMs (bf16 takes two m-tiles per warp at this size),
+    every block's output checked."""
+    g = torch.Generator(device=cuda).manual_seed(8)
+    q, k, v = (torch.randn(16, 512, 16 * d, generator=g, device=cuda).to(dtype) for _ in range(3))
+    for causal in (False, True):
+        _assert_k1_close(encoder_attention(q, k, v, 16, causal), encoder_attention_plain(q, k, v, 16, causal),
+                         q, k, v, 16, causal, atol, rtol)
+    torch.cuda.synchronize()
+
+
+def test_encoder_attention_k_tile_is_the_kernels(cuda):
+    from pytorch_models_tpu_torch.ops import _build
+
+    lib = _build.load_library()
+    for dt, k_tile in K_TILE.items():
+        assert lib.pmt_encoder_attention_k_tile(_build.dtype_code(torch.zeros(1, dtype=dt))) == k_tile
 
 
 def _step_inputs(cuda, dtype, cross: bool, b=4, d=128, n_layers=2, l_max=128, lx=96, vocab=1000):

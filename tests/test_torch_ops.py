@@ -26,8 +26,18 @@ from pytorch_models_tpu.ops.greedy_head import greedy_argmax_tied as jax_greedy_
 from pytorch_models_tpu_torch import transformer as tfm
 from pytorch_models_tpu_torch.ops import attention as attn
 from pytorch_models_tpu_torch.ops import layers
-from pytorch_models_tpu_torch.ops.decode_attention import decode_attention, decode_attention_plain
-from pytorch_models_tpu_torch.ops.encoder_attention import encoder_attention, encoder_attention_plain
+from pytorch_models_tpu_torch.ops import decode_attention as k2
+from pytorch_models_tpu_torch.ops import encoder_attention as k1
+from pytorch_models_tpu_torch.ops.decode_attention import (
+    decode_attention,
+    decode_attention_fits,
+    decode_attention_plain,
+)
+from pytorch_models_tpu_torch.ops.encoder_attention import (
+    encoder_attention,
+    encoder_attention_eligible,
+    encoder_attention_plain,
+)
 from pytorch_models_tpu_torch.ops.gather import embed_rows, gather_rows, gather_rows_plain
 from pytorch_models_tpu_torch.ops.greedy_head import (
     greedy_argmax,
@@ -88,6 +98,92 @@ def test_encoder_attention_unbatched():
     full = encoder_attention(_t(q)[None], _t(k)[None], _t(v)[None], 2, True)[0]
     assert got.shape == (50, 128)
     np.testing.assert_array_equal(got.numpy(), full.numpy())
+
+
+def _bf16(r, *shape):
+    """bf16 values as fp32 numpy (exact in both packages) and as a torch bf16 tensor."""
+    t = torch.from_numpy(_randn(r, *shape)).to(torch.bfloat16)
+    return t.float().numpy(), t
+
+
+def _p_rounding_bound(q, k, v, n_heads, causal, o_ref):
+    """Per-element bound between two bf16 flash attentions that round each p
+    once to bf16 against different running maxima: 2^-8 * (P @ |V|) / l from
+    the fp32 scores (P = exp(s - max), l = sum P), plus one output rounding
+    on each side (2^-7 * |o|), plus 1e-6."""
+    b, lq, hd = q.shape
+    lk, d = k.shape[1], hd // n_heads
+    qh, kh, vh = (t.float().reshape(b, -1, n_heads, d).transpose(1, 2) for t in (q, k, v))
+    s = torch.matmul(qh, kh.transpose(-1, -2)) * (1.0 / np.sqrt(d))
+    if causal:
+        s = s.masked_fill(torch.ones(lq, lk, dtype=torch.bool).tril().logical_not(), float("-inf"))
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    spread = torch.matmul(p, vh.abs()) / p.sum(-1, keepdim=True)
+    return (2.0 ** -8 * spread.transpose(1, 2).reshape(b, lq, hd) + 2.0 ** -7 * o_ref.abs() + 1e-6).numpy()
+
+
+@pytest.mark.parametrize("b,l,h,d,causal", [
+    (2, 197, 2, 64, False),  # one JAX block (_kernel_single)
+    (2, 600, 2, 64, True),   # two JAX blocks of 512 (_kernel)
+    (2, 600, 4, 32, False),  # DETR's head width
+    (1, 600, 8, 80, True),   # ViT-H's head width
+])
+def test_encoder_attention_bf16_matches_jax(b, l, h, d, causal):
+    """bf16: both round p to bf16 before P @ V, against different running
+    maxima (JAX's blocks of 512 keys, the twin's K_TILE), and round the
+    output once; held per element to that rounding's bound."""
+    r = np.random.default_rng(14)
+    (qn, q), (kn, k), (vn, v) = (_bf16(r, b, l, h * d) for _ in range(3))
+    with pltpu.force_tpu_interpret_mode():
+        expected = jax_encoder_attention(*(jnp.asarray(a, jnp.bfloat16) for a in (qn, kn, vn)), h, causal)
+    expected = torch.from_numpy(np.array(expected.astype(jnp.float32)))
+    got = encoder_attention(q, k, v, h, causal)
+    assert got.dtype == torch.bfloat16
+    bound = _p_rounding_bound(q, k, v, h, causal, expected)
+    diff = (got.float() - expected).abs().numpy()
+    assert (diff <= bound).all(), f"max excess {(diff - bound).max()}"
+    assert torch.equal(got, encoder_attention_plain(q, k, v, h, causal))
+
+
+def test_encoder_attention_fp32_head_width_80_matches_jax():
+    r = np.random.default_rng(15)
+    q, k, v = (_randn(r, 2, 197, 8 * 80) for _ in range(3))
+    with pltpu.force_tpu_interpret_mode():
+        expected = np.asarray(jax_encoder_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), 8, True))
+    got = encoder_attention(_t(q), _t(k), _t(v), 8, True)
+    np.testing.assert_allclose(got.numpy(), expected, rtol=ATTN_TOL, atol=ATTN_TOL)
+
+
+@pytest.mark.parametrize("rule,d", [("encoder", d) for d in k1.SUPPORTED_HEAD_DIMS]
+                         + [("decode", d) for d in k2.SUPPORTED_HEAD_DIMS])
+def test_attention_shape_rules_accept_each_supported_width(rule, d):
+    x = torch.zeros(2, 5, 4 * d)
+    if rule == "encoder":
+        assert encoder_attention_eligible(x, 4) and encoder_attention_eligible(x[0], 4)
+    else:
+        assert decode_attention_fits(x, 4)
+
+
+def test_attention_shape_rules_refuse_what_the_kernels_do_not_serve():
+    q48, q = torch.zeros(2, 5, 4 * 48), torch.zeros(2, 5, 256)
+    assert not encoder_attention_eligible(q48, 4) and not decode_attention_fits(q48, 4)  # D = 48
+    assert not encoder_attention_eligible(q, 3) and not decode_attention_fits(q, 3)  # 256 % 3 != 0
+    assert not encoder_attention_eligible(q, 4, torch.zeros(2, 4, 5, 5))  # K1 takes no bias
+    assert not encoder_attention_eligible(q[None], 4)  # (B, L, H*D) at most
+    assert not decode_attention_fits(torch.zeros(2, 5, 4 * 32), 4)  # K2 serves D = 64 only
+
+
+def test_auto_gates_route_by_the_kernels_shape_rules(monkeypatch):
+    """Auto takes a kernel only for a shape it serves; forced True takes the
+    wrapper whatever the shape (on a CUDA tensor it raises for D = 48)."""
+    x64, x48 = torch.zeros(1, 3, 128), torch.zeros(1, 3, 96)
+    assert not attn.use_encoder_kernel(x64, 2) and not attn.use_decode_kernel(x64, 2)  # a CPU tensor
+    monkeypatch.setattr(attn, "_on_cuda", lambda t: True)
+    assert attn.use_encoder_kernel(x64, 2) and attn.use_decode_kernel(x64, 2)
+    assert not attn.use_encoder_kernel(x48, 2) and not attn.use_decode_kernel(x48, 2)
+    monkeypatch.setattr(attn, "USE_ENCODER_KERNEL", True)
+    monkeypatch.setattr(attn, "USE_DECODE_KERNEL", True)
+    assert attn.use_encoder_kernel(x48, 2) and attn.use_decode_kernel(x48, 2)
 
 
 # ---------------------------------------------------------------------------
@@ -153,7 +249,7 @@ def test_encoder_gate_refuses_a_bias(monkeypatch):
     x = _t(_randn(r, 2, 9, 128))
     bias = _t(3.0 * _randn(r, 2, 9, 9))
     monkeypatch.setattr(attn, "USE_ENCODER_KERNEL", True)
-    assert attn.use_encoder_kernel(x, None) and not attn.use_encoder_kernel(x, bias)
+    assert attn.use_encoder_kernel(x, 2, None) and not attn.use_encoder_kernel(x, 2, bias)
     got = tfm.mha_apply(p, cfg, x, attn_bias=bias)
     monkeypatch.setattr(attn, "USE_ENCODER_KERNEL", False)
     torch.testing.assert_close(got, tfm.mha_apply(p, cfg, x, attn_bias=bias), rtol=0, atol=0)
