@@ -421,7 +421,11 @@ def kernel_phases(dev, card: str) -> dict:
     import torch
 
     from pytorch_models_tpu_torch.ops import _build
-    from pytorch_models_tpu_torch.ops.decode_attention import decode_attention, decode_attention_plain
+    from pytorch_models_tpu_torch.ops.decode_attention import (
+        decode_attention,
+        decode_attention_cluster,
+        decode_attention_plain,
+    )
     from pytorch_models_tpu_torch.ops.encoder_attention import K_TILE
     from pytorch_models_tpu_torch.ops.gather import gather_rows, gather_rows_plain
     from pytorch_models_tpu_torch.ops.greedy_head import greedy_argmax_tied, greedy_argmax_tied_plain
@@ -493,10 +497,42 @@ def kernel_phases(dev, card: str) -> dict:
         k2_lib = _time_ms([lambda c=c: F.scaled_dot_product_attention(heads(c[0]), heads(c[1]), heads(c[2]),
                                                                      attn_mask=mask) for c in copies], 50)
         keys = int((ends - pads).clamp_min(0).sum())  # the valid [pad, end) ranges only
-        res[("decode_attention", dn)] = _rec(err, k2_ms, k2_plain, (2 * keys + 2 * 8) * 768 * q1.element_size(),
-                                             4 * keys * 768, dn, k2_lib)
-        print(f"phase kernel decode_attention {dn}: B=8 L=1024 H=12 mixed pads/ends + empty row "
-              f"max_abs_err={err:.3g} (atol, rtol)={tol} | kernel {k2_ms * 1e3:.1f} us, plain {k2_plain * 1e3:.1f} us [{card}]")
+        rec = res[("decode_attention", dn)] = _rec(err, k2_ms, k2_plain, (2 * keys + 2 * 8) * 768 * q1.element_size(),
+                                                   4 * keys * 768, dn, k2_lib)
+        # the running max jumps: row 0's last key scores far above the rest (the row's last CTA)
+        kj = kc.clone()
+        kj[0, 1023] = 8.0 * q1[0, 0]
+        jump = decode_attention(q1, kj, vc, ends, 12, pads)
+        rec["err"] = max(err, _check_close(f"decode_attention max jump {dn}", jump,
+                                           decode_attention_plain(q1, kj, vc, ends, 12, pads), tol))
+        print(f"phase kernel decode_attention {dn}: B=8 L=1024 H=12 mixed pads/ends + empty row + a max jump, "
+              f"cluster {decode_attention_cluster(8, 1024, 12)}: max_abs_err={rec['err']:.3g} (atol, rtol)={tol} | "
+              f"kernel {k2_ms * 1e3:.1f} us, plain {k2_plain * 1e3:.1f} us, masked SDPA {k2_lib * 1e3:.1f} us, bound "
+              f"{rec['bound_ms'] * 1e3:.2f} us ({rec['bound_by']}) [{card}]")
+        # B=32: the per-op route above the fused step's 8 rows; mixed ranges with a full and an empty row
+        r32 = torch.Generator(device=dev).manual_seed(SEED + 32)
+        e32 = torch.randint(1, 1025, (32,), generator=r32, device=dev, dtype=torch.int32)
+        p32 = (torch.rand(32, generator=r32, device=dev) * e32).to(torch.int32)
+        e32[:2], p32[:2] = torch.tensor([1024, 300], dtype=torch.int32), torch.tensor([0, 300], dtype=torch.int32)
+        c32 = [(rnd(32, 1, 768, dtype=dtype), rnd(32, 1024, 768, dtype=dtype), rnd(32, 1024, 768, dtype=dtype))
+               for _ in range(2)]
+        out = decode_attention(*c32[0], e32, 12, p32)
+        e = _check_close(f"decode_attention B=32 {dn}", out, decode_attention_plain(*c32[0], e32, 12, p32), tol)
+        if out[1].abs().max().item() != 0.0:
+            raise AssertionError("decode_attention B=32: an empty [pad, end) row must give zeros")
+        rec["err"] = max(rec["err"], e)
+        t32 = _ab_ms([lambda c=c: decode_attention(*c, e32, 12, p32) for c in c32],
+                     [lambda c=c: decode_attention_plain(*c, e32, 12, p32) for c in c32], 50)
+        m32 = ((col >= p32[:, None]) & (col < e32[:, None]))[:, None, None, :]
+        lib32 = _time_ms([lambda c=c: F.scaled_dot_product_attention(heads(c[0]), heads(c[1]), heads(c[2]),
+                                                                     attn_mask=m32) for c in c32], 50)
+        k32 = int((e32 - p32).clamp_min(0).sum())
+        b32 = _rec(e, *t32, (2 * k32 + 2 * 32) * 768 * q1.element_size(), 4 * k32 * 768, dn, lib32)
+        print(f"phase kernel decode_attention {dn} (B=32): L=1024 H=12 mixed pads/ends ({k32} keys), cluster "
+              f"{decode_attention_cluster(32, 1024, 12)}: max_abs_err={e:.3g} (atol, rtol)={tol} | kernel "
+              f"{t32[0] * 1e3:.1f} us, plain {t32[1] * 1e3:.1f} us, masked SDPA {lib32 * 1e3:.1f} us, bound "
+              f"{b32['bound_ms'] * 1e3:.2f} us ({b32['bound_by']}) [{card}]")
+        del c32
 
         # K3: V = 50257 and 1024, out-of-range ids, exact
         err = 0.0
@@ -558,8 +594,14 @@ def whisper_kernel_phases(dev, card: str) -> dict:
     1536-slot cross cache with per-row ends, K4 at V=51865, d=512."""
     import torch
 
+    import torch.nn.functional as F
+
     from pytorch_models_tpu_torch.audio2text import WhisperPreprocessor
-    from pytorch_models_tpu_torch.ops.decode_attention import decode_attention, decode_attention_plain
+    from pytorch_models_tpu_torch.ops.decode_attention import (
+        decode_attention,
+        decode_attention_cluster,
+        decode_attention_plain,
+    )
     from pytorch_models_tpu_torch.ops.greedy_head import greedy_argmax_tied, greedy_argmax_tied_plain
     from pytorch_models_tpu_torch.ops.mel import log_mel_spectrogram, log_mel_spectrogram_plain
 
@@ -623,10 +665,16 @@ def whisper_kernel_phases(dev, card: str) -> dict:
                          decode_attention_plain(*copies[0], ends, 8), tol)
         k2 = _ab_ms([lambda c=c: decode_attention(*c, ends, 8) for c in copies],
                     [lambda c=c: decode_attention_plain(*c, ends, 8) for c in copies], 50)
-        res[("decode_attention", dn)] = _rec(e, *k2, (2 * 8 * 1500 + 2 * 8) * 512 * copies[0][0].element_size(),
-                                             4 * 8 * 1500 * 512, dn)
-        print(f"phase kernel decode_attention {dn} (Whisper cross): B=8 L=1536 H=8 ends=1500 max_abs_err={e:.3g} "
-              f"(atol, rtol)={tol} | kernel {k2[0] * 1e3:.1f} us, plain {k2[1] * 1e3:.1f} us [{card}]")
+        xmask = (torch.arange(1536, device=dev) < 1500)[None, None, None, :]
+        k2_lib = _time_ms([lambda c=c: F.scaled_dot_product_attention(*(t.unflatten(-1, (8, 64)).transpose(1, 2)
+                                                                        for t in c), attn_mask=xmask)
+                           for c in copies], 50)
+        rec = res[("decode_attention", dn)] = _rec(e, *k2, (2 * 8 * 1500 + 2 * 8) * 512 * copies[0][0].element_size(),
+                                                   4 * 8 * 1500 * 512, dn, k2_lib)
+        print(f"phase kernel decode_attention {dn} (Whisper cross): B=8 L=1536 H=8 ends=1500, cluster "
+              f"{decode_attention_cluster(8, 1536, 8)}: max_abs_err={e:.3g} (atol, rtol)={tol} | kernel "
+              f"{k2[0] * 1e3:.1f} us, plain {k2[1] * 1e3:.1f} us, masked SDPA {k2_lib * 1e3:.1f} us, bound "
+              f"{rec['bound_ms'] * 1e3:.2f} us ({rec['bound_by']}) [{card}]")
 
         # K4: the tied head at V=51865, d=512
         x, emb = rnd(8, 512, dtype=dtype), rnd(51865, 512, dtype=dtype)
@@ -650,7 +698,11 @@ def t5_kernel_phases(dev, card: str) -> dict:
     import torch
     import torch.nn.functional as F
 
-    from pytorch_models_tpu_torch.ops.decode_attention import decode_attention, decode_attention_plain
+    from pytorch_models_tpu_torch.ops.decode_attention import (
+        decode_attention,
+        decode_attention_cluster,
+        decode_attention_plain,
+    )
     from pytorch_models_tpu_torch.ops.greedy_head import greedy_argmax, greedy_argmax_plain
 
     g = torch.Generator(device=dev).manual_seed(SEED + 11)
@@ -696,7 +748,8 @@ def t5_kernel_phases(dev, card: str) -> dict:
         res[("decode_attention_bias", dn)] = rec
         print(f"phase kernel decode_attention_bias {dn}: B=8 H=12 L=128 (ends 41) and 1024 (ends 1000), shared "
               f"(1, L, H) and per-row (B, L, H) + pads, bias N(0, 1) x {T5_BIAS_SCALE}: max_abs_err={err:.3g} "
-              f"(atol, rtol)={tol}; the bias moves the output by >= {min(moved):.3g} | shared L=128 kernel "
+              f"(atol, rtol)={tol}; the bias moves the output by >= {min(moved):.3g} | clusters L=128 "
+              f"{decode_attention_cluster(8, 128, 12)}, L=1024 {decode_attention_cluster(8, 1024, 12)}; shared L=128 kernel "
               f"{times[128][0] * 1e3:.1f} us, plain {times[128][1] * 1e3:.1f} us, SDPA with the bias as a float mask "
               f"{rec['library_ms'] * 1e3:.1f} us, bound {rec['bound_ms'] * 1e3:.2f} us ({rec['bound_by']}), the "
               f"kernel without the bias {no_bias[128] * 1e3:.1f} us; L=1024 kernel {times[1024][0] * 1e3:.1f} us, "
@@ -1472,6 +1525,7 @@ def int8_kernel_phases(dev, card: str) -> dict:
 
     from pytorch_models_tpu_torch.ops.int8_kv import (
         int8_decode_attention,
+        int8_decode_attention_cluster,
         int8_decode_attention_plain,
         quantize_kv_caches,
     )
@@ -1514,6 +1568,15 @@ def int8_kernel_phases(dev, card: str) -> dict:
                                         int8_decode_attention_plain(qs[0][0], *kv(cs[0]), ends, 12, pads, **kw), tol))
             if not cur and got[2].abs().max().item() != 0.0:
                 raise AssertionError("int8_decode_attention: an empty [pad, end) row must give zeros")
+        # the running max jumps: row 0's last key, in the last block of the row's last CTA, scores far above
+        # every earlier one, so each block's levels depend on the prefix max the cluster hands it
+        kj = rnd(8, 1024, 768)
+        kj[0, 1023] = 40.0 * qs[0][0][0, 0].float()
+        cj = quantize_kv_caches({"k": kj, "v": rnd(8, 1024, 768)})
+        err = max(err, _check_close(f"int8_decode_attention max jump {dn}",
+                                    int8_decode_attention(qs[0][0], *kv(cj), ends, 12, pads),
+                                    int8_decode_attention_plain(qs[0][0], *kv(cj), ends, 12, pads), tol))
+        del kj, cj
         times = _ab_ms([lambda c=c, q=q: int8_decode_attention(q[0], *kv(c), ends, 12, pads) for c, q in zip(cs, qs)],
                        [lambda c=c, q=q: int8_decode_attention_plain(q[0], *kv(c), ends, 12, pads)
                         for c, q in zip(cs, qs)], 50)
@@ -1528,7 +1591,8 @@ def int8_kernel_phases(dev, card: str) -> dict:
         nbytes, ops = bound(keys, 8, 768, item)
         rec = res[("int8_kv", dn)] = _rec(err, *times, nbytes, ops, "int8", lib)
         print(f"phase kernel int8_kv {dn}: B=8 Lk=1024 H=12 K2's pads/ends ({keys} keys) + empty row, without and "
-              f"with the current position: max_abs_err={err:.3g} (atol, rtol)={tol} | kernel {times[0] * 1e3:.1f} us "
+              f"with the current position, and a max jump, cluster {int8_decode_attention_cluster(8, 1024, 12)}: "
+              f"max_abs_err={err:.3g} (atol, rtol)={tol} | kernel {times[0] * 1e3:.1f} us "
               f"({cur_ms * 1e3:.1f} us with the current position), plain {times[1] * 1e3:.1f} us, masked SDPA over "
               f"the dequantized cache {lib * 1e3:.1f} us, bound {rec['bound_ms'] * 1e3:.2f} us ({rec['bound_by']}, "
               f"{nbytes / 1e6:.2f} MB) [{card}]")
@@ -1552,7 +1616,8 @@ def int8_kernel_phases(dev, card: str) -> dict:
         xkeys = int(lens.sum())
         xb, xo = bound(xkeys, 8, 512, item)
         rx = _rec(e, *tx, xb, xo, "int8", libx)
-        print(f"phase kernel int8_kv {dn} (Whisper cross): B=8 Lk=1536 H=8 lens {lens.tolist()} ({xkeys} keys): "
+        print(f"phase kernel int8_kv {dn} (Whisper cross): B=8 Lk=1536 H=8 lens {lens.tolist()} ({xkeys} keys), "
+              f"cluster {int8_decode_attention_cluster(8, 1536, 8)}: "
               f"max_abs_err={e:.3g} (atol, rtol)={tol} | kernel {tx[0] * 1e3:.1f} us, plain {tx[1] * 1e3:.1f} us, "
               f"masked SDPA over the dequantized cache {libx * 1e3:.1f} us, bound {rx['bound_ms'] * 1e3:.2f} us "
               f"({rx['bound_by']}, {xb / 1e6:.2f} MB) [{card}]")
@@ -1587,7 +1652,8 @@ def int8_kernel_phases(dev, card: str) -> dict:
             dqt = [dequantized(c, q) for c, q in zip(cs, qt)]
             libt = _time_ms([lambda t=t: F.scaled_dot_product_attention(*t, attn_mask=tmask) for t in dqt], 50)
             rt = _rec(e, *tt, tb, to, "int8", libt)
-            parts.append(f"Lk={lk} pos={pos}: max_abs_err={e:.3g}, the bias moves the output by {moved:.3g}, kernel "
+            parts.append(f"Lk={lk} pos={pos} cluster {int8_decode_attention_cluster(8, lk, 12)}: max_abs_err={e:.3g}, "
+                         f"the bias moves the output by {moved:.3g}, kernel "
                          f"{tt[0] * 1e3:.1f} us, plain {tt[1] * 1e3:.1f} us, SDPA over the dequantized cache with "
                          f"the bias as a float mask {libt * 1e3:.1f} us, bound {rt['bound_ms'] * 1e3:.2f} us "
                          f"({rt['bound_by']})")

@@ -57,6 +57,32 @@ __device__ __forceinline__ void ld16(const __nv_bfloat16* p, float* o) {
     widen(__ldg(reinterpret_cast<const uint4*>(p)), o);
 }
 
+// 16-byte shared-memory loads widened to fp32 (4 floats or 8 bf16 values)
+__device__ __forceinline__ void lds16(const float* p, float* o) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    o[0] = v.x, o[1] = v.y, o[2] = v.z, o[3] = v.w;
+}
+__device__ __forceinline__ void lds16(const __nv_bfloat16* p, float* o) {
+    widen(*reinterpret_cast<const uint4*>(p), o);
+}
+
+// 16-byte asynchronous copies global -> shared (cp.async, in groups)
+__device__ __forceinline__ void cp16(void* smem, const void* gmem) {
+    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory"); }
+
+// A split thread-block-cluster barrier: arrive (relaxed) early, wait before
+// the first access to a peer's shared memory, so no CTA writes into one that
+// has not started.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+    asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() { asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory"); }
+
 inline cudaStream_t as_stream(void* s) { return reinterpret_cast<cudaStream_t>(s); }
 
 }  // namespace pmt

@@ -1,8 +1,9 @@
 // One (row, head) of single-position attention over an int8 KV cache: the
 // arithmetic of pytorch_models_tpu/ops/int8_kv.py (`_kernel`, pinned by its
-// `_int8_attention_oracle_impl`), shared by the per-op kernel
-// (csrc/int8_kv.cu) and the fused decode step's int8 attention phases
-// (csrc/decode_step.cu).
+// `_int8_attention_oracle_impl`): the sequential unit of the fused decode
+// step's int8 attention phases (csrc/decode_step.cu); the per-op kernel
+// (csrc/int8_kv.cu) splits the same arithmetic over a cluster and shares the
+// helpers.
 //
 // The arithmetic, in the oracle's order (every f32 product and sum is
 // rounded on its own: __fmul_rn / __fadd_rn keep nvcc from contracting a

@@ -41,6 +41,7 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "pmt_gather_rows": [_P, _P, _P, _I, _I, _I, _P],
     "pmt_decode_attention": [_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
+    "pmt_decode_attention_cluster": [_I, _I, _I],
     "pmt_greedy_argmax_tied": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "pmt_greedy_chunk_rows": [],
     "pmt_greedy_argmax_untied": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
@@ -50,6 +51,7 @@ _SIGNATURES = {
     "pmt_encoder_attention_k_tile": [_I],
     "pmt_log_mel": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "pmt_int8_attention": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
+    "pmt_int8_attention_cluster": [_I, _I, _I],
     # both take a pointer to ops/decode_step.py's _Args structure
     "pmt_decode_step_workspace": [_P, _P],
     "pmt_decode_step": [_P],

@@ -88,6 +88,8 @@ def decode_attention(q, k_cache, v_cache, ends, n_heads: int, pad_lens=None, bia
     req(k_cache.dtype == q.dtype and v_cache.dtype == q.dtype, "decode_attention: q and caches must share a dtype")
     req(all(t.is_cuda and t.is_contiguous() for t in (q, k_cache, v_cache)),
         "decode_attention: q and caches must be contiguous CUDA tensors")
+    req(k_cache.data_ptr() % 16 == 0 and v_cache.data_ptr() % 16 == 0,
+        "decode_attention: caches must start 16-byte aligned (the kernel's async copies)")
     if bias is not None:
         req(bias.ndim == 3 and bias.shape[0] in (1, b) and tuple(bias.shape[1:]) == (l_max, n_heads),
             f"decode_attention: bias must be (1|{b}, {l_max}, {n_heads}), got {tuple(bias.shape)}")
@@ -117,3 +119,9 @@ def decode_attention(q, k_cache, v_cache, ends, n_heads: int, pad_lens=None, bia
 
 decode_attention.launches = 0
 decode_attention.bias_launches = 0
+
+
+def decode_attention_cluster(b: int, l_max: int, n_heads: int) -> int:
+    """CTAs per (row, head) the kernel's launch takes at this grid and cache
+    length (a thread-block cluster; chosen from the shapes alone)."""
+    return _build.load_library().pmt_decode_attention_cluster(b, l_max, n_heads)

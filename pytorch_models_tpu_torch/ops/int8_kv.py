@@ -193,6 +193,8 @@ def int8_decode_attention(q, k_q, v_q, k_s, v_s, ends, n_heads: int, pad_lens=No
         tensors.append(bias)
     req(all(t.is_cuda and t.device == q.device and t.is_contiguous() for t in tensors),
         "int8_decode_attention: contiguous tensors on q's CUDA device only")
+    req(all(t.data_ptr() % 16 == 0 for t in (k_q, v_q, k_s, v_s)),
+        "int8_decode_attention: caches and scales must start 16-byte aligned (the kernel's async copies)")
     dev = q.device
     ends_t, end_scalar = None, 0
     if isinstance(ends, int):
@@ -218,3 +220,9 @@ def int8_decode_attention(q, k_q, v_q, k_s, v_s, ends, n_heads: int, pad_lens=No
 
 
 int8_decode_attention.launches = 0
+
+
+def int8_decode_attention_cluster(b: int, l_k: int, n_heads: int) -> int:
+    """CTAs per (row, head) the kernel's launch takes at this grid and cache
+    length (a thread-block cluster; chosen from the shapes alone)."""
+    return _build.load_library().pmt_int8_attention_cluster(b, l_k, n_heads)

@@ -434,6 +434,129 @@ def test_int8_attention_matches_plain(cuda, dtype, atol, rtol):
             assert not got[2].any()  # empty [pad, end) row
 
 
+ATTN_TOL = [(torch.float32, 1e-5, 0.0), (torch.bfloat16, 1e-5, 2.0 ** -7)]
+
+
+def _mixed_ranges(g, b, l_max, dev):
+    """Per-row [pad, end): random, with a full row 0, an empty row 1 and a
+    one-key row 2."""
+    ends = torch.randint(1, l_max + 1, (b,), generator=g, device=dev, dtype=torch.int32)
+    pads = (torch.rand(b, generator=g, device=dev) * ends).to(torch.int32)
+    ends[:3] = torch.tensor([l_max, l_max // 2, l_max // 3 + 1], dtype=torch.int32)
+    pads[:3] = torch.tensor([0, l_max // 2, l_max // 3], dtype=torch.int32)
+    return ends, pads
+
+
+def _jump(k, q, ends, scale=40.0):
+    """Row 0's last key scores far above every other: the running max jumps in
+    the row's last block, its last CTA."""
+    k[0, int(ends[0]) - 1] = scale * q[0, 0].to(k.dtype)
+
+
+# the cluster size the launch picks depends on the grid and the cache length only: B rows of one head at
+# B = ceil(waves * 132 / size) make the rule pick each size from 1 to 8 (K6 fills four waves of the 132 SMs,
+# K2 two)
+@pytest.mark.parametrize("dtype,atol,rtol", ATTN_TOL)
+@pytest.mark.parametrize("cs", range(1, 9))
+def test_int8_attention_at_each_cluster_size(cuda, dtype, atol, rtol, cs):
+    from pytorch_models_tpu_torch.ops.int8_kv import (
+        int8_decode_attention,
+        int8_decode_attention_cluster,
+        int8_decode_attention_plain,
+        quantize_kv_caches,
+    )
+
+    g = torch.Generator(device=cuda).manual_seed(cs)
+    b, l_k = -(-528 // cs), 2 * 128 * cs  # two blocks per CTA
+    assert int8_decode_attention_cluster(b, l_k, 1) == cs
+    q = torch.randn(b, 1, 64, generator=g, device=cuda)
+    k, v = torch.randn(b, l_k, 64, generator=g, device=cuda), torch.randn(b, l_k, 64, generator=g, device=cuda)
+    ends, pads = _mixed_ranges(g, b, l_k, cuda)
+    _jump(k, q, ends)
+    c = quantize_kv_caches({"k": k, "v": v})
+    cur_k, cur_v = (torch.randn(b, 64, generator=g, device=cuda).to(dtype) for _ in range(2))
+    bias = 2 * torch.randn(l_k, 1, generator=g, device=cuda)
+    args = (q.to(dtype), c["k"], c["v"], c["ks"], c["vs"])
+    for e, kw in ((ends, {"pad_lens": pads}), (ends, {"pad_lens": pads, "cur_k": cur_k, "cur_v": cur_v}),
+                  (l_k - 1, {"cur_k": cur_k, "cur_v": cur_v, "bias": bias})):
+        got = int8_decode_attention(*args, e, 1, **kw)
+        torch.testing.assert_close(got.float(), int8_decode_attention_plain(*args, e, 1, **kw).float(),
+                                   atol=atol, rtol=rtol)
+        if "cur_k" not in kw:
+            assert not got[1].any()  # empty [pad, end) row
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype,atol,rtol", ATTN_TOL)
+def test_int8_attention_over_several_rounds(cuda, dtype, atol, rtol):
+    """One (row, head) over 64 blocks: a cluster of 8 walks four rounds of 16
+    blocks, rank 0 carrying the running max; a jump in the last round, and
+    Whisper-base's cross shape (B=8, H=8, 1500 of 1536)."""
+    from pytorch_models_tpu_torch.ops.int8_kv import (
+        int8_decode_attention,
+        int8_decode_attention_cluster,
+        int8_decode_attention_plain,
+        quantize_kv_caches,
+    )
+
+    g = torch.Generator(device=cuda).manual_seed(11)
+    for b, n_heads, l_k, ends in ((2, 1, 8192, torch.tensor([8192, 8000], dtype=torch.int32, device=cuda)),
+                                  (8, 8, 1536, torch.tensor([1500, 1500, 7, 1500, 1200, 0, 300, 1500],
+                                                            dtype=torch.int32, device=cuda))):
+        q = torch.randn(b, 1, n_heads * 64, generator=g, device=cuda)
+        k = torch.randn(b, l_k, n_heads * 64, generator=g, device=cuda)
+        v = torch.randn(b, l_k, n_heads * 64, generator=g, device=cuda)
+        _jump(k, q, ends)
+        c = quantize_kv_caches({"k": k, "v": v})
+        args = (q.to(dtype), c["k"], c["v"], c["ks"], c["vs"], ends, n_heads)
+        assert int8_decode_attention_cluster(b, l_k, n_heads) > 1
+        torch.testing.assert_close(int8_decode_attention(*args).float(), int8_decode_attention_plain(*args).float(),
+                                   atol=atol, rtol=rtol)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype,atol,rtol", ATTN_TOL)
+@pytest.mark.parametrize("cs", range(1, 9))
+def test_decode_attention_at_each_cluster_size(cuda, dtype, atol, rtol, cs):
+    from pytorch_models_tpu_torch.ops.decode_attention import decode_attention_cluster
+
+    g = torch.Generator(device=cuda).manual_seed(20 + cs)
+    b, l_max = -(-264 // cs), 256 * cs + 100  # a cache length off the tile grid
+    assert decode_attention_cluster(b, l_max, 1) == cs
+    q, k, v = (torch.randn(b, n, 64, generator=g, device=cuda) for n in (1, l_max, l_max))
+    ends, pads = _mixed_ranges(g, b, l_max, cuda)
+    _jump(k, q, ends, scale=8.0)
+    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    bias = 3.0 * torch.randn(b, l_max, 1, generator=g, device=cuda)
+    for kw in ({}, {"bias": bias}):
+        got = decode_attention(q, k, v, ends, 1, pads, **kw)
+        torch.testing.assert_close(got.float(), decode_attention_plain(q, k, v, ends, 1, pads, **kw).float(),
+                                   rtol=rtol, atol=atol)
+        assert not got[1].any()  # empty [pad, end) row
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype,atol,rtol", ATTN_TOL)
+def test_decode_attention_at_batch_32(cuda, dtype, atol, rtol):
+    """GPT-2's per-op decode at B=32 (H=12, cache 1024): one CTA per (row,
+    head), with and without a per-row bias; and a max jump."""
+    from pytorch_models_tpu_torch.ops.decode_attention import decode_attention_cluster
+
+    g = torch.Generator(device=cuda).manual_seed(32)
+    q, k, v = (torch.randn(32, n, 768, generator=g, device=cuda) for n in (1, 1024, 1024))
+    ends, pads = _mixed_ranges(g, 32, 1024, cuda)
+    _jump(k, q, ends, scale=8.0)
+    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    assert decode_attention_cluster(32, 1024, 12) == 1
+    bias = 3.0 * torch.randn(32, 1024, 12, generator=g, device=cuda)
+    for kw in ({}, {"bias": bias}):
+        got = decode_attention(q, k, v, ends, 12, pads, **kw)
+        torch.testing.assert_close(got.float(), decode_attention_plain(q, k, v, ends, 12, pads, **kw).float(),
+                                   rtol=rtol, atol=atol)
+        assert not got[1].any()
+    torch.cuda.synchronize()
+
+
 def _int8_step_inputs(dev, dtype, kind, a8):
     """2 layers at d 128 (2 heads of 64), int8 weights, B=4, int8 self caches
     of 256 keys (and int8 cross caches, Whisper / T5), for K7's variants."""

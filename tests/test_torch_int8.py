@@ -276,6 +276,162 @@ def test_int8_attention_empty_row_gives_zeros():
 
 
 # ---------------------------------------------------------------------------
+# K6's cluster split (csrc/int8_kv.cu), modelled in plain torch
+# ---------------------------------------------------------------------------
+
+
+def _k6_cluster_model(q, k_q, v_q, k_s, v_s, ends, n_heads, pad_lens=None, cur_k=None, cur_v=None, bias=None,
+                      cluster=8, share=1):
+    """The CUDA kernel's split of one (row, head) over a cluster, in plain
+    torch: each row's 128-key blocks ``[pad // 128, ceil(end / 128))`` are
+    dealt in rounds of ``cluster * share`` blocks, ``share`` consecutive
+    blocks per CTA. Every block's scores and max are taken on their own; a
+    block's running max is the max of the running max carried from earlier
+    rounds and an exclusive ``cummax`` over the round's earlier block maxima;
+    each block quantizes its own probabilities against it and records
+    ``(m_new, alpha, sum p, ps, pv)``; rank 0 folds the records in ascending
+    order, then the current position. Blocks outside a row's range are never
+    touched. Vectorized over rows, heads and a round's blocks."""
+    b, _, hd = q.shape
+    d = hd // n_heads
+    bk = int8_kv.KV_BLOCK_INT8
+    n_blk = k_q.shape[1] // bk
+    ends_t = torch.as_tensor(ends).reshape(-1).expand(b).long()
+    pads_t = torch.zeros(b, dtype=torch.long) if pad_lens is None else torch.as_tensor(pad_lens).long()
+    q_i8, sq = int8_kv.quantize_rows((q[:, 0].float() * (1.0 / np.sqrt(d))).reshape(b, n_heads, d))
+    qd = q_i8.double()
+    # every block's scores and max, as each CTA computes them for its own blocks
+    kb = k_q.reshape(b, n_blk, bk, n_heads, d).double()
+    s = torch.einsum("bhd,bnjhd->bhnj", qd, kb).float()
+    s = (s * k_s.reshape(b, 1, n_blk, bk).float()) * sq[..., None]
+    if bias is not None:
+        s = s + bias.float().t().reshape(1, n_heads, n_blk, bk)
+    key = torch.arange(n_blk * bk).reshape(n_blk, bk)
+    valid = (key >= pads_t[:, None, None]) & (key < ends_t[:, None, None])  # (B, NB, 128)
+    s = torch.where(valid[:, None], s, torch.full_like(s, int8_kv.NEG_INF))
+    bmax = s.amax(-1)  # (B, H, NB)
+    first = pads_t.clamp_min(0) // bk
+    n_row = ((ends_t.clamp(max=n_blk * bk) + bk - 1) // bk - first).clamp_min(0)
+    per_round = cluster * share
+    m = torch.full((b, n_heads), int8_kv.NEG_INF)
+    l = torch.zeros((b, n_heads))
+    acc = torch.zeros((b, n_heads, d))
+    rows = torch.arange(b)[:, None]
+    for r0 in range(0, int(n_row.max()), per_round):
+        local = r0 + torch.arange(per_round)
+        live = local[None, :] < n_row[:, None]  # (B, R)
+        blk = (first[:, None] + local[None, :]).clamp(max=n_blk - 1)
+        bm = torch.where(live[:, None], bmax[rows, :, blk].permute(0, 2, 1), torch.full((b, n_heads, per_round), int8_kv.NEG_INF))
+        # barrier 1: each block's running max, the exclusive prefix over the round, after the carried max
+        prefix = torch.cat([m[..., None], bm[..., :-1]], -1).cummax(-1).values
+        m_new = torch.maximum(prefix, bm)
+        m_safe = m_new.clamp_min(int8_kv.NEG_INF / 2)
+        sb = s[rows, :, blk].permute(0, 2, 1, 3)  # (B, H, R, 128)
+        p = torch.exp(sb - m_safe[..., None])
+        alpha = torch.exp(prefix - m_safe)
+        p_sum = p.sum(-1)
+        vs_b = v_s.reshape(b, n_blk, bk)[rows, blk].float()  # (B, R, 128)
+        p_i8, ps = int8_kv.quantize_rows(p * vs_b[:, None])
+        vb = v_q.reshape(b, n_blk, bk, n_heads, d)[rows, blk].double()  # (B, R, 128, H, D)
+        pv = torch.einsum("bhrj,brjhd->bhrd", p_i8.double(), vb).float()
+        # barrier 2: rank 0 folds the round's records in ascending order
+        for i in range(per_round):
+            on = live[:, i][:, None]
+            a_i = alpha[..., i]
+            acc = torch.where(on[..., None], acc * a_i[..., None] + ps[:, :, i] * pv[:, :, i], acc)
+            l = torch.where(on, a_i * l + p_sum[..., i], l)
+            m = torch.where(on, m_new[..., i], m)
+    if cur_k is not None:  # the current position, as the oracle
+        kc_i8, kc_s = int8_kv.quantize_rows(cur_k.float())
+        dot = torch.einsum("bhd,bhd->bh", qd, kc_i8.reshape(b, n_heads, d).double()).float()
+        s_cur = (dot * kc_s) * sq[..., 0]
+        if bias is not None:
+            s_cur = s_cur + bias[int(ends_t[0])].float()[None]
+        m_new = torch.maximum(m, s_cur)
+        p_cur = torch.exp(s_cur - m_new)
+        alpha = torch.exp(m - m_new)
+        l = alpha * l + p_cur
+        acc = acc * alpha[..., None] + p_cur[..., None] * cur_v.float().reshape(b, n_heads, d)
+    else:
+        l = torch.where(l == 0, torch.ones_like(l), l)
+    return (acc / l[..., None]).reshape(b, 1, hd).to(q.dtype)
+
+
+L_SPLIT = 8 * int8_kv.KV_BLOCK_INT8  # eight blocks
+# (B, H) = (8, 4): every exp and reduction of the model and the oracle runs on whole CPU vectors, so the two
+# take the same instruction paths and may be compared bit for bit
+K6_SPLIT_CASES = {
+    # ranges that start and end inside blocks, a range inside one block, an empty row, a full row
+    "ranges": dict(pads=[0, 5, 130, 300, 700, 1000, 64, 0], ends=[1024, 200, 131, 1000, 700, 1023, 300, 77]),
+    # a key of a later block scores far above every earlier one: the running max jumps mid-range
+    "max_jump": dict(pads=[0, 3, 0, 100, 0, 260, 0, 10], ends=[1024, 900, 700, 1024, 520, 1000, 1024, 300],
+                     jump=True),
+    "cur": dict(pads=[0, 5, 130, 300, 700, 1000, 64, 0], ends=[1024, 200, 131, 1000, 700, 1023, 300, 77], cur=True),
+    "bias_cur": dict(pads=None, ends=[700] * 8, cur=True, bias=True),
+}
+
+
+def _k6_split_inputs(case: dict, l_max: int, seed: int):
+    r = np.random.default_rng(seed)
+    b = 8
+    q = r.standard_normal((b, 1, HD6)).astype(np.float32)
+    k = r.standard_normal((b, l_max, HD6)).astype(np.float32)
+    v = r.standard_normal((b, l_max, HD6)).astype(np.float32)
+    if case.get("jump"):
+        for row, j in enumerate([900, 600, 650, 1000, 515, 990, 1023, 290]):
+            j = min(j, l_max - 1)
+            k[row, j] = 40 * q[row, 0]  # each head's score at j dwarfs the rest
+    caches = int8_kv.quantize_kv_caches({"k": _t(k), "v": _t(v)})
+    kw = {}
+    if case.get("cur"):
+        cur = r.standard_normal((2, b, HD6)).astype(np.float32)
+        kw.update(cur_k=_t(cur[0]), cur_v=_t(cur[1]))
+    if case.get("bias"):
+        kw["bias"] = _t((2 * r.standard_normal((l_max, H6))).astype(np.float32))
+    pads = None if case["pads"] is None else torch.tensor(case["pads"], dtype=torch.int32)
+    ends = torch.tensor(case["ends"], dtype=torch.int32).clamp(max=l_max)
+    args = (_t(q), caches["k"], caches["v"], caches["ks"], caches["vs"], ends, H6)
+    return args, dict(pad_lens=None if pads is None else pads.clamp(max=l_max), **kw)
+
+
+@pytest.mark.parametrize("cluster,share", [(8, 1), (3, 1), (3, 3), (1, 8)],
+                         ids=["share1-cluster8", "share1-cluster3-rounds", "share3", "share8"])
+@pytest.mark.parametrize("case", list(K6_SPLIT_CASES))
+def test_int8_attention_cluster_split_equals_oracle(case, cluster, share):
+    """The split is exact: bit for bit the oracle's fp32 output (its block
+    maxima, prefix maxima and levels are the sequential walk's own), at
+    shares of 1, 3 and 8 blocks per CTA, over several rounds, where the
+    running max jumps, on ranges inside blocks and on an empty row."""
+    args, kw = _k6_split_inputs(K6_SPLIT_CASES[case], L_SPLIT, 40)
+    got = _k6_cluster_model(*args, **kw, cluster=cluster, share=share)
+    expected = int8_kv.int8_decode_attention_plain(*args, **kw)
+    assert torch.equal(got, expected)
+    assert torch.isfinite(got).all()
+    if case == "ranges":
+        assert not got[4].any()  # the empty row
+    if case == "max_jump":  # the jump decides the output: without it the rows differ far beyond the noise
+        flat = dict(K6_SPLIT_CASES[case], jump=False)
+        assert (got - int8_kv.int8_decode_attention_plain(*_k6_split_inputs(flat, L_SPLIT, 40)[0], **kw)).abs().max() > 0.1
+
+
+@pytest.mark.parametrize("share", [1, 3, 8])
+def test_int8_attention_cluster_split_matches_jax(share):
+    """The split model against the JAX kernel in interpret mode, on two
+    blocks (interpret mode's safe size) with a jump into the second block,
+    ranges inside blocks and the current position."""
+    case = dict(pads=[0, 5, 130, 30, 0, 200, 64, 0], ends=[256, 200, 131, 250, 0, 255, 129, 77], jump=True, cur=True)
+    args, kw = _k6_split_inputs(case, L_MAX, 41)
+    got = _k6_cluster_model(*args, **kw, cluster=2, share=share)
+    q, kq, vq, ks, vs, ends, h = args
+    jc = tuple(jnp.asarray(a.numpy()) for a in (kq, vq, ks, vs))  # B = 8: no batch padding of the scale planes
+    kernel = jax_i8.int8_decode_attention(jnp.asarray(q.numpy()), *jc, jnp.asarray(ends.numpy()), h,
+                                          pad_lens=jnp.asarray(kw["pad_lens"].numpy()),
+                                          cur_k=jnp.asarray(kw["cur_k"].numpy()), cur_v=jnp.asarray(kw["cur_v"].numpy()),
+                                          interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(kernel), rtol=0, atol=K6_TOL)
+
+
+# ---------------------------------------------------------------------------
 # the per-op route: mha_apply over int8 caches
 # ---------------------------------------------------------------------------
 

@@ -206,6 +206,25 @@ def test_decode_attention_matches_jax_per_row_ranges():
     assert not got[2].any()
 
 
+def test_decode_attention_matches_jax_at_batch_32():
+    """B = 32, the per-op route's batch above the fused step's 8 rows: a
+    1024-slot cache, mixed pads and ends (ranges inside key tiles, a full
+    row, an empty row, single keys)."""
+    r = np.random.default_rng(24)
+    b, h, l_max, d = 32, 2, 1024, 64
+    q = _randn(r, b, 1, h * d)
+    k, v = _randn(r, b, l_max, h * d), _randn(r, b, l_max, h * d)
+    ends = r.integers(1, l_max + 1, b).astype(np.int32)
+    pads = (r.random(b) * ends).astype(np.int32)
+    ends[:4], pads[:4] = [1024, 300, 1, 513], [0, 300, 0, 511]  # full, empty, one key, two keys
+    with pltpu.force_tpu_interpret_mode():
+        expected = np.asarray(jax_decode_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                                   jnp.asarray(ends), h, pad_lens=jnp.asarray(pads)))
+    got = decode_attention(_t(q), _t(k), _t(v), _t(ends), h, _t(pads))
+    np.testing.assert_allclose(got.numpy(), expected, rtol=ATTN_TOL, atol=ATTN_TOL)
+    assert not got[1].any() and got[0].abs().max() > 0
+
+
 def test_decode_attention_shared_end_matches_jax():
     r = np.random.default_rng(22)
     b, h, l_max, d = 2, 2, 128, 64
