@@ -972,6 +972,121 @@ def decode_step_phases(dev, card: str) -> dict:
     return res
 
 
+# K7's per-phase breakdown: (kind, dtype) at B=8, each launched this many times with stamps
+BREAKDOWN = (("gpt2", "bfloat16"), ("gpt2", "float32"), ("whisper", "bfloat16"), ("t5", "bfloat16"))
+BREAKDOWN_RUNS = 5
+
+
+def _k7_step(dev, kind: str, dtype, g, model=None, a8=False, kv=False, kvx=False, q8=False, embed=False):
+    """One K7 step at ``decode_step_phases``'s B=8 shapes on fresh random
+    inputs: GPT-2 (pos 127 of 1024, mixed left pads), Whisper (pos 40, cross
+    lengths 7-1500 of 1536) or T5 (pos 40, cross lengths 7-64 of 128, a
+    seeded rel-pos self bias), optionally in an int8 serving variant as
+    I8_VARIANTS names them (``int8_decode_step_phases``'s shapes). Returns
+    ``(call(**kw), n_layers, cross)``, ``call`` launching the kernel on the
+    same buffers each time."""
+    import torch
+
+    from pytorch_models_tpu_torch.models.text.t5 import T5Config, relative_position_bias
+    from pytorch_models_tpu_torch.ops.decode_step import (
+        fused_cross_decode_step,
+        fused_decode_step,
+        pack_decode_weights,
+        pack_embed_tables,
+        pack_greedy_head,
+    )
+    from pytorch_models_tpu_torch.ops.int8_kv import quantize_kv_caches
+    from pytorch_models_tpu_torch.utils import cast_tree, quantize_tree_int8
+
+    cfg, layers32, emb32, final32 = model or _k7_model(dev, kind)
+    cross, t5, b = kind != "gpt2", kind == "t5", 8
+    n_layers, d, hd = len(layers32), cfg.d_model, cfg.n_heads * cfg.head_dim
+    l_max, pos = (1024, 127) if kind == "gpt2" else (128, 40)
+    variant = {}
+    if t5:
+        pads, lx = None, 128
+        lens = torch.tensor([64, 64, 7, 64, 50, 64, 12, 64], dtype=torch.int32, device=dev)
+        table = T5_BIAS_SCALE * torch.randn(12, 32, generator=g, device=dev)
+        bias_hl = relative_position_bias(table, torch.arange(l_max, device=dev), torch.arange(l_max, device=dev),
+                                         False, T5Config(32128, 768, 12, 12, 2048))[:, pos]
+        variant = dict(norm="rms", gated=True, sbias=bias_hl.t().contiguous())
+    else:
+        pads = torch.tensor([0, 5, pos, 3, 0, pos // 2, 1, 17], dtype=torch.int32, device=dev)
+        lx = 1536
+        lens = torch.tensor([1500, 1500, 7, 1500, 1200, 1500, 300, 1500], dtype=torch.int32, device=dev)
+    layers = cast_tree(layers32, dtype)
+    packed = pack_decode_weights(quantize_tree_int8(layers) if q8 else layers, dtype, cross=cross, gated=t5)
+    head = pack_greedy_head(emb32, final32, dtype, tied=not t5, a8=a8)
+    x = torch.randn(b, d, generator=g, device=dev).to(dtype)
+
+    def caches(n, int8):
+        raw = {k: torch.randn(n_layers, b, n, hd, generator=g, device=dev) for k in ("k", "v")}
+        return quantize_kv_caches(raw) if int8 else {k: t.to(dtype) for k, t in raw.items()}
+
+    sc = caches(l_max, kv)
+    variant.update(a8=a8, kv_scales={"ks": sc["ks"], "vs": sc["vs"]} if kv else None)
+    if cross:
+        xc = caches(lx, kvx)
+        variant["kv_scales_x"] = {"ks": xc["ks"], "vs": xc["vs"]} if kvx else None
+    if embed:  # ids incl. one out of range
+        tabs = pack_embed_tables(torch.randn(50257, d, generator=g, device=dev),
+                                 3.0 * torch.randn(1024, d, generator=g, device=dev), dtype)
+        ids = torch.tensor([5, 50256, 0, 17, 99999, 1234, 42, 7], device=dev)
+        prow = (pos - torch.where(pads > pos, pos, pads)).to(torch.int64)
+        variant.update(emb=tabs, tok_ids=ids, pos_rows=prow)
+        x = None
+
+    def call(**kw):
+        if cross:
+            return fused_cross_decode_step(x, packed, sc["k"], sc["v"], xc["k"], xc["v"], lens, pos, pads,
+                                           cfg.n_heads, cfg.act, cfg.norm_eps, head=head, **variant, **kw)
+        return fused_decode_step(x, packed, sc["k"], sc["v"], pos, pads, cfg.n_heads, cfg.act, cfg.norm_eps,
+                                 head=head, **variant, **kw)
+
+    return call, n_layers, cross
+
+
+def decode_step_breakdown(dev, card: str) -> dict:
+    """K7's time per phase, split in four parts from each block's
+    %globaltimer stamps (``stamps=`` of the wrappers; never on the
+    generators' path): barrier wait and skew, input load (norm, merge,
+    gate), matvec or attention, epilogue, the barrier's own latency and the
+    busiest block's time (``ops.decode_step.phase_breakdown``); µs, the
+    median over the phases of one kind, over BREAKDOWN_RUNS launches after a
+    warm-up, for each of BREAKDOWN. Prints one line per variant, with the
+    sum over one step's phases of barrier and busy."""
+    import torch
+
+    from pytorch_models_tpu_torch.ops.decode_step import phase_breakdown, step_phase_kinds
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 20)
+    models, res = {}, {}
+    for kind, dn in BREAKDOWN:
+        if kind not in models:
+            models[kind] = _k7_model(dev, kind)
+        call, n_layers, cross = _k7_step(dev, kind, getattr(torch, dn), g, models[kind])
+        kinds = step_phase_kinds(n_layers, cross, True)
+        call()
+        stamps: list = []
+        for _ in range(BREAKDOWN_RUNS):
+            call(stamps=stamps)
+        torch.cuda.synchronize()
+        st = torch.stack(stamps).cpu()
+        if not bool((st > 0).all()):
+            raise AssertionError(f"K7 breakdown {kind} {dn}: a block left a phase unstamped")
+        bd = res[(kind, dn)] = phase_breakdown(st, kinds)
+        parts = ("wait", "load", "compute", "epilogue", "barrier", "busy")
+        sums = {p: sum(bd[k][p] * bd[k]["n"] for k in dict.fromkeys(kinds)) for p in parts[-2:]}
+        print(f"phase breakdown K7 {kind} {dn}: B=8, {len(kinds)} phases, step {bd['step']:.1f} us (stamped); "
+              "per phase, us (median over the kind's phases; max over blocks but barrier: min) "
+              "wait/load/compute/epilogue/barrier/busy: "
+              + "; ".join(f"{k} x{bd[k]['n']} " + "/".join(f"{bd[k][p]:.2f}" for p in parts)
+                          for k in dict.fromkeys(kinds))
+              + " | summed over the step: " + ", ".join(f"{p} {sums[p]:.1f}" for p in sums) + f" [{card}]")
+    torch.cuda.synchronize()
+    return res
+
+
 class _Tok:
     eos_token_id = None
 
@@ -2349,6 +2464,7 @@ def main() -> int:
     res_w = whisper_kernel_phases(dev, card)
     res_t5 = t5_kernel_phases(dev, card)
     res_k7 = decode_step_phases(dev, card)
+    decode_step_breakdown(dev, card)
     res_i8 = int8_kernel_phases(dev, card)
     res_i8k7 = int8_decode_step_phases(dev, card)
     paths = {"gpt2": main_path(dev, card, args.profile), "whisper": whisper_path(dev, card, args.profile),

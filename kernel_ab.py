@@ -1,17 +1,28 @@
 #!/usr/bin/env python3
-"""Time K2 (decode attention) and K6 (int8 decode attention) of two source
-trees in one process, on one card.
+"""Time kernels of two source trees in one process, on one card.
 
-    python3 kernel_ab.py BASE_DIR     # BASE_DIR: a checkout of another commit (git archive)
+    python3 kernel_ab.py BASE_DIR         # K2 and K6; BASE_DIR: a checkout of another commit (git archive)
+    python3 kernel_ab.py --k7 BASE_DIR    # K7, the fused decode step
 
-Builds ``csrc/decode_attention.cu`` and ``csrc/int8_kv.cu`` of this checkout
-and of ``BASE_DIR`` (one ``nvcc`` per source, ``sm_90a``), each tree into a
-shared library of its own, and times every kernel at ``chip_smoke.py``'s
-bf16 shapes through this checkout's wrappers with either library loaded, in
-turns base, new, new, base (device time per call, ``chip_smoke._time_ms``).
-Both trees must share the C signatures of ``pmt_decode_attention`` and
-``pmt_int8_attention``. Prints one line per shape, the card, and a JSON line
-of the times in µs. Without a CUDA device it exits with code 2.
+Builds the mode's sources of this checkout and of ``BASE_DIR`` (one ``nvcc``
+per source, ``sm_90a``), each tree into a shared library of its own, and
+times every kernel at ``chip_smoke.py``'s shapes through this checkout's
+wrappers with either library loaded, in turns base, new, new, base (device
+time per call, ``chip_smoke._time_ms``):
+
+- default: ``csrc/decode_attention.cu`` and ``csrc/int8_kv.cu`` (K2, K6) at
+  the bf16 shapes; both trees must share the C signatures of
+  ``pmt_decode_attention`` and ``pmt_int8_attention``;
+- ``--k7``: ``csrc/decode_step.cu`` (with the ``int8_attn.cuh`` of its own
+  tree) at every K7 variant of ``chip_smoke.py`` (GPT-2, Whisper and T5 at
+  B=8, and the int8 serving variants of ``I8_VARIANTS``), bf16 and fp32.
+  The base tree's ``Args`` must be a prefix of this tree's ``_Args``
+  (fields are only ever appended), so its library reads the same call.
+  Then ``chip_smoke.decode_step_breakdown`` with each tree's library whose
+  kernel takes ``stamps``.
+
+Prints one line per shape, the card, and a JSON line of the times in µs.
+Without a CUDA device it exits with code 2.
 """
 
 from __future__ import annotations
@@ -24,17 +35,18 @@ from pathlib import Path
 
 import chip_smoke
 
-SOURCES = ("decode_attention.cu", "int8_kv.cu")
-ITERS = 50
+# mode: (sources, C entry points, timed calls per turn)
+MODES = {"attn": (("decode_attention.cu", "int8_kv.cu"), ("pmt_decode_attention", "pmt_int8_attention"), 50),
+         "k7": (("decode_step.cu",), ("pmt_decode_step_workspace", "pmt_decode_step"), 20)}
 
 
-def build_lib(csrc: Path, out_dir: Path):
+def build_lib(csrc: Path, out_dir: Path, sources, entries):
     from pytorch_models_tpu_torch.ops import _build as b
 
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = b._find_nvcc()
     objs, procs = [], []
-    for name in SOURCES:
+    for name in sources:
         obj = out_dir / (Path(name).stem + ".o")
         procs.append(subprocess.Popen([nvcc, *b.NVCC_FLAGS, "-c", "-o", str(obj), str(csrc / name)],
                                       stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
@@ -46,7 +58,7 @@ def build_lib(csrc: Path, out_dir: Path):
     lib_path = out_dir / "libab.so"
     subprocess.run([nvcc, *b.NVCC_FLAGS[:2], "-shared", "-o", str(lib_path), *objs], check=True)
     lib = ctypes.CDLL(str(lib_path))
-    for name in ("pmt_decode_attention", "pmt_int8_attention"):
+    for name in entries:
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = b._SIGNATURES[name], ctypes.c_int
     return lib
@@ -103,10 +115,31 @@ def _cases(dev):
     return out
 
 
+def _k7_cases(dev):
+    """(name, [call]) for every K7 variant of chip_smoke.py, bf16 and fp32."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(chip_smoke.SEED + 21)
+    models = {kind: chip_smoke._k7_model(dev, kind) for kind in ("gpt2", "whisper", "t5")}
+    names = {"gpt2": "fused_decode_step", "whisper": "fused_cross_decode_step", "t5": "fused_cross_decode_step_t5"}
+    variants = [(names[kind], kind, {}) for kind in names]
+    variants += [(name, kind, dict(a8=a8, kv=kv, kvx=kvx, q8=q8, embed=embed))
+                 for name, kind, a8, kv, kvx, q8, embed in chip_smoke.I8_VARIANTS]
+    out = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, kind, opts in variants:
+            call, _, _ = chip_smoke._k7_step(dev, kind, dtype, g, models[kind], **opts)
+            out.append((f"K7 {name} {str(dtype).removeprefix('torch.')} B=8", [call]))
+    return out
+
+
 def main() -> int:
     import torch
 
-    if len(sys.argv) != 2:
+    argv = sys.argv[1:]
+    mode = "k7" if argv[:1] == ["--k7"] else "attn"
+    argv = argv[1:] if mode == "k7" else argv
+    if len(argv) != 1:
         print(__doc__, file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -115,20 +148,28 @@ def main() -> int:
     from pytorch_models_tpu_torch.ops import _build
 
     here = Path(__file__).resolve().parent
-    base = Path(sys.argv[1]).resolve()
-    libs = {"base": build_lib(base / "pytorch_models_tpu_torch" / "csrc", here / "build" / "ab" / "base"),
-            "new": build_lib(_build.CSRC_DIR, here / "build" / "ab" / "new")}
+    base = Path(argv[0]).resolve()
+    sources, entries, iters = MODES[mode]
+    libs = {turn: build_lib(tree, here / "build" / "ab" / mode / turn, sources, entries)
+            for turn, tree in (("base", base / "pytorch_models_tpu_torch" / "csrc"), ("new", _build.CSRC_DIR))}
     card = chip_smoke._card()
     dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
     res = {}
-    for name, fns in _cases(dev):
+    for name, fns in (_k7_cases if mode == "k7" else _cases)(dev):
         t = {}
         for turn in ("base", "new", "new", "base"):
             _build._lib = libs[turn]
-            t.setdefault(turn, []).append(chip_smoke._time_ms(fns, ITERS) * 1e3)
+            t.setdefault(turn, []).append(chip_smoke._time_ms(fns, iters) * 1e3)
         res[name] = {k: sum(v) / len(v) for k, v in t.items()}
         print(f"{name}: base {t['base'][0]:.2f} / {t['base'][1]:.2f} us, new {t['new'][0]:.2f} / {t['new'][1]:.2f} "
               f"us [{card}]")
+    if mode == "k7":  # the per-phase breakdown of each tree whose kernel takes stamps
+        for turn, tree in (("base", base), ("new", here)):
+            if "stamps" in (tree / "pytorch_models_tpu_torch" / "csrc" / "decode_step.cu").read_text():
+                _build._lib = libs[turn]
+                print(f"breakdown of {turn} ({tree}):")
+                chip_smoke.decode_step_breakdown(dev, card)
     print(card)
     print(json.dumps({"us": res, "base": str(base)}))
     return 0

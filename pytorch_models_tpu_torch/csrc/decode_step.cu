@@ -130,6 +130,10 @@ struct Args {
     int norm, gated;  // norm 0: LayerNorm, 1: RMSNorm; gated: GEGLU MLP
     int wt_int8, a8, kv_int8, kvx_int8, head_a8, embed, tok_rows, pos_rows;
     float eps, scale;
+    // appended last, so every earlier field keeps its offset: null, or (phases, grid, 4) int64 %globaltimer
+    // readings of each block at four points of every phase (after the barrier, after the input load, after the
+    // matvec or attention, before arriving at the next barrier)
+    long long* stamps;
 };
 
 struct Plan {
@@ -194,6 +198,12 @@ __device__ __forceinline__ float gelu(float x, int tanh_form) {
         return 0.5f * x * (1.f + tanhf(inner));
     }
     return 0.5f * x * (1.f + erff(x * 0.7071067811865476f));
+}
+
+__device__ __forceinline__ long long globaltimer() {
+    long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    return t;
 }
 
 __device__ __forceinline__ bool better(float s, int i, float bs, int bi) {
@@ -345,8 +355,9 @@ __device__ void load_merge(const float* pm, const float* pl, const float* pacc, 
 // lpr * VEC columns; epi(b, n, fp32 sum) finishes each output. W is fp32,
 // bf16 or int8 (widened exactly); with INT (w8a8) xs holds int8 levels and
 // the sums are int32, exact, converted to fp32 once for epi.
-template <bool INT, typename W, typename Epi>
-__device__ void matvec(const W* __restrict__ Wm, int K, int N, int B, int lpr, const float* xs, float* red, Epi epi) {
+template <bool INT, typename W, typename Epi, typename Mark>
+__device__ void matvec(const W* __restrict__ Wm, int K, int N, int B, int lpr, const float* xs, float* red, Epi epi,
+                       Mark mark) {
     using A = typename std::conditional<INT, int, float>::type;
     constexpr int VEC = WVec<W>::V;
     constexpr int UNROLL = 16 / VEC;
@@ -403,6 +414,7 @@ __device__ void matvec(const W* __restrict__ Wm, int K, int N, int B, int lpr, c
 #pragma unroll
                     for (int e = 0; e < VEC; ++e) redA[(warp * MB + b) * sw + cl * VEC + e] = acc[b][e];
         __syncthreads();
+        if (slab + static_cast<int>(gridDim.x) >= n_slabs) mark(2);
         for (int t = threadIdx.x; t < B * sw; t += NT) {
             const int b = t / sw, c = t % sw;
             A v = 0;
@@ -411,6 +423,7 @@ __device__ void matvec(const W* __restrict__ Wm, int K, int N, int B, int lpr, c
         }
         __syncthreads();
     }
+    if (static_cast<int>(blockIdx.x) >= n_slabs) mark(2);
 }
 
 // ---------------------------------------------------------------- attention
@@ -583,16 +596,29 @@ __global__ void __launch_bounds__(NT, 1) decode_step_kernel(Args a, Plan p) {
         return v;
     };
     auto scales = [&](const void* s, int l, int n) { return s ? fp(s) + static_cast<int64_t>(l) * n : nullptr; };
+    // phase timing (a.stamps): thread 0 stamps point k of phase `ph`; `sync` ends a phase at the grid barrier
+    long long* const stamps = a.stamps;
+    int ph = 0;
+    auto mark = [&](int k) {
+        if (stamps && threadIdx.x == 0)
+            stamps[(static_cast<int64_t>(ph) * gridDim.x + blockIdx.x) * 4 + k] = globaltimer();
+    };
+    auto sync = [&]() {
+        mark(3);
+        grid.sync();
+        ++ph;
+        mark(0);
+    };
     // xs -> out columns: fp32 / bf16 / int8 weights, or w8a8's int8 x int8 over the row-quantized xs
     auto mv = [&](const W* w, int K, int N, int lpr, auto epi) {
         if constexpr (std::is_same<W, int8_t>::value) {
             if (a8) {
                 quantize_xs(xs, B, K, rsc);
-                matvec<true>(w, K, N, B, lpr, xs, red, epi);
+                matvec<true>(w, K, N, B, lpr, xs, red, epi, mark);
                 return;
             }
         }
-        matvec<false>(w, K, N, B, lpr, xs, red, epi);
+        matvec<false>(w, K, N, B, lpr, xs, red, epi, mark);
     };
     // the embed phase's layer-0 input: round_T(tok[id] + pos[p]), the sum in fp32
     const T* tok_tab = static_cast<const T*>(a.tok_emb);
@@ -635,6 +661,7 @@ __global__ void __launch_bounds__(NT, 1) decode_step_kernel(Args a, Plan p) {
     };
 
     int mv_i = 0;  // matrices read so far; the one two ahead is prefetched at each phase's start
+    mark(0);
     prefetch_weights<W>(a, 0);
     prefetch_weights<W>(a, 1);
     for (int l = 0; l < a.n_layers; ++l) {
@@ -661,6 +688,7 @@ __global__ void __launch_bounds__(NT, 1) decode_step_kernel(Args a, Plan p) {
                 fp(a.ln1_s), fp(a.ln1_b), B, d, a.eps, a.norm, xs);
         else
             load_ln(xp, fp(a.ln1_s) + l * d, fp(a.ln1_b) + l * d, B, d, a.eps, a.norm, xs);
+        mark(1);
         const float* bqkv = fp(a.bqkv) + static_cast<int64_t>(l) * 3 * hd;
         const float* s_qkv = scales(a.s_qkv, l, 3 * hd);
         T* kc = static_cast<T*>(a.k_cache) + kv_off;
@@ -677,9 +705,10 @@ __global__ void __launch_bounds__(NT, 1) decode_step_kernel(Args a, Plan p) {
             else
                 vc[(static_cast<int64_t>(b) * Lp + pos) * hd + c - 2 * hd] = y;
         });
-        grid.sync();
+        sync();
 
         // (b) self-attention over [min(pad_b, pos), pos]
+        mark(1);
         if (kv_int8) {
             int8_t* kq = static_cast<int8_t*>(a.k_cache) + kv_off;
             int8_t* vq = static_cast<int8_t*>(a.v_cache) + kv_off;
@@ -694,7 +723,8 @@ __global__ void __launch_bounds__(NT, 1) decode_step_kernel(Args a, Plan p) {
                          },
                          sbias, pm, pl, pacc, red);
         }
-        grid.sync();
+        mark(2);
+        sync();
 
         // (c) O projection + residual
         prefetch_weights<W>(a, mv_i++ + 2);
@@ -702,20 +732,23 @@ __global__ void __launch_bounds__(NT, 1) decode_step_kernel(Args a, Plan p) {
             load_plain(static_cast<const T*>(qs), B * hd, xs);
         else
             load_merge<T>(pm, pl, pacc, B, H, p.split, xs, red);
+        mark(1);
         mv(wt(a.wo) + static_cast<int64_t>(l) * hd * d, hd, d, p.lpr_d,
            residual(xp, fp(a.bo) + l * d, scales(a.s_o, l, d), emb0));
-        grid.sync();
+        sync();
 
         if (a.has_cross) {
             // (d) LN_c + q_c | cross-attention over [0, len_b) | O_c + residual
             prefetch_weights<W>(a, mv_i++ + 2);
             load_ln(static_cast<const T*>(xr), fp(a.lnc_s) + l * d, fp(a.lnc_b) + l * d, B, d, a.eps, a.norm, xs);
+            mark(1);
             const float* bqc = fp(a.bqc) + static_cast<int64_t>(l) * hd;
             const float* s_qc = scales(a.s_qc, l, hd);
             mv(wt(a.wqc) + static_cast<int64_t>(l) * d * hd, d, hd, p.lpr_hd, [=](int b, int c, float v) {
                 qs[b * hd + c] = pmt::from_f32<T>(deq(b, c, v, s_qc) + __ldg(bqc + c));
             });
-            grid.sync();
+            sync();
+            mark(1);
             const int lx = a.lx;
             const int64_t xoff = static_cast<int64_t>(l) * B * lx * hd;
             if (a.kvx_int8) {
@@ -731,20 +764,23 @@ __global__ void __launch_bounds__(NT, 1) decode_step_kernel(Args a, Plan p) {
                              },
                              nullptr, pm, pl, pacc, red);
             }
-            grid.sync();
+            mark(2);
+            sync();
             prefetch_weights<W>(a, mv_i++ + 2);
             if (a.kvx_int8)
                 load_plain(static_cast<const T*>(qs), B * hd, xs);
             else
                 load_merge<T>(pm, pl, pacc, B, H, p.split, xs, red);
+            mark(1);
             mv(wt(a.woc) + static_cast<int64_t>(l) * hd * d, hd, d, p.lpr_d,
                residual(xr, fp(a.boc) + l * d, scales(a.s_oc, l, d), false));
-            grid.sync();
+            sync();
         }
 
         // (e) LN2 + fc1 + GELU | fc2 + residual (GEGLU: fc1 writes the pair, fc2's load gates it)
         prefetch_weights<W>(a, mv_i++ + 2);
         load_ln(static_cast<const T*>(xr), fp(a.ln2_s) + l * d, fp(a.ln2_b) + l * d, B, d, a.eps, a.norm, xs);
+        mark(1);
         const float* b1 = fp(a.b1) + static_cast<int64_t>(l) * dff;
         const int act = a.act, gated = a.gated, n1 = gated ? 2 * dff : dff;
         const float* s_1 = scales(a.s_1, l, n1);
@@ -755,22 +791,27 @@ __global__ void __launch_bounds__(NT, 1) decode_step_kernel(Args a, Plan p) {
             else
                 hbuf[b * dff + c] = pmt::from_f32<T>(gelu(pmt::round_to<T>(v + __ldg(b1 + c)), act));
         });
-        grid.sync();
+        sync();
         prefetch_weights<W>(a, mv_i++ + 2);
         if (gated)
             load_gated(static_cast<const T*>(hbuf), B, dff, act, xs);
         else
             load_plain(static_cast<const T*>(hbuf), B * dff, xs);
+        mark(1);
         mv(wt(a.w2) + static_cast<int64_t>(l) * dff * d, dff, d, p.lpr_2,
            residual(xr, fp(a.b2) + l * d, scales(a.s_2, l, d), false));
-        grid.sync();
+        if (l + 1 < a.n_layers || a.has_head) sync();
     }
-    if (!a.has_head) return;
+    if (!a.has_head) {
+        mark(3);
+        return;
+    }
 
     // head: final LN, then each block's vocab chunk -> best (value, index) per row
     float* hv = reinterpret_cast<float*>(ws + p.off_hv);
     int* hi = reinterpret_cast<int*>(ws + p.off_hi);
     load_ln(static_cast<const T*>(xr), fp(a.fn_s), fp(a.fn_b), B, d, a.eps, a.norm, xs);
+    mark(1);
     {
         const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, grp = lane / 8, gl = lane % 8;
         const int chunk = (a.vocab + gridDim.x - 1) / gridDim.x;
@@ -870,6 +911,7 @@ __global__ void __launch_bounds__(NT, 1) decode_step_kernel(Args a, Plan p) {
             }
         }
         __syncthreads();
+        mark(2);
         if (gl == 0)
 #pragma unroll
             for (int b = 0; b < MB; ++b) {
@@ -887,8 +929,13 @@ __global__ void __launch_bounds__(NT, 1) decode_step_kernel(Args a, Plan p) {
             hi[b * gridDim.x + blockIdx.x] = i;
         }
     }
-    grid.sync();
-    if (blockIdx.x != 0) return;
+    sync();
+    mark(1);
+    mark(2);
+    if (blockIdx.x != 0) {
+        mark(3);
+        return;
+    }
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
     for (int b = warp; b < B; b += NW) {
         float v = pmt::neg_inf();
@@ -905,6 +952,7 @@ __global__ void __launch_bounds__(NT, 1) decode_step_kernel(Args a, Plan p) {
         }
         if (lane == 0) static_cast<int64_t*>(a.tok)[b] = i;
     }
+    mark(3);
 }
 
 // ---------------------------------------------------------------- host side

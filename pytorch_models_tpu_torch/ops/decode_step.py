@@ -243,7 +243,7 @@ def fused_step_eligible(layers: list, cfg, batch: int, cross: bool = False, gate
     args = _Args(b=batch, d=d, hd=hd, dff=dff, n_heads=cfg.n_heads, dtype=_build.dtype_code(torch.empty(0, dtype=cdt)),
                  gated=int(gated), wt_int8=int(int8))
     with torch.cuda.device(w.device):
-        return _plan(args) > 0
+        return _plan(args)[0] > 0
 
 
 # ---------------------------------------------------------------------------
@@ -393,23 +393,66 @@ _INTS = ("n_layers", "b", "d", "hd", "dff", "n_heads", "l_max", "lx", "pos", "vo
 
 
 class _Args(ctypes.Structure):
-    """csrc/decode_step.cu ``Args``, field for field."""
+    """csrc/decode_step.cu ``Args``, field for field. ``stamps`` comes last,
+    so every earlier field keeps its offset and a library built from an
+    older tree reads this structure's prefix unchanged."""
 
     _fields_ = ([(n, ctypes.c_void_p) for n in _PTRS] + [(n, ctypes.c_int) for n in _INTS]
-                + [("eps", ctypes.c_float), ("scale", ctypes.c_float)])
+                + [("eps", ctypes.c_float), ("scale", ctypes.c_float), ("stamps", ctypes.c_void_p)])
 
 
-def _plan(args: _Args) -> int:
+def _plan(args: _Args) -> tuple[int, int]:
     """The kernel's launch planner (csrc/decode_step.cu ``plan``) on the
-    current device: the workspace bytes, or a negated CUDA error. It reads
-    only the shape fields, ``dtype``, ``wt_int8`` and ``head_a8`` of ``args``."""
+    current device: ``(workspace bytes or a negated CUDA error, grid)``. It
+    reads only the shape fields, ``dtype``, ``wt_int8``, ``gated`` and
+    ``head_a8`` of ``args``."""
     grid = ctypes.c_int(0)
-    return _build.load_library().pmt_decode_step_workspace(ctypes.addressof(args), ctypes.addressof(grid))
+    ws = _build.load_library().pmt_decode_step_workspace(ctypes.addressof(args), ctypes.addressof(grid))
+    return ws, grid.value
+
+
+def step_phase_kinds(n_layers: int, cross: bool, head: bool) -> list[str]:
+    """The kernel's phases in order, one name each (a grid barrier ends every
+    phase but the last): per layer ``qkv, attn, o[, qc, xattn, oc], fc1,
+    fc2``, then ``head`` (final norm + each block's vocab chunk) and
+    ``argmax`` (block 0 reduces the blocks' bests)."""
+    layer = ["qkv", "attn", "o"] + (["qc", "xattn", "oc"] if cross else []) + ["fc1", "fc2"]
+    return layer * n_layers + (["head", "argmax"] if head else [])
+
+
+def phase_breakdown(stamps: torch.Tensor, kinds: list[str]) -> dict:
+    """Per phase kind, µs: the median over that kind's phases of the largest
+    value over the grid's blocks of each part: ``wait`` (from this block's
+    arrival at the barrier before the phase to its start: barrier latency
+    and skew; the first phase has none), ``load`` (the phase input: norm,
+    merge, gate), ``compute`` (matvec or attention), ``epilogue`` (bias,
+    residual, writes); and ``barrier``, the least wait over the blocks
+    (what the last block to arrive waits: the barrier's own latency), and
+    ``busy``, the largest time over the blocks from the phase's start to
+    arriving at its end barrier (so ``barrier + busy`` per phase sums to
+    about the step). ``stamps``: one launch's (phases, grid, 4)
+    %globaltimer ns, or several launches stacked on a leading axis (the
+    median then runs over every launch's phases). Adds ``step``: µs from the
+    first block's start to the last block's end, median over launches."""
+    t = stamps.double().reshape(-1, *stamps.shape[-3:])
+    parts = {"wait": torch.full_like(t[..., 0], float("nan")), "load": t[..., 1] - t[..., 0],
+             "compute": t[..., 2] - t[..., 1], "epilogue": t[..., 3] - t[..., 2]}
+    parts["wait"][:, 1:] = t[:, 1:, :, 0] - t[:, :-1, :, 3]
+    worst = {k: v.amax(-1) / 1e3 for k, v in parts.items()}  # (launches, phases)
+    worst["barrier"] = parts["wait"].amin(-1) / 1e3
+    worst["busy"] = (t[..., 3] - t[..., 0]).amax(-1) / 1e3
+    out = {}
+    for kind in dict.fromkeys(kinds):
+        idx = [i for i, k in enumerate(kinds) if k == kind]
+        out[kind] = {k: torch.nanquantile(v[:, idx].reshape(-1), 0.5).item() for k, v in worst.items()}
+        out[kind]["n"] = len(idx)
+    out["step"] = ((t[:, -1, :, 3].amax(-1) - t[:, 0, :, 0].amin(-1)) / 1e3).median().item()
+    return out
 
 
 def _launch(x, packed, k_caches, v_caches, pos, pad_lens, n_heads, act, eps, head, cross_k, cross_v, cross_lens,
             norm="ln", gated=False, sbias=None, a8=False, emb=None, tok_ids=None, pos_rows=None, kv_scales=None,
-            kv_scales_x=None):
+            kv_scales_x=None, stamps=None):
     req = _build.require
     cross = cross_k is not None
     n_layers, b, l_max, hd = k_caches.shape
@@ -518,12 +561,17 @@ def _launch(x, packed, k_caches, v_caches, pos, pad_lens, n_heads, act, eps, hea
         pos_rows=emb["pos"].shape[0] if emb is not None and "pos" in emb else 0,
         eps=eps, scale=1.0 / math.sqrt(HEAD_DIM),
         **{k: t.data_ptr() for k, t in (tensors | ids).items()})
-    ws = _plan(args)
+    ws, grid = _plan(args)
     if ws <= 0:
         raise RuntimeError(f"pmt_decode_step: CUDA error {-ws} planning the launch (shared memory too small, "
                            "or grid not co-resident)")
     workspace = torch.empty((ws,), dtype=torch.uint8, device=dev)
     args.workspace = workspace.data_ptr()
+    if stamps is not None:
+        st = torch.zeros((len(step_phase_kinds(n_layers, cross, head is not None)), grid, 4), dtype=torch.int64,
+                         device=dev)
+        args.stamps = st.data_ptr()
+        stamps.append(st)
     _build.check("pmt_decode_step", _build.load_library().pmt_decode_step(ctypes.addressof(args)))
     return x_out, tok
 
@@ -539,7 +587,7 @@ def _count(fn, a8: bool, kv_int8: bool, emb) -> None:
 
 def fused_decode_step(x, packed, k_caches, v_caches, pos: int, pad_lens, n_heads: int, act: str = "gelu",
                       eps: float = 1e-5, head: dict | None = None, a8: bool = False, emb=None, tok_ids=None,
-                      pos_rows=None, kv_scales=None, plain: bool = False):
+                      pos_rows=None, kv_scales=None, plain: bool = False, stamps: list | None = None):
     """One greedy decode step over a self-attention-only layer stack (GPT-2).
 
     ``x``: (B, d) hidden states (embeddings applied), or None with ``emb``
@@ -551,7 +599,10 @@ def fused_decode_step(x, packed, k_caches, v_caches, pos: int, pad_lens, n_heads
     or None. With ``head`` (:func:`pack_greedy_head`) the final norm and the
     greedy argmax run in the same kernel. ``a8``: w8a8 over int8-packed
     weights. ``plain=True`` runs the plain version on any device (for
-    comparisons only). Returns ``(x_out (B, d), tok (B,) int64 or None)``.
+    comparisons only). ``stamps``: a list to which the launch appends its
+    ``(phases, grid, 4)`` int64 tensor of each block's %globaltimer ns at
+    four points of every phase (:func:`step_phase_kinds`,
+    :func:`phase_breakdown`); for measurement only. Returns ``(x_out (B, d), tok (B,) int64 or None)``.
     ``launches`` counts the kernel's launches; ``variant_launches`` those of
     each int8 serving variant."""
     ref = x if x is not None else emb["tok"]
@@ -559,7 +610,7 @@ def fused_decode_step(x, packed, k_caches, v_caches, pos: int, pad_lens, n_heads
         return fused_decode_step_plain(x, packed, k_caches, v_caches, pos, pad_lens, n_heads, act, eps, head,
                                        a8=a8, emb=emb, tok_ids=tok_ids, pos_rows=pos_rows, kv_scales=kv_scales)
     out = _launch(x, packed, k_caches, v_caches, pos, pad_lens, n_heads, act, eps, head, None, None, None, a8=a8,
-                  emb=emb, tok_ids=tok_ids, pos_rows=pos_rows, kv_scales=kv_scales)
+                  emb=emb, tok_ids=tok_ids, pos_rows=pos_rows, kv_scales=kv_scales, stamps=stamps)
     _count(fused_decode_step, a8, kv_scales is not None, emb)
     return out
 
@@ -567,7 +618,8 @@ def fused_decode_step(x, packed, k_caches, v_caches, pos: int, pad_lens, n_heads
 def fused_cross_decode_step(x, packed, k_caches, v_caches, cross_k, cross_v, cross_lens, pos: int, pad_lens,
                             n_heads: int, act: str = "gelu", eps: float = 1e-5, head: dict | None = None,
                             norm: str = "ln", gated: bool = False, sbias=None, a8: bool = False, emb=None,
-                            tok_ids=None, pos_rows=None, kv_scales=None, kv_scales_x=None, plain: bool = False):
+                            tok_ids=None, pos_rows=None, kv_scales=None, kv_scales_x=None, plain: bool = False,
+                            stamps: list | None = None):
     """:func:`fused_decode_step` with a cross-attention phase: Whisper
     (``norm="ln"``), or T5 (``norm="rms", gated=True`` with ``sbias`` the
     key-major ``(Lp, H)`` fp32 rel-pos bias of this step's query position,
@@ -576,14 +628,15 @@ def fused_cross_decode_step(x, packed, k_caches, v_caches, cross_k, cross_v, cro
     Lx, H*D) precomputed encoder caches, int8 with ``kv_scales_x`` ``{"ks",
     "vs"}: (L, B, Lx)`` fp32; ``cross_lens`` (B,) valid memory lengths;
     ``packed`` from ``pack_decode_weights(..., cross=True[, gated=True])``;
-    the int8 serving arguments and ``plain`` as in :func:`fused_decode_step`."""
+    the int8 serving arguments, ``plain`` and ``stamps`` as in
+    :func:`fused_decode_step`."""
     ref = x if x is not None else emb["tok"]
     if plain or not ref.is_cuda:
         return fused_decode_step_plain(x, packed, k_caches, v_caches, pos, pad_lens, n_heads, act, eps, head,
                                        cross_k, cross_v, cross_lens, norm, gated, sbias, a8, emb, tok_ids, pos_rows,
                                        kv_scales, kv_scales_x)
     out = _launch(x, packed, k_caches, v_caches, pos, pad_lens, n_heads, act, eps, head, cross_k, cross_v, cross_lens,
-                  norm, gated, sbias, a8, emb, tok_ids, pos_rows, kv_scales, kv_scales_x)
+                  norm, gated, sbias, a8, emb, tok_ids, pos_rows, kv_scales, kv_scales_x, stamps)
     _count(fused_cross_decode_step, a8, kv_scales is not None or kv_scales_x is not None, emb)
     return out
 

@@ -12,6 +12,8 @@ fp32 throughout: the two sides sum in other orders, so ``x_out`` is held to
 K/V written at ``pos`` (one projection) to 2e-5, and greedy tokens exactly.
 """
 
+import ctypes
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -457,3 +459,62 @@ def test_whisper_transcribe_fused_matches_jax(fused_on):
     got = WhisperGenerator(ours).transcribe_tokens_batch(audios, W_INIT, -1, W_MAX)
     assert got == expected
     assert expected[0] != expected[1] and all(len(set(row[len(W_INIT):])) >= 3 for row in expected)
+
+
+# csrc/decode_step.cu ``Args`` as PR 7 left it, field by field: fields are only
+# ever appended (``stamps`` last), so a library built from an older tree reads
+# this structure's prefix unchanged (kernel_ab.py --k7 times both in one call)
+_ARGS_BEFORE_STAMPS = (
+    [(n, 8) for n in ("x", "x_out", "wqkv", "bqkv", "wo", "bo", "w1", "b1", "w2", "b2", "ln1_s", "ln1_b", "ln2_s",
+                      "ln2_b", "wqc", "bqc", "woc", "boc", "lnc_s", "lnc_b", "k_cache", "v_cache", "pads", "xk", "xv",
+                      "xlens", "sbias", "emb", "fn_s", "fn_b", "tok", "workspace", "stream", "s_qkv", "s_o", "s_1",
+                      "s_2", "s_qc", "s_oc", "ks", "vs", "xks", "xvs", "emb_s", "tok_emb", "pos_emb", "tok_ids",
+                      "pos_ids")]
+    + [(n, 4) for n in ("n_layers", "b", "d", "hd", "dff", "n_heads", "l_max", "lx", "pos", "vocab", "act", "dtype",
+                        "has_cross", "has_head", "norm", "gated", "wt_int8", "a8", "kv_int8", "kvx_int8", "head_a8",
+                        "embed", "tok_rows", "pos_rows", "eps", "scale")])
+
+
+def test_step_args_keep_every_earlier_field_at_its_offset():
+    off = 0
+    for name, size in _ARGS_BEFORE_STAMPS:
+        assert getattr(ds._Args, name).offset == off, name
+        assert getattr(ds._Args, name).size == size, name
+        off += size
+    names = [f[0] for f in ds._Args._fields_]
+    assert names[:len(_ARGS_BEFORE_STAMPS)] == [n for n, _ in _ARGS_BEFORE_STAMPS]
+    assert names[-1] == "stamps" and len(names) == len(_ARGS_BEFORE_STAMPS) + 1
+    assert ds._Args.stamps.offset == off == 488 and ds._Args.stamps.size == 8
+    assert ctypes.sizeof(ds._Args) == 496
+
+
+@pytest.mark.parametrize("cross,head,n", [(False, True, 12 * 5 + 2), (True, True, 8 * 8 + 2), (True, False, 24)])
+def test_step_phase_kinds_follow_the_kernels_barriers(cross, head, n):
+    layers = {62: 12, 66: 8, 24: 3}[n]
+    kinds = ds.step_phase_kinds(layers, cross, head)
+    assert len(kinds) == n
+    assert kinds[:5 + 3 * cross] == ["qkv", "attn", "o"] + (["qc", "xattn", "oc"] if cross else []) + ["fc1", "fc2"]
+    assert kinds[-2:] == (["head", "argmax"] if head else ["fc1", "fc2"])
+
+
+def test_phase_breakdown_takes_the_worst_block_and_the_median_phase():
+    # 2 launches x 3 phases (kinds a, b, a) x 2 blocks; ns stamps: start, after load, after compute, before barrier
+    st = torch.zeros(2, 3, 2, 4, dtype=torch.int64)
+    for launch in range(2):
+        t0 = 1_000_000 * launch
+        for p in range(3):
+            for blk in range(2):
+                start = t0 + p * 10_000 + blk * 500  # block 1 leaves each barrier 0.5 us later
+                load, comp, epi = 1_000 * (p + 1), 3_000 + 1_000 * blk, 500
+                st[launch, p, blk] = torch.tensor([start, start + load, start + load + comp,
+                                                   start + load + comp + epi])
+    bd = ds.phase_breakdown(st, ["a", "b", "a"])
+    assert bd["a"]["n"] == 2 and bd["b"]["n"] == 1
+    assert bd["b"]["load"] == pytest.approx(2.0) and bd["a"]["compute"] == pytest.approx(4.0)
+    assert bd["a"]["epilogue"] == pytest.approx(0.5)
+    # wait of phase p: its start minus the same block's arrival at the end of phase p - 1 (block 0: 10 - 4.5),
+    # none for phase 0 (a's wait: phase 2 only, max(20 - 15.5, 20.5 - 17))
+    assert bd["b"]["wait"] == pytest.approx(5.5) and bd["a"]["wait"] == pytest.approx(4.5)
+    assert bd["a"]["load"] == pytest.approx(2.0)  # phases 0 and 2: loads 1 and 3
+    assert bd["b"]["barrier"] == pytest.approx(4.5) and bd["b"]["busy"] == pytest.approx(6.5)
+    assert bd["step"] == pytest.approx((20_000 + 500 + 3_000 + 4_000 + 500) / 1e3)
