@@ -31,6 +31,7 @@ import ctypes
 import json
 import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import chip_smoke
@@ -51,8 +52,9 @@ def build_lib(csrc: Path, out_dir: Path, sources, entries):
         procs.append(subprocess.Popen([nvcc, *b.NVCC_FLAGS, "-c", "-o", str(obj), str(csrc / name)],
                                       stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
         objs.append(str(obj))
-    for p in procs:
+    for name, p in zip(sources, procs):
         text, _ = p.communicate()
+        (out_dir / (Path(name).stem + ".log")).write_text(text)  # nvcc's output, ptxas registers and spills
         if p.returncode != 0:
             raise RuntimeError(f"nvcc failed in {csrc}:\n{text[-4000:]}")
     lib_path = out_dir / "libab.so"
@@ -150,8 +152,11 @@ def main() -> int:
     here = Path(__file__).resolve().parent
     base = Path(argv[0]).resolve()
     sources, entries, iters = MODES[mode]
-    libs = {turn: build_lib(tree, here / "build" / "ab" / mode / turn, sources, entries)
-            for turn, tree in (("base", base / "pytorch_models_tpu_torch" / "csrc"), ("new", _build.CSRC_DIR))}
+    trees = {"base": base / "pytorch_models_tpu_torch" / "csrc", "new": _build.CSRC_DIR}
+    with ThreadPoolExecutor(2) as pool:  # both trees' nvcc at once
+        built = {turn: pool.submit(build_lib, tree, here / "build" / "ab" / mode / turn, sources, entries)
+                 for turn, tree in trees.items()}
+        libs = {turn: f.result() for turn, f in built.items()}
     card = chip_smoke._card()
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False

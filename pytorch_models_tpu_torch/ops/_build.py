@@ -52,8 +52,9 @@ _SIGNATURES = {
     "pmt_log_mel": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "pmt_int8_attention": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
     "pmt_int8_attention_cluster": [_I, _I, _I],
-    # both take a pointer to ops/decode_step.py's _Args structure
+    # these take a pointer to ops/decode_step.py's _Args structure
     "pmt_decode_step_workspace": [_P, _P],
+    "pmt_decode_step_plan": [_P, _P],
     "pmt_decode_step": [_P],
 }
 

@@ -47,7 +47,12 @@ version alike):
 - the embed phase (``emb``/``tok_ids``/``pos_rows``): layer 0 takes
   ``round(tok_emb[id] + pos_emb[p])`` (fp32 sum) instead of ``x``.
 The JAX kernel's ``eager`` flag only orders its DMA requests on the TPU and
-changes no output: the kernel's L2 prefetch is its counterpart.
+changes no output: the kernel's weight staging is its counterpart.
+
+The kernel reads each layer weight it stages (``wqkv, wo, w1, w2, wqc,
+woc``) in a unit-major copy, ``_unit_major``, made on its first launch over
+a packed tensor and kept while that tensor lives (one more copy of the
+packed weights on the card).
 
 The plain version runs on CUDA tensors only when a caller passes
 ``plain=True`` (chip_smoke.py and the tests hold the kernel against it
@@ -58,6 +63,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import weakref
 
 import torch
 import torch.nn.functional as F
@@ -411,6 +417,25 @@ def _plan(args: _Args) -> tuple[int, int]:
     return ws, grid.value
 
 
+MATRIX_SHAPES = ("qkv", "o", "qc", "fc1", "fc2")  # the kernel's staged matrix shapes (o_c shares o's)
+
+
+def step_plan(args: _Args) -> dict:
+    """The kernel's launch plan on the current device, as its planner makes
+    it (``pmt_decode_step_plan``): ``grid``, ``pass_cols`` (columns per
+    matvec pass), ``ring_bytes`` (the shared-memory ring), and per matrix
+    shape of MATRIX_SHAPES ``(kc, slots, steps)``: K rows per ring slot, the
+    ring's slots, and the most copy steps a block's share takes (passes x
+    chunks; more steps than slots: the share streams through the ring,
+    refilled while the matvec reads it). Raises on a shape the planner
+    refuses."""
+    out = (ctypes.c_int * (3 + 3 * len(MATRIX_SHAPES)))()
+    _build.check("pmt_decode_step_plan", _build.load_library().pmt_decode_step_plan(ctypes.addressof(args), out))
+    v = list(out)
+    return {"grid": v[0], "pass_cols": v[1], "ring_bytes": v[2],
+            **{m: tuple(v[3 + 3 * i: 6 + 3 * i]) for i, m in enumerate(MATRIX_SHAPES)}}
+
+
 def step_phase_kinds(n_layers: int, cross: bool, head: bool) -> list[str]:
     """The kernel's phases in order, one name each (a grid barrier ends every
     phase but the last): per layer ``qkv, attn, o[, qc, xattn, oc], fc1,
@@ -447,6 +472,28 @@ def phase_breakdown(stamps: torch.Tensor, kinds: list[str]) -> dict:
         out[kind] = {k: torch.nanquantile(v[:, idx].reshape(-1), 0.5).item() for k, v in worst.items()}
         out[kind]["n"] = len(idx)
     out["step"] = ((t[:, -1, :, 3].amax(-1) - t[:, 0, :, 0].amin(-1)) / 1e3).median().item()
+    return out
+
+
+# weights the kernel stages, read in its unit-major layout (_unit_major)
+_STAGED = ("wqkv", "wo", "w1", "w2", "wqc", "woc")
+_UNIT_MAJOR: dict[int, tuple] = {}  # id(packed weight) -> (weak reference, version, unit-major copy)
+
+
+def _unit_major(w: torch.Tensor) -> torch.Tensor:
+    """A packed ``(L, K, N)`` weight in the kernel's layout ``(L, N / cu, K,
+    cu)``: ``cu`` columns (16 bytes: 4 fp32, 8 bf16, 16 int8) per unit, each
+    unit's K rows contiguous, so a block's run of column units is one
+    contiguous copy per unit. Made once per packed tensor (and per in-place
+    version of it) and kept while the tensor lives."""
+    key = id(w)
+    hit = _UNIT_MAJOR.get(key)
+    if hit is not None and hit[0]() is w and hit[1] == w._version:
+        return hit[2]
+    n_layers, k, n = w.shape
+    cu = 16 // w.element_size()
+    out = w.view(n_layers, k, n // cu, cu).transpose(1, 2).contiguous()
+    _UNIT_MAJOR[key] = (weakref.ref(w, lambda _, key=key: _UNIT_MAJOR.pop(key, None)), w._version, out)
     return out
 
 
@@ -541,6 +588,7 @@ def _launch(x, packed, k_caches, v_caches, pos, pad_lens, n_heads, act, eps, hea
     everything = ([] if x is None else [x]) + [*caches, *tensors.values()]
     req(all(t.is_cuda and t.device == dev and t.is_contiguous() for t in everything),
         "fused decode step: contiguous tensors on one CUDA device only")
+    tensors.update({k: _unit_major(tensors[k]) for k in _STAGED if k in tensors})
 
     x_out = torch.empty((b, d), dtype=dt, device=dev)
     tok = torch.empty((b,), dtype=torch.int64, device=dev) if head is not None else None

@@ -372,6 +372,135 @@ def test_fused_t5_step_matches_plain(cuda, dtype, atol, rtol):
     assert (got_tok == ref_tok).float().mean().item() >= 0.75
 
 
+def _greedy_regret(x, tok, head, eps):
+    """The plain head's score regret of ``tok`` on the kernel's own x_out:
+    the final LayerNorm in fp32 rounded to x's dtype, fp32 scores (rounded
+    to bf16 for a bf16 head), max score minus the score of the chosen id."""
+    xf = x.float()
+    mean = xf.mean(-1, keepdim=True)
+    xn = ((xf - mean) * torch.rsqrt((xf - mean).square().mean(-1, keepdim=True) + eps) * head["fn_s"] + head["fn_b"])
+    s = torch.matmul(xn.to(x.dtype).float(), head["emb"].float().t())
+    if x.dtype == torch.bfloat16:
+        s = s.to(torch.bfloat16).float()
+    return (s.max(-1).values - s.gather(1, tok[:, None])[:, 0]).max().item(), s.abs().max().item()
+
+
+# K7 at every batch it serves: 1 to 8 rows, mixed left pads and cross lengths (an empty cross row from B=3 on)
+@pytest.mark.parametrize("dtype,atol,rtol", [(torch.float32, 1e-4, 0.0), (torch.bfloat16, 0.05, 2.0 ** -6)])
+@pytest.mark.parametrize("cross", [False, True])
+@pytest.mark.parametrize("b", range(1, 9))
+def test_fused_decode_step_at_each_batch(cuda, dtype, atol, rtol, cross, b):
+    from pytorch_models_tpu_torch.ops.decode_step import fused_decode_step_plain
+
+    cfg, packed, head, x, (kc, vc), (xk, xv) = _step_inputs(cuda, dtype, cross, b=b)
+    pos = 70
+    pads = torch.tensor([0, 5, 70, 3, 0, 35, 1, 17][:b], dtype=torch.int32, device=cuda)
+    lens = torch.tensor([96, 7, 0, 50, 96, 1, 30, 96][:b], dtype=torch.int32, device=cuda)
+    kw = dict(cross_k=xk, cross_v=xv, cross_lens=lens) if cross else {}
+    kc2, vc2 = kc.clone(), vc.clone()
+    ref_x, _ = fused_decode_step_plain(x, packed, kc2, vc2, pos, pads, cfg.n_heads, cfg.act, cfg.norm_eps, head, **kw)
+    if cross:
+        got_x, got_tok = fused_cross_decode_step(x, packed, kc, vc, xk, xv, lens, pos, pads, cfg.n_heads, cfg.act,
+                                                 cfg.norm_eps, head=head)
+    else:
+        got_x, got_tok = fused_decode_step(x, packed, kc, vc, pos, pads, cfg.n_heads, cfg.act, cfg.norm_eps,
+                                           head=head)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got_x.float(), ref_x.float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(kc.float(), kc2.float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(vc.float(), vc2.float(), atol=atol, rtol=rtol)
+    # the token is the plain head's argmax on the kernel's own x_out, up to the head's summation order
+    regret, top = _greedy_regret(got_x, got_tok, head, cfg.norm_eps)
+    assert regret <= (1e-4 * top if dtype == torch.float32 else 2.0 ** -5 * top)
+
+
+# K7 at the widths it serves (2 layers, B=8): a block's share spans several column vectors, so the row groups'
+# reduction runs at every lane split it has
+@pytest.mark.parametrize("dtype,atol,rtol", [(torch.float32, 1e-4, 0.0), (torch.bfloat16, 0.05, 2.0 ** -6)])
+@pytest.mark.parametrize("cross", [False, True])
+@pytest.mark.parametrize("d", [512, 768])
+def test_fused_decode_step_at_served_widths(cuda, dtype, atol, rtol, cross, d):
+    from pytorch_models_tpu_torch.ops.decode_step import fused_decode_step_plain
+
+    cfg, packed, head, x, (kc, vc), (xk, xv) = _step_inputs(cuda, dtype, cross, b=8, d=d)
+    pos = 70
+    pads = torch.tensor([0, 5, 70, 3, 0, 35, 1, 17], dtype=torch.int32, device=cuda)
+    lens = torch.tensor([96, 7, 0, 50, 96, 1, 30, 96], dtype=torch.int32, device=cuda)
+    kw = dict(cross_k=xk, cross_v=xv, cross_lens=lens) if cross else {}
+    kc2, vc2 = kc.clone(), vc.clone()
+    ref_x, _ = fused_decode_step_plain(x, packed, kc2, vc2, pos, pads, cfg.n_heads, cfg.act, cfg.norm_eps, head, **kw)
+    if cross:
+        got_x, got_tok = fused_cross_decode_step(x, packed, kc, vc, xk, xv, lens, pos, pads, cfg.n_heads, cfg.act,
+                                                 cfg.norm_eps, head=head)
+    else:
+        got_x, got_tok = fused_decode_step(x, packed, kc, vc, pos, pads, cfg.n_heads, cfg.act, cfg.norm_eps,
+                                           head=head)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got_x.float(), ref_x.float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(kc.float(), kc2.float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(vc.float(), vc2.float(), atol=atol, rtol=rtol)
+    regret, top = _greedy_regret(got_x, got_tok, head, cfg.norm_eps)
+    assert regret <= (1e-4 * top if dtype == torch.float32 else 2.0 ** -5 * top)
+
+
+def test_fused_decode_step_streams_a_share_larger_than_the_ring(cuda):
+    """d 1024, dff 4096, fp32, B=8: fc1's and fc2's share of a block (128 KB
+    each) exceeds the ring beside a 128 KB phase input, so both stream
+    through it, refilled while the matvec reads; the step still equals its
+    plain version."""
+    from pytorch_models_tpu_torch.ops.decode_step import _Args, fused_decode_step_plain, step_plan
+
+    cfg, packed, head, x, (kc, vc), _ = _step_inputs(cuda, torch.float32, False, b=8, d=1024)
+    plan = step_plan(_Args(b=8, d=1024, hd=1024, dff=4096, n_heads=16, dtype=0))
+    for m in ("fc1", "fc2"):
+        kc_rows, slots, steps = plan[m]
+        assert steps > slots and kc_rows < (1024 if m == "fc1" else 4096), plan
+    pos, pads = 70, torch.tensor([0, 5, 70, 3, 0, 35, 1, 17], dtype=torch.int32, device=cuda)
+    kc2, vc2 = kc.clone(), vc.clone()
+    ref_x, _ = fused_decode_step_plain(x, packed, kc2, vc2, pos, pads, cfg.n_heads, cfg.act, cfg.norm_eps, head)
+    got_x, got_tok = fused_decode_step(x, packed, kc, vc, pos, pads, cfg.n_heads, cfg.act, cfg.norm_eps, head=head)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got_x, ref_x, atol=1e-4, rtol=0.0)
+    torch.testing.assert_close(kc, kc2, atol=1e-4, rtol=0.0)
+    torch.testing.assert_close(vc, vc2, atol=1e-4, rtol=0.0)
+    regret, top = _greedy_regret(got_x, got_tok, head, cfg.norm_eps)
+    assert regret <= 1e-4 * top
+
+
+# (d, dff, gated) of the models whose decoders K7 serves: GPT-2 small to xl, Whisper-base, T5-base (GEGLU)
+SERVED_WIDTHS = {"gpt2": (768, 3072, False), "gpt2-medium": (1024, 4096, False), "gpt2-large": (1280, 5120, False),
+                 "gpt2-xl": (1600, 6400, False), "whisper-base": (512, 2048, False), "t5-base": (768, 2048, True)}
+
+
+def _parent_planner_accepts(b, d, dff, itemsize, wt_int8, head_a8):
+    """What the planner accepted before the weights were staged: the phase
+    input (B, max(d, dff)) fp32 beside its matvec reduction buffer."""
+    vec = 8 if wt_int8 else 16 // itemsize
+    extra = max(16 * 8 * 4 * vec * 4, 16 * 66 * 4, 16 * 4 * 8 * 8 + (b * d if head_a8 else 0), 5504)
+    extra = (extra + 255) // 256 * 256
+    return b * max(d, dff) * 4 + extra + 32 <= 232448
+
+
+@pytest.mark.parametrize("model", SERVED_WIDTHS)
+def test_fused_step_planner_accepts_every_served_width(cuda, model):
+    """Every batch 1-8 of every served width, fp32 and bf16, in every staged
+    weight variant (float weights; w8a16; w8a8 with the int8 head; int8 KV
+    does not enter the plan) is planned, as it was before the staging."""
+    from pytorch_models_tpu_torch.ops.decode_step import _Args, _plan, step_plan
+
+    d, dff, gated = SERVED_WIDTHS[model]
+    for dtype, itemsize in ((0, 4), (1, 2)):
+        for wt_int8, head_a8 in ((0, 0), (1, 0), (1, 1)):
+            for b in range(1, 9):
+                args = _Args(b=b, d=d, hd=d, dff=dff, n_heads=d // 64, dtype=dtype, gated=int(gated),
+                             wt_int8=wt_int8, head_a8=head_a8)
+                assert _parent_planner_accepts(b, d, dff, itemsize, wt_int8, head_a8)
+                assert _plan(args)[0] > 0, (model, dtype, wt_int8, head_a8, b)
+                plan = step_plan(args)
+                assert plan["grid"] == torch.cuda.get_device_properties(0).multi_processor_count
+                assert all(plan[m][0] >= 1 and plan[m][1] >= 1 for m in ("qkv", "o", "qc", "fc1", "fc2")), plan
+
+
 def test_fused_decode_step_refuses_unsupported_input(cuda):
     cfg, packed, head, x, (kc, vc), _ = _step_inputs(cuda, torch.float32, False)
     with pytest.raises(ValueError):  # 9 rows: more than the kernel serves
