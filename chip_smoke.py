@@ -51,6 +51,12 @@ kernel route's own x_out, K7 once per decode step, where the rows part from
 the generator driving K7's plain twin (a reading), bf16 agreement with the
 unquantized bf16 route and the routes' times.
 
+K7's time per phase (``decode_step_breakdown``): each block stamps
+%globaltimer at four points of every phase (``stamps=`` of the wrappers),
+and a line per variant (GPT-2 bf16 / fp32 / fp32 w8a16 + int8 KV, Whisper
+and T5 bf16, B=8) splits the step into barrier wait and skew, input load,
+matvec or attention and epilogue, in µs per phase of each kind.
+
 K1 in bf16: an output row beyond TOL passes only where p values that lie
 at a bf16 rounding boundary, moved to their other rounding, explain every
 column of the row, and within 2^-8 * (P @ |V|) / l + 2^-7 * |o| + 1e-6
@@ -972,8 +978,10 @@ def decode_step_phases(dev, card: str) -> dict:
     return res
 
 
-# K7's per-phase breakdown: (kind, dtype) at B=8, each launched this many times with stamps
-BREAKDOWN = (("gpt2", "bfloat16"), ("gpt2", "float32"), ("whisper", "bfloat16"), ("t5", "bfloat16"))
+# K7's per-phase breakdown: (kind, dtype, int8 serving options of _k7_step) at B=8, each launched this many
+# times with stamps
+BREAKDOWN = (("gpt2", "bfloat16", {}), ("gpt2", "float32", {}), ("whisper", "bfloat16", {}), ("t5", "bfloat16", {}),
+             ("gpt2", "float32", {"q8": True, "kv": True}))
 BREAKDOWN_RUNS = 5
 
 
@@ -1061,10 +1069,10 @@ def decode_step_breakdown(dev, card: str) -> dict:
 
     g = torch.Generator(device=dev).manual_seed(SEED + 20)
     models, res = {}, {}
-    for kind, dn in BREAKDOWN:
+    for kind, dn, opts in BREAKDOWN:
         if kind not in models:
             models[kind] = _k7_model(dev, kind)
-        call, n_layers, cross = _k7_step(dev, kind, getattr(torch, dn), g, models[kind])
+        call, n_layers, cross = _k7_step(dev, kind, getattr(torch, dn), g, models[kind], **opts)
         kinds = step_phase_kinds(n_layers, cross, True)
         call()
         stamps: list = []
@@ -1074,6 +1082,7 @@ def decode_step_breakdown(dev, card: str) -> dict:
         st = torch.stack(stamps).cpu()
         if not bool((st > 0).all()):
             raise AssertionError(f"K7 breakdown {kind} {dn}: a block left a phase unstamped")
+        kind = kind + "".join(f" {k}" for k in opts)  # q8: w8a16 weights, kv: int8 self-KV
         bd = res[(kind, dn)] = phase_breakdown(st, kinds)
         parts = ("wait", "load", "compute", "epilogue", "barrier", "busy")
         sums = {p: sum(bd[k][p] * bd[k]["n"] for k in dict.fromkeys(kinds)) for p in parts[-2:]}

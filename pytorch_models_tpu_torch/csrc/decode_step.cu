@@ -55,8 +55,8 @@
 // over layers inside every block. Per layer:
 //   (a) every block recomputes LN1 of the (B, d) residual into shared memory
 //       (tiny; saves a barrier), then blocks split the 3*H*D columns of wqkv:
-//       each takes a balanced run of 16-byte column units (floor or ceil of
-//       units / grid), reads it from its shared-memory ring (staged, below),
+//       each takes a balanced run of column units (a lane's vector: 16 bytes,
+//       8 for int8; floor or ceil of units / grid), reads it from its shared-memory ring (staged, below),
 //       and sums it in passes of 4 column vectors x 8 batch rows on a warp's
 //       lanes, the warps splitting the rows; the (warp, row subgroup)
 //       partials are added in one fixed order (deterministic), then the fp32
@@ -159,7 +159,7 @@ struct Args {
     long long* stamps;
 };
 
-// One matrix shape's staging: a block's share (a run of 16-byte column units) goes through the shared-memory
+// One matrix shape's staging: a block's share (a run of column units, Unit) goes through the shared-memory
 // ring in steps of `kc` K rows by one pass of at most Plan::pass_cols columns; step i sits in slot i % slots.
 struct MatPlan {
     int kc, slots, nchunk, slot_bytes;
@@ -212,6 +212,14 @@ struct WVec<int8_t> {
     static constexpr int V = 8;
 };
 // a lane's weights from the shared-memory ring
+// A column unit: one lane's vector of VEC columns (16 bytes of fp32 / bf16, 8 of int8). The unit-major
+// weights keep a unit's K rows contiguous, and blocks take runs of units.
+template <typename W>
+struct Unit {
+    static constexpr int C = WVec<W>::V;      // columns
+    static constexpr int B = C * sizeof(W);  // bytes
+};
+
 __device__ __forceinline__ void ldw(const float* p, float* o) { pmt::lds16(p, o); }
 __device__ __forceinline__ void ldw(const __nv_bfloat16* p, float* o) { pmt::lds16(p, o); }
 template <typename A>
@@ -431,12 +439,12 @@ __device__ void load_merge(const float* pm, const float* pl, const float* pacc, 
 // ---------------------------------------------------------------- staging
 
 // A block's share of one weight matrix and where its staging stands. The
-// share is a run of 16-byte column units, balanced over the grid (every
+// share is a run of column units (Unit), balanced over the grid (every
 // block gets floor or ceil of units / grid); it is read in passes of at most
 // Plan::pass_cols columns, each pass in chunks of kc rows: step i = (pass,
 // chunk) is copied into ring slot i % slots by the producer warp, and completes on the slot's
 // mbarrier. The weights are unit-major ((L, N / cu, K, cu): cu columns of
-// 16 bytes per unit, ops/decode_step.py `_unit_major`), so a step is one
+// Unit<W>::B bytes per unit, ops/decode_step.py `_unit_major`), so a step is one
 // contiguous bulk copy per unit of the pass, into the slot's column of that
 // unit. The phase's parameters complete on a barrier of their own.
 struct Stream {
@@ -462,15 +470,16 @@ __device__ __forceinline__ void issue_step(Stream& st, int pass_units, char* rin
     const int pu = min(pass_units, st.nu - pass * pass_units);
     const int r0 = chunk * st.m.kc, rows = min(st.m.kc, st.K - r0);
     const int slot = step % st.m.slots;
-    if (lane == 0) mbar_expect(bars.slot + slot, static_cast<unsigned>(rows * pu * 16));
+    constexpr int UB = Unit<W>::B;
+    if (lane == 0) mbar_expect(bars.slot + slot, static_cast<unsigned>(rows * pu * UB));
     __syncwarp();
     if (step >= st.m.slots) fence_async_shared();  // a refill: the slot was just read (begin_stream fences once)
     const int64_t unit0 = st.u0 + pass * pass_units;
     char* dst = ring + slot * st.m.slot_bytes;
     if (rows == st.K) {  // the pass's units are one contiguous run of the unit-major matrix: one copy
-        if (lane == 0) bulk_copy(dst, st.w + unit0 * st.K * 16, pu * rows * 16, bars.slot + slot);
+        if (lane == 0) bulk_copy(dst, st.w + unit0 * st.K * UB, pu * rows * UB, bars.slot + slot);
     } else if (lane < pu) {  // lane j: unit j of the pass, rows [r0, r0 + rows), into the slot's column j
-        bulk_copy(dst + lane * st.m.kc * 16, st.w + ((unit0 + lane) * st.K + r0) * 16, rows * 16, bars.slot + slot);
+        bulk_copy(dst + lane * st.m.kc * UB, st.w + ((unit0 + lane) * st.K + r0) * UB, rows * UB, bars.slot + slot);
     }
 }
 
@@ -481,7 +490,7 @@ __device__ __forceinline__ void issue_step(Stream& st, int pass_units, char* rin
 // phases' own loops.
 template <typename W>
 __device__ __forceinline__ Stream describe(const Args& a, const Plan& p, int kind, int l, int issued) {
-    constexpr int CU = 16 / sizeof(W);
+    constexpr int CU = Unit<W>::C;
     const int d = a.d, hd = a.hd, dff = a.dff;
     Stream st;
     const void* w = nullptr;
@@ -514,7 +523,7 @@ __device__ __forceinline__ Stream describe(const Args& a, const Plan& p, int kin
 template <typename W>
 __device__ __forceinline__ int begin_stream(const Args& a, const Plan& p, int kind, int l, char* ring, float* pbias,
                                             float* pln, Bars bars, unsigned long long* par_bar) {
-    constexpr int CU = 16 / sizeof(W);
+    constexpr int CU = Unit<W>::C;
     Stream st = describe<W>(a, p, kind, l, 0);
     const void *bias = nullptr, *scale = nullptr, *ln_s = nullptr, *ln_b = nullptr;
     int n_bias = st.N;
@@ -568,10 +577,10 @@ template <bool INT, typename W>
 __device__ __forceinline__ Progress accumulate(Stream st, int pass, int pass_units, const float* xs, int xst, int B,
                                             char* ring, float* red, Bars bars, unsigned phases) {
     using A = typename std::conditional<INT, int, float>::type;
-    constexpr int VEC = WVec<W>::V, CU = 16 / sizeof(W), VPU = CU / VEC;  // vectors per unit: 1 (2 for int8)
+    constexpr int VEC = WVec<W>::V;
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
     const int K = st.K;
-    const int pu = min(pass_units, st.nu - pass * pass_units), nv = pu * VPU;
+    const int nv = min(pass_units, st.nu - pass * pass_units);  // the pass's column vectors (units)
     const int lp = nv <= 1 ? 0 : nv <= 2 ? 1 : 2, G = 4 >> lp;  // row subgroups per warp
     const int b = lane & 7, v = (lane >> 3) & ((1 << lp) - 1), pg = warp * G + (lane >> (3 + lp)), R = NW * G;
     const bool active = v < nv && b < B;
@@ -583,15 +592,13 @@ __device__ __forceinline__ Progress accumulate(Stream st, int pass, int pass_uni
         mbar_wait(bars.slot + slot, (phases >> slot) & 1u);
         phases ^= 1u << slot;
         const int r0 = chunk * st.m.kc, rows = min(st.m.kc, K - r0);
-        // vector v: unit v / VPU of the pass, its (v % VPU)-th VEC columns
-        const W* tile = reinterpret_cast<const W*>(ring + slot * st.m.slot_bytes + (v / VPU) * st.m.kc * 16) +
-                        (v % VPU) * VEC;
+        const W* tile = reinterpret_cast<const W*>(ring + slot * st.m.slot_bytes) + v * st.m.kc * VEC;  // unit v
         const float* xb = xs + b * xst + r0;
         if (active) {
 #pragma unroll 4
             for (int r = pg; r < rows; r += R) {
                 A w[VEC];
-                ldw(tile + r * CU, w);
+                ldw(tile + r * VEC, w);
                 const A xv = static_cast<A>(xb[r]);
 #pragma unroll
                 for (int e = 0; e < VEC; ++e) acc[e] = mac(acc[e], xv, w[e]);
@@ -618,7 +625,7 @@ template <bool INT, typename W, typename Epi, typename Mark>
 __device__ void matvec(Stream& st, int pass_units, const float* xs, int xst, int B, char* ring, float* red, Bars bars,
                        unsigned& phases, unsigned long long* par_bar, unsigned par_parity, Epi epi, Mark mark) {
     using A = typename std::conditional<INT, int, float>::type;
-    constexpr int CU = 16 / sizeof(W), VPU = CU / WVec<W>::V;
+    constexpr int CU = Unit<W>::C;
     const int pass_cols = pass_units * CU;
     const int passes = st.steps / st.m.nchunk;
     const A* redA = reinterpret_cast<const A*>(red);
@@ -628,7 +635,7 @@ __device__ void matvec(Stream& st, int pass_units, const float* xs, int xst, int
         mbar_wait(par_bar, par_parity);  // the staged bias and scales
         __syncthreads();
         if (pass + 1 == passes) mark(2);
-        const int pu = min(pass_units, st.nu - pass * pass_units), pc = pu * CU, nv = pu * VPU;
+        const int nv = min(pass_units, st.nu - pass * pass_units), pc = nv * CU;
         const int n_part = NW * (nv <= 1 ? 4 : nv <= 2 ? 2 : 1);  // (warp, row subgroup) partial sums, in order
         for (int t = threadIdx.x; t < B * pc; t += NT) {
             const int b = t / pc, c = t - b * pc;
@@ -827,7 +834,7 @@ __global__ void __launch_bounds__(NT, 1) decode_step_kernel(Args a, Plan p) {
     // xs -> out columns of the current matrix: fp32 / bf16 / int8 weights, or w8a8's int8 x int8 over the
     // row-quantized xs; then the next matrix is current
     auto mv = [&](auto epi) {
-        constexpr int PU = 16 / sizeof(W);
+        constexpr int PU = Unit<W>::C;
         Stream st = describe<W>(a, p, cur_kind, cur_l, cur_issued);
         if constexpr (std::is_same<W, int8_t>::value) {
             if (a8) {
@@ -1191,15 +1198,15 @@ size_t align256(size_t n) { return (n + 255) / 256 * 256; }
 size_t align16(size_t n) { return (n + 15) / 16 * 16; }
 
 // Staging of one (K, N) matrix of W over `grid` blocks: the largest share
-// (ceil(units / grid) 16-byte column units) in passes of `pass_units`. The
+// (ceil(units / grid) column units of ub bytes) in passes of `pass_units`. The
 // whole share goes into the ring ahead of its phase, in up to MAX_SLOTS
 // steps, when it fits; else the ring streams it in 4 (or 2) slots of as many
 // rows as fit, refilled as the matvec reads them.
 // Returns the ring bytes the whole share takes (SIZE_MAX: more than MAX_SLOTS steps; 0: no plan).
-size_t mat_plan(int K, int N, int cu, int grid, int pass_units, size_t ring, MatPlan& m) {
+size_t mat_plan(int K, int N, int cu, int ub, int grid, int pass_units, size_t ring, MatPlan& m) {
     const int umax = (N / cu + grid - 1) / grid;
     const int passes = (umax + pass_units - 1) / pass_units;
-    const size_t rowb = static_cast<size_t>(umax < pass_units ? umax : pass_units) * 16;
+    const size_t rowb = static_cast<size_t>(umax < pass_units ? umax : pass_units) * ub;
     const int c = 1;  // a whole share is one step per pass: the fewest waits and copy issues
     int kc = (K + c - 1) / c;
     const int steps = passes * ((K + kc - 1) / kc);
@@ -1217,13 +1224,13 @@ size_t mat_plan(int K, int N, int cu, int grid, int pass_units, size_t ring, Mat
     m.kc = kc;
     m.nchunk = (K + kc - 1) / kc;
     m.steps = passes * m.nchunk;
-    m.slot_bytes = static_cast<int>(kc * rowb);  // (units, kc) 16-byte rows, unit-major
+    m.slot_bytes = static_cast<int>(kc * rowb);  // (units, kc) rows of one unit, unit-major
     return whole ? whole : SIZE_MAX;
 }
 
 template <typename T, typename W>
 int plan(const Args& a, Plan& p) {
-    constexpr int CU = 16 / sizeof(W);
+    constexpr int CU = Unit<W>::C, UB = Unit<W>::B;
     if (a.b < 1 || a.b > MB || a.hd != a.n_heads * HEAD_D || a.d % 64 || a.hd % 64 || a.dff % 64)
         return static_cast<int>(cudaErrorInvalidValue);
     static int sms = 0, optin = 0;
@@ -1274,13 +1281,13 @@ int plan(const Args& a, Plan& p) {
     size_t need = 0;
     for (int i = 0; i < N_MATS; ++i) {
         MatPlan m;
-        const size_t whole = mat_plan(Ks[i], Ns[i], CU, grid, p.pass_cols / CU, SIZE_MAX, m);
+        const size_t whole = mat_plan(Ks[i], Ns[i], CU, UB, grid, p.pass_cols / CU, SIZE_MAX, m);
         need = whole > need ? whole : need;
     }
     p.ring_bytes = need < p.ring_bytes ? need : p.ring_bytes;
     p.smem = p.xs_floats * 4 + p.red_bytes + MB * 4 + 4 * static_cast<size_t>(p.par_cols) * 4 + BAR_BYTES + p.ring_bytes;
     for (int i = 0; i < N_MATS; ++i)
-        if (!mat_plan(Ks[i], Ns[i], CU, grid, p.pass_cols / CU, p.ring_bytes, p.m[i]))
+        if (!mat_plan(Ks[i], Ns[i], CU, UB, grid, p.pass_cols / CU, p.ring_bytes, p.m[i]))
             return static_cast<int>(cudaErrorInvalidValue);
 
     static size_t attr_smem = 0;

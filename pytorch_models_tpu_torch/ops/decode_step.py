@@ -482,16 +482,16 @@ _UNIT_MAJOR: dict[int, tuple] = {}  # id(packed weight) -> (weak reference, vers
 
 def _unit_major(w: torch.Tensor) -> torch.Tensor:
     """A packed ``(L, K, N)`` weight in the kernel's layout ``(L, N / cu, K,
-    cu)``: ``cu`` columns (16 bytes: 4 fp32, 8 bf16, 16 int8) per unit, each
-    unit's K rows contiguous, so a block's run of column units is one
-    contiguous copy per unit. Made once per packed tensor (and per in-place
+    cu)``: ``cu`` columns per unit, one lane's vector (4 fp32, 8 bf16, 8
+    int8), each unit's K rows contiguous, so a block's run of column units is
+    one contiguous copy. Made once per packed tensor (and per in-place
     version of it) and kept while the tensor lives."""
     key = id(w)
     hit = _UNIT_MAJOR.get(key)
     if hit is not None and hit[0]() is w and hit[1] == w._version:
         return hit[2]
     n_layers, k, n = w.shape
-    cu = 16 // w.element_size()
+    cu = 8 if w.dtype == torch.int8 else 16 // w.element_size()
     out = w.view(n_layers, k, n // cu, cu).transpose(1, 2).contiguous()
     _UNIT_MAJOR[key] = (weakref.ref(w, lambda _, key=key: _UNIT_MAJOR.pop(key, None)), w._version, out)
     return out

@@ -385,14 +385,16 @@ def _greedy_regret(x, tok, head, eps):
     return (s.max(-1).values - s.gather(1, tok[:, None])[:, 0]).max().item(), s.abs().max().item()
 
 
-# K7 at every batch it serves: 1 to 8 rows, mixed left pads and cross lengths (an empty cross row from B=3 on)
+# K7 at every batch it serves (1 to 8 rows, d 128) and at served widths (B=8, d 512 and 768, where a block's
+# share spans several column vectors and the lanes split rows at every ratio they have): mixed left pads and
+# cross lengths (an empty cross row from B=3 on)
 @pytest.mark.parametrize("dtype,atol,rtol", [(torch.float32, 1e-4, 0.0), (torch.bfloat16, 0.05, 2.0 ** -6)])
 @pytest.mark.parametrize("cross", [False, True])
-@pytest.mark.parametrize("b", range(1, 9))
-def test_fused_decode_step_at_each_batch(cuda, dtype, atol, rtol, cross, b):
+@pytest.mark.parametrize("b,d", [(b, 128) for b in range(1, 9)] + [(8, 512), (8, 768)])
+def test_fused_decode_step_at_each_batch_and_width(cuda, dtype, atol, rtol, cross, b, d):
     from pytorch_models_tpu_torch.ops.decode_step import fused_decode_step_plain
 
-    cfg, packed, head, x, (kc, vc), (xk, xv) = _step_inputs(cuda, dtype, cross, b=b)
+    cfg, packed, head, x, (kc, vc), (xk, xv) = _step_inputs(cuda, dtype, cross, b=b, d=d)
     pos = 70
     pads = torch.tensor([0, 5, 70, 3, 0, 35, 1, 17][:b], dtype=torch.int32, device=cuda)
     lens = torch.tensor([96, 7, 0, 50, 96, 1, 30, 96][:b], dtype=torch.int32, device=cuda)
@@ -410,35 +412,6 @@ def test_fused_decode_step_at_each_batch(cuda, dtype, atol, rtol, cross, b):
     torch.testing.assert_close(kc.float(), kc2.float(), atol=atol, rtol=rtol)
     torch.testing.assert_close(vc.float(), vc2.float(), atol=atol, rtol=rtol)
     # the token is the plain head's argmax on the kernel's own x_out, up to the head's summation order
-    regret, top = _greedy_regret(got_x, got_tok, head, cfg.norm_eps)
-    assert regret <= (1e-4 * top if dtype == torch.float32 else 2.0 ** -5 * top)
-
-
-# K7 at the widths it serves (2 layers, B=8): a block's share spans several column vectors, so the row groups'
-# reduction runs at every lane split it has
-@pytest.mark.parametrize("dtype,atol,rtol", [(torch.float32, 1e-4, 0.0), (torch.bfloat16, 0.05, 2.0 ** -6)])
-@pytest.mark.parametrize("cross", [False, True])
-@pytest.mark.parametrize("d", [512, 768])
-def test_fused_decode_step_at_served_widths(cuda, dtype, atol, rtol, cross, d):
-    from pytorch_models_tpu_torch.ops.decode_step import fused_decode_step_plain
-
-    cfg, packed, head, x, (kc, vc), (xk, xv) = _step_inputs(cuda, dtype, cross, b=8, d=d)
-    pos = 70
-    pads = torch.tensor([0, 5, 70, 3, 0, 35, 1, 17], dtype=torch.int32, device=cuda)
-    lens = torch.tensor([96, 7, 0, 50, 96, 1, 30, 96], dtype=torch.int32, device=cuda)
-    kw = dict(cross_k=xk, cross_v=xv, cross_lens=lens) if cross else {}
-    kc2, vc2 = kc.clone(), vc.clone()
-    ref_x, _ = fused_decode_step_plain(x, packed, kc2, vc2, pos, pads, cfg.n_heads, cfg.act, cfg.norm_eps, head, **kw)
-    if cross:
-        got_x, got_tok = fused_cross_decode_step(x, packed, kc, vc, xk, xv, lens, pos, pads, cfg.n_heads, cfg.act,
-                                                 cfg.norm_eps, head=head)
-    else:
-        got_x, got_tok = fused_decode_step(x, packed, kc, vc, pos, pads, cfg.n_heads, cfg.act, cfg.norm_eps,
-                                           head=head)
-    torch.cuda.synchronize()
-    torch.testing.assert_close(got_x.float(), ref_x.float(), atol=atol, rtol=rtol)
-    torch.testing.assert_close(kc.float(), kc2.float(), atol=atol, rtol=rtol)
-    torch.testing.assert_close(vc.float(), vc2.float(), atol=atol, rtol=rtol)
     regret, top = _greedy_regret(got_x, got_tok, head, cfg.norm_eps)
     assert regret <= (1e-4 * top if dtype == torch.float32 else 2.0 ** -5 * top)
 
