@@ -485,15 +485,16 @@ def _unit_major(w: torch.Tensor) -> torch.Tensor:
     cu)``: ``cu`` columns per unit, one lane's vector (4 fp32, 8 bf16, 8
     int8), each unit's K rows contiguous, so a block's run of column units is
     one contiguous copy. Made once per packed tensor (and per in-place
-    version of it) and kept while the tensor lives."""
-    key = id(w)
+    version of it; an inference tensor counts no versions, and the port
+    never changes one in place) and kept while the tensor lives."""
+    key, version = id(w), None if w.is_inference() else w._version
     hit = _UNIT_MAJOR.get(key)
-    if hit is not None and hit[0]() is w and hit[1] == w._version:
+    if hit is not None and hit[0]() is w and hit[1] == version:
         return hit[2]
     n_layers, k, n = w.shape
     cu = 8 if w.dtype == torch.int8 else 16 // w.element_size()
     out = w.view(n_layers, k, n // cu, cu).transpose(1, 2).contiguous()
-    _UNIT_MAJOR[key] = (weakref.ref(w, lambda _, key=key: _UNIT_MAJOR.pop(key, None)), w._version, out)
+    _UNIT_MAJOR[key] = (weakref.ref(w, lambda _, key=key: _UNIT_MAJOR.pop(key, None)), version, out)
     return out
 
 
