@@ -159,7 +159,7 @@ struct Args {
     long long* stamps;
 };
 
-// One matrix shape's staging: a block's share (a run of column units, Unit) goes through the shared-memory
+// One matrix shape's staging: a block's share (a run of column units, WVec) goes through the shared-memory
 // ring in steps of `kc` K rows by one pass of at most Plan::pass_cols columns; step i sits in slot i % slots.
 struct MatPlan {
     int kc, slots, nchunk, slot_bytes;
@@ -201,8 +201,9 @@ __device__ __forceinline__ void ld8cg(const T* p, float* o) {
     for (int i = 0; i < 8; i += 16 / sizeof(T)) ld16cg(p + i, o + i);
 }
 
-// weights per lane load: 16 bytes of fp32 / bf16, 8 bytes of int8 (8 int8
-// accumulators per row keep a slab's sums in registers, as bf16's 8 do)
+// weights per lane load, a column unit: 16 bytes of fp32 / bf16, 8 bytes of
+// int8 (8 columns, as bf16's). The unit-major weights keep a unit's K rows
+// contiguous, and blocks take runs of units.
 template <typename W>
 struct WVec {
     static constexpr int V = 16 / sizeof(W);
@@ -212,14 +213,6 @@ struct WVec<int8_t> {
     static constexpr int V = 8;
 };
 // a lane's weights from the shared-memory ring
-// A column unit: one lane's vector of VEC columns (16 bytes of fp32 / bf16, 8 of int8). The unit-major
-// weights keep a unit's K rows contiguous, and blocks take runs of units.
-template <typename W>
-struct Unit {
-    static constexpr int C = WVec<W>::V;      // columns
-    static constexpr int B = C * sizeof(W);  // bytes
-};
-
 __device__ __forceinline__ void ldw(const float* p, float* o) { pmt::lds16(p, o); }
 __device__ __forceinline__ void ldw(const __nv_bfloat16* p, float* o) { pmt::lds16(p, o); }
 template <typename A>
@@ -439,12 +432,12 @@ __device__ void load_merge(const float* pm, const float* pl, const float* pacc, 
 // ---------------------------------------------------------------- staging
 
 // A block's share of one weight matrix and where its staging stands. The
-// share is a run of column units (Unit), balanced over the grid (every
+// share is a run of column units (WVec), balanced over the grid (every
 // block gets floor or ceil of units / grid); it is read in passes of at most
 // Plan::pass_cols columns, each pass in chunks of kc rows: step i = (pass,
 // chunk) is copied into ring slot i % slots by the producer warp, and completes on the slot's
 // mbarrier. The weights are unit-major ((L, N / cu, K, cu): cu columns of
-// Unit<W>::B bytes per unit, ops/decode_step.py `_unit_major`), so a step is one
+// WVec<W>::V columns per unit, ops/decode_step.py `_unit_major`), so a step is one
 // contiguous bulk copy per unit of the pass, into the slot's column of that
 // unit. The phase's parameters complete on a barrier of their own.
 struct Stream {
@@ -470,7 +463,7 @@ __device__ __forceinline__ void issue_step(Stream& st, int pass_units, char* rin
     const int pu = min(pass_units, st.nu - pass * pass_units);
     const int r0 = chunk * st.m.kc, rows = min(st.m.kc, st.K - r0);
     const int slot = step % st.m.slots;
-    constexpr int UB = Unit<W>::B;
+    constexpr int UB = WVec<W>::V * sizeof(W);
     if (lane == 0) mbar_expect(bars.slot + slot, static_cast<unsigned>(rows * pu * UB));
     __syncwarp();
     if (step >= st.m.slots) fence_async_shared();  // a refill: the slot was just read (begin_stream fences once)
@@ -490,7 +483,7 @@ __device__ __forceinline__ void issue_step(Stream& st, int pass_units, char* rin
 // phases' own loops.
 template <typename W>
 __device__ __forceinline__ Stream describe(const Args& a, const Plan& p, int kind, int l, int issued) {
-    constexpr int CU = Unit<W>::C;
+    constexpr int CU = WVec<W>::V;
     const int d = a.d, hd = a.hd, dff = a.dff;
     Stream st;
     const void* w = nullptr;
@@ -523,7 +516,7 @@ __device__ __forceinline__ Stream describe(const Args& a, const Plan& p, int kin
 template <typename W>
 __device__ __forceinline__ int begin_stream(const Args& a, const Plan& p, int kind, int l, char* ring, float* pbias,
                                             float* pln, Bars bars, unsigned long long* par_bar) {
-    constexpr int CU = Unit<W>::C;
+    constexpr int CU = WVec<W>::V;
     Stream st = describe<W>(a, p, kind, l, 0);
     const void *bias = nullptr, *scale = nullptr, *ln_s = nullptr, *ln_b = nullptr;
     int n_bias = st.N;
@@ -625,7 +618,7 @@ template <bool INT, typename W, typename Epi, typename Mark>
 __device__ void matvec(Stream& st, int pass_units, const float* xs, int xst, int B, char* ring, float* red, Bars bars,
                        unsigned& phases, unsigned long long* par_bar, unsigned par_parity, Epi epi, Mark mark) {
     using A = typename std::conditional<INT, int, float>::type;
-    constexpr int CU = Unit<W>::C;
+    constexpr int CU = WVec<W>::V;
     const int pass_cols = pass_units * CU;
     const int passes = st.steps / st.m.nchunk;
     const A* redA = reinterpret_cast<const A*>(red);
@@ -834,7 +827,7 @@ __global__ void __launch_bounds__(NT, 1) decode_step_kernel(Args a, Plan p) {
     // xs -> out columns of the current matrix: fp32 / bf16 / int8 weights, or w8a8's int8 x int8 over the
     // row-quantized xs; then the next matrix is current
     auto mv = [&](auto epi) {
-        constexpr int PU = Unit<W>::C;
+        constexpr int PU = WVec<W>::V;
         Stream st = describe<W>(a, p, cur_kind, cur_l, cur_issued);
         if constexpr (std::is_same<W, int8_t>::value) {
             if (a8) {
@@ -1230,7 +1223,7 @@ size_t mat_plan(int K, int N, int cu, int ub, int grid, int pass_units, size_t r
 
 template <typename T, typename W>
 int plan(const Args& a, Plan& p) {
-    constexpr int CU = Unit<W>::C, UB = Unit<W>::B;
+    constexpr int CU = WVec<W>::V, UB = CU * sizeof(W);
     if (a.b < 1 || a.b > MB || a.hd != a.n_heads * HEAD_D || a.d % 64 || a.hd % 64 || a.dff % 64)
         return static_cast<int>(cudaErrorInvalidValue);
     static int sms = 0, optin = 0;

@@ -486,7 +486,14 @@ def _unit_major(w: torch.Tensor) -> torch.Tensor:
     int8), each unit's K rows contiguous, so a block's run of column units is
     one contiguous copy. Made once per packed tensor (and per in-place
     version of it; an inference tensor counts no versions, and the port
-    never changes one in place) and kept while the tensor lives."""
+    never changes one in place) and kept while the tensor lives. A slice of
+    whole layers of a packed tensor is the same slice of the packed
+    tensor's copy."""
+    base = w._base
+    if base is not None and base.dim() == 3 and base.shape[1:] == w.shape[1:] and base.is_contiguous():
+        layer, rest = divmod(w.storage_offset() - base.storage_offset(), w.shape[1] * w.shape[2])
+        if rest == 0:
+            return _unit_major(base)[layer:layer + w.shape[0]]
     key, version = id(w), None if w.is_inference() else w._version
     hit = _UNIT_MAJOR.get(key)
     if hit is not None and hit[0]() is w and hit[1] == version:

@@ -518,3 +518,25 @@ def test_phase_breakdown_takes_the_worst_block_and_the_median_phase():
     assert bd["a"]["load"] == pytest.approx(2.0)  # phases 0 and 2: loads 1 and 3
     assert bd["b"]["barrier"] == pytest.approx(4.5) and bd["b"]["busy"] == pytest.approx(6.5)
     assert bd["step"] == pytest.approx((20_000 + 500 + 3_000 + 4_000 + 500) / 1e3)
+
+
+@pytest.mark.parametrize("dtype,cu", [(torch.float32, 4), (torch.bfloat16, 8), (torch.int8, 8)])
+def test_unit_major_weights_keep_each_column_unit_contiguous(dtype, cu):
+    """The kernel reads a packed (L, K, N) weight as (L, N / cu, K, cu): one
+    lane's column vector per unit, its K rows contiguous; the copy is made
+    once per tensor, again after an in-place change, and for inference
+    tensors (the generators pack under inference_mode); a slice of whole
+    layers reads the same slice of the whole tensor's copy."""
+    w = torch.arange(2 * 64 * 128).reshape(2, 64, 128).to(dtype)
+    u = ds._unit_major(w)
+    assert u.shape == (2, 128 // cu, 64, cu) and u.is_contiguous()
+    assert torch.equal(u[1, 3, 5], w[1, 5, 3 * cu:4 * cu])
+    assert ds._unit_major(w) is u
+    w.add_(1)
+    assert torch.equal(ds._unit_major(w)[0, 0, 0], w[0, 0, :cu])
+    with torch.inference_mode():
+        wi = w.clone()
+        ui = ds._unit_major(wi)
+        assert ds._unit_major(wi) is ui and torch.equal(ui, ds._unit_major(w))
+    layer = ds._unit_major(w[1:2])  # a layer's slice: a view of the whole tensor's copy, made once
+    assert layer._base is ds._unit_major(w) and torch.equal(layer[0], ds._unit_major(w)[1])
