@@ -17,7 +17,9 @@ time per call, ``chip_smoke._time_ms``):
   tree) at every K7 variant of ``chip_smoke.py`` (GPT-2, Whisper and T5 at
   B=8, and the int8 serving variants of ``I8_VARIANTS``), bf16 and fp32.
   The base tree's ``Args`` must be a prefix of this tree's ``_Args``
-  (fields are only ever appended), so its library reads the same call.
+  (fields are only ever appended), so its library reads the same call; a
+  tree whose wrapper has no ``_unit_major`` is given the packed weights as
+  they are (row-major), as its own wrapper would.
   Then ``chip_smoke.decode_step_breakdown`` with each tree's library whose
   kernel takes ``stamps``.
 
@@ -160,11 +162,21 @@ def main() -> int:
     card = chip_smoke._card()
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
+    from pytorch_models_tpu_torch.ops import decode_step
+
+    # the staged weights each tree's kernel reads: unit-major copies, or (older trees) the packed tensors
+    staged = {turn: decode_step._STAGED if "_unit_major" in (tree.parent / "ops" / "decode_step.py").read_text()
+              else () for turn, tree in trees.items()}
+
+    def use(turn):
+        _build._lib = libs[turn]
+        decode_step._STAGED = staged[turn]
+
     res = {}
     for name, fns in (_k7_cases if mode == "k7" else _cases)(dev):
         t = {}
         for turn in ("base", "new", "new", "base"):
-            _build._lib = libs[turn]
+            use(turn)
             t.setdefault(turn, []).append(chip_smoke._time_ms(fns, iters) * 1e3)
         res[name] = {k: sum(v) / len(v) for k, v in t.items()}
         print(f"{name}: base {t['base'][0]:.2f} / {t['base'][1]:.2f} us, new {t['new'][0]:.2f} / {t['new'][1]:.2f} "
@@ -172,7 +184,7 @@ def main() -> int:
     if mode == "k7":  # the per-phase breakdown of each tree whose kernel takes stamps
         for turn, tree in (("base", base), ("new", here)):
             if "stamps" in (tree / "pytorch_models_tpu_torch" / "csrc" / "decode_step.cu").read_text():
-                _build._lib = libs[turn]
+                use(turn)
                 print(f"breakdown of {turn} ({tree}):")
                 chip_smoke.decode_step_breakdown(dev, card)
     print(card)

@@ -92,7 +92,7 @@
 // ring streams through it in chunks of rows, each slot refilled as soon as
 // it is read. The producer is not warp 0: thread 0 takes the grid barrier,
 // and its memory fence would wait for copies it had issued. The L2 prefetch
-// of earlier versions is gone: with the staging it cost time (PERF.md, PR 9).
+// of earlier versions is gone: with the staging it cost time (PERF.md).
 // All products run on CUDA cores with fp32 accumulation; tensor cores and
 // fewer barriers (phases fused within clusters) are later work. Measured on
 // an H100 80GB HBM3 (700 W; kernel_ab.py --k7, PERF.md), a matvec phase now

@@ -461,7 +461,7 @@ def test_whisper_transcribe_fused_matches_jax(fused_on):
     assert expected[0] != expected[1] and all(len(set(row[len(W_INIT):])) >= 3 for row in expected)
 
 
-# csrc/decode_step.cu ``Args`` as PR 7 left it, field by field: fields are only
+# csrc/decode_step.cu ``Args`` before ``stamps``, field by field: fields are only
 # ever appended (``stamps`` last), so a library built from an older tree reads
 # this structure's prefix unchanged (kernel_ab.py --k7 times both in one call)
 _ARGS_BEFORE_STAMPS = (
