@@ -9,6 +9,7 @@ Builds the port's CUDA kernels from ``pytorch_models_tpu_torch/csrc/`` (one
 PyTorch version at the GPT-2, Whisper and T5 serving shapes (the fused
 decode step K7 at full GPT-2-small, Whisper-base and T5-base width, fp32 and
 bf16; the biased decode attention and the untied greedy head at T5-base's;
+the greedy heads at B=8, 16 and 32 beside the head matmul + argmax;
 the encoder attention K1 also at ViT-B/16's B=128 x 197 tokens and at head
 widths 32, 80 and 128, with its tensor-core instructions per instantiation
 counted by ``cuobjdump -sass``), then drives the port's three main paths and
@@ -16,7 +17,9 @@ checks that each went through its kernels:
 
 - GPT-2 small at full width (12 layers, d_model 768, vocab 50257, context
   1024, random weights from a seed) through ``score_tokens_batch``, then,
-  rescaled so that greedy streams move, ``generate_tokens_batch``;
+  rescaled so that greedy streams move, ``generate_tokens_batch`` (and at
+  B=16, above the fused step's 8 rows, per-op against plain in fp32: the
+  tied greedy head K4 once per decode step);
 - Whisper-base at full width (8 + 8 layers, d_model 512, vocab 51865, 80
   mels, random weights from a seed) transcribing eight 5-30 s waveforms
   through ``WhisperGenerator.transcribe_tokens_batch`` and
@@ -102,6 +105,7 @@ import numpy as np
 
 SEED = 0
 N_NEW = 64
+B16_NEW = 16  # new tokens of the per-op GPT-2 generation at B=16
 PROMPT_LENS = (5, 12, 23, 31, 40, 47, 55, 60)
 # kernel vs plain version on the same inputs, elementwise |got - ref| <=
 # atol + rtol * |ref|. fp32 differs by summation order only (readings on an
@@ -555,26 +559,32 @@ def kernel_phases(dev, card: str) -> dict:
         print(f"phase kernel gather_rows {dn}: V=1024,50257 N=8 ids incl. out-of-range: max_abs_err={err} (exact) | "
               f"kernel {k3_ms * 1e3:.1f} us, plain {k3_plain * 1e3:.1f} us [{card}]")
 
-        # K4: B=8, V=50257, forced tie at rows 7 and 50000 for batch row 0
-        x, emb = rnd(8, 768, dtype=dtype), rnd(50257, 768, dtype=dtype)
-        emb[7] = emb[50000] = x[0] * 4
-        err, decided = _check_greedy(f"greedy_argmax_tied {dn}", x, emb, 7)
-        k4_ms, k4_plain = _ab_ms([lambda: greedy_argmax_tied(x, emb)], [lambda: greedy_argmax_tied_plain(x, emb)], 50)
-        res[("greedy_argmax_tied", dn)] = _rec(err, k4_ms, k4_plain, (emb.numel() + x.numel()) * x.element_size(),
-                                               2 * 8 * emb.numel(), dn)  # no single PyTorch call
-        # what the batch gate (ops/attention.py use_greedy_head) chooses between:
-        # the kernel, or the model's own head matmul in its dtype + argmax
-        head = {}
-        for nb in (1, 8):
-            xb = x[:nb].contiguous()
-            head[nb] = _ab_ms([lambda: greedy_argmax_tied(xb, emb)],
-                              [lambda: torch.argmax(torch.matmul(xb, emb.t()), dim=-1)], 50)
-        print(f"phase kernel greedy_argmax_tied {dn}: B=8 V=50257 tie->lowest ok, ids equal on "
-              f"{decided}/8 rows with top-2 gap > tol, max score regret {err:.3g} (tol per row: "
-              f"{'1e-3' if dtype == torch.float32 else 'one bf16 step of the top score'}) | kernel "
-              f"{k4_ms * 1e3:.1f} us, plain {k4_plain * 1e3:.1f} us; vs head matmul + argmax: "
-              + ", ".join(f"B={nb} kernel {km * 1e3:.1f} us, head {hm * 1e3:.1f} us" for nb, (km, hm) in head.items())
-              + f" [{card}]")
+        # K4: V=50257, forced tie at rows 7 and 50000 for batch row 0; B=8 is the main path's batch, 16 and 32
+        # the per-op route's (batches above the fused step's 8 rows), each against what the batch gate
+        # (ops/attention.py use_greedy_head) chooses between: the kernel, or the model's own head matmul in its
+        # dtype + argmax
+        emb = rnd(50257, 768, dtype=dtype)
+        parts, head1 = [], None
+        for nb in (8, 16, 32):
+            x = rnd(nb, 768, dtype=dtype)
+            emb[7] = emb[50000] = x[0] * 4
+            e, decided = _check_greedy(f"greedy_argmax_tied B={nb} {dn}", x, emb, 7)
+            k4 = _ab_ms([lambda x=x: greedy_argmax_tied(x, emb)], [lambda x=x: greedy_argmax_tied_plain(x, emb)], 50)
+            head = _time_ms([lambda x=x: torch.argmax(torch.matmul(x, emb.t()), dim=-1)], 50)
+            r = _rec(e, *k4, (emb.numel() + x.numel()) * x.element_size(), 2 * nb * emb.numel(), dn)  # no single call
+            if nb == 8:
+                rec = res[("greedy_argmax_tied", dn)] = r
+                x1 = x[:1].contiguous()
+                head1 = _ab_ms([lambda: greedy_argmax_tied(x1, emb)],
+                               [lambda: torch.argmax(torch.matmul(x1, emb.t()), dim=-1)], 50)
+            else:
+                rec["err"] = max(rec["err"], e)
+            parts.append(f"B={nb}: {decided}/{nb} decided rows equal, max score regret {e:.3g}, kernel "
+                         f"{k4[0] * 1e3:.1f} us, plain {k4[1] * 1e3:.1f} us, head matmul + argmax {head * 1e3:.1f} us, "
+                         f"bound {r['bound_ms'] * 1e3:.1f} us ({r['bound_by']})")
+        print(f"phase kernel greedy_argmax_tied {dn}: V=50257 d=768, tie->lowest ok (score regret tol per row: "
+              f"{'1e-3' if dtype == torch.float32 else 'one bf16 step of the top score'}) | " + "; ".join(parts)
+              + f"; B=1 kernel {head1[0] * 1e3:.1f} us, head {head1[1] * 1e3:.1f} us [{card}]")
     torch.cuda.synchronize()
     return res
 
@@ -643,12 +653,18 @@ def whisper_kernel_phases(dev, card: str) -> dict:
     # waveform in, (8, 80, 3001) out; the DFT as the kernel computes it (3001 frames x 400 samples x 402 real
     # outputs per row) plus the 201 -> 80 mel product; no single PyTorch call
     k5_flops = 2 * 8 * 3001 * (400 * 402 + 201 * 80)
-    res[("log_mel_spectrogram", "float32")] = _rec(max(err, pre_err), k5_ms, k5_plain,
-                                                   (wav.numel() + 8 * 80 * 3001) * 4, k5_flops, "float32")
+    k5_bytes = (wav.numel() + 8 * 80 * 3001) * 4
+    rec = res[("log_mel_spectrogram", "float32")] = _rec(max(err, pre_err), k5_ms, k5_plain, k5_bytes, k5_flops,
+                                                         "float32")
+    # the bound in the kernels line is the fp32 CUDA-core one; the kernel runs its products as 3xTF32 on the
+    # tensor cores, whose bound (three TF32 passes over every operation, as K1's fp32 rows reckon it) is lower
+    tf32x3_ms = 3 * k5_flops / PEAK_TF32 * 1e3
     print(f"phase kernel log_mel_spectrogram float32: B=8 x 30 s (3001 frames), n_mels 80/128, -inf frames equal "
           f"({n_inf[80]}/{n_inf[128]} values), max |kernel - plain| where plain >= max-8: {err:.3g}, preprocessor "
           f"{pre_err:.3g} (tol {MEL_TOL}, {MEL_TOL / 4}) | n_mels 80 kernel {k5_ms * 1e3:.1f} us, plain "
-          f"{k5_plain * 1e3:.1f} us [{card}]")
+          f"{k5_plain * 1e3:.1f} us, bound {rec['bound_ms'] * 1e3:.1f} us (fp32 CUDA-core ops), "
+          f"{tf32x3_ms * 1e3:.1f} us (3xTF32 tensor-core ops), {k5_bytes / HBM_BYTES_PER_S * 1e6:.1f} us (bytes) "
+          f"[{card}]")
 
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).removeprefix("torch.")
@@ -1309,6 +1325,25 @@ def main_path(dev, card: str, profile_dir: str | None = None) -> dict:
           f"tokens, {N_NEW} new each: fused, per-op kernels and plain (every flag False) token-identical "
           f"(partings at near-ties: {partings}); K7 launched {k7_launches} times = {steps} decode steps; distinct "
           f"new tokens per row {distinct}")
+    # above the fused step's 8 rows: B=16 decodes per-op, the tied greedy head (K4) once per decode step
+    r16 = np.random.default_rng(SEED + 16)
+    prompts16 = [r16.integers(0, 50257, n).tolist() for n in PROMPT_LENS * 2]
+    outs16 = {}
+    for route in ("plain", "per-op"):
+        _route(route)
+        before = kernels["greedy_argmax_tied"].launches
+        outs16[route] = gen.generate_tokens_batch(prompts16, max_tokens=B16_NEW)
+        k4_16 = kernels["greedy_argmax_tied"].launches - before
+    torch.cuda.synchronize()
+    for route, rows in outs16.items():
+        if any(row[:len(p)] != p or len(row) != len(p) + B16_NEW for row, p in zip(rows, prompts16)):
+            raise AssertionError(f"fp32 B=16 generation ({route}): malformed row")
+    if k4_16 != B16_NEW - 1:
+        raise AssertionError(f"per-op route at B=16: K4 launched {k4_16} times for {B16_NEW - 1} decode steps")
+    partings16 = _check_routes("main fp32 B=16", outs16, gap_fn)
+    print(f"phase main fp32 generate_tokens_batch B=16 (above the fused step's 8 rows): {B16_NEW} new tokens each, "
+          f"per-op kernels and plain token-identical (partings at near-ties: {partings16}); K4 (tied) launched "
+          f"{k4_16} times = {B16_NEW - 1} decode steps")
     _route("fused")
     model.to_bf16()
     out16 = {"fused": generate()}

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Time kernels of two source trees in one process, on one card.
 
-    python3 kernel_ab.py BASE_DIR         # K2 and K6; BASE_DIR: a checkout of another commit (git archive)
-    python3 kernel_ab.py --k7 BASE_DIR    # K7, the fused decode step
+    python3 kernel_ab.py BASE_DIR              # K2 and K6; BASE_DIR: a checkout of another commit (git archive)
+    python3 kernel_ab.py --k7 BASE_DIR         # K7, the fused decode step
+    python3 kernel_ab.py --head-mel BASE_DIR   # K4 (the greedy head, tied and untied) and K5 (log-mel)
 
 Builds the mode's sources of this checkout and of ``BASE_DIR`` (one ``nvcc``
 per source, ``sm_90a``), each tree into a shared library of its own, and
@@ -21,7 +22,15 @@ time per call, ``chip_smoke._time_ms``):
   tree whose wrapper has no ``_unit_major`` is given the packed weights as
   they are (row-major), as its own wrapper would.
   Then ``chip_smoke.decode_step_breakdown`` with each tree's library whose
-  kernel takes ``stamps``.
+  kernel takes ``stamps``;
+- ``--head-mel``: ``csrc/greedy_head.cu`` and ``csrc/mel.cu`` at
+  ``chip_smoke.py``'s shapes: the tied head at GPT-2's (V 50257, d 768, B=8,
+  16 and 32) and Whisper's (V 51865, d 512, B=8), the untied head at
+  T5-base's (V 32128, d 768, B=8, 16 and 32), bf16 and fp32, and the
+  log-mel frontend at B=8 x 30 s (80 mels). A tree with the two-pass head
+  (``pmt_greedy_argmax_tied`` / ``_untied`` with partials scratch) or the
+  CUDA-core log-mel kernel (``pmt_log_mel`` on the unsplit bases) is called
+  through its own C interface (``_LEGACY``), as its wrappers called it.
 
 Prints one line per shape, the card, and a JSON line of the times in µs.
 Without a CUDA device it exits with code 2.
@@ -40,7 +49,16 @@ import chip_smoke
 
 # mode: (sources, C entry points, timed calls per turn)
 MODES = {"attn": (("decode_attention.cu", "int8_kv.cu"), ("pmt_decode_attention", "pmt_int8_attention"), 50),
-         "k7": (("decode_step.cu",), ("pmt_decode_step_workspace", "pmt_decode_step"), 20)}
+         "k7": (("decode_step.cu",), ("pmt_decode_step_workspace", "pmt_decode_step"), 20),
+         "head-mel": (("greedy_head.cu", "mel.cu"), (), 30)}
+
+# the C interfaces of the two-pass greedy head and the CUDA-core log-mel kernel
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_LEGACY = {"pmt_greedy_argmax_tied": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P], "pmt_greedy_chunk_rows": [],
+           "pmt_greedy_argmax_untied": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P], "pmt_greedy_untied_cols": [_I],
+           "pmt_log_mel": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]}
+_CURRENT = ("pmt_greedy_argmax", "pmt_greedy_split", "pmt_greedy_fits", "pmt_log_mel", "pmt_log_mel_pass_cols",
+            "pmt_log_mel_k_step")
 
 
 def build_lib(csrc: Path, out_dir: Path, sources, entries):
@@ -119,6 +137,85 @@ def _cases(dev):
     return out
 
 
+def _bind_head_mel(lib) -> bool:
+    """Set the C signatures of a head-mel library; True for this tree's
+    interface, False for the legacy one (``_LEGACY``)."""
+    from pytorch_models_tpu_torch.ops import _build as b
+
+    current = hasattr(lib, "pmt_greedy_argmax")
+    for name, argtypes in ({n: b._SIGNATURES[n] for n in _CURRENT} if current else _LEGACY).items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    return current
+
+
+def _legacy_head(lib, x, w, tied: bool):
+    """One call of the two-pass head through its own C interface."""
+    import torch
+
+    from pytorch_models_tpu_torch.ops import _build as b
+
+    (bs, d), v, code = x.shape, (w.shape[0] if tied else w.shape[1]), b.dtype_code(x)
+    n_chunks = -(-v // (lib.pmt_greedy_chunk_rows() if tied else lib.pmt_greedy_untied_cols(code)))
+    pv = torch.empty((bs, n_chunks), dtype=torch.float32, device=x.device)
+    pi = torch.empty((bs, n_chunks), dtype=torch.int32, device=x.device)
+    out = torch.empty((bs,), dtype=torch.int64, device=x.device)
+    fn = lib.pmt_greedy_argmax_tied if tied else lib.pmt_greedy_argmax_untied
+    b.check("legacy greedy head", fn(x.data_ptr(), w.data_ptr(), pv.data_ptr(), pi.data_ptr(), out.data_ptr(), bs, v,
+                                     d, n_chunks, code, b.stream_ptr(x)))
+    return out
+
+
+def _legacy_mel(lib, wav):
+    """One call of the CUDA-core log-mel kernel (80 mels) through its own C interface."""
+    import torch
+
+    from pytorch_models_tpu_torch.models.audio.spectrogram import reflect_pad
+    from pytorch_models_tpu_torch.ops import _build as b
+    from pytorch_models_tpu_torch.ops.mel import _device_constants
+
+    xp = reflect_pad(wav, 200)
+    bs, lp = xp.shape
+    n_frames = (lp - 400) // 160 + 1
+    w_re, w_im, filt = _device_constants(400, 80, 16_000, wav.device)
+    out = torch.empty((bs, 80, n_frames), dtype=torch.float32, device=wav.device)
+    b.check("legacy log-mel", lib.pmt_log_mel(xp.data_ptr(), w_re.data_ptr(), w_im.data_ptr(), filt.data_ptr(),
+                                              out.data_ptr(), bs, lp, n_frames, 400, 160, 201, 80, b.stream_ptr(wav)))
+    return out
+
+
+def _head_mel_cases(dev, libs: dict, current: dict):
+    """(name, {turn: [call]}) at chip_smoke.py's K4 and K5 shapes; each
+    turn's call goes through this tree's wrapper or the legacy interface."""
+    import torch
+
+    from pytorch_models_tpu_torch.ops import greedy_head
+    from pytorch_models_tpu_torch.ops.mel import log_mel_spectrogram
+
+    g = torch.Generator(device=dev).manual_seed(chip_smoke.SEED + 31)
+    out = []
+
+    def head_calls(x, w, tied):
+        new = greedy_head.greedy_argmax_tied if tied else greedy_head.greedy_argmax
+        return {turn: [lambda: new(x, w)] if current[turn] else [lambda t=turn: _legacy_head(libs[t], x, w, tied)]
+                for turn in libs}
+
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).removeprefix("torch.")
+        for what, tied, v, d, batches in (("GPT-2 tied", True, 50257, 768, (8, 16, 32)),
+                                          ("Whisper tied", True, 51865, 512, (8,)),
+                                          ("T5 untied", False, 32128, 768, (8, 16, 32))):
+            w = torch.randn(*((v, d) if tied else (d, v)), generator=g, device=dev).to(dtype)
+            for bs in batches:
+                x = torch.randn(bs, d, generator=g, device=dev).to(dtype)
+                out.append((f"K4 {what} V={v} d={d} B={bs} {dn}", head_calls(x, w, tied)))
+    wav = torch.from_numpy(chip_smoke._waveforms(8, [30.0] * 8, chip_smoke.SEED + 2)).to(dev)
+    out.append(("K5 log-mel B=8 x 30 s 80 mels float32",
+                {turn: [lambda: log_mel_spectrogram(wav)] if current[turn] else [lambda t=turn: _legacy_mel(libs[t], wav)]
+                 for turn in libs}))
+    return out
+
+
 def _k7_cases(dev):
     """(name, [call]) for every K7 variant of chip_smoke.py, bf16 and fp32."""
     import torch
@@ -141,8 +238,8 @@ def main() -> int:
     import torch
 
     argv = sys.argv[1:]
-    mode = "k7" if argv[:1] == ["--k7"] else "attn"
-    argv = argv[1:] if mode == "k7" else argv
+    mode = {"--k7": "k7", "--head-mel": "head-mel"}.get(argv[0] if argv else "", "attn")
+    argv = argv[1:] if mode != "attn" else argv
     if len(argv) != 1:
         print(__doc__, file=sys.stderr)
         return 2
@@ -172,12 +269,18 @@ def main() -> int:
         _build._lib = libs[turn]
         decode_step._STAGED = staged[turn]
 
+    if mode == "head-mel":
+        current = {turn: _bind_head_mel(lib) for turn, lib in libs.items()}
+        cases = _head_mel_cases(dev, libs, current)
+    else:
+        cases = (_k7_cases if mode == "k7" else _cases)(dev)
     res = {}
-    for name, fns in (_k7_cases if mode == "k7" else _cases)(dev):
+    for name, fns in cases:
         t = {}
         for turn in ("base", "new", "new", "base"):
             use(turn)
-            t.setdefault(turn, []).append(chip_smoke._time_ms(fns, iters) * 1e3)
+            calls = fns[turn] if isinstance(fns, dict) else fns
+            t.setdefault(turn, []).append(chip_smoke._time_ms(calls, iters) * 1e3)
         res[name] = {k: sum(v) / len(v) for k, v in t.items()}
         print(f"{name}: base {t['base'][0]:.2f} / {t['base'][1]:.2f} us, new {t['new'][0]:.2f} / {t['new'][1]:.2f} "
               f"us [{card}]")

@@ -241,38 +241,12 @@ __device__ __forceinline__ long long globaltimer() {
     return t;
 }
 
-// Bulk asynchronous copies global -> shared (cp.async.bulk: the SM's copy
-// engine moves a contiguous run of 16-byte multiples; one instruction, no
-// per-thread issue slots), completing on a shared-memory mbarrier that
-// counts the bytes.
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-    return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar)) : "memory");
-}
-// the one arrival of the barrier's phase, expecting `bytes` of copies
-__device__ __forceinline__ void mbar_expect(unsigned long long* bar, unsigned bytes) {
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes)
-                 : "memory");
-}
-__device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned parity) {
-    unsigned done = 0;
-    while (!done)
-        asm volatile(
-            "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n selp.u32 %0, 1, 0, p;\n}\n"
-            : "=r"(done)
-            : "r"(smem_u32(bar)), "r"(parity)
-            : "memory");
-}
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned bytes, unsigned long long* bar) {
-    asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
-                     smem_u32(dst)),
-                 "l"(src), "r"(bytes), "r"(smem_u32(bar))
-                 : "memory");
-}
-// shared memory read by threads is about to be written by the copy engine
-__device__ __forceinline__ void fence_async_shared() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
+// bulk copies: pmt::bulk_copy and the mbarrier helpers (common.cuh)
+using pmt::bulk_copy;
+using pmt::fence_async_shared;
+using pmt::mbar_expect;
+using pmt::mbar_init;
+using pmt::mbar_wait;
 
 __device__ __forceinline__ bool better(float s, int i, float bs, int bi) {
     return s > bs || (s == bs && i < bi);

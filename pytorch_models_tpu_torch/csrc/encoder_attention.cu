@@ -74,9 +74,14 @@ struct Cfg {
     static_assert(D % 16 == 0, "head width must be a multiple of 16");
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
+using pmt::ldmatrix_x4;
+using pmt::ldmatrix_x4_trans;
+using pmt::mma_3xtf32;
+using pmt::mma_bf16;
+using pmt::mma_tf32;
+using pmt::smem_addr;
+using pmt::split_tf32;
+using pmt::to_tf32;
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src), "r"(src_bytes));
@@ -96,53 +101,6 @@ __device__ __forceinline__ void load_rows(T* dst, const T* src, int ld, int r0, 
         const bool ok = j < n_rows;
         cp_async16(dst + r * C::STRIDE + c, src + static_cast<int64_t>(ok ? j : 0) * ld + c, ok ? 16 : 0);
     }
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                 : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                 : "r"(smem_addr(p)));
-}
-
-// c (16x8 fp32) += a (16x16 bf16, row) * b (16x8 bf16, col)
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-        "{%0, %1, %2, %3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// c (16x8 fp32) += a (16x8 tf32, row) * b (8x8 tf32, col)
-__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a, const uint32_t* b) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-        "{%0, %1, %2, %3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// c += a * b in 3xTF32: the small terms first, then hi * hi
-__device__ __forceinline__ void mma_3xtf32(float* c, const uint32_t* ah, const uint32_t* al, const uint32_t* bh,
-                                           const uint32_t* bl) {
-    mma_tf32(c, al, bh);
-    mma_tf32(c, ah, bl);
-    mma_tf32(c, ah, bh);
-}
-
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-    uint32_t r;
-    asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-    return r;
-}
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-    hi = to_tf32(x);
-    lo = to_tf32(x - __uint_as_float(hi));
 }
 
 __device__ __forceinline__ float exp2_fast(float x) {

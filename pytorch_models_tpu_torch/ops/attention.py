@@ -28,11 +28,11 @@ USE_ENCODER_KERNEL: bool | None = None
 # argmax(x @ emb.T), or argmax(x @ w) over an untied (d, V) classifier,
 # without the (B, V) logits (ops/greedy_head.py); auto
 # engages at batch >= 4, the JAX package's rule. On an H100 80GB (700 W,
-# GPT-2 head, V=50257, d=768, bf16) the kernel took 71.0 us at B=1 against
-# 50.7 us for the head matmul + argmax it replaces, and 85.0 us against
-# 121.6 us at B=8 (chip_smoke.py's greedy-head phase); the crossover
-# between is not measured. In fp32 it lost at both (129.7 vs 70.9 us,
-# 142.7 vs 109.5 us).
+# GPT-2 head, V=50257, d=768; chip_smoke.py's greedy-head phase) the kernel
+# took 30.9 us in bf16 at B=1, 8 and 16 and 37.1 at B=32, against 48.5,
+# 121.1, 116.9 and 124.6 us for the head matmul + argmax it replaces; in
+# fp32 60.2 us at B=1 and 8 against 70.2 and 108.1, but 123.1 against
+# 101.9 at B=32.
 USE_GREEDY_HEAD: bool | None = None
 # the whole greedy decode step in one kernel (ops/decode_step.py): layer
 # stack [+ cross-attention] + final norm + greedy head. Auto takes

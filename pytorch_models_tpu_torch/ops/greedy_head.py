@@ -4,11 +4,12 @@ materialising the logits (PyTorch port of
 
 :func:`greedy_argmax_tied` (a ``(V, d)`` tied embedding, GPT-2, Whisper) and
 :func:`greedy_argmax` (an untied ``(d, V)`` classifier, T5, read in its own
-layout) launch the hand-written CUDA kernels of ``csrc/greedy_head.cu`` on
-CUDA tensors and run their plain versions on CPU tensors. In bf16 the
-fp32-accumulated scores are rounded to bf16 before comparing, as the logits
-of a bf16 head matmul would be; ties go to the lowest index, like
-``jnp.argmax``.
+layout) launch the hand-written CUDA kernel of ``csrc/greedy_head.cu`` (one
+launch a call, the products on the tensor cores, the head read once for the
+whole batch) on CUDA tensors and run their plain versions on CPU tensors.
+In bf16 the fp32-accumulated scores are rounded to bf16 before comparing,
+as the logits of a bf16 head matmul would be; ties go to the lowest index,
+like ``jnp.argmax``.
 """
 
 from __future__ import annotations
@@ -21,8 +22,9 @@ from . import _build
 def greedy_head_fits(batch: int, w: torch.Tensor, tied: bool) -> bool:
     """Whether the CUDA kernel serves ``batch`` rows against the head ``w``
     (tied ``(V, d)`` or untied ``(d, V)``) on ``w``'s device: asks the
-    kernel's own planner, since its first pass holds the rows in shared
-    memory. A CPU tensor always fits (the wrapper runs the plain version)."""
+    kernel's own planner (which streams the rows with the head, so any batch
+    of a float32 or bfloat16 head fits). A CPU tensor always fits (the
+    wrapper runs the plain version)."""
     if not w.is_cuda:
         return True
     if w.dtype not in (torch.float32, torch.bfloat16):
@@ -50,27 +52,61 @@ def greedy_argmax_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return _argmax_scores(x, torch.matmul(x.float(), w.float()))
 
 
+def greedy_head_ranges(batch: int, w: torch.Tensor, tied: bool) -> list[int]:
+    """The first vocab row of each CTA's range in a CUDA call at this shape:
+    the kernel's planner (``pmt_greedy_split``) gives the CTA count ``G``
+    and the rows ``N`` of a unit; CTA ``i`` owns the units
+    ``[i * U // G, (i + 1) * U // G)``, ``U = ceil(V / N)``."""
+    import ctypes
+
+    v = w.shape[0] if tied else w.shape[1]
+    split = (ctypes.c_int * 2)()
+    with torch.cuda.device(w.device):
+        code = _build.load_library().pmt_greedy_split(batch, v, _build.dtype_code(w), int(tied),
+                                                      ctypes.addressof(split))
+    _build.check("pmt_greedy_split", code)
+    grid, unit = split
+    units = -(-v // unit)
+    return [unit * (i * units // grid) for i in range(grid)]
+
+
+# per (device, stream): 1 + B int64 words, zero; every call leaves them zero
+# (word 0 the CTAs' ticket, then one (score, index) key per batch row)
+_SCRATCH: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _scratch(x: torch.Tensor) -> torch.Tensor:
+    key = (x.device.index, _build.stream_ptr(x))
+    buf = _SCRATCH.get(key)
+    if buf is None or buf.numel() < x.shape[0] + 1:
+        buf = _SCRATCH[key] = torch.zeros(max(x.shape[0], 64) + 1, dtype=torch.int64, device=x.device)
+    return buf
+
+
+def _launch(name: str, x: torch.Tensor, w: torch.Tensor, tied: bool) -> torch.Tensor:
+    req = _build.require
+    req(x.ndim == 2 and w.ndim == 2 and x.shape[1] == w.shape[1 if tied else 0],
+        f"{name}: x (B, d), " + ("emb (V, d)" if tied else "w (d, V)"))
+    req(x.dtype == w.dtype, f"{name}: x and the head must share a dtype")
+    req(x.dtype in (torch.float32, torch.bfloat16), f"{name}: float32 or bfloat16 only, got {x.dtype}")
+    req(w.is_cuda and x.is_contiguous() and w.is_contiguous(), f"{name}: contiguous CUDA tensors only")
+    b, d = x.shape
+    v = w.shape[0] if tied else w.shape[1]
+    lib = _build.load_library()
+    req(b >= 1 and lib.pmt_greedy_fits(b, d, _build.dtype_code(x), int(tied)), f"{name}: batch {b} x width {d} "
+        "is not served")
+    out = torch.empty((b,), dtype=torch.int64, device=x.device)
+    code = lib.pmt_greedy_argmax(x.data_ptr(), w.data_ptr(), _scratch(x).data_ptr(), out.data_ptr(), b, v, d,
+                                 _build.dtype_code(x), int(tied), _build.stream_ptr(x))
+    _build.check("pmt_greedy_argmax", code)
+    return out
+
+
 def greedy_argmax_tied(x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
     """``x`` (B, d), ``emb`` (V, d) -> (B,) int64 = argmax(x @ emb.T, axis=-1)."""
     if not x.is_cuda:
         return greedy_argmax_tied_plain(x, emb)
-    req = _build.require
-    req(x.ndim == 2 and emb.ndim == 2 and x.shape[1] == emb.shape[1], "greedy_argmax_tied: x (B, d), emb (V, d)")
-    req(x.dtype == emb.dtype, "greedy_argmax_tied: x and emb must share a dtype")
-    req(emb.is_cuda and x.is_contiguous() and emb.is_contiguous(),
-        "greedy_argmax_tied: contiguous CUDA tensors only")
-    b, d = x.shape
-    v = emb.shape[0]
-    lib = _build.load_library()
-    req(lib.pmt_greedy_fits(b, d, _build.dtype_code(x), 1), f"greedy_argmax_tied: batch {b} x width {d} exceeds "
-        "shared memory")
-    n_chunks = -(-v // lib.pmt_greedy_chunk_rows())
-    part_val = torch.empty((b, n_chunks), dtype=torch.float32, device=x.device)
-    part_idx = torch.empty((b, n_chunks), dtype=torch.int32, device=x.device)
-    out = torch.empty((b,), dtype=torch.int64, device=x.device)
-    code = lib.pmt_greedy_argmax_tied(x.data_ptr(), emb.data_ptr(), part_val.data_ptr(), part_idx.data_ptr(),
-                                      out.data_ptr(), b, v, d, n_chunks, _build.dtype_code(x), _build.stream_ptr(x))
-    _build.check("pmt_greedy_argmax_tied", code)
+    out = _launch("greedy_argmax_tied", x, emb, tied=True)
     greedy_argmax_tied.launches += 1
     return out
 
@@ -83,22 +119,7 @@ def greedy_argmax(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     (an untied classifier head, e.g. T5's; ``w`` is read as it lies)."""
     if not x.is_cuda:
         return greedy_argmax_plain(x, w)
-    req = _build.require
-    req(x.ndim == 2 and w.ndim == 2 and x.shape[1] == w.shape[0], "greedy_argmax: x (B, d), w (d, V)")
-    req(x.dtype == w.dtype, "greedy_argmax: x and w must share a dtype")
-    req(w.is_cuda and x.is_contiguous() and w.is_contiguous(), "greedy_argmax: contiguous CUDA tensors only")
-    b, d = x.shape
-    v = w.shape[1]
-    lib = _build.load_library()
-    cols = lib.pmt_greedy_untied_cols(_build.dtype_code(x))
-    req(lib.pmt_greedy_fits(b, d, _build.dtype_code(x), 0), f"greedy_argmax: width {d} exceeds shared memory")
-    n_chunks = -(-v // cols)
-    part_val = torch.empty((b, n_chunks), dtype=torch.float32, device=x.device)
-    part_idx = torch.empty((b, n_chunks), dtype=torch.int32, device=x.device)
-    out = torch.empty((b,), dtype=torch.int64, device=x.device)
-    code = lib.pmt_greedy_argmax_untied(x.data_ptr(), w.data_ptr(), part_val.data_ptr(), part_idx.data_ptr(),
-                                        out.data_ptr(), b, v, d, n_chunks, _build.dtype_code(x), _build.stream_ptr(x))
-    _build.check("pmt_greedy_argmax_untied", code)
+    out = _launch("greedy_argmax", x, w, tied=False)
     greedy_argmax.launches += 1
     return out
 

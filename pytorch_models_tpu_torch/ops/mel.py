@@ -2,9 +2,12 @@
 
 Windowing + real DFT + |·|² + mel filterbank + log10 in one pass:
 :func:`log_mel_spectrogram` launches the hand-written CUDA kernel
-(``csrc/mel.cu``) on CUDA tensors and runs :func:`log_mel_spectrogram_plain`
-on CPU tensors. The rFFT is two products with Hann-folded DFT bases, as in
-the JAX kernel; the bases are built in float64 and cast to fp32 once. The
+(``csrc/mel.cu``: the DFT as 3xTF32 tensor-core products, the mel product
+over each filter's band) on CUDA tensors and runs
+:func:`log_mel_spectrogram_plain` on CPU tensors. The rFFT is two products
+with Hann-folded DFT bases, as in the JAX kernel; the bases are built in
+float64 and cast to fp32 once, and for the kernel interleaved (re, im) per
+bin and split into TF32 hi and lo parts once (:func:`_kernel_constants`). The
 JAX kernel's 128-lane and 8-row padding of the bases is a TPU layout rule
 and is not carried over. Everything is fp32. The global dynamic-range clip
 needs an all-frame max and stays outside (``WhisperPreprocessor``).
@@ -53,15 +56,103 @@ def _device_constants(n_fft: int, n_mels: int, sample_rate: int, device: torch.d
     return tuple(torch.from_numpy(a).to(device) for a in _dft_constants(n_fft, n_mels, sample_rate))
 
 
+def _split_tf32(a: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """fp32 ``a`` as ``hi + lo``, both TF32 values (10 stored mantissa bits)
+    rounded to nearest with ties away from zero, as ``cvt.rna.tf32.f32``
+    rounds; ``hi + lo`` is ``a`` to about 2^-22 of ``|a|``."""
+
+    def rna(v: np.ndarray) -> np.ndarray:
+        u = np.ascontiguousarray(v, dtype=np.float32).view(np.uint32)
+        return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+    hi = rna(a)
+    return hi, rna(a.astype(np.float32) - hi)
+
+
+def _mel_bands(filters_t: np.ndarray) -> np.ndarray:
+    """(n_mels, 2) int32 ``[lo, hi)`` per filter of ``filters_t`` (n_freq,
+    n_mels): the contiguous run of its nonzero weights (``[0, 0)`` for a
+    filter without any)."""
+    nz = filters_t != 0
+    bands = np.zeros((filters_t.shape[1], 2), np.int32)
+    for m in range(filters_t.shape[1]):
+        (idx,) = np.nonzero(nz[:, m])
+        if idx.size:
+            bands[m] = idx[0], idx[-1] + 1
+    return bands
+
+
+def _interleaved_bases(n_fft: int, n_mels: int, sample_rate: int, pass_cols: int,
+                       k_step: int) -> np.ndarray:
+    """The DFT bases as the kernel reads them: (ncol, kp) fp32 with row
+    ``2k`` = ``w_re[:, k]``, row ``2k + 1`` = ``w_im[:, k]`` (so an mma C
+    fragment's column pair is (re, im) of one bin), zero past ``2 * n_freq``
+    rows (``ncol`` a multiple of ``pass_cols``) and past ``n_fft`` samples
+    (``kp`` a multiple of ``k_step``)."""
+    w_re, w_im, _ = _dft_constants(n_fft, n_mels, sample_rate)
+    n_freq = w_re.shape[1]
+    ncol = -(-2 * n_freq // pass_cols) * pass_cols
+    kp = -(-n_fft // k_step) * k_step
+    bt = np.zeros((ncol, kp), np.float32)
+    bt[0:2 * n_freq:2, :n_fft] = w_re.T
+    bt[1:2 * n_freq:2, :n_fft] = w_im.T
+    return bt
+
+
+def _stage_images(hi: np.ndarray, lo: np.ndarray, pass_cols: int, k_step: int) -> np.ndarray:
+    """The kernel's ring stages as it finds them in shared memory, one
+    contiguous run each (a single bulk copy): stage ``s`` (pass ``s //
+    (kp / k_step)``, samples from ``s % (kp / k_step) * k_step``) holds the
+    pass's ``pass_cols`` rows of ``hi``, then of ``lo``, ``k_step`` samples
+    each, with the 16-byte chunk ``c`` of row ``r`` at ``c ^ ((r * cpr / 8)
+    & (cpr - 1))`` (``cpr = k_step / 4`` chunks a row): (stages, 2,
+    pass_cols, k_step) fp32."""
+    ncol, kp = hi.shape
+    cpr = k_step // 4
+    parts = np.stack([hi, lo]).reshape(2, ncol // pass_cols, pass_cols, kp // k_step, cpr, 4)
+    rows = np.arange(pass_cols)[:, None]
+    phys = np.arange(cpr)[None, :] ^ ((rows * cpr // 8) & (cpr - 1))  # (pass_cols, cpr)
+    out = np.empty_like(parts)
+    out[:, :, rows, :, phys] = parts[:, :, rows, :, np.arange(cpr)[None, :]]
+    # (2, passes, pass_cols, kslabs, cpr, 4) -> (passes, kslabs, 2, pass_cols, cpr * 4)
+    return np.ascontiguousarray(out.transpose(1, 3, 0, 2, 4, 5).reshape(-1, 2, pass_cols, k_step))
+
+
+@functools.lru_cache(maxsize=8)
+def _kernel_constants(n_fft: int, n_mels: int, sample_rate: int, device: torch.device, pass_cols: int,
+                      k_step: int):
+    """The kernel's inputs besides the waveform, on ``device``: the
+    interleaved bases split into TF32 hi and lo arrays (once, on the host)
+    and laid out as the ring's stage images, the (n_freq, n_mels) filters,
+    their bands; and the bases' padded (ncol, kp)."""
+    hi, lo = _split_tf32(_interleaved_bases(n_fft, n_mels, sample_rate, pass_cols, k_step))
+    filt = _dft_constants(n_fft, n_mels, sample_rate)[2]
+    tiles, filt_t, bands = (torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                            for a in (_stage_images(hi, lo, pass_cols, k_step), filt, _mel_bands(filt)))
+    return tiles, filt_t, bands, hi.shape
+
+
+def _mel_banded(power: torch.Tensor, filt: torch.Tensor, bands: np.ndarray) -> torch.Tensor:
+    """``power @ filt`` summed over each filter's band only: (..., n_freq) ->
+    (..., n_mels); the skipped terms are exact zeros."""
+    cols = [power[..., lo:hi] @ filt[lo:hi, m] for m, (lo, hi) in enumerate(bands.tolist())]
+    return torch.stack(cols, dim=-1)
+
+
 def log_mel_spectrogram_plain(x: torch.Tensor, n_fft: int = 400, hop_length: int = 160, n_mels: int = 80,
-                              sample_rate: int = 16_000) -> torch.Tensor:
+                              sample_rate: int = 16_000, banded: bool = False) -> torch.Tensor:
     """The kernel's math in plain PyTorch: (..., L) -> (..., n_mels, n_frames)
-    log10 mel power, -inf where the mel power is 0."""
+    log10 mel power, -inf where the mel power is 0. ``banded``: the mel
+    product sums each filter over its band only, as the kernel does."""
     w_re, w_im, filt = _device_constants(n_fft, n_mels, sample_rate, x.device)
     frames = frame_signal(x.float(), n_fft, hop_length)  # (..., F, n_fft) view
     re = torch.matmul(frames, w_re)
     im = torch.matmul(frames, w_im)
-    mel = torch.matmul(re * re + im * im, filt)
+    power = re * re + im * im
+    if banded:
+        mel = _mel_banded(power, filt, _mel_bands(_dft_constants(n_fft, n_mels, sample_rate)[2]))
+    else:
+        mel = torch.matmul(power, filt)
     return (torch.log(mel.clamp_min(0.0)) * _INV_LN10).transpose(-1, -2)
 
 
@@ -76,15 +167,17 @@ def log_mel_spectrogram(x: torch.Tensor, n_fft: int = 400, hop_length: int = 160
     req(x.dtype == torch.float32, f"log_mel_spectrogram: the waveform must be float32, got {x.dtype}")
     req(x.is_contiguous(), "log_mel_spectrogram: the waveform must be contiguous")
     req(x.ndim >= 1 and x.shape[-1] > n_fft // 2, "log_mel_spectrogram: the waveform is shorter than the reflect pad")
+    req(hop_length % 4 == 0, f"log_mel_spectrogram: the kernel takes a hop that is a multiple of 4, got {hop_length}")
     *batch, length = x.shape
     xp = reflect_pad(x.reshape(-1, length), n_fft // 2)  # (B, L + n_fft), contiguous
     b, lp = xp.shape
     n_frames = (lp - n_fft) // hop_length + 1
-    w_re, w_im, filt = _device_constants(n_fft, n_mels, sample_rate, x.device)
-    out = torch.empty((b, n_mels, n_frames), dtype=torch.float32, device=x.device)
     lib = _build.load_library()
-    code = lib.pmt_log_mel(xp.data_ptr(), w_re.data_ptr(), w_im.data_ptr(), filt.data_ptr(), out.data_ptr(),
-                           b, lp, n_frames, n_fft, hop_length, w_re.shape[1], n_mels, _build.stream_ptr(x))
+    tiles, filt, bands, (ncol, kp) = _kernel_constants(n_fft, n_mels, sample_rate, x.device,
+                                                        lib.pmt_log_mel_pass_cols(), lib.pmt_log_mel_k_step())
+    out = torch.empty((b, n_mels, n_frames), dtype=torch.float32, device=x.device)
+    code = lib.pmt_log_mel(xp.data_ptr(), tiles.data_ptr(), filt.data_ptr(), bands.data_ptr(), out.data_ptr(), b,
+                           lp, n_frames, n_fft, hop_length, filt.shape[0], n_mels, ncol, kp, _build.stream_ptr(x))
     _build.check("pmt_log_mel", code)
     log_mel_spectrogram.launches += 1
     return out.reshape(*batch, n_mels, n_frames)

@@ -24,7 +24,14 @@ from pytorch_models_tpu_torch.ops.encoder_attention import (
     encoder_attention_plain,
 )
 from pytorch_models_tpu_torch.ops.gather import gather_rows, gather_rows_plain
-from pytorch_models_tpu_torch.ops.greedy_head import greedy_argmax, greedy_argmax_plain, greedy_argmax_tied
+from pytorch_models_tpu_torch.ops.greedy_head import (
+    greedy_argmax,
+    greedy_argmax_plain,
+    greedy_argmax_tied,
+    greedy_argmax_tied_plain,
+    greedy_head_fits,
+    greedy_head_ranges,
+)
 from pytorch_models_tpu_torch.ops.mel import log_mel_spectrogram, log_mel_spectrogram_plain
 from pytorch_models_tpu_torch.transformer import LayerConfig, layer_init, mha_apply, mha_init
 
@@ -169,14 +176,113 @@ def test_greedy_argmax_untied_matches_plain(cuda, dtype, v, b, d):
 
 
 def test_greedy_head_gate_refuses_what_the_kernel_cannot_serve(cuda):
-    """Auto takes the kernel only for a batch its planner accepts: the tied
-    kernel holds every row in shared memory (200 rows of 768 do not fit), the
-    untied one a group of rows at a time (any batch)."""
+    """Auto takes the kernel only for what its planner accepts. Since the
+    kernel streams the batch rows with the head (no longer holding them all
+    in shared memory), every batch of a float32 or bfloat16 head is served,
+    200 rows of 768 included; a float16 head is not (no instantiation), nor
+    is a batch under the JAX package's gate of 4 rows."""
     emb, cls = torch.zeros(1000, 768, device=cuda), torch.zeros(768, 1000, device=cuda)
-    assert _attn.use_greedy_head(8, emb) and not _attn.use_greedy_head(200, emb)
+    assert _attn.use_greedy_head(8, emb) and _attn.use_greedy_head(200, emb)
     assert _attn.use_greedy_head(200, cls, tied=False) and not _attn.use_greedy_head(2, cls, tied=False)
+    assert not _attn.use_greedy_head(8, emb.half()) and not _attn.use_greedy_head(8, cls.half(), tied=False)
     with pytest.raises(ValueError):
-        greedy_argmax_tied(torch.zeros(200, 768, device=cuda), emb)
+        greedy_argmax_tied(torch.zeros(8, 768, device=cuda).half(), emb.half())
+    with pytest.raises(ValueError):
+        greedy_argmax(torch.zeros(8, 768, device=cuda).half(), cls.half())
+
+
+def _parent_greedy_fits(b: int, d: int, dtype: torch.dtype, tied: bool, cap: int) -> bool:
+    """The planner this kernel replaced (two passes, B rows held in shared
+    memory): its rules written out, to show that no shape it served is
+    refused now. Tied: B x d fp32 rows plus 8 (value, index) slots per row.
+    Untied: a 4-stage ring of 64 rows x 128 bytes plus the rows of a block
+    (8, or 32 where they fit, as T) padded to 64, or the 8 warps' fp32 sums."""
+    if tied:
+        return (b * d + 2 * 8 * b) * 4 <= cap
+    w_cols = 128 // (4 if dtype == torch.float32 else 2)
+
+    def smem(nb):
+        d_pad = -(-d // 64) * 64
+        return max(4 * 64 * 128 + nb * d_pad * (128 // w_cols), 8 * nb * w_cols * 4)
+
+    rows = 8 if b <= 8 else (32 if smem(32) <= cap else 8)
+    return smem(min(rows, b)) <= cap
+
+
+def test_greedy_head_planner_accepts_everything_the_parent_did(cuda):
+    """For B <= 64 at d in {512, 768, 1024, 1280, 1600}, both layouts and
+    dtypes: every shape the parent's planner accepted is accepted (and every
+    one of them, since the batch rows are streamed)."""
+    cap = torch.cuda.get_device_properties(cuda).shared_memory_per_block_optin
+    refused = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for tied in (True, False):
+            for d in (512, 768, 1024, 1280, 1600):
+                w = torch.zeros((1000, d) if tied else (d, 1000), dtype=dtype, device=cuda)
+                for b in range(1, 65):
+                    if _parent_greedy_fits(b, d, dtype, tied, cap) and not greedy_head_fits(b, w, tied):
+                        refused.append((b, d, dtype, tied))
+                    assert greedy_head_fits(b, w, tied)
+    assert not refused
+
+
+def _greedy_case(cuda, dtype, tied, b, v, d, seed):
+    """x (b, d) and a head whose rows (tied) or columns (untied) hold forced
+    ties for the first batch rows: across an mma's 16-row tile edge (15/16),
+    across two CTAs' vocab ranges, across a 64-row tile edge (63/64) and on
+    the last row of a ragged vocab. Returns x, the head, {batch row: lowest
+    tied index}."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn(b, d, generator=g, device=cuda).to(dtype)
+    rows = torch.randn(v, d, generator=g, device=cuda).to(dtype)
+    starts = greedy_head_ranges(b, rows if tied else rows.t(), tied)
+    edge = starts[len(starts) // 2] if len(starts) > 1 else 16
+    pairs = [(15, 16), (edge - 1, edge), (63, 64), (v // 2, v - 1)]
+    ties = {}
+    for r, (lo, hi) in enumerate(pairs[:b]):
+        rows[lo] = rows[hi] = x[r] * 2
+        ties[r] = lo
+    return x, (rows if tied else rows.t().contiguous()), ties
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tied", [True, False])
+@pytest.mark.parametrize("v", [1000, 32128, 50257, 51865])
+@pytest.mark.parametrize("d", [512, 768])
+def test_greedy_head_matches_plain_at_each_batch(cuda, dtype, tied, v, d):
+    """K4 at B in {1, 4, 8, 9, 16, 32, 64}: forced ties go to the lowest
+    index (across a 16-row tile edge, two CTAs' ranges, a 64-row tile edge,
+    a ragged vocab's last row); elsewhere the kernel's pick scores within
+    summation noise (fp32, 1e-3) or one bf16 step of the top (bf16) of the
+    plain pick; one launch per call."""
+    for b in (1, 4, 8, 9, 16, 32, 64):
+        x, w, ties = _greedy_case(cuda, dtype, tied, b, v, d, seed=b)
+        fn, plain = (greedy_argmax_tied, greedy_argmax_tied_plain) if tied else (greedy_argmax, greedy_argmax_plain)
+        launches = fn.launches
+        got, ref = fn(x, w), plain(x, w)
+        assert fn.launches == launches + 1 and got.dtype == torch.int64 and got.shape == (b,)
+        assert {r: got[r].item() for r in ties} == ties
+        s = torch.matmul(x.float(), (w.float().t() if tied else w.float()))
+        if dtype == torch.bfloat16:
+            s = s.to(dtype).float()
+        rows = torch.arange(b, device=cuda)
+        tol = 1e-3 if dtype == torch.float32 else 2.0 ** -7 * s.max(-1).values.abs()
+        assert bool(((s[rows, ref] - s[rows, got]).abs() <= tol).all()), (b, got.tolist(), ref.tolist())
+    torch.cuda.synchronize()
+
+
+def test_greedy_head_passes_above_256_rows(cuda):
+    """A batch above 256 rows takes passes of 256 (one read of the head
+    each): B = 300 against the plain version, both layouts."""
+    for tied in (True, False):
+        x, w, ties = _greedy_case(cuda, torch.bfloat16, tied, 300, 5000, 512, seed=300)
+        got = (greedy_argmax_tied if tied else greedy_argmax)(x, w)
+        ref = (greedy_argmax_tied_plain if tied else greedy_argmax_plain)(x, w)
+        s = torch.matmul(x.float(), (w.float().t() if tied else w.float())).to(torch.bfloat16).float()
+        rows = torch.arange(300, device=cuda)
+        assert {r: got[r].item() for r in ties} == ties
+        assert bool(((s[rows, ref] - s[rows, got]).abs() <= 2.0 ** -7 * s.max(-1).values.abs()).all())
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("n_mels", [80, 128])
@@ -197,6 +303,32 @@ def test_log_mel_kernel_matches_plain(cuda, n_mels):
     torch.cuda.synchronize()
 
 
+@pytest.mark.parametrize("n_mels", [80, 128])
+@pytest.mark.parametrize("b", [1, 8])
+def test_log_mel_kernel_at_ragged_lengths(cuda, n_mels, b):
+    """K5 at a length that is no multiple of the hop (frames past the last
+    96-frame tile, samples past the waveform), a silent stretch and a tone,
+    B = 1 and 8: the -inf pattern equals the plain version's, kept values
+    within 2e-3, and the banded plain product agrees with the dense one."""
+    g = torch.Generator(device=cuda).manual_seed(20 + b)
+    n = 3 * 16000 + 77
+    t = torch.arange(n, device=cuda) / 16000
+    x = 0.3 * torch.randn(b, n, generator=g, device=cuda) + 0.2 * torch.sin(2 * torch.pi * 440 * t)
+    x[:, 16000:24000] = 0.0
+    launches = log_mel_spectrogram.launches
+    got, ref = log_mel_spectrogram(x, n_mels=n_mels), log_mel_spectrogram_plain(x, n_mels=n_mels)
+    assert log_mel_spectrogram.launches == launches + 1 and got.shape == (b, n_mels, n // 160 + 1)
+    assert torch.equal(torch.isneginf(got), torch.isneginf(ref)) and bool(torch.isneginf(ref).any())
+    assert not torch.isnan(got).any() and not torch.isposinf(got).any()
+    fin = torch.isfinite(ref)
+    keep = fin & (ref >= ref[fin].max() - 8)
+    assert (got - ref).abs()[keep].max().item() <= 2e-3
+    banded = log_mel_spectrogram_plain(x, n_mels=n_mels, banded=True)
+    assert torch.equal(torch.isneginf(banded), torch.isneginf(ref))
+    assert (banded - ref).abs()[fin].max().item() <= 1e-4
+    torch.cuda.synchronize()
+
+
 def test_kernel_wrappers_reject_unsupported_input(cuda):
     q = torch.zeros(1, 1, 144, device=cuda)  # head_dim 48 with 3 heads: no kernel instantiation
     with pytest.raises(ValueError):
@@ -210,6 +342,8 @@ def test_kernel_wrappers_reject_unsupported_input(cuda):
         log_mel_spectrogram(wav.bfloat16())
     with pytest.raises(ValueError):  # not contiguous
         log_mel_spectrogram(torch.zeros(16000, 2, device=cuda).t())
+    with pytest.raises(ValueError):  # a hop the kernel does not take
+        log_mel_spectrogram(wav, hop_length=162)
 
 
 @pytest.mark.parametrize("cached", [False, True])

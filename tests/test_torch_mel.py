@@ -75,6 +75,59 @@ def test_log_mel_plain_matches_jax_kernel_and_xla(n_mels):
     _assert_logmel_close(rfft, xla)
 
 
+@pytest.mark.parametrize("n_mels", [80, 128])
+def test_mel_bands_cover_exactly_the_nonzero_bins(n_mels):
+    """The kernel's band table: each filter's [lo, hi) holds its nonzero
+    weights and nothing else (contiguous, nonempty)."""
+    filt = mel._dft_constants(400, n_mels, 16000)[2]
+    bands = mel._mel_bands(filt)
+    assert bands.shape == (n_mels, 2) and bands.dtype == np.int32
+    for m, (lo, hi) in enumerate(bands.tolist()):
+        assert 0 <= lo < hi <= filt.shape[0]
+        assert np.all(filt[lo:hi, m] != 0) and not filt[:lo, m].any() and not filt[hi:, m].any()
+
+
+@pytest.mark.parametrize("n_mels", [80, 128])
+def test_log_mel_banded_plain_matches_jax_kernel(n_mels):
+    """The mel product over each filter's band only, as the CUDA kernel sums
+    it, against the JAX kernel in interpret mode (the -inf frames included)."""
+    x = _waves(65, 2, 24000)
+    got = mel.log_mel_spectrogram_plain(torch.from_numpy(x), n_mels=n_mels, banded=True).numpy()
+    with pltpu.force_tpu_interpret_mode():
+        kernel = np.asarray(jax_mel.log_mel_spectrogram(jnp.asarray(x), n_mels=n_mels))
+    _assert_logmel_close(got, kernel)
+    dense = mel.log_mel_spectrogram_plain(torch.from_numpy(x), n_mels=n_mels).numpy()
+    _assert_logmel_close(got, dense)
+
+
+def test_kernel_bases_split_into_tf32_hi_and_lo():
+    """The bases as the kernel reads them: interleaved (re_k, im_k) rows,
+    zero-padded to whole passes and k-steps; split into TF32 hi and lo
+    (low 13 bits zero) whose sum is the fp32 basis to 2^-22 relative; laid
+    out as the ring's stage images, each row's 16-byte chunks swizzled."""
+    w_re, w_im, _ = mel._dft_constants(400, 80, 16000)
+    bt = mel._interleaved_bases(400, 80, 16000, 208, 16)
+    assert bt.shape == (416, 400)
+    np.testing.assert_array_equal(bt[0:402:2], w_re.T)
+    np.testing.assert_array_equal(bt[1:402:2], w_im.T)
+    assert not bt[402:].any()
+    assert mel._interleaved_bases(100, 80, 16000, 208, 16).shape == (208, 112)
+    hi, lo = mel._split_tf32(bt)
+    assert hi.dtype == lo.dtype == np.float32
+    assert not (hi.view(np.uint32) & 0x1FFF).any() and not (lo.view(np.uint32) & 0x1FFF).any()
+    err = np.abs(hi.astype(np.float64) + lo.astype(np.float64) - bt.astype(np.float64))
+    assert np.all(err <= 2.0 ** -22 * np.abs(bt.astype(np.float64)))
+    assert np.abs(lo).max() > 0 and np.all(np.abs(lo) <= 2.0 ** -11 * np.abs(bt) + 1e-45)
+    tiles = mel._stage_images(hi, lo, 208, 16)  # 2 passes x 25 k-slabs
+    assert tiles.shape == (50, 2, 208, 16)
+    for stage in range(50):
+        p, k = divmod(stage, 25)
+        for part, src in enumerate((hi, lo)):
+            rows = src[p * 208:(p + 1) * 208, k * 16:(k + 1) * 16].reshape(208, 4, 4)
+            phys = np.arange(4)[None, :] ^ ((np.arange(208)[:, None] // 2) & 3)
+            np.testing.assert_array_equal(tiles[stage, part].reshape(208, 4, 4)[np.arange(208)[:, None], phys], rows)
+
+
 def test_log_mel_wrapper_is_plain_on_cpu_and_unbatched():
     x = torch.from_numpy(_waves(62, 1, 8000)[0])
     got = mel.log_mel_spectrogram(x)

@@ -331,6 +331,28 @@ def test_greedy_argmax_untied_matches_jax_ragged_vocab_and_tie():
     np.testing.assert_array_equal(greedy_argmax_plain(_t(x), _t(w)).numpy(), expected)
 
 
+@pytest.mark.parametrize("tied", [True, False])
+@pytest.mark.parametrize("b", [16, 32])
+def test_greedy_argmax_plain_matches_jax_above_the_fused_rows(tied, b):
+    """K4's plain versions at the per-op batches above the fused step's 8
+    rows: forced ties across the kernel's 16-row tile edge (15/16), its
+    128-row span (127/128) and on the last row of a ragged vocabulary."""
+    r = np.random.default_rng(43 + b)
+    d, v = 64, 1001
+    x = _randn(r, b, d)
+    rows = _randn(r, v, d)
+    for i, (lo, hi) in enumerate(((15, 16), (127, 128), (500, v - 1))):
+        rows[lo] = rows[hi] = 3.0 * x[i]
+    head = rows if tied else np.ascontiguousarray(rows.T)
+    jax_fn, fn, plain = ((jax_greedy_argmax_tied, greedy_argmax_tied, greedy_argmax_tied_plain) if tied
+                         else (jax_greedy_argmax, greedy_argmax, greedy_argmax_plain))
+    with pltpu.force_tpu_interpret_mode():
+        expected = np.asarray(jax_fn(jnp.asarray(x), jnp.asarray(head)))
+    np.testing.assert_array_equal(plain(_t(x), _t(head)).numpy(), expected)
+    np.testing.assert_array_equal(fn(_t(x), _t(head)).numpy(), expected)
+    assert expected[:3].tolist() == [15, 127, 500]
+
+
 def test_greedy_argmax_plain_bf16_rounds_scores():
     """bf16: scores round to bf16 before the argmax, so near-equal fp32
     scores tie and the lowest index wins (the JAX kernel's rule)."""
