@@ -559,19 +559,20 @@ def kernel_phases(dev, card: str) -> dict:
         print(f"phase kernel gather_rows {dn}: V=1024,50257 N=8 ids incl. out-of-range: max_abs_err={err} (exact) | "
               f"kernel {k3_ms * 1e3:.1f} us, plain {k3_plain * 1e3:.1f} us [{card}]")
 
-        # K4: V=50257, forced tie at rows 7 and 50000 for batch row 0; B=8 is the main path's batch, 16 and 32
-        # the per-op route's (batches above the fused step's 8 rows), each against what the batch gate
-        # (ops/attention.py use_greedy_head) chooses between: the kernel, or the model's own head matmul in its
-        # dtype + argmax
+        # K4: V=50257, forced tie at rows 7 and 50000 for batch row 0; B=8 is the main path's batch, 16 to 200
+        # the per-op route's (batches above the fused step's 8 rows; 64 and 200 above what the two-pass head
+        # held in shared memory at fp32), each against what the batch gate (ops/attention.py use_greedy_head)
+        # chooses between: the kernel, or the model's own head matmul in its dtype + argmax
         emb = rnd(50257, 768, dtype=dtype)
         parts, head1 = [], None
-        for nb in (8, 16, 32):
+        for nb in (8, 16, 32, 64, 200):
             x = rnd(nb, 768, dtype=dtype)
             emb[7] = emb[50000] = x[0] * 4
             e, decided = _check_greedy(f"greedy_argmax_tied B={nb} {dn}", x, emb, 7)
             k4 = _ab_ms([lambda x=x: greedy_argmax_tied(x, emb)], [lambda x=x: greedy_argmax_tied_plain(x, emb)], 50)
             head = _time_ms([lambda x=x: torch.argmax(torch.matmul(x, emb.t()), dim=-1)], 50)
-            r = _rec(e, *k4, (emb.numel() + x.numel()) * x.element_size(), 2 * nb * emb.numel(), dn)  # no single call
+            r = _rec(e, *k4, (emb.numel() + x.numel()) * x.element_size(), 2 * nb * emb.numel(), dn,
+                     tf32x3=True)  # no single call
             if nb == 8:
                 rec = res[("greedy_argmax_tied", dn)] = r
                 x1 = x[:1].contiguous()
@@ -619,7 +620,7 @@ def whisper_kernel_phases(dev, card: str) -> dict:
         decode_attention_plain,
     )
     from pytorch_models_tpu_torch.ops.greedy_head import greedy_argmax_tied, greedy_argmax_tied_plain
-    from pytorch_models_tpu_torch.ops.mel import log_mel_spectrogram, log_mel_spectrogram_plain
+    from pytorch_models_tpu_torch.ops.mel import _dft_constants, _mel_bands, log_mel_spectrogram, log_mel_spectrogram_plain
 
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
     res = {}
@@ -651,20 +652,20 @@ def whisper_kernel_phases(dev, card: str) -> dict:
     pre_err = _check_close("WhisperPreprocessor(fused=True)", pre, ref, (MEL_TOL / 4, 0.0))
     k5_ms, k5_plain = _ab_ms([lambda: log_mel_spectrogram(wav)], [lambda: log_mel_spectrogram_plain(wav)], 20)
     # waveform in, (8, 80, 3001) out; the DFT as the kernel computes it (3001 frames x 400 samples x 402 real
-    # outputs per row) plus the 201 -> 80 mel product; no single PyTorch call
-    k5_flops = 2 * 8 * 3001 * (400 * 402 + 201 * 80)
+    # outputs per row) plus the mel product over each filter's band (its nonzero weights); no single PyTorch
+    # call. The kernel runs the DFT as 3xTF32 on the tensor cores, so the kernels line takes the operations at
+    # three TF32 passes (as K1's fp32 rows do); the phase also prints the fp32 CUDA-core time of the same work
+    band = int(np.diff(_mel_bands(_dft_constants(400, 80, 16_000)[2]), axis=1).sum())
+    k5_flops = 2 * 8 * 3001 * (400 * 402 + band)
     k5_bytes = (wav.numel() + 8 * 80 * 3001) * 4
     rec = res[("log_mel_spectrogram", "float32")] = _rec(max(err, pre_err), k5_ms, k5_plain, k5_bytes, k5_flops,
-                                                         "float32")
-    # the bound in the kernels line is the fp32 CUDA-core one; the kernel runs its products as 3xTF32 on the
-    # tensor cores, whose bound (three TF32 passes over every operation, as K1's fp32 rows reckon it) is lower
-    tf32x3_ms = 3 * k5_flops / PEAK_TF32 * 1e3
+                                                         "float32", tf32x3=True)
     print(f"phase kernel log_mel_spectrogram float32: B=8 x 30 s (3001 frames), n_mels 80/128, -inf frames equal "
           f"({n_inf[80]}/{n_inf[128]} values), max |kernel - plain| where plain >= max-8: {err:.3g}, preprocessor "
           f"{pre_err:.3g} (tol {MEL_TOL}, {MEL_TOL / 4}) | n_mels 80 kernel {k5_ms * 1e3:.1f} us, plain "
-          f"{k5_plain * 1e3:.1f} us, bound {rec['bound_ms'] * 1e3:.1f} us (fp32 CUDA-core ops), "
-          f"{tf32x3_ms * 1e3:.1f} us (3xTF32 tensor-core ops), {k5_bytes / HBM_BYTES_PER_S * 1e6:.1f} us (bytes) "
-          f"[{card}]")
+          f"{k5_plain * 1e3:.1f} us, bound {rec['bound_ms'] * 1e3:.1f} us ({rec['bound_by']}: 3xTF32 tensor-core "
+          f"ops, the mel product over {band} band weights), {k5_flops / PEAK_FLOPS['float32'] * 1e6:.1f} us (fp32 "
+          f"CUDA-core ops), {k5_bytes / HBM_BYTES_PER_S * 1e6:.1f} us (bytes) [{card}]")
 
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).removeprefix("torch.")
@@ -704,7 +705,7 @@ def whisper_kernel_phases(dev, card: str) -> dict:
         e, decided = _check_greedy(f"greedy_argmax_tied (Whisper) {dn}", x, emb, 11)
         k4 = _ab_ms([lambda: greedy_argmax_tied(x, emb)], [lambda: greedy_argmax_tied_plain(x, emb)], 50)
         res[("greedy_argmax_tied", dn)] = _rec(e, *k4, (emb.numel() + x.numel()) * x.element_size(),
-                                               2 * 8 * emb.numel(), dn)
+                                               2 * 8 * emb.numel(), dn, tf32x3=True)
         print(f"phase kernel greedy_argmax_tied {dn} (Whisper): B=8 V=51865 d=512 tie->lowest ok, ids equal on "
               f"{decided}/8 decided rows, max score regret {e:.3g} | kernel {k4[0] * 1e3:.1f} us, plain "
               f"{k4[1] * 1e3:.1f} us [{card}]")
@@ -780,16 +781,17 @@ def t5_kernel_phases(dev, card: str) -> dict:
               f"({recs[1024]['bound_by']}), without the bias {no_bias[1024] * 1e3:.1f} us [{card}]")
 
         # K4-untied: the (d, V) classifier read as it lies, forced tie at columns 7 and 32000 for row 0; B=8 is
-        # the T5 main path's batch, 16 and 32 the per-op route's (batches above the fused step's 8 rows)
+        # the T5 main path's batch, 16 to 200 the per-op route's (batches above the fused step's 8 rows)
         w = rnd(768, 32128, dtype=dtype)
         parts = []
-        for nb in (8, 16, 32):
+        for nb in (8, 16, 32, 64, 200):
             x = rnd(nb, 768, dtype=dtype)
             w[:, 7] = w[:, 32000] = x[0] * 4
             e, decided = _check_greedy(f"greedy_argmax (untied) B={nb} {dn}", x, w, 7, untied=True)
             k4 = _ab_ms([lambda x=x: greedy_argmax(x, w)], [lambda x=x: greedy_argmax_plain(x, w)], 50)
             head = _time_ms([lambda x=x: torch.argmax(torch.matmul(x, w), dim=-1)], 50)
-            r = _rec(e, *k4, (w.numel() + x.numel()) * x.element_size(), 2 * nb * w.numel(), dn)  # no single call
+            r = _rec(e, *k4, (w.numel() + x.numel()) * x.element_size(), 2 * nb * w.numel(), dn,
+                     tf32x3=True)  # no single call
             if nb == 8:
                 rec = res[("greedy_argmax", dn)] = r
             else:

@@ -57,8 +57,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _LEGACY = {"pmt_greedy_argmax_tied": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P], "pmt_greedy_chunk_rows": [],
            "pmt_greedy_argmax_untied": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P], "pmt_greedy_untied_cols": [_I],
            "pmt_log_mel": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]}
-_CURRENT = ("pmt_greedy_argmax", "pmt_greedy_split", "pmt_greedy_fits", "pmt_log_mel", "pmt_log_mel_pass_cols",
-            "pmt_log_mel_k_step")
+_CURRENT = ("pmt_greedy_argmax", "pmt_greedy_split", "pmt_log_mel", "pmt_log_mel_pass_cols",
+            "pmt_log_mel_k_step", "pmt_log_mel_stage")
 
 
 def build_lib(csrc: Path, out_dir: Path, sources, entries):
@@ -202,9 +202,9 @@ def _head_mel_cases(dev, libs: dict, current: dict):
 
     for dtype in (torch.bfloat16, torch.float32):
         dn = str(dtype).removeprefix("torch.")
-        for what, tied, v, d, batches in (("GPT-2 tied", True, 50257, 768, (8, 16, 32)),
+        for what, tied, v, d, batches in (("GPT-2 tied", True, 50257, 768, (8, 16, 32, 64, 200)),
                                           ("Whisper tied", True, 51865, 512, (8,)),
-                                          ("T5 untied", False, 32128, 768, (8, 16, 32))):
+                                          ("T5 untied", False, 32128, 768, (8, 16, 32, 64, 200))):
             w = torch.randn(*((v, d) if tied else (d, v)), generator=g, device=dev).to(dtype)
             for bs in batches:
                 x = torch.randn(bs, d, generator=g, device=dev).to(dtype)

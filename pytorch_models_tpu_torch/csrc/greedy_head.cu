@@ -402,14 +402,6 @@ int plan(int b, int v, int dtype, int tied, Plan* p) {
 
 }  // namespace
 
-// 1 if the kernel serves B rows of width d: x is streamed with the head, so
-// every batch and width of a served dtype fits (a batch above 256 rows takes
-// one pass over the head per 256 rows)
-extern "C" int pmt_greedy_fits(int b, int d, int dtype, int tied) {
-    (void)tied;
-    return b >= 1 && d >= 1 && (dtype == pmt::DT_F32 || dtype == pmt::DT_BF16);
-}
-
 // The split of a call at this shape: the number G of CTAs it launches (out[0])
 // and the rows N of a unit (out[1]); CTA i owns vocab rows [N * (i * U / G),
 // N * ((i + 1) * U / G)) with U = ceil(V / N). Returns a CUDA error code.

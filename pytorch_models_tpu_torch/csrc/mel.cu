@@ -23,27 +23,31 @@
 //   power is formed in registers;
 // - the bases come split on the host (ops/mel.py `_kernel_constants`): hi
 //   and lo arrays of the interleaved columns, padded to whole passes and to
-//   16 samples, laid out as the ring's stage images (`_stage_images`: a
-//   pass's 208 rows of hi, then of lo, 16 samples each, 16-byte chunks
-//   swizzled as chunk ^ ((row >> 1) & 3) so that ldmatrix reads them without
-//   bank conflicts). One thread moves each 26 KB stage with a single bulk
-//   copy (cp.async.bulk onto an mbarrier) into a 3-slot ring (the per-thread
-//   16-byte cp.async of the first version cost 21% of the time); one
-//   ldmatrix.x4 gives an n8 tile's hi and lo B fragments;
+//   16 samples, which `stage_kernel` lays out once, on the device, as the
+//   ring's stage images (a pass's 208 rows of hi, then of lo, 16 samples
+//   each, 16-byte chunks swizzled by `swz` so that ldmatrix reads them
+//   without bank conflicts). One thread moves each 26 KB stage with a single
+//   bulk copy (cp.async.bulk onto an mbarrier) into a 3-slot ring (the
+//   per-thread 16-byte cp.async of the first version cost 21% of the time);
+//   one ldmatrix.x4 gives an n8 tile's hi and lo B fragments;
 // - frames overlap (hop < n_fft), so the block stages its tile's sample span
 //   once, straight from the padded waveform (4-byte cp.async, zero past the
 //   end). A frame stride of hop = 160 floats is 0 mod 32 banks, so the span
 //   is stored with a skew: every hop samples are followed by `skew` unused
 //   floats (hop + skew = 4 mod 32), which puts frame r's sample n at
 //   r * (hop + skew) + koff[n] and the 8 frames one ldmatrix reads on 8
-//   distinct bank groups; the frames' A fragments are split hi/lo in
-//   registers;
+//   distinct bank groups (a hop that is no multiple of 4 breaks the 16-byte
+//   rows ldmatrix needs: its A fragments are read by scalar loads, which the
+//   same skew keeps on distinct banks); the frames' A fragments are split
+//   hi/lo in registers;
 // - after each pass the power of its bins goes to a (96, n_freq) tile in
 //   shared memory; the mel product then sums each filter over its band
 //   [lo, hi) only (ops/mel.py `_mel_bands`: the contiguous run of nonzero
 //   weights; the skipped terms are exact zeros), one thread per frame and 4
 //   mel bins, a warp on 32 consecutive frames, and writes (B, n_mels, F)
 //   with coalesced stores.
+#include <algorithm>
+
 #include "common.cuh"
 
 namespace {
@@ -86,9 +90,24 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_by
                  : "memory");
 }
 
-// x (B, lp); tiles (passes * kp / KS, 2, PASS_COLS, KS): stage s's image of
-// the interleaved bases' tf32 hi and lo parts (ops/mel.py `_stage_images`);
-// filt (n_freq, n_mels); bands (n_mels, 2) [lo, hi)
+// parts (2, ncol, kp): the interleaved bases' tf32 hi and lo parts -> tiles
+// (passes * kp / KS, 2, PASS_COLS, KS): stage s (pass s / (kp / KS), samples
+// from s % (kp / KS) * KS) as the ring holds it, one 16-byte chunk a thread
+__global__ void stage_kernel(const float4* __restrict__ parts, float4* __restrict__ tiles, int ncol, int kp) {
+    const int cpr = kp / 4, nks = kp / KS;
+    const int64_t n = 2LL * ncol * cpr;
+    for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x; i < n;
+         i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+        const int c = static_cast<int>(i % cpr), col = static_cast<int>(i / cpr % ncol), part = static_cast<int>(i / cpr / ncol);
+        const int p = col / PASS_COLS, r = col % PASS_COLS, s = p * nks + c / KCH;
+        tiles[((static_cast<int64_t>(s) * 2 + part) * PASS_COLS + r) * KCH + ((c % KCH) ^ swz(r))] = parts[i];
+    }
+}
+
+// x (B, lp); tiles (passes * kp / KS, 2, PASS_COLS, KS) from `stage_kernel`;
+// filt (n_freq, n_mels); bands (n_mels, 2) [lo, hi). LDSM: hop % 4 == 0, the
+// frames' A fragments by ldmatrix; else by scalar loads
+template <bool LDSM>
 __global__ void __launch_bounds__(NTH, 1)
 log_mel_kernel(const float* __restrict__ x, const float* __restrict__ tiles, const float* __restrict__ filt,
                const int* __restrict__ bands, float* __restrict__ out, int lp, int n_frames, int hop, int n_freq,
@@ -156,9 +175,16 @@ log_mel_kernel(const float* __restrict__ x, const float* __restrict__ tiles, con
                     pmt::ldmatrix_x4(q[j], part + row * KS + ((c ^ swz(row)) << 2));
                 }
             }
-            const int off = koff[s % nks * KS + kk * 8 + ((lane >> 4) << 2)];
+            const int kb = s % nks * KS + kk * 8;
             uint32_t a[4], ah[4], al[4];
-            pmt::ldmatrix_x4(a, sig + (wm * 16 + (lane & 15)) * rs + off);
+            if (LDSM) {
+                pmt::ldmatrix_x4(a, sig + (wm * 16 + (lane & 15)) * rs + koff[kb + ((lane >> 4) << 2)]);
+            } else {  // the fragment ldmatrix gives: a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4)
+                const float* r0 = sig + (wm * 16 + g) * rs;
+                const int o0 = koff[kb + t], o4 = koff[kb + 4 + t];
+                a[0] = __float_as_uint(r0[o0]), a[1] = __float_as_uint(r0[8 * rs + o0]);
+                a[2] = __float_as_uint(r0[o4]), a[3] = __float_as_uint(r0[8 * rs + o4]);
+            }
 #pragma unroll
             for (int e = 0; e < 4; ++e) pmt::split_tf32(__uint_as_float(a[e]), ah[e], al[e]);
             // 3xTF32, each pass over every n8 tile before the next (consecutive products feed different
@@ -225,25 +251,36 @@ log_mel_kernel(const float* __restrict__ x, const float* __restrict__ tiles, con
 extern "C" int pmt_log_mel_pass_cols() { return PASS_COLS; }
 extern "C" int pmt_log_mel_k_step() { return KS; }
 
-// x (B, lp) reflect-padded fp32 waveform; tiles: the ring's stage images of
-// the split interleaved bases (ops/mel.py `_stage_images`: ncol /
-// pmt_log_mel_pass_cols() passes of kp / pmt_log_mel_k_step() stages, ncol
-// covering 2 * n_freq columns, kp >= n_fft samples, zero past both); filt
-// (n_freq, n_mels); bands (n_mels, 2) int32; out (B, n_mels, n_frames) with
-// frame f = x[b, f*hop : f*hop + n_fft]. hop must be a multiple of 4.
+// parts (2, ncol, kp) fp32: the tf32 hi and lo parts of the interleaved
+// bases (ops/mel.py `_kernel_constants`; ncol a multiple of
+// pmt_log_mel_pass_cols(), kp of pmt_log_mel_k_step()) -> tiles, as many
+// floats, the ring's stage images that pmt_log_mel reads
+extern "C" int pmt_log_mel_stage(const void* parts, void* tiles, int ncol, int kp, void* stream) {
+    if (ncol <= 0 || kp <= 0 || ncol % PASS_COLS != 0 || kp % KS != 0) return static_cast<int>(cudaErrorInvalidValue);
+    const int64_t chunks = 2LL * ncol * (kp / 4);
+    const int grid = static_cast<int>(std::min<int64_t>((chunks + 255) / 256, 4096));
+    stage_kernel<<<grid, 256, 0, pmt::as_stream(stream)>>>(static_cast<const float4*>(parts),
+                                                            static_cast<float4*>(tiles), ncol, kp);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// x (B, lp) reflect-padded fp32 waveform; tiles: the stage images of
+// pmt_log_mel_stage (ncol covering 2 * n_freq columns, kp >= n_fft samples,
+// zero past both); filt (n_freq, n_mels); bands (n_mels, 2) int32; out
+// (B, n_mels, n_frames) with frame f = x[b, f*hop : f*hop + n_fft].
 extern "C" int pmt_log_mel(const void* x, const void* tiles, const void* filt, const void* bands, void* out, int b,
                            int lp, int n_frames, int n_fft, int hop, int n_freq, int n_mels, int ncol, int kp,
                            void* stream) {
     if (b <= 0 || n_frames <= 0) return 0;
-    if (hop <= 0 || hop % 4 != 0 || kp % KS != 0 || kp < n_fft || ncol % PASS_COLS != 0 || ncol < 2 * n_freq)
+    if (hop <= 0 || kp % KS != 0 || kp < n_fft || ncol % PASS_COLS != 0 || ncol < 2 * n_freq)
         return static_cast<int>(cudaErrorInvalidValue);
     const size_t smem = smem_bytes(hop, kp, n_freq);
     if (smem > static_cast<size_t>(MAX_SMEM)) return static_cast<int>(cudaErrorInvalidValue);
-    cudaError_t e = cudaFuncSetAttribute(log_mel_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+    auto* k = hop % 4 == 0 ? log_mel_kernel<true> : log_mel_kernel<false>;
+    cudaError_t e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
     dim3 grid((n_frames + TF - 1) / TF, b);
-    log_mel_kernel<<<grid, NTH, smem, pmt::as_stream(stream)>>>(
+    k<<<grid, NTH, smem, pmt::as_stream(stream)>>>(
         static_cast<const float*>(x), static_cast<const float*>(tiles), static_cast<const float*>(filt),
         static_cast<const int*>(bands), static_cast<float*>(out), lp, n_frames, hop, n_freq, n_mels, kp,
         ncol / PASS_COLS);

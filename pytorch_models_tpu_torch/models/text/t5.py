@@ -328,7 +328,7 @@ def _t5_generate_batch(params: dict, cfg: T5Config, enc_tokens: torch.Tensor, n_
         cross_ops = cross_operands(quantize_kv_caches(cross_stacked) if _attn.use_int8_kv_cross(b) else cross_stacked,
                                    dtype)
     w_cls = params["classifier"]["w"]
-    greedy_head = not isinstance(w_cls, dict) and _attn.use_greedy_head(b, w_cls, tied=False)
+    greedy_head = not isinstance(w_cls, dict) and _attn.use_greedy_head(b, w_cls)
 
     buf = torch.zeros((b, max_tokens), dtype=torch.int64, device=dev)
     buf[:, 0] = pad_id

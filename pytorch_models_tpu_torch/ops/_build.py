@@ -44,12 +44,12 @@ _SIGNATURES = {
     "pmt_decode_attention_cluster": [_I, _I, _I],
     "pmt_greedy_argmax": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "pmt_greedy_split": [_I, _I, _I, _I, _P],
-    "pmt_greedy_fits": [_I, _I, _I, _I],
     "pmt_encoder_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P],
     "pmt_encoder_attention_k_tile": [_I],
     "pmt_log_mel": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "pmt_log_mel_pass_cols": [],
     "pmt_log_mel_k_step": [],
+    "pmt_log_mel_stage": [_P, _P, _I, _I, _P],
     "pmt_int8_attention": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
     "pmt_int8_attention_cluster": [_I, _I, _I],
     # these take a pointer to ops/decode_step.py's _Args structure

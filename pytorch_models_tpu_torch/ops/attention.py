@@ -66,9 +66,9 @@ def _on_cuda(t: torch.Tensor) -> bool:
     return t.is_cuda
 
 
-def use_greedy_head(batch: int, w: torch.Tensor, tied: bool = True) -> bool:
+def use_greedy_head(batch: int, w: torch.Tensor) -> bool:
     """Gate for the greedy head over the head weight ``w`` (tied ``(V, d)``
-    or untied ``(d, V)``). Auto refuses a batch the kernel cannot serve
+    or untied ``(d, V)``). Auto refuses a head the kernel cannot serve
     (``greedy_head_fits``), which then takes the head matmul + argmax."""
     if USE_GREEDY_HEAD is not None:
         return USE_GREEDY_HEAD
@@ -76,7 +76,7 @@ def use_greedy_head(batch: int, w: torch.Tensor, tied: bool = True) -> bool:
         return False
     from .greedy_head import greedy_head_fits
 
-    return greedy_head_fits(batch, w, tied)
+    return greedy_head_fits(w)
 
 
 def use_a8_decode(packed_wqkv_dtype: torch.dtype) -> bool:

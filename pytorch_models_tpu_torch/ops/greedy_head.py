@@ -19,19 +19,12 @@ import torch
 from . import _build
 
 
-def greedy_head_fits(batch: int, w: torch.Tensor, tied: bool) -> bool:
-    """Whether the CUDA kernel serves ``batch`` rows against the head ``w``
-    (tied ``(V, d)`` or untied ``(d, V)``) on ``w``'s device: asks the
-    kernel's own planner (which streams the rows with the head, so any batch
-    of a float32 or bfloat16 head fits). A CPU tensor always fits (the
-    wrapper runs the plain version)."""
-    if not w.is_cuda:
-        return True
-    if w.dtype not in (torch.float32, torch.bfloat16):
-        return False
-    width = w.shape[1] if tied else w.shape[0]
-    with torch.cuda.device(w.device):
-        return bool(_build.load_library().pmt_greedy_fits(batch, width, _build.dtype_code(w), int(tied)))
+def greedy_head_fits(w: torch.Tensor) -> bool:
+    """Whether the CUDA kernel serves the head ``w`` on its device: a
+    float32 or bfloat16 head, at any batch and width (the kernel streams the
+    batch rows with the head). A CPU tensor always fits (the wrapper runs
+    the plain version)."""
+    return not w.is_cuda or w.dtype in (torch.float32, torch.bfloat16)
 
 
 def _argmax_scores(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
@@ -93,8 +86,6 @@ def _launch(name: str, x: torch.Tensor, w: torch.Tensor, tied: bool) -> torch.Te
     b, d = x.shape
     v = w.shape[0] if tied else w.shape[1]
     lib = _build.load_library()
-    req(b >= 1 and lib.pmt_greedy_fits(b, d, _build.dtype_code(x), int(tied)), f"{name}: batch {b} x width {d} "
-        "is not served")
     out = torch.empty((b,), dtype=torch.int64, device=x.device)
     code = lib.pmt_greedy_argmax(x.data_ptr(), w.data_ptr(), _scratch(x).data_ptr(), out.data_ptr(), b, v, d,
                                  _build.dtype_code(x), int(tied), _build.stream_ptr(x))

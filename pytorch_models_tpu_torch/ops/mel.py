@@ -99,37 +99,25 @@ def _interleaved_bases(n_fft: int, n_mels: int, sample_rate: int, pass_cols: int
     return bt
 
 
-def _stage_images(hi: np.ndarray, lo: np.ndarray, pass_cols: int, k_step: int) -> np.ndarray:
-    """The kernel's ring stages as it finds them in shared memory, one
-    contiguous run each (a single bulk copy): stage ``s`` (pass ``s //
-    (kp / k_step)``, samples from ``s % (kp / k_step) * k_step``) holds the
-    pass's ``pass_cols`` rows of ``hi``, then of ``lo``, ``k_step`` samples
-    each, with the 16-byte chunk ``c`` of row ``r`` at ``c ^ ((r * cpr / 8)
-    & (cpr - 1))`` (``cpr = k_step / 4`` chunks a row): (stages, 2,
-    pass_cols, k_step) fp32."""
-    ncol, kp = hi.shape
-    cpr = k_step // 4
-    parts = np.stack([hi, lo]).reshape(2, ncol // pass_cols, pass_cols, kp // k_step, cpr, 4)
-    rows = np.arange(pass_cols)[:, None]
-    phys = np.arange(cpr)[None, :] ^ ((rows * cpr // 8) & (cpr - 1))  # (pass_cols, cpr)
-    out = np.empty_like(parts)
-    out[:, :, rows, :, phys] = parts[:, :, rows, :, np.arange(cpr)[None, :]]
-    # (2, passes, pass_cols, kslabs, cpr, 4) -> (passes, kslabs, 2, pass_cols, cpr * 4)
-    return np.ascontiguousarray(out.transpose(1, 3, 0, 2, 4, 5).reshape(-1, 2, pass_cols, k_step))
-
-
 @functools.lru_cache(maxsize=8)
-def _kernel_constants(n_fft: int, n_mels: int, sample_rate: int, device: torch.device, pass_cols: int,
-                      k_step: int):
+def _kernel_constants(n_fft: int, n_mels: int, sample_rate: int, device: torch.device):
     """The kernel's inputs besides the waveform, on ``device``: the
     interleaved bases split into TF32 hi and lo arrays (once, on the host)
-    and laid out as the ring's stage images, the (n_freq, n_mels) filters,
-    their bands; and the bases' padded (ncol, kp)."""
-    hi, lo = _split_tf32(_interleaved_bases(n_fft, n_mels, sample_rate, pass_cols, k_step))
+    and laid out by the library as its ring's stage images
+    (``pmt_log_mel_stage``), the (n_freq, n_mels) filters, their bands; and
+    the bases' padded (ncol, kp)."""
+    lib = _build.load_library()
+    bt = _interleaved_bases(n_fft, n_mels, sample_rate, lib.pmt_log_mel_pass_cols(), lib.pmt_log_mel_k_step())
+    parts = torch.from_numpy(np.stack(_split_tf32(bt))).to(device)
+    tiles = torch.empty_like(parts)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device)
+        _build.check("pmt_log_mel_stage", lib.pmt_log_mel_stage(parts.data_ptr(), tiles.data_ptr(), *bt.shape,
+                                                                 stream.cuda_stream))
+        stream.synchronize()  # the cached images serve calls on any stream
     filt = _dft_constants(n_fft, n_mels, sample_rate)[2]
-    tiles, filt_t, bands = (torch.from_numpy(np.ascontiguousarray(a)).to(device)
-                            for a in (_stage_images(hi, lo, pass_cols, k_step), filt, _mel_bands(filt)))
-    return tiles, filt_t, bands, hi.shape
+    filt_t, bands = (torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in (filt, _mel_bands(filt)))
+    return tiles, filt_t, bands, bt.shape
 
 
 def _mel_banded(power: torch.Tensor, filt: torch.Tensor, bands: np.ndarray) -> torch.Tensor:
@@ -167,14 +155,12 @@ def log_mel_spectrogram(x: torch.Tensor, n_fft: int = 400, hop_length: int = 160
     req(x.dtype == torch.float32, f"log_mel_spectrogram: the waveform must be float32, got {x.dtype}")
     req(x.is_contiguous(), "log_mel_spectrogram: the waveform must be contiguous")
     req(x.ndim >= 1 and x.shape[-1] > n_fft // 2, "log_mel_spectrogram: the waveform is shorter than the reflect pad")
-    req(hop_length % 4 == 0, f"log_mel_spectrogram: the kernel takes a hop that is a multiple of 4, got {hop_length}")
     *batch, length = x.shape
     xp = reflect_pad(x.reshape(-1, length), n_fft // 2)  # (B, L + n_fft), contiguous
     b, lp = xp.shape
     n_frames = (lp - n_fft) // hop_length + 1
     lib = _build.load_library()
-    tiles, filt, bands, (ncol, kp) = _kernel_constants(n_fft, n_mels, sample_rate, x.device,
-                                                        lib.pmt_log_mel_pass_cols(), lib.pmt_log_mel_k_step())
+    tiles, filt, bands, (ncol, kp) = _kernel_constants(n_fft, n_mels, sample_rate, x.device)
     out = torch.empty((b, n_mels, n_frames), dtype=torch.float32, device=x.device)
     code = lib.pmt_log_mel(xp.data_ptr(), tiles.data_ptr(), filt.data_ptr(), bands.data_ptr(), out.data_ptr(), b,
                            lp, n_frames, n_fft, hop_length, filt.shape[0], n_mels, ncol, kp, _build.stream_ptr(x))

@@ -176,15 +176,15 @@ def test_greedy_argmax_untied_matches_plain(cuda, dtype, v, b, d):
 
 
 def test_greedy_head_gate_refuses_what_the_kernel_cannot_serve(cuda):
-    """Auto takes the kernel only for what its planner accepts. Since the
+    """Auto takes the kernel only for a head it serves. Since the
     kernel streams the batch rows with the head (no longer holding them all
     in shared memory), every batch of a float32 or bfloat16 head is served,
     200 rows of 768 included; a float16 head is not (no instantiation), nor
     is a batch under the JAX package's gate of 4 rows."""
     emb, cls = torch.zeros(1000, 768, device=cuda), torch.zeros(768, 1000, device=cuda)
     assert _attn.use_greedy_head(8, emb) and _attn.use_greedy_head(200, emb)
-    assert _attn.use_greedy_head(200, cls, tied=False) and not _attn.use_greedy_head(2, cls, tied=False)
-    assert not _attn.use_greedy_head(8, emb.half()) and not _attn.use_greedy_head(8, cls.half(), tied=False)
+    assert _attn.use_greedy_head(200, cls) and not _attn.use_greedy_head(2, cls)
+    assert not _attn.use_greedy_head(8, emb.half()) and not _attn.use_greedy_head(8, cls.half())
     with pytest.raises(ValueError):
         greedy_argmax_tied(torch.zeros(8, 768, device=cuda).half(), emb.half())
     with pytest.raises(ValueError):
@@ -211,19 +211,35 @@ def _parent_greedy_fits(b: int, d: int, dtype: torch.dtype, tied: bool, cap: int
 
 def test_greedy_head_planner_accepts_everything_the_parent_did(cuda):
     """For B <= 64 at d in {512, 768, 1024, 1280, 1600}, both layouts and
-    dtypes: every shape the parent's planner accepted is accepted (and every
-    one of them, since the batch rows are streamed)."""
+    dtypes: every shape the parent's planner accepted is accepted by the
+    gate and served by the kernel (ids within summation noise, fp32, or one
+    bf16 step of the top, bf16, of the plain pick)."""
     cap = torch.cuda.get_device_properties(cuda).shared_memory_per_block_optin
-    refused = []
+    g = torch.Generator(device=cuda).manual_seed(64)
+    refused, served = [], 0
     for dtype in (torch.float32, torch.bfloat16):
         for tied in (True, False):
+            fn, plain = (greedy_argmax_tied, greedy_argmax_tied_plain) if tied else (greedy_argmax, greedy_argmax_plain)
             for d in (512, 768, 1024, 1280, 1600):
-                w = torch.zeros((1000, d) if tied else (d, 1000), dtype=dtype, device=cuda)
+                w = torch.randn((1000, d) if tied else (d, 1000), generator=g, device=cuda).to(dtype)
+                xs = torch.randn(64, d, generator=g, device=cuda).to(dtype)
+                s_all = torch.matmul(xs.float(), w.float().t() if tied else w.float())
+                if dtype == torch.bfloat16:
+                    s_all = s_all.to(dtype).float()
                 for b in range(1, 65):
-                    if _parent_greedy_fits(b, d, dtype, tied, cap) and not greedy_head_fits(b, w, tied):
+                    if not _parent_greedy_fits(b, d, dtype, tied, cap):
+                        continue
+                    if not greedy_head_fits(w):
                         refused.append((b, d, dtype, tied))
-                    assert greedy_head_fits(b, w, tied)
-    assert not refused
+                        continue
+                    x, s = xs[:b], s_all[:b]
+                    got, ref = fn(x, w), plain(x, w)
+                    rows = torch.arange(b, device=cuda)
+                    tol = 1e-3 if dtype == torch.float32 else 2.0 ** -7 * s.max(-1).values.abs()
+                    assert bool(((s[rows, ref] - s[rows, got]).abs() <= tol).all()), (b, d, dtype, tied)
+                    served += 1
+    assert not refused and served > 1000
+    torch.cuda.synchronize()
 
 
 def _greedy_case(cuda, dtype, tied, b, v, d, seed):
@@ -329,6 +345,27 @@ def test_log_mel_kernel_at_ragged_lengths(cuda, n_mels, b):
     torch.cuda.synchronize()
 
 
+@pytest.mark.parametrize("hop", [100, 150, 161, 162, 163])
+def test_log_mel_kernel_at_any_hop(cuda, hop):
+    """K5 at hops that are no multiple of 4 (150, 161, 162, 163: the frames'
+    A fragments by scalar loads, the span's skew odd or even) and at another
+    multiple (100): the -inf pattern of a silent stretch equals the plain
+    version's, kept values within 2e-3."""
+    g = torch.Generator(device=cuda).manual_seed(hop)
+    x = 0.3 * torch.randn(2, 2 * 16000 + 33, generator=g, device=cuda)
+    x[:, 8000:20000] = 0.0
+    launches = log_mel_spectrogram.launches
+    got = log_mel_spectrogram(x, hop_length=hop)
+    ref = log_mel_spectrogram_plain(x, hop_length=hop)
+    assert log_mel_spectrogram.launches == launches + 1 and got.shape == ref.shape == (2, 80, x.shape[1] // hop + 1)
+    assert torch.equal(torch.isneginf(got), torch.isneginf(ref)) and bool(torch.isneginf(ref).any())
+    assert not torch.isnan(got).any() and not torch.isposinf(got).any()
+    fin = torch.isfinite(ref)
+    keep = fin & (ref >= ref[fin].max() - 8)
+    assert (got - ref).abs()[keep].max().item() <= 2e-3
+    torch.cuda.synchronize()
+
+
 def test_kernel_wrappers_reject_unsupported_input(cuda):
     q = torch.zeros(1, 1, 144, device=cuda)  # head_dim 48 with 3 heads: no kernel instantiation
     with pytest.raises(ValueError):
@@ -342,8 +379,6 @@ def test_kernel_wrappers_reject_unsupported_input(cuda):
         log_mel_spectrogram(wav.bfloat16())
     with pytest.raises(ValueError):  # not contiguous
         log_mel_spectrogram(torch.zeros(16000, 2, device=cuda).t())
-    with pytest.raises(ValueError):  # a hop the kernel does not take
-        log_mel_spectrogram(wav, hop_length=162)
 
 
 @pytest.mark.parametrize("cached", [False, True])

@@ -103,8 +103,7 @@ def test_log_mel_banded_plain_matches_jax_kernel(n_mels):
 def test_kernel_bases_split_into_tf32_hi_and_lo():
     """The bases as the kernel reads them: interleaved (re_k, im_k) rows,
     zero-padded to whole passes and k-steps; split into TF32 hi and lo
-    (low 13 bits zero) whose sum is the fp32 basis to 2^-22 relative; laid
-    out as the ring's stage images, each row's 16-byte chunks swizzled."""
+    (low 13 bits zero) whose sum is the fp32 basis to 2^-22 relative."""
     w_re, w_im, _ = mel._dft_constants(400, 80, 16000)
     bt = mel._interleaved_bases(400, 80, 16000, 208, 16)
     assert bt.shape == (416, 400)
@@ -118,14 +117,6 @@ def test_kernel_bases_split_into_tf32_hi_and_lo():
     err = np.abs(hi.astype(np.float64) + lo.astype(np.float64) - bt.astype(np.float64))
     assert np.all(err <= 2.0 ** -22 * np.abs(bt.astype(np.float64)))
     assert np.abs(lo).max() > 0 and np.all(np.abs(lo) <= 2.0 ** -11 * np.abs(bt) + 1e-45)
-    tiles = mel._stage_images(hi, lo, 208, 16)  # 2 passes x 25 k-slabs
-    assert tiles.shape == (50, 2, 208, 16)
-    for stage in range(50):
-        p, k = divmod(stage, 25)
-        for part, src in enumerate((hi, lo)):
-            rows = src[p * 208:(p + 1) * 208, k * 16:(k + 1) * 16].reshape(208, 4, 4)
-            phys = np.arange(4)[None, :] ^ ((np.arange(208)[:, None] // 2) & 3)
-            np.testing.assert_array_equal(tiles[stage, part].reshape(208, 4, 4)[np.arange(208)[:, None], phys], rows)
 
 
 def test_log_mel_wrapper_is_plain_on_cpu_and_unbatched():
