@@ -29,7 +29,18 @@ checks that each went through its kernels:
   heads, GEGLU mlp 2048, vocab 32128; random weights from a seed, layer
   matrices at 2x the init's scale, rel-pos tables seeded at scale 2) greedily
   continuing eight prompts of 5-64 tokens through
-  ``T5Generator.generate_tokens_batch`` (64 tokens at most).
+  ``T5Generator.generate_tokens_batch`` (64 tokens at most);
+- ViT-B/16 at full width (12 layers, d_model 768, 12 heads, patch 16, 224 x
+  224, AugReg's cls pooling; random weights from a seed) through
+  ``ViT.__call__`` (phase "vit"): fp32 at B=32 (TF32 off), the encoder
+  attention K1 route (flags auto) against the SDPA route, K1 once per layer;
+  bf16 at B=128, ``bench.py``'s batch: both routes' img/s and MFU in turns,
+  and K1's share of the forward.
+
+The decoders' embedding is K3's one-launch ``embed_add`` (token rows + cast
+position rows), held bit for bit against its plain version at the GPT-2,
+Whisper and T5 shapes and timed beside the launch floor, an empty kernel
+timed the same way (phase "kernel embed_add").
 
 Each main path runs three decode routes: fused (every flag auto: one K7
 launch per greedy step), per-op kernels (``USE_FUSED_STEP = False``; for T5
@@ -156,6 +167,23 @@ T5_PAD, T5_EOS = 0, 1
 T5_MAX = 64  # tokens per output row, the pad token included
 T5_WEIGHT_SCALE = 2.0  # layer matrices, x the init's scale
 T5_BIAS_SCALE = 2.0  # rel-pos tables, seeded N(0, 1) x this (the init's are zeros)
+
+# ViT-B/16 (AugReg's cls pooling): fp32 routes compared at VIT_B32 images, bf16 timed at bench.py's batch
+VIT_B32, VIT_B = 32, 128
+VIT_FORWARDS = 10  # forwards per timed turn
+# the features of the K1 route against the SDPA route after 12 layers: fp32 as DS_TOL (K7's 12-layer bound:
+# the two sum in other orders, K1's products in 3xTF32); bf16 by relative L2 norm: each route rounds p and
+# every layer's output to bf16 (2^-8 relative), and 12 layers of such steps add at most linearly
+VIT_BF16_REL = 12 * 2.0 ** -8
+
+
+def vit_flops_per_image(n_layers=12, d=768, patch=16, img=224, mlp_ratio=4) -> float:
+    """Forward FLOPs (2 x MACs) of a ViT with a cls token: bench.py's formula
+    (35.13 GFLOP for ViT-B/16 at 224)."""
+    n_tok = (img // patch) ** 2 + 1
+    patch_macs = (img // patch) ** 2 * (patch * patch * 3) * d
+    per_layer = 4 * n_tok * d * d + 2 * n_tok * n_tok * d + 2 * n_tok * d * (d * mlp_ratio)
+    return 2.0 * (patch_macs + n_layers * per_layer)
 
 
 def _card() -> str:
@@ -586,6 +614,72 @@ def kernel_phases(dev, card: str) -> dict:
         print(f"phase kernel greedy_argmax_tied {dn}: V=50257 d=768, tie->lowest ok (score regret tol per row: "
               f"{'1e-3' if dtype == torch.float32 else 'one bf16 step of the top score'}) | " + "; ".join(parts)
               + f"; B=1 kernel {head1[0] * 1e3:.1f} us, head {head1[1] * 1e3:.1f} us [{card}]")
+    torch.cuda.synchronize()
+    return res
+
+
+def embed_kernel_phase(dev, card: str) -> dict:
+    """K3's one-launch decoder embedding (``embed_add``) vs its plain version,
+    bit for bit, at the decoders' shapes: GPT-2 small's tables with ids per
+    row (a decode step's B=8, int32 and int64, out-of-range ids; a B=8 x 60
+    prefill chunk), Whisper-base's with a start position (a step, period 1;
+    a 4-token prefill chunk, period 4), T5-base's gather without a position
+    table. Times at GPT-2's decode step beside the plain version, the two K3
+    gathers + cast + add it replaces, ``embedding`` + cast + add, and the
+    launch floor: an empty kernel of the same grid timed the same way."""
+    import torch
+    import torch.nn.functional as F
+
+    from pytorch_models_tpu_torch.ops import _build
+    from pytorch_models_tpu_torch.ops.gather import embed_add, embed_add_plain, gather_rows
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    lib = _build.load_library()
+    res = {}
+
+    def ids(n, v):
+        return torch.randint(0, v, (n,), generator=g, device=dev)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).removeprefix("torch.")
+        gpt_tok, gpt_pos = (torch.randn(v, 768, generator=g, device=dev).to(dtype) for v in (50257, 1024))
+        w_tok, w_pos = (torch.randn(v, 512, generator=g, device=dev).to(dtype) for v in (51865, 448))
+        t5_tok = torch.randn(32128, 768, generator=g, device=dev).to(dtype)
+        step_ids = torch.tensor([0, 50256, -5, 50300, 7, 7, 1000, 42], device=dev)
+        step_pos = torch.tensor([127, 127, 5, -1, 1030, 99, 99, 512], device=dev)
+        cases = {
+            "GPT-2 step int64": ((gpt_tok, step_ids, gpt_pos, step_pos), {}),
+            "GPT-2 step int32": ((gpt_tok, step_ids.int(), gpt_pos, step_pos.int()), {}),
+            "GPT-2 prefill 8 x 60": ((gpt_tok, ids(480, 50257), gpt_pos, ids(480, 1024)), {}),
+            "Whisper step at 40": ((w_tok, ids(8, 51865).int(), w_pos), {"start": 40, "period": 1}),
+            "Whisper prefill 8 x 4 at 0": ((w_tok, ids(32, 51865), w_pos), {"start": 0, "period": 4}),
+            "T5 step, no position table": ((t5_tok, ids(8, 32128).int()), {}),
+        }
+        before = embed_add.launches
+        for name, (args, kw) in cases.items():
+            got, ref = embed_add(*args, **kw), embed_add_plain(*args, **kw)
+            if got.dtype != ref.dtype or not torch.equal(got, ref):
+                raise AssertionError(f"embed_add {name} {dn}: not bit-equal to its plain version "
+                                     f"(max |diff| {(got.float() - ref.float()).abs().max().item()})")
+        torch.cuda.synchronize()
+        if embed_add.launches - before != len(cases):
+            raise AssertionError(f"embed_add {dn}: {embed_add.launches - before} launches for {len(cases)} calls")
+        sid, spos = step_ids.int(), step_pos.int()
+        k_ms, plain_ms = _ab_ms([lambda: embed_add(gpt_tok, sid, gpt_pos, spos)],
+                                [lambda: embed_add_plain(gpt_tok, sid, gpt_pos, spos)], 200)
+        gathers_ms = _time_ms([lambda: gather_rows(gpt_tok, sid) + gather_rows(gpt_pos, spos).to(dtype)], 200)
+        cid, cpos = step_ids.clamp(0, 50256), step_pos.clamp(0, 1023)  # in range: embedding does not clamp
+        pair_ms = _time_ms([lambda: F.embedding(cid, gpt_tok) + F.embedding(cpos, gpt_pos).to(dtype)], 200)
+        stream = _build.stream_ptr(gpt_tok)
+        floor_ms = _time_ms([lambda: _build.check("pmt_launch_floor", lib.pmt_launch_floor(8, 192, stream))], 200)
+        nbytes = 8 * 768 * 3 * gpt_tok.element_size() + 2 * 8 * 4  # token and position rows, out, two id vectors
+        rec = res[("embed_add", dn)] = _rec(0.0, k_ms, plain_ms, nbytes, 8 * 768, dn)  # no single library call
+        rec.update(two_gathers_ms=gathers_ms, embedding_add_ms=pair_ms, launch_floor_ms=floor_ms)
+        print(f"phase kernel embed_add {dn}: " + ", ".join(cases) + " bit-equal to plain (max_abs_err 0, exact) | "
+              f"GPT-2 step B=8: kernel {k_ms * 1e3:.2f} us, launch floor (empty kernel, 8 x 192) {floor_ms * 1e3:.2f} "
+              f"us, plain {plain_ms * 1e3:.2f} us, the two K3 gathers + cast + add it replaces "
+              f"{gathers_ms * 1e3:.2f} us, embedding + cast + add {pair_ms * 1e3:.2f} us, bound {rec['bound_ms'] * 1e3:.4f} us "
+              f"({rec['bound_by']}) [{card}]")
     torch.cuda.synchronize()
     return res
 
@@ -1143,13 +1237,14 @@ def _kernels() -> dict:
     from pytorch_models_tpu_torch.ops.decode_attention import decode_attention
     from pytorch_models_tpu_torch.ops.decode_step import fused_cross_decode_step, fused_decode_step
     from pytorch_models_tpu_torch.ops.encoder_attention import encoder_attention
-    from pytorch_models_tpu_torch.ops.gather import gather_rows
+    from pytorch_models_tpu_torch.ops.gather import embed_add, gather_rows
     from pytorch_models_tpu_torch.ops.greedy_head import greedy_argmax, greedy_argmax_tied
     from pytorch_models_tpu_torch.ops.int8_kv import int8_decode_attention
     from pytorch_models_tpu_torch.ops.mel import log_mel_spectrogram
 
     return {"encoder_attention": encoder_attention, "decode_attention": decode_attention,
-            "gather_rows": gather_rows, "greedy_argmax_tied": greedy_argmax_tied, "greedy_argmax": greedy_argmax,
+            "gather_rows": gather_rows, "embed_add": embed_add, "greedy_argmax_tied": greedy_argmax_tied,
+            "greedy_argmax": greedy_argmax,
             "log_mel_spectrogram": log_mel_spectrogram, "fused_decode_step": fused_decode_step,
             "fused_cross_decode_step": fused_cross_decode_step, "int8_kv": int8_decode_attention}
 
@@ -1352,7 +1447,7 @@ def main_path(dev, card: str, profile_dir: str | None = None) -> dict:
     _route("per-op")
     out16["per-op"] = generate()
     torch.cuda.synchronize()
-    launches = _launches({"encoder_attention", "decode_attention", "gather_rows", "greedy_argmax_tied",
+    launches = _launches({"encoder_attention", "decode_attention", "embed_add", "greedy_argmax_tied",
                           "fused_decode_step"})
 
     err = max(float(np.max(np.abs(np.asarray(a) - np.asarray(b)))) for a, b in zip(scores, plain_scores))
@@ -1460,7 +1555,7 @@ def whisper_path(dev, card: str, profile_dir: str | None = None) -> dict:
     _route("per-op")
     out16["per-op"] = transcribe()
     torch.cuda.synchronize()
-    launches = _launches({"encoder_attention", "decode_attention", "gather_rows", "greedy_argmax_tied",
+    launches = _launches({"encoder_attention", "decode_attention", "embed_add", "greedy_argmax_tied",
                           "log_mel_spectrogram", "fused_cross_decode_step"})
     for row in out16["fused"] + out16["per-op"]:
         if row[:n_init] != W_INIT or not n_init < len(row) <= max_tokens:
@@ -1595,7 +1690,7 @@ def t5_path(dev, card: str, profile_dir: str | None = None) -> dict:
     _route("per-op")
     out16["per-op"] = generate()
     torch.cuda.synchronize()
-    launches = _launches({"decode_attention", "decode_attention_bias", "gather_rows", "greedy_argmax",
+    launches = _launches({"decode_attention", "decode_attention_bias", "gather_rows", "embed_add", "greedy_argmax",
                           "fused_cross_decode_step"})
     _route("plain")
     out16["plain"] = generate()
@@ -2411,14 +2506,107 @@ def int8_paths(dev, card: str) -> dict:
     return out
 
 
-def profile_phase(fn, what: str, fname: str, out_dir: str, card: str, steps_fn) -> None:
+def vit_path(dev, card: str, profile_dir: str | None = None) -> dict:
+    """ViT-B/16 at full width (12 layers, d 768, 12 heads, patch 16, 224 x 224,
+    cls pooling) with random weights from the seed (PE and cls token seeded
+    at a checkpoint's scale, 0.02; the init's are zeros) and images from a
+    seed, through ``ViT.__call__``: fp32 (TF32 off) at B=32, the K1 route
+    (flags auto) against the SDPA route (``USE_ENCODER_KERNEL = False``: the
+    port's plain ``ops.attention.sdpa``, matmul + softmax + matmul, the JAX
+    package's XLA route), K1 launched once per layer; bf16 at B=128, both
+    routes' img/s and MFU in turns, K1's share of the forward beside one
+    torch ``scaled_dot_product_attention`` call's; with ``profile_dir``, a
+    profiled bf16 forward of each route."""
+    import torch
+
+    from pytorch_models_tpu_torch.image import ViT
+    from pytorch_models_tpu_torch.ops import attention as attn
+    from pytorch_models_tpu_torch.ops.encoder_attention import encoder_attention
+
+    kernels = _kernels()
+    t0 = time.perf_counter()
+    model = ViT.from_google("B/16_augreg", rng=SEED, device=dev)
+    c = model.cfg
+    g = torch.Generator(device=dev).manual_seed(SEED + 11)
+    for key in ("pe", "cls_token"):
+        model.params[key] = 0.02 * torch.randn(model.params[key].shape, generator=g, device=dev)
+    imgs = torch.randn(VIT_B, 3, c.img_size, c.img_size, generator=g, device=dev)
+    gflop = vit_flops_per_image(c.n_layers, c.d_model, c.patch_size, c.img_size) / 1e9
+    print(f"phase vit: ViT-B/16 ({c.n_layers} layers, d {c.d_model}, {c.n_heads} heads, patch {c.patch_size}, "
+          f"{c.img_size}^2, {c.pool_type} pooling) built from seed {SEED} on {dev} in "
+          f"{time.perf_counter() - t0:.1f} s; {gflop:.2f} GFLOP per image")
+
+    def forward(route, x):
+        attn.USE_ENCODER_KERNEL = None if route == "K1" else False
+        return model(x)
+
+    # fp32: the main path's run, counts from 0
+    x32 = imgs[:VIT_B32]
+    ref = forward("SDPA", x32)
+    _reset_launches()
+    got = forward("K1", x32)
+    torch.cuda.synchronize()
+    launches = _launches({"encoder_attention"})
+    if launches["encoder_attention"] != c.n_layers:
+        raise AssertionError(f"vit fp32: K1 launched {launches['encoder_attention']} times, not once per layer")
+    if got.shape != (VIT_B32, c.d_model):
+        raise AssertionError(f"vit fp32: features of shape {tuple(got.shape)}")
+    err = _check_close("vit fp32 K1 route vs SDPA route", got, ref, DS_TOL["float32"])
+    print(f"phase vit fp32 B={VIT_B32} (TF32 off): pooled features (|x| <= {ref.abs().max().item():.3g}) of the K1 "
+          f"route vs the SDPA route max_abs_err={err:.3g} (atol, rtol)={DS_TOL['float32']}; K1 launched "
+          f"{launches['encoder_attention']} times = {c.n_layers} layers per forward")
+
+    # bf16 at bench.py's batch: agreement, then the two routes in turns
+    model.to_bf16()
+    xb = imgs.to(torch.bfloat16)
+    before = kernels["encoder_attention"].launches
+    outs = {route: forward(route, xb) for route in ("SDPA", "K1")}
+    torch.cuda.synchronize()
+    k1_per_fwd = kernels["encoder_attention"].launches - before
+    if k1_per_fwd != c.n_layers:
+        raise AssertionError(f"vit bf16: K1 launched {k1_per_fwd} times in one forward")
+    a, b = outs["K1"].float(), outs["SDPA"].float()
+    rel = ((a - b).norm() / b.norm()).item()
+    if a.shape != (VIT_B, c.d_model) or not bool(torch.isfinite(a).all()) or rel > VIT_BF16_REL:
+        raise AssertionError(f"vit bf16: K1 route vs SDPA route relative L2 {rel:.3g} (limit {VIT_BF16_REL:.3g})")
+    times: dict[str, list] = {}
+    for route in ("SDPA", "K1", "K1", "SDPA"):  # CUDA events around VIT_FORWARDS forwards queued ahead of the device
+        forward(route, xb)
+        ms_run, _ = _event_ms(lambda: [forward(route, xb) for _ in range(VIT_FORWARDS)])
+        times.setdefault(route, []).append(ms_run / VIT_FORWARDS)
+    attn.USE_ENCODER_KERNEL = None
+    ms = {route: float(np.mean(v)) for route, v in times.items()}
+    q, k, v = (torch.randn(VIT_B, 197, c.d_model, generator=g, device=dev).to(torch.bfloat16) for _ in range(3))
+    k1_ms = _time_ms([lambda: encoder_attention(q, k, v, c.n_heads)], 20)
+    sdpa_ms = _time_ms([lambda: torch.nn.functional.scaled_dot_product_attention(
+        *(t.unflatten(-1, (c.n_heads, -1)).transpose(1, 2) for t in (q, k, v)))], 20)
+    parts = []
+    for route in ("K1", "SDPA"):
+        ips = VIT_B / (ms[route] / 1e3)
+        mfu = ips * gflop * 1e9 / PEAK_FLOPS["bfloat16"]
+        parts.append(f"{route} route {ips:.1f} img/s ({ms[route]:.3f} ms per forward, turns "
+                     f"{', '.join(f'{t:.3f}' for t in times[route])}), MFU {mfu:.4f}")
+    print(f"phase vit bf16 B={VIT_B}: K1 route vs SDPA route relative L2 {rel:.3g} (limit {VIT_BF16_REL:.3g}); "
+          + "; ".join(parts) + f" (CUDA events over {VIT_FORWARDS} forwards a turn, against "
+          f"{PEAK_FLOPS['bfloat16'] / 1e12:.0f} TFLOP/s); K1 {k1_ms * 1e3:.1f} us a call, {c.n_layers} calls = "
+          f"{c.n_layers * k1_ms / ms['K1']:.4f} of the K1 route's forward (one torch scaled_dot_product_attention "
+          f"call {sdpa_ms * 1e3:.1f} us, {c.n_layers} = {c.n_layers * sdpa_ms / ms['K1']:.4f} of it) [{card}]")
+    if profile_dir is not None:
+        for route in ("K1", "SDPA"):
+            profile_phase(lambda: forward(route, xb), f"bf16 ViT-B/16 forward B={VIT_B}, {route} route",
+                          f"profile_bf16_vit_{route.lower()}.json", profile_dir, card, lambda out: 1, "forward")
+        attn.USE_ENCODER_KERNEL = None
+    return launches
+
+
+def profile_phase(fn, what: str, fname: str, out_dir: str, card: str, steps_fn, unit: str = "decode step") -> None:
     """One call of ``fn`` (after a warm-up call) under torch.profiler.
 
     Reads the Chrome trace: device busy time is the union of the kernel,
     memcpy and memset intervals, the span runs from the first to the last
     event of the trace, and the idle share is 1 - busy / span (profiler
-    overhead included); device events per decode step divide by
-    ``steps_fn(output)``. Writes the summary, with device time per kernel
+    overhead included); device events per ``unit`` (a decode step, or a
+    forward) divide by ``steps_fn(output)``. Writes the summary, with device time per kernel
     name, to ``out_dir/fname``; the trace itself is deleted.
     """
     import os
@@ -2461,14 +2649,14 @@ def profile_phase(fn, what: str, fname: str, out_dir: str, card: str, steps_fn) 
         acc[1] += e["dur"]
     top = sorted(per_name.items(), key=lambda kv: -kv[1][1])
     summary = {"card": card, "what": what, "wall_ms": wall_ms, "span_ms": span / 1e3, "device_busy_ms": busy / 1e3,
-               "idle_share": 1 - busy / span, "device_events": len(dev_events), "decode_steps": steps,
+               "idle_share": 1 - busy / span, "device_events": len(dev_events), unit.replace(" ", "_") + "s": steps,
                "by_name": [{"name": n, "calls": c, "ms": d / 1e3} for n, (c, d) in top]}
     with open(os.path.join(out_dir, fname), "w") as f:
         json.dump(summary, f, indent=1)
     print(f"phase profile {what}: wall {wall_ms:.2f} ms profiled, trace span "
           f"{span / 1e3:.2f} ms, device busy {busy / 1e3:.2f} ms, idle share {1 - busy / span:.4f}, "
-          f"{len(dev_events)} device events ({len(dev_events) / max(steps, 1):.1f} per decode step, {steps} steps, "
-          f"prefill included); top: "
+          f"{len(dev_events)} device events ({len(dev_events) / max(steps, 1):.1f} per {unit}, {steps} {unit}s"
+          f"{', prefill included' if unit == 'decode step' else ''}); top: "
           + "; ".join(f"{n[:60]} {c}x {d / 1e3:.2f} ms" for n, (c, d) in top[:6]) + f" [{card}]")
 
 
@@ -2507,6 +2695,7 @@ def main() -> int:
     print("phase sass encoder_attention: tensor-core instructions (HMMA/HGMMA) per instantiation "
           + ("not measured (no cuobjdump)" if sass is None else json.dumps(sass)))
     res = kernel_phases(dev, card)
+    res_e = embed_kernel_phase(dev, card)
     res_w = whisper_kernel_phases(dev, card)
     res_t5 = t5_kernel_phases(dev, card)
     res_k7 = decode_step_phases(dev, card)
@@ -2514,7 +2703,7 @@ def main() -> int:
     res_i8 = int8_kernel_phases(dev, card)
     res_i8k7 = int8_decode_step_phases(dev, card)
     paths = {"gpt2": main_path(dev, card, args.profile), "whisper": whisper_path(dev, card, args.profile),
-             "t5": t5_path(dev, card, args.profile)}
+             "t5": t5_path(dev, card, args.profile), "vit": vit_path(dev, card, args.profile)}
     k6_path = int8_stack_path(dev, card)
     i8 = int8_paths(dev, card)
 
@@ -2532,6 +2721,7 @@ def main() -> int:
         "decode_attention_bias": ("decode_attention.cu", "pytorch_models_tpu/ops/decode_attention.py:193", "bfloat16",
                                   total("decode_attention_bias")),
         "gather_rows": ("gather.cu", "pytorch_models_tpu/ops/gather.py:87", "bfloat16", total("gather_rows")),
+        "embed_add": ("gather.cu", "pytorch_models_tpu/ops/gather.py:87", "bfloat16", total("embed_add")),
         "greedy_argmax_tied": ("greedy_head.cu", "pytorch_models_tpu/ops/greedy_head.py:85", "bfloat16",
                                total("greedy_argmax_tied")),
         "greedy_argmax": ("greedy_head.cu", "pytorch_models_tpu/ops/greedy_head.py:91", "bfloat16",
@@ -2560,6 +2750,7 @@ def main() -> int:
     # are ids, the score regret is held to the top-2 gap tolerance instead
     limits = {name: {dn: list(TOL[dn]) for dn in TOL} for name in meta}
     limits["log_mel_spectrogram"] = {"float32": [MEL_TOL, 0.0]}
+    limits["embed_add"] = {dn: [0.0, 0.0] for dn in TOL}  # bit for bit
     for name in ("greedy_argmax_tied", "greedy_argmax"):
         limits[name] = {"float32": "score regret <= 1e-3", "bfloat16": "score regret <= one bf16 step of the top"}
     for name in ("fused_decode_step", "fused_cross_decode_step", "fused_cross_decode_step_t5",
@@ -2568,7 +2759,7 @@ def main() -> int:
     for name in ("fused_decode_step_int8", "fused_decode_step_a8", "fused_cross_decode_step_int8",
                  "fused_cross_decode_step_t5_a8"):  # on x after each layer, from the kernel's own input
         limits[name] = {dn: list(I8_LAYER_TOL[dn]) for dn in I8_LAYER_TOL}
-    results = (res, res_w, res_t5, res_k7, res_i8, res_i8k7)
+    results = (res, res_e, res_w, res_t5, res_k7, res_i8, res_i8k7)
     entries = []
     for name, (src, replaces, timed, launches) in meta.items():
         if launches <= 0:
@@ -2577,7 +2768,8 @@ def main() -> int:
         rec = next(r[(name, timed)] for r in results if (name, timed) in r)
         entries.append({"name": name, "route": "cuda", "source": f"pytorch_models_tpu_torch/csrc/{src}",
                         "replaces": replaces, "launches": launches, "max_abs_err": err, "limit": limits[name],
-                        **{k: rec[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}})
+                        **{k: rec[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+                        **{k: rec[k] for k in ("two_gathers_ms", "embedding_add_ms", "launch_floor_ms") if k in rec}})
     print(card)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,7 +14,9 @@ and scoring (``models.text.DecoderGenerator``); Whisper
 (``models.audio2text.Whisper``) with its log-mel frontend
 (``WhisperPreprocessor``) and greedy single, batched and long-form
 transcription (``WhisperGenerator``); T5 (``models.text.T5Model``) with
-greedy generation and teacher-forced scoring (``T5Generator``). The greedy
+greedy generation and teacher-forced scoring (``T5Generator``); the ViT
+image encoder (``models.image.ViT``, AugReg / SigLIP / DeiT-3 / DINO
+loaders), its attention through the encoder-attention kernel. The greedy
 decode loops run each step as ONE fused kernel (``ops/decode_step.py``)
 where it serves the model and batch. The models and frontends run on the CUDA card unless the caller
 passes ``device="cpu"``.

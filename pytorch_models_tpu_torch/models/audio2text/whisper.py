@@ -31,7 +31,7 @@ import torch
 from ... import transformer as tfm
 from ...ops import ACT_FNS, layer_norm
 from ...ops import attention as _attn
-from ...ops.gather import embed_rows
+from ...ops.gather import embed_tokens
 from ...ops.greedy_head import greedy_argmax_tied
 from ...ops.layers import conv1d, conv1d_init
 from ...ops.mel import log_mel_spectrogram, use_mel_kernel
@@ -125,9 +125,7 @@ def whisper_decode(params: dict, cfg: WhisperConfig, tokens: torch.Tensor, memor
 def _decoder_hidden_chunk(p: dict, lc: tfm.LayerConfig, cross: list, tokens: torch.Tensor, caches: list, pos: int):
     """Embeddings + KV-cached decoder + final LayerNorm for a (B, S) chunk
     at positions ``[pos, pos+S)``. Returns ``(hidden (B, S, d), caches)``."""
-    s = tokens.shape[-1]
-    x = embed_rows(p["token_embs"], tokens)
-    x = x + p["pos_embs"][pos:pos + s].to(x.dtype)
+    x = embed_tokens(p["token_embs"], tokens, p["pos_embs"], start=pos)
     x, caches = tfm.decoder_apply(p, lc, x, self_caches=caches, cross_caches=cross, pos=pos)
     return layer_norm(p["norm"], x), caches
 
@@ -147,16 +145,15 @@ def _whisper_fused_ok(p: dict, cfg: WhisperConfig, batch: int) -> bool:
 
 
 def _whisper_embed_or_fold(p: dict, tok: torch.Tensor, pos: int):
-    """Decoder embeddings for a fused step at ``pos``: ``(x (B, d), {})``
-    through the gather kernel and a position slice, or with
+    """Decoder embeddings for a fused step at ``pos``: ``(x (B, d), {})`` in
+    one launch of the embedding kernel (K3's ``embed_add``), or with
     ``USE_FUSED_EMBED`` ``(None, kwargs)`` for the step's embed phase."""
     from ...ops.decode_step import pack_embed_tables
 
     if _attn.use_fused_embed(tok.shape[0]):
         return None, {"emb": pack_embed_tables(p["token_embs"], p["pos_embs"], p["token_embs"].dtype),
                       "tok_ids": tok[:, 0], "pos_rows": pos}
-    x = embed_rows(p["token_embs"], tok[:, 0])
-    return x + p["pos_embs"][pos].to(x.dtype), {}
+    return embed_tokens(p["token_embs"], tok, p["pos_embs"], start=pos)[:, 0], {}
 
 
 def _fused_whisper_step(p: dict, packed: dict, head: dict, cfg: WhisperConfig, tok: torch.Tensor, caches: dict,

@@ -17,7 +17,7 @@ import torch
 from ... import transformer as tfm
 from ...ops import attention as _attn
 from ...ops import layer_norm
-from ...ops.gather import embed_rows
+from ...ops.gather import embed_tokens
 from ...utils import tree_map
 
 
@@ -77,8 +77,7 @@ def decoder_lm_make_cache(cfg: DecoderLMConfig, batch_shape: tuple = (), dtype=t
 
 
 def _cached_stack(params, cfg: DecoderLMConfig, tokens, pos_ids, caches, pos: int, pad_lens):
-    x = embed_rows(params["token_embs"], tokens)
-    x = x + embed_rows(params["pos_embs"], pos_ids).to(x.dtype)
+    x = embed_tokens(params["token_embs"], tokens, params["pos_embs"], pos_ids)
     return tfm.decoder_apply(params["decoder"], cfg.layer, x, self_caches=caches, pos=pos, pad_lens=pad_lens)
 
 
@@ -140,8 +139,8 @@ def cross_operands(cross: dict, cdt: torch.dtype):
 
 
 def embed_or_fold(token_embs: torch.Tensor, pos_embs: torch.Tensor | None, tokens: torch.Tensor, pos_ids) -> tuple:
-    """Embeddings for a fused decode step: ``(x (B, d), {})`` through the
-    gather kernel (K3), or, with ``ops.attention.USE_FUSED_EMBED``, ``(None,
+    """Embeddings for a fused decode step: ``(x (B, d), {})`` in one launch
+    of the embedding kernel (K3's ``embed_add``), or, with ``ops.attention.USE_FUSED_EMBED``, ``(None,
     kwargs)`` for the step's embed phase (``emb``, ``tok_ids`` (B,) and,
     with a position table, ``pos_rows``). ``tokens``: (B, 1); ``pos_ids``:
     (B, 1) ids into ``pos_embs``, or None without a position table."""
@@ -152,10 +151,7 @@ def embed_or_fold(token_embs: torch.Tensor, pos_embs: torch.Tensor | None, token
         if pos_embs is not None:
             kw["pos_rows"] = pos_ids[:, 0]
         return None, kw
-    x = embed_rows(token_embs, tokens[:, 0])
-    if pos_embs is not None:
-        x = x + embed_rows(pos_embs, pos_ids[:, 0]).to(x.dtype)
-    return x, {}
+    return embed_tokens(token_embs, tokens[:, 0], pos_embs, None if pos_embs is None else pos_ids[:, 0]), {}
 
 
 def _fused_call(params, packed, cfg: DecoderLMConfig, tokens, pos_ids, caches: dict, pos: int, pad_lens, head):

@@ -40,6 +40,8 @@ _F = ctypes.c_float
 # C signatures: every function returns a cudaError_t as int
 _SIGNATURES = {
     "pmt_gather_rows": [_P, _P, _P, _I, _I, _I, _P],
+    "pmt_embed_add": [_P, _I, _I, _P, _I, _P, _I, _I, _P, _I, _I, _I, _P, _I, _I, _P],
+    "pmt_launch_floor": [_I, _I, _P],
     "pmt_decode_attention": [_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
     "pmt_decode_attention_cluster": [_I, _I, _I],
     "pmt_greedy_argmax": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],

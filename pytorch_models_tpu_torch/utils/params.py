@@ -146,6 +146,11 @@ class StateDict:
         w = self.pop(f"{key_prefix}.weight").permute(2, 1, 0).contiguous()
         return {"w": w, "b": self.pop(f"{key_prefix}.bias")}
 
+    def pop_conv2d(self, key_prefix: str) -> dict:
+        """Pop a torch ``nn.Conv2d``'s OIHW ``(out, in, kh, kw)`` weight and bias as an HWIO kernel."""
+        w = self.pop(f"{key_prefix}.weight").permute(2, 3, 1, 0).contiguous()
+        return {"w": w, "b": self.pop(f"{key_prefix}.bias")}
+
     def finalize(self) -> None:
         if self._d:
             raise ValueError(f"unconsumed checkpoint keys: {sorted(self._d.keys())}")

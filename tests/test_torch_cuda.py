@@ -23,7 +23,7 @@ from pytorch_models_tpu_torch.ops.encoder_attention import (
     encoder_attention,
     encoder_attention_plain,
 )
-from pytorch_models_tpu_torch.ops.gather import gather_rows, gather_rows_plain
+from pytorch_models_tpu_torch.ops.gather import embed_add, embed_add_plain, gather_rows, gather_rows_plain
 from pytorch_models_tpu_torch.ops.greedy_head import (
     greedy_argmax,
     greedy_argmax_plain,
@@ -112,6 +112,40 @@ def test_kernels_match_plain(cuda, dtype, atol, rtol):
     emb[3] = emb[4999] = x[0] * 2
     assert greedy_argmax_tied(x, emb)[0].item() == 3  # forced tie: lowest index
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pos_dtype", [torch.float32, torch.bfloat16])
+def test_embed_add_matches_plain_exactly(cuda, dtype, pos_dtype):
+    """One launch of K3's embedding kernel, bit for bit its plain version:
+    GPT-2's ids per row (int32 and int64, out of range ones clamped, one
+    (B, S) prefill chunk), Whisper's start position (a (B, S) chunk and a
+    step, period S), T5's gather without a position table; an odd width
+    and an offset view take the scalar path."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    tok = torch.randn(50257, 768, generator=g, device=cuda).mul_(3).to(dtype)
+    pos = torch.randn(1024, 768, generator=g, device=cuda).to(pos_dtype)
+    ids = torch.tensor([0, 50256, -5, 50300, 7, 7, 1000, 42], device=cuda)
+    pids = torch.tensor([0, 1023, 5, -1, 1030, 99, 99, 512], device=cuda)
+    before = embed_add.launches
+    for it in (torch.int32, torch.int64):
+        got = embed_add(tok, ids.to(it), pos, pids.to(it))
+        assert torch.equal(got, embed_add_plain(tok, ids, pos, pids)), it
+    chunk = torch.randint(0, 50257, (8 * 60,), generator=g, device=cuda)
+    chunk_pos = torch.randint(0, 1024, (8 * 60,), generator=g, device=cuda)
+    assert torch.equal(embed_add(tok, chunk, pos, chunk_pos), embed_add_plain(tok, chunk, pos, chunk_pos))
+    for start, period in ((0, 60), (40, 1), (1020, 8)):  # past the table's end the position clamps
+        assert torch.equal(embed_add(tok, chunk, pos, start=start, period=period),
+                           embed_add_plain(tok, chunk, pos, start=start, period=period)), (start, period)
+    assert torch.equal(embed_add(tok, ids), embed_add_plain(tok, ids))  # no position table: the gather
+    odd_tok, odd_pos = tok[:, :765].contiguous(), pos[:, 1:766].contiguous()
+    assert torch.equal(embed_add(odd_tok, ids, odd_pos, pids), embed_add_plain(odd_tok, ids, odd_pos, pids))
+    view = tok.view(-1)[2:2 + 1000 * 768].view(1000, 768)  # 4-byte (bf16) or 8-byte (fp32) aligned: scalar path
+    assert torch.equal(embed_add(view, ids, pos, pids), embed_add_plain(view, ids, pos, pids))
+    torch.cuda.synchronize()
+    assert embed_add.launches - before == 9
+    with pytest.raises(ValueError):
+        embed_add(tok, ids.float(), pos, pids)
 
 
 @pytest.mark.parametrize("dtype,atol,rtol", [(torch.float32, 1e-5, 0.0), (torch.bfloat16, 1e-5, 2.0 ** -7)])
@@ -916,3 +950,32 @@ def test_fused_step_embed_phase_equals_gathered_input(cuda):
                             emb=pack_embed_tables(tok, pos_tab), tok_ids=ids, pos_rows=prow)
     torch.cuda.synchronize()
     assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
+@pytest.mark.parametrize("pool,cls", [("cls_token", True), ("mha", False)])
+def test_vit_k1_route_matches_sdpa_route(cuda, pool, cls):
+    """ViT at ViT-B/16's width (2 layers) in fp32: the auto gate sends every
+    self-attention (B, 197, 12 x 64) and the SigLIP probe (1 query over 196
+    keys) to K1, whose features match the SDPA route's to fp32 noise over the
+    stack (3xTF32 products, other summation orders: chip_smoke.py's DS_TOL)."""
+    from pytorch_models_tpu_torch.image import ViT
+
+    model = ViT(2, 768, 12, 16, cls_token=cls, pool_type=pool, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(4)
+    for key in ("pe", "cls_token"):
+        if key in model.params:
+            model.params[key] = 0.02 * torch.randn(model.params[key].shape, generator=g, device=cuda)
+    x = torch.randn(4, 3, 224, 224, generator=g, device=cuda)
+    saved = _attn.USE_ENCODER_KERNEL
+    try:
+        _attn.USE_ENCODER_KERNEL = False
+        ref = model(x)
+        _attn.USE_ENCODER_KERNEL = None
+        before = encoder_attention.launches
+        got = model(x)
+        torch.cuda.synchronize()
+    finally:
+        _attn.USE_ENCODER_KERNEL = saved
+    assert encoder_attention.launches - before == 2 + (pool == "mha")
+    assert got.shape == (4, 768)
+    torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4)

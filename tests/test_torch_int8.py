@@ -79,6 +79,25 @@ def _assert_trees_equal(got, expected):
         assert torch.equal(g[path], leaf), path
 
 
+# a step's K/V reach the cache through each library's own fp32 matmul, whose summation order differs by
+# library and by CPU: their per-key scales (absmax / 127) may differ by a few fp32 ulp
+SCALE_ULPS = 4
+
+
+def _assert_levels_match(name, got_q, got_s, ref_q, ref_s):
+    """int8 rows ``(..., H*D)`` and their per-key scales ``(...)`` quantized by
+    two libraries from their own projections of the same input: scales within
+    SCALE_ULPS fp32 ulp; levels equal where the two scales are equal, at most
+    one apart where they differ (chip_smoke.py's ``_int8_levels`` rule)."""
+    got_s, ref_s = got_s.float(), ref_s.float()
+    ulp = torch.abs(torch.nextafter(ref_s, torch.full_like(ref_s, float("inf"))) - ref_s)
+    assert bool(((got_s - ref_s).abs() <= SCALE_ULPS * ulp).all()), f"{name}: scales beyond {SCALE_ULPS} ulp"
+    d = (got_q.int() - ref_q.int()).abs()
+    same = (got_s == ref_s)[..., None].expand_as(d)
+    assert bool((d[same] == 0).all()), f"{name}: levels differ under equal scales"
+    assert int(d.max()) <= 1, f"{name}: levels more than one apart"
+
+
 # ---------------------------------------------------------------------------
 # quantizers and caches: bit for bit
 # ---------------------------------------------------------------------------
@@ -461,11 +480,27 @@ def test_mha_apply_int8_matches_jax():
         j_out, j_cache = jax_tfm.mha_apply(jp, cfg, jnp.asarray(h), cache=jc, cache_pos=pos,
                                            pad_lens=jnp.asarray(pads))
         j_cross = jax_tfm.mha_apply(jp, cfg, jnp.asarray(h), cache=jx)
+    prefilled = {key: val.clone() for key, val in oc.items()}
     out, cache = tfm.mha_apply(ours, tfm.LayerConfig.make(D, n_heads=2), _t(h), cache=oc, cache_pos=pos,
                                pad_lens=_t(pads))
     assert cache is oc  # written in place
     np.testing.assert_allclose(out.numpy(), np.asarray(j_out), rtol=0, atol=X_TOL)
-    _assert_trees_equal(oc, int8_kv.int8_kv_from_jax(jax.tree.map(np.asarray, j_cache), b))
+    expected = int8_kv.int8_kv_from_jax(jax.tree.map(np.asarray, j_cache), b)
+    # every slot but pos bit for bit
+    keep = torch.arange(L_MAX) != pos
+    _assert_trees_equal({key: val[:, keep] for key, val in oc.items()},
+                        {key: val[:, keep] for key, val in expected.items()})
+    # slot pos: the port's cache write fed JAX's own projected step K/V writes JAX's slot bit for bit
+    from pytorch_models_tpu.ops.layers import linear as jax_linear
+
+    jk, jv = (_t(np.asarray(jax_linear(jp[key], jnp.asarray(h)))) for key in ("k", "v"))
+    int8_kv.write_int8_kv(*(prefilled[key] for key in ("k", "v", "ks", "vs")), jk, jv, pos)
+    _assert_trees_equal({key: val[:, pos] for key, val in prefilled.items()},
+                        {key: val[:, pos] for key, val in expected.items()})
+    # and the port's own slot, from its own projection: scales within a few ulp, levels as they allow
+    for key in ("k", "v"):
+        _assert_levels_match(f"slot {pos} {key}", oc[key][:, pos], oc[key + "s"][:, pos], expected[key][:, pos],
+                             expected[key + "s"][:, pos])
     cross = tfm.mha_apply(ours, tfm.LayerConfig.make(D, n_heads=2), _t(h), cache=ox)
     np.testing.assert_allclose(cross.numpy(), np.asarray(j_cross), rtol=0, atol=X_TOL)
     with pytest.raises(ValueError, match="no bias"):
