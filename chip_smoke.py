@@ -9,7 +9,8 @@ Builds the port's CUDA kernels from ``pytorch_models_tpu_torch/csrc/`` (one
 PyTorch version at the GPT-2, Whisper and T5 serving shapes (the fused
 decode step K7 at full GPT-2-small, Whisper-base and T5-base width, fp32 and
 bf16; the biased decode attention and the untied greedy head at T5-base's;
-the greedy heads at B=8, 16 and 32 beside the head matmul + argmax;
+the greedy heads at B=8 to 200 beside the head matmul + argmax, with the
+side ``use_greedy_head`` takes at each;
 the encoder attention K1 also at ViT-B/16's B=128 x 197 tokens and at head
 widths 32, 80 and 128, with its tensor-core instructions per instantiation
 counted by ``cuobjdump -sass``), then drives the port's three main paths and
@@ -36,6 +37,26 @@ checks that each went through its kernels:
   attention K1 route (flags auto) against the SDPA route, K1 once per layer;
   bf16 at B=128, ``bench.py``'s batch: both routes' img/s and MFU in turns,
   and K1's share of the forward.
+
+The generation API at full width (``beam_sample_paths``): beam search
+through ``DecoderGenerator.beam_search_tokens_batch`` (GPT-2 small, G=2 and
+4 prompts x W=4: 8 rows, the fused step headless, and 16, per-op),
+``WhisperGenerator.transcribe_beam_tokens`` (Whisper-base, one 30 s
+segment, W=4) and ``T5Generator.generate_beam_tokens`` (T5-base, one
+prompt, W=4), at most BEAM_NEW new tokens; sampling through
+``generate_tokens_batch`` (B=8) and ``generate_tokens_samples`` (n=16) at
+top-k 40, top-p 0.9, temperature 0.8, seed 0. fp32 beams must be identical
+on the fused, per-op and plain routes (a group may part only where the
+plain run had a selection within the near-tie tolerance GAP_TOL at the
+model's top logit, printed) with scores within it, fp32 sampled streams identical on the fused and plain routes (a
+row may part only where its draw lies on a boundary of the plain route's
+CDF that the routes' logits can move, printed), and the headless K7 launched once per
+beam or sampled step (T5: and once for the pad token). bf16: GPT-2 beam and
+sampled row tokens/s and Whisper beam segments/s, fused against per-op in
+turns; the beam cache reorder's time a step. The headless K7 (no final
+norm, no head) is also held against its plain twin at those rows (GPT-2 8,
+Whisper and T5 4) on ``decode_step_phases``' inputs and timed beside the
+head matmul that follows it.
 
 The decoders' embedding is K3's one-launch ``embed_add`` (token rows + cast
 position rows), held bit for bit against its plain version at the GPT-2,
@@ -167,6 +188,22 @@ T5_PAD, T5_EOS = 0, 1
 T5_MAX = 64  # tokens per output row, the pad token included
 T5_WEIGHT_SCALE = 2.0  # layer matrices, x the init's scale
 T5_BIAS_SCALE = 2.0  # rel-pos tables, seeded N(0, 1) x this (the init's are zeros)
+
+# beam search and sampling: W beams a prompt, G prompts (G x W = 8 rows: the fused step headless; 16: per-op),
+# at most BEAM_NEW new tokens; the sampled phases' settings (topk, top_p, temperature, seed)
+BEAM_W, BEAM_G, BEAM_NEW = 4, (2, 4), 32
+# fp32 routes' beams: scores within the model's beam tolerance, and sequences parted only where a selection of
+# the plain route's run (the 2W candidates, the W survivors, the finished pool) had its k-th and (k+1)-th
+# scores within it. The tolerance is the main paths' near-tie tolerance at the model's top logit on the first
+# prompt, GAP_TOL[0] + GAP_TOL[1] * |top logit|: fp32 summation order moves a logit by ~1e-5 of its size, and
+# a score sums up to BEAM_NEW + 1 log-probs whose errors mostly cancel (H100 readings: GPT-2 2.2e-4, Whisper
+# 1.1e-3 between the fused and plain routes).
+SAMPLE = dict(topk=40, top_p=0.9, temperature=0.8, seed=0)
+SAMPLE_B, SAMPLE_N = 8, 16
+# fp32 routes' sampled streams may part only where the draw lies on a CDF boundary that the routes' logits
+# can move: within 2 * (GAP_TOL[0] + GAP_TOL[1] * |top logit|) / temperature of one of the plain route's
+# cumulative probabilities (every logit moved by at most the main paths' near-tie tolerance moves a
+# log-probability by at most twice that, over the temperature)
 
 # ViT-B/16 (AugReg's cls pooling): fp32 routes compared at VIT_B32 images, bf16 timed at bench.py's batch
 VIT_B32, VIT_B = 32, 128
@@ -466,6 +503,7 @@ def kernel_phases(dev, card: str) -> dict:
     )
     from pytorch_models_tpu_torch.ops.encoder_attention import K_TILE
     from pytorch_models_tpu_torch.ops.gather import gather_rows, gather_rows_plain
+    from pytorch_models_tpu_torch.ops.attention import use_greedy_head
     from pytorch_models_tpu_torch.ops.greedy_head import greedy_argmax_tied, greedy_argmax_tied_plain
 
     import torch.nn.functional as F
@@ -593,7 +631,7 @@ def kernel_phases(dev, card: str) -> dict:
         # chooses between: the kernel, or the model's own head matmul in its dtype + argmax
         emb = rnd(50257, 768, dtype=dtype)
         parts, head1 = [], None
-        for nb in (8, 16, 32, 64, 200):
+        for nb in (8, 16, 17, 32, 33, 64, 200):  # both sides of each of use_greedy_head's crossovers
             x = rnd(nb, 768, dtype=dtype)
             emb[7] = emb[50000] = x[0] * 4
             e, decided = _check_greedy(f"greedy_argmax_tied B={nb} {dn}", x, emb, 7)
@@ -610,7 +648,8 @@ def kernel_phases(dev, card: str) -> dict:
                 rec["err"] = max(rec["err"], e)
             parts.append(f"B={nb}: {decided}/{nb} decided rows equal, max score regret {e:.3g}, kernel "
                          f"{k4[0] * 1e3:.1f} us, plain {k4[1] * 1e3:.1f} us, head matmul + argmax {head * 1e3:.1f} us, "
-                         f"bound {r['bound_ms'] * 1e3:.1f} us ({r['bound_by']})")
+                         f"bound {r['bound_ms'] * 1e3:.1f} us ({r['bound_by']}), the gate takes the "
+                         f"{'kernel' if use_greedy_head(nb, emb, tied=True) else 'matmul'}")
         print(f"phase kernel greedy_argmax_tied {dn}: V=50257 d=768, tie->lowest ok (score regret tol per row: "
               f"{'1e-3' if dtype == torch.float32 else 'one bf16 step of the top score'}) | " + "; ".join(parts)
               + f"; B=1 kernel {head1[0] * 1e3:.1f} us, head {head1[1] * 1e3:.1f} us [{card}]")
@@ -820,6 +859,7 @@ def t5_kernel_phases(dev, card: str) -> dict:
         decode_attention_cluster,
         decode_attention_plain,
     )
+    from pytorch_models_tpu_torch.ops.attention import use_greedy_head
     from pytorch_models_tpu_torch.ops.greedy_head import greedy_argmax, greedy_argmax_plain
 
     g = torch.Generator(device=dev).manual_seed(SEED + 11)
@@ -878,7 +918,7 @@ def t5_kernel_phases(dev, card: str) -> dict:
         # the T5 main path's batch, 16 to 200 the per-op route's (batches above the fused step's 8 rows)
         w = rnd(768, 32128, dtype=dtype)
         parts = []
-        for nb in (8, 16, 32, 64, 200):
+        for nb in (8, 16, 17, 32, 33, 64, 200):  # both sides of each of use_greedy_head's crossovers
             x = rnd(nb, 768, dtype=dtype)
             w[:, 7] = w[:, 32000] = x[0] * 4
             e, decided = _check_greedy(f"greedy_argmax (untied) B={nb} {dn}", x, w, 7, untied=True)
@@ -892,7 +932,8 @@ def t5_kernel_phases(dev, card: str) -> dict:
                 rec["err"] = max(rec["err"], e)
             parts.append(f"B={nb}: {decided}/{nb} decided rows equal, max score regret {e:.3g}, kernel "
                          f"{k4[0] * 1e3:.1f} us, plain {k4[1] * 1e3:.1f} us, head matmul + argmax {head * 1e3:.1f} us, "
-                         f"bound {r['bound_ms'] * 1e3:.1f} us ({r['bound_by']})")
+                         f"bound {r['bound_ms'] * 1e3:.1f} us ({r['bound_by']}), the gate takes the "
+                         f"{'kernel' if use_greedy_head(nb, w, tied=False) else 'matmul'}")
         print(f"phase kernel greedy_argmax {dn} (untied, T5): V=32128 d=768, tie->lowest ok | " + "; ".join(parts)
               + f" [{card}]")
     torch.cuda.synchronize()
@@ -1086,8 +1127,81 @@ def decode_step_phases(dev, card: str) -> dict:
                   f"{ms * 1e3:.1f} us ({ms2 * 1e3:.1f} us in the second pair), plain {plain_ms * 1e3:.1f} us, "
                   f"per-op step {op_ms * 1e3:.1f} us, bound {r['bound_ms'] * 1e3:.1f} us ({r['bound_by']}, "
                   f"{nbytes / 1e6:.1f} MB) [{card}]")
+            res.update(_headless_check(kind, name, dn, card, x, packed, kc, vc, xk, xv, lens, pos, pads, cfg32,
+                                       variant, final32, head))
     torch.cuda.synchronize()
     return res
+
+
+def _headless_check(kind: str, name: str, dn: str, card: str, x, packed, kc, vc, xk, xv, lens, pos: int, pads, cfg,
+                    variant: dict, final32, head) -> dict:
+    """K7 headless (no final norm, no head: the sampled and beam loops) at
+    the rows the new paths give it (GPT-2: 8, the sampled batch and G=2 x
+    W=4 beams; Whisper and T5: W=4 beams), on ``decode_step_phases``'s
+    inputs: x_out and the K/V written at pos against the plain twin (DS_TOL;
+    layer 0's K/V to TOL), no token; the kernel and its twin in turns, the
+    head matmul that follows it in torch, and the bound without a head."""
+    import torch
+
+    from pytorch_models_tpu_torch.models.text.t5 import rms_norm
+    from pytorch_models_tpu_torch.ops import layer_norm
+    from pytorch_models_tpu_torch.ops.decode_step import (
+        fused_cross_decode_step,
+        fused_decode_step,
+        fused_decode_step_plain,
+    )
+
+    cross, t5 = kind != "gpt2", kind == "t5"
+    b = 8 if kind == "gpt2" else BEAM_W
+    n_layers, hd = kc.shape[0], kc.shape[3]
+    hx = x[:b].contiguous()
+    hk, hv = kc[:, :b].contiguous(), vc[:, :b].contiguous()
+    hxk, hxv = (xk[:, :b].contiguous(), xv[:, :b].contiguous()) if cross else (None, None)
+    hl, hp = lens[:b].contiguous(), None if pads is None else pads[:b].contiguous()
+    args = (cfg.n_heads, cfg.act, cfg.norm_eps)
+
+    def kernel(kc=hk, vc=hv):
+        if cross:
+            return fused_cross_decode_step(hx, packed, kc, vc, hxk, hxv, hl, pos, hp, *args, **variant)
+        return fused_decode_step(hx, packed, kc, vc, pos, hp, *args)
+
+    def plain(kc, vc):
+        ck = dict(cross_k=hxk, cross_v=hxv, cross_lens=hl) if cross else {}
+        return fused_decode_step_plain(hx, packed, kc, vc, pos, hp, *args, None, **ck, **variant)
+
+    kp, vp = hk.clone(), hv.clone()
+    ref_x, ref_tok = plain(kp, vp)
+    got_x, got_tok = kernel()
+    torch.cuda.synchronize()
+    if got_tok is not None or ref_tok is not None:
+        raise AssertionError(f"{name} headless: a token came back")
+    tol = DS_TOL[dn]
+    err = _check_close(f"{name} headless x_out {dn}", got_x, ref_x, tol)
+    for c, c_ref, what in ((hk, kp, "k"), (hv, vp, "v")):
+        err = max(err, _check_close(f"{name} headless layer 0 {what} at pos {dn}", c[0, :, pos], c_ref[0, :, pos],
+                                    TOL[dn]),
+                   _check_close(f"{name} headless {what} at pos {dn}", c[1:, :, pos], c_ref[1:, :, pos], tol))
+    final = {k: v.to(hx.dtype) for k, v in final32.items()}
+    emb = head["emb"].to(hx.dtype)
+    xn = rms_norm(final, got_x) if t5 else layer_norm(final, got_x, cfg.norm_eps)
+    with torch.inference_mode():
+        ms, plain_ms = _ab_ms([kernel], [lambda: plain(hk, hv)], 10)
+        head_ms = _time_ms([lambda: torch.matmul(xn, emb.t())], 50)
+    item = hx.element_size()
+    w_el = sum(t.numel() for k, t in packed.items() if k.startswith("w"))
+    small = sum(t.numel() for k, t in packed.items() if not k.startswith("w")) + (variant["sbias"].numel() if t5 else 0)
+    self_keys = b * pos if hp is None else int((pos - hp.clamp(max=pos)).sum())
+    cross_keys = int(hl.sum()) if cross else 0
+    nbytes = (w_el * item + small * 4 + 2 * b * hx.shape[1] * item + 2 * n_layers * (self_keys + cross_keys) * hd * item
+              + 2 * n_layers * b * hd * item)
+    flops = 2 * b * w_el + 4 * n_layers * hd * (self_keys + b + cross_keys)
+    rec = _rec(err, ms, plain_ms, nbytes, flops, dn)
+    rec["head_matmul_ms"] = head_ms
+    print(f"phase kernel {name} headless {dn}: {kind} {n_layers} layers B={b} pos={pos} | max |kernel - plain| (x_out, "
+          f"K/V at pos) {err:.3g} (atol, rtol)={tol} | kernel {ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, bound "
+          f"{rec['bound_ms'] * 1e3:.1f} us ({rec['bound_by']}, {nbytes / 1e6:.1f} MB, no head); the head matmul that "
+          f"follows it ({b} x {emb.shape[1]} x {emb.shape[0]}) {head_ms * 1e3:.1f} us [{card}]")
+    return {(f"{name}_headless", dn): rec}
 
 
 # K7's per-phase breakdown: (kind, dtype, int8 serving options of _k7_step) at B=8, each launched this many
@@ -2599,6 +2713,315 @@ def vit_path(dev, card: str, profile_dir: str | None = None) -> dict:
     return launches
 
 
+class _SelectionGaps:
+    """Inside the block, each beam group's smallest margin at any selection
+    of the beam loop (``beam._top_k``: the W first tokens, the 2W
+    candidates, the W survivors, the finished pool): the k-th score minus
+    the (k+1)-th, over live scores (slots at NEG_INF tie by design, and
+    every route orders those the same way). ``gaps``: (G,) or None."""
+
+    def __enter__(self):
+        import torch
+
+        from pytorch_models_tpu_torch.models.text import beam
+
+        self.beam, self.real, self.gaps = beam, beam._top_k, None
+
+        def top_k(x, k):
+            vals, idx = self.real(x, k + 1)
+            if vals.shape[-1] > k:
+                live = vals[..., k] > beam.NEG_INF / 2
+                gap = torch.where(live, vals[..., k - 1] - vals[..., k], torch.inf).reshape(x.shape[0], -1).amin(1)
+                self.gaps = gap if self.gaps is None else torch.minimum(self.gaps, gap)
+            return vals[..., :k], idx[..., :k]
+
+        beam._top_k = top_k
+        return self
+
+    def __exit__(self, *exc):
+        self.beam._top_k = self.real
+
+
+class _BeamSteps:
+    """Counts the beam loop's steps inside the block (one cache reorder a
+    step, ``beam.reorder_caches``)."""
+
+    def __enter__(self):
+        from pytorch_models_tpu_torch.models.text import beam
+
+        self.beam, self.real, self.n = beam, beam.reorder_caches, 0
+
+        def reorder(*args):
+            self.n += 1
+            return self.real(*args)
+
+        beam.reorder_caches = reorder
+        return self
+
+    def __exit__(self, *exc):
+        self.beam.reorder_caches = self.real
+
+
+def _beam_tol(logits) -> float:
+    """The beam tolerance at a model's first-step logits (see GAP_TOL)."""
+    return GAP_TOL[0] + GAP_TOL[1] * logits.float().abs().max().item()
+
+
+def _beam_routes(what: str, run, check_rows, tol: float) -> tuple[dict, str, int]:
+    """fp32 beams of ``run()`` (-> (G lists of W sequences, G lists of W
+    scores)) on the plain, fused and per-op routes. Per group: sequences
+    identical to plain, or parted where the plain run had a selection
+    within ``tol`` (printed); scores of identical groups within ``tol``.
+    ``check_rows(seqs, scores)`` raises on a malformed result. Returns the
+    outputs, the partings and the fused route's beam steps."""
+    _route("plain")
+    with _SelectionGaps() as sel:
+        outs = {"plain": run()}
+    gaps = sel.gaps.tolist()
+    for route in ("fused", "per-op"):
+        _route(route)
+        with _BeamSteps() as steps:
+            outs[route] = run()
+        if route == "fused":
+            fused_steps = steps.n
+    _route("fused")
+    notes, worst = [], 0.0
+    for route, (seqs, scores) in outs.items():
+        check_rows(seqs, scores)
+        for g, (got, ref) in enumerate(zip(seqs, outs["plain"][0])):
+            if got != ref:
+                note = f"{route} group {g} parts from plain; the plain run's closest selection: {gaps[g]:.3g} apart"
+                print(f"phase {what}: {note}")
+                if not gaps[g] <= tol:
+                    raise AssertionError(f"{what}: {note}, above the near-tie tolerance {tol:.3g}")
+                notes.append(note)
+                continue
+            err = max(abs(a - b) for a, b in zip(scores[g], outs["plain"][1][g]))
+            if err > tol:
+                raise AssertionError(f"{what}: {route} group {g} scores {err} from plain (tol {tol:.3g})")
+            worst = max(worst, err)
+    summary = f"{'; '.join(notes) or 'none'}; scores at most {worst:.3g} from plain, tolerance {tol:.3g}"
+    return outs, summary, fused_steps
+
+
+def _beam_rows_check(what: str, prompts, vocab: int):
+    """Each beam is its prompt and 1 to BEAM_NEW tokens of the vocabulary;
+    scores finite, best first; the W beams distinct."""
+    def check(seqs, scores):
+        for p, group, sc in zip(prompts, seqs, scores):
+            if (any(s[:len(p)] != p or not len(p) < len(s) <= len(p) + BEAM_NEW or not all(0 <= t < vocab for t in s)
+                    for s in group) or not np.isfinite(sc).all() or sc != sorted(sc, reverse=True)
+                    or len({tuple(s) for s in group}) < len(group)):
+                raise AssertionError(f"{what}: malformed beams {group} {sc}")
+    return check
+
+
+def _draw_margins(model, rows, ref_rows, n_prompt: list, seed: int, b: int) -> list:
+    """For rows that part from the plain route's: the draw's distance to the
+    nearest boundary of the plain route's CDF at the parting step (the
+    uniforms the generator drew, one per row a step; the plain logits of
+    the plain row's prefix), and the distance the routes' logits can move a
+    boundary (see SAMPLE). Returns ``[(row, new-token index, margin, bound)]``."""
+    import torch
+
+    from pytorch_models_tpu_torch.models.text import generator as gen_mod
+
+    out = []
+    for r, (row, ref, n) in enumerate(zip(rows, ref_rows, n_prompt)):
+        if row == ref:
+            continue
+        j = next((k for k in range(min(len(row), len(ref))) if row[k] != ref[k]), min(len(row), len(ref)))
+        g = torch.Generator(device=model.device).manual_seed(seed)
+        u = [torch.rand((b,), generator=g, device=model.device) for _ in range(j - n + 1)][-1][r]
+        _route("plain")
+        with torch.inference_mode():
+            logits = model(torch.tensor(ref[:j], device=model.device))[-1]
+        _route("fused")
+        k = SAMPLE["topk"] if SAMPLE["topk"] > 1 else logits.shape[-1]
+        vals, _ = gen_mod._top_k(logits / SAMPLE["temperature"], k)
+        cdf = torch.cumsum(torch.softmax(gen_mod._nucleus_mask(vals, SAMPLE["top_p"]).float(), -1), -1)
+        bound = 2 * (GAP_TOL[0] + GAP_TOL[1] * logits.abs().max().item()) / SAMPLE["temperature"]
+        out.append((r, j - n, (cdf - u * cdf[-1]).abs().min().item(), bound))
+    return out
+
+
+def beam_sample_paths(dev, card: str) -> dict:
+    """The generation API at full width: beam search (GPT-2 small, G=2 and 4
+    prompts x W=4; Whisper-base, one 30 s segment at W=4; T5-base, one
+    prompt at W=4; at most BEAM_NEW new tokens) and sampling (GPT-2 small,
+    B=8 prompts and 16 samples of one, SAMPLE's settings), fp32 on the
+    plain, fused and per-op routes (the fused step headless at <= 8 rows,
+    once per step), then bf16 rates of the fused and per-op routes and the
+    beam cache reorder's time a step. Models and seeds as the greedy paths'.
+    Returns each path's launches (counts from 0 just before it)."""
+    import torch
+
+    from pytorch_models_tpu_torch.audio2text import Whisper, WhisperGenerator
+    from pytorch_models_tpu_torch.models.text import GPT2, DecoderGenerator, beam
+    from pytorch_models_tpu_torch.text import T5Generator, T5Model
+
+    kernels = _kernels()
+    launches, rates = {}, {}
+    r = np.random.default_rng(SEED)
+    prompts = [r.integers(0, 50257, n).tolist() for n in PROMPT_LENS]
+    model = GPT2.from_hf("gpt2", rng=SEED, device=dev)
+    _make_streams_move(dev, SEED + 7, model.params, [model.params["decoder"]["layers"]])
+    gen = DecoderGenerator(model, _Tok())
+    c = model.cfg
+
+    # ---- beam gpt2 fp32: G x W = 8 rows (the fused step headless) and 16 (per-op)
+    _route("plain")
+    with torch.inference_mode():
+        tol = _beam_tol(model(torch.tensor(prompts[0], device=dev))[-1])
+    _reset_launches()
+    for g in BEAM_G:
+        def run(g=g):
+            return gen.beam_search_tokens_batch(prompts[:g], max_tokens=BEAM_NEW, beam_width=BEAM_W, return_all=True)
+
+        before = kernels["fused_decode_step"].variant_launches["headless"]
+        outs, partings, steps = _beam_routes(f"beam gpt2 fp32 G={g}", run, _beam_rows_check(
+            "beam gpt2", prompts[:g], c.vocab_size), tol)
+        headless = kernels["fused_decode_step"].variant_launches["headless"] - before
+        want = steps if g * BEAM_W <= 8 else 0
+        if headless != want:
+            raise AssertionError(f"beam gpt2 G={g}: K7 headless launched {headless} times for {want} fused beam steps")
+        print(f"phase beam gpt2 fp32 G={g} x W={BEAM_W} ({g * BEAM_W} rows): fused, per-op and plain beams identical "
+              f"(partings at near-ties: {partings}); {steps} beam steps, K7 headless launched {headless} times; best "
+              f"scores {[round(s[0], 4) for s in outs['fused'][1]]}")
+    launches["beam gpt2"] = _launches({"fused_decode_step", "decode_attention", "embed_add"})
+
+    # ---- sample gpt2 fp32: B=8 prompts (the fused step headless), 16 samples of one (per-op)
+    _reset_launches()
+    cases = {f"B={SAMPLE_B}": (lambda: gen.generate_tokens_batch(prompts[:SAMPLE_B], max_tokens=BEAM_NEW, **SAMPLE),
+                               prompts[:SAMPLE_B]),
+             f"n={SAMPLE_N}": (lambda: gen.generate_tokens_samples(prompts[0], SAMPLE_N, max_tokens=BEAM_NEW, **SAMPLE),
+                               [prompts[0]] * SAMPLE_N)}
+    for name, (run, rows_p) in cases.items():
+        _route("plain")
+        ref = run()
+        _route("fused")
+        before = kernels["fused_decode_step"].variant_launches["headless"]
+        got = run()
+        headless = kernels["fused_decode_step"].variant_launches["headless"] - before
+        for row, p in zip(got + ref, rows_p * 2):
+            if row[:len(p)] != p or len(row) != len(p) + BEAM_NEW or not all(0 <= t < c.vocab_size for t in row):
+                raise AssertionError(f"sample gpt2 {name}: malformed row {row}")
+        if len(rows_p) <= 8 and headless != BEAM_NEW - 1 or len(rows_p) > 8 and headless:
+            raise AssertionError(f"sample gpt2 {name}: K7 headless launched {headless} times")
+        margins = _draw_margins(model, got, ref, [len(p) for p in rows_p], SAMPLE["seed"], len(rows_p))
+        for row, j, m, bound in margins:
+            print(f"phase sample gpt2 fp32 {name}: row {row} parts from plain at new token {j}: the draw {m:.3g} "
+                  f"from a CDF boundary (the routes' logits can move one by {bound:.3g})")
+            if m > bound:
+                raise AssertionError(f"sample gpt2 {name}: row {row} parts {m} from a CDF boundary (bound {bound})")
+        print(f"phase sample gpt2 fp32 {name} ({SAMPLE}): fused and plain streams identical but {len(margins)} rows "
+              f"parted at a CDF boundary; K7 headless launched {headless} times; distinct rows "
+              f"{len({tuple(row) for row in got})}/{len(got)}")
+    launches["sample gpt2"] = _launches({"fused_decode_step", "decode_attention", "embed_add"})
+
+    # ---- bf16 rates: GPT-2 beams G=2 x W=4 and sampled B=8, fused against per-op, in turns; the cache reorder
+    model.to_bf16()
+    timed = {"beam": lambda: gen.beam_search_tokens_batch(prompts[:BEAM_G[0]], max_tokens=BEAM_NEW,
+                                                           beam_width=BEAM_W, return_all=True),
+             "sample": lambda: gen.generate_tokens_batch(prompts[:SAMPLE_B], max_tokens=BEAM_NEW, **SAMPLE)}
+    for what, fn in timed.items():
+        times, steps = {}, 0
+        for route in ("per-op", "fused", "fused", "per-op"):
+            _route(route)
+            with _BeamSteps() as st:
+                ms, _ = _event_ms(fn)
+            times.setdefault(route, []).append(ms)
+            steps = max(steps, st.n)
+        _route("fused")
+        rows = BEAM_G[0] * BEAM_W if what == "beam" else SAMPLE_B
+        n_tok = rows * ((steps + 1) if what == "beam" else BEAM_NEW)
+        rates[f"gpt2 {what}"] = {k: n_tok / (np.mean(v) / 1e3) for k, v in times.items()}
+        print(f"phase time bf16 gpt2 {what} ({rows} rows, {n_tok} row tokens, prefill included, CUDA events): "
+              + ", ".join(f"{k} {rates[f'gpt2 {what}'][k]:.1f} tok/s ({np.mean(v):.1f} ms)" for k, v in times.items())
+              + f" [{card}]")
+    _, stacked = beam.decoder_lm_make_cache(c, (8,), torch.bfloat16, dev)
+    caches = beam.beam_caches(stacked)
+    idx = torch.tensor([1, 0, 3, 2, 5, 4, 7, 6], device=dev)
+    pos_mean = 64 + BEAM_NEW // 2
+    reorder = {pos: _time_ms([lambda pos=pos: beam.reorder_caches(caches, idx, pos)], 50)
+               for pos in (pos_mean, c.max_seq_len)}
+    rates["reorder_us"] = reorder[pos_mean] * 1e3
+    print(f"phase time bf16 beam cache reorder (GPT-2 small, 8 rows, K and V of 12 layers): the written prefix at "
+          f"pos {pos_mean} {reorder[pos_mean] * 1e3:.1f} us a step; the whole {c.max_seq_len}-slot cache (the JAX "
+          f"package's gather) {reorder[c.max_seq_len] * 1e3:.1f} us [{card}]")
+    del model, gen, stacked, caches
+
+    # ---- beam whisper fp32: one 30 s segment at W=4
+    _reset_launches()
+    wmodel = Whisper.from_openai("base", rng=SEED, device=dev)
+    _make_streams_move(dev, SEED + 3, wmodel.params["decoder"],
+                       [wmodel.params["encoder"]["layers"], wmodel.params["decoder"]["layers"]])
+    wgen = WhisperGenerator(wmodel)
+    wav = torch.from_numpy(_waveforms(1, W_SECONDS[-1:], SEED + 4)).to(dev)
+    w_max = len(W_INIT) + BEAM_NEW
+
+    def w_run():
+        seqs, scores = wgen.transcribe_beam_tokens(wav[0], W_INIT, W_EOT, w_max, beam_width=BEAM_W, return_all=True)
+        return [seqs], [scores]
+
+    _route("plain")
+    with torch.inference_mode():
+        tol = _beam_tol(wmodel(wgen.preprocessor(wav), torch.tensor([W_INIT], device=dev))[0, -1])
+    before = kernels["fused_cross_decode_step"].variant_launches["headless"]
+    outs, partings, steps = _beam_routes("beam whisper fp32", w_run, _beam_rows_check(
+        "beam whisper", [W_INIT], wmodel.cfg.vocab_size), tol)
+    headless = kernels["fused_cross_decode_step"].variant_launches["headless"] - before
+    if headless != steps:
+        raise AssertionError(f"beam whisper: K7 headless launched {headless} times for {steps} fused beam steps")
+    print(f"phase beam whisper fp32 W={BEAM_W} (one {W_SECONDS[-1]} s segment): fused, per-op and plain beams "
+          f"identical (partings at near-ties: {partings}); {steps} beam steps, K7 headless launched {headless} times; "
+          f"scores {[round(s, 4) for s in outs['fused'][1][0]]}")
+    launches["beam whisper"] = _launches({"fused_cross_decode_step", "encoder_attention", "log_mel_spectrogram",
+                                          "decode_attention", "embed_add"})
+    wmodel.to_bf16()
+    times = {}
+    for route in ("per-op", "fused", "fused", "per-op"):
+        _route(route)
+        ms, _ = _event_ms(w_run)
+        times.setdefault(route, []).append(ms)
+    _route("fused")
+    rates["whisper beam"] = {k: 1e3 / np.mean(v) for k, v in times.items()}
+    print("phase time bf16 beam whisper W=4 (one 30 s segment, frontend and encoder included, CUDA events): "
+          + ", ".join(f"{k} {rates['whisper beam'][k]:.2f} segments/s ({np.mean(v):.1f} ms)" for k, v in times.items())
+          + f" [{card}]")
+    del wmodel, wgen
+
+    # ---- beam t5 fp32: one prompt at W=4
+    _reset_launches()
+    tmodel = T5Model.from_t5x("flan_t5-base", rng=SEED, device=dev)
+    _make_t5_streams_move(dev, SEED + 9, tmodel.params)
+    tgen = T5Generator(model=tmodel)
+    t_prompt = np.random.default_rng(SEED + 10).integers(2, tmodel.cfg.vocab_size, T5_PROMPT_LENS[3]).tolist()
+    t_max = 1 + BEAM_NEW
+
+    def t_run():
+        seqs, scores = tgen.generate_beam_tokens(t_prompt, t_max, T5_PAD, T5_EOS, BEAM_W, return_all=True)
+        return [seqs], [scores]
+
+    _route("plain")
+    tol = _beam_tol(tmodel(torch.tensor([t_prompt], device=dev), torch.tensor([[T5_PAD]], device=dev))[0, -1])
+    before = kernels["fused_cross_decode_step"].variant_launches["headless"]
+    outs, partings, steps = _beam_routes("beam t5 fp32", t_run, _beam_rows_check("beam t5", [[T5_PAD]],
+                                                                                tmodel.cfg.vocab_size), tol)
+    headless = kernels["fused_cross_decode_step"].variant_launches["headless"] - before
+    if headless != steps + 1:  # and the pad token's step before the loop
+        raise AssertionError(f"beam t5: K7 headless launched {headless} times for {steps} fused beam steps + 1")
+    print(f"phase beam t5 fp32 W={BEAM_W} (one prompt of {len(t_prompt)} tokens): fused, per-op and plain beams "
+          f"identical (partings at near-ties: {partings}); {steps} beam steps + the pad token's, K7 headless "
+          f"launched {headless} times; scores {[round(s, 4) for s in outs['fused'][1][0]]}")
+    launches["beam t5"] = _launches({"fused_cross_decode_step", "decode_attention_bias", "gather_rows", "embed_add"})
+    del tmodel, tgen
+    torch.cuda.synchronize()
+    for name, counts in launches.items():
+        print(f"phase {name} launches: " + " ".join(f"{k}={v}" for k, v in counts.items() if v))
+    return launches
+
+
 def profile_phase(fn, what: str, fname: str, out_dir: str, card: str, steps_fn, unit: str = "decode step") -> None:
     """One call of ``fn`` (after a warm-up call) under torch.profiler.
 
@@ -2704,6 +3127,7 @@ def main() -> int:
     res_i8k7 = int8_decode_step_phases(dev, card)
     paths = {"gpt2": main_path(dev, card, args.profile), "whisper": whisper_path(dev, card, args.profile),
              "t5": t5_path(dev, card, args.profile), "vit": vit_path(dev, card, args.profile)}
+    paths.update(beam_sample_paths(dev, card))
     k6_path = int8_stack_path(dev, card)
     i8 = int8_paths(dev, card)
 
@@ -2728,7 +3152,7 @@ def main() -> int:
                           total("greedy_argmax")),
         "log_mel_spectrogram": ("mel.cu", "pytorch_models_tpu/ops/mel.py:66", "float32", total("log_mel_spectrogram")),
         "fused_decode_step": ("decode_step.cu", "pytorch_models_tpu/ops/decode_step.py:1359", "bfloat16",
-                              total("fused_decode_step")),
+                              total("fused_decode_step") - total("fused_decode_step_headless")),
         "fused_cross_decode_step": ("decode_step.cu", "pytorch_models_tpu/ops/decode_step.py:1397", "bfloat16",
                                     paths["whisper"]["fused_cross_decode_step"]),
         "fused_cross_decode_step_t5": ("decode_step.cu", "pytorch_models_tpu/ops/decode_step.py:1397", "bfloat16",
@@ -2745,6 +3169,14 @@ def main() -> int:
                                           i8["t5"]["fused_cross_decode_step_a8"]),
         "fused_decode_step_embed": ("decode_step.cu", "pytorch_models_tpu/ops/decode_step.py:1359", "bfloat16",
                                     i8["gpt2"]["fused_decode_step_embed"]),
+        # the headless step (no final norm, no head) on the sampled and beam paths
+        "fused_decode_step_headless": ("decode_step.cu", "pytorch_models_tpu/ops/decode_step.py:1359", "bfloat16",
+                                       paths["beam gpt2"]["fused_decode_step_headless"]
+                                       + paths["sample gpt2"]["fused_decode_step_headless"]),
+        "fused_cross_decode_step_headless": ("decode_step.cu", "pytorch_models_tpu/ops/decode_step.py:1397",
+                                             "bfloat16", paths["beam whisper"]["fused_cross_decode_step_headless"]),
+        "fused_cross_decode_step_t5_headless": ("decode_step.cu", "pytorch_models_tpu/ops/decode_step.py:1397",
+                                                "bfloat16", paths["beam t5"]["fused_cross_decode_step_headless"]),
     }
     # each kernel's limit on max_abs_err: elementwise (atol, rtol) by dtype; for the greedy heads, whose outputs
     # are ids, the score regret is held to the top-2 gap tolerance instead
@@ -2754,7 +3186,8 @@ def main() -> int:
     for name in ("greedy_argmax_tied", "greedy_argmax"):
         limits[name] = {"float32": "score regret <= 1e-3", "bfloat16": "score regret <= one bf16 step of the top"}
     for name in ("fused_decode_step", "fused_cross_decode_step", "fused_cross_decode_step_t5",
-                 "fused_decode_step_embed"):
+                 "fused_decode_step_embed", "fused_decode_step_headless", "fused_cross_decode_step_headless",
+                 "fused_cross_decode_step_t5_headless"):
         limits[name] = {dn: list(DS_TOL[dn]) for dn in DS_TOL}
     for name in ("fused_decode_step_int8", "fused_decode_step_a8", "fused_cross_decode_step_int8",
                  "fused_cross_decode_step_t5_a8"):  # on x after each layer, from the kernel's own input
@@ -2769,7 +3202,8 @@ def main() -> int:
         entries.append({"name": name, "route": "cuda", "source": f"pytorch_models_tpu_torch/csrc/{src}",
                         "replaces": replaces, "launches": launches, "max_abs_err": err, "limit": limits[name],
                         **{k: rec[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
-                        **{k: rec[k] for k in ("two_gathers_ms", "embedding_add_ms", "launch_floor_ms") if k in rec}})
+                        **{k: rec[k] for k in ("two_gathers_ms", "embedding_add_ms", "launch_floor_ms",
+                                               "head_matmul_ms") if k in rec}})
     print(card)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -24,11 +24,13 @@ time per call, ``chip_smoke._time_ms``):
   Then ``chip_smoke.decode_step_breakdown`` with each tree's library whose
   kernel takes ``stamps``;
 - ``--head-mel``: ``csrc/greedy_head.cu`` and ``csrc/mel.cu`` at
-  ``chip_smoke.py``'s shapes: the tied head at GPT-2's (V 50257, d 768, B=8,
-  16 and 32) and Whisper's (V 51865, d 512, B=8), the untied head at
-  T5-base's (V 32128, d 768, B=8, 16 and 32), bf16 and fp32, and the
-  log-mel frontend at B=8 x 30 s (80 mels). A tree with the two-pass head
-  (``pmt_greedy_argmax_tied`` / ``_untied`` with partials scratch) or the
+  ``chip_smoke.py``'s shapes: the tied head at GPT-2's (V 50257, d 768, B=8
+  to 200) and Whisper's (V 51865, d 512, B=8), the untied head at T5-base's
+  (V 32128, d 768, B=8 to 200), bf16 and fp32, each beside the head matmul
+  + argmax it replaces (timed in the same turns: base, new, matmul, matmul,
+  new, base; where the two cross is where ``ops.attention.use_greedy_head``
+  takes the matmul), and the log-mel frontend at B=8 x 30 s (80 mels). A
+  tree with the two-pass head (``pmt_greedy_argmax_tied`` / ``_untied`` with partials scratch) or the
   CUDA-core log-mel kernel (``pmt_log_mel`` on the unsplit bases) is called
   through its own C interface (``_LEGACY``), as its wrappers called it.
 
@@ -197,14 +199,17 @@ def _head_mel_cases(dev, libs: dict, current: dict):
 
     def head_calls(x, w, tied):
         new = greedy_head.greedy_argmax_tied if tied else greedy_head.greedy_argmax
-        return {turn: [lambda: new(x, w)] if current[turn] else [lambda t=turn: _legacy_head(libs[t], x, w, tied)]
-                for turn in libs}
+        calls = {turn: [lambda: new(x, w)] if current[turn] else [lambda t=turn: _legacy_head(libs[t], x, w, tied)]
+                 for turn in libs}
+        calls["matmul"] = [lambda: torch.argmax(torch.matmul(x, w.t() if tied else w), dim=-1)]
+        return calls
 
     for dtype in (torch.bfloat16, torch.float32):
         dn = str(dtype).removeprefix("torch.")
-        for what, tied, v, d, batches in (("GPT-2 tied", True, 50257, 768, (8, 16, 32, 64, 200)),
+        batches = (8, 16, 24, 32, 48, 64, 96, 128, 200)
+        for what, tied, v, d, batches in (("GPT-2 tied", True, 50257, 768, batches),
                                           ("Whisper tied", True, 51865, 512, (8,)),
-                                          ("T5 untied", False, 32128, 768, (8, 16, 32, 64, 200))):
+                                          ("T5 untied", False, 32128, 768, batches)):
             w = torch.randn(*((v, d) if tied else (d, v)), generator=g, device=dev).to(dtype)
             for bs in batches:
                 x = torch.randn(bs, d, generator=g, device=dev).to(dtype)
@@ -277,13 +282,14 @@ def main() -> int:
     res = {}
     for name, fns in cases:
         t = {}
-        for turn in ("base", "new", "new", "base"):
-            use(turn)
+        matmul = isinstance(fns, dict) and "matmul" in fns
+        for turn in ("base", "new", "matmul", "matmul", "new", "base") if matmul else ("base", "new", "new", "base"):
+            if turn in libs:
+                use(turn)
             calls = fns[turn] if isinstance(fns, dict) else fns
             t.setdefault(turn, []).append(chip_smoke._time_ms(calls, iters) * 1e3)
         res[name] = {k: sum(v) / len(v) for k, v in t.items()}
-        print(f"{name}: base {t['base'][0]:.2f} / {t['base'][1]:.2f} us, new {t['new'][0]:.2f} / {t['new'][1]:.2f} "
-              f"us [{card}]")
+        print(f"{name}: " + ", ".join(f"{k} {v[0]:.2f} / {v[1]:.2f} us" for k, v in t.items()) + f" [{card}]")
     if mode == "k7":  # the per-phase breakdown of each tree whose kernel takes stamps
         for turn, tree in (("base", base), ("new", here)):
             if "stamps" in (tree / "pytorch_models_tpu_torch" / "csrc" / "decode_step.cu").read_text():

@@ -1,3 +1,4 @@
+from .tokenizer import WhisperTokenizer
 from .whisper import Whisper, WhisperGenerator, WhisperPreprocessor
 
-__all__ = ["Whisper", "WhisperGenerator", "WhisperPreprocessor"]
+__all__ = ["Whisper", "WhisperGenerator", "WhisperPreprocessor", "WhisperTokenizer"]

@@ -17,8 +17,10 @@ in the JAX package: ``model.quantize_int8()`` (w8a16; ``USE_A8_DECODE`` for
 w8a8 and the int8 head), ``USE_INT8_KV`` (the self cache quantized after
 the initial tokens' prefill) and ``USE_INT8_KV_CROSS`` (the cross caches
 quantized once for the decode loop; the prefill reads them in full
-precision), on the fused route. Beam search, speculative decoding,
-continuous batching and the tokenizer are not ported yet.
+precision), on the fused route. Beam search (``transcribe_beam_tokens``)
+decodes its W beams through the fused step headless, or per-op. The text
+methods take a ``WhisperTokenizer`` (``models/audio2text/tokenizer.py``).
+Speculative decoding and continuous batching are not ported yet.
 """
 
 from __future__ import annotations
@@ -217,7 +219,7 @@ def _generate_batch(params: dict, cfg: WhisperConfig, memory: torch.Tensor, init
         buf[:, n_init] = first
     done = first == eot_id
     eot = torch.full_like(first, eot_id)
-    greedy_head = _attn.use_greedy_head(b, p["token_embs"])
+    greedy_head = _attn.use_greedy_head(b, p["token_embs"], tied=True)
 
     pos = n_init + 1
     while pos < max_tokens:
@@ -245,6 +247,54 @@ def _generate_batch(params: dict, cfg: WhisperConfig, memory: torch.Tensor, init
     is_eot = gen == eot_id
     lengths = np.where(is_eot.any(axis=1), n_init + is_eot.argmax(axis=1) + 1, pos)
     return out, lengths
+
+
+@torch.inference_mode()
+def _beam(params: dict, cfg: WhisperConfig, memory: torch.Tensor, initial_tokens: torch.Tensor, max_tokens: int,
+          eot_id: int, w: int, alpha: float):
+    """Beam-search transcription over ONE encoded segment (``memory`` (1, T,
+    d)). The W beams ride the batched decode path (the fused step headless
+    where it serves W rows, else per-op) through the model-agnostic loop of
+    models/text/beam.py. Cross-attention K/V are projected once and copied
+    to the W rows; only the self caches reorder by parent beam. Returns
+    ``(seqs (W, max_tokens), scores (W,), lengths (W,))`` on the device,
+    best-first; lengths count prompt + generated + EOT, as greedy does."""
+    from ..text.beam import beam_caches, beam_cross_caches, beam_decode_loop, reorder_caches
+
+    p = params["decoder"]
+    lc = cfg.dec_layer
+    n_init = initial_tokens.shape[0]
+    dev = memory.device
+    _, stacked = tfm.make_kv_cache(cfg.n_layers, (w,), lc.n_heads, max_tokens, lc.head_dim,
+                                   dtype=p["token_embs"].dtype, device=dev)
+    caches = beam_caches(stacked)
+    cross, cross_stacked = beam_cross_caches(tfm.precompute_cross_caches(p, lc, memory)[1], w)
+    fused = _whisper_fused_ok(p, cfg, w)
+    if fused:
+        from ...ops.decode_step import fused_cross_decode_step, pack_decode_weights
+        from ..text._decoder_lm import cross_operands
+
+        cdt = p["token_embs"].dtype
+        packed = pack_decode_weights(p["layers"], cdt, cross=True)
+        ck, cv, _ = cross_operands(cross_stacked, cdt)
+
+    init_rows = initial_tokens.to(dev).expand(w, n_init)
+    hn, _ = _decoder_hidden_chunk(p, lc, cross, init_rows, caches[0], 0)
+    buf = torch.zeros((w, max_tokens), dtype=torch.int64, device=dev)
+    buf[:, :n_init] = init_rows
+
+    def forward(tok, caches, pos):
+        if fused:  # the headless step: layer stack + cross-attention; the final LN and the head here
+            x, emb_kw = _whisper_embed_or_fold(p, tok, pos - 1)
+            x, _ = fused_cross_decode_step(x, packed, caches[1]["k"], caches[1]["v"], ck, cv, cross_stacked["len"],
+                                           pos - 1, None, lc.n_heads, lc.act, lc.norm_eps,
+                                           a8=_attn.use_a8_decode(packed["wqkv"].dtype), **emb_kw)
+            return _head(p, layer_norm(p["norm"], x)), caches
+        hn, _ = _decoder_hidden_chunk(p, lc, cross, tok, caches[0], pos - 1)
+        return _head(p, hn[:, 0]), caches
+
+    return beam_decode_loop(forward, reorder_caches, caches, _head(p, hn[0, -1]), buf, n_init, max_tokens, w, eot_id,
+                            alpha)
 
 
 class Whisper(InferenceModel):
@@ -377,8 +427,9 @@ def split_windows(audio, n_samples: int) -> np.ndarray:
 
 
 class WhisperGenerator:
-    """Greedy KV-cached transcription of 30 s segments: log-mel frontend,
-    encoder, then a batched decode loop (a single segment is a batch of one)."""
+    """KV-cached transcription of 30 s segments: log-mel frontend, encoder,
+    then a batched greedy decode loop (a single segment is a batch of one),
+    or beam search over one segment."""
 
     SAMPLE_RATE = 16_000
     N_SAMPLES = 30 * 16_000  # 30-second segments
@@ -437,6 +488,39 @@ class WhisperGenerator:
             initial_tokens = self.tokenizer.sot_sequence(language, task)
             eot_id = self.tokenizer.eot
         return self.tokenizer.decode(self.transcribe_tokens(audio, initial_tokens, eot_id, max_tokens))
+
+    def transcribe_beam_tokens(self, audio, initial_tokens: list[int], eot_id: int, max_tokens: int = DEC_MAX_LEN,
+                               beam_width: int = 4, length_penalty: float = 0.0, return_all: bool = False):
+        """Beam-search transcription of one 30 s segment (a batch of one).
+        Returns the best token sequence (prompt + generated + EOT, like
+        :meth:`transcribe_tokens`), or ``(sequences, scores)`` for all
+        ``beam_width`` beams with ``return_all`` (best first; scores are
+        length-penalized log-probs: models/text/beam.py)."""
+        from ..text.beam import _check_beam
+
+        if max_tokens > DEC_MAX_LEN:
+            raise ValueError(f"max_tokens={max_tokens} exceeds the decoder position table ({DEC_MAX_LEN})")
+        _check_beam(beam_width, length_penalty)
+        if not 0 < len(initial_tokens) < max_tokens:
+            raise ValueError(f"beam transcription needs 1 to max_tokens - 1 = {max_tokens - 1} initial tokens")
+        m = self.model
+        with torch.inference_mode():
+            memory = whisper_encode(m.params, m.cfg, self.preprocessor(self._stage_batch([audio])))
+        init = torch.tensor(initial_tokens, dtype=torch.int64, device=m.device)
+        seqs, scores, lens = (t.cpu().numpy() for t in _beam(m.params, m.cfg, memory, init, max_tokens, eot_id,
+                                                                 beam_width, float(length_penalty)))
+        outs = [seqs[i, : lens[i]].tolist() for i in range(beam_width)]
+        return (outs, scores.tolist()) if return_all else outs[0]
+
+    def transcribe_beam(self, audio, language: str = "en", task: str = "transcribe", beam_width: int = 4,
+                        length_penalty: float = 0.0, max_tokens: int = DEC_MAX_LEN) -> str:
+        """Waveform -> text via beam search (needs a tokenizer)."""
+        if self.tokenizer is None:
+            raise ValueError("transcribe_beam() returns text and needs a tokenizer; "
+                             "use transcribe_beam_tokens(...) for raw ids")
+        out = self.transcribe_beam_tokens(audio, self.tokenizer.sot_sequence(language, task), self.tokenizer.eot,
+                                          max_tokens, beam_width, length_penalty)
+        return self.tokenizer.decode(out)
 
     # ---------------------------------------------------------------- long-form
 

@@ -56,9 +56,13 @@ def _final_hidden(params: dict, cfg: DecoderLMConfig, x: torch.Tensor) -> torch.
     return layer_norm(params["norm"], x, cfg.norm_eps) if cfg.final_norm else x
 
 
-def _head(params: dict, cfg: DecoderLMConfig, x: torch.Tensor) -> torch.Tensor:
-    x = _final_hidden(params, cfg, x)
+def tied_logits(params: dict, x: torch.Tensor) -> torch.Tensor:
+    """The weight-tied head over final hidden states ``x`` (..., d)."""
     return torch.matmul(x, params["token_embs"].to(x.dtype).t())
+
+
+def _head(params: dict, cfg: DecoderLMConfig, x: torch.Tensor) -> torch.Tensor:
+    return tied_logits(params, _final_hidden(params, cfg, x))
 
 
 def decoder_lm_apply(params: dict, cfg: DecoderLMConfig, tokens: torch.Tensor) -> torch.Tensor:

@@ -20,10 +20,11 @@ head over the dequantized classifier), ``USE_INT8_KV`` (the empty self
 cache starts int8; at most 128 (row, head) pairs per group of 8 rows, the
 JAX package's routing rule) and ``USE_INT8_KV_CROSS``. An int8 classifier
 takes the head matmul + argmax on the per-op route. Teacher-forced scoring
-runs the uncached encoder-decoder. Not ported yet: beam search,
-``SpeculativeT5Generator``, continuous batching, the t5x checkpoint reader
-(``from_t5x(pretrained=True)``) and the sentencepiece tokenizer: the string
-methods need a tokenizer the caller passes in.
+runs the uncached encoder-decoder. Beam search (``generate_beam_tokens``)
+decodes its W beams through the fused step headless, or per-op. Not ported
+yet: ``SpeculativeT5Generator``, continuous batching, the t5x checkpoint
+reader (``from_t5x(pretrained=True)``) and the sentencepiece tokenizer: the
+string methods need a tokenizer the caller passes in.
 """
 
 from __future__ import annotations
@@ -328,7 +329,7 @@ def _t5_generate_batch(params: dict, cfg: T5Config, enc_tokens: torch.Tensor, n_
         cross_ops = cross_operands(quantize_kv_caches(cross_stacked) if _attn.use_int8_kv_cross(b) else cross_stacked,
                                    dtype)
     w_cls = params["classifier"]["w"]
-    greedy_head = not isinstance(w_cls, dict) and _attn.use_greedy_head(b, w_cls)
+    greedy_head = not isinstance(w_cls, dict) and _attn.use_greedy_head(b, w_cls, tied=False)
 
     buf = torch.zeros((b, max_tokens), dtype=torch.int64, device=dev)
     buf[:, 0] = pad_id
@@ -361,6 +362,57 @@ def _t5_generate_batch(params: dict, cfg: T5Config, enc_tokens: torch.Tensor, n_
     is_eos = out[:, 1:pos + 1] == eos_id
     lengths = np.where(is_eos.any(axis=1), is_eos.argmax(axis=1) + 2, pos + 1)
     return out, lengths
+
+
+@torch.inference_mode()
+def _t5_beam(params: dict, cfg: T5Config, enc_tokens: torch.Tensor, n_enc: torch.Tensor, max_tokens: int, pad_id: int,
+             eos_id: int, w: int, alpha: float):
+    """Beam-search seq2seq generation for ONE prompt (``enc_tokens`` (1, P)
+    right-padded, ``n_enc`` (1,) its length). The W beams ride the batched
+    decode path (the fused step headless where it serves W rows: RMSNorm,
+    GEGLU, the rel-pos self bias at ``pos - 1``; else per-op) through the
+    model-agnostic loop of models/text/beam.py; the encoder memory is
+    projected into cross K/V once and copied to the W rows. Returns ``(seqs
+    (W, max_tokens), scores (W,), lengths (W,))`` on the device, best-first;
+    rows as the greedy buffers (pad token at index 0, EOS counted)."""
+    from .beam import beam_caches, beam_cross_caches, beam_decode_loop, reorder_caches
+
+    memory = t5_encode(params, cfg, enc_tokens, _pad_bias(n_enc, enc_tokens.shape[1]))
+    dec = params["decoder"]
+    lc = cfg.layer
+    dtype = params["token_embs"].dtype
+    dev = enc_tokens.device
+    _, stacked = tfm.make_kv_cache(cfg.n_layers, (w,), lc.n_heads, max_tokens, lc.head_dim, dtype, dev)
+    caches = beam_caches(stacked)
+    cross, cross_stacked = beam_cross_caches(tfm.precompute_cross_caches(dec, lc, memory, valid_lens=n_enc)[1], w)
+    l_pad = tfm.padded_cache_len(max_tokens)
+    bias_table = relative_position_bias(dec["attn_bias"], torch.arange(max_tokens, device=dev),
+                                        torch.arange(l_pad, device=dev), False, cfg)
+    fused = _t5_fused_ok(params, cfg, w)
+    if fused:
+        from ...ops.decode_step import fused_cross_decode_step, pack_decode_weights
+        from ._decoder_lm import cross_operands, embed_or_fold
+
+        packed = pack_decode_weights(dec["layers"], dtype, cross=True, gated=True)
+        bias_km = _t5_key_major_bias(bias_table)
+        ck, cv, _ = cross_operands(cross_stacked, dtype)
+
+    def forward(tok, caches, pos):  # the token at buffer index pos - 1 -> cache and bias position pos - 1
+        if fused:  # the headless step; the final RMSNorm and the classifier here
+            x, emb_kw = embed_or_fold(params["token_embs"], None, tok, None)
+            x, _ = fused_cross_decode_step(x, packed, caches[1]["k"], caches[1]["v"], ck, cv, cross_stacked["len"],
+                                           pos - 1, None, lc.n_heads, "approximate_gelu", 1e-5, norm="rms",
+                                           gated=True, sbias=bias_km[pos - 1],
+                                           a8=_attn.use_a8_decode(packed["wqkv"].dtype), **emb_kw)
+            return linear(params["classifier"], rms_norm(dec["norm"], x)), caches
+        h = embed_rows(params["token_embs"], tok)
+        h = _t5_decode_layers(dec, cfg, h, caches[0], cross, bias_table[:, pos - 1:pos], pos - 1)
+        return linear(params["classifier"], rms_norm(dec["norm"], h))[:, 0], caches
+
+    last_logits, caches = forward(torch.full((w, 1), pad_id, dtype=torch.int64, device=dev), caches, 1)
+    buf = torch.zeros((w, max_tokens), dtype=torch.int64, device=dev)
+    buf[:, 0] = pad_id
+    return beam_decode_loop(forward, reorder_caches, caches, last_logits[0], buf, 1, max_tokens, w, eos_id, alpha)
 
 
 @torch.inference_mode()
@@ -463,8 +515,8 @@ ENC_BUCKET = 64  # prompts are right-padded to a multiple of this (the JAX packa
 
 
 class T5Generator:
-    """Greedy encoder-decoder generation and teacher-forced scoring over
-    token ids. The string methods need a sentencepiece-style tokenizer
+    """Greedy and beam-search encoder-decoder generation and teacher-forced
+    scoring over token ids. The string methods need a sentencepiece-style tokenizer
     (``Encode(text, add_eos=True)``, ``Decode(ids)``, ``pad_id()``,
     ``eos_id()``) passed in: the port ships none."""
 
@@ -487,6 +539,35 @@ class T5Generator:
         generated``, up to and including the first EOS, at most
         ``max_tokens`` ids."""
         return self.generate_tokens_batch([token_ids], max_tokens, pad_id, eos_id)[0]
+
+    def generate_beam(self, prompt: str, max_tokens: int = 100, beam_width: int = 4,
+                      length_penalty: float = 0.0) -> str:
+        """Beam-search generation of one prompt's continuation text."""
+        tok = self._tok()
+        out = self.generate_beam_tokens(tok.Encode(prompt, add_eos=True), max_tokens, tok.pad_id(), tok.eos_id(),
+                                        beam_width, length_penalty)
+        return tok.Decode(out)
+
+    def generate_beam_tokens(self, token_ids: list[int], max_tokens: int, pad_id: int, eos_id: int,
+                             beam_width: int = 4, length_penalty: float = 0.0, return_all: bool = False):
+        """Beam-search continuation: the best token sequence (pad + generated
+        + EOS, like :meth:`generate_tokens`), or ``(sequences, scores)`` for
+        all ``beam_width`` beams with ``return_all`` (best first; scores are
+        length-penalized log-probs: models/text/beam.py)."""
+        from .beam import _check_beam
+
+        _check_beam(beam_width, length_penalty)
+        if max_tokens < 2:
+            raise ValueError(f"beam generation needs max_tokens >= 2 (the pad token and one more), got {max_tokens}")
+        n = len(token_ids)
+        buf = np.zeros((1, -(-n // ENC_BUCKET) * ENC_BUCKET), np.int64)
+        buf[0, :n] = token_ids
+        dev = self.model.device
+        seqs, scores, lens = (t.cpu().numpy() for t in _t5_beam(
+            self.model.params, self.model.cfg, torch.from_numpy(buf).to(dev), torch.tensor([n], device=dev),
+            max_tokens, pad_id, eos_id, beam_width, float(length_penalty)))
+        outs = [seqs[i, : lens[i]].tolist() for i in range(beam_width)]
+        return (outs, scores.tolist()) if return_all else outs[0]
 
     def score(self, prompt: str, target: str) -> list[float]:
         """Per-token ``log p(y_t | y_<t, x)`` of ``target`` given ``prompt``."""

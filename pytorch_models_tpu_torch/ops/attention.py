@@ -26,13 +26,8 @@ USE_DECODE_KERNEL: bool | None = None
 # merged-head dense/causal attention with no bias (ops/encoder_attention.py)
 USE_ENCODER_KERNEL: bool | None = None
 # argmax(x @ emb.T), or argmax(x @ w) over an untied (d, V) classifier,
-# without the (B, V) logits (ops/greedy_head.py); auto
-# engages at batch >= 4, the JAX package's rule. On an H100 80GB (700 W,
-# GPT-2 head, V=50257, d=768; chip_smoke.py's greedy-head phase) the kernel
-# took 30.9 us in bf16 at B=1, 8 and 16 and 37.1 at B=32, against 48.5,
-# 121.1, 116.9 and 124.6 us for the head matmul + argmax it replaces; in
-# fp32 60.2 us at B=1 and 8 against 70.2 and 108.1, but 123.1 against
-# 101.9 at B=32.
+# without the (B, V) logits (ops/greedy_head.py); auto engages at batch >= 4
+# (the JAX package's rule) up to the measured crossovers in use_greedy_head.
 USE_GREEDY_HEAD: bool | None = None
 # the whole greedy decode step in one kernel (ops/decode_step.py): layer
 # stack [+ cross-attention] + final norm + greedy head. Auto takes
@@ -66,17 +61,28 @@ def _on_cuda(t: torch.Tensor) -> bool:
     return t.is_cuda
 
 
-def use_greedy_head(batch: int, w: torch.Tensor) -> bool:
-    """Gate for the greedy head over the head weight ``w`` (tied ``(V, d)``
-    or untied ``(d, V)``). Auto refuses a head the kernel cannot serve
-    (``greedy_head_fits``), which then takes the head matmul + argmax."""
+# the largest batch at which the greedy head kernel beats the head matmul +
+# argmax, by (dtype, tied). On an H100 80GB (700 W; kernel_ab.py --head-mel,
+# GPT-2's tied head V=50257 and T5's untied V=32128, d=768) the kernel took,
+# against the matmul: fp32 tied 77.3 vs 98.3 us at B=16, 121.1 vs 97.1 at
+# B=24; fp32 untied 52.2 vs 64.6 at B=16, 75.1 vs 64.0 at B=24; bf16 untied
+# 23.7 vs 31.5 at B=32, 33.1 vs 32.4 at B=48, 48.1 vs 34.2 at B=96; bf16 tied
+# won at every batch up to 200 (122.8 vs 221.1 us).
+GREEDY_HEAD_MAX_BATCH = {(torch.float32, True): 16, (torch.float32, False): 16, (torch.bfloat16, False): 32}
+
+
+def use_greedy_head(batch: int, w: torch.Tensor, tied: bool) -> bool:
+    """Gate for the greedy head over the head weight ``w``: a tied ``(V,
+    d)`` embedding or an untied ``(d, V)`` classifier. Auto takes the kernel
+    on a CUDA head it serves (``greedy_head_fits``) from 4 rows up to the
+    crossover of ``GREEDY_HEAD_MAX_BATCH``; else the head matmul + argmax."""
     if USE_GREEDY_HEAD is not None:
         return USE_GREEDY_HEAD
     if batch < 4 or not _on_cuda(w):
         return False
     from .greedy_head import greedy_head_fits
 
-    return greedy_head_fits(w)
+    return greedy_head_fits(w) and batch <= GREEDY_HEAD_MAX_BATCH.get((w.dtype, tied), batch)
 
 
 def use_a8_decode(packed_wqkv_dtype: torch.dtype) -> bool:

@@ -632,12 +632,13 @@ def _launch(x, packed, k_caches, v_caches, pos, pad_lens, n_heads, act, eps, hea
     return x_out, tok
 
 
-def _count(fn, a8: bool, kv_int8: bool, emb) -> None:
-    """One launch of ``fn``, and of each int8 serving feature it ran (the
-    launches of the ``..._int8``, ``..._a8`` and ``..._embed`` kernels in
-    chip_smoke.py's record)."""
+def _count(fn, a8: bool, kv_int8: bool, emb, head) -> None:
+    """One launch of ``fn``, and of each variant it ran: the int8 serving
+    features (the launches of the ``..._int8``, ``..._a8`` and ``..._embed``
+    kernels in chip_smoke.py's record) and the headless step (no head: the
+    sampled and beam decode loops)."""
     fn.launches += 1
-    for key, on in (("kv_int8", kv_int8), ("a8", a8), ("embed", emb is not None)):
+    for key, on in (("kv_int8", kv_int8), ("a8", a8), ("embed", emb is not None), ("headless", head is None)):
         fn.variant_launches[key] += int(on)
 
 
@@ -660,14 +661,14 @@ def fused_decode_step(x, packed, k_caches, v_caches, pos: int, pad_lens, n_heads
     four points of every phase (:func:`step_phase_kinds`,
     :func:`phase_breakdown`); for measurement only. Returns ``(x_out (B, d), tok (B,) int64 or None)``.
     ``launches`` counts the kernel's launches; ``variant_launches`` those of
-    each int8 serving variant."""
+    each int8 serving variant and those without a head (``headless``)."""
     ref = x if x is not None else emb["tok"]
     if plain or not ref.is_cuda:
         return fused_decode_step_plain(x, packed, k_caches, v_caches, pos, pad_lens, n_heads, act, eps, head,
                                        a8=a8, emb=emb, tok_ids=tok_ids, pos_rows=pos_rows, kv_scales=kv_scales)
     out = _launch(x, packed, k_caches, v_caches, pos, pad_lens, n_heads, act, eps, head, None, None, None, a8=a8,
                   emb=emb, tok_ids=tok_ids, pos_rows=pos_rows, kv_scales=kv_scales, stamps=stamps)
-    _count(fused_decode_step, a8, kv_scales is not None, emb)
+    _count(fused_decode_step, a8, kv_scales is not None, emb, head)
     return out
 
 
@@ -693,10 +694,10 @@ def fused_cross_decode_step(x, packed, k_caches, v_caches, cross_k, cross_v, cro
                                        kv_scales, kv_scales_x)
     out = _launch(x, packed, k_caches, v_caches, pos, pad_lens, n_heads, act, eps, head, cross_k, cross_v, cross_lens,
                   norm, gated, sbias, a8, emb, tok_ids, pos_rows, kv_scales, kv_scales_x, stamps)
-    _count(fused_cross_decode_step, a8, kv_scales is not None or kv_scales_x is not None, emb)
+    _count(fused_cross_decode_step, a8, kv_scales is not None or kv_scales_x is not None, emb, head)
     return out
 
 
 for _fn in (fused_decode_step, fused_cross_decode_step):
     _fn.launches = 0
-    _fn.variant_launches = {"kv_int8": 0, "a8": 0, "embed": 0}
+    _fn.variant_launches = {"kv_int8": 0, "a8": 0, "embed": 0, "headless": 0}

@@ -210,19 +210,104 @@ def test_greedy_argmax_untied_matches_plain(cuda, dtype, v, b, d):
 
 
 def test_greedy_head_gate_refuses_what_the_kernel_cannot_serve(cuda):
-    """Auto takes the kernel only for a head it serves. Since the
-    kernel streams the batch rows with the head (no longer holding them all
-    in shared memory), every batch of a float32 or bfloat16 head is served,
-    200 rows of 768 included; a float16 head is not (no instantiation), nor
-    is a batch under the JAX package's gate of 4 rows."""
+    """Auto takes the kernel only for a head it serves, and only where it
+    beats the head matmul + argmax: every batch of a bfloat16 tied head, 200
+    rows of 768 included; a float32 head up to 16 rows; an untied bfloat16
+    head up to 32 (``GREEDY_HEAD_MAX_BATCH``). A float16 head is not served
+    (no instantiation), nor is a batch under the JAX package's gate of 4
+    rows."""
     emb, cls = torch.zeros(1000, 768, device=cuda), torch.zeros(768, 1000, device=cuda)
-    assert _attn.use_greedy_head(8, emb) and _attn.use_greedy_head(200, emb)
-    assert _attn.use_greedy_head(200, cls) and not _attn.use_greedy_head(2, cls)
-    assert not _attn.use_greedy_head(8, emb.half()) and not _attn.use_greedy_head(8, cls.half())
+    assert _attn.use_greedy_head(8, emb, tied=True) and not _attn.use_greedy_head(200, emb, tied=True)
+    assert _attn.use_greedy_head(200, emb.bfloat16(), tied=True)
+    assert not _attn.use_greedy_head(200, cls, tied=False) and not _attn.use_greedy_head(2, cls, tied=False)
+    assert _attn.use_greedy_head(32, cls.bfloat16(), tied=False)
+    assert not _attn.use_greedy_head(8, emb.half(), tied=True) and not _attn.use_greedy_head(8, cls.half(), tied=False)
     with pytest.raises(ValueError):
         greedy_argmax_tied(torch.zeros(8, 768, device=cuda).half(), emb.half())
     with pytest.raises(ValueError):
         greedy_argmax(torch.zeros(8, 768, device=cuda).half(), cls.half())
+
+
+@pytest.mark.parametrize("dtype,tied,crossover", [(torch.float32, True, 16), (torch.float32, False, 16),
+                                                  (torch.bfloat16, False, 32), (torch.bfloat16, True, None)])
+def test_greedy_head_gate_at_each_crossover(cuda, dtype, tied, crossover):
+    """The gate's side at both sides of each measured crossover (kernel_ab.py
+    --head-mel times both): the kernel up to it, the matmul above it; a tied
+    bfloat16 head keeps the kernel at every batch. Each side's choice serves
+    the same ids as the other (the greedy head's own checks)."""
+    w = torch.randn((50257, 768) if tied else (768, 32128), device=cuda).to(dtype)
+    for b in (4, 8) + ((crossover, crossover + 1) if crossover else (200,)):
+        assert _attn.use_greedy_head(b, w, tied=tied) == (crossover is None or b <= crossover), b
+
+
+@pytest.mark.parametrize("dtype,atol,rtol", [(torch.float32, 1e-4, 0.0), (torch.bfloat16, 0.05, 2.0 ** -6)])
+@pytest.mark.parametrize("kind", ["gpt2", "whisper", "t5"])
+def test_headless_fused_step_matches_plain(cuda, dtype, atol, rtol, kind):
+    """K7 without the head (the sampled and beam decode loops): x_out and the
+    K/V written at pos against the plain twin, 2 layers, d 128, B=4; no token;
+    the headless launch counted under ``headless``."""
+    from pytorch_models_tpu_torch.models.text.t5 import T5Config, t5_block_init
+    from pytorch_models_tpu_torch.ops.decode_step import fused_decode_step_plain
+
+    cross, pos = kind != "gpt2", 70
+    if kind == "t5":
+        gen = torch.Generator().manual_seed(9)
+        layers = [t5_block_init(gen, T5Config(1000, 128, 2, 2, 256), True) for _ in range(2)]
+        packed = {k: t.to(cuda) for k, t in pack_decode_weights(layers, dtype, cross=True, gated=True).items()}
+        x = torch.randn(4, 128, generator=gen).to(cuda, dtype)
+        kc, vc, xk, xv = (torch.randn(2, 4, 128, 128, generator=gen).to(cuda, dtype) for _ in range(4))
+        variant = dict(norm="rms", gated=True, sbias=2.0 * torch.randn(128, 2, generator=gen).to(cuda))
+        n_heads, act, eps, pads = 2, "approximate_gelu", 1e-5, None
+    else:
+        cfg, packed, _, x, (kc, vc), (xk, xv) = _step_inputs(cuda, dtype, cross)
+        variant, n_heads, act, eps = {}, cfg.n_heads, cfg.act, cfg.norm_eps
+        pads = torch.tensor([0, 5, 70, 3], dtype=torch.int32, device=cuda)
+    lens = torch.tensor([96, 7, 0, 50], dtype=torch.int32, device=cuda)
+    kw = dict(cross_k=xk, cross_v=xv, cross_lens=lens) if cross else {}
+    kc2, vc2 = kc.clone(), vc.clone()
+    ref_x, ref_tok = fused_decode_step_plain(x, packed, kc2, vc2, pos, pads, n_heads, act, eps, None, **kw, **variant)
+    fn = fused_cross_decode_step if cross else fused_decode_step
+    before = fn.variant_launches["headless"]
+    if cross:
+        got_x, got_tok = fn(x, packed, kc, vc, xk, xv, lens, pos, pads, n_heads, act, eps, **variant)
+    else:
+        got_x, got_tok = fn(x, packed, kc, vc, pos, pads, n_heads, act, eps)
+    torch.cuda.synchronize()
+    assert got_tok is None and ref_tok is None and fn.variant_launches["headless"] == before + 1
+    torch.testing.assert_close(got_x.float(), ref_x.float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(kc.float(), kc2.float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(vc.float(), vc2.float(), atol=atol, rtol=rtol)
+
+
+def test_beam_cache_reorder_on_the_card(cuda):
+    """The beam loop's prefix gather into a strided view of the spare buffer
+    (``index_select(..., out=)``) on CUDA tensors: row r is row idx[r] up to
+    pos; the slots from pos on keep the spare's zeros."""
+    from pytorch_models_tpu_torch.models.text import beam
+
+    stacked = {k: torch.randn(3, 8, 256, 128, device=cuda) for k in ("k", "v")}
+    idx = torch.tensor([7, 7, 0, 3, 3, 3, 1, 2], device=cuda)
+    views, new, _ = beam.reorder_caches(beam.beam_caches(stacked), idx, 100)
+    for k in ("k", "v"):
+        assert torch.equal(new[k][:, :, :100], stacked[k][:, idx, :100]) and not new[k][:, :, 100:].any()
+        assert views[2][k].data_ptr() == new[k][2].data_ptr()
+
+
+def test_sampler_on_the_card(cuda):
+    """The inverse-CDF pick on CUDA tensors equals the CPU's for the same
+    uniforms; draws from a CUDA generator stay in the top-k / nucleus set."""
+    from pytorch_models_tpu_torch.models.text import generator as gen_mod
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    logits = torch.randn(64, 50257, generator=g, device=cuda)
+    vals, idx = gen_mod._top_k(logits / 0.8, 40)
+    vals = gen_mod._nucleus_mask(vals, 0.9)
+    u = torch.rand(64, generator=g, device=cuda)
+    assert torch.equal(gen_mod._inverse_cdf(vals, u).cpu(), gen_mod._inverse_cdf(vals.cpu(), u.cpu()))
+    draws = gen_mod._sample(logits, g, 40, 0.9, 0.8)
+    allowed = idx.masked_fill(vals == torch.finfo(vals.dtype).min, -1)
+    assert bool((draws[:, None] == allowed).any(-1).all())
+    assert torch.equal(gen_mod._sample(logits, g, 1), logits.argmax(-1))
 
 
 def _parent_greedy_fits(b: int, d: int, dtype: torch.dtype, tied: bool, cap: int) -> bool:
