@@ -8,7 +8,7 @@ Builds the port's CUDA kernels from ``pytorch_models_tpu_torch/csrc/`` (one
 ``nvcc`` per source, in parallel), holds each kernel against its plain
 PyTorch version at the GPT-2, Whisper and T5 serving shapes (the fused
 decode step K7 at full GPT-2-small, Whisper-base and T5-base width, fp32 and
-bf16; the biased decode attention and the untied greedy head at T5-base's;
+bf16, at B=8, 16 and 32 in every variant; the biased decode attention and the untied greedy head at T5-base's;
 the greedy heads at B=8 to 200 beside the head matmul + argmax, with the
 side ``use_greedy_head`` takes at each;
 the encoder attention K1 also at ViT-B/16's B=128 x 197 tokens and at head
@@ -19,8 +19,9 @@ checks that each went through its kernels:
 - GPT-2 small at full width (12 layers, d_model 768, vocab 50257, context
   1024, random weights from a seed) through ``score_tokens_batch``, then,
   rescaled so that greedy streams move, ``generate_tokens_batch`` (and at
-  B=16, above the fused step's 8 rows, per-op against plain in fp32: the
-  tied greedy head K4 once per decode step);
+  B=33, one row above the fused step's 32, flags auto against plain in
+  fp32: per-op, the tied greedy head K4 once per decode step where its gate
+  takes 33 rows);
 - Whisper-base at full width (8 + 8 layers, d_model 512, vocab 51865, 80
   mels, random weights from a seed) transcribing eight 5-30 s waveforms
   through ``WhisperGenerator.transcribe_tokens_batch`` and
@@ -38,9 +39,21 @@ checks that each went through its kernels:
   bf16 at B=128, ``bench.py``'s batch: both routes' img/s and MFU in turns,
   and K1's share of the forward.
 
+bench.py's batched greedy decode shapes (``batch_paths``): GPT-2 small at
+B=32 (32-token prompts), T5-base at B=32 (64-token inputs), Whisper-base at
+B=16, fp32 fused, per-op and plain token-identical with K7 once per decode
+step at that batch, then bf16 generated tok/s per route in turns at the
+bench shapes (GPT-2 512 new tokens). The continuous-batching engine
+(``cb_path``): ``ContinuousBatchingGenerator`` on GPT-2 small with a pool
+of 32 (K7 at B=32), 96 requests of 5-200 tokens with budgets of 16-128, with
+and without a 48-token shared prefix: fp32 every request token-identical to
+the plain route's generation, K7 once per decode step; its int8 self-KV
+pool held step by step against the plain head; bf16 generated tok/s of the
+fused pool against the per-op pool, with the pool's occupancy.
+
 The generation API at full width (``beam_sample_paths``): beam search
 through ``DecoderGenerator.beam_search_tokens_batch`` (GPT-2 small, G=2 and
-4 prompts x W=4: 8 rows, the fused step headless, and 16, per-op),
+4 prompts x W=4: 8 and 16 rows, the fused step headless),
 ``WhisperGenerator.transcribe_beam_tokens`` (Whisper-base, one 30 s
 segment, W=4) and ``T5Generator.generate_beam_tokens`` (T5-base, one
 prompt, W=4), at most BEAM_NEW new tokens; sampling through
@@ -89,7 +102,7 @@ unquantized bf16 route and the routes' times.
 K7's time per phase (``decode_step_breakdown``): each block stamps
 %globaltimer at four points of every phase (``stamps=`` of the wrappers),
 and a line per variant (GPT-2 bf16 / fp32 / fp32 w8a16 + int8 KV, Whisper
-and T5 bf16, B=8) splits the step into barrier wait and skew, input load,
+and T5 bf16, B=8; GPT-2 bf16 at B=32) splits the step into barrier wait and skew, input load,
 matvec or attention and epilogue, in µs per phase of each kind.
 
 K1 in bf16: an output row beyond TOL passes only where p values that lie
@@ -137,7 +150,7 @@ import numpy as np
 
 SEED = 0
 N_NEW = 64
-B16_NEW = 16  # new tokens of the per-op GPT-2 generation at B=16
+B33_NEW = 16  # new tokens of the per-op GPT-2 generation at B=33, one row above what K7 serves
 PROMPT_LENS = (5, 12, 23, 31, 40, 47, 55, 60)
 # kernel vs plain version on the same inputs, elementwise |got - ref| <=
 # atol + rtol * |ref|. fp32 differs by summation order only (readings on an
@@ -189,7 +202,7 @@ T5_MAX = 64  # tokens per output row, the pad token included
 T5_WEIGHT_SCALE = 2.0  # layer matrices, x the init's scale
 T5_BIAS_SCALE = 2.0  # rel-pos tables, seeded N(0, 1) x this (the init's are zeros)
 
-# beam search and sampling: W beams a prompt, G prompts (G x W = 8 rows: the fused step headless; 16: per-op),
+# beam search and sampling: W beams a prompt, G prompts (G x W = 8 and 16 rows: the fused step headless),
 # at most BEAM_NEW new tokens; the sampled phases' settings (topk, top_p, temperature, seed)
 BEAM_W, BEAM_G, BEAM_NEW = 4, (2, 4), 32
 # fp32 routes' beams: scores within the model's beam tolerance, and sequences parted only where a selection of
@@ -300,18 +313,44 @@ def _rec(err: float, ms: float, plain_ms: float, nbytes: float, flops: float, dn
             "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": library_ms}
 
 
-def _check_close(name: str, got, ref, tol: tuple[float, float]) -> float:
+def _check_close(name: str, got, ref, tol: tuple[float, float], of_larger: bool = False, extra=0.0) -> float:
     """Max |got - ref|; raises unless finite and every element is within
-    ``atol + rtol * |ref|``."""
+    ``atol + rtol * |ref|`` (``of_larger``: ``rtol * max(|got|, |ref|)``, one
+    bf16 step of either value at rtol 2^-7, also where the two round to the
+    two sides of a power of two), plus ``extra`` (per element)."""
     import torch
 
     atol, rtol = tol
     diff = (got.float() - ref.float()).abs()
-    bad = diff > atol + rtol * ref.float().abs()
+    scale = torch.maximum(got.float().abs(), ref.float().abs()) if of_larger else ref.float().abs()
+    bad = diff > atol + rtol * scale + extra
     if not torch.isfinite(got.float()).all() or bool(bad.any()):
+        idx = bad.nonzero()[:4].tolist()
         raise AssertionError(f"{name}: {int(bad.sum())} elements off, max |kernel - plain| = "
-                             f"{diff.max().item()} (atol {atol}, rtol {rtol})")
+                             f"{diff.max().item()} (atol {atol}, rtol {rtol}); first at "
+                             + ", ".join(f"{i}: {got[tuple(i)].item()} vs {ref[tuple(i)].item()}" for i in idx))
     return diff.max().item()
+
+
+def _ln_flip_bound(packed: dict, x, eps: float, norm: str, hd: int):
+    """bf16: how far layer 0's K/V at pos may move when the kernel's first
+    norm rounds an input element to the other bf16 neighbour than the twin's
+    (the two sum the norm's statistics in other orders): per (row, K|V
+    column), the sum over the row's norm outputs lying within A8_NORM_NOISE
+    of the row's absmax of a bf16 rounding midpoint of one bf16 step times
+    |W_kv|. (B, 2 H*D) fp32."""
+    import torch
+
+    from pytorch_models_tpu_torch.ops.decode_step import _norm
+
+    y = _norm(packed["ln1_s"][0], packed["ln1_b"][0], x.float(), eps, norm)  # fp32, not rounded
+    yb = y.to(torch.bfloat16).float()
+    _, e = torch.frexp(yb)
+    ulp = torch.where(yb == 0, torch.zeros_like(yb), torch.ldexp(torch.ones_like(yb), e - 8))
+    noise = A8_NORM_NOISE * y.abs().amax(-1, keepdim=True)
+    open_ = (y - yb).abs() >= 0.5 * ulp - noise
+    w = packed["wqkv"][0, :, hd:].float().abs()
+    return torch.matmul(torch.where(open_, ulp, 0.0), w)
 
 
 def _check_greedy(name: str, x, emb, tie: int, untied: bool = False) -> tuple[float, int]:
@@ -980,15 +1019,29 @@ def _k7_model(dev, kind: str):
     return cfg, layers, rnd(d, vocab) if kind == "t5" else rnd(vocab, d), norm()
 
 
+K7_BATCHES = (8, 16, 32)  # K7's kernel phases: one row group, two, and the most it serves (ops.decode_step.MAX_BATCH)
+
+
+def _cycle(vals: list, b: int) -> list:
+    """``vals`` repeated to ``b`` entries (per-row pads and lengths at any B)."""
+    return [vals[i % len(vals)] for i in range(b)]
+
+
+def _k7_key(name: str, b: int) -> str:
+    """A K7 record's name at B rows: the B=8 records keep their names."""
+    return name if b == 8 else f"{name}_b{b}"
+
+
 def decode_step_phases(dev, card: str) -> dict:
     """K7 against its plain version at the full GPT-2-small, Whisper-base and
-    T5-base shapes, B=8, fp32 and bf16: mixed left pads with one row whose
+    T5-base shapes, B=8, 16 and 32 (K7_BATCHES), fp32 and bf16: mixed left pads with one row whose
     cached range is empty until pos (GPT-2, Whisper; T5 decodes without
     pads), per-row cross lengths with a short row, T5's seeded rel-pos self
     bias (which must move fp32 x_out by far more than its tolerance); x_out
     and the K/V written at pos elementwise, tok as the greedy head is
     checked. Times: the kernel, its plain version, and the per-op step it
-    replaces (kernels on; layer stack + final norm + greedy head), in turns."""
+    replaces (kernels on; layer stack + final norm + greedy head), in turns.
+    At B=16 and 32 the headless step is checked at the same rows."""
     import torch
 
     from pytorch_models_tpu_torch import transformer as tfm
@@ -1006,26 +1059,28 @@ def decode_step_phases(dev, card: str) -> dict:
 
     res = {}
     g = torch.Generator(device=dev).manual_seed(SEED + 6)
-    b = 8
-    for kind in ("gpt2", "whisper", "t5"):
-        cfg32, layers32, emb32, final32 = _k7_model(dev, kind)
+    for kind, b in [(kind, b) for kind in ("gpt2", "whisper", "t5") for b in K7_BATCHES]:
+        if b == K7_BATCHES[0]:
+            cfg32, layers32, emb32, final32 = _k7_model(dev, kind)
         cross, t5 = kind != "gpt2", kind == "t5"
         name = {"gpt2": "fused_decode_step", "whisper": "fused_cross_decode_step",
                 "t5": "fused_cross_decode_step_t5"}[kind]
+        key = _k7_key(name, b)
         n_layers, d, hd = len(layers32), cfg32.d_model, cfg32.n_heads * cfg32.head_dim
         l_max, pos = (1024, 127) if kind == "gpt2" else (128, 40)
         if t5:  # T5 decodes without left pads; its cross rows are prompts of 7-64 tokens in a 128-slot cache
             pads, lx = None, 128
-            lens = torch.tensor([64, 64, 7, 64, 50, 64, 12, 64], dtype=torch.int32, device=dev)
+            lens = torch.tensor(_cycle([64, 64, 7, 64, 50, 64, 12, 64], b), dtype=torch.int32, device=dev)
             table = T5_BIAS_SCALE * torch.randn(12, 32, generator=g, device=dev)  # a seeded rel-pos table
             t5cfg = T5Config(32128, 768, 12, 12, 2048)
             bias_hl = relative_position_bias(table, torch.arange(l_max, device=dev), torch.arange(l_max, device=dev),
                                              False, t5cfg)[:, pos]  # (H, Lp): query pos, every key
             variant = dict(norm="rms", gated=True, sbias=bias_hl.t().contiguous())
         else:
-            pads = torch.tensor([0, 5, pos, 3, 0, pos // 2, 1, 17], dtype=torch.int32, device=dev)
+            pads = torch.tensor(_cycle([0, 5, pos, 3, 0, pos // 2, 1, 17], b), dtype=torch.int32, device=dev)
             lx, variant = 1536, {}
-            lens = torch.tensor([1500, 1500, 7, 1500, 1200, 1500, 300, 1500], dtype=torch.int32, device=dev)
+            lens = torch.tensor(_cycle([1500, 1500, 7, 1500, 1200, 1500, 300, 1500], b), dtype=torch.int32,
+                                device=dev)
         for dtype in (torch.float32, torch.bfloat16):
             dn = str(dtype).removeprefix("torch.")
             layers = cast_tree(layers32, dtype)
@@ -1055,10 +1110,15 @@ def decode_step_phases(dev, card: str) -> dict:
             tol = DS_TOL[dn]
             err = _check_close(f"{name} x_out {dn}", got_x, ref_x, tol)
             use = ((got_x.float() - ref_x.float()).abs() / (tol[0] + tol[1] * ref_x.float().abs())).max().item()
-            kv0 = 0.0  # layer 0's K/V at pos, to one bf16 step; the deeper layers' to DS_TOL
-            for c, c_ref, what in ((kc, kc_p, "k"), (vc, vc_p, "v")):
+            # layer 0's K/V at pos to one bf16 step, and in bf16 the shift of a first-norm output element that
+            # rounds the other way (_ln_flip_bound); the deeper layers' to DS_TOL
+            kv0, flip = 0.0, 0.0
+            if dtype == torch.bfloat16:
+                flip = _ln_flip_bound(packed, x, cfg32.norm_eps, "rms" if t5 else "ln", hd)
+            for i, (c, c_ref, what) in enumerate(((kc, kc_p, "k"), (vc, vc_p, "v"))):
+                fl = flip[:, i * hd:(i + 1) * hd] if dtype == torch.bfloat16 else 0.0
                 kv0 = max(kv0, _check_close(f"{name} layer 0 {what} at pos {dn}", c[0, :, pos], c_ref[0, :, pos],
-                                            TOL[dn]))
+                                            TOL[dn], of_larger=True, extra=fl))
                 err = max(err, _check_close(f"{name} {what} at pos {dn}", c[1:, :, pos], c_ref[1:, :, pos], tol))
                 if not torch.equal(c[:, :, :pos], c_ref[:, :, :pos]):
                     raise AssertionError(f"{name} {dn}: the cache changed outside pos")
@@ -1114,30 +1174,29 @@ def decode_step_phases(dev, card: str) -> dict:
             nbytes = ((w_el + head["emb"].numel()) * item + small * 4 + 2 * b * d * item
                       + 2 * n_layers * (self_keys + cross_keys) * hd * item + 2 * n_layers * b * hd * item + 8 * b)
             flops = 2 * b * (w_el + head["emb"].numel()) + 4 * n_layers * hd * (self_keys + b + cross_keys)
-            res[(name, dn)] = _rec(err, ms, plain_ms, nbytes, flops, dn)
-            res[(name, dn)]["per_op_ms"] = op_ms
-            r = res[(name, dn)]
-            print(f"phase kernel {name} {dn}: {kind} {n_layers} layers d={d} B=8 pos={pos} "
+            r = res[(key, dn)] = _rec(err, ms, plain_ms, nbytes, flops, dn)
+            r["per_op_ms"] = op_ms
+            print(f"phase kernel {name} {dn}: {kind} {n_layers} layers d={d} B={b} pos={pos} "
                   + (f"pads {pads.tolist()}" if pads is not None else "no pads")
                   + (f" cross lens {lens.tolist()} of {lx}" if cross else "")
                   + (f", rel-pos table N(0, 1) x {T5_BIAS_SCALE}, untied head" if t5 else "")
                   + f" | max |kernel - plain| (x_out, K/V at pos) {err:.3g} (atol, rtol)={tol}, x_out at {use:.2f} of its "
                   f"tolerance, layer 0 K/V at pos {kv0:.3g} (atol, rtol)={TOL[dn]}{moved}; tok {got_tok.tolist()}"
-                  f" ({int(decided.sum())}/8 decided, equal), max regret {regret.abs().max().item():.3g} | kernel "
+                  f" ({int(decided.sum())}/{b} decided, equal), max regret {regret.abs().max().item():.3g} | kernel "
                   f"{ms * 1e3:.1f} us ({ms2 * 1e3:.1f} us in the second pair), plain {plain_ms * 1e3:.1f} us, "
                   f"per-op step {op_ms * 1e3:.1f} us, bound {r['bound_ms'] * 1e3:.1f} us ({r['bound_by']}, "
                   f"{nbytes / 1e6:.1f} MB) [{card}]")
             res.update(_headless_check(kind, name, dn, card, x, packed, kc, vc, xk, xv, lens, pos, pads, cfg32,
-                                       variant, final32, head))
+                                       variant, final32, head, None if b == 8 else b))
     torch.cuda.synchronize()
     return res
 
 
 def _headless_check(kind: str, name: str, dn: str, card: str, x, packed, kc, vc, xk, xv, lens, pos: int, pads, cfg,
-                    variant: dict, final32, head) -> dict:
+                    variant: dict, final32, head, rows: int | None = None) -> dict:
     """K7 headless (no final norm, no head: the sampled and beam loops) at
     the rows the new paths give it (GPT-2: 8, the sampled batch and G=2 x
-    W=4 beams; Whisper and T5: W=4 beams), on ``decode_step_phases``'s
+    W=4 beams; Whisper and T5: W=4 beams), or at ``rows``, on ``decode_step_phases``'s
     inputs: x_out and the K/V written at pos against the plain twin (DS_TOL;
     layer 0's K/V to TOL), no token; the kernel and its twin in turns, the
     head matmul that follows it in torch, and the bound without a head."""
@@ -1152,7 +1211,7 @@ def _headless_check(kind: str, name: str, dn: str, card: str, x, packed, kc, vc,
     )
 
     cross, t5 = kind != "gpt2", kind == "t5"
-    b = 8 if kind == "gpt2" else BEAM_W
+    b = rows or (8 if kind == "gpt2" else BEAM_W)
     n_layers, hd = kc.shape[0], kc.shape[3]
     hx = x[:b].contiguous()
     hk, hv = kc[:, :b].contiguous(), vc[:, :b].contiguous()
@@ -1177,9 +1236,11 @@ def _headless_check(kind: str, name: str, dn: str, card: str, x, packed, kc, vc,
         raise AssertionError(f"{name} headless: a token came back")
     tol = DS_TOL[dn]
     err = _check_close(f"{name} headless x_out {dn}", got_x, ref_x, tol)
-    for c, c_ref, what in ((hk, kp, "k"), (hv, vp, "v")):
+    flip = _ln_flip_bound(packed, hx, cfg.norm_eps, "rms" if t5 else "ln", hd) if dn == "bfloat16" else None
+    for i, (c, c_ref, what) in enumerate(((hk, kp, "k"), (hv, vp, "v"))):
+        fl = 0.0 if flip is None else flip[:, i * hd:(i + 1) * hd]
         err = max(err, _check_close(f"{name} headless layer 0 {what} at pos {dn}", c[0, :, pos], c_ref[0, :, pos],
-                                    TOL[dn]),
+                                    TOL[dn], of_larger=True, extra=fl),
                    _check_close(f"{name} headless {what} at pos {dn}", c[1:, :, pos], c_ref[1:, :, pos], tol))
     final = {k: v.to(hx.dtype) for k, v in final32.items()}
     emb = head["emb"].to(hx.dtype)
@@ -1201,18 +1262,18 @@ def _headless_check(kind: str, name: str, dn: str, card: str, x, packed, kc, vc,
           f"K/V at pos) {err:.3g} (atol, rtol)={tol} | kernel {ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, bound "
           f"{rec['bound_ms'] * 1e3:.1f} us ({rec['bound_by']}, {nbytes / 1e6:.1f} MB, no head); the head matmul that "
           f"follows it ({b} x {emb.shape[1]} x {emb.shape[0]}) {head_ms * 1e3:.1f} us [{card}]")
-    return {(f"{name}_headless", dn): rec}
+    return {(_k7_key(f"{name}_headless", rows or 8), dn): rec}
 
 
-# K7's per-phase breakdown: (kind, dtype, int8 serving options of _k7_step) at B=8, each launched this many
+# K7's per-phase breakdown: (kind, dtype, int8 serving options of _k7_step, rows), each launched this many
 # times with stamps
-BREAKDOWN = (("gpt2", "bfloat16", {}), ("gpt2", "float32", {}), ("whisper", "bfloat16", {}), ("t5", "bfloat16", {}),
-             ("gpt2", "float32", {"q8": True, "kv": True}))
+BREAKDOWN = (("gpt2", "bfloat16", {}, 8), ("gpt2", "float32", {}, 8), ("whisper", "bfloat16", {}, 8),
+             ("t5", "bfloat16", {}, 8), ("gpt2", "float32", {"q8": True, "kv": True}, 8), ("gpt2", "bfloat16", {}, 32))
 BREAKDOWN_RUNS = 5
 
 
-def _k7_step(dev, kind: str, dtype, g, model=None, a8=False, kv=False, kvx=False, q8=False, embed=False):
-    """One K7 step at ``decode_step_phases``'s B=8 shapes on fresh random
+def _k7_step(dev, kind: str, dtype, g, model=None, a8=False, kv=False, kvx=False, q8=False, embed=False, b=8):
+    """One K7 step at ``decode_step_phases``'s shapes (B rows, 8) on fresh random
     inputs: GPT-2 (pos 127 of 1024, mixed left pads), Whisper (pos 40, cross
     lengths 7-1500 of 1536) or T5 (pos 40, cross lengths 7-64 of 128, a
     seeded rel-pos self bias), optionally in an int8 serving variant as
@@ -1233,21 +1294,21 @@ def _k7_step(dev, kind: str, dtype, g, model=None, a8=False, kv=False, kvx=False
     from pytorch_models_tpu_torch.utils import cast_tree, quantize_tree_int8
 
     cfg, layers32, emb32, final32 = model or _k7_model(dev, kind)
-    cross, t5, b = kind != "gpt2", kind == "t5", 8
+    cross, t5 = kind != "gpt2", kind == "t5"
     n_layers, d, hd = len(layers32), cfg.d_model, cfg.n_heads * cfg.head_dim
     l_max, pos = (1024, 127) if kind == "gpt2" else (128, 40)
     variant = {}
     if t5:
         pads, lx = None, 128
-        lens = torch.tensor([64, 64, 7, 64, 50, 64, 12, 64], dtype=torch.int32, device=dev)
+        lens = torch.tensor(_cycle([64, 64, 7, 64, 50, 64, 12, 64], b), dtype=torch.int32, device=dev)
         table = T5_BIAS_SCALE * torch.randn(12, 32, generator=g, device=dev)
         bias_hl = relative_position_bias(table, torch.arange(l_max, device=dev), torch.arange(l_max, device=dev),
                                          False, T5Config(32128, 768, 12, 12, 2048))[:, pos]
         variant = dict(norm="rms", gated=True, sbias=bias_hl.t().contiguous())
     else:
-        pads = torch.tensor([0, 5, pos, 3, 0, pos // 2, 1, 17], dtype=torch.int32, device=dev)
+        pads = torch.tensor(_cycle([0, 5, pos, 3, 0, pos // 2, 1, 17], b), dtype=torch.int32, device=dev)
         lx = 1536
-        lens = torch.tensor([1500, 1500, 7, 1500, 1200, 1500, 300, 1500], dtype=torch.int32, device=dev)
+        lens = torch.tensor(_cycle([1500, 1500, 7, 1500, 1200, 1500, 300, 1500], b), dtype=torch.int32, device=dev)
     layers = cast_tree(layers32, dtype)
     packed = pack_decode_weights(quantize_tree_int8(layers) if q8 else layers, dtype, cross=cross, gated=t5)
     head = pack_greedy_head(emb32, final32, dtype, tied=not t5, a8=a8)
@@ -1265,7 +1326,7 @@ def _k7_step(dev, kind: str, dtype, g, model=None, a8=False, kv=False, kvx=False
     if embed:  # ids incl. one out of range
         tabs = pack_embed_tables(torch.randn(50257, d, generator=g, device=dev),
                                  3.0 * torch.randn(1024, d, generator=g, device=dev), dtype)
-        ids = torch.tensor([5, 50256, 0, 17, 99999, 1234, 42, 7], device=dev)
+        ids = torch.tensor(_cycle([5, 50256, 0, 17, 99999, 1234, 42, 7], b), device=dev)
         prow = (pos - torch.where(pads > pos, pos, pads)).to(torch.int64)
         variant.update(emb=tabs, tok_ids=ids, pos_rows=prow)
         x = None
@@ -1280,25 +1341,25 @@ def _k7_step(dev, kind: str, dtype, g, model=None, a8=False, kv=False, kvx=False
     return call, n_layers, cross
 
 
-def decode_step_breakdown(dev, card: str) -> dict:
+def decode_step_breakdown(dev, card: str, rows=K7_BATCHES) -> dict:
     """K7's time per phase, split in four parts from each block's
     %globaltimer stamps (``stamps=`` of the wrappers; never on the
     generators' path): barrier wait and skew, input load (norm, merge,
     gate), matvec or attention, epilogue, the barrier's own latency and the
     busiest block's time (``ops.decode_step.phase_breakdown``); µs, the
     median over the phases of one kind, over BREAKDOWN_RUNS launches after a
-    warm-up, for each of BREAKDOWN. Prints one line per variant, with the
-    sum over one step's phases of barrier and busy."""
+    warm-up, for each of BREAKDOWN at a batch in ``rows``. Prints one line
+    per variant, with the sum over one step's phases of barrier and busy."""
     import torch
 
     from pytorch_models_tpu_torch.ops.decode_step import phase_breakdown, step_phase_kinds
 
     g = torch.Generator(device=dev).manual_seed(SEED + 20)
     models, res = {}, {}
-    for kind, dn, opts in BREAKDOWN:
+    for kind, dn, opts, b in [case for case in BREAKDOWN if case[3] in rows]:
         if kind not in models:
             models[kind] = _k7_model(dev, kind)
-        call, n_layers, cross = _k7_step(dev, kind, getattr(torch, dn), g, models[kind], **opts)
+        call, n_layers, cross = _k7_step(dev, kind, getattr(torch, dn), g, models[kind], **opts, b=b)
         kinds = step_phase_kinds(n_layers, cross, True)
         call()
         stamps: list = []
@@ -1309,10 +1370,10 @@ def decode_step_breakdown(dev, card: str) -> dict:
         if not bool((st > 0).all()):
             raise AssertionError(f"K7 breakdown {kind} {dn}: a block left a phase unstamped")
         kind = kind + "".join(f" {k}" for k in opts)  # q8: w8a16 weights, kv: int8 self-KV
-        bd = res[(kind, dn)] = phase_breakdown(st, kinds)
+        bd = res[(kind, dn, b)] = phase_breakdown(st, kinds)
         parts = ("wait", "load", "compute", "epilogue", "barrier", "busy")
         sums = {p: sum(bd[k][p] * bd[k]["n"] for k in dict.fromkeys(kinds)) for p in parts[-2:]}
-        print(f"phase breakdown K7 {kind} {dn}: B=8, {len(kinds)} phases, step {bd['step']:.1f} us (stamped); "
+        print(f"phase breakdown K7 {kind} {dn}: B={b}, {len(kinds)} phases, step {bd['step']:.1f} us (stamped); "
               "per phase, us (median over the kind's phases; max over blocks but barrier: min) "
               "wait/load/compute/epilogue/barrier/busy: "
               + "; ".join(f"{k} x{bd[k]['n']} " + "/".join(f"{bd[k][p]:.2f}" for p in parts)
@@ -1482,6 +1543,8 @@ def main_path(dev, card: str, profile_dir: str | None = None) -> dict:
     import torch
 
     from pytorch_models_tpu_torch.models.text import GPT2, DecoderGenerator
+    from pytorch_models_tpu_torch.ops import attention as attn
+    from pytorch_models_tpu_torch.ops.decode_step import MAX_BATCH
 
     kernels = _kernels()
     r = np.random.default_rng(SEED)
@@ -1536,25 +1599,31 @@ def main_path(dev, card: str, profile_dir: str | None = None) -> dict:
           f"tokens, {N_NEW} new each: fused, per-op kernels and plain (every flag False) token-identical "
           f"(partings at near-ties: {partings}); K7 launched {k7_launches} times = {steps} decode steps; distinct "
           f"new tokens per row {distinct}")
-    # above the fused step's 8 rows: B=16 decodes per-op, the tied greedy head (K4) once per decode step
-    r16 = np.random.default_rng(SEED + 16)
-    prompts16 = [r16.integers(0, 50257, n).tolist() for n in PROMPT_LENS * 2]
-    outs16 = {}
-    for route in ("plain", "per-op"):
+    # above the fused step's MAX_BATCH rows: B=33 decodes per-op (the flags auto), the tied greedy head (K4) once
+    # per decode step where its gate takes that batch, else the head matmul + argmax
+    n33 = MAX_BATCH + 1
+    r33 = np.random.default_rng(SEED + 16)
+    prompts33 = [r33.integers(0, 50257, n).tolist() for n in _cycle(list(PROMPT_LENS), n33)]
+    outs33, k4_33, k7_33 = {}, 0, 0
+    for route in ("plain", "fused"):
         _route(route)
-        before = kernels["greedy_argmax_tied"].launches
-        outs16[route] = gen.generate_tokens_batch(prompts16, max_tokens=B16_NEW)
-        k4_16 = kernels["greedy_argmax_tied"].launches - before
+        before = kernels["greedy_argmax_tied"].launches, kernels["fused_decode_step"].launches
+        outs33[route] = gen.generate_tokens_batch(prompts33, max_tokens=B33_NEW)
+        k4_33 = kernels["greedy_argmax_tied"].launches - before[0]
+        k7_33 = kernels["fused_decode_step"].launches - before[1]
     torch.cuda.synchronize()
-    for route, rows in outs16.items():
-        if any(row[:len(p)] != p or len(row) != len(p) + B16_NEW for row, p in zip(rows, prompts16)):
-            raise AssertionError(f"fp32 B=16 generation ({route}): malformed row")
-    if k4_16 != B16_NEW - 1:
-        raise AssertionError(f"per-op route at B=16: K4 launched {k4_16} times for {B16_NEW - 1} decode steps")
-    partings16 = _check_routes("main fp32 B=16", outs16, gap_fn)
-    print(f"phase main fp32 generate_tokens_batch B=16 (above the fused step's 8 rows): {B16_NEW} new tokens each, "
-          f"per-op kernels and plain token-identical (partings at near-ties: {partings16}); K4 (tied) launched "
-          f"{k4_16} times = {B16_NEW - 1} decode steps")
+    for route, rows in outs33.items():
+        if any(row[:len(p)] != p or len(row) != len(p) + B33_NEW for row, p in zip(rows, prompts33)):
+            raise AssertionError(f"fp32 B={n33} generation ({route}): malformed row")
+    k4_want = B33_NEW - 1 if attn.use_greedy_head(n33, model.params["token_embs"], tied=True) else 0
+    if k7_33 or k4_33 != k4_want:
+        raise AssertionError(f"flags auto at B={n33}: K7 launched {k7_33} times (0 wanted), K4 {k4_33} times for "
+                             f"{k4_want}")
+    partings33 = _check_routes(f"main fp32 B={n33}", outs33, gap_fn)
+    print(f"phase main fp32 generate_tokens_batch B={n33} (above the fused step's {MAX_BATCH} rows: per-op): "
+          f"{B33_NEW} new tokens each, flags auto (per-op kernels) and plain token-identical (partings at "
+          f"near-ties: {partings33}); K7 launched 0 times, K4 (tied) {k4_33} times ({k4_want} wanted: the gate's "
+          f"side at {n33} rows)")
     _route("fused")
     model.to_bf16()
     out16 = {"fused": generate()}
@@ -1864,7 +1933,8 @@ I8_LAYER_TOL = {"float32": (2e-2, 0.0), "bfloat16": (2e-2, 2.0 ** -7)}
 I8_MARGIN = 1e-3
 # the a8 head, held exactly on the kernel's own x_out: its final norm, summed in another order than the plain
 # one, is taken as uncertain by this share of the row's absmax; an 8-bit hidden level within it of a rounding
-# boundary may be either level, and the kernel's id must be the plain argmax for one such choice
+# boundary may be either level, and the kernel's id must be the plain argmax for one such choice (enumerated up
+# to A8_MAX_UNCERTAIN such levels in a row; above, the kernel's id at its best must reach every id's worst)
 A8_NORM_NOISE = 1e-6
 A8_MAX_UNCERTAIN = 8
 
@@ -2127,7 +2197,17 @@ def _head_check(name: str, head: dict, x, tok, eps: float, norm: str) -> tuple[i
         open_ = (lo[i] != hi[i]).nonzero().flatten()
         n_uncertain += len(open_)
         if len(open_) > A8_MAX_UNCERTAIN:
-            raise AssertionError(f"{name}: row {i} has {len(open_)} hidden levels within the norm's noise")
+            # too many choices to enumerate (a row with an outlier): the kernel's id must reach, with every open
+            # level at its better side, the best score any id has with every open level at its worse side
+            part = torch.matmul(torch.where(lo[i] == hi[i], mid, 0.0).double(), table)
+            t_open = table[open_]
+            ends = torch.stack([lo[i, open_].double()[:, None] * t_open, hi[i, open_].double()[:, None] * t_open])
+            s_max = ((part + ends.amax(0).sum(0)).float() * head["emb_s"])
+            s_min = ((part + ends.amin(0).sum(0)).float() * head["emb_s"])
+            if s_max[tok[i]] < s_min.max():
+                raise AssertionError(f"{name}: row {i} id {tok[i].item()} cannot be the a8 head's argmax on the "
+                                     f"kernel's x_out for any choice of its {len(open_)} uncertain hidden levels")
+            continue
         ids = []
         for pick in itertools.product((0, 1), repeat=len(open_)):
             q = mid.clone()
@@ -2288,7 +2368,7 @@ I8_VARIANTS = (
 
 def int8_decode_step_phases(dev, card: str) -> dict:
     """K7's int8 serving variants against the plain twin at full width, B=8,
-    fp32 and bf16, one step: GPT-2 small w8a16 + int8 self-KV, and w8a8 with
+    16 and 32 (K7_BATCHES), fp32 and bf16, one step: GPT-2 small w8a16 + int8 self-KV, and w8a8 with
     the int8 head + int8 self-KV (pos 127 in a 1024 cache, left pads);
     Whisper-base int8 self + cross KV (pos 40, 1500 frames in 1536, per-row
     lengths); T5-base w8a8 + int8 self + cross KV with the rel-pos self bias
@@ -2311,27 +2391,28 @@ def int8_decode_step_phases(dev, card: str) -> dict:
 
     res = {}
     g = torch.Generator(device=dev).manual_seed(SEED + 14)
-    b = 8
     models = {}
-    for name, kind, a8, kv, kvx, q8, embed in I8_VARIANTS:
+    for (name, kind, a8, kv, kvx, q8, embed), b in [(v, b) for v in I8_VARIANTS for b in K7_BATCHES]:
         if kind not in models:
             models[kind] = _k7_model(dev, kind)
         cfg32, layers32, emb32, final32 = models[kind]
         cross, t5 = kind != "gpt2", kind == "t5"
+        rec_key = _k7_key(name, b)
         n_layers, d, hd = len(layers32), cfg32.d_model, cfg32.n_heads * cfg32.head_dim
         l_max, pos = (1024, 127) if kind == "gpt2" else (128, 40)
         variant = {}
         if t5:
             pads, lx = None, 128
-            lens = torch.tensor([64, 64, 7, 64, 50, 64, 12, 64], dtype=torch.int32, device=dev)
+            lens = torch.tensor(_cycle([64, 64, 7, 64, 50, 64, 12, 64], b), dtype=torch.int32, device=dev)
             table = T5_BIAS_SCALE * torch.randn(12, 32, generator=g, device=dev)
             bias_hl = relative_position_bias(table, torch.arange(l_max, device=dev), torch.arange(l_max, device=dev),
                                              False, T5Config(32128, 768, 12, 12, 2048))[:, pos]
             variant = dict(norm="rms", gated=True, sbias=bias_hl.t().contiguous())
         else:
-            pads = torch.tensor([0, 5, pos, 3, 0, pos // 2, 1, 17], dtype=torch.int32, device=dev)
+            pads = torch.tensor(_cycle([0, 5, pos, 3, 0, pos // 2, 1, 17], b), dtype=torch.int32, device=dev)
             lx = 1536
-            lens = torch.tensor([1500, 1500, 7, 1500, 1200, 1500, 300, 1500], dtype=torch.int32, device=dev)
+            lens = torch.tensor(_cycle([1500, 1500, 7, 1500, 1200, 1500, 300, 1500], b), dtype=torch.int32,
+                                device=dev)
         for dtype in (torch.float32, torch.bfloat16):
             dn = str(dtype).removeprefix("torch.")
             layers = cast_tree(layers32, dtype)
@@ -2351,7 +2432,7 @@ def int8_decode_step_phases(dev, card: str) -> dict:
             if embed:  # the embed phase: x is built from the tables (ids clamped, one out of range)
                 tabs = pack_embed_tables(torch.randn(50257, d, generator=g, device=dev),
                                          3.0 * torch.randn(1024, d, generator=g, device=dev), dtype)
-                ids = torch.tensor([5, 50256, 0, 17, 99999, 1234, 42, 7], device=dev)
+                ids = torch.tensor(_cycle([5, 50256, 0, 17, 99999, 1234, 42, 7], b), device=dev)
                 prow = (pos - torch.where(pads > pos, pos, pads)).to(torch.int64)
                 kw.update(emb=tabs, tok_ids=ids, pos_rows=prow)
                 x_in = None
@@ -2420,11 +2501,11 @@ def int8_decode_step_phases(dev, card: str) -> dict:
                 nbytes += 2 * b * d * dtype.itemsize
             w_el = sum(t.numel() for k, t in packed.items() if k.startswith("w")) + head["emb"].numel()
             ops = 2 * b * w_el + 4 * n_layers * hd * (self_keys + b + cross_keys)
-            rec = res[(name, dn)] = _rec(err, ms, plain_ms, nbytes, ops, "int8" if a8 else dn)
+            rec = res[(rec_key, dn)] = _rec(err, ms, plain_ms, nbytes, ops, "int8" if a8 else dn)
             features = [f for f, on in (("w8a8 + int8 head", a8), ("w8a16", q8 and not a8), ("int8 self-KV", kv),
                                         ("int8 cross-KV", kvx), ("embed phase (ids incl. one out of range)", embed),
                                         ("rel-pos self bias", t5)) if on]
-            print(f"phase kernel {name} {dn}: {kind} {n_layers} layers d={d} B=8 pos={pos}, " + ", ".join(features)
+            print(f"phase kernel {name} {dn}: {kind} {n_layers} layers d={d} B={b} pos={pos}, " + ", ".join(features)
                   + f" | {checked}; tok {got_tok.tolist()} = the plain head on the kernel's x_out ("
                   + (f"exact, {uncertain} hidden levels within the norm's noise" if a8 else
                      f"max score regret {regret:.3g}") + f"; the twin's own {ref_tok.tolist()})"
@@ -2850,7 +2931,7 @@ def beam_sample_paths(dev, card: str) -> dict:
     prompts x W=4; Whisper-base, one 30 s segment at W=4; T5-base, one
     prompt at W=4; at most BEAM_NEW new tokens) and sampling (GPT-2 small,
     B=8 prompts and 16 samples of one, SAMPLE's settings), fp32 on the
-    plain, fused and per-op routes (the fused step headless at <= 8 rows,
+    plain, fused and per-op routes (the fused step headless at <= MAX_BATCH rows,
     once per step), then bf16 rates of the fused and per-op routes and the
     beam cache reorder's time a step. Models and seeds as the greedy paths'.
     Returns each path's launches (counts from 0 just before it)."""
@@ -2858,6 +2939,7 @@ def beam_sample_paths(dev, card: str) -> dict:
 
     from pytorch_models_tpu_torch.audio2text import Whisper, WhisperGenerator
     from pytorch_models_tpu_torch.models.text import GPT2, DecoderGenerator, beam
+    from pytorch_models_tpu_torch.ops.decode_step import MAX_BATCH
     from pytorch_models_tpu_torch.text import T5Generator, T5Model
 
     kernels = _kernels()
@@ -2869,7 +2951,7 @@ def beam_sample_paths(dev, card: str) -> dict:
     gen = DecoderGenerator(model, _Tok())
     c = model.cfg
 
-    # ---- beam gpt2 fp32: G x W = 8 rows (the fused step headless) and 16 (per-op)
+    # ---- beam gpt2 fp32: G x W = 8 rows and 16 (the fused step headless: up to MAX_BATCH rows)
     _route("plain")
     with torch.inference_mode():
         tol = _beam_tol(model(torch.tensor(prompts[0], device=dev))[-1])
@@ -2882,7 +2964,7 @@ def beam_sample_paths(dev, card: str) -> dict:
         outs, partings, steps = _beam_routes(f"beam gpt2 fp32 G={g}", run, _beam_rows_check(
             "beam gpt2", prompts[:g], c.vocab_size), tol)
         headless = kernels["fused_decode_step"].variant_launches["headless"] - before
-        want = steps if g * BEAM_W <= 8 else 0
+        want = steps if g * BEAM_W <= MAX_BATCH else 0
         if headless != want:
             raise AssertionError(f"beam gpt2 G={g}: K7 headless launched {headless} times for {want} fused beam steps")
         print(f"phase beam gpt2 fp32 G={g} x W={BEAM_W} ({g * BEAM_W} rows): fused, per-op and plain beams identical "
@@ -2890,7 +2972,7 @@ def beam_sample_paths(dev, card: str) -> dict:
               f"scores {[round(s[0], 4) for s in outs['fused'][1]]}")
     launches["beam gpt2"] = _launches({"fused_decode_step", "decode_attention", "embed_add"})
 
-    # ---- sample gpt2 fp32: B=8 prompts (the fused step headless), 16 samples of one (per-op)
+    # ---- sample gpt2 fp32: B=8 prompts, 16 samples of one (the fused step headless)
     _reset_launches()
     cases = {f"B={SAMPLE_B}": (lambda: gen.generate_tokens_batch(prompts[:SAMPLE_B], max_tokens=BEAM_NEW, **SAMPLE),
                                prompts[:SAMPLE_B]),
@@ -2906,7 +2988,7 @@ def beam_sample_paths(dev, card: str) -> dict:
         for row, p in zip(got + ref, rows_p * 2):
             if row[:len(p)] != p or len(row) != len(p) + BEAM_NEW or not all(0 <= t < c.vocab_size for t in row):
                 raise AssertionError(f"sample gpt2 {name}: malformed row {row}")
-        if len(rows_p) <= 8 and headless != BEAM_NEW - 1 or len(rows_p) > 8 and headless:
+        if len(rows_p) <= MAX_BATCH and headless != BEAM_NEW - 1 or len(rows_p) > MAX_BATCH and headless:
             raise AssertionError(f"sample gpt2 {name}: K7 headless launched {headless} times")
         margins = _draw_margins(model, got, ref, [len(p) for p in rows_p], SAMPLE["seed"], len(rows_p))
         for row, j, m, bound in margins:
@@ -2917,7 +2999,8 @@ def beam_sample_paths(dev, card: str) -> dict:
         print(f"phase sample gpt2 fp32 {name} ({SAMPLE}): fused and plain streams identical but {len(margins)} rows "
               f"parted at a CDF boundary; K7 headless launched {headless} times; distinct rows "
               f"{len({tuple(row) for row in got})}/{len(got)}")
-    launches["sample gpt2"] = _launches({"fused_decode_step", "decode_attention", "embed_add"})
+    # both cases decode through K7 (16 rows since K7 serves up to MAX_BATCH): no per-op step, so no K2, runs here
+    launches["sample gpt2"] = _launches({"fused_decode_step", "embed_add"})
 
     # ---- bf16 rates: GPT-2 beams G=2 x W=4 and sampled B=8, fused against per-op, in turns; the cache reorder
     model.to_bf16()
@@ -3022,6 +3105,298 @@ def beam_sample_paths(dev, card: str) -> dict:
     return launches
 
 
+# bench.py's batched greedy decode shapes, which K7 serves since it takes up to 32 rows: GPT-2 (rows, prompt
+# tokens, new tokens), T5 (rows, input tokens, new tokens), Whisper (rows); the fp32 route-identity runs take
+# BATCH_FP32_NEW new tokens (Whisper: N_NEW), the bf16 rates the full count
+BATCH_GPT2, BATCH_T5, BATCH_WHISPER = (32, 32, 512), (32, 64, 64), 16
+BATCH_FP32_NEW = 32
+
+
+def _bucket_key(b: int) -> str:
+    """K7's launch counter of b rows above one row group (ops.decode_step._count)."""
+    return "b16" if b <= 16 else "b32"
+
+
+def _batch_run(what: str, kernel, b: int, run, rows_ok, steps_of, gap_fn) -> tuple[dict, str]:
+    """fp32 plain, fused (flags auto: K7) and per-op routes of ``run``; rows
+    checked by ``rows_ok(route, rows)``, tokens identical to plain up to
+    near-ties (``_check_routes``), and K7 launched at this batch once per
+    decode step (``steps_of(fused rows)``). Returns the rows and a note."""
+    import torch
+
+    outs, k7 = {}, 0
+    for route in ("plain", "fused", "per-op"):
+        _route(route)
+        before = kernel.variant_launches[_bucket_key(b)]
+        outs[route] = run()
+        if route == "fused":
+            k7 = kernel.variant_launches[_bucket_key(b)] - before
+    _route("fused")
+    torch.cuda.synchronize()
+    for route, rows in outs.items():
+        rows_ok(route, rows)
+    steps = steps_of(outs["fused"])
+    if k7 != steps:
+        raise AssertionError(f"{what}: K7 launched {k7} times at B={b} for {steps} decode steps")
+    partings = _check_routes(what, outs, gap_fn)
+    return outs, (f"fused, per-op kernels and plain token-identical (partings at near-ties: {partings}); K7 "
+                  f"launched {k7} times at B={b} = {steps} decode steps")
+
+
+def _route_rates(what: str, run, n_tok_of, card: str, routes=ROUTES) -> dict:
+    """bf16 tokens/s of ``run`` on each route, in turns (CUDA events around
+    each call); ``n_tok_of(rows)`` counts the generated tokens."""
+    times, toks = {}, {}
+    order = list(routes) + list(routes)[::-1]
+    for route in order:
+        _route(route)
+        ms, rows = _event_ms(run)
+        times.setdefault(route, []).append(ms)
+        toks[route] = n_tok_of(rows)
+    _route("fused")
+    rates = {k: toks[k] / (np.mean(v) / 1e3) for k, v in times.items()}
+    print(f"phase time bf16 {what}, CUDA events, prefill included: "
+          + ", ".join(f"{k} {rates[k]:.1f} generated tok/s ({np.mean(times[k]):.1f} ms, {toks[k]} tokens)"
+                      for k in routes) + f" [{card}]")
+    return rates
+
+
+def batch_paths(dev, card: str) -> dict:
+    """bench.py's batched greedy decode through K7 above one row group:
+    GPT-2 small at B=32 (32-token prompts), T5-base at B=32 (64-token
+    inputs) and Whisper-base at B=16 (16 waveforms of 5-30 s), models and
+    scales as the main paths'. fp32: the fused, per-op and plain routes
+    token-identical (``_batch_run``), K7 once per decode step at that batch;
+    bf16: generated tok/s of each route in turns at the bench shapes (GPT-2
+    512 new tokens, T5 64, Whisper N_NEW). Counts from 0 before each model;
+    returns each model's launches."""
+    import torch
+
+    from pytorch_models_tpu_torch.audio2text import Whisper, WhisperGenerator
+    from pytorch_models_tpu_torch.models.text import GPT2, DecoderGenerator
+    from pytorch_models_tpu_torch.text import T5Generator, T5Model
+
+    kernels = _kernels()
+    out = {}
+
+    # ---- GPT-2 small, B=32
+    b, p_len, n_new = BATCH_GPT2
+    model = GPT2.from_hf("gpt2", rng=SEED, device=dev)
+    _make_streams_move(dev, SEED + 7, model.params, [model.params["decoder"]["layers"]])
+    gen = DecoderGenerator(model, _Tok())
+    r = np.random.default_rng(SEED + 32)
+    prompts = [r.integers(0, 50257, p_len).tolist() for _ in range(b)]
+
+    def gpt2_ok(n):
+        def ok(route, rows):
+            if any(row[:p_len] != p or len(row) != p_len + n for row, p in zip(rows, prompts)):
+                raise AssertionError(f"batch gpt2 B={b} ({route}): malformed row")
+        return ok
+
+    def gpt2_gap(i, prefix):
+        _route("plain")
+        with torch.inference_mode():
+            return _top2(model(torch.tensor(prefix, device=dev))[-1])
+
+    _reset_launches()
+    rows, note = _batch_run(f"batch gpt2 fp32 B={b}", kernels["fused_decode_step"], b,
+                            lambda: gen.generate_tokens_batch(prompts, max_tokens=BATCH_FP32_NEW),
+                            gpt2_ok(BATCH_FP32_NEW), lambda rows: BATCH_FP32_NEW - 1, gpt2_gap)
+    distinct = _check_moving(f"batch gpt2 B={b}", rows["fused"], [p_len] * b)
+    print(f"phase batch gpt2 fp32 generate_tokens_batch B={b} x {p_len}-token prompts, {BATCH_FP32_NEW} new: {note}; "
+          f"distinct new tokens per row {min(distinct)}-{max(distinct)}")
+    model.to_bf16()
+    _route_rates(f"batch gpt2 generate_tokens_batch B={b} x {p_len}-token prompts, {n_new} new (bench.py's)",
+                 lambda: gen.generate_tokens_batch(prompts, max_tokens=n_new),
+                 lambda rows: sum(len(x) - p_len for x in rows), card)
+    out["batch gpt2"] = _launches({"fused_decode_step", "embed_add"})
+    del model, gen
+
+    # ---- T5-base, B=32
+    b, in_len, n_new = BATCH_T5
+    model = T5Model.from_t5x("flan_t5-base", rng=SEED, device=dev)
+    _make_t5_streams_move(dev, SEED + 9, model.params)
+    gen = T5Generator(model=model)
+    r = np.random.default_rng(SEED + 33)
+    inputs = [r.integers(2, model.cfg.vocab_size, in_len).tolist() for _ in range(b)]
+
+    def t5_ok(n_max):
+        def ok(route, rows):
+            for row in rows:
+                if row[0] != T5_PAD or not 1 < len(row) <= n_max or not all(0 <= t < model.cfg.vocab_size for t in row):
+                    raise AssertionError(f"batch t5 B={b} ({route}): malformed row {row}")
+        return ok
+
+    def t5_steps(n_max):
+        return lambda rows: _decode_steps([len(x) for x in rows], n_max - 1, all(T5_EOS in x[1:] for x in rows))
+
+    def t5_gap(i, prefix):
+        _route("plain")
+        return _top2(model(torch.tensor([inputs[i]], device=dev), torch.tensor([prefix], device=dev))[0, -1])
+
+    _reset_launches()
+    n32 = BATCH_FP32_NEW + 1  # rows hold the pad token first
+    rows, note = _batch_run(f"batch t5 fp32 B={b}", kernels["fused_cross_decode_step"], b,
+                            lambda: gen.generate_tokens_batch(inputs, n32, T5_PAD, T5_EOS), t5_ok(n32),
+                            t5_steps(n32), t5_gap)
+    print(f"phase batch t5 fp32 generate_tokens_batch B={b} x {in_len}-token inputs, rows of {n32} tokens at most: "
+          f"{note}; generated lengths {min(len(x) for x in rows['fused'])}-{max(len(x) for x in rows['fused'])}")
+    model.to_bf16()
+    _route_rates(f"batch t5 generate_tokens_batch B={b} x {in_len}-token inputs, {n_new} new at most (bench.py's)",
+                 lambda: gen.generate_tokens_batch(inputs, n_new + 1, T5_PAD, T5_EOS),
+                 lambda rows: sum(len(x) - 1 for x in rows), card)
+    out["batch t5"] = _launches({"fused_cross_decode_step"})
+    del model, gen
+
+    # ---- Whisper-base, B=16
+    b = BATCH_WHISPER
+    model = Whisper.from_openai("base", rng=SEED, device=dev)
+    _make_streams_move(dev, SEED + 3, model.params["decoder"],
+                       [model.params["encoder"]["layers"], model.params["decoder"]["layers"]])
+    gen = WhisperGenerator(model)
+    wav = torch.from_numpy(_waveforms(b, _cycle(list(W_SECONDS), b), SEED + 34)).to(dev)
+    n_init, w_max = len(W_INIT), len(W_INIT) + N_NEW
+
+    def w_ok(route, rows):
+        for row in rows:
+            if row[:n_init] != W_INIT or not n_init < len(row) <= w_max:
+                raise AssertionError(f"batch whisper B={b} ({route}): malformed row {row}")
+
+    def w_steps(rows):
+        return _decode_steps([len(x) - n_init for x in rows], w_max - n_init - 1,
+                             all(W_EOT in x[n_init:] for x in rows))
+
+    def w_gap(i, prefix):
+        _route("plain")
+        with torch.inference_mode():
+            return _top2(model(gen.preprocessor(wav[i:i + 1]), torch.tensor([prefix], device=dev))[0, -1])
+
+    _reset_launches()
+    rows, note = _batch_run(f"batch whisper fp32 B={b}", kernels["fused_cross_decode_step"], b,
+                            lambda: gen.transcribe_tokens_batch(wav, W_INIT, W_EOT, w_max), w_ok, w_steps, w_gap)
+    print(f"phase batch whisper fp32 transcribe_tokens_batch B={b} ({N_NEW} new at most): {note}; generated lengths "
+          f"{min(len(x) - n_init for x in rows['fused'])}-{max(len(x) - n_init for x in rows['fused'])}")
+    model.to_bf16()
+    _route_rates(f"batch whisper transcribe_tokens_batch B={b} (bench.py's), {N_NEW} new at most",
+                 lambda: gen.transcribe_tokens_batch(wav, W_INIT, W_EOT, w_max),
+                 lambda rows: sum(len(x) - n_init for x in rows), card)
+    out["batch whisper"] = _launches({"fused_cross_decode_step"})
+    return out
+
+
+# the continuous-batching engine on GPT-2 small: a pool of CB_POOL slots (K7 at its largest batch), CB_REQUESTS
+# requests of CB_PROMPT tokens (uniform) with budgets of CB_BUDGET new tokens, with and without a shared prefix
+# of CB_PREFIX tokens; the int8 pool serves the first CB_INT8_REQUESTS of them
+CB_POOL, CB_REQUESTS, CB_PROMPT, CB_BUDGET, CB_PREFIX, CB_INT8_REQUESTS = 32, 96, (5, 200), (16, 128), 48, 48
+CB_BUCKET, CB_CHECK_EVERY = 64, 16
+
+
+def cb_path(dev, card: str, profile_dir: str | None = None) -> dict:
+    """``ContinuousBatchingGenerator`` on GPT-2 small at full width (scaled
+    as the main path's), a pool of CB_POOL slots decoding through K7 at B=32.
+    fp32: every request's tokens identical to the plain route's generation
+    (every request in one left-padded ``generate_tokens_batch``, each row cut
+    to its budget: no EOS, so a row does not depend on the others), up to
+    near-ties, with and without a shared prefix; K7 launched once per decode
+    step, at B=32. The int8 self-KV pool: every step's token held against the
+    plain head on the kernel's own x_out (``_StepSpy``), and where its rows
+    part from the pool driving K7's plain twin (a reading). bf16: the fused
+    pool's generated tok/s against the per-op pool's (USE_FUSED_STEP False)
+    in turns, with ServingStats' occupancy; with ``profile_dir``, one
+    profiled bf16 call of each pool. Returns the launches."""
+    import torch
+
+    from pytorch_models_tpu_torch.models.text import GPT2, DecoderGenerator
+    from pytorch_models_tpu_torch.text import ContinuousBatchingGenerator
+
+    kernels = _kernels()
+    k7 = kernels["fused_decode_step"]
+    model = GPT2.from_hf("gpt2", rng=SEED, device=dev)
+    _make_streams_move(dev, SEED + 7, model.params, [model.params["decoder"]["layers"]])
+    gen = DecoderGenerator(model, _Tok())
+    r = np.random.default_rng(SEED + 96)
+    reqs = [r.integers(0, 50257, int(r.integers(CB_PROMPT[0], CB_PROMPT[1] + 1))).tolist()
+            for _ in range(CB_REQUESTS)]
+    budgets = [int(m) for m in r.integers(CB_BUDGET[0], CB_BUDGET[1] + 1, CB_REQUESTS)]
+    prefix = r.integers(0, 50257, CB_PREFIX).tolist()
+    cb = ContinuousBatchingGenerator(model, _Tok(), batch_size=CB_POOL, prompt_bucket=CB_BUCKET,
+                                     check_every=CB_CHECK_EVERY)
+
+    def gap_fn(i, pre):
+        _route("plain")
+        with torch.inference_mode():
+            return _top2(model(torch.tensor(pre, device=dev))[-1])
+
+    _reset_launches()
+    for pre in ([], prefix):
+        what = f"cb fp32 {'with a ' + str(len(pre)) + '-token shared prefix' if pre else 'no prefix'}"
+        _route("plain")
+        full = gen.generate_tokens_batch([pre + q for q in reqs], max_tokens=max(budgets))
+        ref = [row[:len(pre) + len(q) + m] for row, q, m in zip(full, reqs, budgets)]
+        _route("fused")
+        before = k7.launches, k7.variant_launches["b32"]
+        got = cb.generate_tokens_many(reqs, budgets, shared_prefix=pre or None)
+        torch.cuda.synchronize()
+        st = cb.last_stats
+        launched = k7.launches - before[0], k7.variant_launches["b32"] - before[1]
+        if launched != (st.decode_steps, st.decode_steps):
+            raise AssertionError(f"{what}: K7 launched {launched[0]} times ({launched[1]} at B={CB_POOL}) for "
+                                 f"{st.decode_steps} decode steps")
+        if any(len(row) != len(pre) + len(q) + m or row[:len(pre) + len(q)] != pre + q
+               for row, q, m in zip(got, reqs, budgets)):
+            raise AssertionError(f"{what}: malformed row")
+        partings = _check_routes(what, {"fused": got, "plain": ref}, gap_fn)
+        print(f"phase {what}: ContinuousBatchingGenerator pool {CB_POOL}, {CB_REQUESTS} requests of "
+              f"{CB_PROMPT[0]}-{CB_PROMPT[1]} tokens, budgets {CB_BUDGET[0]}-{CB_BUDGET[1]} (bucket {CB_BUCKET}, "
+              f"check_every {CB_CHECK_EVERY}): every request token-identical to the plain route's generation "
+              f"(partings at near-ties: {partings}); K7 launched {launched[0]} times at B={CB_POOL} = "
+              f"{st.decode_steps} decode steps; {st.admissions} admissions, {st.epoch_resets} epoch resets, "
+              f"{st.scheduling_points} scheduling points, occupancy {st.occupancy:.3f}")
+
+    # the int8 pool: int8 self-KV through K7's int8 variant at B=32
+    r8, b8 = reqs[:CB_INT8_REQUESTS], budgets[:CB_INT8_REQUESTS]
+    _int8_flags(kv=True)
+    with _StepSpy(plain=True):
+        twin = cb.generate_tokens_many(r8, b8)
+    before = k7.variant_launches["kv_int8_b32"]
+    with _StepSpy(plain=False) as spy:
+        got = cb.generate_tokens_many(r8, b8)
+    torch.cuda.synchronize()
+    st = cb.last_stats
+    launched = k7.variant_launches["kv_int8_b32"] - before
+    _int8_flags()
+    _route("fused")
+    if launched != st.decode_steps or spy.steps != st.decode_steps:
+        raise AssertionError(f"cb int8 pool: K7 int8 launched {launched} times, {spy.steps} checked, for "
+                             f"{st.decode_steps} decode steps")
+    distinct = _check_moving("cb int8 pool", got, [len(q) for q in r8])
+    print(f"phase cb int8 pool fp32 (USE_INT8_KV): {len(r8)} requests, pool {CB_POOL}: every step's tokens = the "
+          f"plain head on the kernel's own x_out (max score regret {spy.regret:.3g}); K7's int8 variant launched "
+          f"{launched} times at B={CB_POOL} = {st.decode_steps} decode steps; rows against the pool driving the "
+          f"twin (a reading): {_parting(got, twin)}; distinct new tokens per row {min(distinct)}-{max(distinct)}")
+
+    # bf16: the fused pool against the per-op pool, in turns
+    model.to_bf16()
+    rates, occ = {}, {}
+    for route in ("per-op", "fused", "fused", "per-op"):
+        _route(route)
+        cb.generate_tokens_many(reqs, budgets)
+        st = cb.last_stats
+        rates.setdefault(route, []).append(st.tokens_per_s)
+        occ[route] = st.occupancy
+    _route("fused")
+    print(f"phase time bf16 cb: ContinuousBatchingGenerator pool {CB_POOL}, {CB_REQUESTS} requests, generated tok/s "
+          "(host clock over the call, the last copy synchronizing): "
+          + ", ".join(f"{k} {np.mean(v):.1f} (occupancy {occ[k]:.3f})" for k, v in rates.items()) + f" [{card}]")
+    if profile_dir is not None:
+        for route in ("fused", "per-op"):
+            _route(route)
+            profile_phase(lambda: cb.generate_tokens_many(reqs, budgets), f"bf16 cb pool {CB_POOL}, {route} route",
+                          f"profile_bf16_cb_{route}.json", profile_dir, card, lambda out: cb.last_stats.decode_steps)
+        _route("fused")
+    return _launches({"fused_decode_step", "embed_add"})
+
+
 def profile_phase(fn, what: str, fname: str, out_dir: str, card: str, steps_fn, unit: str = "decode step") -> None:
     """One call of ``fn`` (after a warm-up call) under torch.profiler.
 
@@ -3071,16 +3446,19 @@ def profile_phase(fn, what: str, fname: str, out_dir: str, card: str, steps_fn, 
         acc[0] += 1
         acc[1] += e["dur"]
     top = sorted(per_name.items(), key=lambda kv: -kv[1][1])
+    host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:8]  # the host's own time by op
     summary = {"card": card, "what": what, "wall_ms": wall_ms, "span_ms": span / 1e3, "device_busy_ms": busy / 1e3,
                "idle_share": 1 - busy / span, "device_events": len(dev_events), unit.replace(" ", "_") + "s": steps,
-               "by_name": [{"name": n, "calls": c, "ms": d / 1e3} for n, (c, d) in top]}
+               "by_name": [{"name": n, "calls": c, "ms": d / 1e3} for n, (c, d) in top],
+               "host_self_ms": [{"name": e.key, "calls": e.count, "ms": e.self_cpu_time_total / 1e3} for e in host]}
     with open(os.path.join(out_dir, fname), "w") as f:
         json.dump(summary, f, indent=1)
     print(f"phase profile {what}: wall {wall_ms:.2f} ms profiled, trace span "
           f"{span / 1e3:.2f} ms, device busy {busy / 1e3:.2f} ms, idle share {1 - busy / span:.4f}, "
           f"{len(dev_events)} device events ({len(dev_events) / max(steps, 1):.1f} per {unit}, {steps} {unit}s"
           f"{', prefill included' if unit == 'decode step' else ''}); top: "
-          + "; ".join(f"{n[:60]} {c}x {d / 1e3:.2f} ms" for n, (c, d) in top[:6]) + f" [{card}]")
+          + "; ".join(f"{n[:60]} {c}x {d / 1e3:.2f} ms" for n, (c, d) in top[:6]) + "; host self time: "
+          + "; ".join(f"{e.key[:40]} {e.count}x {e.self_cpu_time_total / 1e3:.2f} ms" for e in host[:5]) + f" [{card}]")
 
 
 def main() -> int:
@@ -3128,6 +3506,8 @@ def main() -> int:
     paths = {"gpt2": main_path(dev, card, args.profile), "whisper": whisper_path(dev, card, args.profile),
              "t5": t5_path(dev, card, args.profile), "vit": vit_path(dev, card, args.profile)}
     paths.update(beam_sample_paths(dev, card))
+    paths.update(batch_paths(dev, card))
+    paths["cb"] = cb_path(dev, card, args.profile)
     k6_path = int8_stack_path(dev, card)
     i8 = int8_paths(dev, card)
 
@@ -3151,8 +3531,11 @@ def main() -> int:
         "greedy_argmax": ("greedy_head.cu", "pytorch_models_tpu/ops/greedy_head.py:91", "bfloat16",
                           total("greedy_argmax")),
         "log_mel_spectrogram": ("mel.cu", "pytorch_models_tpu/ops/mel.py:66", "float32", total("log_mel_spectrogram")),
+        # K7 rows of B <= 8 (one row group); the rows above it below
         "fused_decode_step": ("decode_step.cu", "pytorch_models_tpu/ops/decode_step.py:1359", "bfloat16",
-                              total("fused_decode_step") - total("fused_decode_step_headless")),
+                              total("fused_decode_step") - total("fused_decode_step_headless")
+                              - sum(total(f"fused_decode_step_{k}") - total(f"fused_decode_step_headless_{k}")
+                                    for k in ("b16", "b32"))),
         "fused_cross_decode_step": ("decode_step.cu", "pytorch_models_tpu/ops/decode_step.py:1397", "bfloat16",
                                     paths["whisper"]["fused_cross_decode_step"]),
         "fused_cross_decode_step_t5": ("decode_step.cu", "pytorch_models_tpu/ops/decode_step.py:1397", "bfloat16",
@@ -3171,12 +3554,26 @@ def main() -> int:
                                     i8["gpt2"]["fused_decode_step_embed"]),
         # the headless step (no final norm, no head) on the sampled and beam paths
         "fused_decode_step_headless": ("decode_step.cu", "pytorch_models_tpu/ops/decode_step.py:1359", "bfloat16",
-                                       paths["beam gpt2"]["fused_decode_step_headless"]
-                                       + paths["sample gpt2"]["fused_decode_step_headless"]),
+                                       total("fused_decode_step_headless") - total("fused_decode_step_headless_b16")
+                                       - total("fused_decode_step_headless_b32")),
         "fused_cross_decode_step_headless": ("decode_step.cu", "pytorch_models_tpu/ops/decode_step.py:1397",
                                              "bfloat16", paths["beam whisper"]["fused_cross_decode_step_headless"]),
         "fused_cross_decode_step_t5_headless": ("decode_step.cu", "pytorch_models_tpu/ops/decode_step.py:1397",
                                                 "bfloat16", paths["beam t5"]["fused_cross_decode_step_headless"]),
+        # above one row group (K7's rows 9-32; timed at the batch named): GPT-2 with its head at 17-32 rows (the
+        # B=32 batch and the CB pool, int8 pool aside), headless at 9-16 (beams G=4 x W=4, 16 samples); Whisper
+        # at 9-16 (the B=16 batch); T5 at 17-32 (the B=32 batch); the int8 CB pool's int8 self-KV at 17-32
+        "fused_decode_step_b32": ("decode_step.cu", "pytorch_models_tpu/ops/decode_step.py:1359", "bfloat16",
+                                  total("fused_decode_step_b32") - total("fused_decode_step_headless_b32")
+                                  - total("fused_decode_step_kv_int8_b32")),
+        "fused_decode_step_headless_b16": ("decode_step.cu", "pytorch_models_tpu/ops/decode_step.py:1359",
+                                           "bfloat16", total("fused_decode_step_headless_b16")),
+        "fused_cross_decode_step_b16": ("decode_step.cu", "pytorch_models_tpu/ops/decode_step.py:1397", "bfloat16",
+                                        paths["batch whisper"]["fused_cross_decode_step_b16"]),
+        "fused_cross_decode_step_t5_b32": ("decode_step.cu", "pytorch_models_tpu/ops/decode_step.py:1397",
+                                           "bfloat16", paths["batch t5"]["fused_cross_decode_step_b32"]),
+        "fused_decode_step_int8_b32": ("decode_step.cu", "pytorch_models_tpu/ops/decode_step.py:1359", "bfloat16",
+                                       paths["cb"]["fused_decode_step_kv_int8_b32"]),
     }
     # each kernel's limit on max_abs_err: elementwise (atol, rtol) by dtype; for the greedy heads, whose outputs
     # are ids, the score regret is held to the top-2 gap tolerance instead
@@ -3187,10 +3584,11 @@ def main() -> int:
         limits[name] = {"float32": "score regret <= 1e-3", "bfloat16": "score regret <= one bf16 step of the top"}
     for name in ("fused_decode_step", "fused_cross_decode_step", "fused_cross_decode_step_t5",
                  "fused_decode_step_embed", "fused_decode_step_headless", "fused_cross_decode_step_headless",
-                 "fused_cross_decode_step_t5_headless"):
+                 "fused_cross_decode_step_t5_headless", "fused_decode_step_b32", "fused_decode_step_headless_b16",
+                 "fused_cross_decode_step_b16", "fused_cross_decode_step_t5_b32"):
         limits[name] = {dn: list(DS_TOL[dn]) for dn in DS_TOL}
     for name in ("fused_decode_step_int8", "fused_decode_step_a8", "fused_cross_decode_step_int8",
-                 "fused_cross_decode_step_t5_a8"):  # on x after each layer, from the kernel's own input
+                 "fused_cross_decode_step_t5_a8", "fused_decode_step_int8_b32"):  # on x after each layer
         limits[name] = {dn: list(I8_LAYER_TOL[dn]) for dn in I8_LAYER_TOL}
     results = (res, res_e, res_w, res_t5, res_k7, res_i8, res_i8k7)
     entries = []

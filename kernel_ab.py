@@ -295,7 +295,7 @@ def main() -> int:
             if "stamps" in (tree / "pytorch_models_tpu_torch" / "csrc" / "decode_step.cu").read_text():
                 use(turn)
                 print(f"breakdown of {turn} ({tree}):")
-                chip_smoke.decode_step_breakdown(dev, card)
+                chip_smoke.decode_step_breakdown(dev, card, rows=(8,))  # the rows a parent tree serves
     print(card)
     print(json.dumps({"us": res, "base": str(base)}))
     return 0

@@ -40,9 +40,10 @@
 // The JAX kernel's `eager` flag only orders the TPU's DMA requests; its
 // counterpart here is the weight staging below.
 //
-// What bounds it on the H100: bytes, in principle. At batch <= 8 a step
-// reads every layer weight once (GPT-2 small bf16: 170 MB + a 77 MB head)
-// and does 2*B FLOPs per weight element, far below the ~295 FLOP/byte ridge;
+// What bounds it on the H100: bytes, in principle. At any batch it serves
+// (1-32) a step reads every layer weight once (GPT-2 small bf16: 170 MB + a
+// 77 MB head) and does 2*B FLOPs per weight element, below the ~295
+// FLOP/byte ridge;
 // the self-KV prefix and Whisper's 1,500-key cross cache (197 MB bf16 at
 // B=8) are read once too. In practice latency: a step is 62-98 phases, each
 // ended by a grid barrier, and a phase costs its slowest block's chain of
@@ -99,6 +100,34 @@
 // costs 7-9 us (a 3-5 us input load and epilogue, 2-5 us of FMAs), down
 // from 12-14, and a step still runs at ~8x its byte bound.
 //
+// Row groups (1 to 32 rows in one launch). A matvec pass puts 8 batch rows
+// on a warp's lanes, and the phase input of 8 rows already fills ~100 KB of
+// shared memory at GPT-2's K = dff = 3072 in fp32 (32 rows would need 394
+// KB). So each matvec phase loops over groups of <= 8 rows: the group's
+// input in xs, the pass over the block's staged share, the group's outputs.
+// The share is staged once per phase and stays in the ring across the
+// groups: above 8 rows the planner takes a plan only where every matrix's
+// share fits the ring whole (it does at GPT-2 small, Whisper-base and
+// T5-base in every dtype and weight variant), so the weights leave HBM once
+// per step at any B and only the FMAs, the input loads and the epilogues
+// scale with the groups. A share that would stream in K-chunks is refused
+// above 8 rows (that batch decodes per-op) rather than re-read per group:
+// chunks outer and groups inner would need every group's input or
+// accumulators at once, which is later work. Where the batch's rows of a
+// phase input fit xs at once (the norm inputs and the attention context, d
+// and H*D wide; not the MLP hidden), they are loaded together, one chain of
+// L2 round trips instead of one per group. The head keeps all B normed rows
+// in xs and scores each vocab row against every row in registers (one
+// instantiation per group count), so the head is read once too; lane l of a
+// key group keeps the best (value, lowest index) of rows l, l + 8, ... A
+// row's summation order does not depend on B or on its group: its lanes,
+// the (warp, subgroup) partial order and the K split come from the block's
+// share alone, and a norm row is one warp's. Its bits do depend on B through
+// the attention split (split = grid / (B * H), 1 for GPT-2 small from B = 11
+// on). A batch of one group runs its own instantiation, compiled without
+// the multi-group paths, which keeps its register allocation (and its
+// time, within 2-9%, PERF.md) that of the kernel before row groups.
+//
 // Data written inside the kernel (residual, q, partials, the MLP hidden, the
 // cache slot at `pos`) is read back with ld.global.cg (L2, never a stale L1
 // line); the cross cache takes the read-only path.
@@ -116,7 +145,8 @@ namespace {
 
 constexpr int NT = 512;      // threads per block
 constexpr int NW = NT / 32;  // warps per block
-constexpr int MB = 8;        // largest batch served
+constexpr int GR = 8;        // rows per group: the batch rows of a matvec pass
+constexpr int MB = 32;       // largest batch served (groups of GR rows)
 constexpr int HEAD_D = 64;   // head dim served
 constexpr int MAX_SPLIT = 16;
 constexpr int MAX_SLOTS = 8;  // ring slots: cp.async groups of weights in flight per block
@@ -174,6 +204,8 @@ struct Plan {
     // mbarriers (BAR_BYTES) | ring
     size_t smem, xs_floats, red_bytes, ring_bytes;
     int xs_stride;  // floats between xs rows: kmax + 4, so the rows of one column lie in different banks
+    int hs_stride;  // the head's rows (all B of them): xs_stride up to GR rows, else d + 4
+    int pln_off;    // the staged norm's scale and shift (2 d floats) in xs: past every normed row's d values
 };
 
 // ---------------------------------------------------------------- loads
@@ -262,56 +294,73 @@ __device__ __forceinline__ bool better(float s, int i, float bs, int bi) {
 // LayerNorm, or with `rms` RMSNorm (mean taken as 0: no mean subtraction);
 // ld(b, c, v) reads x[b, c .. c + 16 bytes of T). s and bias are the staged
 // norm parameters in shared memory: `ready()` (every thread calls it) waits
-// for them after the row is in and its statistics are taken. B <= MB < NW:
-// warp b holds row b.
-template <typename T, typename Ld, typename Ready>
+// for them after every row is in and its statistics are taken. Up to RPW
+// * NW rows: warp w holds rows w, w + NW, ... (their loads in flight
+// together); a row's statistics are one warp's, in one order, whichever
+// warp holds it.
+template <typename T, int RPW, typename Ld, typename Ready>
 __device__ void load_ln_from(Ld ld, const float* s, const float* bias, int B, int d, float eps, int rms, float* xs,
                              int xst, Ready ready) {
-    static_assert(MB <= NW, "one row per warp");
     constexpr int VEC = 16 / sizeof(T);
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    float* row = xs + warp * xst;
-    float mean = 0.f, rstd = 0.f;
-    if (warp < B) {
-        float sum = 0.f;
-#pragma unroll 4
-        for (int c = lane * VEC; c < d; c += 32 * VEC) {
-            float v[VEC];
-            ld(warp, c, v);
+    float mean[RPW], rstd[RPW], sum[RPW];
 #pragma unroll
-            for (int e = 0; e < VEC; ++e) {
-                row[c + e] = v[e];
-                sum += v[e];
+    for (int i = 0; i < RPW; ++i) {
+        const int b = warp + i * NW;
+        sum[i] = 0.f;
+        if (b < B) {
+#pragma unroll 4
+            for (int c = lane * VEC; c < d; c += 32 * VEC) {
+                float v[VEC];
+                ld(b, c, v);
+#pragma unroll
+                for (int e = 0; e < VEC; ++e) {
+                    xs[b * xst + c + e] = v[e];
+                    sum[i] += v[e];
+                }
             }
         }
-        mean = rms ? 0.f : pmt::warp_sum(sum) / d;
-        __syncwarp();
-        float sq = 0.f;
-        for (int c = lane; c < d; c += 32) {
-            const float t = row[c] - mean;
-            sq += t * t;
+    }
+#pragma unroll
+    for (int i = 0; i < RPW; ++i) {
+        const int b = warp + i * NW;
+        mean[i] = rstd[i] = 0.f;
+        if (b < B) {
+            const float* row = xs + b * xst;
+            mean[i] = rms ? 0.f : pmt::warp_sum(sum[i]) / d;
+            __syncwarp();
+            float sq = 0.f;
+            for (int c = lane; c < d; c += 32) {
+                const float t = row[c] - mean[i];
+                sq += t * t;
+            }
+            rstd[i] = rsqrtf(pmt::warp_sum(sq) / d + eps);
         }
-        rstd = rsqrtf(pmt::warp_sum(sq) / d + eps);
     }
     ready();
-    if (warp < B) {
+#pragma unroll
+    for (int i = 0; i < RPW; ++i) {
+        const int b = warp + i * NW;
+        if (b < B) {
+            float* row = xs + b * xst;
 #pragma unroll 4
-        for (int c = lane * 4; c < d; c += 128) {
-            const float4 sv = *reinterpret_cast<const float4*>(s + c);
-            const float4 bv = *reinterpret_cast<const float4*>(bias + c);
-            row[c] = pmt::round_to<T>((row[c] - mean) * rstd * sv.x + bv.x);
-            row[c + 1] = pmt::round_to<T>((row[c + 1] - mean) * rstd * sv.y + bv.y);
-            row[c + 2] = pmt::round_to<T>((row[c + 2] - mean) * rstd * sv.z + bv.z);
-            row[c + 3] = pmt::round_to<T>((row[c + 3] - mean) * rstd * sv.w + bv.w);
+            for (int c = lane * 4; c < d; c += 128) {
+                const float4 sv = *reinterpret_cast<const float4*>(s + c);
+                const float4 bv = *reinterpret_cast<const float4*>(bias + c);
+                row[c] = pmt::round_to<T>((row[c] - mean[i]) * rstd[i] * sv.x + bv.x);
+                row[c + 1] = pmt::round_to<T>((row[c + 1] - mean[i]) * rstd[i] * sv.y + bv.y);
+                row[c + 2] = pmt::round_to<T>((row[c + 2] - mean[i]) * rstd[i] * sv.z + bv.z);
+                row[c + 3] = pmt::round_to<T>((row[c + 3] - mean[i]) * rstd[i] * sv.w + bv.w);
+            }
         }
     }
     __syncthreads();
 }
 
-template <typename T, typename Ready>
+template <typename T, int RPW, typename Ready>
 __device__ void load_ln(const T* x, const float* s, const float* bias, int B, int d, float eps, int rms, float* xs,
                         int xst, Ready ready) {
-    load_ln_from<T>([=](int b, int c, float* v) { ld16cg(x + static_cast<int64_t>(b) * d + c, v); }, s, bias, B, d,
+    load_ln_from<T, RPW>([=](int b, int c, float* v) { ld16cg(x + static_cast<int64_t>(b) * d + c, v); }, s, bias, B, d,
                     eps, rms, xs, xst, ready);
 }
 
@@ -534,7 +583,10 @@ __device__ __forceinline__ int begin_stream(const Args& a, const Plan& p, int ki
 // weight load, and the pass's nv <= 4 vectors leave 4 / P subgroups per
 // warp (P = nv rounded up to a power of two). Each (warp, subgroup) writes
 // its partial sums to `red`; the caller adds them in order: deterministic,
-// and no shuffles. Returns the steps issued and the slots' parities.
+// and no shuffles. B <= GR rows (one group). `first`: the first group of the
+// phase waits for each step to land (and refills its slot); a later group
+// reads the share the first one left whole in the ring. Returns the steps
+// issued and the slots' parities.
 struct Progress {
     int issued;       // the stream's steps issued
     unsigned phases;  // bit s: the parity the next wait on ring slot s waits for
@@ -542,7 +594,7 @@ struct Progress {
 
 template <bool INT, typename W>
 __device__ __forceinline__ Progress accumulate(Stream st, int pass, int pass_units, const float* xs, int xst, int B,
-                                            char* ring, float* red, Bars bars, unsigned phases) {
+                                            char* ring, float* red, Bars bars, unsigned phases, bool first) {
     using A = typename std::conditional<INT, int, float>::type;
     constexpr int VEC = WVec<W>::V;
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -556,8 +608,10 @@ __device__ __forceinline__ Progress accumulate(Stream st, int pass, int pass_uni
     for (int e = 0; e < VEC; ++e) acc[e] = 0;
     for (int chunk = 0, step = pass * st.m.nchunk; chunk < st.m.nchunk; ++chunk, ++step) {
         const int slot = step % st.m.slots;
-        mbar_wait(bars.slot + slot, (phases >> slot) & 1u);
-        phases ^= 1u << slot;
+        if (first) {
+            mbar_wait(bars.slot + slot, (phases >> slot) & 1u);
+            phases ^= 1u << slot;
+        }
         const int r0 = chunk * st.m.kc, rows = min(st.m.kc, K - r0);
         const W* tile = reinterpret_cast<const W*>(ring + slot * st.m.slot_bytes) + v * st.m.kc * VEC;  // unit v
         const float* xb = xs + b * xst + r0;
@@ -572,48 +626,50 @@ __device__ __forceinline__ Progress accumulate(Stream st, int pass, int pass_uni
             }
         }
         __syncthreads();  // the slot is read: refill it
-        if (st.issued < st.steps) issue_step<W>(st, pass_units, ring, bars);
+        if (first && st.issued < st.steps) issue_step<W>(st, pass_units, ring, bars);
     }
     if (active) {
-        A* redA = reinterpret_cast<A*>(red) + (pg * MB + b) * nv * VEC + v * VEC;
+        A* redA = reinterpret_cast<A*>(red) + (pg * GR + b) * nv * VEC + v * VEC;
 #pragma unroll
         for (int e = 0; e < VEC; ++e) redA[e] = acc[e];
     }
     return {st.issued, phases};
 }
 
-// out[b, n] = sum_k xs[b, k] * W[k, n] over the block's share of a staged
-// matrix, read from the ring only; epi(b, n, n - first column of the block,
-// fp32 sum) finishes each output. W is fp32, bf16 or int8 (widened exactly);
-// with INT (w8a8) xs holds int8 levels and the sums are int32, exact,
-// converted to fp32 once for epi. par_bar / par_parity: the barrier phase
-// of this matrix's staged bias and scales.
+// out[b0 + b, n] = sum_k xs[b, k] * W[k, n] for the B <= GR rows of one
+// group, over the block's share of a staged matrix, read from the ring
+// only; epi(b0 + b, n, n - first column of the block, fp32 sum) finishes
+// each output. W is fp32, bf16 or int8 (widened exactly); with INT (w8a8)
+// xs holds int8 levels and the sums are int32, exact, converted to fp32
+// once for epi. par_bar / par_parity: the barrier phase of this matrix's
+// staged bias and scales. first / last: the phase's first and last group.
 template <bool INT, typename W, typename Epi, typename Mark>
-__device__ void matvec(Stream& st, int pass_units, const float* xs, int xst, int B, char* ring, float* red, Bars bars,
-                       unsigned& phases, unsigned long long* par_bar, unsigned par_parity, Epi epi, Mark mark) {
+__device__ void matvec(Stream& st, int pass_units, const float* xs, int xst, int b0, int B, char* ring, float* red,
+                       Bars bars, unsigned& phases, unsigned long long* par_bar, unsigned par_parity, bool first,
+                       bool last, Epi epi, Mark mark) {
     using A = typename std::conditional<INT, int, float>::type;
     constexpr int CU = WVec<W>::V;
     const int pass_cols = pass_units * CU;
     const int passes = st.steps / st.m.nchunk;
     const A* redA = reinterpret_cast<const A*>(red);
     for (int pass = 0; pass < passes; ++pass) {
-        const Progress pr = accumulate<INT, W>(st, pass, pass_units, xs, xst, B, ring, red, bars, phases);
+        const Progress pr = accumulate<INT, W>(st, pass, pass_units, xs, xst, B, ring, red, bars, phases, first);
         st.issued = pr.issued, phases = pr.phases;
         mbar_wait(par_bar, par_parity);  // the staged bias and scales
         __syncthreads();
-        if (pass + 1 == passes) mark(2);
+        if (last && pass + 1 == passes) mark(2);
         const int nv = min(pass_units, st.nu - pass * pass_units), pc = nv * CU;
         const int n_part = NW * (nv <= 1 ? 4 : nv <= 2 ? 2 : 1);  // (warp, row subgroup) partial sums, in order
         for (int t = threadIdx.x; t < B * pc; t += NT) {
             const int b = t / pc, c = t - b * pc;
             A v = 0;
-            for (int g = 0; g < n_part; ++g) v += redA[(g * MB + b) * pc + c];
+            for (int g = 0; g < n_part; ++g) v += redA[(g * GR + b) * pc + c];
             const int j = pass * pass_cols + c;
-            epi(b, st.u0 * CU + j, j, static_cast<float>(v));
+            epi(b0 + b, st.u0 * CU + j, j, static_cast<float>(v));
         }
         __syncthreads();
     }
-    if (passes == 0) mark(2);
+    if (last && passes == 0) mark(2);
 }
 
 // ---------------------------------------------------------------- attention
@@ -719,22 +775,142 @@ __device__ void attention(const T* q, const T* kc, const T* vc, int Lk, int B, i
     }
 }
 
+// ---------------------------------------------------------------- head
+
+// The head phase's scores of one block's vocab rows [r0, r1) against the B
+// <= NG * GR normed rows in xs (stride hst): each key group of 8 lanes takes
+// a vocab row, its lanes split d, and every batch row's sum stays in
+// registers, so the head is read once at any B. Scores are rounded to T
+// (bf16: as the logits of a bf16 head matmul would be), or with `xq` (the
+// a8 head: (B, d / 4) packed int8 rows) f32(dot_i32) * emb_s[v]. After the
+// key group's shuffles every lane holds every row's sum; lane gl keeps the
+// best (value, lowest index) of rows gl, gl + GR, ... and writes it to
+// sv / si[(key group, row)]. NG is the row groups: an instantiation per
+// count keeps a batch of one group from issuing four groups' FMAs, and
+// from three groups on a lane holds U = 2 (not 4) 16-byte weight loads in
+// flight, so that its R sums, the loads and the bests fit its registers.
+// Not inlined, so that its R = 32 sums stay out of the kernel's own register
+// allocation (an inlined copy measured the same at B = 8). It takes values,
+// not the kernel's Args by reference: the address of a kernel parameter
+// moved every Args read of the kernel to local memory (+35% at B = 8).
+template <typename T, int NG>
+__device__ __noinline__ void head_scores(const void* emb_v, const float* emb_s, int d, const float* xs, int hst,
+                                         const int* xq, int B, int r0, int r1, float* sv, int* si) {
+    constexpr int R = NG * GR, U = NG <= 2 ? 4 : 2;
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, grp = lane / 8, gl = lane % 8;
+    float bv[NG];
+    int bi[NG];
+#pragma unroll
+    for (int j = 0; j < NG; ++j) bv[j] = pmt::neg_inf(), bi[j] = INT_MAX;
+    if (xq) {
+        const int8_t* emb = static_cast<const int8_t*>(emb_v);
+        const int d4 = d / 4;
+        for (int rb = r0 + warp * 4; rb < r1; rb += NW * 4) {  // warp-uniform trip count
+            const int r = rb + grp;
+            const bool ok = r < r1;
+            int acc[R];
+#pragma unroll
+            for (int b = 0; b < R; ++b) acc[b] = 0;
+            if (ok) {
+                for (int c0 = gl * 16; c0 < d; c0 += 8 * 16) {
+                    const int4 w = __ldg(reinterpret_cast<const int4*>(emb + static_cast<int64_t>(r) * d + c0));
+#pragma unroll
+                    for (int b = 0; b < R; ++b)
+                        if (b < B) {
+                            const int* xb = xq + b * d4 + c0 / 4;
+                            acc[b] = __dp4a(w.x, xb[0], acc[b]);
+                            acc[b] = __dp4a(w.y, xb[1], acc[b]);
+                            acc[b] = __dp4a(w.z, xb[2], acc[b]);
+                            acc[b] = __dp4a(w.w, xb[3], acc[b]);
+                        }
+                }
+            }
+            const float es = ok ? __ldg(emb_s + r) : 0.f;
+#pragma unroll
+            for (int b = 0; b < R; ++b)
+                if (b < B) {
+                    acc[b] += __shfl_xor_sync(0xffffffffu, acc[b], 1);
+                    acc[b] += __shfl_xor_sync(0xffffffffu, acc[b], 2);
+                    acc[b] += __shfl_xor_sync(0xffffffffu, acc[b], 4);
+                    const float sc = __fmul_rn(__int2float_rn(acc[b]), es);
+                    if (b % GR == gl && ok && better(sc, r, bv[b / GR], bi[b / GR])) bv[b / GR] = sc, bi[b / GR] = r;
+                }
+        }
+    } else {
+        constexpr int VEC = 16 / sizeof(T);
+        const T* emb = static_cast<const T*>(emb_v);
+        for (int rb = r0 + warp * 4; rb < r1; rb += NW * 4) {  // warp-uniform trip count
+            const int r = rb + grp;
+            const bool ok = r < r1;
+            float acc[R];
+#pragma unroll
+            for (int b = 0; b < R; ++b) acc[b] = 0.f;
+            if (ok) {
+                for (int c0 = gl * VEC; c0 < d; c0 += U * 8 * VEC) {  // U 16-byte loads in flight
+                    float w[U][VEC];
+#pragma unroll
+                    for (int u = 0; u < U; ++u) {
+                        const int c = c0 + u * 8 * VEC;
+                        if (c < d)
+                            ld16(emb + static_cast<int64_t>(r) * d + c, w[u]);
+                        else
+#pragma unroll
+                            for (int e = 0; e < VEC; ++e) w[u][e] = 0.f;
+                    }
+#pragma unroll
+                    for (int u = 0; u < U; ++u) {
+                        const int c = min(c0 + u * 8 * VEC, d - VEC);  // past the row end w is 0
+#pragma unroll
+                        for (int b = 0; b < R; ++b)
+                            if (b < B)
+#pragma unroll
+                                for (int e = 0; e < VEC; ++e) acc[b] = fmaf(xs[b * hst + c + e], w[u][e], acc[b]);
+                    }
+                }
+            }
+#pragma unroll
+            for (int b = 0; b < R; ++b)
+                if (b < B) {
+                    acc[b] += __shfl_xor_sync(0xffffffffu, acc[b], 1);
+                    acc[b] += __shfl_xor_sync(0xffffffffu, acc[b], 2);
+                    acc[b] += __shfl_xor_sync(0xffffffffu, acc[b], 4);
+                    const float sc = pmt::round_to<T>(acc[b]);
+                    if (b % GR == gl && ok && better(sc, r, bv[b / GR], bi[b / GR])) bv[b / GR] = sc, bi[b / GR] = r;
+                }
+        }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < NG; ++j) {
+        const int b = j * GR + gl;
+        if (b < B) {
+            sv[(warp * 4 + grp) * B + b] = bv[j];
+            si[(warp * 4 + grp) * B + b] = bi[j];
+        }
+    }
+}
+
 // ---------------------------------------------------------------- kernel
 
-template <typename T, typename W>
+// MAXG: the most row groups the instantiation serves, 1 (B <= GR) or MB / GR. The one-group kernel compiles none
+// of the multi-group paths (whole-batch loads, two rows a warp in the norm, the head's wider instantiations),
+// which keeps its register allocation that of a kernel serving 8 rows.
+template <typename T, typename W, int MAXG>
 __global__ void __launch_bounds__(NT, 1) decode_step_kernel(Args a, Plan p) {
+    constexpr int RPW = MAXG == 1 ? 1 : (MB + NW - 1) / NW;  // norm rows a warp holds
     extern __shared__ float smem[];
     cg::grid_group grid = cg::this_grid();
     const int B = a.b, d = a.d, hd = a.hd, dff = a.dff, H = a.n_heads, Lp = a.l_max, pos = a.pos;
     float* xs = smem;
     float* red = smem + p.xs_floats;
-    float* rsc = red + p.red_bytes / 4;  // (MB) w8a8 row scales of the phase input
+    float* rsc = red + p.red_bytes / 4;  // (MB) w8a8 row scales of the phase input, by batch row
     float* par = rsc + MB;               // two (bias, scales) buffers: matrices alternate between them
     unsigned long long* bar_mem = reinterpret_cast<unsigned long long*>(par + 4 * p.par_cols);
     const Bars bars{bar_mem, bar_mem + MAX_SLOTS};
     char* ring = reinterpret_cast<char*>(bar_mem + MAX_SLOTS + 2);
     // the staged norm's scale and shift (2 d): past the last row's d values, where no norm input reaches
-    float* pln = xs + (B - 1) * p.xs_stride + d;
+    float* pln = xs + p.pln_off;
+    const int NG = MAXG == 1 ? 1 : (B + GR - 1) / GR;  // row groups
 
     char* ws = static_cast<char*>(a.workspace);
     T* qs = reinterpret_cast<T*>(ws + p.off_q);
@@ -798,21 +974,47 @@ __global__ void __launch_bounds__(NT, 1) decode_step_kernel(Args a, Plan p) {
     // the staged norm parameters (the current phase's first group) have landed in every thread's view
     auto ln_ready = [&]() { mbar_wait(bars.par + (cur_seq & 1), (cur_seq >> 1) & 1); };
     unsigned slot_phases = 0;
-    // xs -> out columns of the current matrix: fp32 / bf16 / int8 weights, or w8a8's int8 x int8 over the
-    // row-quantized xs; then the next matrix is current
-    auto mv = [&](auto epi) {
+    // xg (rows b0 .. b0 + nb of the batch, stride xst) -> out columns of the current matrix: fp32 / bf16 / int8
+    // weights, or w8a8's int8 x int8 over the row-quantized xg
+    auto mv = [&](auto epi, float* xg, int xst, int b0, int nb, bool first, bool last) {
         constexpr int PU = WVec<W>::V;
         Stream st = describe<W>(a, p, cur_kind, cur_l, cur_issued);
+        const int pu = p.pass_cols / PU;
+        unsigned long long* pb = bars.par + (cur_seq & 1);
+        const unsigned pp = (cur_seq >> 1) & 1;
         if constexpr (std::is_same<W, int8_t>::value) {
             if (a8) {
-                quantize_xs(xs, p.xs_stride, B, st.K, rsc);
-                matvec<true, W>(st, p.pass_cols / PU, xs, p.xs_stride, B, ring, red, bars, slot_phases, bars.par + (cur_seq & 1),
-                                (cur_seq >> 1) & 1, epi, mark);
+                quantize_xs(xg, xst, nb, st.K, rsc + b0);
+                matvec<true, W>(st, pu, xg, xst, b0, nb, ring, red, bars, slot_phases, pb, pp, first, last, epi, mark);
                 return;
             }
         }
-        matvec<false, W>(st, p.pass_cols / PU, xs, p.xs_stride, B, ring, red, bars, slot_phases, bars.par + (cur_seq & 1),
-                         (cur_seq >> 1) & 1, epi, mark);
+        matvec<false, W>(st, pu, xg, xst, b0, nb, ring, red, bars, slot_phases, pb, pp, first, last, epi, mark);
+    };
+    // one matvec phase of input width K over the row groups: load(b0, nb, xst) puts rows [b0, b0 + nb) of the
+    // phase input in xs rows [0, nb) at stride xst; the block's share (resident in the ring after the first group)
+    // multiplies each group; epi finishes each output. Where the batch's rows fit below the staged norm at stride
+    // K + 4 (the norm inputs and the attention context of d and H*D columns; not the MLP hidden), the whole batch
+    // is loaded at once, one chain of L2 round trips instead of one per group
+    auto grouped = [&](int K, auto load, auto epi) {
+        if constexpr (MAXG > 1) {
+            const int wst = K + 4;
+            if (NG > 1 && (B - 1) * wst + K <= p.pln_off) {
+                load(0, B, wst);
+                mark(1);
+                for (int g = 0; g < NG; ++g) {
+                    const int b0 = g * GR;
+                    mv(epi, xs + b0 * wst, wst, b0, min(GR, B - b0), g == 0, g + 1 == NG);
+                }
+                return;
+            }
+        }
+        for (int g = 0; g < NG; ++g) {
+            const int b0 = g * GR, nb = min(GR, B - b0);
+            load(b0, nb, p.xs_stride);
+            if (g == 0) mark(1);
+            mv(epi, xs, p.xs_stride, b0, nb, g == 0, g + 1 == NG);
+        }
     };
     // the embed phase's layer-0 input: round_T(tok[id] + pos[p]), the sum in fp32
     const T* tok_tab = static_cast<const T*>(a.tok_emb);
@@ -878,32 +1080,41 @@ __global__ void __launch_bounds__(NT, 1) decode_step_kernel(Args a, Plan p) {
         };
 
         // (a) LN1 + QKV; k/v land in the cache at pos (int8 self-KV: in scratch, quantized by the attention units)
-        if (emb0)
-            load_ln_from<T>(
-                [=](int b, int c, float* v) {
-                    for (int e = 0; e < 16 / static_cast<int>(sizeof(T)); ++e) v[e] = x0(b, c + e);
-                },
-                pln, pln + d, B, d, a.eps, a.norm, xs, p.xs_stride, ln_ready);
-        else
-            load_ln(xp, pln, pln + d, B, d, a.eps, a.norm, xs, p.xs_stride, ln_ready);
-        mark(1);
+        auto ln_rows = [&](const T* src) {  // rows of the norm input
+            return [=](int b0, int nb, int xst) {
+                load_ln<T, RPW>(src + static_cast<int64_t>(b0) * d, pln, pln + d, nb, d, a.eps, a.norm, xs, xst,
+                                ln_ready);
+            };
+        };
         T* kc = static_cast<T*>(a.k_cache) + kv_off;
         T* vc = static_cast<T*>(a.v_cache) + kv_off;
         const int kv_int8 = a.kv_int8;
         {
             const float *bias = cur_bias(), *sc = cur_scales();
-            mv(
-                [=](int b, int c, int j, float v) {
-                    const T y = pmt::from_f32<T>(deq(b, v, sc, j) + bias[j]);
-                    if (c < hd)
-                        qs[b * hd + c] = y;
-                    else if (kv_int8)
-                        (c < 2 * hd ? kn : vn)[b * hd + (c - hd) % hd] = y;
-                    else if (c < 2 * hd)
-                        kc[(static_cast<int64_t>(b) * Lp + pos) * hd + c - hd] = y;
-                    else
-                        vc[(static_cast<int64_t>(b) * Lp + pos) * hd + c - 2 * hd] = y;
-                });
+            auto epi = [=](int b, int c, int j, float v) {
+                const T y = pmt::from_f32<T>(deq(b, v, sc, j) + bias[j]);
+                if (c < hd)
+                    qs[b * hd + c] = y;
+                else if (kv_int8)
+                    (c < 2 * hd ? kn : vn)[b * hd + (c - hd) % hd] = y;
+                else if (c < 2 * hd)
+                    kc[(static_cast<int64_t>(b) * Lp + pos) * hd + c - hd] = y;
+                else
+                    vc[(static_cast<int64_t>(b) * Lp + pos) * hd + c - 2 * hd] = y;
+            };
+            if (emb0)
+                grouped(
+                    d,
+                    [&](int b0, int nb, int xst) {
+                        load_ln_from<T, RPW>(
+                            [=](int b, int c, float* v) {
+                                for (int e = 0; e < 16 / static_cast<int>(sizeof(T)); ++e) v[e] = x0(b0 + b, c + e);
+                            },
+                            pln, pln + d, nb, d, a.eps, a.norm, xs, xst, ln_ready);
+                    },
+                    epi);
+            else
+                grouped(d, ln_rows(xp), epi);
             then(1, l);
         }
         sync();
@@ -927,23 +1138,30 @@ __global__ void __launch_bounds__(NT, 1) decode_step_kernel(Args a, Plan p) {
         mark(2);
         sync();
 
-        // (c) O projection + residual
-        if (kv_int8)
-            load_plain(static_cast<const T*>(qs), B, hd, xs, p.xs_stride);
-        else
-            load_merge<T>(pm, pl, pacc, B, H, p.split, xs, p.xs_stride, red);
-        mark(1);
-        mv(residual(xp, emb0));
+        // (c) O projection + residual; its input: a group's attention context, merged from the partials (the
+        // int8 units wrote it whole into qs)
+        auto ctx_rows = [&](bool int8) {
+            return [&, int8](int b0, int nb, int xst) {
+                if (int8) {
+                    load_plain(static_cast<const T*>(qs) + static_cast<int64_t>(b0) * hd, nb, hd, xs, xst);
+                } else {
+                    const int u0 = b0 * H * p.split;
+                    load_merge<T>(pm + u0, pl + u0, pacc + static_cast<int64_t>(u0) * HEAD_D, nb, H, p.split, xs,
+                                  xst, red);
+                }
+            };
+        };
+        grouped(hd, ctx_rows(kv_int8), residual(xp, emb0));
         then(a.has_cross ? 2 : 4, l);
         sync();
 
         if (a.has_cross) {
             // (d) LN_c + q_c | cross-attention over [0, len_b) | O_c + residual
-            load_ln(static_cast<const T*>(xr), pln, pln + d, B, d, a.eps, a.norm, xs, p.xs_stride, ln_ready);
-            mark(1);
             {
                 const float *bias = cur_bias(), *sc = cur_scales();
-                mv([=](int b, int c, int j, float v) { qs[b * hd + c] = pmt::from_f32<T>(deq(b, v, sc, j) + bias[j]); });
+                grouped(d, ln_rows(xr), [=](int b, int c, int j, float v) {
+                    qs[b * hd + c] = pmt::from_f32<T>(deq(b, v, sc, j) + bias[j]);
+                });
                 then(3, l);
             }
             sync();
@@ -965,39 +1183,35 @@ __global__ void __launch_bounds__(NT, 1) decode_step_kernel(Args a, Plan p) {
             }
             mark(2);
             sync();
-            if (a.kvx_int8)
-                load_plain(static_cast<const T*>(qs), B, hd, xs, p.xs_stride);
-            else
-                load_merge<T>(pm, pl, pacc, B, H, p.split, xs, p.xs_stride, red);
-            mark(1);
-            mv(residual(xr, false));
+            grouped(hd, ctx_rows(a.kvx_int8), residual(xr, false));
             then(4, l);
             sync();
         }
 
         // (e) LN2 + fc1 + GELU | fc2 + residual (GEGLU: fc1 writes the pair, fc2's load gates it)
-        load_ln(static_cast<const T*>(xr), pln, pln + d, B, d, a.eps, a.norm, xs, p.xs_stride, ln_ready);
-        mark(1);
         const int act = a.act, gated = a.gated, n1 = gated ? 2 * dff : dff;
         {
             const float *bias = cur_bias(), *sc = cur_scales();
-            mv(
-                [=](int b, int c, int j, float v) {
-                    v = deq(b, v, sc, j);
-                    if (gated)
-                        hbuf[b * n1 + c] = pmt::from_f32<T>(c < dff ? v + bias[j] : v);
-                    else
-                        hbuf[b * dff + c] = pmt::from_f32<T>(gelu(pmt::round_to<T>(v + bias[j]), act));
-                });
+            grouped(d, ln_rows(xr), [=](int b, int c, int j, float v) {
+                v = deq(b, v, sc, j);
+                if (gated)
+                    hbuf[b * n1 + c] = pmt::from_f32<T>(c < dff ? v + bias[j] : v);
+                else
+                    hbuf[b * dff + c] = pmt::from_f32<T>(gelu(pmt::round_to<T>(v + bias[j]), act));
+            });
             then(5, l);
         }
         sync();
-        if (gated)
-            load_gated(static_cast<const T*>(hbuf), B, dff, act, xs, p.xs_stride);
-        else
-            load_plain(static_cast<const T*>(hbuf), B, dff, xs, p.xs_stride);
-        mark(1);
-        mv(residual(xr, false));
+        grouped(
+            dff,
+            [&](int b0, int nb, int xst) {
+                const T* h = static_cast<const T*>(hbuf) + static_cast<int64_t>(b0) * n1;
+                if (gated)
+                    load_gated(h, nb, dff, act, xs, xst);
+                else
+                    load_plain(h, nb, dff, xs, xst);
+            },
+            residual(xr, false));
         if (l + 1 < a.n_layers)
             then(0, l + 1);
         else if (a.has_head)
@@ -1009,126 +1223,51 @@ __global__ void __launch_bounds__(NT, 1) decode_step_kernel(Args a, Plan p) {
         return;
     }
 
-    // head: final LN, then each block's vocab chunk -> best (value, index) per row
+    // head: final LN of all B rows (at the head's stride), then each block's vocab chunk -> best
+    // (value, index) per row
     float* hv = reinterpret_cast<float*>(ws + p.off_hv);
     int* hi = reinterpret_cast<int*>(ws + p.off_hi);
-    load_ln(static_cast<const T*>(xr), pln, pln + d, B, d, a.eps, a.norm, xs, p.xs_stride, ln_ready);
+    const int hst = p.hs_stride;
+    load_ln<T, RPW>(static_cast<const T*>(xr), pln, pln + d, B, d, a.eps, a.norm, xs, hst, ln_ready);
     mark(1);
     {
-        const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, grp = lane / 8, gl = lane % 8;
         const int chunk = (a.vocab + gridDim.x - 1) / gridDim.x;
         const int r0 = blockIdx.x * chunk, r1 = min(a.vocab, r0 + chunk);
-        float bv[MB];
-        int bi[MB];
-#pragma unroll
-        for (int b = 0; b < MB; ++b) bv[b] = pmt::neg_inf(), bi[b] = INT_MAX;
-        float* sv = red;                                    // (NW * 4, MB)
-        int* si = reinterpret_cast<int*>(red + NW * 4 * MB);  // (NW * 4, MB)
+        float* sv = red;                                   // (NW * 4, B)
+        int* si = reinterpret_cast<int*>(red + NW * 4 * B);  // (NW * 4, B)
+        int* xq = nullptr;                                 // a8: (B, d / 4) packed int8 rows
         if (a.head_a8) {
             // w8a8 head: the hidden state's int8 levels against its row absmax (the row scale is never
-            // applied: it does not move a row's argmax), packed four to an int for __dp4a; score
-            // f32(dot_i32) * emb_s[v]
-            int* xq = reinterpret_cast<int*>(red + NW * 4 * MB * 2);  // (B, d / 4)
-            quantize_xs(xs, p.xs_stride, B, d, rsc);
+            // applied: it does not move a row's argmax), packed four to an int for __dp4a
+            xq = reinterpret_cast<int*>(red + NW * 4 * B * 2);
+            quantize_xs(xs, hst, B, d, rsc);
             for (int i = threadIdx.x; i < B * d / 4; i += NT) {
                 unsigned u = 0;
                 for (int e = 0; e < 4; ++e)
-                    u |= (static_cast<unsigned>(static_cast<int>(xs[(4 * i / d) * p.xs_stride + 4 * i % d + e])) & 0xffu)
+                    u |= (static_cast<unsigned>(static_cast<int>(xs[(4 * i / d) * hst + 4 * i % d + e])) & 0xffu)
                          << (8 * e);
                 xq[i] = static_cast<int>(u);
             }
             __syncthreads();
-            const int8_t* emb = static_cast<const int8_t*>(a.emb);
-            const float* emb_s = fp(a.emb_s);
-            const int d4 = d / 4;
-            for (int rb = r0 + warp * 4; rb < r1; rb += NW * 4) {  // warp-uniform trip count
-                const int r = rb + grp;
-                const bool ok = r < r1;
-                int acc[MB];
-#pragma unroll
-                for (int b = 0; b < MB; ++b) acc[b] = 0;
-                if (ok) {
-                    for (int c0 = gl * 16; c0 < d; c0 += 8 * 16) {
-                        const int4 w = __ldg(reinterpret_cast<const int4*>(emb + static_cast<int64_t>(r) * d + c0));
-#pragma unroll
-                        for (int b = 0; b < MB; ++b)
-                            if (b < B) {
-                                const int* xb = xq + b * d4 + c0 / 4;
-                                acc[b] = __dp4a(w.x, xb[0], acc[b]);
-                                acc[b] = __dp4a(w.y, xb[1], acc[b]);
-                                acc[b] = __dp4a(w.z, xb[2], acc[b]);
-                                acc[b] = __dp4a(w.w, xb[3], acc[b]);
-                            }
-                    }
-                }
-                const float es = ok ? __ldg(emb_s + r) : 0.f;
-#pragma unroll
-                for (int b = 0; b < MB; ++b) {
-                    acc[b] += __shfl_xor_sync(0xffffffffu, acc[b], 1);
-                    acc[b] += __shfl_xor_sync(0xffffffffu, acc[b], 2);
-                    acc[b] += __shfl_xor_sync(0xffffffffu, acc[b], 4);
-                    const float sc = __fmul_rn(__int2float_rn(acc[b]), es);
-                    if (ok && better(sc, r, bv[b], bi[b])) bv[b] = sc, bi[b] = r;
-                }
-            }
+        }
+        if constexpr (MAXG == 1) {
+            head_scores<T, 1>(a.emb, fp(a.emb_s), d, xs, hst, xq, B, r0, r1, sv, si);
         } else {
-            constexpr int VEC = 16 / sizeof(T);
-            const T* emb = static_cast<const T*>(a.emb);
-            for (int rb = r0 + warp * 4; rb < r1; rb += NW * 4) {  // warp-uniform trip count
-                const int r = rb + grp;
-                const bool ok = r < r1;
-                float acc[MB];
-#pragma unroll
-                for (int b = 0; b < MB; ++b) acc[b] = 0.f;
-                if (ok) {
-                    for (int c0 = gl * VEC; c0 < d; c0 += 4 * 8 * VEC) {  // four 16-byte loads in flight
-                        float w[4][VEC];
-#pragma unroll
-                        for (int u = 0; u < 4; ++u) {
-                            const int c = c0 + u * 8 * VEC;
-                            if (c < d)
-                                ld16(emb + static_cast<int64_t>(r) * d + c, w[u]);
-                            else
-#pragma unroll
-                                for (int e = 0; e < VEC; ++e) w[u][e] = 0.f;
-                        }
-#pragma unroll
-                        for (int u = 0; u < 4; ++u) {
-                            const int c = min(c0 + u * 8 * VEC, d - VEC);  // past the row end w is 0
-#pragma unroll
-                            for (int b = 0; b < MB; ++b)
-                                if (b < B)
-#pragma unroll
-                                    for (int e = 0; e < VEC; ++e)
-                                        acc[b] = fmaf(xs[b * p.xs_stride + c + e], w[u][e], acc[b]);
-                        }
-                    }
-                }
-#pragma unroll
-                for (int b = 0; b < MB; ++b) {
-                    acc[b] += __shfl_xor_sync(0xffffffffu, acc[b], 1);
-                    acc[b] += __shfl_xor_sync(0xffffffffu, acc[b], 2);
-                    acc[b] += __shfl_xor_sync(0xffffffffu, acc[b], 4);
-                    const float sc = pmt::round_to<T>(acc[b]);
-                    if (ok && better(sc, r, bv[b], bi[b])) bv[b] = sc, bi[b] = r;
-                }
+            switch (NG) {  // the row groups' sums in registers: an instantiation per group count
+                case 1: head_scores<T, 1>(a.emb, fp(a.emb_s), d, xs, hst, xq, B, r0, r1, sv, si); break;
+                case 2: head_scores<T, 2>(a.emb, fp(a.emb_s), d, xs, hst, xq, B, r0, r1, sv, si); break;
+                case 3: head_scores<T, 3>(a.emb, fp(a.emb_s), d, xs, hst, xq, B, r0, r1, sv, si); break;
+                default: head_scores<T, 4>(a.emb, fp(a.emb_s), d, xs, hst, xq, B, r0, r1, sv, si); break;
             }
         }
-        __syncthreads();
         mark(2);
-        if (gl == 0)
-#pragma unroll
-            for (int b = 0; b < MB; ++b) {
-                sv[(warp * 4 + grp) * MB + b] = bv[b];
-                si[(warp * 4 + grp) * MB + b] = bi[b];
-            }
         __syncthreads();
         if (threadIdx.x < B) {
             const int b = threadIdx.x;
             float v = pmt::neg_inf();
             int i = INT_MAX;
             for (int g = 0; g < NW * 4; ++g)
-                if (better(sv[g * MB + b], si[g * MB + b], v, i)) v = sv[g * MB + b], i = si[g * MB + b];
+                if (better(sv[g * B + b], si[g * B + b], v, i)) v = sv[g * B + b], i = si[g * B + b];
             hv[b * gridDim.x + blockIdx.x] = v;
             hi[b * gridDim.x + blockIdx.x] = i;
         }
@@ -1195,7 +1334,7 @@ size_t mat_plan(int K, int N, int cu, int ub, int grid, int pass_units, size_t r
     return whole ? whole : SIZE_MAX;
 }
 
-template <typename T, typename W>
+template <typename T, typename W, int MAXG>
 int plan(const Args& a, Plan& p) {
     constexpr int CU = WVec<W>::V, UB = CU * sizeof(W);
     if (a.b < 1 || a.b > MB || a.hd != a.n_heads * HEAD_D || a.d % 64 || a.hd % 64 || a.dff % 64)
@@ -1218,10 +1357,14 @@ int plan(const Args& a, Plan& p) {
     const int grid = sms;
     const int n1 = a.gated ? 2 * a.dff : a.dff;
     const int kmax = a.d > a.dff ? (a.d > a.hd ? a.d : a.hd) : (a.dff > a.hd ? a.dff : a.hd);
-    // xs holds every phase input (B, K) in rows of kmax + 4 floats and, past the last row's d values, the staged
-    // norm parameters (2 d)
-    const int xst = kmax + 4;
-    const size_t xs = static_cast<size_t>(a.b - 1) * xst + (xst > 3 * a.d ? xst : 3 * a.d);
+    // xs holds a row group's phase input (G <= GR rows of K) in rows of kmax + 4 floats, the head's B normed
+    // rows (at that stride up to GR rows, else at d + 4), and, past the last normed row's d values of either,
+    // the staged norm parameters (2 d)
+    const int G = a.b < GR ? a.b : GR;
+    const int xst = kmax + 4, hst = a.b <= GR ? xst : a.d + 4;
+    const size_t pln_a = static_cast<size_t>(G - 1) * xst + a.d, pln_h = static_cast<size_t>(a.b - 1) * hst + a.d;
+    const size_t pln = pln_a > pln_h ? pln_a : pln_h;
+    const size_t xs = static_cast<size_t>(G) * xst > pln + 2 * a.d ? static_cast<size_t>(G) * xst : pln + 2 * a.d;
     const int Ks[N_MATS] = {a.d, a.hd, a.d, a.d, a.dff}, Ns[N_MATS] = {3 * a.hd, a.d, a.hd, n1, a.d};
     int max_cols = 0;
     for (int i = 0; i < N_MATS; ++i) {
@@ -1231,9 +1374,10 @@ int plan(const Args& a, Plan& p) {
     // a pass: 4 column vectors (a lane's VEC columns each) x 8 batch rows on a warp's lanes
     constexpr int VEC = WVec<W>::V;
     p.pass_cols = 4 * VEC;
-    size_t red = static_cast<size_t>(NW) * 4 * MB * VEC * 4;  // the (warp, row subgroup) partial sums
+    size_t red = static_cast<size_t>(NW) * 4 * GR * VEC * 4;  // the (warp, row subgroup) partial sums of a group
     const size_t attn = static_cast<size_t>(NW) * (2 + HEAD_D) * 4;
-    const size_t head = static_cast<size_t>(NW) * 4 * MB * 8 + (a.head_a8 ? static_cast<size_t>(a.b) * a.d : 0);
+    // the head's per-(key group, row) bests and, a8, the packed int8 rows
+    const size_t head = static_cast<size_t>(NW) * 4 * a.b * 8 + (a.head_a8 ? static_cast<size_t>(a.b) * a.d : 0);
     const size_t i8 = pmt::i8_unit_smem<NT>();
     red = red > attn ? red : attn;
     red = red > head ? red : head;
@@ -1243,6 +1387,7 @@ int plan(const Args& a, Plan& p) {
     if (fixed + 2 * static_cast<size_t>(p.pass_cols) * sizeof(W) > static_cast<size_t>(optin))
         return static_cast<int>(cudaErrorInvalidValue);  // the phase input does not fit
     p.par_cols = max_cols, p.xs_floats = align16(xs * 4) / 4, p.red_bytes = red, p.xs_stride = xst;
+    p.hs_stride = hst, p.pln_off = static_cast<int>(pln);
     p.ring_bytes = (optin - fixed) / 16 * 16;
     // the ring: as large as the largest whole share where that fits, so the rest of the SM's 256 KB stays L1
     size_t need = 0;
@@ -1251,6 +1396,8 @@ int plan(const Args& a, Plan& p) {
         const size_t whole = mat_plan(Ks[i], Ns[i], CU, UB, grid, p.pass_cols / CU, SIZE_MAX, m);
         need = whole > need ? whole : need;
     }
+    // above one row group the groups re-read the share from the ring: every share must fit it whole
+    if (a.b > GR && need > p.ring_bytes) return static_cast<int>(cudaErrorInvalidValue);
     p.ring_bytes = need < p.ring_bytes ? need : p.ring_bytes;
     p.smem = p.xs_floats * 4 + p.red_bytes + MB * 4 + 4 * static_cast<size_t>(p.par_cols) * 4 + BAR_BYTES + p.ring_bytes;
     for (int i = 0; i < N_MATS; ++i)
@@ -1260,10 +1407,10 @@ int plan(const Args& a, Plan& p) {
     static size_t attr_smem = 0;
     static int per_sm = 0;
     if (attr_smem != p.smem) {
-        cudaError_t e = cudaFuncSetAttribute(decode_step_kernel<T, W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        cudaError_t e = cudaFuncSetAttribute(decode_step_kernel<T, W, MAXG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                              static_cast<int>(p.smem));
         if (e == cudaSuccess)
-            e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, decode_step_kernel<T, W>, NT, p.smem);
+            e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, decode_step_kernel<T, W, MAXG>, NT, p.smem);
         if (e != cudaSuccess) {
             cudaGetLastError();
             return static_cast<int>(e);
@@ -1275,8 +1422,10 @@ int plan(const Args& a, Plan& p) {
     const int units = a.b * a.n_heads;
     p.split = p.grid / units;
     p.split = p.split < 1 ? 1 : (p.split > MAX_SPLIT ? MAX_SPLIT : p.split);
-    while (p.split > 1 && static_cast<size_t>(units) * p.split * 4 > p.red_bytes) --p.split;  // merge weights fit
-    if (static_cast<size_t>(units) * 4 > p.red_bytes) return static_cast<int>(cudaErrorInvalidValue);
+    // the merge weights of the rows merged at once (a group, or the whole batch above one group) fit red
+    const size_t g_units = static_cast<size_t>(a.b > GR ? a.b : G) * a.n_heads;  // rows merged at once
+    while (p.split > 1 && g_units * p.split * 4 > p.red_bytes) --p.split;
+    if (g_units * 4 > p.red_bytes) return static_cast<int>(cudaErrorInvalidValue);
 
     const size_t n_units = static_cast<size_t>(units) * p.split;
     size_t off = 0;
@@ -1293,23 +1442,34 @@ int plan(const Args& a, Plan& p) {
     return 0;
 }
 
-template <typename T, typename W>
-int launch(const Args& a) {
+template <typename T, typename W, int MAXG>
+int launch_groups(const Args& a) {
     Plan p{};
-    int rc = plan<T, W>(a, p);
+    int rc = plan<T, W, MAXG>(a, p);
     if (rc != 0) return rc;
     Args args = a;
     void* params[] = {&args, &p};
-    cudaError_t e = cudaLaunchCooperativeKernel(decode_step_kernel<T, W>, dim3(p.grid), dim3(NT), params, p.smem,
+    cudaError_t e = cudaLaunchCooperativeKernel(decode_step_kernel<T, W, MAXG>, dim3(p.grid), dim3(NT), params, p.smem,
                                                 pmt::as_stream(a.stream));
     if (e != cudaSuccess) return static_cast<int>(e);
     return static_cast<int>(cudaGetLastError());
 }
 
+// the one-group instantiation up to GR rows, the multi-group one above
+template <typename T, typename W>
+int launch(const Args& a) {
+    return a.b > GR ? launch_groups<T, W, MB / GR>(a) : launch_groups<T, W, 1>(a);
+}
+
+template <typename T, typename W>
+int plan_rows(const Args& a, Plan& p) {
+    return a.b > GR ? plan<T, W, MB / GR>(a, p) : plan<T, W, 1>(a, p);
+}
+
 template <typename T>
 int plan_for(const Args& a, Plan& p) {
     p = Plan{};
-    return a.wt_int8 ? plan<T, int8_t>(a, p) : plan<T, T>(a, p);
+    return a.wt_int8 ? plan_rows<T, int8_t>(a, p) : plan_rows<T, T>(a, p);
 }
 
 }  // namespace

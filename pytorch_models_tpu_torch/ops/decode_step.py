@@ -75,7 +75,7 @@ from .greedy_head import greedy_argmax_tied_plain
 from .int8_kv import KV_BLOCK_INT8, int8_decode_attention_plain, quantize_rows
 
 HEAD_DIM = 64  # the kernel's head width (every family of the JAX package)
-MAX_BATCH = 8  # rows the kernel serves; a larger batch decodes per-op
+MAX_BATCH = 32  # rows the kernel serves (in groups of 8 inside one launch); a larger batch decodes per-op
 _ACT_CODES = ("gelu", "approximate_gelu")
 _NORM_CODES = ("ln", "rms")
 
@@ -207,10 +207,13 @@ def fused_step_eligible(layers: list, cfg, batch: int, cross: bool = False, gate
                         dtype: torch.dtype | None = None) -> bool:
     """What the CUDA kernel serves: pre-norm layers with a GELU MLP (a GEGLU
     ``mlp.{w, v, wo}`` one with ``gated``), head_dim 64, widths that are
-    multiples of 64 (16-byte loads over whole column slabs), 1 to 8 rows,
+    multiples of 64 (16-byte loads over whole column slabs), 1 to MAX_BATCH
+    (32) rows,
     every projection float or every one weight-only int8, and, for weights
     on a CUDA device, what the kernel's own launch planner accepts there
-    (its phase input fits in shared memory, its grid is co-resident).
+    (its phase input fits in shared memory; above 8 rows, every block's
+    weight share fits its shared-memory ring whole; its grid is
+    co-resident).
     ``dtype``: the compute dtype (default: the weights'; int8 weights need
     it). Anything else decodes per-op."""
     if not cfg.pre_norm or cfg.act not in _ACT_CODES or cfg.head_dim != HEAD_DIM:
@@ -632,14 +635,24 @@ def _launch(x, packed, k_caches, v_caches, pos, pad_lens, n_heads, act, eps, hea
     return x_out, tok
 
 
-def _count(fn, a8: bool, kv_int8: bool, emb, head) -> None:
+_VARIANTS = ("kv_int8", "a8", "embed", "headless")
+_ROW_BUCKETS = ("b16", "b32")  # launches of 9-16 and of 17-32 rows (two and four row groups)
+
+
+def _count(fn, a8: bool, kv_int8: bool, emb, head, b: int) -> None:
     """One launch of ``fn``, and of each variant it ran: the int8 serving
     features (the launches of the ``..._int8``, ``..._a8`` and ``..._embed``
     kernels in chip_smoke.py's record) and the headless step (no head: the
-    sampled and beam decode loops)."""
+    sampled and beam decode loops); above 8 rows also under the row bucket
+    (``b16``, ``b32``, and ``headless_b32`` and so on)."""
     fn.launches += 1
-    for key, on in (("kv_int8", kv_int8), ("a8", a8), ("embed", emb is not None), ("headless", head is None)):
+    bucket = None if b <= 8 else _ROW_BUCKETS[b > 16]
+    if bucket:
+        fn.variant_launches[bucket] += 1
+    for key, on in zip(_VARIANTS, (kv_int8, a8, emb is not None, head is None)):
         fn.variant_launches[key] += int(on)
+        if bucket:
+            fn.variant_launches[f"{key}_{bucket}"] += int(on)
 
 
 def fused_decode_step(x, packed, k_caches, v_caches, pos: int, pad_lens, n_heads: int, act: str = "gelu",
@@ -661,14 +674,15 @@ def fused_decode_step(x, packed, k_caches, v_caches, pos: int, pad_lens, n_heads
     four points of every phase (:func:`step_phase_kinds`,
     :func:`phase_breakdown`); for measurement only. Returns ``(x_out (B, d), tok (B,) int64 or None)``.
     ``launches`` counts the kernel's launches; ``variant_launches`` those of
-    each int8 serving variant and those without a head (``headless``)."""
+    each int8 serving variant and those without a head (``headless``), and
+    those of 9-16 and 17-32 rows (``b16``, ``b32``, ``headless_b32``, ...)."""
     ref = x if x is not None else emb["tok"]
     if plain or not ref.is_cuda:
         return fused_decode_step_plain(x, packed, k_caches, v_caches, pos, pad_lens, n_heads, act, eps, head,
                                        a8=a8, emb=emb, tok_ids=tok_ids, pos_rows=pos_rows, kv_scales=kv_scales)
     out = _launch(x, packed, k_caches, v_caches, pos, pad_lens, n_heads, act, eps, head, None, None, None, a8=a8,
                   emb=emb, tok_ids=tok_ids, pos_rows=pos_rows, kv_scales=kv_scales, stamps=stamps)
-    _count(fused_decode_step, a8, kv_scales is not None, emb, head)
+    _count(fused_decode_step, a8, kv_scales is not None, emb, head, k_caches.shape[1])
     return out
 
 
@@ -694,10 +708,12 @@ def fused_cross_decode_step(x, packed, k_caches, v_caches, cross_k, cross_v, cro
                                        kv_scales, kv_scales_x)
     out = _launch(x, packed, k_caches, v_caches, pos, pad_lens, n_heads, act, eps, head, cross_k, cross_v, cross_lens,
                   norm, gated, sbias, a8, emb, tok_ids, pos_rows, kv_scales, kv_scales_x, stamps)
-    _count(fused_cross_decode_step, a8, kv_scales is not None or kv_scales_x is not None, emb, head)
+    _count(fused_cross_decode_step, a8, kv_scales is not None or kv_scales_x is not None, emb, head,
+           k_caches.shape[1])
     return out
 
 
 for _fn in (fused_decode_step, fused_cross_decode_step):
     _fn.launches = 0
-    _fn.variant_launches = {"kv_int8": 0, "a8": 0, "embed": 0, "headless": 0}
+    _fn.variant_launches = dict.fromkeys(_VARIANTS + _ROW_BUCKETS + tuple(f"{v}_{r}" for v in _VARIANTS
+                                                                            for r in _ROW_BUCKETS), 0)

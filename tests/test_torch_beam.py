@@ -8,9 +8,10 @@ within 1e-5 absolute + 1e-5 relative (fp32 log-probs summed over a few
 steps, in other orders). Each case runs on three routes of the port: the
 fused step forced on (its plain twin, headless: the layer stack only; the
 final norm and the head in torch), the per-op kernel wrappers (their plain
-versions) and plain; on both sides of the fused step's 8 rows (G*W = 8 and
-12 for GPT-2, W = 4 and 12 for Whisper and T5, where 12 rows decode per-op
-even with the fused step forced). The JAX side runs its XLA paths. W = 1
+versions) and plain; on both sides of the fused step's 32 rows
+(``ops.decode_step.MAX_BATCH``: G*W = 8, 12 and 36 for GPT-2, W = 4, 12 and
+36 for Whisper and T5, where 36 rows decode per-op even with the fused step
+forced). The JAX side runs its XLA paths. W = 1
 must equal the port's greedy tokens.
 
 The models: tests/test_torch_sampling.py's GPT-2 (2 layers, d 64, vocab
@@ -145,7 +146,7 @@ def _assert_beams(got, ref, atol=ATOL, rtol=RTOL):
 
 
 def _fused_steps(name, rows, calls, steps):
-    """The fused route's twin ran headless once per beam step at <= 8 rows,
+    """The fused route's twin ran headless once per beam step at <= MAX_BATCH rows,
     never above (nor on the other routes), and never with a head."""
     want = steps if name == "fused" and rows <= decode_step.MAX_BATCH else 0
     assert calls == {"headless": want, "head": 0}
@@ -166,10 +167,11 @@ def test_gpt2_beam_batch_matches_jax(route, w, with_eos, alpha):
     assert calls["head"] == 0 and (calls["headless"] > 0) == (name == "fused" and 3 * w <= decode_step.MAX_BATCH)
 
 
-@pytest.mark.parametrize("g", [2, 3])
+@pytest.mark.parametrize("g", [2, 3, 9])
 def test_gpt2_beam_on_both_sides_of_the_fused_rows(route, monkeypatch, g):
-    """G*W = 8 rows (the fused step's twin when forced) and 12 (per-op on
-    every route), W = 4, with EOS: the JAX beams, and the twin once per step."""
+    """G*W = 8 and 12 rows (the fused step's twin when forced) and 36
+    (per-op on every route: above MAX_BATCH), W = 4, with EOS: the JAX
+    beams, and the twin once per step."""
     name, calls = route
     _, ours = gpt2()
     eos = eos_ids()["gpt2"]
@@ -240,7 +242,7 @@ def jax_whisper_beams(w, with_eot, alpha):
     return [seqs[i, : lens[i]].tolist() for i in range(w)], scores.tolist()
 
 
-@pytest.mark.parametrize("w, with_eot, alpha", [(4, False, 0.0), (4, True, 0.6), (12, True, 0.0)])
+@pytest.mark.parametrize("w, with_eot, alpha", [(4, False, 0.0), (4, True, 0.6), (12, True, 0.0), (36, True, 0.0)])
 def test_whisper_beam_matches_jax(route, w, with_eot, alpha):
     """The beam loop over one encoded segment (``whisper._beam``) against
     JAX's ``_whisper_beam_body`` on the same memory."""
@@ -278,7 +280,7 @@ def jax_t5_beams(w, with_eos, alpha):
         T5_PROMPT, T5_MAX, T5_PAD, eos, beam_width=w, length_penalty=alpha, return_all=True)
 
 
-@pytest.mark.parametrize("w, with_eos, alpha", [(4, False, 0.0), (4, True, 0.6), (12, True, 0.0)])
+@pytest.mark.parametrize("w, with_eos, alpha", [(4, False, 0.0), (4, True, 0.6), (12, True, 0.0), (36, True, 0.0)])
 def test_t5_beam_matches_jax(route, w, with_eos, alpha):
     name, calls = route
     _, ours = t5()

@@ -764,8 +764,9 @@ def test_fused_step_planner_accepts_every_served_width(cuda, model):
 
 def test_fused_decode_step_refuses_unsupported_input(cuda):
     cfg, packed, head, x, (kc, vc), _ = _step_inputs(cuda, torch.float32, False)
-    with pytest.raises(ValueError):  # 9 rows: more than the kernel serves
-        fused_decode_step(x.repeat(3, 1)[:9].contiguous(), packed, kc, vc, 5, None, cfg.n_heads)
+    with pytest.raises(ValueError):  # 33 rows: more than the kernel serves
+        fused_decode_step(x.repeat(9, 1)[:33].contiguous(), packed, kc.repeat(1, 9, 1, 1)[:, :33].contiguous(),
+                          vc.repeat(1, 9, 1, 1)[:, :33].contiguous(), 5, None, cfg.n_heads)
     with pytest.raises(ValueError):  # head_dim 32
         fused_decode_step(x, packed, kc, vc, 5, None, 4)
     with pytest.raises(ValueError):  # bf16 x against fp32 weights
@@ -947,9 +948,10 @@ def test_decode_attention_at_batch_32(cuda, dtype, atol, rtol):
     torch.cuda.synchronize()
 
 
-def _int8_step_inputs(dev, dtype, kind, a8):
-    """2 layers at d 128 (2 heads of 64), int8 weights, B=4, int8 self caches
-    of 256 keys (and int8 cross caches, Whisper / T5), for K7's variants."""
+def _int8_step_inputs(dev, dtype, kind, a8, b=4):
+    """2 layers at d 128 (2 heads of 64), int8 weights, B rows (4), int8 self
+    caches of 256 keys (and int8 cross caches, Whisper / T5), for K7's
+    variants."""
     from pytorch_models_tpu_torch.models.text.t5 import T5Config, t5_block_init
     from pytorch_models_tpu_torch.ops.int8_kv import quantize_kv_caches
     from pytorch_models_tpu_torch.utils import quantize_tree_int8
@@ -966,7 +968,6 @@ def _int8_step_inputs(dev, dtype, kind, a8):
     packed = pack_decode_weights(quantize_tree_int8(layers), dtype, cross=kind != "gpt2", gated=t5)
     w_head = torch.randn(128, 1000, generator=gen) if t5 else torch.randn(1000, 128, generator=gen)
     head = pack_greedy_head(w_head, {"scale": 1 + 0.1 * torch.randn(128, generator=gen)}, dtype, tied=not t5, a8=a8)
-    b = 4
     x = torch.randn(b, 128, generator=gen).to(dtype)
     self_c = quantize_kv_caches({"k": torch.randn(2, b, 256, 128, generator=gen),
                                  "v": torch.randn(2, b, 256, 128, generator=gen)})
@@ -1064,3 +1065,127 @@ def test_vit_k1_route_matches_sdpa_route(cuda, pool, cls):
     assert encoder_attention.launches - before == 2 + (pool == "mha")
     assert got.shape == (4, 768)
     torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4)
+
+
+# K7 above one row group (9 to 32 rows in one launch, groups of 8 over a share that stays in the ring): every
+# variant against the plain twin at the tolerances of its family above (float: fp32 1e-4, bf16 0.05 + 2^-6;
+# int8: fp32 5e-3, bf16 0.05 + 2^-6), the token by the plain head's regret on the kernel's own x_out (float)
+# or by agreement (int8), the int8 K/V written at pos one level apart at most
+ROW_GROUP_BATCHES = [9, 16, 17, 31, 32]
+ROW_GROUP_VARIANTS = ["base", "base-768", "cross", "t5", "headless", "embed", "w8a16-kv8", "w8a8", "whisper-kv8",
+                      "t5-w8a8-kv8"]
+
+
+def _cycle(vals, b, dev):
+    return torch.tensor([vals[i % len(vals)] for i in range(b)], dtype=torch.int32, device=dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("variant", ROW_GROUP_VARIANTS)
+@pytest.mark.parametrize("b", ROW_GROUP_BATCHES)
+def test_fused_step_row_groups_match_plain(cuda, dtype, variant, b):
+    from pytorch_models_tpu_torch.models.text.t5 import T5Config, t5_block_init
+    from pytorch_models_tpu_torch.ops.decode_step import fused_decode_step_plain, pack_embed_tables
+
+    f32 = dtype == torch.float32
+    if variant in ("w8a16-kv8", "w8a8", "whisper-kv8", "t5-w8a8-kv8"):
+        kind = {"w8a16-kv8": "gpt2", "w8a8": "gpt2", "whisper-kv8": "whisper", "t5-w8a8-kv8": "t5"}[variant]
+        a8 = variant in ("w8a8", "t5-w8a8-kv8")
+        atol, rtol = (5e-3, 5e-3) if f32 else (0.05, 2.0 ** -6)
+        cfg, packed, head, x, sc, xc, sbias = _int8_step_inputs(cuda, dtype, kind, a8, b=b)
+        pos = 200
+        pads = None if kind == "t5" else _cycle([0, 5, 200, 130], b, cuda)
+        kw = dict(a8=a8)
+        if kind != "gpt2":
+            kw.update(cross_k=xc["k"], cross_v=xc["v"], cross_lens=_cycle([256, 7, 0, 130], b, cuda),
+                      kv_scales_x={"ks": xc["ks"], "vs": xc["vs"]})
+        if kind == "t5":
+            kw.update(norm="rms", gated=True, sbias=sbias)
+        ref_c = {k: t.clone() for k, t in sc.items()}
+        ref_x, ref_tok = fused_decode_step_plain(x, packed, ref_c["k"], ref_c["v"], pos, pads, 2, cfg.act, 1e-5,
+                                                 head, **kw, kv_scales={"ks": ref_c["ks"], "vs": ref_c["vs"]})
+        fn = fused_decode_step if kind == "gpt2" else fused_cross_decode_step
+        cross = [kw.pop(k) for k in ("cross_k", "cross_v", "cross_lens")] if kind != "gpt2" else []
+        got_x, got_tok = fn(x, packed, sc["k"], sc["v"], *cross, pos, pads, 2, cfg.act, 1e-5, head=head, **kw,
+                            kv_scales={"ks": sc["ks"], "vs": sc["vs"]})
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got_x.float(), ref_x.float(), atol=atol, rtol=rtol)
+        for key in ("k", "v"):
+            diff = (sc[key][:, :, pos].int() - ref_c[key][:, :, pos].int()).abs()
+            assert diff.max().item() <= 1 and (diff == 0).float().mean().item() >= 0.99
+            assert torch.equal(sc[key][:, :, :pos], ref_c[key][:, :, :pos])
+        assert (got_tok == ref_tok).float().mean().item() >= 0.75
+        return
+    atol, rtol = (1e-4, 0.0) if f32 else (0.05, 2.0 ** -6)
+    pos = 70
+    kw, cross = {}, []
+    if variant == "t5":
+        gen = torch.Generator().manual_seed(7)
+        layers = [t5_block_init(gen, T5Config(1000, 128, 2, 2, 256), True) for _ in range(2)]
+        packed = {k: t.to(cuda) for k, t in pack_decode_weights(layers, dtype, cross=True, gated=True).items()}
+        head = {k: t.to(cuda) for k, t in pack_greedy_head(torch.randn(128, 1000, generator=gen),
+                                                           {"scale": 1 + 0.1 * torch.randn(128, generator=gen)},
+                                                           dtype, tied=False).items()}
+        x = torch.randn(b, 128, generator=gen).to(cuda, dtype)
+        kc, vc, xk, xv = (torch.randn(2, b, 128, 128, generator=gen).to(cuda, dtype) for _ in range(4))
+        cross = [xk, xv, _cycle([64, 7, 0, 50], b, cuda)]
+        kw = dict(norm="rms", gated=True, sbias=2.0 * torch.randn(128, 2, generator=gen).to(cuda))
+        n_heads, act, eps, pads = 2, "approximate_gelu", 1e-5, None
+    else:
+        c = variant == "cross"
+        cfg, packed, head, x, (kc, vc), (xk, xv) = _step_inputs(cuda, dtype, c, b=b,
+                                                                 d=768 if variant == "base-768" else 128)
+        n_heads, act, eps = cfg.n_heads, cfg.act, cfg.norm_eps
+        pads = _cycle([0, 5, 70, 3, 0, 35, 1, 17], b, cuda)
+        if c:
+            cross = [xk, xv, _cycle([96, 7, 0, 50, 96, 1, 30, 96], b, cuda)]
+    if variant == "headless":
+        head = None
+    plain_kw = dict(kw)
+    if cross:
+        plain_kw.update(cross_k=cross[0], cross_v=cross[1], cross_lens=cross[2])
+    kc2, vc2 = kc.clone(), vc.clone()
+    ref_x, ref_tok = fused_decode_step_plain(x, packed, kc2, vc2, pos, pads, n_heads, act, eps, head, **plain_kw)
+    if variant == "embed":  # the same x, built by the step's embed phase from tables that hold it
+        tab = pack_embed_tables(x, None, x.dtype)
+        kw.update(emb=tab, tok_ids=torch.arange(b, device=cuda))
+        x = None
+    fn = fused_cross_decode_step if cross else fused_decode_step
+    before = fn.launches
+    got_x, got_tok = fn(x, packed, kc, vc, *cross, pos, pads, n_heads, act, eps, head=head, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    torch.testing.assert_close(got_x.float(), ref_x.float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(kc.float(), kc2.float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(vc.float(), vc2.float(), atol=atol, rtol=rtol)
+    if head is None:
+        assert got_tok is None
+    elif variant == "t5":
+        assert (got_tok == ref_tok).float().mean().item() >= 0.75
+    else:
+        regret, top = _greedy_regret(got_x, got_tok, head, eps)
+        assert regret <= (1e-4 * top if f32 else 2.0 ** -5 * top)
+
+
+@pytest.mark.parametrize("model", ["gpt2", "whisper-base", "t5-base"])
+def test_fused_step_gate_serves_32_rows_and_refuses_33(cuda, model):
+    """fused_step_eligible's planner accepts 9 to 32 rows at the widths of
+    GPT-2 small, Whisper-base and T5-base, fp32 and bf16, float weights,
+    w8a16 and w8a8 with the int8 head; 33 rows are refused before the
+    planner is asked."""
+    from pytorch_models_tpu_torch.ops.decode_step import MAX_BATCH, _Args, _plan
+
+    assert MAX_BATCH == 32
+    d, dff, gated = SERVED_WIDTHS[model]
+    for dtype in (0, 1):
+        for wt_int8, head_a8 in ((0, 0), (1, 0), (1, 1)):
+            for b in range(9, 33):
+                args = _Args(b=b, d=d, hd=d, dff=dff, n_heads=d // 64, dtype=dtype, gated=int(gated),
+                             wt_int8=wt_int8, head_a8=head_a8)
+                assert _plan(args)[0] > 0, (model, dtype, wt_int8, head_a8, b)
+    cfg = LayerConfig.make(d, n_heads=d // 64, mlp_ratio=dff / d)
+    layers = [{blk: {name: {k: t.to(cuda) for k, t in leaf.items()} for name, leaf in sub.items()}
+               if blk in ("sa", "mlp") else {k: t.to(cuda) for k, t in sub.items()}
+               for blk, sub in layer_init(torch.Generator().manual_seed(1), cfg).items()}]
+    if not gated:
+        assert fused_step_eligible(layers, cfg, 32) and not fused_step_eligible(layers, cfg, 33)

@@ -260,6 +260,69 @@ def test_fused_t5_step_matches_jax(pos, pads):
         assert np.abs(step(None)[0].numpy() - np.asarray(out[0])).max() > 100 * 3e-4
 
 
+# above one row group (the kernel serves up to ops.decode_step.MAX_BATCH = 32 rows in groups of 8): the twin
+# against the JAX kernel at B = 12 and 32, base (with its head), cross (Whisper-style, head) and T5 (RMSNorm,
+# GEGLU, the rel-pos self bias, the untied head); per-row pads, cross lengths cycled over the rows
+@pytest.mark.parametrize("b", [12, 32])
+@pytest.mark.parametrize("kind", ["base", "cross", "t5"])
+def test_fused_step_above_one_row_group_matches_jax(kind, b):
+    r = np.random.default_rng(197)
+    pos, l_max, l_mem = 37, 128, 24
+    x = r.standard_normal((b, D)).astype(np.float32)
+    k = r.standard_normal((N_LAYERS, b, l_max, D)).astype(np.float32)
+    v = r.standard_normal((N_LAYERS, b, l_max, D)).astype(np.float32)
+    pads = np.asarray([(0, 2, 37, 1, 5, 0)[i % 6] for i in range(b)], np.int32)
+    valid = np.asarray([(24, 9, 24, 3)[i % 4] for i in range(b)], np.int32)
+    fs = (1 + 0.1 * r.standard_normal(D)).astype(np.float32)
+    jkw, kw = {}, {}
+    if kind == "t5":
+        cfg, dec, ours = _t5_layers()
+        lc, jlayers, jp = cfg.layer, dec["layers"], dec
+        table = jax_t5.relative_position_bias(dec["attn_bias"], jnp.arange(48), jnp.arange(l_max), False, cfg)
+        sbias = np.ascontiguousarray(np.asarray(table)[:, pos, :].T)
+        w = (0.3 * r.standard_normal((D, 300))).astype(np.float32)
+        head, head_v = jax_ds.pack_greedy_head(jnp.asarray(w), {"scale": jnp.asarray(fs)}, jnp.float32, tied=False)
+        ours_head = ds.pack_greedy_head(_t(w), {"scale": _t(fs)}, torch.float32, tied=False)
+        jkw = dict(norm="rms", gated=True, sbias=jnp.pad(jnp.asarray(sbias), ((0, 0), (0, 126))))
+        kw = dict(norm="rms", gated=True, sbias=_t(sbias))
+        n_heads, act, eps = 2, "approximate_gelu", 1e-5
+    else:
+        lc, jp, ours = _layers(cross=kind == "cross", seed=1)
+        jlayers = jp["layers"]
+        emb = r.standard_normal((300, D)).astype(np.float32)
+        head, head_v = jax_ds.pack_greedy_head(jnp.asarray(emb), {"scale": jnp.asarray(fs)}, jnp.float32)
+        ours_head = ds.pack_greedy_head(_t(emb), {"scale": _t(fs)}, torch.float32)
+        n_heads, act, eps = lc.n_heads, lc.act, lc.norm_eps
+        if kind == "cross":
+            jkw = dict(norm="ln")
+    gated = kind == "t5"
+    packed_j = jax_ds.pack_decode_weights(jlayers, jnp.float32, cross=kind != "base", gated=gated,
+                                          **({"norm": "rms"} if gated else {}))
+    packed = ds.pack_decode_weights(ours, torch.float32, cross=kind != "base", gated=gated)
+    kc, vc = _t(k), _t(v)
+    with pltpu.force_tpu_interpret_mode():
+        if kind == "base":
+            out = jax_ds.fused_decode_step(jnp.asarray(x), packed_j, jnp.asarray(k), jnp.asarray(v), pos,
+                                           jnp.asarray(pads), n_heads=n_heads, act=act, eps=eps, head=head,
+                                           head_v=head_v)
+        else:
+            memory = r.standard_normal((b, l_mem, D)).astype(np.float32)
+            cross = jax_tfm.precompute_cross_caches(jp, lc, jnp.asarray(memory), valid_lens=jnp.asarray(valid))
+            out = jax_ds.fused_cross_decode_step(
+                jnp.asarray(x), packed_j, jnp.asarray(k), jnp.asarray(v), cross["k"], cross["v"], cross["len"][0],
+                pos, jnp.asarray(pads), n_heads=n_heads, act=act, eps=eps, head=head, head_v=head_v, **jkw)
+    if kind == "base":
+        x_out, tok = ds.fused_decode_step(_t(x), packed, kc, vc, pos, _t(pads), n_heads, act, eps, head=ours_head)
+    else:
+        x_out, tok = ds.fused_cross_decode_step(_t(x), packed, kc, vc, _t(cross["k"]), _t(cross["v"]), _t(valid),
+                                                pos, _t(pads), n_heads, act, eps, head=ours_head, **kw)
+    np.testing.assert_allclose(x_out.numpy(), np.asarray(out[0]), rtol=3e-4 if gated else X_TOL,
+                               atol=3e-4 if gated else X_TOL)
+    np.testing.assert_allclose(kc[:, :, pos].numpy(), np.asarray(out[1]), rtol=KV_TOL, atol=KV_TOL)
+    np.testing.assert_allclose(vc[:, :, pos].numpy(), np.asarray(out[2]), rtol=KV_TOL, atol=KV_TOL)
+    assert tok.shape == (b,) and tok.tolist() == np.asarray(out[3]).tolist()
+
+
 def test_stacked_caches_are_views_of_one_buffer():
     """The per-op prefill written through the per-layer views of the stacked
     caches equals one written into separate per-layer tensors, and the
@@ -295,8 +358,8 @@ def test_stacked_caches_are_views_of_one_buffer():
 def test_fused_step_eligible_states_the_kernels_shapes():
     _, _, layers = _layers(cross=True)
     lc = tfm.LayerConfig.make(D, n_heads=2, cross_attn=True)
-    assert ds.fused_step_eligible(layers, lc, 8, cross=True)
-    assert not ds.fused_step_eligible(layers, lc, 9, cross=True)  # more rows than the kernel serves
+    assert ds.fused_step_eligible(layers, lc, 8, cross=True) and ds.fused_step_eligible(layers, lc, 32, cross=True)
+    assert not ds.fused_step_eligible(layers, lc, 33, cross=True)  # more rows than the kernel serves
     assert not ds.fused_step_eligible(layers, tfm.LayerConfig.make(D, n_heads=4), 4)  # head_dim 32
     assert not ds.fused_step_eligible(layers, tfm.LayerConfig.make(D, n_heads=2, pre_norm=False), 4)
     assert not ds.fused_step_eligible(layers, tfm.LayerConfig.make(D, n_heads=2, act="relu"), 4)

@@ -11,7 +11,7 @@ greedy limits (``topk=1``, tiny ``top_p``) against JAX's greedy tokens.
 Generation: same seed, same stream; shared-prefill samples equal to the
 batch over n copies; rows stop at EOS on their own; every route (the fused
 step's plain twin forced on, the per-op kernel wrappers, plain) on both
-sides of the fused step's 8 rows gives the same tokens. Also the K4 gate's
+sides of the fused step's 32 rows gives the same tokens. Also the K4 gate's
 decisions (``use_greedy_head``) with the device check patched.
 
 A small GPT-2 (2 layers, d_model 64, one head, vocab 300, context 128) is
@@ -258,20 +258,21 @@ def test_samples_rows_stop_at_eos_on_their_own(models):
 
 
 @pytest.mark.parametrize("route", list(ROUTES), indirect=True)
-@pytest.mark.parametrize("n", [4, 12])
+@pytest.mark.parametrize("n", [4, 12, 36])
 def test_every_route_draws_the_same_samples(models, route, n):
     """fused (the headless step's twin), per-op and plain: the same tokens
-    on both sides of the fused step's 8 rows, sampled and greedy."""
+    on both sides of the fused step's 32 rows (MAX_BATCH), sampled and
+    greedy."""
     name, calls = route
     _, ours = models
     gen = DecoderGenerator(ours, Tok())
     kw = dict(max_tokens=10, topk=40, top_p=0.9, temperature=0.8, seed=0)
     samples = gen.generate_tokens_samples(PROMPT, n, **kw)
-    batch = gen.generate_tokens_batch((PROMPTS * 3)[:n], **kw)
+    batch = gen.generate_tokens_batch((PROMPTS * 9)[:n], **kw)
     greedy = gen.generate_tokens_samples(PROMPT, n, max_tokens=10, topk=1)
     with _plain_route():
         assert samples == gen.generate_tokens_samples(PROMPT, n, **kw)
-        assert batch == gen.generate_tokens_batch((PROMPTS * 3)[:n], **kw)
+        assert batch == gen.generate_tokens_batch((PROMPTS * 9)[:n], **kw)
         assert greedy == gen.generate_tokens_samples(PROMPT, n, max_tokens=10, topk=1)
     fused_here = name == "fused" and n <= decode_step.MAX_BATCH
     assert (calls["headless"] == 2 * 9) if fused_here else calls["headless"] == 0  # one a decode step, two calls
