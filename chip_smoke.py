@@ -49,7 +49,16 @@ of 32 (K7 at B=32), 96 requests of 5-200 tokens with budgets of 16-128, with
 and without a 48-token shared prefix: fp32 every request token-identical to
 the plain route's generation, K7 once per decode step; its int8 self-KV
 pool held step by step against the plain head; bf16 generated tok/s of the
-fused pool against the per-op pool, with the pool's occupancy.
+fused pool against the per-op pool, with the pool's occupancy. The Whisper
+and T5 engines (``cb_whisper_path``, ``cb_t5_path``):
+``WhisperContinuousBatchingGenerator`` on Whisper-base (pools of 16 and 32,
+40 segments of 5-30 s, at most 64 new tokens) and
+``T5ContinuousBatchingGenerator`` on T5-base (pool 32, 96 prompts of 5-200
+tokens), with a stop id picked so that rows end at spread lengths: fp32
+every request identical to the plain route's generator up to near-ties,
+K7 (cross, or T5 with per-row pads) once per decode step at the pool's
+batch, admissions mid-flight (positions printed); their int8 pools step
+by step; bf16 rates of the fused and per-op pools in turns.
 
 The generation API at full width (``beam_sample_paths``): beam search
 through ``DecoderGenerator.beam_search_tokens_batch`` (GPT-2 small, G=2 and
@@ -1035,8 +1044,8 @@ def _k7_key(name: str, b: int) -> str:
 def decode_step_phases(dev, card: str) -> dict:
     """K7 against its plain version at the full GPT-2-small, Whisper-base and
     T5-base shapes, B=8, 16 and 32 (K7_BATCHES), fp32 and bf16: mixed left pads with one row whose
-    cached range is empty until pos (GPT-2, Whisper; T5 decodes without
-    pads), per-row cross lengths with a short row, T5's seeded rel-pos self
+    cached range is empty until pos (every kind: T5's pools decode with
+    them, masked before its self bias is added), per-row cross lengths with a short row, T5's seeded rel-pos self
     bias (which must move fp32 x_out by far more than its tolerance); x_out
     and the K/V written at pos elementwise, tok as the greedy head is
     checked. Times: the kernel, its plain version, and the per-op step it
@@ -1068,8 +1077,10 @@ def decode_step_phases(dev, card: str) -> dict:
         key = _k7_key(name, b)
         n_layers, d, hd = len(layers32), cfg32.d_model, cfg32.n_heads * cfg32.head_dim
         l_max, pos = (1024, 127) if kind == "gpt2" else (128, 40)
-        if t5:  # T5 decodes without left pads; its cross rows are prompts of 7-64 tokens in a 128-slot cache
-            pads, lx = None, 128
+        # mixed left pads, one row's cached range empty until pos (T5 too: its pools decode with them)
+        pads = torch.tensor(_cycle([0, 5, pos, 3, 0, pos // 2, 1, 17], b), dtype=torch.int32, device=dev)
+        if t5:  # T5's cross rows are prompts of 7-64 tokens in a 128-slot cache
+            lx = 128
             lens = torch.tensor(_cycle([64, 64, 7, 64, 50, 64, 12, 64], b), dtype=torch.int32, device=dev)
             table = T5_BIAS_SCALE * torch.randn(12, 32, generator=g, device=dev)  # a seeded rel-pos table
             t5cfg = T5Config(32128, 768, 12, 12, 2048)
@@ -1077,7 +1088,6 @@ def decode_step_phases(dev, card: str) -> dict:
                                              False, t5cfg)[:, pos]  # (H, Lp): query pos, every key
             variant = dict(norm="rms", gated=True, sbias=bias_hl.t().contiguous())
         else:
-            pads = torch.tensor(_cycle([0, 5, pos, 3, 0, pos // 2, 1, 17], b), dtype=torch.int32, device=dev)
             lx, variant = 1536, {}
             lens = torch.tensor(_cycle([1500, 1500, 7, 1500, 1200, 1500, 300, 1500], b), dtype=torch.int32,
                                 device=dev)
@@ -1155,7 +1165,7 @@ def decode_step_phases(dev, card: str) -> dict:
 
             def per_op():
                 if t5:
-                    h = _t5_decode_layers(p, t5cfg, x[:, None], views, cross_views, bias_hl[:, None], pos)
+                    h = _t5_decode_layers(p, t5cfg, x[:, None], views, cross_views, bias_hl[:, None], pos, pads)
                     return greedy_argmax(rms_norm(final, h[:, 0]), emb)
                 h, _ = tfm.decoder_apply(p, cfg32, x[:, None], self_caches=views, cross_caches=cross_views,
                                          pos=pos, pad_lens=pads)
@@ -1274,9 +1284,9 @@ BREAKDOWN_RUNS = 5
 
 def _k7_step(dev, kind: str, dtype, g, model=None, a8=False, kv=False, kvx=False, q8=False, embed=False, b=8):
     """One K7 step at ``decode_step_phases``'s shapes (B rows, 8) on fresh random
-    inputs: GPT-2 (pos 127 of 1024, mixed left pads), Whisper (pos 40, cross
-    lengths 7-1500 of 1536) or T5 (pos 40, cross lengths 7-64 of 128, a
-    seeded rel-pos self bias), optionally in an int8 serving variant as
+    inputs: GPT-2 (pos 127 of 1024), Whisper (pos 40, cross lengths 7-1500
+    of 1536) or T5 (pos 40, cross lengths 7-64 of 128, a seeded rel-pos self
+    bias), each with mixed left pads, optionally in an int8 serving variant as
     I8_VARIANTS names them (``int8_decode_step_phases``'s shapes). Returns
     ``(call(**kw), n_layers, cross)``, ``call`` launching the kernel on the
     same buffers each time."""
@@ -1298,15 +1308,15 @@ def _k7_step(dev, kind: str, dtype, g, model=None, a8=False, kv=False, kvx=False
     n_layers, d, hd = len(layers32), cfg.d_model, cfg.n_heads * cfg.head_dim
     l_max, pos = (1024, 127) if kind == "gpt2" else (128, 40)
     variant = {}
+    pads = torch.tensor(_cycle([0, 5, pos, 3, 0, pos // 2, 1, 17], b), dtype=torch.int32, device=dev)
     if t5:
-        pads, lx = None, 128
+        lx = 128
         lens = torch.tensor(_cycle([64, 64, 7, 64, 50, 64, 12, 64], b), dtype=torch.int32, device=dev)
         table = T5_BIAS_SCALE * torch.randn(12, 32, generator=g, device=dev)
         bias_hl = relative_position_bias(table, torch.arange(l_max, device=dev), torch.arange(l_max, device=dev),
                                          False, T5Config(32128, 768, 12, 12, 2048))[:, pos]
         variant = dict(norm="rms", gated=True, sbias=bias_hl.t().contiguous())
     else:
-        pads = torch.tensor(_cycle([0, 5, pos, 3, 0, pos // 2, 1, 17], b), dtype=torch.int32, device=dev)
         lx = 1536
         lens = torch.tensor(_cycle([1500, 1500, 7, 1500, 1200, 1500, 300, 1500], b), dtype=torch.int32, device=dev)
     layers = cast_tree(layers32, dtype)
@@ -2372,7 +2382,8 @@ def int8_decode_step_phases(dev, card: str) -> dict:
     the int8 head + int8 self-KV (pos 127 in a 1024 cache, left pads);
     Whisper-base int8 self + cross KV (pos 40, 1500 frames in 1536, per-row
     lengths); T5-base w8a8 + int8 self + cross KV with the rel-pos self bias
-    (pos 40, prompts of 7-64 tokens); GPT-2 with the embed phase. The int8
+    (pos 40, prompts of 7-64 tokens, mixed left pads as a T5 pool gives
+    them); GPT-2 with the embed phase. The int8
     variants layer by layer (:func:`_trace_layers`), the embed phase's x_out
     and K/V at pos to DS_TOL; the token against the plain head on the
     kernel's x_out (:func:`_head_check`); times kernel and plain."""
@@ -2401,15 +2412,15 @@ def int8_decode_step_phases(dev, card: str) -> dict:
         n_layers, d, hd = len(layers32), cfg32.d_model, cfg32.n_heads * cfg32.head_dim
         l_max, pos = (1024, 127) if kind == "gpt2" else (128, 40)
         variant = {}
+        pads = torch.tensor(_cycle([0, 5, pos, 3, 0, pos // 2, 1, 17], b), dtype=torch.int32, device=dev)
         if t5:
-            pads, lx = None, 128
+            lx = 128
             lens = torch.tensor(_cycle([64, 64, 7, 64, 50, 64, 12, 64], b), dtype=torch.int32, device=dev)
             table = T5_BIAS_SCALE * torch.randn(12, 32, generator=g, device=dev)
             bias_hl = relative_position_bias(table, torch.arange(l_max, device=dev), torch.arange(l_max, device=dev),
                                              False, T5Config(32128, 768, 12, 12, 2048))[:, pos]
             variant = dict(norm="rms", gated=True, sbias=bias_hl.t().contiguous())
         else:
-            pads = torch.tensor(_cycle([0, 5, pos, 3, 0, pos // 2, 1, 17], b), dtype=torch.int32, device=dev)
             lx = 1536
             lens = torch.tensor(_cycle([1500, 1500, 7, 1500, 1200, 1500, 300, 1500], b), dtype=torch.int32,
                                 device=dev)
@@ -3397,6 +3408,303 @@ def cb_path(dev, card: str, profile_dir: str | None = None) -> dict:
     return _launches({"fused_decode_step", "embed_add"})
 
 
+# the Whisper and T5 continuous-batching engines at full width: Whisper-base with a pool of CBW_POOL slots
+# (bench.py's Whisper batch; the fp32 check again at CBW_POOL32, K7 cross at 17-32 rows), CBW_SEGMENTS segments
+# of 5-30 s, at most N_NEW new tokens; T5-base with a pool of CBT_POOL slots (bench.py's T5 batch),
+# CBT_REQUESTS prompts of CBT_PROMPT tokens, at most CBT_NEW new tokens; the int8 pools serve the first
+# CBW_INT8 segments / CBT_INT8 prompts. Random weights never emit the real EOT / EOS: the stop id is a token the
+# fp32 streams emit after CB_STOP_AFTER new tokens (_pick_stop), so that rows end at spread lengths and
+# admissions happen while other rows decode
+CBW_POOL, CBW_POOL32, CBW_SEGMENTS, CBW_INT8 = 16, 32, 40, 24
+CBT_POOL, CBT_REQUESTS, CBT_PROMPT, CBT_NEW, CBT_INT8 = 32, 96, (5, 200), 64, 48
+CB_STOP_AFTER = 8
+
+
+def _pick_stop(rows: list, n_prompt: int) -> tuple[int, list]:
+    """A stop id for rows generated with none: among the tokens the rows emit
+    after CB_STOP_AFTER new tokens, the one whose first occurrences end the
+    rows at the most distinct lengths (then the most frequent, then the
+    lowest id). Returns it and each row's new-token count with it."""
+    gens = [r[n_prompt:] for r in rows]
+    counts: dict[int, int] = {}
+    for g in gens:
+        for t in g[CB_STOP_AFTER:]:
+            counts[t] = counts.get(t, 0) + 1
+
+    def ends(t):
+        return [g.index(t) + 1 if t in g else len(g) for g in gens]
+
+    stop = max(counts, key=lambda t: (len(set(ends(t))), counts[t], -t))
+    return stop, ends(stop)
+
+
+def _cut_at(rows: list, n_prompt: int, stop: int) -> list:
+    """Each greedy row as its generator returns it with ``stop`` as the stop
+    id: through the first ``stop`` among the new tokens (greedy decoding does
+    not depend on the stop id before it)."""
+    out = []
+    for r in rows:
+        g = r[n_prompt:]
+        out.append(r[:n_prompt + g.index(stop) + 1] if stop in g else r)
+    return out
+
+
+def _record_admissions(cb, method: str, positions_of) -> list:
+    """The pool position of every admission of engine ``cb``: its admission
+    method ``method`` wrapped on the instance, ``positions_of(*args)`` the
+    positions one call admits at."""
+    seen = []
+    orig = getattr(cb, method)
+
+    def wrapped(*args):
+        seen.extend(positions_of(*args))
+        return orig(*args)
+
+    setattr(cb, method, wrapped)
+    return seen
+
+
+def _mid_flight(what: str, positions: list, base: int, stats) -> str:
+    """Raises unless some admission took a slot while the pool was past its
+    epoch base (other rows decoding); the spread of admission positions."""
+    mid = sum(p != base for p in positions)
+    if mid == 0 or len(positions) != stats.admissions:
+        raise AssertionError(f"{what}: {len(positions)} admissions, none mid-flight (positions {positions})")
+    return (f"admissions at positions {min(positions)}-{max(positions)} (median {int(np.median(positions))}, "
+            f"{len(set(positions))} distinct, {mid} of {len(positions)} past the epoch base {base}, "
+            f"{stats.epoch_resets} epoch resets)")
+
+
+def _pool_rates(what: str, run, n_units: int, unit: str, extra, card: str) -> None:
+    """bf16 rates of the fused pool against the per-op pool (USE_FUSED_STEP
+    False), in turns, from ServingStats (host clock over the scheduling loop,
+    its last copy synchronizing): ``n_units`` ``unit``/s, ``extra(stats)`` more
+    rates, generated tok/s and occupancy."""
+    rates = {}
+    for route in ("per-op", "fused", "fused", "per-op"):
+        _route(route)
+        st = run()
+        rates.setdefault(route, []).append((n_units / st.wall_time_s, *extra(st), st.tokens_per_s, st.occupancy))
+    _route("fused")
+    print(f"phase time bf16 {what}, host clock over the scheduling loop: "
+          + "; ".join(f"{k}: " + " | ".join(", ".join(f"{x:.2f}" for x in turn) for turn in v)
+                      for k, v in rates.items())
+          + f" ({unit}/s, " + "".join(f"{name}, " for name in extra(None)) + "generated tok/s, occupancy; per turn) "
+          f"[{card}]")
+
+
+def cb_whisper_path(dev, card: str, profile_dir: str | None = None) -> dict:
+    """``WhisperContinuousBatchingGenerator`` on Whisper-base at full width
+    (scaled as the main path's): CBW_SEGMENTS segments of 5-30 s, at most
+    N_NEW new tokens. fp32, pools of CBW_POOL and CBW_POOL32: every segment's
+    tokens identical to ``WhisperGenerator.transcribe_tokens`` on the plain
+    route up to near-ties, K7 cross launched once per decode step at the
+    pool's batch, admissions mid-flight. The int8 pool (self + cross KV):
+    every step's token held against the plain head on the kernel's own
+    x_out. bf16: segments/s, audio-seconds/s, generated tok/s and occupancy
+    of the fused pool against the per-op pool, in turns. Returns the
+    launches."""
+    import torch
+
+    from pytorch_models_tpu_torch.audio2text import Whisper, WhisperContinuousBatchingGenerator, WhisperGenerator
+
+    k7 = _kernels()["fused_cross_decode_step"]
+    model = Whisper.from_openai("base", rng=SEED, device=dev)
+    _make_streams_move(dev, SEED + 3, model.params["decoder"],
+                       [model.params["encoder"]["layers"], model.params["decoder"]["layers"]])
+    gen = WhisperGenerator(model)
+    # the main path's eight waveforms of W_SECONDS (5-30 s), five times over with other noise
+    seconds = list(W_SECONDS) * (CBW_SEGMENTS // len(W_SECONDS))
+    segs = [w for k in range(CBW_SEGMENTS // len(W_SECONDS))
+            for w in _waveforms(len(W_SECONDS), W_SECONDS, SEED + 41 + k)]
+    n_init, w_max = len(W_INIT), len(W_INIT) + N_NEW
+
+    _reset_launches()
+    _route("plain")
+    free = [gen.transcribe_tokens(a, W_INIT, -1, w_max) for a in segs]
+    eot, ends = _pick_stop(free, n_init)
+    ref = _cut_at(free, n_init, eot)
+    # random Whisper-base repeats a token on some of these segments (1-2 distinct new tokens), so the set of
+    # streams, not each row, must move: at least 3 distinct new tokens per segment on average
+    distinct = [len(set(r[n_init:])) for r in free]
+    if np.mean(distinct) < 3:
+        raise AssertionError(f"cb whisper: the greedy streams barely move (distinct new tokens per row {distinct})")
+
+    def gap_fn(i, prefix):
+        _route("plain")
+        with torch.inference_mode():
+            mel = gen.preprocessor(torch.from_numpy(segs[i][None]).to(dev))
+            return _top2(model(mel, torch.tensor([prefix], device=dev))[0, -1])
+
+    for pool in (CBW_POOL, CBW_POOL32):
+        what = f"cb whisper fp32 pool {pool}"
+        cb = WhisperContinuousBatchingGenerator(model, batch_size=pool, check_every=CB_CHECK_EVERY)
+        adm = _record_admissions(cb, "_admit_row", lambda pool_, row, pos, memory, init: [pos])
+        _route("fused")
+        before = k7.variant_launches[_bucket_key(pool)]
+        got = cb.transcribe_tokens_many(segs, W_INIT, eot, w_max)
+        torch.cuda.synchronize()
+        st = cb.last_stats
+        launched = k7.variant_launches[_bucket_key(pool)] - before
+        if launched != st.decode_steps:
+            raise AssertionError(f"{what}: K7 cross launched {launched} times at B={pool} for {st.decode_steps} "
+                                 "decode steps")
+        if any(row[:n_init] != W_INIT or not n_init < len(row) <= w_max for row in got):
+            raise AssertionError(f"{what}: malformed row")
+        partings = _check_routes(what, {"fused": got, "plain": ref}, gap_fn)
+        _route("fused")
+        print(f"phase {what}: WhisperContinuousBatchingGenerator, {CBW_SEGMENTS} segments of {min(seconds):.1f}-"
+              f"{max(seconds):.1f} s, at most {N_NEW} new tokens, stop id {eot} (new tokens per segment "
+              f"{min(ends)}-{max(ends)}, {len(set(ends))} distinct; distinct new tokens per segment without a stop "
+              f"{min(distinct)}-{max(distinct)}, mean {np.mean(distinct):.1f}): every segment token-identical to "
+              f"transcribe_tokens on the plain route (partings at near-ties: {partings}); K7 cross launched "
+              f"{launched} times at B={pool} = {st.decode_steps} decode steps; "
+              f"{_mid_flight(what, adm, n_init + 1, st)}; {st.scheduling_points} scheduling points, occupancy "
+              f"{st.occupancy:.3f} [{card}]")
+
+    # the int8 pool: int8 self- and cross-KV through K7's int8 units at B=16
+    r8 = segs[:CBW_INT8]
+    cb = WhisperContinuousBatchingGenerator(model, batch_size=CBW_POOL, check_every=CB_CHECK_EVERY)
+    _int8_flags(kv=True, kv_cross=True)
+    with _StepSpy(plain=True):
+        twin = cb.transcribe_tokens_many(r8, W_INIT, eot, w_max)
+    before = k7.variant_launches[f"kv_int8_{_bucket_key(CBW_POOL)}"]
+    with _StepSpy(plain=False) as spy:
+        got = cb.transcribe_tokens_many(r8, W_INIT, eot, w_max)
+    torch.cuda.synchronize()
+    st = cb.last_stats
+    launched = k7.variant_launches[f"kv_int8_{_bucket_key(CBW_POOL)}"] - before
+    _int8_flags()
+    _route("fused")
+    if launched != st.decode_steps or spy.steps != st.decode_steps:
+        raise AssertionError(f"cb whisper int8 pool: K7 int8 launched {launched} times, {spy.steps} checked, for "
+                             f"{st.decode_steps} decode steps")
+    print(f"phase cb whisper int8 pool fp32 (USE_INT8_KV + USE_INT8_KV_CROSS): {len(r8)} segments, pool {CBW_POOL}: "
+          f"every step's tokens = the plain head on the kernel's own x_out (max score regret {spy.regret:.3g}); "
+          f"K7's int8 variant launched {launched} times at B={CBW_POOL} = {st.decode_steps} decode steps; rows against "
+          f"the pool driving the twin (a reading): {_parting(got, twin)} [{card}]")
+
+    # bf16: the fused pool against the per-op pool, in turns
+    model.to_bf16()
+    cb = WhisperContinuousBatchingGenerator(model, batch_size=CBW_POOL, check_every=CB_CHECK_EVERY)
+
+    def run():
+        cb.transcribe_tokens_many(segs, W_INIT, eot, w_max)
+        return cb.last_stats
+
+    _pool_rates(f"cb whisper: pool {CBW_POOL}, {CBW_SEGMENTS} segments ({sum(seconds):.1f} s of audio)", run,
+                CBW_SEGMENTS, "segments",
+                lambda st: ("audio-seconds/s",) if st is None else (sum(seconds) / st.wall_time_s,), card)
+    if profile_dir is not None:
+        for route in ("fused", "per-op"):
+            _route(route)
+            profile_phase(run, f"bf16 cb whisper pool {CBW_POOL}, {route} route", f"profile_bf16_cbw_{route}.json",
+                          profile_dir, card, lambda st: st.decode_steps)
+        _route("fused")
+    return _launches({"fused_cross_decode_step", "encoder_attention", "log_mel_spectrogram", "embed_add"})
+
+
+def cb_t5_path(dev, card: str, profile_dir: str | None = None) -> dict:
+    """``T5ContinuousBatchingGenerator`` on T5-base at full width (scaled as
+    the main path's): CBT_REQUESTS prompts of 5-200 tokens, at most CBT_NEW
+    new tokens, a pool of CBT_POOL. fp32: every request's tokens identical
+    to ``T5Generator.generate_tokens`` on the plain route (each row of
+    ``generate_tokens_batch`` over CBT_POOL prompts at a time) up to
+    near-ties, K7-T5 (with per-row pads) launched once per decode step at
+    B=32, admissions mid-flight. The int8 pool (self + cross KV): every
+    step's token held against the plain head on the kernel's own x_out.
+    bf16: generated tok/s and occupancy of the fused pool against the per-op
+    pool, in turns. Returns the launches."""
+    import torch
+
+    from pytorch_models_tpu_torch.text import T5ContinuousBatchingGenerator, T5Generator, T5Model
+
+    k7 = _kernels()["fused_cross_decode_step"]
+    model = T5Model.from_t5x("flan_t5-base", rng=SEED, device=dev)
+    _make_t5_streams_move(dev, SEED + 9, model.params)
+    gen = T5Generator(model=model)
+    r = np.random.default_rng(SEED + 97)
+    prompts = [r.integers(2, model.cfg.vocab_size, int(r.integers(CBT_PROMPT[0], CBT_PROMPT[1] + 1))).tolist()
+               for _ in range(CBT_REQUESTS)]
+    t_max = CBT_NEW + 1  # rows hold the pad token first
+
+    _reset_launches()
+    _route("plain")
+    free = []
+    for i in range(0, len(prompts), CBT_POOL):
+        free += gen.generate_tokens_batch(prompts[i:i + CBT_POOL], t_max, T5_PAD, -1)
+    eos, ends = _pick_stop(free, 1)
+    ref = _cut_at(free, 1, eos)
+    _check_moving("cb t5", free, [1] * len(free))
+
+    def gap_fn(i, prefix):
+        _route("plain")
+        with torch.inference_mode():
+            return _top2(model(torch.tensor([prompts[i]], device=dev), torch.tensor([prefix], device=dev))[0, -1])
+
+    what = f"cb t5 fp32 pool {CBT_POOL}"
+    cb = T5ContinuousBatchingGenerator(model, batch_size=CBT_POOL, check_every=CB_CHECK_EVERY)
+    adm = _record_admissions(cb, "_admit", lambda pool, pos, admissions, *rest: [pos] * len(admissions))
+    _route("fused")
+    bucket = _bucket_key(CBT_POOL)
+    before = k7.variant_launches[bucket]
+    got = cb.generate_tokens_many(prompts, t_max, T5_PAD, eos)
+    torch.cuda.synchronize()
+    st = cb.last_stats
+    launched = k7.variant_launches[bucket] - before
+    if launched != st.decode_steps:
+        raise AssertionError(f"{what}: K7-T5 launched {launched} times at B={CBT_POOL} for {st.decode_steps} steps")
+    if any(row[0] != T5_PAD or not 1 < len(row) <= t_max for row in got):
+        raise AssertionError(f"{what}: malformed row")
+    partings = _check_routes(what, {"fused": got, "plain": ref}, gap_fn)
+    _route("fused")
+    print(f"phase {what}: T5ContinuousBatchingGenerator, {CBT_REQUESTS} prompts of {CBT_PROMPT[0]}-{CBT_PROMPT[1]} "
+          f"tokens, at most {CBT_NEW} new tokens, stop id {eos} (new tokens per request {min(ends)}-{max(ends)}, "
+          f"{len(set(ends))} distinct): every request token-identical to generate_tokens on the plain route "
+          f"(partings at near-ties: {partings}); K7-T5 with per-row pads launched {launched} times at "
+          f"B={CBT_POOL} = {st.decode_steps} decode steps; {_mid_flight(what, adm, 1, st)}; "
+          f"{st.scheduling_points} scheduling points, occupancy {st.occupancy:.3f} [{card}]")
+
+    # the int8 pool: int8 self- and cross-KV (with the self bias and per-row pads) through K7's int8 units at B=32
+    r8 = prompts[:CBT_INT8]
+    _int8_flags(kv=True, kv_cross=True)
+    with _StepSpy(plain=True):
+        twin = cb.generate_tokens_many(r8, t_max, T5_PAD, eos)
+    before = k7.variant_launches[f"kv_int8_{bucket}"]
+    with _StepSpy(plain=False) as spy:
+        got = cb.generate_tokens_many(r8, t_max, T5_PAD, eos)
+    torch.cuda.synchronize()
+    st = cb.last_stats
+    launched = k7.variant_launches[f"kv_int8_{bucket}"] - before
+    _int8_flags()
+    _route("fused")
+    if launched != st.decode_steps or spy.steps != st.decode_steps:
+        raise AssertionError(f"cb t5 int8 pool: K7 int8 launched {launched} times, {spy.steps} checked, for "
+                             f"{st.decode_steps} decode steps")
+    print(f"phase cb t5 int8 pool fp32 (USE_INT8_KV + USE_INT8_KV_CROSS): {len(r8)} prompts, pool {CBT_POOL}: every "
+          f"step's tokens = the plain head on the kernel's own x_out (max score regret {spy.regret:.3g}); K7-T5's "
+          f"int8 variant launched {launched} times at B={CBT_POOL} = {st.decode_steps} decode steps; rows against "
+          f"the pool driving the twin (a reading): {_parting(got, twin)} [{card}]")
+
+    # bf16: the fused pool against the per-op pool, in turns
+    model.to_bf16()
+    cb = T5ContinuousBatchingGenerator(model, batch_size=CBT_POOL, check_every=CB_CHECK_EVERY)
+
+    def run():
+        cb.generate_tokens_many(prompts, t_max, T5_PAD, eos)
+        return cb.last_stats
+
+    _pool_rates(f"cb t5: pool {CBT_POOL}, {CBT_REQUESTS} prompts", run, CBT_REQUESTS, "requests",
+                lambda st: (), card)
+    if profile_dir is not None:
+        for route in ("fused", "per-op"):
+            _route(route)
+            profile_phase(run, f"bf16 cb t5 pool {CBT_POOL}, {route} route", f"profile_bf16_cbt5_{route}.json",
+                          profile_dir, card, lambda st: st.decode_steps)
+        _route("fused")
+    return _launches({"fused_cross_decode_step", "embed_add"})
+
+
 def profile_phase(fn, what: str, fname: str, out_dir: str, card: str, steps_fn, unit: str = "decode step") -> None:
     """One call of ``fn`` (after a warm-up call) under torch.profiler.
 
@@ -3495,21 +3803,30 @@ def main() -> int:
         raise AssertionError(f"encoder_attention: every (dtype, head width) must run on the tensor cores: {sass}")
     print("phase sass encoder_attention: tensor-core instructions (HMMA/HGMMA) per instantiation "
           + ("not measured (no cuobjdump)" if sass is None else json.dumps(sass)))
-    res = kernel_phases(dev, card)
-    res_e = embed_kernel_phase(dev, card)
-    res_w = whisper_kernel_phases(dev, card)
-    res_t5 = t5_kernel_phases(dev, card)
-    res_k7 = decode_step_phases(dev, card)
-    decode_step_breakdown(dev, card)
-    res_i8 = int8_kernel_phases(dev, card)
-    res_i8k7 = int8_decode_step_phases(dev, card)
-    paths = {"gpt2": main_path(dev, card, args.profile), "whisper": whisper_path(dev, card, args.profile),
-             "t5": t5_path(dev, card, args.profile), "vit": vit_path(dev, card, args.profile)}
-    paths.update(beam_sample_paths(dev, card))
-    paths.update(batch_paths(dev, card))
-    paths["cb"] = cb_path(dev, card, args.profile)
-    k6_path = int8_stack_path(dev, card)
-    i8 = int8_paths(dev, card)
+
+    def timed(name, fn, *a):
+        t = time.perf_counter()
+        out = fn(*a)
+        print(f"phase clock {name}: {time.perf_counter() - t:.1f} s (run so far {time.perf_counter() - t0:.1f} s)")
+        return out
+
+    res = timed("kernel phases", kernel_phases, dev, card)
+    res_e = timed("embed_add", embed_kernel_phase, dev, card)
+    res_w = timed("whisper kernels", whisper_kernel_phases, dev, card)
+    res_t5 = timed("t5 kernels", t5_kernel_phases, dev, card)
+    res_k7 = timed("K7", decode_step_phases, dev, card)
+    timed("K7 breakdown", decode_step_breakdown, dev, card)
+    res_i8 = timed("int8 kernels", int8_kernel_phases, dev, card)
+    res_i8k7 = timed("K7 int8", int8_decode_step_phases, dev, card)
+    paths = {name: timed(name, fn, dev, card, args.profile)
+             for name, fn in (("gpt2", main_path), ("whisper", whisper_path), ("t5", t5_path), ("vit", vit_path))}
+    paths.update(timed("beam and sample", beam_sample_paths, dev, card))
+    paths.update(timed("batch", batch_paths, dev, card))
+    paths["cb"] = timed("cb", cb_path, dev, card, args.profile)
+    paths["cb whisper"] = timed("cb whisper", cb_whisper_path, dev, card, args.profile)
+    paths["cb t5"] = timed("cb t5", cb_t5_path, dev, card, args.profile)
+    k6_path = timed("int8 stack", int8_stack_path, dev, card)
+    i8 = timed("int8 paths", int8_paths, dev, card)
 
     # name: (source, TPU kernel it replaces, the dtype whose times are reported, its launches over the main paths;
     # the shapes are GPT-2's for K1-K4 and the fused decode step, Whisper's for K5 and the fused cross step,
@@ -3517,6 +3834,7 @@ def main() -> int:
     def total(name):
         return sum(counts[name] for counts in paths.values())
 
+    k7_src = "decode_step_kernel.cuh"  # K7's kernel (decode_step.cu is its C interface)
     meta = {
         "encoder_attention": ("encoder_attention.cu", "pytorch_models_tpu/ops/encoder_attention.py:166", "bfloat16",
                               total("encoder_attention")),
@@ -3532,48 +3850,59 @@ def main() -> int:
                           total("greedy_argmax")),
         "log_mel_spectrogram": ("mel.cu", "pytorch_models_tpu/ops/mel.py:66", "float32", total("log_mel_spectrogram")),
         # K7 rows of B <= 8 (one row group); the rows above it below
-        "fused_decode_step": ("decode_step.cu", "pytorch_models_tpu/ops/decode_step.py:1359", "bfloat16",
+        "fused_decode_step": (k7_src, "pytorch_models_tpu/ops/decode_step.py:1359", "bfloat16",
                               total("fused_decode_step") - total("fused_decode_step_headless")
                               - sum(total(f"fused_decode_step_{k}") - total(f"fused_decode_step_headless_{k}")
                                     for k in ("b16", "b32"))),
-        "fused_cross_decode_step": ("decode_step.cu", "pytorch_models_tpu/ops/decode_step.py:1397", "bfloat16",
+        "fused_cross_decode_step": (k7_src, "pytorch_models_tpu/ops/decode_step.py:1397", "bfloat16",
                                     paths["whisper"]["fused_cross_decode_step"]),
-        "fused_cross_decode_step_t5": ("decode_step.cu", "pytorch_models_tpu/ops/decode_step.py:1397", "bfloat16",
+        "fused_cross_decode_step_t5": (k7_src, "pytorch_models_tpu/ops/decode_step.py:1397", "bfloat16",
                                        paths["t5"]["fused_cross_decode_step"]),
         # int8 serving: K6 on the per-op int8 step's path, K7's variants on the int8 serving paths
         "int8_kv": ("int8_kv.cu", "pytorch_models_tpu/ops/int8_kv.py:353", "bfloat16", k6_path["int8_kv"]),
-        "fused_decode_step_int8": ("decode_step.cu", "pytorch_models_tpu/ops/decode_step.py:1359", "bfloat16",
+        "fused_decode_step_int8": (k7_src, "pytorch_models_tpu/ops/decode_step.py:1359", "bfloat16",
                                    i8["gpt2"]["fused_decode_step_kv_int8"] - i8["gpt2"]["fused_decode_step_a8"]),
-        "fused_decode_step_a8": ("decode_step.cu", "pytorch_models_tpu/ops/decode_step.py:1359", "bfloat16",
+        "fused_decode_step_a8": (k7_src, "pytorch_models_tpu/ops/decode_step.py:1359", "bfloat16",
                                  i8["gpt2"]["fused_decode_step_a8"]),
-        "fused_cross_decode_step_int8": ("decode_step.cu", "pytorch_models_tpu/ops/decode_step.py:1397", "bfloat16",
+        "fused_cross_decode_step_int8": (k7_src, "pytorch_models_tpu/ops/decode_step.py:1397", "bfloat16",
                                          i8["whisper"]["fused_cross_decode_step_kv_int8"]),
-        "fused_cross_decode_step_t5_a8": ("decode_step.cu", "pytorch_models_tpu/ops/decode_step.py:1397", "bfloat16",
+        "fused_cross_decode_step_t5_a8": (k7_src, "pytorch_models_tpu/ops/decode_step.py:1397", "bfloat16",
                                           i8["t5"]["fused_cross_decode_step_a8"]),
-        "fused_decode_step_embed": ("decode_step.cu", "pytorch_models_tpu/ops/decode_step.py:1359", "bfloat16",
+        "fused_decode_step_embed": (k7_src, "pytorch_models_tpu/ops/decode_step.py:1359", "bfloat16",
                                     i8["gpt2"]["fused_decode_step_embed"]),
         # the headless step (no final norm, no head) on the sampled and beam paths
-        "fused_decode_step_headless": ("decode_step.cu", "pytorch_models_tpu/ops/decode_step.py:1359", "bfloat16",
+        "fused_decode_step_headless": (k7_src, "pytorch_models_tpu/ops/decode_step.py:1359", "bfloat16",
                                        total("fused_decode_step_headless") - total("fused_decode_step_headless_b16")
                                        - total("fused_decode_step_headless_b32")),
-        "fused_cross_decode_step_headless": ("decode_step.cu", "pytorch_models_tpu/ops/decode_step.py:1397",
+        "fused_cross_decode_step_headless": (k7_src, "pytorch_models_tpu/ops/decode_step.py:1397",
                                              "bfloat16", paths["beam whisper"]["fused_cross_decode_step_headless"]),
-        "fused_cross_decode_step_t5_headless": ("decode_step.cu", "pytorch_models_tpu/ops/decode_step.py:1397",
+        "fused_cross_decode_step_t5_headless": (k7_src, "pytorch_models_tpu/ops/decode_step.py:1397",
                                                 "bfloat16", paths["beam t5"]["fused_cross_decode_step_headless"]),
         # above one row group (K7's rows 9-32; timed at the batch named): GPT-2 with its head at 17-32 rows (the
         # B=32 batch and the CB pool, int8 pool aside), headless at 9-16 (beams G=4 x W=4, 16 samples); Whisper
         # at 9-16 (the B=16 batch); T5 at 17-32 (the B=32 batch); the int8 CB pool's int8 self-KV at 17-32
-        "fused_decode_step_b32": ("decode_step.cu", "pytorch_models_tpu/ops/decode_step.py:1359", "bfloat16",
+        "fused_decode_step_b32": (k7_src, "pytorch_models_tpu/ops/decode_step.py:1359", "bfloat16",
                                   total("fused_decode_step_b32") - total("fused_decode_step_headless_b32")
                                   - total("fused_decode_step_kv_int8_b32")),
-        "fused_decode_step_headless_b16": ("decode_step.cu", "pytorch_models_tpu/ops/decode_step.py:1359",
+        "fused_decode_step_headless_b16": (k7_src, "pytorch_models_tpu/ops/decode_step.py:1359",
                                            "bfloat16", total("fused_decode_step_headless_b16")),
-        "fused_cross_decode_step_b16": ("decode_step.cu", "pytorch_models_tpu/ops/decode_step.py:1397", "bfloat16",
-                                        paths["batch whisper"]["fused_cross_decode_step_b16"]),
-        "fused_cross_decode_step_t5_b32": ("decode_step.cu", "pytorch_models_tpu/ops/decode_step.py:1397",
-                                           "bfloat16", paths["batch t5"]["fused_cross_decode_step_b32"]),
-        "fused_decode_step_int8_b32": ("decode_step.cu", "pytorch_models_tpu/ops/decode_step.py:1359", "bfloat16",
+        # Whisper at 9-16 rows: the B=16 batch, and the pool of 16 (its int8 pool aside)
+        "fused_cross_decode_step_b16": (k7_src, "pytorch_models_tpu/ops/decode_step.py:1397",
+                                        "bfloat16", paths["batch whisper"]["fused_cross_decode_step_b16"]
+                                        + paths["cb whisper"]["fused_cross_decode_step_b16"]
+                                        - paths["cb whisper"]["fused_cross_decode_step_kv_int8_b16"]),
+        # T5 at 17-32 rows: the B=32 batch, and the T5 pool with per-row pads (its int8 pool aside)
+        "fused_cross_decode_step_t5_b32": (k7_src, "pytorch_models_tpu/ops/decode_step.py:1397",
+                                           "bfloat16", paths["batch t5"]["fused_cross_decode_step_b32"]
+                                           + paths["cb t5"]["fused_cross_decode_step_b32"]
+                                           - paths["cb t5"]["fused_cross_decode_step_kv_int8_b32"]),
+        "fused_decode_step_int8_b32": (k7_src, "pytorch_models_tpu/ops/decode_step.py:1359", "bfloat16",
                                        paths["cb"]["fused_decode_step_kv_int8_b32"]),
+        # the Whisper pools: cross at 17-32 rows (the pool of 32), int8 self + cross KV at 9-16 (the int8 pool)
+        "fused_cross_decode_step_b32": (k7_src, "pytorch_models_tpu/ops/decode_step.py:1397", "bfloat16",
+                                        paths["cb whisper"]["fused_cross_decode_step_b32"]),
+        "fused_cross_decode_step_int8_b16": (k7_src, "pytorch_models_tpu/ops/decode_step.py:1397",
+                                             "bfloat16", paths["cb whisper"]["fused_cross_decode_step_kv_int8_b16"]),
     }
     # each kernel's limit on max_abs_err: elementwise (atol, rtol) by dtype; for the greedy heads, whose outputs
     # are ids, the score regret is held to the top-2 gap tolerance instead
@@ -3585,10 +3914,11 @@ def main() -> int:
     for name in ("fused_decode_step", "fused_cross_decode_step", "fused_cross_decode_step_t5",
                  "fused_decode_step_embed", "fused_decode_step_headless", "fused_cross_decode_step_headless",
                  "fused_cross_decode_step_t5_headless", "fused_decode_step_b32", "fused_decode_step_headless_b16",
-                 "fused_cross_decode_step_b16", "fused_cross_decode_step_t5_b32"):
+                 "fused_cross_decode_step_b16", "fused_cross_decode_step_t5_b32", "fused_cross_decode_step_b32"):
         limits[name] = {dn: list(DS_TOL[dn]) for dn in DS_TOL}
     for name in ("fused_decode_step_int8", "fused_decode_step_a8", "fused_cross_decode_step_int8",
-                 "fused_cross_decode_step_t5_a8", "fused_decode_step_int8_b32"):  # on x after each layer
+                 "fused_cross_decode_step_t5_a8", "fused_decode_step_int8_b32",
+                 "fused_cross_decode_step_int8_b16"):  # on x after each layer
         limits[name] = {dn: list(I8_LAYER_TOL[dn]) for dn in I8_LAYER_TOL}
     results = (res, res_e, res_w, res_t5, res_k7, res_i8, res_i8k7)
     entries = []
@@ -3602,6 +3932,8 @@ def main() -> int:
                         **{k: rec[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
                         **{k: rec[k] for k in ("two_gathers_ms", "embedding_add_ms", "launch_floor_ms",
                                                "head_matmul_ms") if k in rec}})
+    print(f"phase total: {time.perf_counter() - t0:.1f} s, the kernels' build "
+          f"{_build.build_seconds if _build.build_seconds is not None else 'cached'} s of it [{card}]")
     print(card)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,8 +14,9 @@ time per call, ``chip_smoke._time_ms``):
 - default: ``csrc/decode_attention.cu`` and ``csrc/int8_kv.cu`` (K2, K6) at
   the bf16 shapes; both trees must share the C signatures of
   ``pmt_decode_attention`` and ``pmt_int8_attention``;
-- ``--k7``: ``csrc/decode_step.cu`` (with the ``int8_attn.cuh`` of its own
-  tree) at every K7 variant of ``chip_smoke.py`` (GPT-2, Whisper and T5 at
+- ``--k7``: ``csrc/decode_step*.cu`` (one source, or the dispatcher and
+  its eight instantiations; with the headers of its own tree) at every K7
+  variant of ``chip_smoke.py`` (GPT-2, Whisper and T5 at
   B=8, and the int8 serving variants of ``I8_VARIANTS``), bf16 and fp32.
   The base tree's ``Args`` must be a prefix of this tree's ``_Args``
   (fields are only ever appended), so its library reads the same call; a
@@ -51,7 +52,7 @@ import chip_smoke
 
 # mode: (sources, C entry points, timed calls per turn)
 MODES = {"attn": (("decode_attention.cu", "int8_kv.cu"), ("pmt_decode_attention", "pmt_int8_attention"), 50),
-         "k7": (("decode_step.cu",), ("pmt_decode_step_workspace", "pmt_decode_step"), 20),
+         "k7": (("decode_step*.cu",), ("pmt_decode_step_workspace", "pmt_decode_step"), 20),
          "head-mel": (("greedy_head.cu", "mel.cu"), (), 30)}
 
 # the C interfaces of the two-pass greedy head and the CUDA-core log-mel kernel
@@ -69,6 +70,7 @@ def build_lib(csrc: Path, out_dir: Path, sources, entries):
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = b._find_nvcc()
     objs, procs = [], []
+    sources = [p.name for pattern in sources for p in sorted(csrc.glob(pattern))]  # K7: one source or several
     for name in sources:
         obj = out_dir / (Path(name).stem + ".o")
         procs.append(subprocess.Popen([nvcc, *b.NVCC_FLAGS, "-c", "-o", str(obj), str(csrc / name)],
@@ -292,7 +294,7 @@ def main() -> int:
         print(f"{name}: " + ", ".join(f"{k} {v[0]:.2f} / {v[1]:.2f} us" for k, v in t.items()) + f" [{card}]")
     if mode == "k7":  # the per-phase breakdown of each tree whose kernel takes stamps
         for turn, tree in (("base", base), ("new", here)):
-            if "stamps" in (tree / "pytorch_models_tpu_torch" / "csrc" / "decode_step.cu").read_text():
+            if any("stamps" in f.read_text() for f in (tree / "pytorch_models_tpu_torch" / "csrc").glob("decode_step*")):
                 use(turn)
                 print(f"breakdown of {turn} ({tree}):")
                 chip_smoke.decode_step_breakdown(dev, card, rows=(8,))  # the rows a parent tree serves

@@ -1,0 +1,10 @@
+// The fused decode step in bf16, int8 weights, one row group (B <= 8): one instantiation
+// per source, so that the eight compile in parallel (decode_step.cuh).
+#include "decode_step_kernel.cuh"
+
+namespace pmt_k7 {
+
+template int plan<__nv_bfloat16, int8_t, 1>(const Args& a, Plan& p);
+template int launch_groups<__nv_bfloat16, int8_t, 1>(const Args& a);
+
+}  // namespace pmt_k7

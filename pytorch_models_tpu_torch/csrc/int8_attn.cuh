@@ -1,7 +1,7 @@
 // One (row, head) of single-position attention over an int8 KV cache: the
 // arithmetic of pytorch_models_tpu/ops/int8_kv.py (`_kernel`, pinned by its
 // `_int8_attention_oracle_impl`): the sequential unit of the fused decode
-// step's int8 attention phases (csrc/decode_step.cu); the per-op kernel
+// step's int8 attention phases (csrc/decode_step_kernel.cuh); the per-op kernel
 // (csrc/int8_kv.cu) splits the same arithmetic over a cluster and shares the
 // helpers.
 //

@@ -1,4 +1,6 @@
+from .continuous import WhisperContinuousBatchingGenerator
 from .tokenizer import WhisperTokenizer
 from .whisper import Whisper, WhisperGenerator, WhisperPreprocessor
 
-__all__ = ["Whisper", "WhisperGenerator", "WhisperPreprocessor", "WhisperTokenizer"]
+__all__ = ["Whisper", "WhisperContinuousBatchingGenerator", "WhisperGenerator", "WhisperPreprocessor",
+           "WhisperTokenizer"]

@@ -20,7 +20,8 @@ quantized once for the decode loop; the prefill reads them in full
 precision), on the fused route. Beam search (``transcribe_beam_tokens``)
 decodes its W beams through the fused step headless, or per-op. The text
 methods take a ``WhisperTokenizer`` (``models/audio2text/tokenizer.py``).
-Speculative decoding and continuous batching are not ported yet.
+Continuous batching is ``models/audio2text/continuous.py``; speculative
+decoding is not ported yet.
 """
 
 from __future__ import annotations
@@ -124,11 +125,18 @@ def whisper_decode(params: dict, cfg: WhisperConfig, tokens: torch.Tensor, memor
     return _head(p, layer_norm(p["norm"], x))
 
 
-def _decoder_hidden_chunk(p: dict, lc: tfm.LayerConfig, cross: list, tokens: torch.Tensor, caches: list, pos: int):
+def _decoder_hidden_chunk(p: dict, lc: tfm.LayerConfig, cross: list, tokens: torch.Tensor, caches: list, pos: int,
+                          pad_lens: torch.Tensor | None = None, pos_ids: torch.Tensor | None = None):
     """Embeddings + KV-cached decoder + final LayerNorm for a (B, S) chunk
-    at positions ``[pos, pos+S)``. Returns ``(hidden (B, S, d), caches)``."""
-    x = embed_tokens(p["token_embs"], tokens, p["pos_embs"], start=pos)
-    x, caches = tfm.decoder_apply(p, lc, x, self_caches=caches, cross_caches=cross, pos=pos)
+    at cache slots ``[pos, pos+S)``: position-table rows ``pos + s``, or
+    per row ``pos_ids`` (B, S) with ``pad_lens`` (B,) masking each row's
+    left-pad slots (a left-padded pool). Returns ``(hidden (B, S, d),
+    caches)``."""
+    if pos_ids is None:
+        x = embed_tokens(p["token_embs"], tokens, p["pos_embs"], start=pos)
+    else:
+        x = embed_tokens(p["token_embs"], tokens, p["pos_embs"], pos_ids=pos_ids)
+    x, caches = tfm.decoder_apply(p, lc, x, self_caches=caches, cross_caches=cross, pos=pos, pad_lens=pad_lens)
     return layer_norm(p["norm"], x), caches
 
 
@@ -146,37 +154,43 @@ def _whisper_fused_ok(p: dict, cfg: WhisperConfig, batch: int) -> bool:
                                                                          dtype=p["token_embs"].dtype)
 
 
-def _whisper_embed_or_fold(p: dict, tok: torch.Tensor, pos: int):
-    """Decoder embeddings for a fused step at ``pos``: ``(x (B, d), {})`` in
-    one launch of the embedding kernel (K3's ``embed_add``), or with
+def _whisper_embed_or_fold(p: dict, tok: torch.Tensor, pos: int, pos_ids: torch.Tensor | None = None):
+    """Decoder embeddings for a fused step at ``pos`` (position-table row
+    ``pos``, or per row ``pos_ids`` (B,)): ``(x (B, d), {})`` in one launch
+    of the embedding kernel (K3's ``embed_add``), or with
     ``USE_FUSED_EMBED`` ``(None, kwargs)`` for the step's embed phase."""
     from ...ops.decode_step import pack_embed_tables
 
     if _attn.use_fused_embed(tok.shape[0]):
         return None, {"emb": pack_embed_tables(p["token_embs"], p["pos_embs"], p["token_embs"].dtype),
-                      "tok_ids": tok[:, 0], "pos_rows": pos}
-    return embed_tokens(p["token_embs"], tok, p["pos_embs"], start=pos)[:, 0], {}
+                      "tok_ids": tok[:, 0], "pos_rows": pos if pos_ids is None else pos_ids}
+    if pos_ids is None:
+        return embed_tokens(p["token_embs"], tok, p["pos_embs"], start=pos)[:, 0], {}
+    return embed_tokens(p["token_embs"], tok[:, 0], p["pos_embs"], pos_ids=pos_ids), {}
 
 
-def _fused_whisper_step(p: dict, packed: dict, head: dict, cfg: WhisperConfig, tok: torch.Tensor, caches: dict,
-                        cross: tuple, lens: torch.Tensor, pos: int) -> torch.Tensor:
+def _fused_whisper_step(p: dict, packed: dict, head: dict | None, cfg: WhisperConfig, tok: torch.Tensor, caches: dict,
+                        cross: tuple, lens: torch.Tensor, pos: int, pad_lens: torch.Tensor | None = None,
+                        pos_ids: torch.Tensor | None = None) -> torch.Tensor:
     """One fused decode step: embeddings (K3, or the step's embed phase) ->
-    ONE kernel over the whole layer stack (self + cross attention + MLP +
-    final LN + greedy argmax). ``caches`` holds (L, B, Lp, H*D) stacked
+    ONE kernel over the whole layer stack (self + cross attention + MLP
+    [+ final LN + greedy argmax]). ``caches`` holds (L, B, Lp, H*D) stacked
     buffers (int8 with ``ks``/``vs``); ``cross`` is
     ``_decoder_lm.cross_operands``' ``(ck, cv, kv_scales_x)``, ``lens``
-    (B,); this step's K/V are written at ``pos``. Returns the next token
-    ids (B,)."""
+    (B,); this step's K/V are written at ``pos``. A left-padded pool passes
+    ``pad_lens`` (B,) and each row's position-table row ``pos_ids`` (B,).
+    Returns the next token ids (B,) with ``head``, else (headless) the
+    final-normed hidden state (B, d)."""
     from ...ops.decode_step import fused_cross_decode_step
     from ..text._decoder_lm import kv_scales
 
-    x, emb_kw = _whisper_embed_or_fold(p, tok, pos)
+    x, emb_kw = _whisper_embed_or_fold(p, tok, pos, pos_ids)
     lc = cfg.dec_layer
     ck, cv, kvx = cross
-    _, nxt = fused_cross_decode_step(x, packed, caches["k"], caches["v"], ck, cv, lens, pos, None, lc.n_heads, lc.act,
-                                     lc.norm_eps, head=head, a8=_attn.use_a8_decode(packed["wqkv"].dtype),
+    x, nxt = fused_cross_decode_step(x, packed, caches["k"], caches["v"], ck, cv, lens, pos, pad_lens, lc.n_heads,
+                                     lc.act, lc.norm_eps, head=head, a8=_attn.use_a8_decode(packed["wqkv"].dtype),
                                      kv_scales=kv_scales(caches), kv_scales_x=kvx, **emb_kw)
-    return nxt
+    return nxt if head is not None else layer_norm(p["norm"], x)
 
 
 @torch.inference_mode()
@@ -271,12 +285,11 @@ def _beam(params: dict, cfg: WhisperConfig, memory: torch.Tensor, initial_tokens
     cross, cross_stacked = beam_cross_caches(tfm.precompute_cross_caches(p, lc, memory)[1], w)
     fused = _whisper_fused_ok(p, cfg, w)
     if fused:
-        from ...ops.decode_step import fused_cross_decode_step, pack_decode_weights
+        from ...ops.decode_step import pack_decode_weights
         from ..text._decoder_lm import cross_operands
 
-        cdt = p["token_embs"].dtype
-        packed = pack_decode_weights(p["layers"], cdt, cross=True)
-        ck, cv, _ = cross_operands(cross_stacked, cdt)
+        packed = pack_decode_weights(p["layers"], p["token_embs"].dtype, cross=True)
+        cross_ops = cross_operands(cross_stacked, p["token_embs"].dtype)
 
     init_rows = initial_tokens.to(dev).expand(w, n_init)
     hn, _ = _decoder_hidden_chunk(p, lc, cross, init_rows, caches[0], 0)
@@ -284,12 +297,9 @@ def _beam(params: dict, cfg: WhisperConfig, memory: torch.Tensor, initial_tokens
     buf[:, :n_init] = init_rows
 
     def forward(tok, caches, pos):
-        if fused:  # the headless step: layer stack + cross-attention; the final LN and the head here
-            x, emb_kw = _whisper_embed_or_fold(p, tok, pos - 1)
-            x, _ = fused_cross_decode_step(x, packed, caches[1]["k"], caches[1]["v"], ck, cv, cross_stacked["len"],
-                                           pos - 1, None, lc.n_heads, lc.act, lc.norm_eps,
-                                           a8=_attn.use_a8_decode(packed["wqkv"].dtype), **emb_kw)
-            return _head(p, layer_norm(p["norm"], x)), caches
+        if fused:  # the headless step: layer stack + cross-attention + the final LN; the head here
+            return _head(p, _fused_whisper_step(p, packed, None, cfg, tok, caches[1], cross_ops, cross_stacked["len"],
+                                                pos - 1)), caches
         hn, _ = _decoder_hidden_chunk(p, lc, cross, tok, caches[0], pos - 1)
         return _head(p, hn[:, 0]), caches
 
@@ -415,6 +425,16 @@ def _strip_generated(tokens: list[int], n_prompt: int, eot_id: int) -> list[int]
     return gen
 
 
+def stage_segments(audios, n_samples: int, dev) -> torch.Tensor:
+    """Segments -> (B, n_samples) fp32 on ``dev``, each cut or zero-padded
+    to ``n_samples``; a tensor already so shaped on that device passes as
+    is."""
+    if isinstance(audios, torch.Tensor) and audios.ndim == 2 and audios.shape[1] == n_samples and audios.device == dev:
+        return audios.float()
+    rows = [np.asarray(a.cpu() if isinstance(a, torch.Tensor) else a, np.float32)[:n_samples] for a in audios]
+    return torch.from_numpy(np.stack([np.pad(a, (0, n_samples - len(a))) for a in rows])).to(dev)
+
+
 def split_windows(audio, n_samples: int) -> np.ndarray:
     """Waveform (n,) -> (n_windows, n_samples) fixed windows, last padded."""
     audio = np.asarray(audio, np.float32)
@@ -441,16 +461,7 @@ class WhisperGenerator:
                                                 device=model.device)
 
     def _stage_batch(self, audios) -> torch.Tensor:
-        """Segments -> (B, N_SAMPLES) fp32 on the model's device, each cut
-        or zero-padded to 30 s; a tensor already so shaped on that device
-        passes as is."""
-        dev = self.model.device
-        if (isinstance(audios, torch.Tensor) and audios.ndim == 2 and audios.shape[1] == self.N_SAMPLES
-                and audios.device == dev):
-            return audios.float()
-        n = self.N_SAMPLES
-        rows = [np.asarray(a.cpu() if isinstance(a, torch.Tensor) else a, np.float32)[:n] for a in audios]
-        return torch.from_numpy(np.stack([np.pad(a, (0, n - len(a))) for a in rows])).to(dev)
+        return stage_segments(audios, self.N_SAMPLES, self.model.device)
 
     @torch.inference_mode()
     def _transcribe_batch(self, wav: torch.Tensor, initial_tokens: list[int], eot_id: int, max_tokens: int):

@@ -31,11 +31,13 @@ row-relative positions); only the suffix is prefilled. Chunked prefill:
 prompts longer than the bucket are forwarded in bucket-wide chunks left to
 right, then the ordinary admit runs the tail.
 
-The scheduler runs on the host. Between scheduling points it enqueues up to
-``check_every`` decode steps with no device-to-host sync (finished rows park
-writing EOS; the host stops the chunk early only where every live row has
-reached its budget, which it knows), then copies ``(buf, ends, done)`` back
-in one transfer. The JAX package's device loop also stops when every row
+The scheduler runs on the host (``_serve`` over a pool's ``_Slots``; the
+Whisper and T5 engines, ``models/audio2text/continuous.py`` and
+``t5_continuous.py``, run on it too). Between scheduling points it enqueues
+up to ``check_every`` decode steps with no device-to-host sync (finished
+rows park writing EOS; the host stops the chunk early only where every live
+row has reached its budget, which it knows), then copies ``(buf, ends,
+done)`` back in one transfer. The JAX package's device loop also stops when every row
 has emitted EOS; here such a chunk runs on, parked, to its end.
 
 Sampling with per-request ``temperature`` / ``top_p`` lists: generated
@@ -60,10 +62,12 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ... import transformer as tfm
 from ...ops import attention as _attn
 from ...ops.greedy_head import greedy_argmax_tied
 from ...ops.int8_kv import quantize_kv_caches, quantize_rows
 from ._decoder_lm import (
+    cross_operands,
     decoder_lm_forward_cached_batch,
     decoder_lm_fused_ok,
     decoder_lm_fused_tok_batch,
@@ -91,6 +95,18 @@ def _layer_views(stacked: dict, row: int | None = None) -> list:
     included."""
     sl = slice(None) if row is None else slice(row, row + 1)
     return [{k: t[i, sl] for k, t in stacked.items()} for i in range(stacked["k"].shape[0])]
+
+
+def _commit_rows(pool_caches: dict, row: int, src_k: torch.Tensor, src_v: torch.Tensor, int8: bool) -> None:
+    """Write one row's layer-stacked ``(L, Lp, W)`` K/V into pool row ``row``:
+    quantized per key, with its scale planes, into an int8 pool."""
+    for kv, src in (("k", src_k), ("v", src_v)):
+        if int8:
+            q, sc = quantize_rows(src)
+            pool_caches[kv][:, row] = q
+            pool_caches[kv + "s"][:, row] = sc[..., 0]
+        else:
+            pool_caches[kv][:, row] = src.to(pool_caches[kv].dtype)
 
 
 def _row_prefill(params, cfg, buf, row: int, stacked, cache_row: int, c0: int, pad_len: int, p: int) -> None:
@@ -158,13 +174,19 @@ def _sample_rows(logits: torch.Tensor, u: torch.Tensor, topk: int, temps: torch.
     return torch.gather(idx, -1, _inverse_cdf(vals, u)[..., None])[..., 0]
 
 
+def _bucket_pow2(m: int) -> int:
+    """Smallest power of two >= m: the batch buckets of the encoder engines'
+    batched admission encodes."""
+    return 1 << max(m - 1, 0).bit_length()
+
+
 @dataclass
 class ServingStats:
-    """Scheduler-side counters for one ``generate_*_many`` call (set as
-    ``gen.last_stats``). ``decode_steps`` counts the steps run (a chunk
-    stopped early counts what ran), ``live_slot_steps`` integrates the pool's
-    occupancy over them (at chunk granularity), ``tokens_generated`` counts
-    the returned generated tokens (EOS included)."""
+    """Scheduler-side counters for one ``*_many`` call of a serving engine
+    (set as ``gen.last_stats``). ``decode_steps`` counts the steps run (a
+    chunk stopped early counts what ran), ``live_slot_steps`` integrates the
+    pool's occupancy over them (at chunk granularity), ``tokens_generated``
+    counts the returned generated tokens (EOS included)."""
 
     requests: int = 0
     admissions: int = 0
@@ -186,21 +208,14 @@ class ServingStats:
         return self.tokens_generated / self.wall_time_s if self.wall_time_s else 0.0
 
 
-class _Pool:
-    """The pool's device state: token buffer, per-row pad lengths, limits,
-    ends and done flags, the caches (layer-stacked, and per-layer views for
-    the per-op step), the fused step's packed weights, and the per-row
-    sampling state (request index, admission position, temperature, top-p)."""
+class _Slots:
+    """The per-row device state the host scheduler drives, shared by the
+    serving engines: the token buffer, left-pad lengths, limits, ends and
+    done flags, and the sampling state (request index, admission position,
+    temperature, top-p), all updated in place."""
 
-    def __init__(self, params, cfg, b: int, dev) -> None:
-        self.fused = decoder_lm_fused_ok(params, cfg, b)
-        self.packed, self.head = decoder_lm_pack(params, cfg) if self.fused else (None, None)
-        _, stacked = decoder_lm_make_cache(cfg, (b,), dtype=params["token_embs"].dtype, device=dev)
-        self.int8 = self.fused and _attn.use_int8_kv(b)
-        # the int8 pool: per-key int8 caches + scale planes for the whole call (zeros quantize harmlessly)
-        self.stacked = quantize_kv_caches(stacked) if self.int8 else stacked
-        self.caches = _layer_views(self.stacked)
-        self.buf = torch.zeros((b, cfg.max_seq_len), dtype=torch.int64, device=dev)
+    def __init__(self, b: int, l_max: int, dev) -> None:
+        self.buf = torch.zeros((b, l_max), dtype=torch.int64, device=dev)
         self.pad_lens = torch.zeros((b,), dtype=torch.int32, device=dev)
         self.limits = torch.zeros((b,), dtype=torch.int64, device=dev)
         self.ends = torch.zeros((b,), dtype=torch.int64, device=dev)
@@ -214,6 +229,168 @@ class _Pool:
         self.pad_lens[row] = pad_len
         self.limits[row] = pos + max_new
         self.done[row] = False
+
+    def draw(self, logits: torch.Tensor, pos: int, seed: int, topk: int, has_tp: bool) -> torch.Tensor:
+        """Each row's sampled next token at ``pos``: generated token ``pos -
+        t0`` of its request, by the counter-based uniform."""
+        u = _uniforms(seed, self.req, pos - self.t0)
+        return _sample_rows(logits, u, topk, self.temps, self.tps if has_tp else None)
+
+    def run_steps(self, pos: int, n_steps: int, eos: int, next_tokens) -> int:
+        """``n_steps`` decode steps over the whole pool with no
+        device-to-host sync, ``next_tokens(pos)`` giving each row's (B,)
+        token at ``pos`` from the token at ``pos - 1``. Finished rows park
+        writing EOS; a row's ``ends`` latches to pos+1 the step it finishes
+        (EOS emitted or its limit reached). Returns the new ``pos``."""
+        eos_t = torch.full_like(self.ends, eos)
+        for _ in range(n_steps):
+            nxt = torch.where(self.done, eos_t, next_tokens(pos))
+            new_done = self.done | (nxt == eos) | (pos + 1 >= self.limits)
+            self.ends = torch.where(new_done & ~self.done, pos + 1, self.ends)
+            self.buf[:, pos] = nxt
+            self.done = new_done
+            pos += 1
+        return pos
+
+
+def _serve(slots: _Slots, n_req: int, base: int, check_every: int, fits, n_prompt, budget, admit, steps,
+           sampling: tuple, on_tokens=None) -> tuple[list, ServingStats]:
+    """The host scheduler of every serving engine. Harvests finished slots,
+    admits queued requests in order into free slots while ``fits(pos, r)``
+    (all of one scheduling point in ONE ``admit(pos, [(row, r), ...])``
+    call, which fills each row's buffer and caches; the scheduler then arms
+    the rows: request r's prompt is the ``n_prompt(r)`` buffer slots before
+    ``pos``, its budget ``budget(r)`` new tokens), resets the epoch when the
+    pool drained and the head of the queue does not fit, then runs a chunk
+    of up to ``check_every`` decode steps (``steps(pos, n) -> pos``, no
+    further than every live row's limit) and copies ``(buf, ends, done)``
+    back in one transfer. ``sampling``: ``_parse_sampling_params``' tuple.
+    Returns each request's buffer span ``[pad, end)``, in order, and the
+    call's stats."""
+    b, l_max = slots.buf.shape
+    greedy, has_tp, temps_l, tps_l = sampling
+    pos = base
+    next_req = 0
+    slot_req: list[int | None] = [None] * b  # request index occupying each slot
+    slot_pad = [0] * b
+    slot_n = [0] * b
+    slot_lim = [0] * b
+    slot_seen = [0] * b  # next unstreamed buffer slot (on_tokens)
+    outputs: list[list[int] | None] = [None] * n_req
+    done_h = np.ones((b,), bool)
+    ends_h = np.zeros((b,), np.int64)
+    buf_h = None
+    stats = ServingStats(requests=n_req)
+    t_start = time.perf_counter()
+
+    while next_req < n_req or any(r is not None for r in slot_req):
+        # harvest finished slots, then admit queued requests in order
+        for row in range(b):
+            if slot_req[row] is not None and done_h[row]:
+                end = int(ends_h[row])
+                outputs[slot_req[row]] = buf_h[row, slot_pad[row]:end].tolist()
+                stats.tokens_generated += end - slot_pad[row] - slot_n[row]
+                slot_req[row] = None
+        admissions = []
+        for row in range(b):
+            if slot_req[row] is None and next_req < n_req and fits(pos, next_req):
+                admissions.append((row, next_req))
+                slot_req[row] = next_req
+                next_req += 1
+        if admissions:
+            admit(pos, admissions)
+            for row, r in admissions:
+                n, m = n_prompt(r), budget(r)
+                slots.arm(row, pos - n, pos, m)
+                if not greedy:  # the request's own counter and admission position
+                    slots.req[row] = r
+                    slots.t0[row] = pos
+                    slots.temps[row] = temps_l[r]
+                    if has_tp:
+                        slots.tps[row] = tps_l[r]
+                done_h[row] = False
+                slot_pad[row] = pos - n
+                slot_n[row] = n
+                slot_lim[row] = pos + m
+                slot_seen[row] = pos  # generated tokens start at slot pos
+                stats.admissions += 1
+
+        if all(r is None for r in slot_req):
+            if next_req < n_req:
+                # epoch reset: the pool drained and the head of the queue did not fit; parked rows must not
+                # take negative positions against the rewound pos (their stale state stays, masked)
+                pos = base
+                slots.pad_lens.zero_()
+                slots.limits.zero_()
+                stats.epoch_resets += 1
+                continue
+            break
+
+        # a chunk of decode steps (no further than every live row's limit), then the scheduler's one copy
+        live = [row for row in range(b) if slot_req[row] is not None and not done_h[row]]
+        n_steps = min(check_every, l_max - pos, max(slot_lim[row] for row in live) - pos)
+        pos_before = pos
+        pos = steps(pos, n_steps)
+        snap = torch.cat([slots.buf, slots.ends[:, None], slots.done[:, None].long()], dim=1).cpu().numpy()
+        buf_h, ends_h, done_h = snap[:, :l_max], snap[:, l_max], snap[:, l_max + 1].astype(bool)
+        d_steps = pos - pos_before
+        stats.scheduling_points += 1
+        stats.decode_steps += d_steps
+        stats.slot_steps += d_steps * b
+        stats.live_slot_steps += d_steps * len(live)
+
+        if on_tokens is not None:
+            for row in range(b):
+                r = slot_req[row]
+                if r is None:
+                    continue
+                upto = int(ends_h[row]) if done_h[row] else pos  # finished rows park past their end
+                if upto > slot_seen[row]:
+                    on_tokens(r, buf_h[row, slot_seen[row]:upto].tolist())
+                    slot_seen[row] = upto
+
+    stats.wall_time_s = time.perf_counter() - t_start
+    return outputs, stats
+
+
+class _Pool(_Slots):
+    """The decoder-LM pool: the shared slot state, the caches (layer-stacked,
+    and per-layer views for the per-op step) and the fused step's packed
+    weights."""
+
+    def __init__(self, params, cfg, b: int, dev) -> None:
+        super().__init__(b, cfg.max_seq_len, dev)
+        self.fused = decoder_lm_fused_ok(params, cfg, b)
+        self.packed, self.head = decoder_lm_pack(params, cfg) if self.fused else (None, None)
+        _, stacked = decoder_lm_make_cache(cfg, (b,), dtype=params["token_embs"].dtype, device=dev)
+        self.int8 = self.fused and _attn.use_int8_kv(b)
+        # the int8 pool: per-key int8 caches + scale planes for the whole call (zeros quantize harmlessly)
+        self.stacked = quantize_kv_caches(stacked) if self.int8 else stacked
+        self.caches = _layer_views(self.stacked)
+
+
+class _CrossPool(_Slots):
+    """An encoder-decoder pool (Whisper, T5): the slot state, self caches
+    ``(L, B, Lp, W)`` and cross caches ``(L, B, Lx, W)`` with per-row lengths
+    (per-key int8 with scale planes where ``i8_self`` / ``i8_cross``), their
+    per-layer views for the per-op step, and the fused step's cross
+    operands (``fused``)."""
+
+    def __init__(self, b: int, l_max: int, lx: int, n_layers: int, lc, dtype, dev, fused: bool, i8_self: bool,
+                 i8_cross: bool) -> None:
+        super().__init__(b, l_max, dev)
+        self.dtype, self.fused, self.i8_self, self.i8_cross = dtype, fused, i8_self, i8_cross
+        _, stacked = tfm.make_kv_cache(n_layers, (b,), lc.n_heads, l_max, lc.head_dim, dtype, dev)
+        self.stacked = quantize_kv_caches(stacked) if i8_self else stacked
+        self.caches = _layer_views(self.stacked)
+        shape = (n_layers, b, lx, lc.n_heads * lc.head_dim)
+        cross = {"k": torch.zeros(shape, dtype=dtype, device=dev), "v": torch.zeros(shape, dtype=dtype, device=dev),
+                 "len": torch.zeros((b,), dtype=torch.int32, device=dev)}
+        self.cross = quantize_kv_caches(cross) if i8_cross else cross
+        self.cross_views = [{"k": self.cross["k"][i], "v": self.cross["v"][i], "len": self.cross["len"]}
+                            for i in range(n_layers)]
+        if fused:
+            self.cross_ops = cross_operands(self.cross, dtype)
 
 
 class ContinuousBatchingGenerator:
@@ -252,16 +429,13 @@ class ContinuousBatchingGenerator:
 
     def _steps(self, pool: _Pool, pos: int, n_steps: int, eos: int, greedy: bool, topk: int, has_tp: bool,
                seed: int) -> int:
-        """Up to ``n_steps`` decode steps over the whole pool, enqueued with
-        no device-to-host sync. Finished rows park writing EOS; a row's
-        ``ends`` latches to pos+1 the step it finishes (EOS emitted or its
-        limit reached). Returns the new ``pos``."""
+        """Up to ``n_steps`` decode steps over the whole pool (``_Slots.run_steps``)."""
         params, cfg = self.model.params, self.model.cfg
         b = pool.buf.shape[0]
-        eos_t = torch.full((b,), eos, dtype=torch.int64, device=pool.buf.device)
         greedy_head = (greedy and not pool.fused
                        and _attn.use_greedy_head(b, params["token_embs"], tied=True))
-        for _ in range(n_steps):
+
+        def next_tokens(pos):
             tok = pool.buf[:, pos - 1:pos]
             p_ids = (pos - 1 - pool.pad_lens.long())[:, None]
             step = (params, cfg, tok, p_ids)
@@ -272,32 +446,25 @@ class ContinuousBatchingGenerator:
                     logits = tied_logits(params, hidden[:, 0])
                 else:
                     logits = decoder_lm_forward_cached_batch(*step, pool.caches, pos - 1, pool.pad_lens)[0][:, 0]
-                u = _uniforms(seed, pool.req, pos - pool.t0)
-                nxt = _sample_rows(logits, u, topk, pool.temps, pool.tps if has_tp else None)
-            elif pool.fused:  # layer stack + final norm + argmax in ONE kernel
-                nxt = decoder_lm_fused_tok_batch(params, pool.packed, pool.head, cfg, tok, p_ids, pool.stacked,
-                                                 pos - 1, pool.pad_lens)
-            elif greedy_head:
+                return pool.draw(logits, pos, seed, topk, has_tp)
+            if pool.fused:  # layer stack + final norm + argmax in ONE kernel
+                return decoder_lm_fused_tok_batch(params, pool.packed, pool.head, cfg, tok, p_ids, pool.stacked,
+                                                  pos - 1, pool.pad_lens)
+            if greedy_head:
                 hidden, _ = decoder_lm_hidden_cached_batch(*step, pool.caches, pos - 1, pool.pad_lens)
-                nxt = greedy_argmax_tied(hidden[:, 0], params["token_embs"].to(hidden.dtype))
-            else:
-                logits, _ = decoder_lm_forward_cached_batch(*step, pool.caches, pos - 1, pool.pad_lens)
-                nxt = torch.argmax(logits[:, 0], dim=-1)
-            nxt = torch.where(pool.done, eos_t, nxt)
-            new_done = pool.done | (nxt == eos) | (pos + 1 >= pool.limits)
-            pool.ends = torch.where(new_done & ~pool.done, pos + 1, pool.ends)
-            pool.buf[:, pos] = nxt
-            pool.done = new_done
-            pos += 1
-        return pos
+                return greedy_argmax_tied(hidden[:, 0], params["token_embs"].to(hidden.dtype))
+            logits, _ = decoder_lm_forward_cached_batch(*step, pool.caches, pos - 1, pool.pad_lens)
+            return torch.argmax(logits[:, 0], dim=-1)
 
-    def _admit(self, pool: _Pool, row: int, pos: int, toks: list, m_eff: int, prefix, prefix_caches) -> None:
-        """Admit ``toks`` (after the shared ``prefix``) into slot ``row`` at
+        return pool.run_steps(pos, n_steps, eos, next_tokens)
+
+    def _admit(self, pool: _Pool, row: int, pos: int, toks: list, prefix, prefix_caches) -> None:
+        """Fill slot ``row`` with ``toks`` (after the shared ``prefix``) at
         ``pos``: paste the prefix, forward whole bucket chunks left to right
         while the prompt is longer than the bucket, forward the tail chunk
-        ``[pos-1-P, pos-1)``, then arm the row. The int8 pool runs it all on
-        a one-row full-precision scratch cache and commits the row quantized
-        once."""
+        ``[pos-1-P, pos-1)`` (the scheduler then arms the row). The int8
+        pool runs it all on a one-row full-precision scratch cache and
+        commits the row quantized once."""
         params, cfg = self.model.params, self.model.cfg
         p = self.prompt_bucket
         k = len(prefix) if prefix else 0
@@ -320,12 +487,8 @@ class ContinuousBatchingGenerator:
         n_tok = min(s, p)  # the tail's tokens land at [pos-n_tok, pos); earlier slots keep theirs
         buf[row, pos - n_tok:pos] = _to_device(toks[s - n_tok:], buf.device)
         _row_prefill(params, cfg, buf, row, target, cache_row, max(pos - 1 - p, 0), pad_len, p)
-        pool.arm(row, pad_len, pos, m_eff)
         if pool.int8:
-            for kv in ("k", "v"):
-                q, sc = quantize_rows(target[kv][:, 0])
-                pool.stacked[kv][:, row] = q
-                pool.stacked[kv + "s"][:, row] = sc[..., 0]
+            _commit_rows(pool.stacked, row, target["k"][:, 0], target["v"][:, 0], True)
 
     @torch.inference_mode()
     def generate_tokens_many(self, requests: list[list[int]], max_tokens: int | list[int] = 100,
@@ -350,7 +513,8 @@ class ContinuousBatchingGenerator:
         n_req = len(requests)
         if n_req == 0:
             return []
-        greedy, has_tp, temps_l, tps_l = _parse_sampling_params(n_req, topk, top_p, temperature)
+        sampling = _parse_sampling_params(n_req, topk, top_p, temperature)
+        greedy, has_tp = sampling[:2]
         budgets = [max_tokens] * n_req if isinstance(max_tokens, int) else list(max_tokens)
         if len(budgets) != n_req:
             raise ValueError("per-request max_tokens must have one entry per request")
@@ -365,7 +529,7 @@ class ContinuousBatchingGenerator:
         # chunk-prefill at admission); not bucket-rounded, which would reject feasible prompts near max_seq_len
         base = kp + max(p_bucket, max(len(t) for t in requests))
 
-        def fits(pos, n, m_eff):
+        def fits_n(pos, n, m_eff):
             if pos + m_eff > l_max or pos + 1 > l_max:
                 return False
             return not k or pos - n + kp <= l_max  # the JAX package's prefix paste window stays in bounds
@@ -376,7 +540,7 @@ class ContinuousBatchingGenerator:
                 raise ValueError("empty request")
             n = k + len(toks)
             m_eff = min(m, l_max - n)  # plain generator: limit = min(n + max_tokens, L)
-            if m_eff < 1 or not fits(base, n, m_eff):
+            if m_eff < 1 or not fits_n(base, n, m_eff):
                 raise ValueError(f"request (n={n}, max_tokens={m}) cannot fit a fresh epoch "
                                  f"(epoch base {base} + {m_eff} > max_seq_len {l_max})")
             plans.append((toks, m_eff))
@@ -387,86 +551,16 @@ class ContinuousBatchingGenerator:
             chunk[:k] = torch.as_tensor(shared_prefix)
             prefix_caches = _prefix_caches(params, cfg, chunk)
 
-        b = self.batch_size
-        pool = _Pool(params, cfg, b, dev)
-        pos = base
-        next_req = 0
-        slot_req: list[int | None] = [None] * b  # request index occupying each slot
-        slot_pad = [0] * b
-        slot_n = [0] * b
-        slot_lim = [0] * b
-        slot_seen = [0] * b  # next unstreamed buffer slot (on_tokens)
-        outputs: list[list[int] | None] = [None] * n_req
-        done_h = np.ones((b,), bool)
-        ends_h = np.zeros((b,), np.int64)
-        buf_h = None
-        stats = ServingStats(requests=n_req)
-        t_start = time.perf_counter()
+        pool = _Pool(params, cfg, self.batch_size, dev)
 
-        while next_req < n_req or any(r is not None for r in slot_req):
-            # harvest finished slots, then admit queued requests in order
-            for row in range(b):
-                if slot_req[row] is not None and done_h[row]:
-                    end = int(ends_h[row])
-                    outputs[slot_req[row]] = buf_h[row, slot_pad[row]:end].tolist()
-                    stats.tokens_generated += end - slot_pad[row] - slot_n[row]
-                    slot_req[row] = None
-            for row in range(b):
-                if slot_req[row] is None and next_req < n_req:
-                    toks, m_eff = plans[next_req]
-                    n = k + len(toks)
-                    if not fits(pos, n, m_eff):
-                        continue  # the head of the queue does not fit this epoch
-                    self._admit(pool, row, pos, toks, m_eff, shared_prefix, prefix_caches)
-                    if not greedy:  # the request's own counter and admission position
-                        pool.req[row] = next_req
-                        pool.t0[row] = pos
-                        pool.temps[row] = temps_l[next_req]
-                        if has_tp:
-                            pool.tps[row] = tps_l[next_req]
-                    done_h[row] = False
-                    slot_req[row] = next_req
-                    slot_pad[row] = pos - n
-                    slot_n[row] = n
-                    slot_lim[row] = pos + m_eff
-                    slot_seen[row] = pos  # generated tokens start at slot pos
-                    stats.admissions += 1
-                    next_req += 1
+        def admit(pos, admissions):
+            for row, r in admissions:
+                self._admit(pool, row, pos, plans[r][0], shared_prefix, prefix_caches)
 
-            if all(r is None for r in slot_req):
-                if next_req < n_req:
-                    # epoch reset: the pool drained and the head of the queue did not fit; parked rows must not
-                    # take negative position ids against the rewound pos (their stale state stays, masked)
-                    pos = base
-                    pool.pad_lens.zero_()
-                    pool.limits.zero_()
-                    stats.epoch_resets += 1
-                    continue
-                break
-
-            # a chunk of decode steps (no further than every live row's limit), then the scheduler's one copy
-            live = [row for row in range(b) if slot_req[row] is not None and not done_h[row]]
-            n_steps = min(self.check_every, l_max - pos, max(slot_lim[row] for row in live) - pos)
-            pos_before = pos
-            pos = self._steps(pool, pos, n_steps, eos, greedy, topk, has_tp, seed)
-            snap = torch.cat([pool.buf, pool.ends[:, None], pool.done[:, None].long()], dim=1).cpu().numpy()
-            buf_h, ends_h, done_h = snap[:, :l_max], snap[:, l_max], snap[:, l_max + 1].astype(bool)
-            d_steps = pos - pos_before
-            stats.scheduling_points += 1
-            stats.decode_steps += d_steps
-            stats.slot_steps += d_steps * b
-            stats.live_slot_steps += d_steps * len(live)
-
-            if on_tokens is not None:
-                for row in range(b):
-                    r = slot_req[row]
-                    if r is None:
-                        continue
-                    upto = int(ends_h[row]) if done_h[row] else pos  # finished rows park past their end
-                    if upto > slot_seen[row]:
-                        on_tokens(r, buf_h[row, slot_seen[row]:upto].tolist())
-                        slot_seen[row] = upto
-
-        stats.wall_time_s = time.perf_counter() - t_start
-        self.last_stats = stats
+        outputs, self.last_stats = _serve(
+            pool, n_req, base, self.check_every,
+            fits=lambda pos, r: fits_n(pos, k + len(plans[r][0]), plans[r][1]),
+            n_prompt=lambda r: k + len(plans[r][0]), budget=lambda r: plans[r][1], admit=admit,
+            steps=lambda pos, n: self._steps(pool, pos, n, eos, greedy, topk, has_tp, seed),
+            sampling=sampling, on_tokens=on_tokens)
         return outputs  # type: ignore[return-value]

@@ -21,10 +21,11 @@ cache starts int8; at most 128 (row, head) pairs per group of 8 rows, the
 JAX package's routing rule) and ``USE_INT8_KV_CROSS``. An int8 classifier
 takes the head matmul + argmax on the per-op route. Teacher-forced scoring
 runs the uncached encoder-decoder. Beam search (``generate_beam_tokens``)
-decodes its W beams through the fused step headless, or per-op. Not ported
-yet: ``SpeculativeT5Generator``, continuous batching, the t5x checkpoint
-reader (``from_t5x(pretrained=True)``) and the sentencepiece tokenizer: the
-string methods need a tokenizer the caller passes in.
+decodes its W beams through the fused step headless, or per-op. Continuous
+batching is ``models/text/t5_continuous.py``. Not ported yet:
+``SpeculativeT5Generator``, the t5x checkpoint reader
+(``from_t5x(pretrained=True)``) and the sentencepiece tokenizer: the string
+methods need a tokenizer the caller passes in.
 """
 
 from __future__ import annotations
@@ -259,33 +260,38 @@ def _t5_key_major_bias(bias_table: torch.Tensor) -> torch.Tensor:
     return bias_table.permute(1, 2, 0).float().contiguous()
 
 
-def _fused_t5_step(params: dict, packed: dict, head: dict, cfg: T5Config, tok: torch.Tensor, caches: dict,
-                   cross: tuple, lens: torch.Tensor, bias_km: torch.Tensor, pos: int) -> torch.Tensor:
+def _fused_t5_step(params: dict, packed: dict, head: dict | None, cfg: T5Config, tok: torch.Tensor, caches: dict,
+                   cross: tuple, lens: torch.Tensor, bias_km: torch.Tensor, pos: int,
+                   pad_lens: torch.Tensor | None = None) -> torch.Tensor:
     """One fused decode step: embeddings (K3, or the embed phase) -> ONE
     kernel (RMSNorm + rel-pos self bias + cross-attention + GEGLU, every
-    layer, + final RMSNorm + untied greedy argmax) over the stacked caches
-    (int8 with ``ks``/``vs``); ``cross`` is ``_decoder_lm.cross_operands``'
-    ``(ck, cv, kv_scales_x)``; this step's K/V are written at ``pos``.
-    Returns the next token ids (B,)."""
+    layer [+ final RMSNorm + untied greedy argmax]) over the stacked caches
+    (int8 with ``ks``/``vs``); ``tok`` (B,); ``cross`` is
+    ``_decoder_lm.cross_operands``' ``(ck, cv, kv_scales_x)``; the self
+    bias is row ``pos`` of the key-major table ``bias_km``; this step's K/V
+    are written at ``pos``; ``pad_lens`` (B,) masks each row's left-pad
+    slots (a left-padded pool). Returns the next token ids (B,) with
+    ``head``, else (headless) the final-normed hidden state (B, d)."""
     from ...ops.decode_step import fused_cross_decode_step
     from ._decoder_lm import embed_or_fold, kv_scales
 
     lc = cfg.layer
     x, emb_kw = embed_or_fold(params["token_embs"], None, tok[:, None], None)  # T5's decoder has no position table
     ck, cv, kvx = cross
-    _, nxt = fused_cross_decode_step(x, packed, caches["k"], caches["v"], ck, cv, lens, pos, None, lc.n_heads,
+    x, nxt = fused_cross_decode_step(x, packed, caches["k"], caches["v"], ck, cv, lens, pos, pad_lens, lc.n_heads,
                                      "approximate_gelu", 1e-5, head=head, norm="rms", gated=True, sbias=bias_km[pos],
                                      a8=_attn.use_a8_decode(packed["wqkv"].dtype), kv_scales=kv_scales(caches),
                                      kv_scales_x=kvx, **emb_kw)
-    return nxt
+    return nxt if head is not None else rms_norm(params["decoder"]["norm"], x)
 
 
 def _t5_decode_layers(dec: dict, cfg: T5Config, h: torch.Tensor, caches: list, cross_caches: list,
-                      bias: torch.Tensor, pos: int) -> torch.Tensor:
+                      bias: torch.Tensor, pos: int, pad_lens: torch.Tensor | None = None) -> torch.Tensor:
     """One per-op decode step through every layer with per-layer caches (the
-    cross caches' ``len`` masks each row's prompt padding)."""
+    cross caches' ``len`` masks each row's prompt padding; ``pad_lens``
+    (B,) each row's left-pad slots)."""
     for lp, cache, cc in zip(dec["layers"], caches, cross_caches, strict=True):
-        h, _ = t5_block_apply(lp, cfg, h, attn_bias=bias, self_cache=cache, cross_cache=cc, pos=pos)
+        h, _ = t5_block_apply(lp, cfg, h, attn_bias=bias, self_cache=cache, cross_cache=cc, pos=pos, pad_lens=pad_lens)
     return h
 
 
@@ -390,21 +396,18 @@ def _t5_beam(params: dict, cfg: T5Config, enc_tokens: torch.Tensor, n_enc: torch
                                         torch.arange(l_pad, device=dev), False, cfg)
     fused = _t5_fused_ok(params, cfg, w)
     if fused:
-        from ...ops.decode_step import fused_cross_decode_step, pack_decode_weights
-        from ._decoder_lm import cross_operands, embed_or_fold
+        from ...ops.decode_step import pack_decode_weights
+        from ._decoder_lm import cross_operands
 
         packed = pack_decode_weights(dec["layers"], dtype, cross=True, gated=True)
         bias_km = _t5_key_major_bias(bias_table)
-        ck, cv, _ = cross_operands(cross_stacked, dtype)
+        cross_ops = cross_operands(cross_stacked, dtype)
 
     def forward(tok, caches, pos):  # the token at buffer index pos - 1 -> cache and bias position pos - 1
-        if fused:  # the headless step; the final RMSNorm and the classifier here
-            x, emb_kw = embed_or_fold(params["token_embs"], None, tok, None)
-            x, _ = fused_cross_decode_step(x, packed, caches[1]["k"], caches[1]["v"], ck, cv, cross_stacked["len"],
-                                           pos - 1, None, lc.n_heads, "approximate_gelu", 1e-5, norm="rms",
-                                           gated=True, sbias=bias_km[pos - 1],
-                                           a8=_attn.use_a8_decode(packed["wqkv"].dtype), **emb_kw)
-            return linear(params["classifier"], rms_norm(dec["norm"], x)), caches
+        if fused:  # the headless step, the final RMSNorm included; the classifier here
+            h = _fused_t5_step(params, packed, None, cfg, tok[:, 0], caches[1], cross_ops, cross_stacked["len"],
+                               bias_km, pos - 1)
+            return linear(params["classifier"], h), caches
         h = embed_rows(params["token_embs"], tok)
         h = _t5_decode_layers(dec, cfg, h, caches[0], cross, bias_table[:, pos - 1:pos], pos - 1)
         return linear(params["classifier"], rms_norm(dec["norm"], h))[:, 0], caches

@@ -7,7 +7,9 @@ untied table).
 
 :func:`fused_decode_step` (GPT-2) and :func:`fused_cross_decode_step`
 (Whisper; T5 with ``norm="rms", gated=True, sbias=...``) launch the
-hand-written CUDA kernel ``csrc/decode_step.cu`` on CUDA tensors and run
+hand-written CUDA kernel ``csrc/decode_step_kernel.cuh`` (one instantiation
+per ``csrc/decode_step_*.cu`` source; the C interface in
+``csrc/decode_step.cu``) on CUDA tensors and run
 :func:`fused_decode_step_plain` on CPU tensors.
 
 Cache convention: the JAX kernel returns the step's ``k_new, v_new (L, B,
@@ -402,7 +404,7 @@ _INTS = ("n_layers", "b", "d", "hd", "dff", "n_heads", "l_max", "lx", "pos", "vo
 
 
 class _Args(ctypes.Structure):
-    """csrc/decode_step.cu ``Args``, field for field. ``stamps`` comes last,
+    """csrc/decode_step.cuh ``Args``, field for field. ``stamps`` comes last,
     so every earlier field keeps its offset and a library built from an
     older tree reads this structure's prefix unchanged."""
 
@@ -411,7 +413,7 @@ class _Args(ctypes.Structure):
 
 
 def _plan(args: _Args) -> tuple[int, int]:
-    """The kernel's launch planner (csrc/decode_step.cu ``plan``) on the
+    """The kernel's launch planner (csrc/decode_step_kernel.cuh ``plan``) on the
     current device: ``(workspace bytes or a negated CUDA error, grid)``. It
     reads only the shape fields, ``dtype``, ``wt_int8``, ``gated`` and
     ``head_a8`` of ``args``."""

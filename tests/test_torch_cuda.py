@@ -1070,10 +1070,11 @@ def test_vit_k1_route_matches_sdpa_route(cuda, pool, cls):
 # K7 above one row group (9 to 32 rows in one launch, groups of 8 over a share that stays in the ring): every
 # variant against the plain twin at the tolerances of its family above (float: fp32 1e-4, bf16 0.05 + 2^-6;
 # int8: fp32 5e-3, bf16 0.05 + 2^-6), the token by the plain head's regret on the kernel's own x_out (float)
-# or by agreement (int8), the int8 K/V written at pos one level apart at most
+# or by agreement (int8), the int8 K/V written at pos one level apart at most; T5 also with the mixed left pads
+# of a T5 pool (one row's cached range empty until pos)
 ROW_GROUP_BATCHES = [9, 16, 17, 31, 32]
 ROW_GROUP_VARIANTS = ["base", "base-768", "cross", "t5", "headless", "embed", "w8a16-kv8", "w8a8", "whisper-kv8",
-                      "t5-w8a8-kv8"]
+                      "t5-w8a8-kv8", "t5-pads", "t5-w8a8-kv8-pads"]
 
 
 def _cycle(vals, b, dev):
@@ -1088,13 +1089,15 @@ def test_fused_step_row_groups_match_plain(cuda, dtype, variant, b):
     from pytorch_models_tpu_torch.ops.decode_step import fused_decode_step_plain, pack_embed_tables
 
     f32 = dtype == torch.float32
+    padded = variant.endswith("-pads")
+    variant = variant.removesuffix("-pads")
     if variant in ("w8a16-kv8", "w8a8", "whisper-kv8", "t5-w8a8-kv8"):
         kind = {"w8a16-kv8": "gpt2", "w8a8": "gpt2", "whisper-kv8": "whisper", "t5-w8a8-kv8": "t5"}[variant]
         a8 = variant in ("w8a8", "t5-w8a8-kv8")
         atol, rtol = (5e-3, 5e-3) if f32 else (0.05, 2.0 ** -6)
         cfg, packed, head, x, sc, xc, sbias = _int8_step_inputs(cuda, dtype, kind, a8, b=b)
         pos = 200
-        pads = None if kind == "t5" else _cycle([0, 5, 200, 130], b, cuda)
+        pads = None if kind == "t5" and not padded else _cycle([0, 5, 200, 130], b, cuda)
         kw = dict(a8=a8)
         if kind != "gpt2":
             kw.update(cross_k=xc["k"], cross_v=xc["v"], cross_lens=_cycle([256, 7, 0, 130], b, cuda),
@@ -1130,7 +1133,8 @@ def test_fused_step_row_groups_match_plain(cuda, dtype, variant, b):
         kc, vc, xk, xv = (torch.randn(2, b, 128, 128, generator=gen).to(cuda, dtype) for _ in range(4))
         cross = [xk, xv, _cycle([64, 7, 0, 50], b, cuda)]
         kw = dict(norm="rms", gated=True, sbias=2.0 * torch.randn(128, 2, generator=gen).to(cuda))
-        n_heads, act, eps, pads = 2, "approximate_gelu", 1e-5, None
+        n_heads, act, eps = 2, "approximate_gelu", 1e-5
+        pads = _cycle([0, 5, 70, 3, 0, 35, 1, 17], b, cuda) if padded else None
     else:
         c = variant == "cross"
         cfg, packed, head, x, (kc, vc), (xk, xv) = _step_inputs(cuda, dtype, c, b=b,
