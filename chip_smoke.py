@@ -297,12 +297,13 @@ def _spin_cycles_per_s() -> float:
     return _SPIN_RATE[0]
 
 
-def _ab_ms(kernel_fns, plain_fns, iters: int) -> tuple[float, float]:
-    """Kernel and plain times in turns (plain, kernel, kernel, plain)."""
-    p1 = _time_ms(plain_fns, iters)
+def _ab_ms(kernel_fns, plain_fns, iters: int, plain_iters: int | None = None) -> tuple[float, float]:
+    """Kernel and plain times in turns (plain, kernel, kernel, plain), the
+    plain version over ``plain_iters`` calls a turn (default ``iters``)."""
+    p1 = _time_ms(plain_fns, plain_iters or iters)
     k1 = _time_ms(kernel_fns, iters)
     k2 = _time_ms(kernel_fns, iters)
-    p2 = _time_ms(plain_fns, iters)
+    p2 = _time_ms(plain_fns, plain_iters or iters)
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
@@ -1029,6 +1030,8 @@ def _k7_model(dev, kind: str):
 
 
 K7_BATCHES = (8, 16, 32)  # K7's kernel phases: one row group, two, and the most it serves (ops.decode_step.MAX_BATCH)
+# K7 at one row, the speculative drafts' batch: at the whole stack (the identical draft) and at SPEC_DRAFT_LAYERS
+SPEC_DRAFT_LAYERS = 2
 
 
 def _cycle(vals: list, b: int) -> list:
@@ -1036,14 +1039,17 @@ def _cycle(vals: list, b: int) -> list:
     return [vals[i % len(vals)] for i in range(b)]
 
 
-def _k7_key(name: str, b: int) -> str:
-    """A K7 record's name at B rows: the B=8 records keep their names."""
-    return name if b == 8 else f"{name}_b{b}"
+def _k7_key(name: str, b: int, depth: int | None = None) -> str:
+    """A K7 record's name at B rows (the B=8 records keep their names) and,
+    for a truncated draft, ``depth`` layers."""
+    return (name if b == 8 else f"{name}_b{b}") + ("" if depth is None else f"_l{depth}")
 
 
 def decode_step_phases(dev, card: str) -> dict:
     """K7 against its plain version at the full GPT-2-small, Whisper-base and
-    T5-base shapes, B=8, 16 and 32 (K7_BATCHES), fp32 and bf16: mixed left pads with one row whose
+    T5-base shapes, B=8, 16 and 32 (K7_BATCHES) and B=1 (the speculative
+    drafts: the whole stack, and its first SPEC_DRAFT_LAYERS layers; GPT-2
+    also headless), fp32 and bf16: mixed left pads with one row whose
     cached range is empty until pos (every kind: T5's pools decode with
     them, masked before its self bias is added), per-row cross lengths with a short row, T5's seeded rel-pos self
     bias (which must move fp32 x_out by far more than its tolerance); x_out
@@ -1068,17 +1074,21 @@ def decode_step_phases(dev, card: str) -> dict:
 
     res = {}
     g = torch.Generator(device=dev).manual_seed(SEED + 6)
-    for kind, b in [(kind, b) for kind in ("gpt2", "whisper", "t5") for b in K7_BATCHES]:
+    cases = [(b, None) for b in K7_BATCHES] + [(1, None), (1, SPEC_DRAFT_LAYERS)]
+    for kind, (b, depth) in [(kind, case) for kind in ("gpt2", "whisper", "t5") for case in cases]:
         if b == K7_BATCHES[0]:
             cfg32, layers32, emb32, final32 = _k7_model(dev, kind)
         cross, t5 = kind != "gpt2", kind == "t5"
         name = {"gpt2": "fused_decode_step", "whisper": "fused_cross_decode_step",
                 "t5": "fused_cross_decode_step_t5"}[kind]
-        key = _k7_key(name, b)
-        n_layers, d, hd = len(layers32), cfg32.d_model, cfg32.n_heads * cfg32.head_dim
+        key = _k7_key(name, b, depth)
+        stack = layers32[:depth]
+        n_layers, d, hd = len(stack), cfg32.d_model, cfg32.n_heads * cfg32.head_dim
         l_max, pos = (1024, 127) if kind == "gpt2" else (128, 40)
-        # mixed left pads, one row's cached range empty until pos (T5 too: its pools decode with them)
-        pads = torch.tensor(_cycle([0, 5, pos, 3, 0, pos // 2, 1, 17], b), dtype=torch.int32, device=dev)
+        # mixed left pads, one row's cached range empty until pos (T5 too: its pools decode with them); a draft's
+        # one row has none
+        pads = None if b == 1 else torch.tensor(_cycle([0, 5, pos, 3, 0, pos // 2, 1, 17], b), dtype=torch.int32,
+                                                device=dev)
         if t5:  # T5's cross rows are prompts of 7-64 tokens in a 128-slot cache
             lx = 128
             lens = torch.tensor(_cycle([64, 64, 7, 64, 50, 64, 12, 64], b), dtype=torch.int32, device=dev)
@@ -1093,7 +1103,7 @@ def decode_step_phases(dev, card: str) -> dict:
                                 device=dev)
         for dtype in (torch.float32, torch.bfloat16):
             dn = str(dtype).removeprefix("torch.")
-            layers = cast_tree(layers32, dtype)
+            layers = cast_tree(stack, dtype)
             packed = pack_decode_weights(layers, dtype, cross=cross, gated=t5)
             head = pack_greedy_head(emb32, final32, dtype, tied=not t5)
             x = torch.randn(b, d, generator=g, device=dev).to(dtype)
@@ -1196,6 +1206,8 @@ def decode_step_phases(dev, card: str) -> dict:
                   f"{ms * 1e3:.1f} us ({ms2 * 1e3:.1f} us in the second pair), plain {plain_ms * 1e3:.1f} us, "
                   f"per-op step {op_ms * 1e3:.1f} us, bound {r['bound_ms'] * 1e3:.1f} us ({r['bound_by']}, "
                   f"{nbytes / 1e6:.1f} MB) [{card}]")
+            if b == 1 and (kind != "gpt2" or depth is not None):
+                continue  # the one-row headless step serves the sampled drafts, GPT-2's identical draft
             res.update(_headless_check(kind, name, dn, card, x, packed, kc, vc, xk, xv, lens, pos, pads, cfg32,
                                        variant, final32, head, None if b == 8 else b))
     torch.cuda.synchronize()
@@ -2495,7 +2507,8 @@ def int8_decode_step_phases(dev, card: str) -> dict:
             # the token: the plain head on the kernel's own x_out (the a8 head exactly)
             uncertain, regret = _head_check(f"{name} {dn}", head, got_x, got_tok, cfg32.norm_eps, norm)
             with torch.inference_mode():
-                ms, plain_ms = _ab_ms([lambda: run(sc, False)], [lambda: run(ref_c, True)], 10)
+                # the int8 twin takes 25-80 ms a call: 3 a turn keep the phase inside the script's time aim
+                ms, plain_ms = _ab_ms([lambda: run(sc, False)], [lambda: run(ref_c, True)], 10, plain_iters=3)
             # bytes: every weight (int8: 1 byte + an fp32 scale per column) and the head table once, the small
             # params, the cached keys' K/V (int8 + 8 bytes of scales per key) and the K/V written
             w_bytes = sum(t.numel() * t.element_size() for k, t in packed.items())
@@ -3705,6 +3718,359 @@ def cb_t5_path(dev, card: str, profile_dir: str | None = None) -> dict:
     return _launches({"fused_cross_decode_step", "embed_add"})
 
 
+# speculative decoding (spec_paths): k drafts a verify chunk; new tokens of the one-row GPT-2 runs, of the B=8
+# batch and of the sampled run (whose identity-draft check covers one iteration: k drafts and the bonus)
+SPEC_K = 4
+SPEC_NEW, SPEC_BATCH_NEW, SPEC_SAMPLE_NEW = 64, 32, 32
+SPEC_B = 8
+
+
+class _Clock:
+    """While active, ``getattr(module, attr)`` is wrapped: each call whose
+    inputs ``pick(*args)`` accepts is counted, and each is bracketed by CUDA
+    events (device time between the call's first and last launch, idle gaps
+    included). The speculative loops look their forwards up at call time."""
+
+    def __init__(self, module, attr: str, pick=lambda *a: True):
+        self.module, self.attr, self.pick, self.pairs, self.calls = module, attr, pick, [], 0
+
+    def __enter__(self):
+        import torch
+
+        self._orig = fn = getattr(self.module, self.attr)
+
+        def clocked(*args, **kw):
+            if not self.pick(*args):
+                return fn(*args, **kw)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kw)
+            end.record()
+            self.pairs.append((start, end))
+            self.calls += 1
+            return out
+
+        setattr(self.module, self.attr, clocked)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.attr, self._orig)
+
+    def mean_ms(self) -> float:
+        import torch
+
+        torch.cuda.synchronize()
+        return float(np.mean([a.elapsed_time(b) for a, b in self.pairs])) if self.pairs else float("nan")
+
+
+def _spec_clocks(kind: str, k: int, batched: bool = False) -> tuple:
+    """(verify-chunk clock, draft-step clock) of one model's speculative
+    loop: the (k+1)-token per-op forward, and the draft's step (one-row:
+    the fused step; GPT-2's batch: the per-op one-token forward)."""
+    from pytorch_models_tpu_torch.models.audio2text import whisper as whisper_mod
+    from pytorch_models_tpu_torch.models.text import speculative as spec_mod
+    from pytorch_models_tpu_torch.models.text import t5 as t5_mod
+
+    def width(i, s):  # calls whose token chunk, argument i, is s tokens wide
+        return lambda *a: a[i].shape[1] == s
+
+    if kind == "gpt2":
+        draft = _Clock(spec_mod, "decoder_lm_hidden_cached_batch", width(2, 1)) if batched else \
+            _Clock(spec_mod, "decoder_lm_fused_tok_batch")
+        return _Clock(spec_mod, "decoder_lm_forward_cached_batch", width(2, k + 1)), draft
+    if kind == "whisper":
+        return _Clock(whisper_mod, "_decoder_logits_chunk", width(3, k + 1)), _Clock(whisper_mod, "_fused_whisper_step")
+    return _Clock(t5_mod, "_t5_spec_chunk_forward", width(3, k + 1)), _Clock(t5_mod, "_fused_t5_step")
+
+
+def _spec_run(what: str, kind: str, gen, run, k7_key: str, extra_steps: int = 0) -> tuple[list, dict]:
+    """One fp32 one-row speculative call ``run(gen)`` on the fused route,
+    its K7 launches held to the draft steps (k per iteration, + the pad
+    token's for T5) and its verify chunks to ``gen.last_iters``. Returns
+    ``(tokens, {k7_key: launches})``."""
+    from pytorch_models_tpu_torch.ops.decode_step import fused_cross_decode_step, fused_decode_step
+
+    k7 = fused_decode_step if kind == "gpt2" else fused_cross_decode_step
+    before = k7.launches
+    verify, _ = _spec_clocks(kind, gen.k)
+    with verify:
+        out = run(gen)
+    launches = k7.launches - before
+    steps = gen.k * gen.last_iters + extra_steps
+    if launches != steps or verify.calls != gen.last_iters:
+        raise AssertionError(f"{what}: K7 launched {launches} times for {steps} draft steps, {verify.calls} verify "
+                             f"chunks for {gen.last_iters} iterations")
+    print(f"phase {what}: {len(out)} tokens, {gen.last_iters} iterations = verify chunks, K7 at B=1 launched "
+          f"{launches} times = draft steps, measured acceptance {gen.last_accept_rate:.4f}")
+    return out, {k7_key: launches}
+
+
+def _spec_rates(what: str, plain_fn, spec_fn, n_tok_of, spec_gen, kind: str, card: str, batched: bool = False) -> None:
+    """bf16 tok/s of plain fused decoding and of speculative decoding, in
+    turns (plain, spec, spec, plain) after a warm-up call of each, then one
+    clocked speculative call: device ms per verify chunk and per draft
+    step. Target and draft must both hold bf16 weights."""
+    import torch
+
+    from pytorch_models_tpu_torch.utils import tree_map
+
+    for name, m in (("target", spec_gen.model), ("draft", spec_gen.draft_model)):
+        dtypes = set()
+        tree_map(lambda t: dtypes.add(t.dtype) if t.is_floating_point() else None, m.params)
+        if dtypes != {torch.bfloat16}:
+            raise AssertionError(f"time bf16 spec {what}: the {name}'s floating weights are {sorted(map(str, dtypes))}")
+    plain_fn(), spec_fn()
+    times, toks = {}, {}
+    for name in ("plain", "spec", "spec", "plain"):
+        ms, out = _event_ms(plain_fn if name == "plain" else spec_fn)
+        times.setdefault(name, []).append(ms)
+        toks[name] = n_tok_of(out)
+    verify, draft = _spec_clocks(kind, spec_gen.k, batched)
+    with verify, draft:
+        spec_fn()
+    rate = {n: toks[n] / (np.mean(t) / 1e3) for n, t in times.items()}
+    it = "" if batched else f"{spec_gen.last_iters} iterations, acceptance {spec_gen.last_accept_rate:.4f}; "
+    print(f"phase time bf16 spec {what} (CUDA events, prefill included): plain fused {rate['plain']:.1f} tok/s "
+          f"({np.mean(times['plain']):.1f} ms), speculative k={spec_gen.k} {rate['spec']:.1f} tok/s "
+          f"({np.mean(times['spec']):.1f} ms) = {rate['spec'] / rate['plain']:.3f}x; {it}verify chunk "
+          f"{verify.mean_ms():.3f} ms ({verify.calls}), draft step {draft.mean_ms():.3f} ms ({draft.calls}) [{card}]")
+
+
+def spec_paths(dev, card: str, profile_dir: str | None = None) -> dict:
+    """Speculative decoding at full width (the rescaled weights of phases
+    "main", "whisper fp32" and "t5 fp32"), k = SPEC_K, a draft of the
+    target's first SPEC_DRAFT_LAYERS layers and the identical draft:
+    fp32 one-row tokens identical to the plain route's (every flag False) up
+    to near-ties, K7 at B=1 launched once per draft step, one verify chunk
+    per iteration, the acceptance printed; GPT-2's B=8 batch (per-op drafts
+    at per-row positions) row by row against the one-row path; sampling
+    (top-k 40, top-p 0.9, T 0.8) with the identical draft, whose first
+    iteration must be the positional plain sampler's draws and every token
+    in the plain top-40; then bf16 tok/s of speculative against plain fused
+    decoding in turns. Returns each phase's launches, with the one-row K7
+    launches by draft depth (``..._b1`` the whole stack, ``..._b1_l2`` the
+    truncated draft)."""
+    import torch
+
+    from pytorch_models_tpu_torch.audio2text import SpeculativeWhisperGenerator, Whisper, WhisperGenerator
+    from pytorch_models_tpu_torch.models.text import speculative as spec_mod
+    from pytorch_models_tpu_torch.models.text._decoder_lm import decoder_lm_apply
+    from pytorch_models_tpu_torch.ops.decode_step import fused_decode_step
+    from pytorch_models_tpu_torch.text import (
+        GPT2,
+        DecoderGenerator,
+        SpeculativeDecoderGenerator,
+        SpeculativeT5Generator,
+        T5Generator,
+        T5Model,
+    )
+
+    kernels = _kernels()
+    res, k, dl = {}, SPEC_K, SPEC_DRAFT_LAYERS
+    l2 = f"_l{dl}"
+
+    # ---- GPT-2 small: main's prompts and weights
+    r = np.random.default_rng(SEED)
+    prompts = [r.integers(0, 50257, n).tolist() for n in PROMPT_LENS]
+    model = GPT2.from_hf("gpt2", rng=SEED, device=dev)
+    _make_streams_move(dev, SEED + 7, model.params, [model.params["decoder"]["layers"]])
+    plain = DecoderGenerator(model, _Tok())
+    drafts = {"truncated": SpeculativeDecoderGenerator.with_truncated_draft(model, _Tok(), dl, k=k),
+              "identical": SpeculativeDecoderGenerator(model, model, _Tok(), k=k)}
+
+    def gap_fn(i, prefix):
+        _route("plain")
+        with torch.inference_mode():
+            return _top2(model(torch.tensor(prefix))[-1])
+
+    prompt = prompts[3]
+    _route("plain")
+    outs = {"plain": [plain.generate_tokens(prompt, SPEC_NEW)]}
+    _reset_launches()
+    _route("fused")
+    counts = {}
+    for name, gen in drafts.items():
+        out, c = _spec_run(f"spec gpt2 fp32 {name} draft", "gpt2", gen, lambda g: g.generate_tokens(prompt, SPEC_NEW),
+                           "fused_decode_step_b1" + (l2 if name == "truncated" else ""))
+        outs[f"spec {name}"] = [out]
+        counts.update(c)
+    partings = _check_routes("spec gpt2 fp32", outs, lambda i, prefix: gap_fn(0, prefix))
+    _check_moving("spec gpt2 fp32", outs["spec truncated"], [len(prompt)])
+    res["spec gpt2"] = _launches({"embed_add", "fused_decode_step"}) | counts
+    one_key = "fused_decode_step_b1" + l2
+    print(f"phase spec gpt2 fp32: GPT-2 small, a {len(prompt)}-token prompt, {SPEC_NEW} new, k={k}: drafts of "
+          f"{dl} layers and of 12 token-identical to the plain route (partings at near-ties: {partings})")
+
+    # the B=8 batch: per-op drafts at per-row positions (K2 with per-row ends), against the one-row path
+    _route("plain")
+    ref_rows = plain.generate_tokens_batch(prompts, SPEC_BATCH_NEW)
+    _route("fused")
+    gen = drafts["truncated"]
+    one_row, one_k7 = [], 0
+    for p in prompts:
+        out, c = _spec_run(f"spec gpt2 fp32 one-row {len(p)}-token prompt", "gpt2", gen,
+                           lambda g, p=p: g.generate_tokens(p, SPEC_BATCH_NEW), one_key)
+        one_row.append(out)
+        one_k7 += c[one_key]
+    _reset_launches()
+    batch_rows = gen.generate_tokens_batch(prompts, SPEC_BATCH_NEW)
+    torch.cuda.synchronize()
+    res["spec gpt2 batch"] = _launches({"embed_add", "decode_attention"})
+    if res["spec gpt2 batch"]["fused_decode_step"]:
+        raise AssertionError("spec gpt2 batch: K7 launched (it takes one position for all rows)")
+    res["spec gpt2 batch"][one_key] = one_k7  # the one-row runs it is held against
+    partings = _check_routes("spec gpt2 fp32 B=8", {"plain": ref_rows, "spec one-row": one_row,
+                                                    "spec batch": batch_rows},
+                             lambda i, prefix: gap_fn(i, prefix))
+    if any(len(a) != len(b) for a, b in zip(one_row, batch_rows)):
+        raise AssertionError("spec gpt2 batch: a row's length differs from its one-row run")
+    print(f"phase spec gpt2 fp32 B={SPEC_B}: {SPEC_BATCH_NEW} new tokens a row, the batch (per-op drafts at per-row "
+          f"positions: K7 0 launches, K2 {res['spec gpt2 batch']['decode_attention']}) token-identical to the "
+          f"one-row runs and the plain route (partings at near-ties: {partings})")
+
+    # sampling, identical draft: its first iteration (k drafts and the bonus) is the positional plain sampler's
+    # draws on the draft stream; a 32-token run stays in the plain top-40
+    gen = drafts["identical"]
+    _reset_launches()
+    notes = []
+    headless0 = kernels["fused_decode_step"].variant_launches["headless"]
+    verify, _ = _spec_clocks("gpt2", k)
+    with verify:
+        firsts = [gen.generate_tokens(p, k + 1, **SAMPLE) for p in prompts]
+        long = gen.generate_tokens(prompts[3], SPEC_SAMPLE_NEW, **SAMPLE)
+    headless = kernels["fused_decode_step"].variant_launches["headless"] - headless0
+    if headless != k * verify.calls:
+        raise AssertionError(f"spec gpt2 sample: K7 headless launched {headless} times for {k * verify.calls} "
+                             f"draft steps")
+    rows1 = torch.zeros(1, dtype=torch.int64, device=dev)
+    _route("plain")
+    with torch.inference_mode():
+        for p, row in zip(prompts, firsts):
+            for t in range(len(p), len(row)):
+                logits = model(torch.tensor(row[:t]))[-1]
+                probs = spec_mod._filtered_probs(logits[None], SAMPLE["topk"], SAMPLE["top_p"],
+                                                 SAMPLE["temperature"])[0]
+                u = spec_mod._stream_uniforms(SAMPLE["seed"], spec_mod.DRAFT, rows1,
+                                              torch.tensor([[t]], device=dev))[0, 0]
+                want = int(spec_mod._sample_probs(probs, u))
+                if want != row[t]:  # only where the draw lies on a CDF boundary the routes' logits can move
+                    cdf = torch.cumsum(probs, -1)
+                    margin = (cdf - u * cdf[-1]).abs().min().item()
+                    bound = 2 * (GAP_TOL[0] + GAP_TOL[1] * logits.abs().max().item()) / SAMPLE["temperature"]
+                    note = (f"prompt of {len(p)} parts at new token {t - len(p)}: margin {margin:.3g} "
+                            f"(bound {bound:.3g})")
+                    print(f"phase spec gpt2 sample: {note}")
+                    if margin > bound:
+                        raise AssertionError(f"spec gpt2 sample: {note}")
+                    notes.append(note)
+                    break
+        top40 = [int(long[t] in model(torch.tensor(long[:t]))[-1].topk(SAMPLE["topk"]).indices.tolist())
+                 for t in range(len(prompts[3]), len(long))]
+    _route("fused")
+    if not all(top40) or len(long) != len(prompts[3]) + SPEC_SAMPLE_NEW:
+        raise AssertionError(f"spec gpt2 sample: tokens outside the plain top-{SAMPLE['topk']}: {top40}")
+    res["spec gpt2 sample"] = _launches({"embed_add", "fused_decode_step"}) | {"fused_decode_step_headless_b1":
+                                                                               headless}
+    print(f"phase spec gpt2 sample fp32 (top-k {SAMPLE['topk']}, top-p {SAMPLE['top_p']}, T {SAMPLE['temperature']}, "
+          f"identical draft): {len(prompts)} prompts' first iteration ({k + 1} tokens) equal to the positional plain "
+          f"sampler (partings at CDF boundaries: {'; '.join(notes) or 'none'}); {SPEC_SAMPLE_NEW} new tokens of the "
+          f"{len(prompts[3])}-token prompt all in the plain top-{SAMPLE['topk']}; K7 headless at B=1 {headless} "
+          f"launches = {k} x {verify.calls} verify chunks")
+
+    model.to_bf16()
+    _route("fused")
+    gen = drafts["truncated"]
+    _spec_rates("gpt2 B=1", lambda: plain.generate_tokens(prompt, SPEC_NEW),
+                lambda: gen.generate_tokens(prompt, SPEC_NEW), lambda out: len(out) - len(prompt), gen, "gpt2", card)
+    _spec_rates(f"gpt2 B={SPEC_B}", lambda: plain.generate_tokens_batch(prompts, SPEC_BATCH_NEW),
+                lambda: gen.generate_tokens_batch(prompts, SPEC_BATCH_NEW),
+                lambda out: sum(len(o) - len(p) for o, p in zip(out, prompts)), gen, "gpt2", card, batched=True)
+    if profile_dir is not None:
+        profile_phase(lambda: gen.generate_tokens(prompt, SPEC_NEW), f"bf16 speculative generate_tokens k={k}, "
+                      f"{dl}-layer draft", "profile_bf16_spec_gpt2.json", profile_dir, card, lambda out: gen.last_iters,
+                      unit="iteration")
+    del model, plain, drafts, gen
+
+    # ---- Whisper-base: whisper fp32's weights, one segment
+    model = Whisper.from_openai("base", rng=SEED, device=dev)
+    _make_streams_move(dev, SEED + 3, model.params["decoder"],
+                       [model.params["encoder"]["layers"], model.params["decoder"]["layers"]])
+    wplain = WhisperGenerator(model)
+    audio = _waveforms(8, W_SECONDS, SEED + 4)[1]
+    max_tokens = len(W_INIT) + N_NEW
+    wdrafts = {"truncated": SpeculativeWhisperGenerator.with_truncated_draft(model, None, dl, k=k),
+               "identical": SpeculativeWhisperGenerator(model, model, k=k)}
+    _route("plain")
+    outs = {"plain": [wplain.transcribe_tokens(audio, W_INIT, W_EOT, max_tokens)]}
+    _reset_launches()
+    _route("fused")
+    counts = {}
+    for name, gen in wdrafts.items():
+        out, c = _spec_run(f"spec whisper fp32 {name} draft", "whisper", gen,
+                           lambda g: g.transcribe_tokens(audio, W_INIT, W_EOT, max_tokens),
+                           "fused_cross_decode_step_b1" + (l2 if name == "truncated" else ""))
+        outs[f"spec {name}"] = [out]
+        counts.update(c)
+
+    def wgap(i, prefix):
+        _route("plain")
+        with torch.inference_mode():
+            wav = torch.from_numpy(audio[None]).to(dev)
+            return _top2(model(wplain.preprocessor(wav), torch.tensor([prefix], device=dev))[0, -1])
+
+    partings = _check_routes("spec whisper fp32", outs, wgap)
+    res["spec whisper"] = _launches({"log_mel_spectrogram", "encoder_attention", "embed_add",
+                                     "fused_cross_decode_step"}) | counts
+    print(f"phase spec whisper fp32: Whisper-base, one {W_SECONDS[1]} s segment, {len(outs['plain'][0]) - len(W_INIT)} "
+          f"generated (at most {N_NEW}), k={k}: drafts of {dl} layers and of 8 (both encoders run on the segment) "
+          f"token-identical to the plain route (partings at near-ties: {partings})")
+    model.to_bf16()
+    _route("fused")
+    gen = wdrafts["truncated"]
+    _spec_rates("whisper B=1", lambda: wplain.transcribe_tokens(audio, W_INIT, W_EOT, max_tokens),
+                lambda: gen.transcribe_tokens(audio, W_INIT, W_EOT, max_tokens), lambda out: len(out) - len(W_INIT),
+                gen, "whisper", card)
+    del model, wplain, wdrafts, gen
+
+    # ---- T5-base: t5 fp32's weights and prompts
+    model = T5Model.from_t5x("flan_t5-base", rng=SEED, device=dev)
+    _make_t5_streams_move(dev, SEED + 9, model.params)
+    tplain = T5Generator(model=model)
+    r = np.random.default_rng(SEED + 10)
+    tprompt = [r.integers(2, model.cfg.vocab_size, n).tolist() for n in T5_PROMPT_LENS][3]
+    tdrafts = {"truncated": SpeculativeT5Generator.with_truncated_draft(model, None, dl, k=k),
+               "identical": SpeculativeT5Generator(model, model, k=k)}
+    _route("plain")
+    outs = {"plain": [tplain.generate_tokens(tprompt, T5_MAX, T5_PAD, T5_EOS)]}
+    _reset_launches()
+    _route("fused")
+    counts = {}
+    for name, gen in tdrafts.items():
+        out, c = _spec_run(f"spec t5 fp32 {name} draft", "t5", gen,
+                           lambda g: g.generate_tokens(tprompt, T5_MAX, T5_PAD, T5_EOS),
+                           "fused_cross_decode_step_t5_b1" + (l2 if name == "truncated" else ""), extra_steps=1)
+        outs[f"spec {name}"] = [out]
+        counts.update(c)
+
+    def tgap(i, prefix):
+        _route("plain")
+        return _top2(model(torch.tensor([tprompt], device=dev), torch.tensor([prefix], device=dev))[0, -1])
+
+    partings = _check_routes("spec t5 fp32", outs, tgap)
+    res["spec t5"] = _launches({"embed_add", "gather_rows", "fused_cross_decode_step"}) | counts
+    print(f"phase spec t5 fp32: T5-base, a {len(tprompt)}-token prompt, rows of {T5_MAX} at most, k={k}: drafts of "
+          f"{dl} layers and of 12 (K7-T5 at B=1, the pad token's step included) token-identical to the plain route "
+          f"(partings at near-ties: {partings})")
+    model.to_bf16()
+    _route("fused")
+    gen = tdrafts["truncated"]
+    _spec_rates("t5 B=1", lambda: tplain.generate_tokens(tprompt, T5_MAX, T5_PAD, T5_EOS),
+                lambda: gen.generate_tokens(tprompt, T5_MAX, T5_PAD, T5_EOS), lambda out: len(out) - 1, gen, "t5",
+                card)
+    _route("fused")
+    return res
+
+
 def profile_phase(fn, what: str, fname: str, out_dir: str, card: str, steps_fn, unit: str = "decode step") -> None:
     """One call of ``fn`` (after a warm-up call) under torch.profiler.
 
@@ -3827,6 +4193,7 @@ def main() -> int:
     paths["cb t5"] = timed("cb t5", cb_t5_path, dev, card, args.profile)
     k6_path = timed("int8 stack", int8_stack_path, dev, card)
     i8 = timed("int8 paths", int8_paths, dev, card)
+    spec = timed("spec", spec_paths, dev, card, args.profile)  # its K7 launches at one row feed the *_b1 rows only
 
     # name: (source, TPU kernel it replaces, the dtype whose times are reported, its launches over the main paths;
     # the shapes are GPT-2's for K1-K4 and the fused decode step, Whisper's for K5 and the fused cross step,
@@ -3835,6 +4202,7 @@ def main() -> int:
         return sum(counts[name] for counts in paths.values())
 
     k7_src = "decode_step_kernel.cuh"  # K7's kernel (decode_step.cu is its C interface)
+    l2 = f"_l{SPEC_DRAFT_LAYERS}"
     meta = {
         "encoder_attention": ("encoder_attention.cu", "pytorch_models_tpu/ops/encoder_attention.py:166", "bfloat16",
                               total("encoder_attention")),
@@ -3903,6 +4271,23 @@ def main() -> int:
                                         paths["cb whisper"]["fused_cross_decode_step_b32"]),
         "fused_cross_decode_step_int8_b16": (k7_src, "pytorch_models_tpu/ops/decode_step.py:1397",
                                              "bfloat16", paths["cb whisper"]["fused_cross_decode_step_kv_int8_b16"]),
+        # at one row: the speculative drafts, the whole stack (the identical draft) and its first
+        # SPEC_DRAFT_LAYERS layers (the truncated draft); GPT-2 also headless (the sampled drafts)
+        "fused_decode_step_b1": (k7_src, "pytorch_models_tpu/ops/decode_step.py:1359", "bfloat16",
+                                 spec["spec gpt2"]["fused_decode_step_b1"]),
+        f"fused_decode_step_b1{l2}": (k7_src, "pytorch_models_tpu/ops/decode_step.py:1359", "bfloat16",
+                                      spec["spec gpt2"][f"fused_decode_step_b1{l2}"]
+                                      + spec["spec gpt2 batch"][f"fused_decode_step_b1{l2}"]),
+        "fused_decode_step_headless_b1": (k7_src, "pytorch_models_tpu/ops/decode_step.py:1359", "bfloat16",
+                                          spec["spec gpt2 sample"]["fused_decode_step_headless_b1"]),
+        "fused_cross_decode_step_b1": (k7_src, "pytorch_models_tpu/ops/decode_step.py:1397", "bfloat16",
+                                       spec["spec whisper"]["fused_cross_decode_step_b1"]),
+        f"fused_cross_decode_step_b1{l2}": (k7_src, "pytorch_models_tpu/ops/decode_step.py:1397", "bfloat16",
+                                            spec["spec whisper"][f"fused_cross_decode_step_b1{l2}"]),
+        "fused_cross_decode_step_t5_b1": (k7_src, "pytorch_models_tpu/ops/decode_step.py:1397", "bfloat16",
+                                          spec["spec t5"]["fused_cross_decode_step_t5_b1"]),
+        f"fused_cross_decode_step_t5_b1{l2}": (k7_src, "pytorch_models_tpu/ops/decode_step.py:1397", "bfloat16",
+                                               spec["spec t5"][f"fused_cross_decode_step_t5_b1{l2}"]),
     }
     # each kernel's limit on max_abs_err: elementwise (atol, rtol) by dtype; for the greedy heads, whose outputs
     # are ids, the score regret is held to the top-2 gap tolerance instead
@@ -3914,7 +4299,10 @@ def main() -> int:
     for name in ("fused_decode_step", "fused_cross_decode_step", "fused_cross_decode_step_t5",
                  "fused_decode_step_embed", "fused_decode_step_headless", "fused_cross_decode_step_headless",
                  "fused_cross_decode_step_t5_headless", "fused_decode_step_b32", "fused_decode_step_headless_b16",
-                 "fused_cross_decode_step_b16", "fused_cross_decode_step_t5_b32", "fused_cross_decode_step_b32"):
+                 "fused_cross_decode_step_b16", "fused_cross_decode_step_t5_b32", "fused_cross_decode_step_b32",
+                 "fused_decode_step_b1", f"fused_decode_step_b1{l2}", "fused_decode_step_headless_b1",
+                 "fused_cross_decode_step_b1", f"fused_cross_decode_step_b1{l2}", "fused_cross_decode_step_t5_b1",
+                 f"fused_cross_decode_step_t5_b1{l2}"):
         limits[name] = {dn: list(DS_TOL[dn]) for dn in DS_TOL}
     for name in ("fused_decode_step_int8", "fused_decode_step_a8", "fused_cross_decode_step_int8",
                  "fused_cross_decode_step_t5_a8", "fused_decode_step_int8_b32",
@@ -3931,7 +4319,7 @@ def main() -> int:
                         "replaces": replaces, "launches": launches, "max_abs_err": err, "limit": limits[name],
                         **{k: rec[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
                         **{k: rec[k] for k in ("two_gathers_ms", "embedding_add_ms", "launch_floor_ms",
-                                               "head_matmul_ms") if k in rec}})
+                                               "head_matmul_ms", "per_op_ms") if k in rec}})
     print(f"phase total: {time.perf_counter() - t0:.1f} s, the kernels' build "
           f"{_build.build_seconds if _build.build_seconds is not None else 'cached'} s of it [{card}]")
     print(card)

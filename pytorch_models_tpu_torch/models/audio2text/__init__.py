@@ -1,6 +1,6 @@
 from .continuous import WhisperContinuousBatchingGenerator
 from .tokenizer import WhisperTokenizer
-from .whisper import Whisper, WhisperGenerator, WhisperPreprocessor
+from .whisper import SpeculativeWhisperGenerator, Whisper, WhisperGenerator, WhisperPreprocessor
 
-__all__ = ["Whisper", "WhisperContinuousBatchingGenerator", "WhisperGenerator", "WhisperPreprocessor",
-           "WhisperTokenizer"]
+__all__ = ["SpeculativeWhisperGenerator", "Whisper", "WhisperContinuousBatchingGenerator", "WhisperGenerator",
+           "WhisperPreprocessor", "WhisperTokenizer"]

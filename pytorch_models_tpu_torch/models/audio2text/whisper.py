@@ -20,8 +20,10 @@ quantized once for the decode loop; the prefill reads them in full
 precision), on the fused route. Beam search (``transcribe_beam_tokens``)
 decodes its W beams through the fused step headless, or per-op. The text
 methods take a ``WhisperTokenizer`` (``models/audio2text/tokenizer.py``).
-Continuous batching is ``models/audio2text/continuous.py``; speculative
-decoding is not ported yet.
+Continuous batching is ``models/audio2text/continuous.py``.
+``SpeculativeWhisperGenerator`` transcribes greedily with a draft Whisper
+(models/text/speculative.py's core): the target verifies k drafts in one
+per-op chunk, and a one-segment call's draft steps are K7 launches at B=1.
 """
 
 from __future__ import annotations
@@ -130,8 +132,11 @@ def _decoder_hidden_chunk(p: dict, lc: tfm.LayerConfig, cross: list, tokens: tor
     """Embeddings + KV-cached decoder + final LayerNorm for a (B, S) chunk
     at cache slots ``[pos, pos+S)``: position-table rows ``pos + s``, or
     per row ``pos_ids`` (B, S) with ``pad_lens`` (B,) masking each row's
-    left-pad slots (a left-padded pool). Returns ``(hidden (B, S, d),
-    caches)``."""
+    left-pad slots (a left-padded pool). ``pos`` may be a (B,) tensor of
+    per-row slots (speculative rows), whose position-table rows are ``pos_b
+    + s``. Returns ``(hidden (B, S, d), caches)``."""
+    if isinstance(pos, torch.Tensor) and pos_ids is None:
+        pos_ids = pos.long()[:, None] + torch.arange(tokens.shape[-1], device=tokens.device)
     if pos_ids is None:
         x = embed_tokens(p["token_embs"], tokens, p["pos_embs"], start=pos)
     else:
@@ -261,6 +266,68 @@ def _generate_batch(params: dict, cfg: WhisperConfig, memory: torch.Tensor, init
     is_eot = gen == eot_id
     lengths = np.where(is_eot.any(axis=1), n_init + is_eot.argmax(axis=1) + 1, pos)
     return out, lengths
+
+
+@torch.inference_mode()
+def _speculative_generate(params: dict, cfg: WhisperConfig, draft_params: dict, draft_cfg: WhisperConfig,
+                          memory: torch.Tensor, d_memory: torch.Tensor, initial_tokens: torch.Tensor, max_tokens: int,
+                          eot_id: int, k: int, one_row: bool):
+    """Greedy speculative transcription (models/text/speculative.py's core;
+    token-identical to :func:`_generate_batch` for any draft): a draft
+    Whisper proposes k tokens, the target verifies them in one per-op
+    (k+1)-position decoder chunk. Each model attends its own encoding of the
+    segments (``memory`` / ``d_memory``, (B, T, d)); shared initial tokens.
+    The buffers run to ``min(max_tokens + k, DEC_MAX_LEN)``: at the
+    position table's edge the loop stops up to k tokens early. ``one_row``
+    (B = 1): host positions, each draft step ONE K7 launch (cross variant,
+    in-kernel greedy head) where its gate allows; else per-row positions,
+    every step per-op. Returns ``(tokens (B, l_buf), lengths, iterations)``
+    on the host."""
+    from ..text.speculative import spec_greedy_decode_loop
+
+    p, dp = params["decoder"], draft_params["decoder"]
+    lc, dlc = cfg.dec_layer, draft_cfg.dec_layer
+    b, dev = memory.shape[0], memory.device
+    n_init = initial_tokens.shape[0]
+    l_buf = min(max_tokens + k, DEC_MAX_LEN)
+    t_caches, _ = tfm.make_kv_cache(cfg.n_layers, (b,), lc.n_heads, l_buf, lc.head_dim, p["token_embs"].dtype, dev)
+    d_caches, d_stacked = tfm.make_kv_cache(draft_cfg.n_layers, (b,), dlc.n_heads, l_buf, dlc.head_dim,
+                                            dp["token_embs"].dtype, dev)
+    t_cross, _ = tfm.precompute_cross_caches(p, lc, memory)
+    d_cross, d_cross_stacked = tfm.precompute_cross_caches(dp, dlc, d_memory)
+    fused = one_row and _whisper_fused_ok(dp, draft_cfg, 1)
+    if fused:
+        from ...ops.decode_step import pack_decode_weights, pack_greedy_head
+        from ..text._decoder_lm import cross_operands
+
+        cdt = dp["token_embs"].dtype
+        packed = pack_decode_weights(dp["layers"], cdt, cross=True)
+        head = pack_greedy_head(dp["token_embs"], dp["norm"], cdt, a8=_attn.use_a8_decode(packed["wqkv"].dtype))
+        cross_ops = cross_operands(d_cross_stacked, cdt)
+
+    def verify_chunk(chunk, caches, pos):
+        logits, caches = _decoder_logits_chunk(p, lc, t_cross, chunk, caches, pos)
+        return torch.argmax(logits, dim=-1), caches
+
+    def draft_step(tok, caches, pos):
+        if fused:
+            return _fused_whisper_step(dp, packed, head, draft_cfg, tok, d_stacked, cross_ops, d_cross_stacked["len"],
+                                       pos), caches
+        logits, caches = _decoder_logits_chunk(dp, dlc, d_cross, tok, caches, pos)
+        return torch.argmax(logits[:, 0], dim=-1), caches
+
+    init_rows = initial_tokens.to(dev).expand(b, n_init)
+    hn, _ = _decoder_hidden_chunk(p, lc, t_cross, init_rows, t_caches, 0)
+    first = torch.argmax(_head(p, hn[:, -1]), dim=-1)
+    _decoder_hidden_chunk(dp, dlc, d_cross, init_rows, d_caches, 0)  # the draft's prefill
+    buf = torch.zeros((b, l_buf), dtype=torch.int64, device=dev)
+    buf[:, :n_init] = init_rows
+    if n_init < l_buf:
+        buf[:, n_init] = first
+    pos0, limit = (n_init + 1, max_tokens) if one_row else (torch.full((b,), n_init + 1, device=dev),
+                                                             torch.full((b,), max_tokens, device=dev))
+    return spec_greedy_decode_loop(draft_step, verify_chunk, t_caches, d_caches, buf, pos0, first == eot_id, limit, k,
+                                   eot_id, l_buf)
 
 
 @torch.inference_mode()
@@ -583,3 +650,99 @@ class WhisperGenerator:
         outs = self.transcribe_long_tokens(audio, initial_tokens, self.tokenizer.eot, sot_prev, ctx_tokens,
                                            max_tokens, batch_size)
         return "".join(self.tokenizer.decode(o) for o in outs)
+
+
+class SpeculativeWhisperGenerator:
+    """``WhisperGenerator`` accelerated by a draft Whisper (e.g. tiny
+    drafting for base): greedy and EXACT, token-identical to
+    :meth:`WhisperGenerator.transcribe_tokens` for any draft
+    (models/text/speculative.py). Both encoders run on each segment, each
+    behind its own log-mel frontend. Within k positions of the 448-slot
+    position table the loop stops instead of drafting past it: a
+    transcription with no EOT before position ``448 - k`` can return up to
+    k - 1 fewer tokens than the plain generator (pass ``max_tokens <= 448 -
+    k`` for identity). After a one-segment call, ``last_iters`` holds its
+    iteration count (verify chunks run) and ``last_accept_rate`` its
+    measured acceptance (None without an iteration); both are None before
+    the first."""
+
+    SAMPLE_RATE = WhisperGenerator.SAMPLE_RATE
+    N_SAMPLES = WhisperGenerator.N_SAMPLES
+
+    def __init__(self, model: Whisper, draft_model: Whisper, tokenizer=None, k: int = 4) -> None:
+        if model.cfg.vocab_size != draft_model.cfg.vocab_size:
+            raise ValueError("draft and target must share a vocabulary")
+        if k < 1:
+            raise ValueError(f"k must be >= 1, got {k}")
+        self.model = model
+        self.draft_model = draft_model
+        self.tokenizer = tokenizer
+        self.k = k
+        self.preprocessor = WhisperPreprocessor("large-v3" if model.cfg.n_mels == 128 else "tiny",
+                                                device=model.device)
+        self.draft_preprocessor = WhisperPreprocessor("large-v3" if draft_model.cfg.n_mels == 128 else "tiny",
+                                                      device=model.device)
+        self.last_iters: int | None = None
+        self.last_accept_rate: float | None = None
+
+    @classmethod
+    def with_truncated_draft(cls, model: Whisper, tokenizer=None, n_layers: int = 2,
+                             k: int = 4) -> SpeculativeWhisperGenerator:
+        """The draft is the target's own first ``n_layers`` of both stacks
+        (shared conv stem, embeddings and final norms): no extra weights;
+        the depth only moves the speed and the acceptance."""
+        from ..text.speculative import TruncatedDraft
+
+        return cls(model, TruncatedDraft(model, n_layers, ("encoder", "decoder")), tokenizer, k)
+
+    @torch.inference_mode()
+    def _transcribe(self, wav: torch.Tensor, initial_tokens: list[int], eot_id: int, max_tokens: int,
+                    one_row: bool) -> list[list[int]]:
+        from ..text.speculative import acceptance, cut_at_eos
+
+        if max_tokens > DEC_MAX_LEN:
+            raise ValueError(f"max_tokens={max_tokens} exceeds the decoder position table ({DEC_MAX_LEN})")
+        if not 0 < len(initial_tokens) <= max_tokens:
+            raise ValueError(f"transcription needs 1 to max_tokens={max_tokens} initial tokens")
+        m, d = self.model, self.draft_model
+        mel = self.preprocessor(wav)
+        d_mel = mel if d.cfg.n_mels == m.cfg.n_mels else self.draft_preprocessor(wav)
+        memory = whisper_encode(m.params, m.cfg, mel)
+        d_memory = whisper_encode(d.params, d.cfg, d_mel)
+        init = torch.tensor(initial_tokens, dtype=torch.int64, device=m.device)
+        out, lengths, iters = _speculative_generate(m.params, m.cfg, d.params, d.cfg, memory, d_memory, init,
+                                                    max_tokens, eot_id, self.k, one_row)
+        n = len(initial_tokens)
+        if one_row:
+            self.last_iters, self.last_accept_rate = iters, acceptance(int(lengths[0]) - (n + 1), iters, self.k)
+        return [cut_at_eos(out[i, : lengths[i]], n, eot_id) for i in range(out.shape[0])]
+
+    def transcribe_tokens(self, audio, initial_tokens: list[int], eot_id: int,
+                          max_tokens: int = DEC_MAX_LEN) -> list[int]:
+        """Waveform (n,) -> transcribed token ids (greedy, one 30 s segment;
+        token-identical to the plain generator)."""
+        wav = stage_segments([audio], self.N_SAMPLES, self.model.device)
+        return self._transcribe(wav, initial_tokens, eot_id, max_tokens, True)[0]
+
+    def transcribe_tokens_batch(self, audios, initial_tokens: list[int], eot_id: int,
+                                max_tokens: int = DEC_MAX_LEN) -> list[list[int]]:
+        """Batched speculative transcription of several 30 s segments: both
+        encoders on the batch, then every row drafts and verifies together
+        with per-row acceptance and EOT, one batched per-op pass a step.
+        Token-identical per row to :meth:`transcribe_tokens`."""
+        if len(audios) == 0:
+            raise ValueError("transcription needs at least one segment")
+        wav = stage_segments(audios, self.N_SAMPLES, self.model.device)
+        return self._transcribe(wav, initial_tokens, eot_id, max_tokens, False)
+
+    def transcribe(self, audio, initial_tokens: list[int] | None = None, eot_id: int | None = None,
+                   max_tokens: int = DEC_MAX_LEN, language: str = "en", task: str = "transcribe") -> str:
+        """Waveform -> text; needs a tokenizer (``sot_sequence``, ``eot``,
+        ``decode``), as ``WhisperGenerator.transcribe`` does."""
+        if self.tokenizer is None:
+            raise ValueError("transcribe() returns text and needs a tokenizer; "
+                             "use transcribe_tokens(...) for raw token ids")
+        if initial_tokens is None or eot_id is None:
+            initial_tokens = self.tokenizer.sot_sequence(language, task)
+            eot_id = self.tokenizer.eot
+        return self.tokenizer.decode(self.transcribe_tokens(audio, initial_tokens, eot_id, max_tokens))

@@ -1,9 +1,10 @@
 from .continuous import ContinuousBatchingGenerator
 from .generator import DecoderGenerator
 from .gpt2 import GPT2
-from .t5 import T5Generator, T5Model
+from .speculative import SpeculativeDecoderGenerator
+from .t5 import SpeculativeT5Generator, T5Generator, T5Model
 from .t5_continuous import T5ContinuousBatchingGenerator
 from .tokenizer import GPT2Tokenizer
 
-__all__ = ["ContinuousBatchingGenerator", "DecoderGenerator", "GPT2", "GPT2Tokenizer",
-           "T5ContinuousBatchingGenerator", "T5Generator", "T5Model"]
+__all__ = ["ContinuousBatchingGenerator", "DecoderGenerator", "GPT2", "GPT2Tokenizer", "SpeculativeDecoderGenerator",
+           "SpeculativeT5Generator", "T5ContinuousBatchingGenerator", "T5Generator", "T5Model"]

@@ -80,27 +80,38 @@ def decoder_lm_make_cache(cfg: DecoderLMConfig, batch_shape: tuple = (), dtype=t
     return tfm.make_kv_cache(cfg.n_layers, batch_shape, lc.n_heads, cfg.max_seq_len, lc.head_dim, dtype, device)
 
 
-def _cached_stack(params, cfg: DecoderLMConfig, tokens, pos_ids, caches, pos: int, pad_lens):
+def _cached_stack(params, cfg: DecoderLMConfig, tokens, pos_ids, caches, pos, pad_lens):
     x = embed_tokens(params["token_embs"], tokens, params["pos_embs"], pos_ids)
     return tfm.decoder_apply(params["decoder"], cfg.layer, x, self_caches=caches, pos=pos, pad_lens=pad_lens)
 
 
-def decoder_lm_hidden_cached_batch(params, cfg: DecoderLMConfig, tokens, pos_ids, caches, pos: int, pad_lens):
+def decoder_lm_hidden_cached_batch(params, cfg: DecoderLMConfig, tokens, pos_ids, caches, pos, pad_lens):
     """Batched cached forward up to the final (normed) hidden state — the
     greedy head kernel takes it from there without the (B, V) logits.
 
-    ``tokens``: (B, S) placed at cache slots ``[pos, pos+S)``; ``pos_ids``:
-    (B, S) per-row position-embedding indices; ``pad_lens``: (B,) left-pad
-    length per row. Returns ``(hidden (B, S, d), caches)``.
+    ``tokens``: (B, S) placed at cache slots ``[pos, pos+S)``, ``pos`` an
+    int or a (B,) tensor of per-row slots (speculative decoding's rows, each
+    at its own position; :func:`chunk_positions` gives their ids);
+    ``pos_ids``: (B, S) per-row position-embedding indices; ``pad_lens``:
+    (B,) left-pad length per row, or None. Returns ``(hidden (B, S, d),
+    caches)``.
     """
     x, caches = _cached_stack(params, cfg, tokens, pos_ids, caches, pos, pad_lens)
     return _final_hidden(params, cfg, x), caches
 
 
-def decoder_lm_forward_cached_batch(params, cfg: DecoderLMConfig, tokens, pos_ids, caches, pos: int, pad_lens):
+def decoder_lm_forward_cached_batch(params, cfg: DecoderLMConfig, tokens, pos_ids, caches, pos, pad_lens):
     """Batched cached forward with the tied head: ``(logits (B, S, V), caches)``."""
     x, caches = _cached_stack(params, cfg, tokens, pos_ids, caches, pos, pad_lens)
     return _head(params, cfg, x), caches
+
+
+def chunk_positions(pos, s: int, b: int, device) -> torch.Tensor:
+    """(B, S) int64 positions ``pos + s`` of a chunk at cache slots ``[pos,
+    pos+S)``: ``pos`` an int shared by the rows, or a (B,) tensor of per-row
+    slots."""
+    ar = torch.arange(s, device=device)
+    return pos.long()[:, None] + ar if isinstance(pos, torch.Tensor) else (pos + ar).expand(b, s)
 
 
 def decoder_lm_fused_ok(params: dict, cfg: DecoderLMConfig, batch: int) -> bool:

@@ -25,7 +25,8 @@ index first, as ``lax.top_k`` does). Every route draws the same uniforms, so
 the fused, per-op and plain routes give the same tokens except where a draw
 lies on a CDF boundary that their summation orders move. The stream is not
 JAX's (its PRNG cannot be matched); beam search is in ``beam.py``.
-Speculative decoding and a CUDA graph of the step are later work.
+Speculative decoding is ``speculative.py``; a CUDA graph of the step is
+later work.
 """
 
 from __future__ import annotations

@@ -22,8 +22,10 @@ JAX package's routing rule) and ``USE_INT8_KV_CROSS``. An int8 classifier
 takes the head matmul + argmax on the per-op route. Teacher-forced scoring
 runs the uncached encoder-decoder. Beam search (``generate_beam_tokens``)
 decodes its W beams through the fused step headless, or per-op. Continuous
-batching is ``models/text/t5_continuous.py``. Not ported yet:
-``SpeculativeT5Generator``, the t5x checkpoint reader
+batching is ``models/text/t5_continuous.py``. ``SpeculativeT5Generator``
+decodes greedily with a draft T5 (models/text/speculative.py's core): the
+target verifies k drafts in one per-op chunk, and a one-row call's draft
+steps are K7-T5 launches at B=1. Not ported yet: the t5x checkpoint reader
 (``from_t5x(pretrained=True)``) and the sentencepiece tokenizer: the string
 methods need a tokenizer the caller passes in.
 """
@@ -32,6 +34,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -370,6 +373,91 @@ def _t5_generate_batch(params: dict, cfg: T5Config, enc_tokens: torch.Tensor, n_
     return out, lengths
 
 
+def _t5_spec_decode_state(params: dict, cfg: T5Config, enc_tokens: torch.Tensor, n_enc: torch.Tensor, cache_len: int):
+    """Encode (B, P) right-padded prompts of lengths ``n_enc`` (B,) and build
+    one model's decode-side state for speculative decoding: the self caches
+    (per-layer views of the stacked buffers), the cross caches and the
+    (H, cache_len, Lp) decoder rel-pos bias table."""
+    memory = t5_encode(params, cfg, enc_tokens, _pad_bias(n_enc, enc_tokens.shape[1]))
+    dec = params["decoder"]
+    lc = cfg.layer
+    dev = enc_tokens.device
+    caches, stacked = tfm.make_kv_cache(cfg.n_layers, (enc_tokens.shape[0],), lc.n_heads, cache_len, lc.head_dim,
+                                        params["token_embs"].dtype, dev)
+    cross, cross_stacked = tfm.precompute_cross_caches(dec, lc, memory, valid_lens=n_enc)
+    bias = relative_position_bias(dec["attn_bias"], torch.arange(cache_len, device=dev),
+                                  torch.arange(tfm.padded_cache_len(cache_len), device=dev), False, cfg)
+    return SimpleNamespace(caches=caches, stacked=stacked, cross=cross, cross_stacked=cross_stacked, bias=bias)
+
+
+def _t5_spec_chunk_forward(params: dict, cfg: T5Config, st, chunk: torch.Tensor, pos) -> torch.Tensor:
+    """Per-op cached decoder forward of a (B, S) chunk at positions ``[pos,
+    pos+S)`` (the verify chunk; S = 1 is a per-op draft step) over the state
+    ``st`` of :func:`_t5_spec_decode_state`; ``pos`` an int, or (B,) per-row
+    slots, whose rows take their own bias rows. Returns logits (B, S, V)."""
+    s = chunk.shape[1]
+    if isinstance(pos, torch.Tensor):
+        bias = st.bias[:, pos.long()[:, None] + torch.arange(s, device=chunk.device)].transpose(0, 1)  # (B, H, S, Lp)
+    else:
+        bias = st.bias[:, pos:pos + s]
+    dec = params["decoder"]
+    h = _t5_decode_layers(dec, cfg, embed_rows(params["token_embs"], chunk), st.caches, st.cross, bias, pos)
+    return linear(params["classifier"], rms_norm(dec["norm"], h))
+
+
+@torch.inference_mode()
+def _t5_spec_generate(params: dict, cfg: T5Config, draft_params: dict, draft_cfg: T5Config, enc_tokens: torch.Tensor,
+                      n_enc: torch.Tensor, max_tokens: int, pad_id: int, eos_id: int, k: int, one_row: bool):
+    """Greedy speculative seq2seq generation (models/text/speculative.py's
+    core; token-identical to :func:`_t5_generate_batch` for any draft): a
+    draft T5 proposes k tokens, the target verifies them in one per-op
+    (k+1)-position decoder chunk. Both models encode the prompts with their
+    own encoders; the buffers run to ``max_tokens + k`` so that the edge stop
+    never cuts below the plain loop's cap. ``one_row`` (B = 1): host
+    positions, each draft step ONE K7-T5 launch where its gate allows (the
+    JAX package's drafts run per-op: the tokens are the same); else per-row
+    positions, every step per-op. Returns ``(tokens (B, max_tokens + k),
+    lengths, iterations)`` on the host; rows as the greedy generator's."""
+    from .speculative import spec_greedy_decode_loop
+
+    b, dev = enc_tokens.shape[0], enc_tokens.device
+    l_buf = max_tokens + k
+    t = _t5_spec_decode_state(params, cfg, enc_tokens, n_enc, l_buf)
+    d = _t5_spec_decode_state(draft_params, draft_cfg, enc_tokens, n_enc, l_buf)
+    fused = one_row and _t5_fused_ok(draft_params, draft_cfg, 1)
+    if fused:
+        from ...ops.decode_step import pack_decode_weights, pack_greedy_head
+        from ._decoder_lm import cross_operands
+
+        dtype = draft_params["token_embs"].dtype
+        d_dec = draft_params["decoder"]
+        packed = pack_decode_weights(d_dec["layers"], dtype, cross=True, gated=True)
+        head = pack_greedy_head(draft_params["classifier"]["w"], d_dec["norm"], dtype, tied=False,
+                                a8=_attn.use_a8_decode(packed["wqkv"].dtype))
+        bias_km = _t5_key_major_bias(d.bias)
+        cross_ops = cross_operands(d.cross_stacked, dtype)
+
+    def verify_chunk(chunk, state, pos):
+        return torch.argmax(_t5_spec_chunk_forward(params, cfg, t, chunk, pos), dim=-1), state
+
+    def draft_step(tok, state, pos):
+        if fused:
+            return _fused_t5_step(draft_params, packed, head, draft_cfg, tok[:, 0], d.stacked, cross_ops,
+                                  d.cross_stacked["len"], bias_km, pos), state
+        return torch.argmax(_t5_spec_chunk_forward(draft_params, draft_cfg, d, tok, pos)[:, 0], dim=-1), state
+
+    # decoder position 0 is the pad start token: the target's step there gives token 1, the draft's fills its cache
+    buf = torch.zeros((b, l_buf), dtype=torch.int64, device=dev)
+    buf[:, 0] = pad_id
+    first, _ = verify_chunk(buf[:, :1], None, 0)
+    draft_step(buf[:, :1], None, 0)
+    buf[:, 1] = first[:, 0]
+    pos0, limit = (2, max_tokens) if one_row else (torch.full((b,), 2, device=dev), torch.full((b,), max_tokens,
+                                                                                                device=dev))
+    return spec_greedy_decode_loop(draft_step, verify_chunk, None, None, buf, pos0, first[:, 0] == eos_id, limit, k,
+                                   eos_id, l_buf)
+
+
 @torch.inference_mode()
 def _t5_beam(params: dict, cfg: T5Config, enc_tokens: torch.Tensor, n_enc: torch.Tensor, max_tokens: int, pad_id: int,
              eos_id: int, w: int, alpha: float):
@@ -627,3 +715,81 @@ class T5Generator:
         out, lengths = _t5_generate_batch(self.model.params, self.model.cfg, torch.from_numpy(buf).to(dev),
                                           torch.from_numpy(n_enc).to(dev), max_tokens, pad_id, eos_id)
         return [out[i, : lengths[i]].tolist() for i in range(b)]
+
+
+class SpeculativeT5Generator:
+    """``T5Generator`` accelerated by a draft T5 (e.g. t5-small drafting for
+    t5-large): greedy and EXACT, token-identical to
+    :meth:`T5Generator.generate_tokens` for any draft
+    (models/text/speculative.py). Draft and target share the vocabulary and
+    lie on one device. After a one-row call, ``last_iters`` holds its
+    iteration count (verify chunks run) and ``last_accept_rate`` its
+    measured acceptance (None without an iteration); both are None before
+    the first."""
+
+    def __init__(self, model: T5Model, draft_model: T5Model, tokenizer=None, k: int = 4) -> None:
+        if model.cfg.vocab_size != draft_model.cfg.vocab_size:
+            raise ValueError("draft and target must share a vocabulary")
+        if k < 1:
+            raise ValueError(f"k must be >= 1, got {k}")
+        self.model = model
+        self.draft_model = draft_model
+        self.tokenizer = tokenizer
+        self.k = k
+        self.last_iters: int | None = None
+        self.last_accept_rate: float | None = None
+
+    @classmethod
+    def with_truncated_draft(cls, model: T5Model, tokenizer, n_layers: int, k: int = 4) -> SpeculativeT5Generator:
+        """The draft is the target's own first ``n_layers`` of BOTH stacks
+        (shared embeddings, rel-pos tables, final norms and classifier): no
+        extra weights; the depth only moves the speed and the acceptance."""
+        from .speculative import TruncatedDraft
+
+        return cls(model, TruncatedDraft(model, n_layers, ("encoder", "decoder")), tokenizer, k)
+
+    def _tok(self):
+        if self.tokenizer is None:
+            raise ValueError("string generation needs a tokenizer; use the *_tokens methods for ids")
+        return self.tokenizer
+
+    def generate(self, prompt: str, max_tokens: int = 100) -> str:
+        tok = self._tok()
+        return tok.Decode(self.generate_tokens(tok.Encode(prompt, add_eos=True), max_tokens, tok.pad_id(),
+                                               tok.eos_id()))
+
+    def _generate(self, token_lists: list[list[int]], max_tokens: int, pad_id: int, eos_id: int, one_row: bool):
+        from .speculative import acceptance, cut_at_eos
+
+        ns = [len(t) for t in token_lists]
+        if not ns or min(ns) < 1:
+            raise ValueError("generation needs at least one non-empty prompt")
+        buf = np.zeros((len(ns), -(-max(ns) // ENC_BUCKET) * ENC_BUCKET), np.int64)  # RIGHT-padded rows
+        for i, t in enumerate(token_lists):
+            buf[i, :ns[i]] = t
+        dev = self.model.device
+        out, lengths, iters = _t5_spec_generate(
+            self.model.params, self.model.cfg, self.draft_model.params, self.draft_model.cfg,
+            torch.from_numpy(buf).to(dev), torch.tensor(ns, device=dev), max_tokens, pad_id, eos_id, self.k, one_row)
+        if one_row:
+            self.last_iters, self.last_accept_rate = iters, acceptance(int(lengths[0]) - 2, iters, self.k)
+        return [cut_at_eos(out[i, : lengths[i]], 1, eos_id) for i in range(len(ns))]
+
+    def generate_tokens(self, token_ids: list[int], max_tokens: int, pad_id: int, eos_id: int) -> list[int]:
+        """Rows as :meth:`T5Generator.generate_tokens`: the pad token, then
+        the generated ids up to and including the first EOS, at most
+        ``max_tokens`` ids."""
+        return self._generate([token_ids], max_tokens, pad_id, eos_id, True)[0]
+
+    def generate_batch(self, prompts: list[str], max_tokens: int = 100) -> list[str]:
+        tok = self._tok()
+        outs = self.generate_tokens_batch([tok.Encode(p, add_eos=True) for p in prompts], max_tokens, tok.pad_id(),
+                                          tok.eos_id())
+        return [tok.Decode(o) for o in outs]
+
+    def generate_tokens_batch(self, token_lists: list[list[int]], max_tokens: int, pad_id: int,
+                              eos_id: int) -> list[list[int]]:
+        """Batched :meth:`generate_tokens`: B rows draft and verify together
+        with per-row acceptance, one batched per-op pass a step;
+        token-identical per row to the one-row path."""
+        return self._generate(token_lists, max_tokens, pad_id, eos_id, False)

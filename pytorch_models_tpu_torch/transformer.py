@@ -119,15 +119,18 @@ def mha_project_kv(p: dict, cfg: LayerConfig, kv: torch.Tensor, valid_lens=None,
 
 
 def _decode_kernel_bias(attn_bias: torch.Tensor | None, l_max: int, n_heads: int):
-    """A single-position additive bias shared by the batch (T5's rel-pos
-    decode bias) in the decode kernel's key-major layout: (H, 1, L) -> (1, L,
-    H), contiguous fp32. Returns ``(kernel_bias, convertible)``; another
-    shape is not convertible and takes the plain path."""
+    """A single-position additive bias (T5's rel-pos decode bias) in the
+    decode kernel's key-major layout, contiguous fp32: shared by the batch,
+    (H, 1, L) -> (1, L, H), or per row, (B, H, 1, L) -> (B, L, H). Returns
+    ``(kernel_bias, convertible)``; another shape is not convertible and
+    takes the plain path."""
     if attn_bias is None:
         return None, True
-    if attn_bias.shape != (n_heads, 1, l_max):
-        return None, False
-    return attn_bias.movedim(0, -1).to(torch.float32).contiguous(), True
+    if attn_bias.shape == (n_heads, 1, l_max):
+        return attn_bias.movedim(0, -1).to(torch.float32).contiguous(), True
+    if attn_bias.ndim == 4 and attn_bias.shape[1:] == (n_heads, 1, l_max):
+        return attn_bias[:, :, 0].transpose(1, 2).to(torch.float32).contiguous(), True
+    return None, False
 
 
 def mha_apply(
@@ -150,6 +153,9 @@ def mha_apply(
     broadcastable to ``(..., H, Lq, Lk)``. With ``cache`` and ``cache_pos`` (self-attention),
     the chunk's new K/V are written at cache slots ``[pos, pos+S)`` and
     attention is masked to ``key_pos <= pos + i``; returns ``(out, cache)``.
+    ``cache_pos`` is an int, or a (B,) tensor of per-row slots ``pos_b``
+    (speculative decoding's rows, each at its own position): row b's chunk is
+    written at ``[pos_b, pos_b+S)`` and masked to ``key_pos <= pos_b + i``.
     ``pad_lens`` (B,) masks each row's left-pad slots ``< pad_lens[b]``. With
     ``cache`` but no ``cache_pos``, the cache is a precomputed cross-attention
     cache (:func:`mha_project_kv`) used as is; its ``len`` masks the padding.
@@ -184,8 +190,16 @@ def mha_apply(
         v_new = linear(p["v"], v)
         # in place, where the JAX package returns a dynamic_update_slice copy
         s = q.shape[-2]
-        cache["k"][..., cache_pos:cache_pos + s, :] = k_new.to(cache["k"].dtype)
-        cache["v"][..., cache_pos:cache_pos + s, :] = v_new.to(cache["v"].dtype)
+        per_row = isinstance(cache_pos, torch.Tensor)
+        if per_row:  # row b's chunk at its own slots [pos_b, pos_b+S)
+            cache_pos = cache_pos.long()
+            slots = cache_pos[:, None] + torch.arange(s, device=q.device)
+            rows = torch.arange(slots.shape[0], device=q.device)[:, None]
+            cache["k"][rows, slots] = k_new.to(cache["k"].dtype)
+            cache["v"][rows, slots] = v_new.to(cache["v"].dtype)
+        else:
+            cache["k"][..., cache_pos:cache_pos + s, :] = k_new.to(cache["k"].dtype)
+            cache["v"][..., cache_pos:cache_pos + s, :] = v_new.to(cache["v"].dtype)
         ck, cv = cache["k"], cache["v"]
         l_max = ck.shape[-2]
 
@@ -205,7 +219,8 @@ def mha_apply(
         row = torch.arange(s, device=q.device)[:, None]
         col = torch.arange(l_max, device=q.device)[None, :]
         zero = torch.zeros((), dtype=torch.float32, device=q.device)
-        bias = torch.where(col <= cache_pos + row, zero, float("-inf"))
+        last = cache_pos[:, None, None, None] + row if per_row else cache_pos + row  # per row: (B, 1, S, 1)
+        bias = torch.where(col <= last, zero, float("-inf"))
         if pad_lens is not None:
             # finite -1e30 (not -inf): a left-padded row's pad-region queries
             # see no valid keys; -inf would make their (discarded) softmax NaN

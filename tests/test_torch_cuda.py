@@ -1193,3 +1193,76 @@ def test_fused_step_gate_serves_32_rows_and_refuses_33(cuda, model):
                for blk, sub in layer_init(torch.Generator().manual_seed(1), cfg).items()}]
     if not gated:
         assert fused_step_eligible(layers, cfg, 32) and not fused_step_eligible(layers, cfg, 33)
+
+
+# K7 at one row, the speculative drafts' batch, at the two draft depths chip_smoke.py drives (a truncated
+# 2-layer draft and the whole 12-layer stack) and the served widths: GPT-2 with its head and headless (the
+# sampled drafts), Whisper's cross step, T5's. Tolerance as chip_smoke.py's DS_TOL: fp32 differs by summation
+# order, compounding over the layers; bf16 lands a value one bf16 step apart where an fp32 sum straddles a
+# rounding boundary, and carries it through the later layers.
+@pytest.mark.parametrize("dtype,atol,rtol", [(torch.float32, 1e-4, 1e-4), (torch.bfloat16, 2.0 ** -3, 2.0 ** -5)])
+@pytest.mark.parametrize("n_layers", [2, 12])
+@pytest.mark.parametrize("kind", ["gpt2", "gpt2-headless", "whisper", "t5"])
+def test_fused_step_at_one_row_matches_plain(cuda, dtype, atol, rtol, n_layers, kind):
+    from pytorch_models_tpu_torch.models.text.t5 import T5Config, t5_block_init
+    from pytorch_models_tpu_torch.ops.decode_step import fused_decode_step_plain
+
+    gen = torch.Generator().manual_seed(15)
+    t5, cross = kind == "t5", kind in ("whisper", "t5")
+    d = 512 if kind == "whisper" else 768
+    if t5:
+        cfg = LayerConfig(768, 12, 64, bias=False, act="approximate_gelu")
+        layers = [t5_block_init(gen, T5Config(32128, 768, 12, n_layers, 2048), True) for _ in range(n_layers)]
+        for lp in layers:
+            for name in ("sa_norm", "ca_norm", "mlp_norm"):
+                lp[name]["scale"] = 1 + 0.1 * torch.randn(d, generator=gen)
+    else:
+        cfg = LayerConfig.make(d, cross_attn=cross, act="gelu" if cross else "approximate_gelu")
+        layers = [layer_init(gen, cfg) for _ in range(n_layers)]
+    vocab = 1000
+    packed = {k: t.to(cuda) for k, t in pack_decode_weights(layers, dtype, cross=cross, gated=t5).items()}
+    emb = torch.randn(d, vocab, generator=gen) if t5 else torch.randn(vocab, d, generator=gen)
+    fnorm = {"scale": 1 + 0.1 * torch.randn(d, generator=gen)}
+    if not t5:
+        fnorm["bias"] = 0.1 * torch.randn(d, generator=gen)
+    head = None if kind == "gpt2-headless" else {k: t.to(cuda) for k, t in pack_greedy_head(emb, fnorm, dtype,
+                                                                                          tied=not t5).items()}
+    pos, hd = 37, cfg.n_heads * cfg.head_dim
+    x = torch.randn(1, d, generator=gen).to(cuda, dtype)
+    kc, vc = (torch.randn(n_layers, 1, 128, hd, generator=gen).to(cuda, dtype) for _ in range(2))
+    kw = {}
+    if cross:
+        lx = 1536 if kind == "whisper" else 128
+        xk, xv = (torch.randn(n_layers, 1, lx, hd, generator=gen).to(cuda, dtype) for _ in range(2))
+        kw = dict(cross_k=xk, cross_v=xv, cross_lens=torch.tensor([1500 if kind == "whisper" else 20],
+                                                                  dtype=torch.int32, device=cuda))
+    if t5:
+        kw.update(norm="rms", gated=True, sbias=2.0 * torch.randn(128, 12, generator=gen).to(cuda))
+    kc2, vc2 = kc.clone(), vc.clone()
+    ref_x, ref_tok = fused_decode_step_plain(x, packed, kc2, vc2, pos, None, cfg.n_heads, cfg.act, cfg.norm_eps, head,
+                                             **kw)
+    fn = fused_cross_decode_step if cross else fused_decode_step
+    before = fn.launches
+    if cross:
+        xk, xv, lens = (kw.pop(k) for k in ("cross_k", "cross_v", "cross_lens"))
+        got_x, got_tok = fn(x, packed, kc, vc, xk, xv, lens, pos, None, cfg.n_heads, cfg.act, cfg.norm_eps,
+                            head=head, **kw)
+    else:
+        got_x, got_tok = fn(x, packed, kc, vc, pos, None, cfg.n_heads, cfg.act, cfg.norm_eps, head=head)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    torch.testing.assert_close(got_x.float(), ref_x.float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(kc[:, :, pos].float(), kc2[:, :, pos].float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(vc[:, :, pos].float(), vc2[:, :, pos].float(), atol=atol, rtol=rtol)
+    assert torch.equal(kc[:, :, :pos], kc2[:, :, :pos]) and torch.equal(vc[:, :, :pos], vc2[:, :, :pos])
+    if head is None:
+        assert got_tok is None
+    elif t5:  # the untied head: equal unless the plain top-2 scores lie within the tolerance
+        from pytorch_models_tpu_torch.ops.decode_step import _norm
+
+        s = torch.matmul(_norm(head["fn_s"], head["fn_b"], ref_x, 1e-5, "rms").float(), head["emb"].float().t())
+        top2 = s.topk(2, dim=-1).values[0]
+        assert torch.equal(got_tok, ref_tok) or (top2[0] - top2[1]).item() <= 2.0 ** -5 * top2[0].abs().item()
+    else:
+        regret, top = _greedy_regret(got_x, got_tok, head, cfg.norm_eps)
+        assert regret <= (1e-4 * top if dtype == torch.float32 else 2.0 ** -5 * top)
