@@ -39,6 +39,18 @@ checks that each went through its kernels:
   bf16 at B=128, ``bench.py``'s batch: both routes' img/s and MFU in turns,
   and K1's share of the forward.
 
+The other families at full published width, random weights from the
+seed (``families_path``, phase "families"): GPT-1 greedy through
+``generate_tokens_batch`` (post-norm, so per-op: the decode attention K2,
+K3's ``embed_add`` and the tied greedy head K4 at V=40478), fp32 against
+the plain route; BERT-base on B=8 x 512 tokens and DETR-R50 on two images
+padded to 800 x 1066 by ``DETRPipeline``, fp32 the K1 route against the
+SDPA route with K1 12 and 18 times a forward; MLP-Mixer-B/16,
+ConvNeXt-tiny and MaxViT-tiny at 224 and MobileViT-s at 256, the card's
+fp32 output on 2 images against the port's own CPU output; bf16 rates of
+all. K1 is also held against its twin at BERT's and DETR's shapes, and K4
+at GPT-1's vocab, in the kernel phase.
+
 bench.py's batched greedy decode shapes (``batch_paths``): GPT-2 small at
 B=32 (32-token prompts), T5-base at B=32 (64-token inputs), Whisper-base at
 B=16, fp32 fused, per-op and plain token-identical with K7 once per decode
@@ -396,6 +408,10 @@ def _check_greedy(name: str, x, emb, tie: int, untied: bool = False) -> tuple[fl
     return regret.abs().max().item(), int(decided.sum())
 
 
+# K1 at the families phase's shapes: (name, B, Lq, Lk, heads, head width)
+K1_FAMILY_SHAPES = (("BERT-base", 8, 512, 512, 12, 64), ("DETR-R50 encoder", 2, 850, 850, 8, 32),
+                    ("DETR-R50 decoder", 2, 100, 100, 8, 32), ("DETR-R50 cross", 2, 100, 850, 8, 32))
+
 K1_NEAR = 4e-6  # a p within this (relative) of a bf16 rounding boundary may round either way in kernel and twin
 K1_MAX_NEAR = 10  # at most this many such p in a row whose output differs beyond TOL (3^10 sets searched)
 
@@ -604,6 +620,21 @@ def kernel_phases(dev, card: str) -> dict:
         print(f"phase kernel encoder_attention {dn} (ViT-B/16): B=128 L=197 H=12 D=64 dense max_abs_err="
               f"{vit['err']:.3g} (atol, rtol)={tol} | {_k1_times(vit)} [{card}]")
         del qv, kv_, vv
+        # the families phase's shapes: BERT-base's B=8 x 512 tokens, 12 heads of 64; DETR-R50's on two
+        # 800 x 1066 images, 8 heads of 32: the encoder's 850 tokens, the decoder's 100 queries, their
+        # cross-attention over the 850-token memory
+        rec["rows"] = []
+        for shape, b, lq, lk, h, d in K1_FAMILY_SHAPES:
+            qf = rnd(b, lq, h * d, dtype=dtype)
+            kf, vf = (rnd(b, lk, h * d, dtype=dtype) for _ in range(2))
+            row = _k1_case(f"encoder_attention {shape} {dn}", qf, kf, vf, h, False, 20)
+            rec["err"] = max(rec["err"], row["err"])
+            rec["rows"].append({"shape": f"{shape} B={b} Lq={lq} Lk={lk} H={h} D={d}", "dtype": dn,
+                                "max_abs_err": row["err"],
+                                **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}})
+            print(f"phase kernel encoder_attention {dn} ({shape}): B={b} Lq={lq} Lk={lk} H={h} D={d} dense "
+                  f"max_abs_err={row['err']:.3g} (atol, rtol)={tol} | {_k1_times(row)} [{card}]")
+            del qf, kf, vf
 
         # K2: B=8, L=1024, mixed pads/ends, one empty row
         ends = torch.tensor([1024, 700, 5, 64, 1, 300, 1000, 512], dtype=torch.int32, device=dev)
@@ -702,6 +733,22 @@ def kernel_phases(dev, card: str) -> dict:
         print(f"phase kernel greedy_argmax_tied {dn}: V=50257 d=768, tie->lowest ok (score regret tol per row: "
               f"{'1e-3' if dtype == torch.float32 else 'one bf16 step of the top score'}) | " + "; ".join(parts)
               + f"; B=1 kernel {head1[0] * 1e3:.1f} us, head {head1[1] * 1e3:.1f} us [{card}]")
+        # GPT-1's tied head: V=40478 at the families phase's B=8, forced tie at rows 7 and 40000
+        emb1 = rnd(40478, 768, dtype=dtype)
+        x = rnd(8, 768, dtype=dtype)
+        emb1[7] = emb1[40000] = x[0] * 4
+        e, decided = _check_greedy(f"greedy_argmax_tied GPT-1 V=40478 B=8 {dn}", x, emb1, 7)
+        k4 = _ab_ms([lambda: greedy_argmax_tied(x, emb1)], [lambda: greedy_argmax_tied_plain(x, emb1)], 50)
+        head = _time_ms([lambda: torch.argmax(torch.matmul(x, emb1.t()), dim=-1)], 50)
+        r = _rec(e, *k4, (emb1.numel() + x.numel()) * x.element_size(), 2 * 8 * emb1.numel(), dn, tf32x3=True)
+        rec["err"] = max(rec["err"], e)
+        rec["rows"] = [{"shape": "GPT-1 V=40478 d=768 B=8", "dtype": dn, "max_abs_err": e, "head_matmul_ms": head,
+                        **{k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}]
+        print(f"phase kernel greedy_argmax_tied {dn} (GPT-1): V=40478 d=768 B=8: {decided}/8 decided rows equal, "
+              f"tie->lowest ok, max score regret {e:.3g} | kernel {k4[0] * 1e3:.1f} us, plain {k4[1] * 1e3:.1f} us, "
+              f"head matmul + argmax {head * 1e3:.1f} us, bound {r['bound_ms'] * 1e3:.1f} us ({r['bound_by']}) "
+              f"[{card}]")
+        del emb, emb1
     torch.cuda.synchronize()
     return res
 
@@ -2818,6 +2865,264 @@ def vit_path(dev, card: str, profile_dir: str | None = None) -> dict:
     return launches
 
 
+# the families phase: GPT-1 greedy (PROMPT_LENS, FAM_GPT_NEW new tokens), BERT-base (B=8 x 512 tokens),
+# DETR-R50 (two images padded to 800 x 1066 by DETRPipeline), and four conv / hybrid families at B=32
+FAM_GPT_NEW = 32
+GPT1_MLP_SCALE = 3.0  # GPT-1's MLP matrices, x the init's scale (a CPU reading: min top-2 gap 0.028 at |top| 148)
+BERT_B, BERT_L = 8, 512
+# bert-base-uncased's config.json (the port fetches nothing: from_hf takes it as a dict)
+BERT_CONFIG = {"model_type": "bert", "vocab_size": 30522, "num_hidden_layers": 12, "hidden_size": 768,
+               "max_position_embeddings": 512, "layer_norm_eps": 1e-12}
+DETR_SIZES = ((800, 1066), (600, 900))  # (H, W) of the two images; DETRPipeline pads both to 800 x 1066
+CONV_B = 32
+# (name, class, constructor, its argument, image size); held on 2 images against the port's own CPU output
+CONV_FAMILIES = (("MLP-Mixer-B/16", "MLPMixer", "from_google", "B/16", 224),
+                 ("ConvNeXt-tiny", "ConvNeXt", "from_facebook", "tiny", 224),
+                 ("MaxViT-tiny", "MaxViT", "from_google", "tiny", 224),
+                 ("MobileViT-s", "MobileViT", "from_apple", "s", 256))
+CONV_TOL = 10 * 2e-5  # PARITY.md's fp32 bound of the four families (max abs 2e-5), x 10
+FAM_FORWARDS = 5  # forwards per timed turn
+# bf16 K1 route vs SDPA route, relative L2 norm of the outputs: as VIT_BF16_REL, 12 layers of bf16 steps
+FAM_BF16_REL = 12 * 2.0 ** -8
+
+
+def _redraw(params, seed: int, scales: dict) -> None:
+    """Leaves the init leaves degenerate (zero tables, ConvNeXt's 1e-6 layer
+    scale), under the keys of ``scales``, redrawn N(0, 1) x scale from a
+    seed on the CPU, in place, so that their paths are exercised."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+
+    def walk(t):
+        items = t.items() if isinstance(t, dict) else enumerate(t) if isinstance(t, list) else ()
+        for k, v in items:
+            if k in scales and isinstance(v, torch.Tensor):
+                t[k] = (scales[k] * torch.randn(v.shape, generator=g)).to(v.device, v.dtype)
+            else:
+                walk(v)
+
+    walk(params)
+
+
+def _turns(fns: dict, n: int) -> dict:
+    """Mean ms of ``n`` calls of each of ``fns`` (route -> fn), the routes in
+    turns (a, b, b, a), after a warm call each; CUDA events."""
+    times: dict[str, list] = {}
+    names = list(fns)
+    for name in names + names[::-1]:
+        fns[name]()
+        ms, _ = _event_ms(lambda: [fns[name]() for _ in range(n)])
+        times.setdefault(name, []).append(ms / n)
+    return {name: float(np.mean(v)) for name, v in times.items()}
+
+
+def families_path(dev, card: str, profile_dir: str | None = None) -> dict:
+    """The families this port serves beside GPT-2, Whisper, T5 and ViT, each
+    at full published width with random weights from the seed, through its
+    entry points:
+
+    - GPT-1 (12 layers, d 768, vocab 40478; position embeddings seeded
+      N(0, 1) and MLP matrices at GPT1_MLP_SCALE x the init's, so that
+      streams move) through ``generate_tokens_batch``: post-norm, so per-op
+      (K2, K3's ``embed_add``, K4 tied at V=40478); fp32 tokens identical to
+      the plain route's up to near-ties; bf16 tok/s of both routes;
+    - BERT-base (12 layers, d 768, 12 heads of 64; the PE seeded at 0.02) on
+      B=8 x 512 tokens: fp32 the K1 route against the SDPA route, K1 12
+      times a forward; bf16 sequences/s of both routes in turns;
+    - DETR-R50 (the query embeddings seeded N(0, 1)) on two images padded to
+      800 x 1066 by ``DETRPipeline``: fp32 logits and boxes of the K1 route
+      against the SDPA route, K1 18 times a forward (6 encoder, 6 decoder
+      self, 6 cross); the pipeline's post-processing; bf16 images/s;
+    - MLP-Mixer-B/16, ConvNeXt-tiny and MaxViT-tiny at 224 and MobileViT-s
+      at 256 (ConvNeXt's layer scales and MaxViT's relative-bias tables
+      seeded): the card's fp32 output on 2 images against the port's own
+      CPU output on the same params at CONV_TOL; bf16 images/s at B=32.
+
+    Counts from 0 over the fp32 runs of GPT-1, BERT and DETR; returns them.
+    With ``profile_dir``, a profiled bf16 forward of BERT and of DETR, K1
+    route."""
+    import torch
+
+    from pytorch_models_tpu_torch import image
+    from pytorch_models_tpu_torch.models.text import BERT, GPT, DecoderGenerator
+    from pytorch_models_tpu_torch.models.text._decoder_lm import decoder_lm_fused_ok
+    from pytorch_models_tpu_torch.ops import attention as attn
+    from pytorch_models_tpu_torch.utils import tree_map
+
+    kernels = _kernels()
+    t0 = time.perf_counter()
+    gpt = GPT.from_openai(rng=SEED, device=dev)
+    c = gpt.cfg
+    # post-norm: at the init's scale every decode step returns its input token (the residual's share of the
+    # final state), with every matrix at 4x (GPT-2's rescale) the context's average dominates and a row repeats
+    # one token; MLP matrices at GPT1_MLP_SCALE and seeded position embeddings make the streams move
+    gpt.params["pos_embs"] = torch.randn(gpt.params["pos_embs"].shape, generator=torch.Generator().manual_seed(
+        SEED + 21)).to(dev)
+    for lp in gpt.params["decoder"]["layers"]:
+        _scale_matrices([{"mlp": lp["mlp"]}], GPT1_MLP_SCALE)
+    bert = BERT.from_hf("bert-base-uncased", config=BERT_CONFIG, rng=SEED, device=dev)
+    _redraw(bert.params, SEED + 22, {"pos_embs": 0.02})
+    detr = image.DETR.from_facebook("resnet50", device=dev)
+    _redraw(detr.params, SEED + 23, {"query_embed": 1.0})
+    print(f"phase families: GPT-1 ({c.n_layers} layers, d {c.d_model}, vocab {c.vocab_size}), BERT-base "
+          f"({bert.cfg.n_layers} layers, d {bert.cfg.d_model}, vocab {bert.cfg.vocab_size}), DETR-R50 "
+          f"(backbone {list(detr.cfg.backbone_layers)}, d {detr.cfg.d_model}, {detr.cfg.n_queries} queries) built "
+          f"from seed {SEED} on {dev} in {time.perf_counter() - t0:.1f} s")
+
+    r = np.random.default_rng(SEED + 24)
+    prompts = [r.integers(0, c.vocab_size, n).tolist() for n in PROMPT_LENS]
+    tokens = torch.from_numpy(r.integers(0, BERT_CONFIG["vocab_size"], (BERT_B, BERT_L))).to(dev)
+    images = [r.random((3, h, w), dtype=np.float32) for h, w in DETR_SIZES]
+    padded, height, width = image.DETRPipeline.pad_batch(images)
+    detr_x = torch.from_numpy(padded).to(dev)
+    gen = DecoderGenerator(gpt, _Tok())
+
+    def generate():
+        return gen.generate_tokens_batch(prompts, max_tokens=FAM_GPT_NEW)
+
+    def gap_fn(i, prefix):
+        _route("plain")
+        with torch.inference_mode():
+            return _top2(gpt(torch.tensor(prefix))[-1])
+
+    def k1_route(model, route, x):
+        attn.USE_ENCODER_KERNEL = None if route == "K1" else False
+        return model(x)
+
+    def k1_calls(fn) -> tuple[int, object]:
+        before = kernels["encoder_attention"].launches
+        out = fn()
+        torch.cuda.synchronize()
+        return kernels["encoder_attention"].launches - before, out
+
+    # fp32, the main path's run, counts from 0
+    _reset_launches()
+    _route("per-op")
+    if decoder_lm_fused_ok(gpt.params, c, len(prompts)):
+        raise AssertionError("GPT-1 is post-norm: the fused step must refuse it")
+    _route("plain")
+    outs = {"plain": generate()}
+    _route("per-op")
+    before = {k: kernels[k].launches for k in ("decode_attention", "embed_add", "greedy_argmax_tied")}
+    outs["per-op"] = generate()
+    torch.cuda.synchronize()
+    gpt_counts = {k: kernels[k].launches - v for k, v in before.items()}
+    for route, rows in outs.items():
+        if any(row[:len(p)] != p or len(row) != len(p) + FAM_GPT_NEW or not all(0 <= t < c.vocab_size for t in row)
+               for row, p in zip(rows, prompts)):
+            raise AssertionError(f"GPT-1 fp32 generation ({route}): malformed row")
+    steps = FAM_GPT_NEW - 1  # no EOS: every decode step to the limit
+    if (gpt_counts["greedy_argmax_tied"] != steps or gpt_counts["decode_attention"] != c.n_layers * steps
+            or gpt_counts["embed_add"] < steps):
+        raise AssertionError(f"GPT-1 per-op route: launches {gpt_counts} for {steps} decode steps of "
+                             f"{c.n_layers} layers")
+    distinct = _check_moving("families GPT-1 fp32", outs["per-op"], PROMPT_LENS)
+    partings = _check_routes("families GPT-1 fp32", outs, gap_fn)
+    print(f"phase families GPT-1 fp32 generate_tokens_batch B={len(prompts)} (position embeddings at scale 1, "
+          f"MLP matrices at {GPT1_MLP_SCALE}x the init's): {FAM_GPT_NEW} new tokens each, per-op kernels and plain "
+          f"token-identical (partings at near-ties: {partings}); the fused step refuses the post-norm stack; "
+          f"launches K2 {gpt_counts['decode_attention']} = {c.n_layers} layers x {steps} steps, embed_add "
+          f"{gpt_counts['embed_add']}, K4 (tied, V={c.vocab_size}) {gpt_counts['greedy_argmax_tied']} = {steps} "
+          f"steps; distinct new tokens per row {distinct}")
+
+    ref = k1_route(bert, "SDPA", tokens)
+    n_k1, got = k1_calls(lambda: k1_route(bert, "K1", tokens))
+    if n_k1 != bert.cfg.n_layers or got.shape != (BERT_B, BERT_L, bert.cfg.d_model):
+        raise AssertionError(f"BERT fp32: K1 launched {n_k1} times, output {tuple(got.shape)}")
+    err = _check_close("BERT fp32 K1 route vs SDPA route", got, ref, DS_TOL["float32"])
+    print(f"phase families BERT-base fp32 B={BERT_B} x {BERT_L} tokens (TF32 off): encoder output (|x| <= "
+          f"{ref.abs().max().item():.3g}) of the K1 route vs the SDPA route max_abs_err={err:.3g} (atol, rtol)="
+          f"{DS_TOL['float32']}; K1 launched {n_k1} times = {bert.cfg.n_layers} layers per forward")
+
+    ref = k1_route(detr, "SDPA", detr_x)
+    n_k1, got = k1_calls(lambda: k1_route(detr, "K1", detr_x))
+    n_attn = 3 * detr.cfg.n_dec_layers + detr.cfg.n_enc_layers - detr.cfg.n_dec_layers  # enc self, dec self + cross
+    if n_k1 != n_attn or got[0].shape != (2, detr.cfg.n_queries, detr.cfg.n_classes + 1):
+        raise AssertionError(f"DETR fp32: K1 launched {n_k1} times ({n_attn} wanted), logits {tuple(got[0].shape)}")
+    errs = [_check_close(f"DETR fp32 K1 route vs SDPA route {what}", g_, r_, DS_TOL["float32"])
+            for what, g_, r_ in zip(("logits", "boxes"), got, ref)]
+    attn.USE_ENCODER_KERNEL = None
+    dets = image.DETRPipeline(detr, threshold=0.0)(images)
+    for classes, boxes, probs in dets:
+        if (len(classes) != detr.cfg.n_queries or not set(classes) <= set(image.DETRPipeline.COCO_CLASSES)
+                or not np.isfinite(boxes).all() or not ((probs >= 0) & (probs <= 1)).all()):
+            raise AssertionError("DETRPipeline: malformed detections")
+    print(f"phase families DETR-R50 fp32 B=2 ({' and '.join(f'{h}x{w}' for h, w in DETR_SIZES)} padded to "
+          f"{height}x{width} by DETRPipeline: a {height // 32} x {-(-width // 32)} memory): the K1 route vs the SDPA "
+          f"route logits max_abs_err={errs[0]:.3g}, boxes {errs[1]:.3g} (atol, rtol)={DS_TOL['float32']}; K1 "
+          f"launched {n_k1} times = {detr.cfg.n_enc_layers} encoder + {detr.cfg.n_dec_layers} decoder self + "
+          f"{detr.cfg.n_dec_layers} cross per forward; DETRPipeline(threshold 0) gave {len(dets)} x "
+          f"{len(dets[0][0])} detections")
+    launches = _launches({"encoder_attention", "decode_attention", "embed_add", "greedy_argmax_tied"})
+    print("phase families launches: " + " ".join(f"{k}={v}" for k, v in launches.items() if v))
+
+    # bf16: GPT-1 tok/s per route; BERT and DETR, K1 route against SDPA route, agreement then rates in turns
+    gpt.to_bf16()
+    rates = {}
+    for route in ("plain", "per-op", "per-op", "plain"):
+        _route(route)
+        ms, _ = _event_ms(generate)
+        rates.setdefault(route, []).append(ms)
+    _route("fused")
+    n_tok = len(prompts) * FAM_GPT_NEW
+    print(f"phase families time bf16 GPT-1 generate_tokens_batch B={len(prompts)} x {FAM_GPT_NEW} new (prefill "
+          f"included, CUDA events): " + ", ".join(f"{k} {n_tok / (np.mean(v) / 1e3):.1f} tok/s ({np.mean(v):.1f} ms, "
+                                                 f"turns {', '.join(f'{t:.1f}' for t in v)})" for k, v in rates.items())
+          + f" [{card}]")
+    for name, model, x, unit, n in (("BERT-base", bert, tokens, "sequences", BERT_B),
+                                    ("DETR-R50", detr, detr_x.to(torch.bfloat16), "images", 2)):
+        model.to_bf16()
+        outs16 = {route: k1_route(model, route, x) for route in ("SDPA", "K1")}
+        a, b = (o[0] if isinstance(o, tuple) else o for o in (outs16["K1"], outs16["SDPA"]))
+        rel = ((a.float() - b.float()).norm() / b.float().norm()).item()
+        if not bool(torch.isfinite(a.float()).all()) or rel > FAM_BF16_REL:
+            raise AssertionError(f"{name} bf16: K1 route vs SDPA route relative L2 {rel:.3g} (limit {FAM_BF16_REL})")
+        ms = _turns({route: (lambda route=route: k1_route(model, route, x)) for route in ("SDPA", "K1")},
+                    FAM_FORWARDS)
+        attn.USE_ENCODER_KERNEL = None
+        print(f"phase families time bf16 {name} B={n}: K1 route vs SDPA route relative L2 {rel:.3g} (limit "
+              f"{FAM_BF16_REL:.3g}); " + "; ".join(f"{route} route {n / (ms[route] / 1e3):.1f} {unit}/s "
+                                                  f"({ms[route]:.3f} ms per forward)" for route in ("K1", "SDPA"))
+              + f" (CUDA events over {FAM_FORWARDS} forwards a turn, turns SDPA, K1, K1, SDPA) [{card}]")
+        if profile_dir is not None:
+            profile_phase(lambda: model(x), f"bf16 {name} forward B={n}, K1 route",
+                          f"profile_bf16_{name.split('-')[0].lower()}.json", profile_dir, card, lambda out: 1, "forward")
+    del gpt, bert, detr, gen
+
+    # the conv / hybrid families: no kernel of the port on their paths (MaxViT's biased windows and
+    # MobileViT's head widths 36/48/60 take sdpa, as in the JAX package)
+    g = torch.Generator().manual_seed(SEED + 25)
+    for name, cls_name, ctor, arg, size in CONV_FAMILIES:
+        cls = getattr(image, cls_name)
+        t0 = time.perf_counter()
+        model = getattr(cls, ctor)(arg, device=dev)
+        _redraw(model.params, SEED + 26, {"gamma": 0.1, "attn_bias": 0.5})
+        twin = getattr(cls, ctor)(arg, device="cpu")
+        twin.params = tree_map(lambda t: t.cpu(), model.params)
+        imgs = torch.randn(CONV_B, 3, size, size, generator=g)
+        built = time.perf_counter() - t0
+        ref = twin(imgs[:2])
+        got = model(imgs[:2].to(dev))
+        torch.cuda.synchronize()
+        err = (got.cpu() - ref).abs().max().item()
+        if got.shape != ref.shape or not bool(torch.isfinite(got).all()) or err > CONV_TOL:
+            raise AssertionError(f"{name} fp32: the card's output {tuple(got.shape)} vs the CPU's max |diff| {err:.3g} "
+                                 f"(limit {CONV_TOL})")
+        model.to_bf16()
+        xb = imgs.to(dev, torch.bfloat16)
+        out = model(xb)
+        if out.shape != (CONV_B, ref.shape[-1]) or not bool(torch.isfinite(out.float()).all()):
+            raise AssertionError(f"{name} bf16: output {tuple(out.shape)} not finite")
+        ms = _turns({"bf16": lambda: model(xb)}, FAM_FORWARDS)["bf16"]
+        print(f"phase families {name} at {size}: built in {built:.1f} s; fp32 (TF32 off) card vs the port's CPU "
+              f"output on 2 images (|x| <= {ref.abs().max().item():.3g}) max_abs_err={err:.3g} (limit {CONV_TOL:.3g}); "
+              f"bf16 B={CONV_B} {CONV_B / (ms / 1e3):.1f} images/s ({ms:.3f} ms per forward, CUDA events over "
+              f"{FAM_FORWARDS} forwards a turn, 2 turns) [{card}]")
+        del model, twin
+    return launches
+
+
 class _SelectionGaps:
     """Inside the block, each beam group's smallest margin at any selection
     of the beam loop (``beam._top_k``: the W first tokens, the 2W
@@ -4145,7 +4450,7 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", metavar="DIR", default=None,
-                    help="also profile one bf16 generation and one bf16 transcription; write summaries under DIR")
+                    help="also profile bf16 generations, transcriptions and forwards; write summaries under DIR")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to test", file=sys.stderr)
@@ -4186,6 +4491,7 @@ def main() -> int:
     res_i8k7 = timed("K7 int8", int8_decode_step_phases, dev, card)
     paths = {name: timed(name, fn, dev, card, args.profile)
              for name, fn in (("gpt2", main_path), ("whisper", whisper_path), ("t5", t5_path), ("vit", vit_path))}
+    paths["families"] = timed("families", families_path, dev, card, args.profile)
     paths.update(timed("beam and sample", beam_sample_paths, dev, card))
     paths.update(timed("batch", batch_paths, dev, card))
     paths["cb"] = timed("cb", cb_path, dev, card, args.profile)
@@ -4315,11 +4621,14 @@ def main() -> int:
             raise AssertionError(f"{name}: no launch on its main path")
         err = max(v["err"] for r in results for (k, _), v in r.items() if k == name)
         rec = next(r[(name, timed)] for r in results if (name, timed) in r)
+        # other shapes a kernel serves on the main paths (K1 at BERT's and DETR's, K4 at GPT-1's vocab), each dtype
+        rows = [row for r in results for (k, _), v in r.items() if k == name for row in v.get("rows", [])]
         entries.append({"name": name, "route": "cuda", "source": f"pytorch_models_tpu_torch/csrc/{src}",
                         "replaces": replaces, "launches": launches, "max_abs_err": err, "limit": limits[name],
                         **{k: rec[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
                         **{k: rec[k] for k in ("two_gathers_ms", "embedding_add_ms", "launch_floor_ms",
-                                               "head_matmul_ms", "per_op_ms") if k in rec}})
+                                               "head_matmul_ms", "per_op_ms") if k in rec},
+                        **({"rows": rows} if rows else {})})
     print(f"phase total: {time.perf_counter() - t0:.1f} s, the kernels' build "
           f"{_build.build_seconds if _build.build_seconds is not None else 'cached'} s of it [{card}]")
     print(card)

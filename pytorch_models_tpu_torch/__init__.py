@@ -16,9 +16,14 @@ search and scoring (``models.text.DecoderGenerator``) and its tokenizer
 log-mel frontend (``WhisperPreprocessor``), greedy single, batched and
 long-form transcription and beam search (``WhisperGenerator``) and its
 tokenizer (``WhisperTokenizer``); T5 (``models.text.T5Model``) with greedy
-and beam generation and teacher-forced scoring (``T5Generator``); the ViT
-image encoder (``models.image.ViT``, AugReg / SigLIP / DeiT-3 / DINO
-loaders), its attention through the encoder-attention kernel. The decode
+and beam generation and teacher-forced scoring (``T5Generator``); GPT-1
+(``models.text.GPT``, decoded per-op through the same generator) and the
+BERT / RoBERTa encoder (``models.text.BERT``); the image models: ViT
+(AugReg / SigLIP / DeiT-3 / DINO loaders), MLP-Mixer, ConvNeXt, MaxViT,
+MobileViT and DETR with ``DETRPipeline`` (``models.image``), each with its
+checkpoint converter. BERT's, ViT's and DETR's attention runs through the
+encoder-attention kernel. The audio encoders (wav2vec2, SEW,
+data2vec-audio, EnCodec) are not ported yet. The decode
 loops run each step as ONE fused kernel (``ops/decode_step.py``; headless
 when sampling or in beam search) where it serves the model and batch. The models and frontends run on the CUDA card unless the caller
 passes ``device="cpu"``.

@@ -375,8 +375,9 @@ def _beam(params: dict, cfg: WhisperConfig, memory: torch.Tensor, initial_tokens
 
 
 class Whisper(InferenceModel):
-    def __init__(self, vocab_size: int, n_layers: int, d_model: int, n_mels: int = 80, rng: int = 0,
-                 device=None) -> None:
+    def __init__(self, vocab_size: int, n_layers: int, d_model: int, n_mels: int = 80, dropout: float = 0.0,
+                 rng: int = 0, device=None) -> None:
+        # dropout: accepted at the JAX constructor's position for API parity; inference-only
         self.cfg = WhisperConfig(vocab_size, n_layers, d_model, n_mels)
         self.device = resolve_device(device)  # None: the CUDA card
         self.params = whisper_init(torch.Generator().manual_seed(rng), self.cfg, self.device)

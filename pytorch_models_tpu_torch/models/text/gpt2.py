@@ -26,7 +26,8 @@ class GPT2(InferenceModel):
     vocab_size = 50257
     max_seq_len = 1024
 
-    def __init__(self, n_layers: int, d_model: int, rng: int = 0, device=None) -> None:
+    def __init__(self, n_layers: int, d_model: int, dropout: float = 0.0, rng: int = 0, device=None) -> None:
+        # dropout: accepted at the JAX constructor's position for API parity; inference-only
         self.cfg = DecoderLMConfig(
             vocab_size=self.vocab_size,
             max_seq_len=self.max_seq_len,

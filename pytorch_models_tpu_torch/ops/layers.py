@@ -7,6 +7,8 @@ Conventions match the JAX package so parameters transfer unchanged:
 - Conv1d: ``{"w": (k, in, out), "b": (out,)}`` over NLC inputs.
 - Conv2d: ``{"w": (kh, kw, in / groups, out)`` (HWIO), ``"b": (out,)}`` over
   NHWC inputs.
+- BatchNorm (inference): ``{"scale", "bias", "mean", "var"}`` over the
+  channel-last axis; pools over NHWC inputs.
 
 Activations mirror the reference's MLP table: "gelu" is exact (erf) GELU,
 "approximate_gelu" is tanh GELU. A weight-only int8 linear (``{"w": {"w_q",
@@ -154,6 +156,33 @@ def conv2d(p: dict, x: torch.Tensor, stride=1, padding=0, groups: int = 1, dilat
     if "b" in p:
         y = y + p["b"].to(y.dtype)
     return y
+
+
+def bn_init(dim: int) -> dict:
+    return {"scale": torch.ones(dim), "bias": torch.zeros(dim), "mean": torch.zeros(dim), "var": torch.ones(dim)}
+
+
+def batch_norm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Inference BatchNorm over the channel-last axis from the running
+    statistics: scale and bias folded in fp32, cast to ``x``'s dtype, then
+    ``x * scale + bias``, as the JAX package does."""
+    r = torch.rsqrt(p["var"].float() + eps)
+    scale = (p["scale"].float() * r).to(x.dtype)
+    bias = (p["bias"].float() - p["mean"].float() * p["scale"].float() * r).to(x.dtype)
+    return x * scale + bias
+
+
+def max_pool2d(x: torch.Tensor, window: int, stride: int, padding: int = 0) -> torch.Tensor:
+    """torch MaxPool2d on NHWC data; the padding never wins (-inf, as
+    ``lax.reduce_window`` pads)."""
+    y = F.max_pool2d(x.permute(0, 3, 1, 2), window, stride, padding)
+    return y.permute(0, 2, 3, 1)
+
+
+def avg_pool2d(x: torch.Tensor, window: int, stride: int | None = None) -> torch.Tensor:
+    """torch AvgPool2d (no padding) on NHWC data."""
+    y = F.avg_pool2d(x.permute(0, 3, 1, 2), window, stride or window)
+    return y.permute(0, 2, 3, 1)
 
 
 def layer_norm(p: dict | None, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:

@@ -76,18 +76,24 @@ def is_int8(lin: dict) -> bool:
     return isinstance(lin.get("w"), dict) and "w_q" in lin["w"]
 
 
+# the keys under which the JAX package stacks per-layer / per-block params for a ``lax.scan``
+_STACKED_KEYS = ("layers", "blocks")
+
+
 def from_jax_params(np_tree: Any, device=None) -> Any:
     """The JAX package's parameter pytree, as numpy arrays, -> the port's tree.
 
-    Every subtree under a ``"layers"`` key holds layer-stacked leaves
-    ``(L, ...)``; it becomes a list of ``L`` per-layer dicts. Weight-only
-    int8 leaves (``{"w_q", "w_s"}``) carry across as they are: int8 and fp32
-    tensors.
+    Every dict under a ``"layers"`` key (the transformer stacks) or a
+    ``"blocks"`` key (MLP-Mixer's blocks, each ConvNeXt stage's) holds
+    stacked leaves ``(L, ...)`` of a ``lax.scan``; it becomes a list of ``L``
+    per-block dicts. Lists (MaxViT's stages, DETR's box head) stay lists.
+    Weight-only int8 leaves (``{"w_q", "w_s"}``) carry across as they are:
+    int8 and fp32 tensors.
     """
 
     def convert(tree, key=None):
         if isinstance(tree, dict):
-            if key == "layers":
+            if key in _STACKED_KEYS:
                 n = _stack_len(tree)
                 return [convert(_index_tree(tree, i)) for i in range(n)]
             return {k: convert(v, k) for k, v in tree.items()}
@@ -146,10 +152,12 @@ class StateDict:
         w = self.pop(f"{key_prefix}.weight").permute(2, 1, 0).contiguous()
         return {"w": w, "b": self.pop(f"{key_prefix}.bias")}
 
-    def pop_conv2d(self, key_prefix: str) -> dict:
-        """Pop a torch ``nn.Conv2d``'s OIHW ``(out, in, kh, kw)`` weight and bias as an HWIO kernel."""
-        w = self.pop(f"{key_prefix}.weight").permute(2, 3, 1, 0).contiguous()
-        return {"w": w, "b": self.pop(f"{key_prefix}.bias")}
+    def pop_conv2d(self, key_prefix: str, bias: bool = True) -> dict:
+        """Pop a torch ``nn.Conv2d``'s OIHW ``(out, in, kh, kw)`` weight [and bias] as an HWIO kernel."""
+        p = {"w": self.pop(f"{key_prefix}.weight").permute(2, 3, 1, 0).contiguous()}
+        if bias:
+            p["b"] = self.pop(f"{key_prefix}.bias")
+        return p
 
     def finalize(self) -> None:
         if self._d:

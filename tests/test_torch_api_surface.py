@@ -1,0 +1,95 @@
+"""The port's public classes hold the JAX package's constructor surface.
+
+For every public model class the port exports, ``__init__`` and each
+``from_*`` constructor take the JAX class's parameters in the same order,
+of the same kinds and with the same defaults; the one difference allowed is
+a trailing ``device`` (the port's models run on the CUDA card unless the
+caller asks for the CPU). Annotations are not compared.
+"""
+
+import inspect
+import socket
+
+import pytest
+
+import pytorch_models_tpu.audio2text as jax_a2t
+import pytorch_models_tpu.image as jax_image
+import pytorch_models_tpu.text as jax_text
+from pytorch_models_tpu_torch import audio2text, image, text
+
+# (JAX namespace, the port's namespace, class name)
+CLASSES = [(jax_text, text, n) for n in ("GPT", "GPT2", "BERT", "T5Model")] + [
+    (jax_a2t, audio2text, "Whisper")] + [
+    (jax_image, image, n) for n in ("ViT", "MLPMixer", "ConvNeXt", "MaxViT", "MobileViT", "DETR", "DETRPipeline")]
+
+
+def _constructors(cls) -> list[str]:
+    return ["__init__"] + sorted(n for n in vars(cls) if n.startswith("from_"))
+
+
+def _surface(fn) -> list[tuple]:
+    return [(p.name, p.kind, p.default) for p in inspect.signature(fn).parameters.values()]
+
+
+@pytest.mark.parametrize("jax_ns,ns,name", CLASSES, ids=[c[2] for c in CLASSES])
+def test_constructor_signatures_match_jax(jax_ns, ns, name):
+    ref, ours = getattr(jax_ns, name), getattr(ns, name)
+    assert _constructors(ours) == _constructors(ref)
+    for method in _constructors(ref):
+        got, expected = _surface(getattr(ours, method)), _surface(getattr(ref, method))
+        if got and got[-1][0] == "device":
+            assert got[-1][2] is None, f"{name}.{method}: device defaults to None (the CUDA card)"
+            got = got[:-1]
+        assert got == expected, f"{name}.{method}: {got} != {expected}"
+
+
+def test_every_family_is_exported_under_the_jax_names():
+    assert sorted(image.__all__) == sorted(jax_image.__all__)
+    for n in ("BERT", "GPT"):
+        assert n in text.__all__ and getattr(text, n).__name__ == n
+    assert set(text.__all__) <= set(jax_text.__all__)
+
+
+def test_ops_export_the_convolutions():
+    from pytorch_models_tpu_torch.ops import conv1d, conv2d
+    from pytorch_models_tpu_torch.ops import layers
+
+    assert conv1d is layers.conv1d and conv2d is layers.conv2d
+
+
+def test_dropout_at_the_jax_position():
+    """``dropout`` is accepted (and ignored) where the JAX constructors take
+    it, so a third positional argument to GPT2 is dropout, not rng."""
+    import torch
+
+    a = text.GPT2(1, 64, 0.0, 5, device="cpu")
+    b = text.GPT2(1, 64, rng=5, device="cpu")
+    assert torch.equal(a.params["token_embs"], b.params["token_embs"])
+    assert text.GPT2.from_hf("gpt2", dropout=0.0, device="cpu").cfg.n_layers == 12
+    assert audio2text.Whisper.from_openai("tiny", dropout=0.0, device="cpu").cfg.d_model == 384
+
+
+# every from_* of the families this port added, with pretrained=True: no download, a NotImplementedError
+PRETRAINED = [
+    lambda: text.GPT.from_openai(pretrained=True, device="cpu"),
+    lambda: text.BERT.from_hf("bert-base-uncased", pretrained=True, device="cpu"),
+    lambda: text.BERT.from_hf("bert-base-uncased", pretrained=True, device="cpu",
+                              config={"model_type": "bert", "vocab_size": 64, "num_hidden_layers": 1,
+                                      "hidden_size": 64, "max_position_embeddings": 16, "layer_norm_eps": 1e-12}),
+    lambda: image.MLPMixer.from_google("B/16", pretrained=True, device="cpu"),
+    lambda: image.ConvNeXt.from_facebook("tiny", pretrained=True, device="cpu"),
+    lambda: image.MaxViT.from_google("tiny", pretrained=True, device="cpu"),
+    lambda: image.MobileViT.from_apple("s", pretrained=True, device="cpu"),
+    lambda: image.DETR.from_facebook("resnet50", pretrained=True, device="cpu"),
+]
+
+
+@pytest.mark.parametrize("i", range(len(PRETRAINED)))
+def test_pretrained_raises_without_touching_the_network(i, monkeypatch):
+    def refuse(*a, **kw):
+        raise AssertionError("a network connection was attempted")
+
+    monkeypatch.setattr(socket.socket, "connect", refuse)
+    monkeypatch.setattr(socket, "create_connection", refuse)
+    with pytest.raises(NotImplementedError):
+        PRETRAINED[i]()

@@ -574,6 +574,22 @@ def test_encoder_attention_fills_the_card(cuda, dtype, atol, rtol, d):
     torch.cuda.synchronize()
 
 
+@pytest.mark.parametrize("dtype,atol,rtol", K1_TOL)
+@pytest.mark.parametrize("lq,lk", [(850, 850), (100, 100), (100, 850)])
+def test_encoder_attention_at_detr_shapes(cuda, dtype, atol, rtol, lq, lk):
+    """DETR-R50 on 800 x 1066 images, B=2, 8 heads of 32: the encoder's
+    850-token self-attention, the decoder's 100 queries, and their
+    cross-attention over the 850-token memory."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    q = torch.randn(2, lq, 256, generator=g, device=cuda).to(dtype)
+    k, v = (torch.randn(2, lk, 256, generator=g, device=cuda).to(dtype) for _ in range(2))
+    launches = encoder_attention.launches
+    got = encoder_attention(q, k, v, 8)
+    assert encoder_attention.launches == launches + 1 and got.shape == q.shape
+    _assert_k1_close(got, encoder_attention_plain(q, k, v, 8), q, k, v, 8, False, atol, rtol)
+    torch.cuda.synchronize()
+
+
 def test_encoder_attention_k_tile_is_the_kernels(cuda):
     from pytorch_models_tpu_torch.ops import _build
 
