@@ -51,6 +51,20 @@ fp32 output on 2 images against the port's own CPU output; bf16 rates of
 all. K1 is also held against its twin at BERT's and DETR's shapes, and K4
 at GPT-1's vocab, in the kernel phase.
 
+The audio families at full published width, random weights from the seed
+(``audio_path``, phase "audio"): wav2vec2-base, wav2vec2-large-lv60,
+data2vec-audio-base and SEW-tiny through ``from_hf(tag, config=...)`` on
+B=8 clips of 10 s at 16 kHz, fp32 the K1 route against the SDPA route with
+K1 12, 24, 12 and 12 times a forward, bf16 audio-seconds/s of both routes;
+EnCodec 24 kHz (mono, 32 quantizers) and 48 kHz (stereo, 16) on B=4 clips
+of 10 s, the card's fp32 codes against the port's own CPU codes (identical
+up to printed near-ties) and its decode against the CPU's, audio-seconds/s
+of encode + decode; w8a8 (``quantize_int8()`` + ``ops.layers.USE_A8_LINEAR``):
+``linear`` on the card bit for bit against the CPU, ViT-B/16 (B=128) and
+wav2vec2-base (B=8) against their bf16 routes within the JAX package's
+bounds, and their rates. K1 is held against its twin at the wav2vec2,
+wav2vec2-large and SEW shapes in the kernel phase.
+
 bench.py's batched greedy decode shapes (``batch_paths``): GPT-2 small at
 B=32 (32-token prompts), T5-base at B=32 (64-token inputs), Whisper-base at
 B=16, fp32 fused, per-op and plain token-identical with K7 once per decode
@@ -408,9 +422,12 @@ def _check_greedy(name: str, x, emb, tie: int, untied: bool = False) -> tuple[fl
     return regret.abs().max().item(), int(decided.sum())
 
 
-# K1 at the families phase's shapes: (name, B, Lq, Lk, heads, head width)
+# K1 at the families and audio phases' shapes: (name, B, Lq, Lk, heads, head width)
 K1_FAMILY_SHAPES = (("BERT-base", 8, 512, 512, 12, 64), ("DETR-R50 encoder", 2, 850, 850, 8, 32),
-                    ("DETR-R50 decoder", 2, 100, 100, 8, 32), ("DETR-R50 cross", 2, 100, 850, 8, 32))
+                    ("DETR-R50 decoder", 2, 100, 100, 8, 32), ("DETR-R50 cross", 2, 100, 850, 8, 32),
+                    # the audio phase's: 10 s clips at 16 kHz, 499 frames (SEW's encoder at half rate, 249)
+                    ("wav2vec2-base / data2vec-audio-base", 8, 499, 499, 12, 64),
+                    ("wav2vec2-large", 8, 499, 499, 16, 64), ("SEW-tiny", 8, 249, 249, 4, 64))
 
 K1_NEAR = 4e-6  # a p within this (relative) of a bf16 rounding boundary may round either way in kernel and twin
 K1_MAX_NEAR = 10  # at most this many such p in a row whose output differs beyond TOL (3^10 sets searched)
@@ -620,9 +637,9 @@ def kernel_phases(dev, card: str) -> dict:
         print(f"phase kernel encoder_attention {dn} (ViT-B/16): B=128 L=197 H=12 D=64 dense max_abs_err="
               f"{vit['err']:.3g} (atol, rtol)={tol} | {_k1_times(vit)} [{card}]")
         del qv, kv_, vv
-        # the families phase's shapes: BERT-base's B=8 x 512 tokens, 12 heads of 64; DETR-R50's on two
-        # 800 x 1066 images, 8 heads of 32: the encoder's 850 tokens, the decoder's 100 queries, their
-        # cross-attention over the 850-token memory
+        # the families and audio phases' shapes: BERT-base's B=8 x 512 tokens, 12 heads of 64; DETR-R50's on
+        # two 800 x 1066 images, 8 heads of 32: the encoder's 850 tokens, the decoder's 100 queries, their
+        # cross-attention over the 850-token memory; the wav2vec2 family's B=8 x 499 frames (SEW's 249)
         rec["rows"] = []
         for shape, b, lq, lk, h, d in K1_FAMILY_SHAPES:
             qf = rnd(b, lq, h * d, dtype=dtype)
@@ -1228,9 +1245,9 @@ def decode_step_phases(dev, card: str) -> dict:
                                          pos=pos, pad_lens=pads)
                 return greedy_argmax_tied(layer_norm(final, h[:, 0], cfg32.norm_eps), head["emb"])
 
-            with torch.inference_mode():
-                ms, plain_ms = _ab_ms([kernel], [plain], 10)
-                ms2, op_ms = _ab_ms([kernel], [per_op], 20)
+            with torch.inference_mode():  # the host-bound twin and per-op step over fewer calls a turn
+                ms, plain_ms = _ab_ms([kernel], [plain], 10, plain_iters=3)
+                ms2, op_ms = _ab_ms([kernel], [per_op], 20, plain_iters=5)
             item = x.element_size()
             w_el = sum(t.numel() for k, t in packed.items() if k.startswith("w"))
             small = sum(t.numel() for k, t in packed.items() if not k.startswith("w")) + 2 * d
@@ -1315,7 +1332,7 @@ def _headless_check(kind: str, name: str, dn: str, card: str, x, packed, kc, vc,
     emb = head["emb"].to(hx.dtype)
     xn = rms_norm(final, got_x) if t5 else layer_norm(final, got_x, cfg.norm_eps)
     with torch.inference_mode():
-        ms, plain_ms = _ab_ms([kernel], [lambda: plain(hk, hv)], 10)
+        ms, plain_ms = _ab_ms([kernel], [lambda: plain(hk, hv)], 10, plain_iters=3)
         head_ms = _time_ms([lambda: torch.matmul(xn, emb.t())], 50)
     item = hx.element_size()
     w_el = sum(t.numel() for k, t in packed.items() if k.startswith("w"))
@@ -2917,6 +2934,26 @@ def _turns(fns: dict, n: int) -> dict:
     return {name: float(np.mean(v)) for name, v in times.items()}
 
 
+def _k1_route(model, route: str, x):
+    """``model(x)`` on the K1 route (every flag auto) or the SDPA route
+    (``USE_ENCODER_KERNEL = False``); the flag stays set."""
+    from pytorch_models_tpu_torch.ops import attention as attn
+
+    attn.USE_ENCODER_KERNEL = None if route == "K1" else False
+    return model(x)
+
+
+def _k1_calls(fn) -> tuple[int, object]:
+    """K1's launches during ``fn()``, and its output."""
+    import torch
+
+    kernels = _kernels()
+    before = kernels["encoder_attention"].launches
+    out = fn()
+    torch.cuda.synchronize()
+    return kernels["encoder_attention"].launches - before, out
+
+
 def families_path(dev, card: str, profile_dir: str | None = None) -> dict:
     """The families this port serves beside GPT-2, Whisper, T5 and ViT, each
     at full published width with random weights from the seed, through its
@@ -2986,16 +3023,6 @@ def families_path(dev, card: str, profile_dir: str | None = None) -> dict:
         with torch.inference_mode():
             return _top2(gpt(torch.tensor(prefix))[-1])
 
-    def k1_route(model, route, x):
-        attn.USE_ENCODER_KERNEL = None if route == "K1" else False
-        return model(x)
-
-    def k1_calls(fn) -> tuple[int, object]:
-        before = kernels["encoder_attention"].launches
-        out = fn()
-        torch.cuda.synchronize()
-        return kernels["encoder_attention"].launches - before, out
-
     # fp32, the main path's run, counts from 0
     _reset_launches()
     _route("per-op")
@@ -3026,8 +3053,8 @@ def families_path(dev, card: str, profile_dir: str | None = None) -> dict:
           f"{gpt_counts['embed_add']}, K4 (tied, V={c.vocab_size}) {gpt_counts['greedy_argmax_tied']} = {steps} "
           f"steps; distinct new tokens per row {distinct}")
 
-    ref = k1_route(bert, "SDPA", tokens)
-    n_k1, got = k1_calls(lambda: k1_route(bert, "K1", tokens))
+    ref = _k1_route(bert, "SDPA", tokens)
+    n_k1, got = _k1_calls(lambda: _k1_route(bert, "K1", tokens))
     if n_k1 != bert.cfg.n_layers or got.shape != (BERT_B, BERT_L, bert.cfg.d_model):
         raise AssertionError(f"BERT fp32: K1 launched {n_k1} times, output {tuple(got.shape)}")
     err = _check_close("BERT fp32 K1 route vs SDPA route", got, ref, DS_TOL["float32"])
@@ -3035,8 +3062,8 @@ def families_path(dev, card: str, profile_dir: str | None = None) -> dict:
           f"{ref.abs().max().item():.3g}) of the K1 route vs the SDPA route max_abs_err={err:.3g} (atol, rtol)="
           f"{DS_TOL['float32']}; K1 launched {n_k1} times = {bert.cfg.n_layers} layers per forward")
 
-    ref = k1_route(detr, "SDPA", detr_x)
-    n_k1, got = k1_calls(lambda: k1_route(detr, "K1", detr_x))
+    ref = _k1_route(detr, "SDPA", detr_x)
+    n_k1, got = _k1_calls(lambda: _k1_route(detr, "K1", detr_x))
     n_attn = 3 * detr.cfg.n_dec_layers + detr.cfg.n_enc_layers - detr.cfg.n_dec_layers  # enc self, dec self + cross
     if n_k1 != n_attn or got[0].shape != (2, detr.cfg.n_queries, detr.cfg.n_classes + 1):
         raise AssertionError(f"DETR fp32: K1 launched {n_k1} times ({n_attn} wanted), logits {tuple(got[0].shape)}")
@@ -3073,12 +3100,12 @@ def families_path(dev, card: str, profile_dir: str | None = None) -> dict:
     for name, model, x, unit, n in (("BERT-base", bert, tokens, "sequences", BERT_B),
                                     ("DETR-R50", detr, detr_x.to(torch.bfloat16), "images", 2)):
         model.to_bf16()
-        outs16 = {route: k1_route(model, route, x) for route in ("SDPA", "K1")}
+        outs16 = {route: _k1_route(model, route, x) for route in ("SDPA", "K1")}
         a, b = (o[0] if isinstance(o, tuple) else o for o in (outs16["K1"], outs16["SDPA"]))
         rel = ((a.float() - b.float()).norm() / b.float().norm()).item()
         if not bool(torch.isfinite(a.float()).all()) or rel > FAM_BF16_REL:
             raise AssertionError(f"{name} bf16: K1 route vs SDPA route relative L2 {rel:.3g} (limit {FAM_BF16_REL})")
-        ms = _turns({route: (lambda route=route: k1_route(model, route, x)) for route in ("SDPA", "K1")},
+        ms = _turns({route: (lambda route=route: _k1_route(model, route, x)) for route in ("SDPA", "K1")},
                     FAM_FORWARDS)
         attn.USE_ENCODER_KERNEL = None
         print(f"phase families time bf16 {name} B={n}: K1 route vs SDPA route relative L2 {rel:.3g} (limit "
@@ -3120,6 +3147,263 @@ def families_path(dev, card: str, profile_dir: str | None = None) -> dict:
               f"bf16 B={CONV_B} {CONV_B / (ms / 1e3):.1f} images/s ({ms:.3f} ms per forward, CUDA events over "
               f"{FAM_FORWARDS} forwards a turn, 2 turns) [{card}]")
         del model, twin
+    return launches
+
+
+# the audio phase (``audio_path``): the wav2vec2 family's encoders at full published width on AUDIO_B clips of
+# AUDIO_SECONDS s at 16 kHz; EnCodec 24 / 48 kHz on ENCODEC_B clips of AUDIO_SECONDS s; w8a8 linears
+AUDIO_B, AUDIO_SECONDS, ENCODEC_B = 8, 10, 4
+# each encoder's config.json from its public source, the keys ``from_hf`` reads (the port fetches nothing)
+W2V_MODELS = (
+    ("facebook/wav2vec2-base", "Wav2Vec2",
+     {"num_hidden_layers": 12, "hidden_size": 768, "num_attention_heads": 12, "conv_bias": False,
+      "feat_extract_norm": "group", "do_stable_layer_norm": False}),
+    ("facebook/wav2vec2-large-lv60", "Wav2Vec2",
+     {"num_hidden_layers": 24, "hidden_size": 1024, "num_attention_heads": 16, "conv_bias": True,
+      "feat_extract_norm": "layer", "do_stable_layer_norm": True}),
+    ("facebook/data2vec-audio-base", "Data2VecAudio",
+     {"num_hidden_layers": 12, "hidden_size": 768, "num_attention_heads": 12, "conv_bias": False,
+      "feat_extract_norm": "layer"}),
+    ("asapp/sew-tiny-100k", "SEW",
+     {"num_hidden_layers": 12, "hidden_size": 256, "num_attention_heads": 4, "conv_bias": False,
+      "feat_extract_norm": "group"}),
+)
+# EnCodec on the card against the port's own CPU output, fp32 (TF32 off): a quantizer level may pick another code
+# than the CPU's only where the CPU's two nearest distances lie within RVQ_GAP_TOL of each other (distances of
+# order 1e2 here, from encoder outputs that the card's convolutions and the CPU's sum in other orders; such a
+# frame's later levels are not compared); the card's decode of its codes against the CPU's decode of the same
+# codes within ENCODEC_TOL * max(1, |y|): PARITY.md's 1e-4 of the codec, x 10 for two devices' convolutions
+RVQ_GAP_TOL = 1e-3
+ENCODEC_TOL = 10 * 1e-4
+# w8a8 vs bf16, the JAX package's own bounds (tests/ops/test_a8_linear.py): max |a8 - bf16| / max(|bf16|, 1) and
+# the smallest row cosine
+A8_REL, A8_COS = 8e-2, 0.99
+# the w8a8 linear on the card against the same call on the CPU, bit for bit: (rows, in, out); <= 16 rows and
+# sizes off a multiple of 8 take the padded cuBLAS product
+A8_LINEAR_SHAPES = ((1, 768, 3072), (16, 768, 3072), (17, 768, 3072), (AUDIO_B * 499, 768, 3072), (5, 100, 36))
+
+
+def _codec_clips(b: int, channels: int, rate: int, seed: int):
+    """``b`` seeded clips of AUDIO_SECONDS s (noise under a slow envelope and a
+    tone per channel): (b, channels, samples) fp32."""
+    r = np.random.default_rng(seed)
+    t = np.arange(AUDIO_SECONDS * rate) / rate
+    x = 0.1 * r.standard_normal((b, channels, t.size)) * (1 + np.sin(2 * np.pi * 0.5 * t))
+    x += 0.2 * np.sin(2 * np.pi * 220 * (1 + np.arange(b * channels).reshape(b, channels, 1)) * t)
+    return x.astype(np.float32)
+
+
+def _rvq_partings(name: str, model, x_cpu, codes, ref_codes) -> str:
+    """Where the card's codes part from the CPU's: each frame's first
+    differing level must be one whose CPU distances to its two nearest codes
+    lie within RVQ_GAP_TOL (the CPU's residuals replayed from its encoder
+    output and codes); later levels of that frame are not compared."""
+    import torch
+
+    from pytorch_models_tpu_torch.models.audio import encodec
+
+    diff = codes.cpu() != ref_codes  # (B, nq, T)
+    if not bool(diff.any()):
+        return "none"
+    x = x_cpu
+    if model.cfg.normalize:
+        x = x / (x.mean(1, keepdim=True).square().mean(2, keepdim=True).sqrt() + 1e-8)
+    with torch.inference_mode():
+        residual = encodec.encoder_apply(model.params["encoder"], model.cfg, x.transpose(1, 2))  # (B, T, D)
+        gaps = []
+        for codebook, idx in zip(model.params["quantizer"]["embed"], ref_codes.transpose(0, 1)):
+            two = encodec.rvq_distances(residual, codebook).topk(2, dim=-1, largest=False).values
+            gaps.append(two[..., 1] - two[..., 0])
+            residual = residual - codebook[idx]
+    gaps = torch.stack(gaps, 1)  # (B, nq, T)
+    first = diff.int().argmax(1)  # each frame's first differing level (0 where none differ)
+    parted = diff.any(1)
+    at = gaps.gather(1, first[:, None]).squeeze(1)[parted]
+    if bool((at >= RVQ_GAP_TOL).any()):
+        raise AssertionError(f"{name}: codes part from the CPU's at a level whose nearest distances lie "
+                             f"{at.max().item():.3g} apart (near-tie tolerance {RVQ_GAP_TOL})")
+    return (f"{int(parted.sum())} frames part at a near-tie (first levels "
+            f"{sorted(set(first[parted].tolist()))}, gaps <= {at.max().item():.3g})")
+
+
+def audio_path(dev, card: str, profile_dir: str | None = None) -> dict:
+    """The audio families at full published width, random weights from the
+    seed, through their entry points:
+
+    - the wav2vec2 family (W2V_MODELS: wav2vec2-base, wav2vec2-large-lv60,
+      data2vec-audio-base, SEW-tiny) through ``from_hf(tag, config=...)`` on
+      AUDIO_B clips of 10 s at 16 kHz (499 frames; SEW's encoder at 249):
+      fp32 the K1 route against the SDPA route (``USE_ENCODER_KERNEL =
+      False``) to DS_TOL, K1 launched once per layer a forward; bf16
+      audio-seconds/s of both routes in turns;
+    - EnCodec 24 kHz (mono, 32 quantizers) and 48 kHz (stereo, 16) on
+      ENCODEC_B clips of 10 s: fp32 codes from ``encode`` on the card against
+      the port's own CPU codes on the same params (identical up to near-ties,
+      ``_rvq_partings``), the card's ``decode`` against the CPU's decode of
+      the same codes; fp32 and bf16 audio-seconds/s of encode + decode;
+    - w8a8 (``quantize_int8()`` + ``ops.layers.USE_A8_LINEAR``): ``linear``
+      on the card against the same call on the CPU bit for bit at
+      A8_LINEAR_SHAPES; ViT-B/16 (B=128) and wav2vec2-base (B=8), bf16,
+      against their bf16 route within A8_REL / A8_COS; images/s and
+      audio-seconds/s of both in turns.
+
+    Counts from 0 over the fp32 encoder runs; returns them. With
+    ``profile_dir``, a profiled bf16 wav2vec2-base forward, K1 route."""
+    import torch
+
+    from pytorch_models_tpu_torch import audio
+    from pytorch_models_tpu_torch.image import ViT
+    from pytorch_models_tpu_torch.ops import attention as attn
+    from pytorch_models_tpu_torch.ops import layers
+    from pytorch_models_tpu_torch.utils import quantize_tree_int8, tree_map
+
+    waves = _waveforms(AUDIO_B, [AUDIO_SECONDS] * AUDIO_B, SEED + 31)[:, :AUDIO_SECONDS * 16_000]
+    x32 = torch.from_numpy(waves).to(dev)
+    audio_s = AUDIO_B * AUDIO_SECONDS
+
+    # fp32, the main path's run, counts from 0
+    _reset_launches()
+    encoders = {}
+    for tag, cls_name, config in W2V_MODELS:
+        t0 = time.perf_counter()
+        model = encoders[tag] = getattr(audio, cls_name).from_hf(tag, config=config, rng=SEED, device=dev)
+        built = time.perf_counter() - t0
+        c = model.cfg
+        ref = _k1_route(model, "SDPA", x32)
+        n_k1, got = _k1_calls(lambda: _k1_route(model, "K1", x32))
+        frames = got.shape[1]
+        if n_k1 != c.n_layers or got.shape != ref.shape or got.shape[::2] != (AUDIO_B, c.d_model):
+            raise AssertionError(f"{tag} fp32: K1 launched {n_k1} times ({c.n_layers} layers), output "
+                                 f"{tuple(got.shape)}")
+        err = _check_close(f"{tag} fp32 K1 route vs SDPA route", got, ref, DS_TOL["float32"])
+        print(f"phase audio {tag} fp32 B={AUDIO_B} x {AUDIO_SECONDS} s (TF32 off; {c.n_layers} layers, d "
+              f"{c.d_model}, {c.layer.n_heads} heads of {c.layer.head_dim}, {'legacy' if c.stem_legacy else 'LN'} stem, "
+              f"{'pre' if c.pre_norm else 'post'}-norm; {frames} frames, the encoder at "
+              f"{frames // 2 if cls_name == 'SEW' else frames}; built from seed {SEED} in {built:.1f} s): encoder output "
+              f"(|x| <= {ref.abs().max().item():.3g}) of the K1 route vs the SDPA route max_abs_err={err:.3g} "
+              f"(atol, rtol)={DS_TOL['float32']}; K1 launched {n_k1} times = {c.n_layers} layers per forward")
+    launches = _launches({"encoder_attention"})
+    print("phase audio launches: " + " ".join(f"{k}={v}" for k, v in launches.items() if v))
+
+    # bf16: agreement of the two routes, then their rates in turns
+    for tag, model in encoders.items():
+        c = model.cfg
+        model.to_bf16()
+        xb = x32.to(torch.bfloat16)
+        outs = {route: _k1_route(model, route, xb) for route in ("SDPA", "K1")}
+        a, b = outs["K1"].float(), outs["SDPA"].float()
+        rel = ((a - b).norm() / b.norm()).item()
+        limit = FAM_BF16_REL * c.n_layers / 12  # one bf16 step a layer, as FAM_BF16_REL
+        if not bool(torch.isfinite(a).all()) or rel > limit:
+            raise AssertionError(f"{tag} bf16: K1 route vs SDPA route relative L2 {rel:.3g} (limit {limit:.3g})")
+        ms = _turns({route: (lambda route=route: _k1_route(model, route, xb)) for route in ("SDPA", "K1")},
+                    FAM_FORWARDS)
+        attn.USE_ENCODER_KERNEL = None
+        print(f"phase audio time bf16 {tag} B={AUDIO_B}: K1 route vs SDPA route relative L2 {rel:.3g} (limit "
+              f"{limit:.3g}); " + "; ".join(
+                  f"{route} route {audio_s / (ms[route] / 1e3):.1f} audio-s/s ({ms[route]:.3f} ms per forward)"
+                  for route in ("K1", "SDPA"))
+              + f" (CUDA events over {FAM_FORWARDS} forwards a turn, turns SDPA, K1, K1, SDPA) [{card}]")
+        if profile_dir is not None and tag == W2V_MODELS[0][0]:
+            profile_phase(lambda: model(xb), f"bf16 {tag} forward B={AUDIO_B}, K1 route", "profile_bf16_wav2vec2.json",
+                          profile_dir, card, lambda out: 1, "forward")
+    w2v = encoders.pop(W2V_MODELS[0][0])
+    del encoders, model
+
+    # EnCodec: the card's fp32 codes and decode against the port's CPU output on the same params; rates
+    for variant, channels, rate in (("24khz", 1, 24_000), ("48khz", 2, 48_000)):
+        t0 = time.perf_counter()
+        model = audio.EnCodec.from_facebook(variant, device=dev)
+        twin = audio.EnCodec.from_facebook(variant, device="cpu")
+        twin.params = tree_map(lambda t: t.cpu(), model.params)
+        x_cpu = torch.from_numpy(_codec_clips(ENCODEC_B, channels, rate, SEED + 32))
+        x = x_cpu.to(dev)
+        codes, scale = model.encode(x)
+        t_card = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ref_codes, ref_scale = twin.encode(x_cpu)
+        n_q = model.cfg.n_quantizers
+        if codes.shape != ref_codes.shape or codes.shape[:2] != (ENCODEC_B, n_q):
+            raise AssertionError(f"EnCodec {variant}: codes {tuple(codes.shape)} vs the CPU's {tuple(ref_codes.shape)}")
+        partings = _rvq_partings(f"EnCodec {variant}", twin, x_cpu, codes, ref_codes)
+        y = model.decode(codes, scale)
+        y_ref = twin.decode(codes.cpu(), ref_scale)  # the card's codes, the CPU's loudness scale
+        t_cpu = time.perf_counter() - t0
+        err = (y.cpu() - y_ref).abs().max().item()
+        limit = ENCODEC_TOL * max(1.0, y_ref.abs().max().item())
+        if y.shape != (ENCODEC_B, channels, x.shape[-1]) or not bool(torch.isfinite(y).all()) or err > limit:
+            raise AssertionError(f"EnCodec {variant} fp32: decode {tuple(y.shape)}, card vs CPU max |diff| {err:.3g} "
+                                 f"(limit {limit:.3g})")
+        rates = {}
+        for dn in ("float32", "bfloat16"):
+            if dn == "bfloat16":
+                model.to_bf16()
+            xd = x.to(getattr(torch, dn))
+            ms = _turns({dn: lambda: model.decode(*model.encode(xd))}, 1)[dn]
+            rates[dn] = f"{dn} {ENCODEC_B * AUDIO_SECONDS / (ms / 1e3):.1f} audio-s/s ({ms:.1f} ms)"
+        print(f"phase audio EnCodec {variant} B={ENCODEC_B} x {AUDIO_SECONDS} s ({channels} channel(s) at {rate} Hz, "
+              f"{n_q} quantizers, {codes.shape[-1]} frames): fp32 (TF32 off) codes card vs CPU identical but for "
+              f"near-ties within {RVQ_GAP_TOL} ({partings}); the card's decode vs the CPU's of the same codes "
+              f"(|y| <= {y_ref.abs().max().item():.3g}) max_abs_err={err:.3g} (limit {limit:.3g}); card encode "
+              f"{t_card:.1f} s cold, CPU encode + decode {t_cpu:.1f} s; encode + decode, 2 turns: "
+              + ", ".join(rates.values()) + f" [{card}]")
+        del model, twin
+
+    # w8a8: the linear bit for bit across devices, then ViT-B/16 and wav2vec2-base against their bf16 routes
+    g = torch.Generator().manual_seed(SEED + 33)
+    saved = layers.USE_A8_LINEAR
+    try:
+        layers.USE_A8_LINEAR = True
+        for rows, d_in, d_out in A8_LINEAR_SHAPES:
+            w = torch.randn(d_in, d_out, generator=g) / d_in ** 0.5
+            p = quantize_tree_int8({"fc1": {"w": w, "b": 0.1 * torch.randn(d_out, generator=g)}})["fc1"]
+            xl = torch.randn(rows, d_in, generator=g).to(torch.bfloat16)
+            xl[0] = 0.0  # a zero row
+            got = layers.linear(tree_map(lambda t: t.to(dev), p), xl.to(dev))
+            if not torch.equal(got.cpu(), layers.linear(p, xl)):
+                raise AssertionError(f"w8a8 linear ({rows}, {d_in}) -> {d_out}: the card's result differs from the "
+                                     "CPU's")
+        print(f"phase audio w8a8 linear: the card's int8 product (torch._int_mm, padded to > 16 rows and sizes of "
+              f"8) equals the CPU's bit for bit at (rows, in, out) {list(A8_LINEAR_SHAPES)}, bf16 input with a zero "
+              f"row")
+    finally:
+        layers.USE_A8_LINEAR = saved
+
+    vit = ViT.from_google("B/16_augreg", rng=SEED, device=dev)
+    gv = torch.Generator(device=dev).manual_seed(SEED + 11)
+    for key in ("pe", "cls_token"):
+        vit.params[key] = 0.02 * torch.randn(vit.params[key].shape, generator=gv, device=dev)
+    imgs = torch.randn(VIT_B, 3, 224, 224, generator=gv, device=dev).to(torch.bfloat16)
+    for name, model, xin, unit, n in (("ViT-B/16", vit.to_bf16(), imgs, "images", VIT_B),
+                                      ("wav2vec2-base", w2v, x32.to(torch.bfloat16), "audio-s", audio_s)):
+        bf16_params = model.params
+        int8_params = quantize_tree_int8(bf16_params)
+
+        def route(r, model=model, xin=xin, bf16_params=bf16_params, int8_params=int8_params):
+            model.params = int8_params if r == "w8a8" else bf16_params
+            layers.USE_A8_LINEAR = r == "w8a8"
+            return model(xin)
+
+        try:
+            base = route("bf16").float()
+            n_k1, a8 = _k1_calls(lambda: route("w8a8"))
+            a8 = a8.float()
+            a, b = a8.reshape(-1, a8.shape[-1]), base.reshape(-1, base.shape[-1])
+            rel = (a - b).abs().max().item() / max(b.abs().max().item(), 1.0)
+            cos = ((a * b).sum(-1) / (a.norm(dim=-1) * b.norm(dim=-1))).min().item()
+            n_layers = len(bf16_params["encoder"]["layers"])
+            if rel >= A8_REL or cos <= A8_COS or n_k1 != n_layers:
+                raise AssertionError(f"{name} w8a8 vs bf16: max relative {rel:.3g} (limit {A8_REL}), min row cosine "
+                                     f"{cos:.5f} (limit {A8_COS}), K1 {n_k1} launches")
+            ms = _turns({r: (lambda r=r: route(r)) for r in ("bf16", "w8a8")}, FAM_FORWARDS)
+        finally:
+            layers.USE_A8_LINEAR = saved
+            model.params = bf16_params
+        print(f"phase audio w8a8 {name} B={xin.shape[0]} (quantize_int8() + USE_A8_LINEAR; K1 {n_k1} times a "
+              f"forward on the bf16 q/k/v): vs the bf16 route max relative {rel:.3g} (limit {A8_REL}), min row cosine "
+              f"{cos:.5f} (limit {A8_COS}); " + "; ".join(f"{r} {n / (ms[r] / 1e3):.1f} {unit}/s ({ms[r]:.3f} ms "
+                                                          f"per forward)" for r in ("w8a8", "bf16"))
+              + f" (CUDA events over {FAM_FORWARDS} forwards a turn, turns bf16, w8a8, w8a8, bf16) [{card}]")
     return launches
 
 
@@ -4492,6 +4776,7 @@ def main() -> int:
     paths = {name: timed(name, fn, dev, card, args.profile)
              for name, fn in (("gpt2", main_path), ("whisper", whisper_path), ("t5", t5_path), ("vit", vit_path))}
     paths["families"] = timed("families", families_path, dev, card, args.profile)
+    paths["audio"] = timed("audio", audio_path, dev, card, args.profile)
     paths.update(timed("beam and sample", beam_sample_paths, dev, card))
     paths.update(timed("batch", batch_paths, dev, card))
     paths["cb"] = timed("cb", cb_path, dev, card, args.profile)

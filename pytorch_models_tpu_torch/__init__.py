@@ -21,9 +21,11 @@ and beam generation and teacher-forced scoring (``T5Generator``); GPT-1
 BERT / RoBERTa encoder (``models.text.BERT``); the image models: ViT
 (AugReg / SigLIP / DeiT-3 / DINO loaders), MLP-Mixer, ConvNeXt, MaxViT,
 MobileViT and DETR with ``DETRPipeline`` (``models.image``), each with its
-checkpoint converter. BERT's, ViT's and DETR's attention runs through the
-encoder-attention kernel. The audio encoders (wav2vec2, SEW,
-data2vec-audio, EnCodec) are not ported yet. The decode
+checkpoint converter; the audio models: wav2vec2 / HuBERT, SEW,
+data2vec-audio and the EnCodec codec (``models.audio``). BERT's, ViT's,
+DETR's and the wav2vec2 family's attention runs through the
+encoder-attention kernel. With ``model.quantize_int8()`` and
+``ops.layers.USE_A8_LINEAR`` the linears run w8a8. The decode
 loops run each step as ONE fused kernel (``ops/decode_step.py``; headless
 when sampling or in beam search) where it serves the model and batch. The models and frontends run on the CUDA card unless the caller
 passes ``device="cpu"``.

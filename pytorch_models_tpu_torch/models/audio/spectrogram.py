@@ -16,6 +16,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ...utils.module import resolve_device
+
 
 def hann_window(n: int) -> np.ndarray:
     """Periodic Hann window, matching ``torch.hann_window`` defaults."""
@@ -64,19 +66,29 @@ def get_mel_filters(n_mels: int, n_fft: int, sample_rate: float) -> np.ndarray:
 
 
 class Spectrogram:
-    def __init__(self, n_fft: int, hop_length: int) -> None:
+    """``|STFT|^2`` of a waveform. A tensor stays on its device; an array or
+    list goes to ``device`` (None: the CUDA card, as the models' default;
+    ``"cpu"`` for the plain path here)."""
+
+    def __init__(self, n_fft: int, hop_length: int, device=None) -> None:
         self.n_fft = n_fft
         self.hop_length = hop_length
+        self.device = device
 
-    def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        return power_spectrogram(x, self.n_fft, self.hop_length)
+    def _waveform(self, x) -> torch.Tensor:
+        if isinstance(x, torch.Tensor):
+            return x
+        return torch.as_tensor(np.asarray(x, np.float32), device=resolve_device(self.device))
+
+    def __call__(self, x) -> torch.Tensor:
+        return power_spectrogram(self._waveform(x), self.n_fft, self.hop_length)
 
 
 class MelSpectrogram(Spectrogram):
-    def __init__(self, n_fft: int, hop_length: int, n_mels: int, sample_rate: int) -> None:
-        super().__init__(n_fft, hop_length)
+    def __init__(self, n_fft: int, hop_length: int, n_mels: int, sample_rate: int, device=None) -> None:
+        super().__init__(n_fft, hop_length, device)
         self.filters = torch.from_numpy(get_mel_filters(n_mels, n_fft, sample_rate))
 
-    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+    def __call__(self, x) -> torch.Tensor:
         spec = super().__call__(x)
         return torch.matmul(self.filters.to(spec.device, spec.dtype), spec)

@@ -463,18 +463,14 @@ class WhisperPreprocessor(MelSpectrogram):
 
     def __init__(self, variant: str = "tiny", fused: bool | None = None, device=None) -> None:
         n_mels = 128 if variant == "large-v3" else 80
-        super().__init__(400, 160, n_mels, 16_000)
+        super().__init__(400, 160, n_mels, 16_000, device)
         self.n_mels = n_mels
         self.fused = fused
-        self.device = device
 
     def __call__(self, x) -> torch.Tensor:
         """A tensor stays on its device; an array or list goes to ``device``
         (None: the CUDA card, as the models' default)."""
-        if isinstance(x, torch.Tensor):
-            x = x.float()
-        else:
-            x = torch.as_tensor(np.asarray(x, np.float32), device=resolve_device(self.device))
+        x = self._waveform(x).float()
         fused = use_mel_kernel(x) if self.fused is None else self.fused
         if fused:
             x = log_mel_spectrogram(x.contiguous(), self.n_fft, self.hop_length, self.n_mels)[..., :-1]

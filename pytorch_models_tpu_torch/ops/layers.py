@@ -4,7 +4,7 @@
 Conventions match the JAX package so parameters transfer unchanged:
 - Linear: ``{"w": (in, out), "b": (out,)}``; ``y = x @ w + b``.
 - LayerNorm: ``{"scale": (d,), "bias": (d,)}``; eps inside the sqrt like torch.
-- Conv1d: ``{"w": (k, in, out), "b": (out,)}`` over NLC inputs.
+- Conv1d: ``{"w": (k, in / groups, out), "b": (out,)}`` over NLC inputs.
 - Conv2d: ``{"w": (kh, kw, in / groups, out)`` (HWIO), ``"b": (out,)}`` over
   NHWC inputs.
 - BatchNorm (inference): ``{"scale", "bias", "mean", "var"}`` over the
@@ -13,8 +13,9 @@ Conventions match the JAX package so parameters transfer unchanged:
 Activations mirror the reference's MLP table: "gelu" is exact (erf) GELU,
 "approximate_gelu" is tanh GELU. A weight-only int8 linear (``{"w": {"w_q",
 "w_s"}}``, ``utils.params.quantize_tree_int8``) dequantizes to bf16 and
-multiplies in bf16, as the JAX package's does; its w8a8 variant
-(``USE_A8_LINEAR``) is not ported yet.
+multiplies in bf16, as the JAX package's does; with ``USE_A8_LINEAR`` it
+quantizes its input per row and multiplies int8 x int8 -> int32 instead
+(w8a8, :func:`_a8_matmul`).
 """
 
 from __future__ import annotations
@@ -63,14 +64,77 @@ def linear_dtype(p: dict) -> torch.dtype:
     return torch.bfloat16 if isinstance(w, dict) else w.dtype
 
 
+# w8a8 for the encoder and prefill matmuls (opt-in, as in the JAX package):
+# with int8-quantized weights (``model.quantize_int8()``) AND this flag,
+# linear() quantizes its input symmetrically per row and multiplies int8 x
+# int8 -> int32 (``torch._int_mm``: cuBLAS's int8 product on the card, exact
+# on both devices), then rescales once per (row, column). Attention scores,
+# softmax and norms stay bf16 / fp32. The JAX package's ``A8_LINEAR``
+# environment override (a TPU A/B switch) is not carried over.
+USE_A8_LINEAR = False
+
+
+def use_a8_linear() -> bool:
+    return USE_A8_LINEAR
+
+
+_INV_127 = torch.tensor(1.0 / 127.0, dtype=torch.float32)  # JAX's fp32 ``1.0 / 127.0``
+# cuBLAS's int8 product (``torch._int_mm`` on CUDA) takes more than 16 rows
+# and inner and outer sizes that are multiples of 8
+_INT_MM_MIN_ROWS, _INT_MM_MULTIPLE = 17, 8
+
+
+def _int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Exact ``(M, K) int8 @ (K, N) int8 -> (M, N) int32``; on the card at
+    the shapes and layout cuBLAS takes (:func:`_int_mm_padded`)."""
+    return _int_mm_padded(a, b) if a.is_cuda else torch._int_mm(a, b)
+
+
+def _int_mm_padded(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch._int_mm`` over operands zero-padded to more than 16 rows and
+    to inner and outer sizes that are multiples of 8 (zero rows and columns
+    add nothing; the padding is cut off again), ``b`` given column-major,
+    the layout cuBLAS's int8 product serves."""
+    (m, k), n = a.shape, b.shape[1]
+    mult = _INT_MM_MULTIPLE
+    mp, kp, np_ = max(m, _INT_MM_MIN_ROWS), -(-k // mult) * mult, -(-n // mult) * mult
+    if (mp, kp) != (m, k):
+        a = F.pad(a, (0, kp - k, 0, mp - m))
+    b = F.pad(b, (0, np_ - n, 0, kp - k)).t().contiguous().t()
+    return torch._int_mm(a.contiguous(), b)[:m, :n]
+
+
+def _a8_matmul(x: torch.Tensor, wd: dict) -> torch.Tensor:
+    """``x (..., d)`` float @ an int8 ``{"w_q", "w_s"}`` weight -> ``(...,
+    out)`` fp32, the JAX package's arithmetic step for step: per-row absmax,
+    ``r_s = where(absmax == 0, 1, absmax) * (1 / 127)``, ``x_q = clip(round(x /
+    r_s), -127, 127)`` (round half to even), the exact int32 product, then
+    ``acc * r_s * w_s`` in fp32, in that order."""
+    x32 = x.float()
+    absmax = x32.abs().amax(-1, keepdim=True)
+    r_s = torch.where(absmax == 0, torch.ones_like(absmax), absmax) * _INV_127
+    x_q = torch.round(x32 / r_s).clamp(-127, 127).to(torch.int8)
+    w_q = wd["w_q"]
+    acc = _int_mm(x_q.reshape(-1, w_q.shape[-2]), w_q)
+    y = acc.reshape(*x.shape[:-1], w_q.shape[-1]).float()
+    return y * r_s * wd["w_s"].float()
+
+
 def linear(p: dict, x: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
     """``x @ w + b``. The compute dtype follows the PARAMS, not the input:
     bf16 params force bf16 compute even for fp32 inputs, and so do int8
     ones, which dequantize as ``w_q.bf16 * w_s.bf16`` (one bf16 rounding)
-    first. With ``out`` the result is written into it."""
+    first, or, with ``USE_A8_LINEAR``, run :func:`_a8_matmul` and round its
+    fp32 result to bf16 before the bias is added in bf16. With ``out`` the
+    result is written into it."""
     w = p["w"]
-    if isinstance(w, dict):  # weight-only int8: dequantize, then the bf16 matmul
-        w = w["w_q"].to(torch.bfloat16) * w["w_s"].to(torch.bfloat16)
+    if isinstance(w, dict):
+        if use_a8_linear():  # w8a8: the int8 product, a bf16 result like the dequantized path's
+            y = _a8_matmul(x, w).to(torch.bfloat16)
+            if "b" in p:
+                y += p["b"].to(y.dtype)
+            return y if out is None else out.copy_(y)
+        w = w["w_q"].to(torch.bfloat16) * w["w_s"].to(torch.bfloat16)  # weight-only int8: dequantize
     if x.is_floating_point() and x.dtype != w.dtype:
         x = x.to(w.dtype)
     y = torch.matmul(x, w, out=out)
@@ -79,23 +143,35 @@ def linear(p: dict, x: torch.Tensor, out: torch.Tensor | None = None) -> torch.T
     return y
 
 
-def conv1d_init(gen: torch.Generator, k: int, in_ch: int, out_ch: int) -> dict:
-    """torch-style default init of a ``(k, in, out)`` kernel and its bias:
-    U(-1/sqrt(fan_in), 1/sqrt(fan_in))."""
-    bound = 1.0 / math.sqrt(k * in_ch)
-    return {"w": torch.empty(k, in_ch, out_ch).uniform_(-bound, bound, generator=gen),
-            "b": torch.empty(out_ch).uniform_(-bound, bound, generator=gen)}
+def conv1d_init(gen: torch.Generator, k: int, in_ch: int, out_ch: int, bias: bool = True,
+                groups: int = 1) -> dict:
+    """torch-style default init of a ``(k, in / groups, out)`` kernel [and its
+    bias]: U(-1/sqrt(fan_in), 1/sqrt(fan_in))."""
+    bound = 1.0 / math.sqrt(k * in_ch // groups)
+    p = {"w": torch.empty(k, in_ch // groups, out_ch).uniform_(-bound, bound, generator=gen)}
+    if bias:
+        p["b"] = torch.empty(out_ch).uniform_(-bound, bound, generator=gen)
+    return p
 
 
-def conv1d(p: dict, x: torch.Tensor, stride: int = 1, padding: int = 0) -> torch.Tensor:
-    """NLC conv over ``(B, L, in)`` with a ``(k, in, out)`` kernel (the JAX
-    package's layouts) and torch-style symmetric ``padding``. As in
-    :func:`linear`, the compute dtype follows the params."""
+def conv1d(p: dict, x: torch.Tensor, stride: int = 1, padding: int | tuple[int, int] = 0, groups: int = 1,
+           dilation: int = 1) -> torch.Tensor:
+    """NLC conv over ``(B, L, in)`` with a ``(k, in / groups, out)`` kernel
+    (the JAX package's layouts); ``padding`` is torch-style symmetric or an
+    explicit ``(lo, hi)`` pair. As in :func:`linear`, the compute dtype
+    follows the params; an int8 ``{"w_q", "w_s"}`` kernel dequantizes to bf16
+    first."""
     w = p["w"]
+    if isinstance(w, dict):  # weight-only int8
+        w = w["w_q"].to(torch.bfloat16) * w["w_s"].to(torch.bfloat16)
     if x.dtype != w.dtype:
         x = x.to(w.dtype)
+    lo, hi = (padding, padding) if isinstance(padding, int) else padding
+    xc = x.transpose(1, 2)
+    if lo != hi:
+        xc, lo = F.pad(xc, (lo, hi)), 0
     b = p["b"].to(w.dtype) if "b" in p else None
-    y = F.conv1d(x.transpose(1, 2), w.permute(2, 1, 0), b, stride=stride, padding=padding)
+    y = F.conv1d(xc, w.permute(2, 1, 0), b, stride=stride, padding=lo, dilation=dilation, groups=groups)
     return y.transpose(1, 2)
 
 

@@ -147,10 +147,12 @@ class StateDict:
     def pop_ln(self, key_prefix: str) -> dict:
         return {"scale": self.pop(f"{key_prefix}.weight"), "bias": self.pop(f"{key_prefix}.bias")}
 
-    def pop_conv1d(self, key_prefix: str) -> dict:
-        """Pop a torch ``nn.Conv1d``'s (out, in, k) weight and bias as a (k, in, out) kernel."""
-        w = self.pop(f"{key_prefix}.weight").permute(2, 1, 0).contiguous()
-        return {"w": w, "b": self.pop(f"{key_prefix}.bias")}
+    def pop_conv1d(self, key_prefix: str, bias: bool = True) -> dict:
+        """Pop a torch ``nn.Conv1d``'s (out, in, k) weight [and bias] as a (k, in, out) kernel."""
+        p = {"w": self.pop(f"{key_prefix}.weight").permute(2, 1, 0).contiguous()}
+        if bias:
+            p["b"] = self.pop(f"{key_prefix}.bias")
+        return p
 
     def pop_conv2d(self, key_prefix: str, bias: bool = True) -> dict:
         """Pop a torch ``nn.Conv2d``'s OIHW ``(out, in, kh, kw)`` weight [and bias] as an HWIO kernel."""

@@ -12,15 +12,17 @@ import socket
 
 import pytest
 
+import pytorch_models_tpu.audio as jax_audio
 import pytorch_models_tpu.audio2text as jax_a2t
 import pytorch_models_tpu.image as jax_image
 import pytorch_models_tpu.text as jax_text
-from pytorch_models_tpu_torch import audio2text, image, text
+from pytorch_models_tpu_torch import audio, audio2text, image, text
 
 # (JAX namespace, the port's namespace, class name)
 CLASSES = [(jax_text, text, n) for n in ("GPT", "GPT2", "BERT", "T5Model")] + [
     (jax_a2t, audio2text, "Whisper")] + [
-    (jax_image, image, n) for n in ("ViT", "MLPMixer", "ConvNeXt", "MaxViT", "MobileViT", "DETR", "DETRPipeline")]
+    (jax_image, image, n) for n in ("ViT", "MLPMixer", "ConvNeXt", "MaxViT", "MobileViT", "DETR", "DETRPipeline")] + [
+    (jax_audio, audio, n) for n in ("Wav2Vec2", "SEW", "Data2VecAudio", "EnCodec", "Spectrogram", "MelSpectrogram")]
 
 
 def _constructors(cls) -> list[str]:
@@ -45,6 +47,7 @@ def test_constructor_signatures_match_jax(jax_ns, ns, name):
 
 def test_every_family_is_exported_under_the_jax_names():
     assert sorted(image.__all__) == sorted(jax_image.__all__)
+    assert sorted(audio.__all__) == sorted(jax_audio.__all__)
     for n in ("BERT", "GPT"):
         assert n in text.__all__ and getattr(text, n).__name__ == n
     assert set(text.__all__) <= set(jax_text.__all__)
@@ -69,6 +72,9 @@ def test_dropout_at_the_jax_position():
     assert audio2text.Whisper.from_openai("tiny", dropout=0.0, device="cpu").cfg.d_model == 384
 
 
+# asapp/sew-tiny-100k's config.json, the keys from_hf reads
+SEW_TINY = {"num_hidden_layers": 12, "hidden_size": 256, "num_attention_heads": 4, "conv_bias": False}
+
 # every from_* of the families this port added, with pretrained=True: no download, a NotImplementedError
 PRETRAINED = [
     lambda: text.GPT.from_openai(pretrained=True, device="cpu"),
@@ -81,6 +87,11 @@ PRETRAINED = [
     lambda: image.MaxViT.from_google("tiny", pretrained=True, device="cpu"),
     lambda: image.MobileViT.from_apple("s", pretrained=True, device="cpu"),
     lambda: image.DETR.from_facebook("resnet50", pretrained=True, device="cpu"),
+    lambda: audio.Wav2Vec2.from_hf("facebook/wav2vec2-base", pretrained=True, device="cpu"),
+    lambda: audio.SEW.from_hf("asapp/sew-tiny-100k", pretrained=True, device="cpu", config=SEW_TINY),
+    lambda: audio.Data2VecAudio.from_hf("facebook/data2vec-audio-base", pretrained=True, device="cpu",
+                                        config=dict(SEW_TINY, hidden_size=768, num_attention_heads=12)),
+    lambda: audio.EnCodec.from_facebook("24khz", pretrained=True, device="cpu"),
 ]
 
 

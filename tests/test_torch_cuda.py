@@ -1282,3 +1282,89 @@ def test_fused_step_at_one_row_matches_plain(cuda, dtype, atol, rtol, n_layers, 
     else:
         regret, top = _greedy_regret(got_x, got_tok, head, cfg.norm_eps)
         assert regret <= (1e-4 * top if dtype == torch.float32 else 2.0 ** -5 * top)
+
+
+@pytest.mark.parametrize("dtype,atol,rtol", K1_TOL)
+@pytest.mark.parametrize("length,n_heads", [(499, 12), (499, 16), (249, 4)])
+def test_encoder_attention_at_audio_shapes(cuda, dtype, atol, rtol, length, n_heads):
+    """The wav2vec2 family on 10 s clips at 16 kHz, B=8, heads of 64:
+    wav2vec2-base / data2vec-audio-base (499 frames, 12 heads), wav2vec2-large
+    (16 heads), SEW-tiny's encoder at half rate (249 frames, 4 heads)."""
+    g = torch.Generator(device=cuda).manual_seed(10)
+    q, k, v = (torch.randn(8, length, n_heads * 64, generator=g, device=cuda).to(dtype) for _ in range(3))
+    launches = encoder_attention.launches
+    got = encoder_attention(q, k, v, n_heads)
+    assert encoder_attention.launches == launches + 1 and got.shape == q.shape
+    _assert_k1_close(got, encoder_attention_plain(q, k, v, n_heads), q, k, v, n_heads, False, atol, rtol)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("name", ["Wav2Vec2", "SEW", "Data2VecAudio"])
+def test_wav2vec2_family_k1_route_matches_sdpa_route(cuda, name):
+    """2 layers at wav2vec2-base's width (d 768, 12 heads of 64; SEW-tiny's
+    d 256, 4 heads) on 2 s clips, fp32: the auto gate sends every layer's
+    self-attention to K1, whose output matches the SDPA route's to fp32
+    noise (chip_smoke.py's DS_TOL)."""
+    from pytorch_models_tpu_torch import audio
+
+    d = 256 if name == "SEW" else 768
+    model = getattr(audio, name)(2, d, device=cuda)
+    x = torch.randn(2, 32_000, generator=torch.Generator(device=cuda).manual_seed(11), device=cuda)
+    saved = _attn.USE_ENCODER_KERNEL
+    try:
+        _attn.USE_ENCODER_KERNEL = False
+        ref = model(x)
+        _attn.USE_ENCODER_KERNEL = None
+        before = encoder_attention.launches
+        got = model(x)
+        torch.cuda.synchronize()
+    finally:
+        _attn.USE_ENCODER_KERNEL = saved
+    assert encoder_attention.launches - before == 2
+    assert got.shape == (2, 99, d)
+    torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("variant", ["24khz", "48khz"])
+def test_encodec_card_matches_cpu(cuda, variant):
+    """EnCodec at full width on a 0.2 s clip, fp32: the card's codes equal
+    the CPU's on the same params (each level's two nearest distances lie far
+    apart at this size), and the card's reconstruction is within 1e-4 of
+    the CPU's."""
+    from pytorch_models_tpu_torch import audio
+    from pytorch_models_tpu_torch.utils import tree_map
+
+    model = audio.EnCodec.from_facebook(variant, device=cuda)
+    twin = audio.EnCodec.from_facebook(variant, device="cpu")
+    twin.params = tree_map(lambda t: t.cpu(), model.params)
+    ch, rate = (1, 24_000) if variant == "24khz" else (2, 48_000)
+    x = 0.3 * torch.randn(2, ch, rate // 5, generator=torch.Generator().manual_seed(12))
+    codes, scale = model.encode(x.to(cuda))
+    ref_codes, ref_scale = twin.encode(x)
+    assert torch.equal(codes.cpu(), ref_codes)
+    y = model.decode(codes, scale)
+    torch.testing.assert_close(y.cpu(), twin.decode(ref_codes, ref_scale), atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("rows,d_in,d_out", [(1, 64, 32), (16, 64, 32), (17, 64, 32), (256, 768, 3072),
+                                             (5, 100, 36)])
+def test_a8_linear_card_equals_cpu(cuda, rows, d_in, d_out):
+    """The w8a8 linear (``USE_A8_LINEAR``) on the card against the same call
+    on the CPU, bit for bit: the int8 product is exact on both, padded on
+    the card below 17 rows and to sizes of 8."""
+    from pytorch_models_tpu_torch.ops import layers
+    from pytorch_models_tpu_torch.utils import quantize_tree_int8, tree_map
+
+    g = torch.Generator().manual_seed(rows)
+    p = quantize_tree_int8({"fc1": {"w": torch.randn(d_in, d_out, generator=g) / d_in ** 0.5,
+                                    "b": 0.1 * torch.randn(d_out, generator=g)}})["fc1"]
+    x = torch.randn(rows, d_in, generator=g).to(torch.bfloat16)
+    x[0] = 0.0
+    saved = layers.USE_A8_LINEAR
+    try:
+        layers.USE_A8_LINEAR = True
+        got = layers.linear(tree_map(lambda t: t.to(cuda), p), x.to(cuda))
+        ref = layers.linear(p, x)
+    finally:
+        layers.USE_A8_LINEAR = saved
+    assert got.dtype == torch.bfloat16 and torch.equal(got.cpu(), ref)
