@@ -134,6 +134,25 @@ kernel route's own x_out, K7 once per decode step, where the rows part from
 the generator driving K7's plain twin (a reading), bf16 agreement with the
 unquantized bf16 route and the routes' times.
 
+Tensor- and data-parallel serving (``tp_path``, phase "tp"): two ranks
+spawned on the one card (``torch.multiprocessing``, start method spawn),
+a gloo group (NCCL refuses two ranks on one device) whose all-reduces are
+staged through host memory while every kernel and matmul stays on the card,
+each rank driving ``parallel/`` at full width from the seeds above:
+``TPDecoderGenerator`` on GPT-2 small (B=8, 64 new tokens) at tp=2 and at
+dp=2 x tp=1, ``TPT5Generator`` on T5-base and ``TPWhisperGenerator`` on
+Whisper-base (4 segments) at tp=2, ``TPContinuousBatchingGenerator`` on
+GPT-2 at tp=2 with a pool of 16 (full precision and int8 self-KV) and
+``TPSpeculativeGenerator`` (k=4, a 2-layer draft, one row). fp32 tokens
+equal on every rank and equal the single-device per-op route's up to
+printed near-ties; K7 launched 0 times, K1-K5 and K6 with the full-width
+scale (``cur_ks``) more than 0 on every rank; the int8 pool's rows against
+the single-device per-op int8 pool are a reading; bf16 GPT-2 tok/s at tp=2
+and on one rank alone, in turns (a reading of the mechanism, not a
+deployment's rate). K6 with ``cur_ks`` (``int8_decode_attention_tp_scale``)
+is held against its plain version at GPT-2-small's tp=2 shard in the
+kernel phase.
+
 K7's time per phase (``decode_step_breakdown``): each block stamps
 %globaltimer at four points of every phase (``stamps=`` of the wrappers),
 and a line per variant (GPT-2 bf16 / fp32 / fp32 w8a16 + int8 KV, Whisper
@@ -531,7 +550,8 @@ def _k1_case(name: str, q, k, v, n_heads: int, causal: bool, iters: int) -> dict
     dn = str(q.dtype).removeprefix("torch.")
     err, flipped = _check_k1(name, q, k, v, n_heads, causal)
     ms, plain_ms = _ab_ms([lambda: encoder_attention(q, k, v, n_heads, causal)],
-                          [lambda: encoder_attention_plain(q, k, v, n_heads, causal)], iters)
+                          [lambda: encoder_attention_plain(q, k, v, n_heads, causal)], iters,
+                          plain_iters=min(iters, 5))  # the twin is host-bound: ms a call
     lib = _time_ms([lambda: F.scaled_dot_product_attention(heads(q), heads(k), heads(v), is_causal=causal)], iters)
     b, lq, hd = q.shape
     lk = k.shape[1]
@@ -1595,20 +1615,21 @@ def _decode_steps(n_generated: list[int], total: int, all_stopped: bool) -> int:
     return min(-(-last // DONE_CHECK_EVERY) * DONE_CHECK_EVERY, total)
 
 
-def _check_routes(what: str, outs: dict, gap_fn) -> str:
-    """fp32 token rows of every route against the plain route's, row by row.
-    A row may part only at a step whose plain top-2 logits lie within
+def _check_routes(what: str, outs: dict, gap_fn, ref_route: str = "plain") -> str:
+    """fp32 token rows of every route against the ``ref_route``'s, row by
+    row. A row may part only at a step whose plain top-2 logits lie within
     GAP_TOL (``gap_fn(row, prefix)`` gives the plain (top logit, top-2 gap)
     after ``prefix``); the parting is printed. Returns the partings."""
     notes = []
     for route, rows in outs.items():
-        for i, (row, ref) in enumerate(zip(rows, outs["plain"])):
+        for i, (row, ref) in enumerate(zip(rows, outs[ref_route])):
             if row == ref:
                 continue
             n = min(len(row), len(ref))
             j = next((k for k in range(n) if row[k] != ref[k]), n)
             top, gap = gap_fn(i, ref[:j])
-            note = f"{route} row {i} parts from plain at token {j}: plain top-2 logits {gap:.4g} apart at {top:.6g}"
+            note = (f"{route} row {i} parts from {ref_route} at token {j}: plain top-2 logits {gap:.4g} apart at "
+                    f"{top:.6g}")
             print(f"phase {what}: {note}")
             if gap >= GAP_TOL[0] + GAP_TOL[1] * abs(top):
                 raise AssertionError(f"{what}: {note}, above the near-tie tolerance {GAP_TOL}")
@@ -2037,15 +2058,21 @@ def _int8_levels(name: str, got, ref) -> float:
     return equal
 
 
+K6_PLAIN_ITERS = 5  # calls a turn of K6's plain version, a Python walk over the 128-key blocks (ms a call)
+
+
 def int8_kernel_phases(dev, card: str) -> dict:
     """K6 (int8 decode attention) vs its plain version, fp32 and bf16: at
     GPT-2's shape (B=8, H=12, cache 1024, K2's mixed ranges with an empty row,
     without and with the current position), Whisper-base's cross shape (B=8,
-    H=8, 1500 frames in a 1536 cache, per-row lengths 0-1500) and T5-base's
+    H=8, 1500 frames in a 1536 cache, per-row lengths 0-1500), T5-base's
     (B=8, H=12, cache 128 at pos 41 and 1024 at pos 1000, the current position
-    and the key-major rel-pos bias). Library call: masked SDPA over the
-    dequantized cache in the serving dtype (a yardstick: it reads twice the
-    bytes and quantizes nothing)."""
+    and the key-major rel-pos bias) and a tensor-parallel rank's
+    (``int8_decode_attention_tp_scale``: GPT-2-small's tp=2 shard of 6 heads,
+    384 wide, K2's mixed ranges, the current key at the full 768-wide row's
+    scale ``cur_ks``). Library call: masked SDPA over the dequantized cache
+    (and the current key) in the serving dtype (a yardstick: it reads twice
+    the bytes and quantizes nothing)."""
     import torch
     import torch.nn.functional as F
 
@@ -2054,6 +2081,7 @@ def int8_kernel_phases(dev, card: str) -> dict:
         int8_decode_attention_cluster,
         int8_decode_attention_plain,
         quantize_kv_caches,
+        quantize_rows,
     )
 
     g = torch.Generator(device=dev).manual_seed(SEED + 12)
@@ -2105,7 +2133,7 @@ def int8_kernel_phases(dev, card: str) -> dict:
         del kj, cj
         times = _ab_ms([lambda c=c, q=q: int8_decode_attention(q[0], *kv(c), ends, 12, pads) for c, q in zip(cs, qs)],
                        [lambda c=c, q=q: int8_decode_attention_plain(q[0], *kv(c), ends, 12, pads)
-                        for c, q in zip(cs, qs)], 50)
+                        for c, q in zip(cs, qs)], 50, plain_iters=K6_PLAIN_ITERS)
         cur_ms = _time_ms([lambda c=c, q=q: int8_decode_attention(q[0], *kv(c), ends, 12, pads, q[1], q[2])
                            for c, q in zip(cs, qs)], 50)
         col = torch.arange(1024, device=dev)
@@ -2134,7 +2162,8 @@ def int8_kernel_phases(dev, card: str) -> dict:
             raise AssertionError("int8_decode_attention cross: an empty row must give zeros")
         rec["err"] = max(rec["err"], e)
         tx = _ab_ms([lambda c=c, q=q: int8_decode_attention(q, *kv(c), lens, 8) for c, q in zip(cs, qx)],
-                    [lambda c=c, q=q: int8_decode_attention_plain(q, *kv(c), lens, 8) for c, q in zip(cs, qx)], 50)
+                    [lambda c=c, q=q: int8_decode_attention_plain(q, *kv(c), lens, 8) for c, q in zip(cs, qx)], 50,
+                    plain_iters=K6_PLAIN_ITERS)
         xmask = (torch.arange(1536, device=dev)[None, :] < lens[:, None])[:, None, None, :]
         dqx = [(q.unflatten(-1, (8, 64)).transpose(1, 2), deq(c, "k", dtype, 8), deq(c, "v", dtype, 8))
                for c, q in zip(cs, qx)]
@@ -2166,7 +2195,7 @@ def int8_kernel_phases(dev, card: str) -> dict:
             tt = _ab_ms([lambda c=c, q=q: int8_decode_attention(q[0], *kv(c), pos, 12, None, q[1], q[2], sb)
                          for c, q in zip(cs, qt)],
                         [lambda c=c, q=q: int8_decode_attention_plain(q[0], *kv(c), pos, 12, None, q[1], q[2], sb)
-                         for c, q in zip(cs, qt)], 50)
+                         for c, q in zip(cs, qt)], 50, plain_iters=K6_PLAIN_ITERS)
             tb, to = bound(8 * pos, 8, 768, item, cur=True, bias_rows=(pos + 1) * 12)
 
             def dequantized(c, q):  # (q, K, V) split-head: the dequantized cache [0, pos), the current K/V at pos
@@ -2185,6 +2214,48 @@ def int8_kernel_phases(dev, card: str) -> dict:
                          f"({rt['bound_by']})")
         print(f"phase kernel int8_kv {dn} (T5 self + current + rel-pos bias N(0, 1) x {T5_BIAS_SCALE}), B=8 H=12: "
               + "; ".join(parts) + f" (atol, rtol)={tol} [{card}]")
+
+        # a tensor-parallel rank's step: GPT-2-small's tp=2 shard (6 of 12 heads, 384 wide), K2's mixed ranges,
+        # the current key scored with the full 768-wide row's scale (cur_ks), which the shard's absmax is not
+        cs = caches(8, 1024, 384, 4)
+        qp = []
+        for _ in cs:
+            full_k = rnd(8, 768).to(dtype)
+            full_k[:, 384:] *= 3.0  # the other rank's half holds each row's absmax
+            k_half = full_k[:, :384].contiguous()
+            qp.append((rnd(8, 1, 384).to(dtype), k_half, rnd(8, 384).to(dtype), quantize_rows(full_k)[1]))
+        if torch.equal(qp[0][3], quantize_rows(qp[0][1])[1]):
+            raise AssertionError("int8_decode_attention_tp_scale: the full row's scale must not be the shard's own")
+
+        def tp_call(fn, c, q):
+            return fn(q[0], *kv(c), ends, 6, pads, q[1], q[2], cur_ks=q[3])
+
+        got = tp_call(int8_decode_attention, cs[0], qp[0])
+        e = _check_close(f"int8_decode_attention_tp_scale {dn}", got,
+                         tp_call(int8_decode_attention_plain, cs[0], qp[0]), tol)
+        tt = _ab_ms([lambda c=c, q=q: tp_call(int8_decode_attention, c, q) for c, q in zip(cs, qp)],
+                    [lambda c=c, q=q: tp_call(int8_decode_attention_plain, c, q) for c, q in zip(cs, qp)], 50,
+                    plain_iters=K6_PLAIN_ITERS)
+
+        def dequantized_tp(c, q):  # (q, K, V) split-head: the dequantized cache, then the current K/V as one key more
+            kd, vd = (torch.cat([deq(c, key, dtype, 6), cur.unflatten(-1, (6, 64))[:, :, None]], dim=2)
+                      for key, cur in (("k", q[1]), ("v", q[2])))
+            return q[0].unflatten(-1, (6, 64)).transpose(1, 2), kd, vd
+
+        col = torch.arange(1025, device=dev)
+        tpmask = (((col >= pads[:, None]) & (col < ends[:, None])) | (col == 1024))[:, None, None, :]
+        dqp = [dequantized_tp(c, q) for c, q in zip(cs, qp)]
+        libp = _time_ms([lambda t=t: F.scaled_dot_product_attention(*t, attn_mask=tpmask) for t in dqp], 50)
+        keys = int((ends - pads).clamp_min(0).sum())
+        pb, po = bound(keys, 8, 384, item, cur=True)
+        nbytes_tp = pb + 8 * 4  # and the (B, 1) fp32 scales
+        rp = res[("int8_decode_attention_tp_scale", dn)] = _rec(e, *tt, nbytes_tp, po, "int8", libp)
+        print(f"phase kernel int8_decode_attention_tp_scale {dn}: GPT-2-small's tp=2 shard, B=8 Lk=1024 H=6 (384 "
+              f"wide) K2's pads/ends ({keys} keys), the current key at the full 768-wide row's scale (cur_ks), "
+              f"cluster {int8_decode_attention_cluster(8, 1024, 6)}: max_abs_err={e:.3g} (atol, rtol)={tol} | "
+              f"kernel {tt[0] * 1e3:.1f} us, plain {tt[1] * 1e3:.1f} us, masked SDPA over the dequantized cache and "
+              f"the current key {libp * 1e3:.1f} us, bound {rp['bound_ms'] * 1e3:.2f} us ({rp['bound_by']}, "
+              f"{nbytes_tp / 1e6:.2f} MB) [{card}]")
     torch.cuda.synchronize()
     return res
 
@@ -4660,6 +4731,312 @@ def spec_paths(dev, card: str, profile_dir: str | None = None) -> dict:
     return res
 
 
+# tensor- and data-parallel serving (tp_path): TP_RANKS ranks on the one card, their all-reduces through host memory
+# (gloo: NCCL refuses two ranks on one device; each all-reduce a device sync, ≈ 2 ms with two processes' contexts on
+# an NVIDIA H100 80GB HBM3 at 700 W, so the pool's and the rate turns' work is kept small); the TP continuous-batching
+# pool's slots, requests, prompt and budget ranges; new tokens of the speculative row and of the bf16 rate turns; the
+# ranks' deadline, model builds included
+TP_RANKS = 2
+TP_CB_POOL, TP_CB_REQUESTS, TP_CB_PROMPT, TP_CB_BUDGET = 16, 12, (5, 64), (8, 32)
+TP_W_SEGMENTS = 4
+TP_NEW, TP_RATE_NEW = 32, 16  # new tokens at most of T5's rows, Whisper's transcripts and the speculative row
+TP_JOIN_S = 300
+
+
+def _tp_models(dev):
+    """The TP phase's models at full width, from the main paths' seeds and
+    scales (fp32): GPT-2 small, T5-base and Whisper-base."""
+    from pytorch_models_tpu_torch.audio2text import Whisper
+    from pytorch_models_tpu_torch.text import GPT2, T5Model
+
+    gpt2 = GPT2.from_hf("gpt2", rng=SEED, device=dev)
+    _make_streams_move(dev, SEED + 7, gpt2.params, [gpt2.params["decoder"]["layers"]])
+    t5 = T5Model.from_t5x("flan_t5-base", rng=SEED, device=dev)
+    _make_t5_streams_move(dev, SEED + 9, t5.params)
+    whisper = Whisper.from_openai("base", rng=SEED, device=dev)
+    _make_streams_move(dev, SEED + 3, whisper.params["decoder"],
+                       [whisper.params["encoder"]["layers"], whisper.params["decoder"]["layers"]])
+    return gpt2, t5, whisper
+
+
+def _tp_inputs(t5_vocab: int) -> dict:
+    """The main paths' GPT-2 prompts (B=8), T5 prompts and the first
+    TP_W_SEGMENTS Whisper waveforms; the pool's requests and budgets."""
+    r = np.random.default_rng(SEED)
+    rt = np.random.default_rng(SEED + 10)
+    rc = np.random.default_rng(SEED + 97)
+    reqs = [rc.integers(0, 50257, int(rc.integers(TP_CB_PROMPT[0], TP_CB_PROMPT[1] + 1))).tolist()
+            for _ in range(TP_CB_REQUESTS)]
+    return {"prompts": [r.integers(0, 50257, n).tolist() for n in PROMPT_LENS],
+            "t5_prompts": [rt.integers(2, t5_vocab, n).tolist() for n in T5_PROMPT_LENS],
+            "audio": _waveforms(TP_W_SEGMENTS, W_SECONDS[:TP_W_SEGMENTS], SEED + 4),
+            "reqs": reqs,
+            "budgets": [int(m) for m in rc.integers(TP_CB_BUDGET[0], TP_CB_BUDGET[1] + 1, TP_CB_REQUESTS)]}
+
+
+def tp_rank(rank: int, init_file: str, out) -> None:
+    """One rank of the TP phase, a spawned process on the card: joins the
+    gloo group, runs ``_tp_rank_work`` and puts its result (or its
+    traceback) on ``out``."""
+    import os
+    import traceback
+
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")  # the ranks meet on the loopback device
+    try:
+        import torch
+        import torch.distributed as dist
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+        dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank, world_size=TP_RANKS)
+        out.put((rank, "ok", _tp_rank_work(rank, dev)))
+        dist.barrier()
+        dist.destroy_process_group()
+    except BaseException:
+        out.put((rank, "error", traceback.format_exc()))
+
+
+def _tp_rank_work(rank: int, dev) -> dict:
+    """The rank's share of the TP main path, counts from 0 just before it:
+    GPT-2 at tp=2 and at dp=2 x tp=1, T5 and Whisper at tp=2, the GPT-2 pool
+    at tp=2 with its full-precision and its int8 pool, speculative decoding
+    at tp=2 (fp32, per-op: the fused step is never a tp path); then bf16
+    GPT-2 tok/s at tp=2 and on rank 0 alone (per-op), in turns, B=8 x
+    TP_RATE_NEW new."""
+    import torch
+    import torch.distributed as dist
+
+    from pytorch_models_tpu_torch.models.text.speculative import TruncatedDraft
+    from pytorch_models_tpu_torch.ops import _build
+    from pytorch_models_tpu_torch.ops.int8_kv import int8_decode_attention
+    from pytorch_models_tpu_torch.parallel import (
+        TPContinuousBatchingGenerator,
+        TPDecoderGenerator,
+        TPSpeculativeGenerator,
+        TPT5Generator,
+        TPWhisperGenerator,
+        make_mesh,
+    )
+    from pytorch_models_tpu_torch.text import DecoderGenerator
+
+    t0 = time.perf_counter()
+    _build.load_library()  # the parent's build, loaded from build/kernels/
+    gpt2, t5, whisper = _tp_models(dev)
+    inp = _tp_inputs(t5.cfg.vocab_size)
+    tp_mesh = make_mesh(TP_RANKS, shape=(1, TP_RANKS), axes=("dp", "tp"), device=dev)
+    dp_mesh = make_mesh(TP_RANKS, shape=(TP_RANKS, 1), axes=("dp", "tp"), device=dev)
+    pool_mesh = make_mesh(TP_RANKS, shape=(TP_RANKS,), axes=("tp",), device=dev)
+    gen = TPDecoderGenerator(gpt2, _Tok(), tp_mesh)
+    gen_dp = TPDecoderGenerator(gpt2, _Tok(), dp_mesh)
+    gen_t5 = TPT5Generator(t5, None, tp_mesh)
+    gen_w = TPWhisperGenerator(whisper, tp_mesh)
+    cb = TPContinuousBatchingGenerator(gpt2, _Tok(), pool_mesh, batch_size=TP_CB_POOL, prompt_bucket=CB_BUCKET,
+                                       check_every=CB_CHECK_EVERY)
+    spec = TPSpeculativeGenerator(gpt2, TruncatedDraft(gpt2, SPEC_DRAFT_LAYERS), _Tok(), pool_mesh, k=SPEC_K)
+    res = {"build_s": time.perf_counter() - t0}
+
+    _route("per-op")
+    _reset_launches()
+    int8_decode_attention.cur_ks_launches = 0
+    t1 = time.perf_counter()
+    res["gpt2"] = gen.generate_tokens_batch(inp["prompts"], max_tokens=N_NEW)
+    res["gpt2 dp=2"] = gen_dp.generate_tokens_batch(inp["prompts"], max_tokens=N_NEW)
+    res["t5"] = gen_t5.generate_tokens_batch(inp["t5_prompts"], TP_NEW + 1, T5_PAD, T5_EOS)
+    res["whisper"] = gen_w.transcribe_tokens_batch(inp["audio"], W_INIT, W_EOT, len(W_INIT) + TP_NEW)
+    res["cb"] = cb.generate_tokens_many(inp["reqs"], inp["budgets"])
+    _int8_flags(kv=True, fused=False)
+    res["int8 pool served"] = cb._use_int8_pool(cb._params_cfg()[1], TP_CB_POOL, False)
+    res["cb int8"] = cb.generate_tokens_many(inp["reqs"], inp["budgets"])
+    _int8_flags()
+    _route("per-op")
+    res["spec"] = spec.generate_tokens(inp["prompts"][0], TP_NEW)
+    torch.cuda.synchronize()
+    res["run_s"] = time.perf_counter() - t1
+    res["launches"] = dict(_launches(set()), int8_decode_attention_tp_scale=int8_decode_attention.cur_ks_launches)
+
+    # bf16 GPT-2 rates: tp=2 (both ranks) and one rank alone (rank 0, the other waiting), in turns
+    gpt2.to_bf16()
+    gen16 = TPDecoderGenerator(gpt2, _Tok(), tp_mesh)
+    single = DecoderGenerator(gpt2, _Tok())
+
+    def timed(run) -> float:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    def tp_once() -> float:
+        dist.barrier()
+        return timed(lambda: gen16.generate_tokens_batch(inp["prompts"], max_tokens=TP_RATE_NEW))
+
+    def single_once() -> float | None:
+        s = timed(lambda: single.generate_tokens_batch(inp["prompts"], max_tokens=TP_RATE_NEW)) if rank == 0 else None
+        dist.barrier()
+        return s
+
+    tp_once(), single_once()  # warm-up
+    times = {"tp=2": [], "one rank": []}
+    for kind in ("tp=2", "one rank", "one rank", "tp=2"):
+        times[kind].append(tp_once() if kind == "tp=2" else single_once())
+    res["bf16_s"] = times
+    return res
+
+
+def tp_path(dev, card: str) -> dict:
+    """Tensor- and data-parallel serving (``parallel/``) through its entry
+    points at full width: TP_RANKS ranks spawned on the one card, the gloo
+    group's all-reduces staged through host memory (every kernel and matmul
+    stays on the card). Each rank runs ``_tp_rank_work``; its fp32 tokens
+    must equal the single-device per-op route's (computed here while the
+    ranks start) up to printed near-ties, and every rank's the others'; K7
+    launched 0 times, K1-K5 and K6 with the full-width scale (``cur_ks``, on
+    the int8 pool) more than 0 on every rank. The int8 pool's rows against
+    the single-device per-op int8 pool are a reading, printed beside the
+    single device's own fused (K7) int8 pool against that per-op pool: int8
+    levels turn fp32 summation-order differences into parted streams.
+    Returns the ranks' summed launches."""
+    import os
+    import queue
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from pytorch_models_tpu_torch.audio2text import WhisperGenerator
+    from pytorch_models_tpu_torch.ops import attention as attn
+    from pytorch_models_tpu_torch.text import ContinuousBatchingGenerator, DecoderGenerator, T5Generator
+
+    ctx = mp.get_context("spawn")
+    out = ctx.Queue()
+    got: dict = {}
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [ctx.Process(target=tp_rank, args=(r, os.path.join(tmp, "init"), out), daemon=True)
+                 for r in range(TP_RANKS)]
+        for p in procs:
+            p.start()
+        try:
+            # the single-device references, fp32 per-op, while the ranks start and build their models
+            gpt2, t5, whisper = _tp_models(dev)
+            inp = _tp_inputs(t5.cfg.vocab_size)
+            prompts, reqs, budgets = inp["prompts"], inp["reqs"], inp["budgets"]
+            _route("per-op")
+            gen = DecoderGenerator(gpt2, _Tok())
+            wgen = WhisperGenerator(whisper)
+            ref = {"gpt2": gen.generate_tokens_batch(prompts, max_tokens=N_NEW)}
+            ref["gpt2 dp=2"] = ref["gpt2"]
+            ref["t5"] = T5Generator(model=t5).generate_tokens_batch(inp["t5_prompts"], TP_NEW + 1, T5_PAD, T5_EOS)
+            wav = torch.from_numpy(inp["audio"]).to(dev)
+            ref["whisper"] = wgen.transcribe_tokens_batch(wav, W_INIT, W_EOT, len(W_INIT) + TP_NEW)
+            cb = ContinuousBatchingGenerator(gpt2, _Tok(), batch_size=TP_CB_POOL, prompt_bucket=CB_BUCKET,
+                                             check_every=CB_CHECK_EVERY)
+            ref["cb"] = cb.generate_tokens_many(reqs, budgets)
+            _int8_flags(kv=True)
+            k7_int8 = cb.generate_tokens_many(reqs, budgets)  # the single device's own int8 pool: fused, K7
+            # the per-op int8 pool on one device (each key's scale its own full row's): the tp pool's numerics at tp=1
+            cb._use_int8_pool = lambda cfg, b, fused: attn.use_int8_kv(b)
+            _int8_flags(kv=True, fused=False)
+            ref["cb int8"] = cb.generate_tokens_many(reqs, budgets)
+            _int8_flags()
+            _route("per-op")
+            ref["spec"] = [gen.generate_tokens(prompts[0], max_tokens=TP_NEW)]
+            torch.cuda.synchronize()
+            ref_s = time.perf_counter() - t1
+            while len(got) < TP_RANKS:
+                left = t1 + TP_JOIN_S - time.perf_counter()
+                if left <= 0:
+                    hung = sorted(set(range(TP_RANKS)) - set(got))
+                    raise AssertionError(f"tp: ranks {hung} hung past {TP_JOIN_S} s")
+                try:
+                    rank, status, value = out.get(timeout=min(left, 1.0))
+                except queue.Empty:
+                    dead = [r for r, p in enumerate(procs) if r not in got and p.exitcode not in (None, 0)]
+                    if dead:
+                        raise AssertionError(f"tp: rank {dead[0]} died with exit code {procs[dead[0]].exitcode}")
+                    continue
+                if status != "ok":
+                    raise AssertionError(f"tp: rank {rank} raised:\n{value}")
+                got[rank] = value
+            for p in procs:
+                p.join(max(t1 + TP_JOIN_S - time.perf_counter(), 1.0))
+                if p.exitcode != 0:
+                    raise AssertionError(f"tp: a rank exited with code {p.exitcode}")
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join(10)
+    ranks_s = time.perf_counter() - t1
+
+    def gpt2_gap(i, prefix):
+        _route("plain")
+        with torch.inference_mode():
+            return _top2(gpt2(torch.tensor(prefix, device=dev))[-1])
+
+    def t5_gap(i, prefix):
+        _route("plain")
+        with torch.inference_mode():
+            enc = torch.tensor([inp["t5_prompts"][i]], device=dev)
+            return _top2(t5(enc, torch.tensor([prefix], device=dev))[0, -1])
+
+    def w_gap(i, prefix):
+        _route("plain")
+        with torch.inference_mode():
+            return _top2(whisper(wgen.preprocessor(wav[i:i + 1]), torch.tensor([prefix], device=dev))[0, -1])
+
+    r0 = got[0]
+    notes = []
+    for name in ("gpt2", "gpt2 dp=2", "t5", "whisper", "cb", "cb int8", "spec"):
+        rows = [r0[name]] if name == "spec" else r0[name]
+        for rank in range(1, TP_RANKS):
+            if got[rank][name] != r0[name]:
+                raise AssertionError(f"tp {name}: rank {rank}'s tokens part from rank 0's")
+        if name == "cb int8":
+            continue
+        gap = {"t5": t5_gap, "whisper": w_gap}.get(name, gpt2_gap)
+        partings = _check_routes(f"tp {name}", {"single device": ref[name], "tp": rows}, gap, "single device")
+        notes.append(f"{name}: {partings}")
+    if not r0["int8 pool served"]:
+        raise AssertionError("tp: the pool did not serve int8 (its width gate)")
+    for rows, n in ((r0["cb"], reqs), (r0["cb int8"], reqs)):
+        if any(len(row) != len(q) + m or row[:len(q)] != q for row, q, m in zip(rows, n, budgets)):
+            raise AssertionError("tp pool: malformed row")
+    for rank, res in got.items():
+        c = res["launches"]
+        k7 = c["fused_decode_step"] + c["fused_cross_decode_step"]
+        missing = [k for k in ("encoder_attention", "decode_attention", "embed_add", "greedy_argmax_tied",
+                               "log_mel_spectrogram", "int8_decode_attention_tp_scale") if c[k] <= 0]
+        if k7 or missing:
+            raise AssertionError(f"tp rank {rank}: K7 launched {k7} times (0 wanted); never launched: {missing}")
+    summed = {k: sum(res["launches"][k] for res in got.values()) for k in r0["launches"]}
+    print(f"phase tp fp32: {TP_RANKS} ranks on one card ({card}), gloo, all-reduces through host memory; GPT-2 "
+          f"small B={len(prompts)} x {N_NEW} new at tp=2 and at dp=2 x tp=1, T5-base B={len(inp['t5_prompts'])} and "
+          f"Whisper-base B={TP_W_SEGMENTS} x {TP_NEW} new at most at tp=2, the GPT-2 pool of {TP_CB_POOL} slots at "
+          f"tp=2 ({TP_CB_REQUESTS} requests, full precision and int8), speculative GPT-2 at tp=2 (k={SPEC_K}, a "
+          f"{SPEC_DRAFT_LAYERS}-layer draft, one row, {TP_NEW} new): every rank's tokens equal, and the single "
+          f"device's per-op route's up to near-ties ({'; '.join(notes)}); the int8 pool's rows against the single "
+          f"device's per-op int8 pool (a reading): {_parting(r0['cb int8'], ref['cb int8'])}; for scale, the single "
+          f"device's fused (K7) int8 pool against that per-op pool: {_parting(k7_int8, ref['cb int8'])}")
+    print("phase tp launches per rank: " + "; ".join(
+        f"rank {rank}: " + " ".join(f"{k}={res['launches'][k]}" for k in (
+            "encoder_attention", "decode_attention", "embed_add", "gather_rows", "greedy_argmax_tied",
+            "greedy_argmax", "log_mel_spectrogram", "int8_kv", "int8_decode_attention_tp_scale",
+            "fused_decode_step", "fused_cross_decode_step")) for rank, res in got.items()))
+    n_tok = len(prompts) * TP_RATE_NEW
+    tps = {k: n_tok / np.mean([t for t in v if t is not None]) for k, v in r0["bf16_s"].items()}
+    print(f"phase time tp bf16 GPT-2 small generate_tokens_batch B={len(prompts)} x {TP_RATE_NEW} new, per-op, in "
+          f"turns (two ranks on one card, all-reduces through host memory (gloo): a reading of the mechanism, not a "
+          f"deployment's rate): tp=2 {tps['tp=2']:.1f} tok/s, one rank alone {tps['one rank']:.1f} tok/s [{card}]")
+    print(f"phase tp clock: single-device references {ref_s:.1f} s while the ranks started; ranks {ranks_s:.1f} s "
+          f"(model builds {max(res['build_s'] for res in got.values()):.1f} s, the counted run "
+          f"{max(res['run_s'] for res in got.values()):.1f} s)")
+    _route("fused")
+    return summed
+
+
 def profile_phase(fn, what: str, fname: str, out_dir: str, card: str, steps_fn, unit: str = "decode step") -> None:
     """One call of ``fn`` (after a warm-up call) under torch.profiler.
 
@@ -4785,6 +5162,7 @@ def main() -> int:
     k6_path = timed("int8 stack", int8_stack_path, dev, card)
     i8 = timed("int8 paths", int8_paths, dev, card)
     spec = timed("spec", spec_paths, dev, card, args.profile)  # its K7 launches at one row feed the *_b1 rows only
+    paths["tp"] = timed("tp", tp_path, dev, card)  # the ranks' summed launches; K6 with cur_ks only here
 
     # name: (source, TPU kernel it replaces, the dtype whose times are reported, its launches over the main paths;
     # the shapes are GPT-2's for K1-K4 and the fused decode step, Whisper's for K5 and the fused cross step,
@@ -4819,6 +5197,9 @@ def main() -> int:
                                        paths["t5"]["fused_cross_decode_step"]),
         # int8 serving: K6 on the per-op int8 step's path, K7's variants on the int8 serving paths
         "int8_kv": ("int8_kv.cu", "pytorch_models_tpu/ops/int8_kv.py:353", "bfloat16", k6_path["int8_kv"]),
+        # K6 scoring the current key with a tensor-parallel rank's full-width scale (cur_ks), on the tp int8 pool
+        "int8_decode_attention_tp_scale": ("int8_kv.cu", "pytorch_models_tpu/ops/int8_kv.py:353", "bfloat16",
+                                           paths["tp"]["int8_decode_attention_tp_scale"]),
         "fused_decode_step_int8": (k7_src, "pytorch_models_tpu/ops/decode_step.py:1359", "bfloat16",
                                    i8["gpt2"]["fused_decode_step_kv_int8"] - i8["gpt2"]["fused_decode_step_a8"]),
         "fused_decode_step_a8": (k7_src, "pytorch_models_tpu/ops/decode_step.py:1359", "bfloat16",

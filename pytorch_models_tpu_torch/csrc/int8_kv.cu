@@ -4,7 +4,9 @@
 // Pallas kernel at its `pl.pallas_call`): one query per row against int8
 // K/V caches (B, Lk, H*D) with per-key fp32 scales (B, Lk), over keys
 // [pad_b, end_b), optionally folding this step's unquantized K/V in as the
-// current position (self-attention decode; the cache holds [0, pos)), and
+// current position (self-attention decode; the cache holds [0, pos); its K
+// quantized by its own row's absmax, or by a per-row scale cur_ks (B,) that
+// a tensor-parallel rank holding a width shard takes from the full row), and
 // optionally adding a key-major (Lk, H) fp32 bias (T5's rel-pos decode bias;
 // at the current position its row ends[0]). The arithmetic is the oracle's,
 // spelled out in csrc/int8_attn.cuh (whose sequential unit the fused decode
@@ -91,7 +93,8 @@ __global__ void __launch_bounds__(NTH)
 int8_attention_kernel(const T* __restrict__ q, const int8_t* __restrict__ kq, const int8_t* __restrict__ vq,
                       const float* __restrict__ ks, const float* __restrict__ vs, const int* __restrict__ ends,
                       int end_scalar, const int* __restrict__ pads, const T* __restrict__ cur_k,
-                      const T* __restrict__ cur_v, const float* __restrict__ bias, T* __restrict__ out, int l_k,
+                      const T* __restrict__ cur_v, const float* __restrict__ cur_ks, const float* __restrict__ bias,
+                      T* __restrict__ out, int l_k,
                       int n_heads, float scale, int own) {
     extern __shared__ __align__(16) char dyn[];
     __shared__ Records rec[2];
@@ -272,11 +275,17 @@ int8_attention_kernel(const T* __restrict__ q, const int8_t* __restrict__ kq, co
     if (rank != 0) return;  // nothing reads a peer's shared memory from here on
 
     if (cur_k) {
-        // this step's K, quantized with the cache-write rule: absmax over the whole H*D row
+        // this step's K, quantized with the cache-write rule: absmax over the whole H*D row, or, on a
+        // tensor-parallel rank that holds a width shard of the row, the full row's scale passed in (cur_ks)
         const T* kr = cur_k + static_cast<int64_t>(b) * hd;
-        float am = 0.f;
-        for (int c = t; c < hd; c += NTH) am = fmaxf(am, fabsf(pmt::ldcg_f(kr + c)));
-        const float kc_s = pmt::i8_scale(pmt::i8_block_max<NTH>(am, red));
+        float kc_s;
+        if (cur_ks) {
+            kc_s = cur_ks[b];
+        } else {
+            float am = 0.f;
+            for (int c = t; c < hd; c += NTH) am = fmaxf(am, fabsf(pmt::ldcg_f(kr + c)));
+            kc_s = pmt::i8_scale(pmt::i8_block_max<NTH>(am, red));
+        }
         const int kl = t < D ? pmt::i8_level(pmt::ldcg_f(kr + h * D + t), kc_s) : 0;
         const int dot = pmt::i8_block_isum<NTH>(t < D ? kl * qi[t] : 0, red);
         float s_cur = __fmul_rn(__fmul_rn(__int2float_rn(dot), kc_s), sq);
@@ -297,7 +306,8 @@ int8_attention_kernel(const T* __restrict__ q, const int8_t* __restrict__ kq, co
 
 template <typename T>
 int launch(const void* q, const int8_t* kq, const int8_t* vq, const float* ks, const float* vs, const int* ends,
-           int end_scalar, const int* pads, const void* cur_k, const void* cur_v, const float* bias, void* out, int b,
+           int end_scalar, const int* pads, const void* cur_k, const void* cur_v, const float* cur_ks, const float* bias,
+           void* out, int b,
            int l_k, int n_heads, float scale, cudaStream_t s) {
     int cs, own;
     plan(b, l_k, n_heads, &cs, &own);
@@ -323,7 +333,7 @@ int launch(const void* q, const int8_t* kq, const int8_t* vq, const float* ks, c
     cfg.numAttrs = 1;
     cudaError_t e = cudaLaunchKernelEx(&cfg, int8_attention_kernel<T>, static_cast<const T*>(q), kq, vq, ks, vs, ends,
                                        end_scalar, pads, static_cast<const T*>(cur_k), static_cast<const T*>(cur_v),
-                                       bias, static_cast<T*>(out), l_k, n_heads, scale, own);
+                                       cur_ks, bias, static_cast<T*>(out), l_k, n_heads, scale, own);
     return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }
 
@@ -338,7 +348,8 @@ extern "C" int pmt_int8_attention_cluster(int b, int l_k, int n_heads) {
 
 extern "C" int pmt_int8_attention(const void* q, const void* kq, const void* vq, const void* ks, const void* vs,
                                   const void* ends, int end_scalar, const void* pads, const void* cur_k,
-                                  const void* cur_v, const void* bias, void* out, int b, int l_k, int n_heads,
+                                  const void* cur_v, const void* cur_ks, const void* bias, void* out, int b, int l_k,
+                                  int n_heads,
                                   float scale, int dtype, void* stream) {
     auto i8 = [](const void* p) { return static_cast<const int8_t*>(p); };
     auto f32 = [](const void* p) { return static_cast<const float*>(p); };
@@ -346,7 +357,7 @@ extern "C" int pmt_int8_attention(const void* q, const void* kq, const void* vq,
     const cudaStream_t s = pmt::as_stream(stream);
     if (dtype == pmt::DT_F32)
         return launch<float>(q, i8(kq), i8(vq), f32(ks), f32(vs), i32(ends), end_scalar, i32(pads), cur_k, cur_v,
-                             f32(bias), out, b, l_k, n_heads, scale, s);
+                             f32(cur_ks), f32(bias), out, b, l_k, n_heads, scale, s);
     return launch<__nv_bfloat16>(q, i8(kq), i8(vq), f32(ks), f32(vs), i32(ends), end_scalar, i32(pads), cur_k, cur_v,
-                                 f32(bias), out, b, l_k, n_heads, scale, s);
+                                 f32(cur_ks), f32(bias), out, b, l_k, n_heads, scale, s);
 }

@@ -38,7 +38,9 @@ int8 pools, on the fused route only as in the JAX package: ``USE_INT8_KV``
 keeps the self caches per-key int8 (each admission prefills a one-row
 full-precision scratch and commits it quantized once, the plain
 generator's order), ``USE_INT8_KV_CROSS`` quantizes each segment's cross
-K/V once at admission.
+K/V once at admission. The sharding hooks ``_params_cfg``, ``_init_pool``
+and ``_int8_modes`` let ``parallel/cb_serving.py`` run the same code on a
+rank's head shard (per-op, int8 pools through the int8 decode kernel).
 """
 
 from __future__ import annotations
@@ -75,16 +77,14 @@ from .whisper import (
 
 class _WhisperPool(_CrossPool):
     """The Whisper pool: the encoder-decoder pool state (cross caches for
-    the 1,500 encoder frames) and the fused step's packed weights and tied
-    head. int8 only on the fused route, as in the JAX package: only the
-    fused step reads scale planes."""
+    the 1,500 encoder frames, int8 where ``i8_self`` / ``i8_cross``) and the
+    fused step's packed weights and tied head (``fused``)."""
 
-    def __init__(self, params: dict, cfg, b: int, l_max: int, dev) -> None:
+    def __init__(self, params: dict, cfg, b: int, l_max: int, fused: bool, i8_self: bool, i8_cross: bool) -> None:
         p = params["decoder"]
         dtype = p["token_embs"].dtype
-        fused = _whisper_fused_ok(p, cfg, b)
-        super().__init__(b, l_max, tfm.padded_cache_len(ENC_MAX_LEN // 2), cfg.n_layers, cfg.dec_layer, dtype, dev,
-                         fused, fused and _attn.use_int8_kv(b), fused and _attn.use_int8_kv_cross(b))
+        super().__init__(b, l_max, tfm.padded_cache_len(ENC_MAX_LEN // 2), cfg.n_layers, cfg.dec_layer, dtype,
+                         p["token_embs"].device, fused, i8_self, i8_cross)
         if fused:
             from ...ops.decode_step import pack_decode_weights, pack_greedy_head
 
@@ -121,6 +121,21 @@ class WhisperContinuousBatchingGenerator:
         self.preprocessor = WhisperPreprocessor("large-v3" if model.cfg.n_mels == 128 else "tiny",
                                                 device=model.device)
         self.last_stats: ServingStats | None = None
+
+    # ---- sharding hooks (overridden by parallel/cb_serving.py) ----
+    def _params_cfg(self):
+        return self.model.params, self.model.cfg
+
+    def _init_pool(self, params, cfg, b: int, l_max: int) -> _WhisperPool:
+        fused = _whisper_fused_ok(params["decoder"], cfg, b)
+        return _WhisperPool(params, cfg, b, l_max, fused, *self._int8_modes(cfg, b, fused))
+
+    def _int8_modes(self, cfg, b: int, fused: bool) -> tuple[bool, bool]:
+        """``(i8_self, i8_cross)``: on the fused route only, as in the JAX
+        package (only the fused step reads scale planes on one device)."""
+        if not fused or cfg.dec_layer.tp_axis is not None:
+            return False, False
+        return _attn.use_int8_kv(b), _attn.use_int8_kv_cross(b)
 
     def _tok(self):
         if self.tokenizer is None:
@@ -174,10 +189,11 @@ class WhisperContinuousBatchingGenerator:
         """Segments -> (mb, T, d) encoder memory in ONE batched call, ``mb``
         the power-of-2 bucket of ``len(audios)`` (the tail repeats the last
         segment)."""
-        m = self.model
+        params, cfg = self._params_cfg()
         mb = _bucket_pow2(len(audios))
-        wav = stage_segments(list(audios) + [audios[-1]] * (mb - len(audios)), self.N_SAMPLES, m.device)
-        return whisper_encode(m.params, m.cfg, self.preprocessor(wav))
+        wav = stage_segments(list(audios) + [audios[-1]] * (mb - len(audios)), self.N_SAMPLES,
+                             params["decoder"]["token_embs"].device)
+        return whisper_encode(params, cfg, self.preprocessor(wav))
 
     def _admit_row(self, pool: _WhisperPool, row: int, pos: int, memory: torch.Tensor, init: torch.Tensor) -> None:
         """Fill slot ``row`` at ``pos`` with one segment (``memory`` (1, T,
@@ -186,33 +202,33 @@ class WhisperContinuousBatchingGenerator:
         pos)`` and prefill the row's self-KV over ``[pos-1-I, pos-1)`` with
         the full-precision cross K/V (an int8 pool on a one-row scratch,
         committed quantized once)."""
-        m = self.model
-        p, lc = m.params["decoder"], m.cfg.dec_layer
+        params, cfg = self._params_cfg()
+        p, lc = params["decoder"], cfg.dec_layer
         i = init.shape[0]
         pad_len = pos - i
         row_cross, row_stacked = tfm.precompute_cross_caches(p, lc, memory)
-        _commit_rows(pool.cross, row, row_stacked["k"][:, 0], row_stacked["v"][:, 0], pool.i8_cross)
+        _commit_rows(pool.cross, row, row_stacked["k"][:, 0], row_stacked["v"][:, 0], pool.i8_cross, lc.tp_axis)
         pool.cross["len"][row] = row_stacked["len"][0]
         pool.buf[row, pad_len:pos] = init
         c0 = pos - 1 - i
         p_ids = (torch.arange(i, device=init.device) + (c0 - pad_len)).clamp_min(0)[None]
         pads = torch.full((1,), pad_len, dtype=torch.int32, device=init.device)
         if pool.i8_self:
-            _, target = tfm.make_kv_cache(m.cfg.n_layers, (1,), lc.n_heads, self.pool_ctx, lc.head_dim, pool.dtype,
+            _, target = tfm.make_kv_cache(cfg.n_layers, (1,), lc.n_heads, self.pool_ctx, lc.head_dim, pool.dtype,
                                           init.device)
             views = _layer_views(target)
         else:
             views = _layer_views(pool.stacked, row)
         _decoder_hidden_chunk(p, lc, row_cross, pool.buf[row:row + 1, c0:c0 + i], views, c0, pads, p_ids)
         if pool.i8_self:
-            _commit_rows(pool.stacked, row, target["k"][:, 0], target["v"][:, 0], True)
+            _commit_rows(pool.stacked, row, target["k"][:, 0], target["v"][:, 0], True, lc.tp_axis)
 
     def _steps(self, pool: _WhisperPool, pos: int, n_steps: int, eot_id: int, greedy: bool, topk: int,
                has_tp: bool, seed: int) -> int:
         """Up to ``n_steps`` decode steps over the whole pool: each row at its
         own position-table row ``pos - 1 - pad_len``."""
-        m = self.model
-        p, cfg = m.params["decoder"], m.cfg
+        params, cfg = self._params_cfg()
+        p = params["decoder"]
         b = pool.buf.shape[0]
         greedy_head = greedy and not pool.fused and _attn.use_greedy_head(b, p["token_embs"], tied=True)
 
@@ -269,9 +285,9 @@ class WhisperContinuousBatchingGenerator:
         base = n_init + 1  # the admission prefill's chunk [pos-1-I, pos-1) needs pos >= I + 1
         if base + max_new > l_max:
             raise ValueError(f"max_tokens={max_tokens} cannot fit the pool context ({l_max}); raise pool_ctx")
-        dev = self.model.device
-        pool = _WhisperPool(self.model.params, self.model.cfg, self.batch_size, l_max, dev)
-        init = _to_device(list(initial_tokens), dev)
+        params, cfg = self._params_cfg()
+        pool = self._init_pool(params, cfg, self.batch_size, l_max)
+        init = _to_device(list(initial_tokens), params["decoder"]["token_embs"].device)
 
         def admit(pos, admissions):
             memory = self._encode([audios[r] for _, r in admissions])

@@ -70,14 +70,21 @@ class WhisperConfig:
     n_layers: int
     d_model: int
     n_mels: int = 80
+    # tensor-parallel serving (parallel/serving.py): each rank's local head count and the tp process group the
+    # o / fc2 projections all-reduce over
+    local_heads: int | None = None
+    tp_axis: object = None
+
+    def _heads(self) -> dict:
+        return {} if self.local_heads is None else {"n_heads": self.local_heads, "head_dim": 64}
 
     @property
     def enc_layer(self) -> tfm.LayerConfig:
-        return tfm.LayerConfig.make(self.d_model)
+        return tfm.LayerConfig.make(self.d_model, tp_axis=self.tp_axis, **self._heads())
 
     @property
     def dec_layer(self) -> tfm.LayerConfig:
-        return tfm.LayerConfig.make(self.d_model, cross_attn=True)
+        return tfm.LayerConfig.make(self.d_model, cross_attn=True, tp_axis=self.tp_axis, **self._heads())
 
 
 def whisper_init(gen: torch.Generator, cfg: WhisperConfig, device=None) -> dict:

@@ -31,11 +31,17 @@ class DecoderLMConfig:
     final_norm: bool
     act: str = "approximate_gelu"
     norm_eps: float = 1e-5
+    # tensor-parallel serving (parallel/serving.py): each rank holds local_heads = n_heads / tp heads and
+    # all-reduces over the tp process group tp_axis
+    local_heads: int | None = None
+    tp_axis: object = None
 
     @property
     def layer(self) -> tfm.LayerConfig:
-        return tfm.LayerConfig.make(self.d_model, n_heads=self.d_model // 64, act=self.act,
-                                    pre_norm=self.pre_norm, norm_eps=self.norm_eps)
+        heads = ({"n_heads": self.d_model // 64} if self.local_heads is None
+                 else {"n_heads": self.local_heads, "head_dim": 64})
+        return tfm.LayerConfig.make(self.d_model, **heads, act=self.act, pre_norm=self.pre_norm,
+                                    norm_eps=self.norm_eps, tp_axis=self.tp_axis)
 
 
 def decoder_lm_init(gen: torch.Generator, cfg: DecoderLMConfig, device=None) -> dict:
@@ -116,7 +122,9 @@ def chunk_positions(pos, s: int, b: int, device) -> torch.Tensor:
 
 def decoder_lm_fused_ok(params: dict, cfg: DecoderLMConfig, batch: int) -> bool:
     """Gate for the one-kernel fused decode step (ops/decode_step.py): the
-    flag (auto: the params lie on a CUDA device) and what the kernel serves."""
+    flag (auto: the params lie on a CUDA device) and what the kernel serves,
+    never a tensor-parallel rank's layers (``fused_step_eligible`` refuses a
+    ``tp_axis``: the kernel has no all-reduce inside)."""
     from ...ops.decode_step import fused_step_eligible
 
     if not _attn.use_fused_step(params["token_embs"]) or not cfg.pre_norm:

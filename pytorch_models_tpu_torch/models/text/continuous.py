@@ -52,6 +52,13 @@ pool's caches are per-key int8 with fp32 scale planes for the whole call,
 and each admission prefills in full precision on a one-row scratch cache,
 quantized once when it is committed to the pool: the plain int8
 generator's prefill-then-quantize order.
+
+Sharding hooks, as in the JAX package: ``_params_cfg`` (the parameters and
+config the pool runs), ``_init_pool`` and ``_use_int8_pool`` (the int8
+gate). ``parallel/cb_serving.py`` overrides them to run the same admission
+and decode code on one rank's head shard: the per-op step (the fused step
+is never a tensor-parallel path), an int8 pool through the per-op int8
+decode kernel, its scales all-reduced to the full row's.
 """
 
 from __future__ import annotations
@@ -97,12 +104,15 @@ def _layer_views(stacked: dict, row: int | None = None) -> list:
     return [{k: t[i, sl] for k, t in stacked.items()} for i in range(stacked["k"].shape[0])]
 
 
-def _commit_rows(pool_caches: dict, row: int, src_k: torch.Tensor, src_v: torch.Tensor, int8: bool) -> None:
+def _commit_rows(pool_caches: dict, row: int, src_k: torch.Tensor, src_v: torch.Tensor, int8: bool,
+                 group=None) -> None:
     """Write one row's layer-stacked ``(L, Lp, W)`` K/V into pool row ``row``:
-    quantized per key, with its scale planes, into an int8 pool."""
+    quantized per key, with its scale planes, into an int8 pool (``group``:
+    the tp process group whose ranks hold width shards; the scales are the
+    full rows')."""
     for kv, src in (("k", src_k), ("v", src_v)):
         if int8:
-            q, sc = quantize_rows(src)
+            q, sc = quantize_rows(src, group=group)
             pool_caches[kv][:, row] = q
             pool_caches[kv + "s"][:, row] = sc[..., 0]
         else:
@@ -355,15 +365,16 @@ def _serve(slots: _Slots, n_req: int, base: int, check_every: int, fits, n_promp
 
 class _Pool(_Slots):
     """The decoder-LM pool: the shared slot state, the caches (layer-stacked,
-    and per-layer views for the per-op step) and the fused step's packed
-    weights."""
+    and per-layer views for the per-op step; per-key int8 with scale planes
+    where ``int8``) and the fused step's packed weights (``fused``)."""
 
-    def __init__(self, params, cfg, b: int, dev) -> None:
+    def __init__(self, params, cfg, b: int, fused: bool, int8: bool) -> None:
+        dev = params["token_embs"].device
         super().__init__(b, cfg.max_seq_len, dev)
-        self.fused = decoder_lm_fused_ok(params, cfg, b)
+        self.fused = fused
         self.packed, self.head = decoder_lm_pack(params, cfg) if self.fused else (None, None)
         _, stacked = decoder_lm_make_cache(cfg, (b,), dtype=params["token_embs"].dtype, device=dev)
-        self.int8 = self.fused and _attn.use_int8_kv(b)
+        self.int8 = int8
         # the int8 pool: per-key int8 caches + scale planes for the whole call (zeros quantize harmlessly)
         self.stacked = quantize_kv_caches(stacked) if self.int8 else stacked
         self.caches = _layer_views(self.stacked)
@@ -387,7 +398,7 @@ class _CrossPool(_Slots):
         cross = {"k": torch.zeros(shape, dtype=dtype, device=dev), "v": torch.zeros(shape, dtype=dtype, device=dev),
                  "len": torch.zeros((b,), dtype=torch.int32, device=dev)}
         self.cross = quantize_kv_caches(cross) if i8_cross else cross
-        self.cross_views = [{"k": self.cross["k"][i], "v": self.cross["v"][i], "len": self.cross["len"]}
+        self.cross_views = [{**{k: t[i] for k, t in self.cross.items() if k != "len"}, "len": self.cross["len"]}
                             for i in range(n_layers)]
         if fused:
             self.cross_ops = cross_operands(self.cross, dtype)
@@ -419,6 +430,19 @@ class ContinuousBatchingGenerator:
         self.check_every = check_every
         self.last_stats: ServingStats | None = None
 
+    # ---- sharding hooks (overridden by parallel/cb_serving.py) ----
+    def _params_cfg(self):
+        return self.model.params, self.model.cfg
+
+    def _init_pool(self, params, cfg, b: int) -> _Pool:
+        fused = decoder_lm_fused_ok(params, cfg, b)
+        return _Pool(params, cfg, b, fused, self._use_int8_pool(cfg, b, fused))
+
+    def _use_int8_pool(self, cfg, b: int, fused: bool) -> bool:
+        """The int8 pool's gate: the fused step carries it (only it reads
+        scale planes on a single device), as in the JAX package."""
+        return fused and cfg.tp_axis is None and _attn.use_int8_kv(b)
+
     def generate_many(self, prompts: list[str], max_tokens: int | list[int] = 100, shared_prefix: str | None = None,
                       topk: int = 1, top_p=None, temperature=1.0, seed: int = 0) -> list[str]:
         outs = self.generate_tokens_many(
@@ -430,7 +454,7 @@ class ContinuousBatchingGenerator:
     def _steps(self, pool: _Pool, pos: int, n_steps: int, eos: int, greedy: bool, topk: int, has_tp: bool,
                seed: int) -> int:
         """Up to ``n_steps`` decode steps over the whole pool (``_Slots.run_steps``)."""
-        params, cfg = self.model.params, self.model.cfg
+        params, cfg = self._params_cfg()
         b = pool.buf.shape[0]
         greedy_head = (greedy and not pool.fused
                        and _attn.use_greedy_head(b, params["token_embs"], tied=True))
@@ -465,7 +489,7 @@ class ContinuousBatchingGenerator:
         ``[pos-1-P, pos-1)`` (the scheduler then arms the row). The int8
         pool runs it all on a one-row full-precision scratch cache and
         commits the row quantized once."""
-        params, cfg = self.model.params, self.model.cfg
+        params, cfg = self._params_cfg()
         p = self.prompt_bucket
         k = len(prefix) if prefix else 0
         s = len(toks)
@@ -488,7 +512,7 @@ class ContinuousBatchingGenerator:
         buf[row, pos - n_tok:pos] = _to_device(toks[s - n_tok:], buf.device)
         _row_prefill(params, cfg, buf, row, target, cache_row, max(pos - 1 - p, 0), pad_len, p)
         if pool.int8:
-            _commit_rows(pool.stacked, row, target["k"][:, 0], target["v"][:, 0], True)
+            _commit_rows(pool.stacked, row, target["k"][:, 0], target["v"][:, 0], True, cfg.tp_axis)
 
     @torch.inference_mode()
     def generate_tokens_many(self, requests: list[list[int]], max_tokens: int | list[int] = 100,
@@ -509,7 +533,7 @@ class ContinuousBatchingGenerator:
         ``on_tokens(request_index, new_tokens)``: streaming callback, called
         at every scheduling point with the tokens each live request generated
         since the previous one: every generated token once, in order."""
-        params, cfg = self.model.params, self.model.cfg
+        params, cfg = self._params_cfg()
         n_req = len(requests)
         if n_req == 0:
             return []
@@ -521,7 +545,7 @@ class ContinuousBatchingGenerator:
         p_bucket = self.prompt_bucket
         l_max = cfg.max_seq_len
         eos = _eos_id(self.tokenizer)
-        dev = self.model.device
+        dev = params["token_embs"].device
 
         k = len(shared_prefix) if shared_prefix else 0
         kp = -(-k // p_bucket) * p_bucket if k else 0
@@ -551,7 +575,7 @@ class ContinuousBatchingGenerator:
             chunk[:k] = torch.as_tensor(shared_prefix)
             prefix_caches = _prefix_caches(params, cfg, chunk)
 
-        pool = _Pool(params, cfg, self.batch_size, dev)
+        pool = self._init_pool(params, cfg, self.batch_size)
 
         def admit(pos, admissions):
             for row, r in admissions:

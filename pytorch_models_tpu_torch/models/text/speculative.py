@@ -246,14 +246,16 @@ def spec_sample_decode_loop(draft_probs, verify_probs, t_state, d_state, buf, po
 
 @torch.inference_mode()
 def _spec_generate(params, cfg, draft_params, draft_cfg, prompt_buf: torch.Tensor, n_prompt, limit, k: int,
-                   eos_id: int, sampler: tuple | None = None, row: int = 0):
+                   eos_id: int, sampler: tuple | None = None, row: int = 0, fused_draft: bool = True):
     """Prefill both models, then the speculative loop. ``prompt_buf`` (B, P)
     right-padded rows on the device. One row: ``n_prompt`` and ``limit``
     (prompt + budget) ints, the draft's steps through K7 at B=1 where its
     gate allows; per-row: (B,) int64 tensors, every step per-op.
     ``sampler``: None (greedy) or ``(topk, top_p, temperature, seed)``;
     the rows draw the sampler's counters of rows ``row, row + 1, ...``.
-    Returns ``(tokens (B, max_seq_len) on the host, lengths, iterations)``."""
+    ``fused_draft=False`` keeps the draft per-op (the JAX package's
+    tensor-parallel loop, ``parallel/spec_serving.py``). Returns
+    ``(tokens (B, max_seq_len) on the host, lengths, iterations)``."""
     one_row = isinstance(n_prompt, int)
     b = prompt_buf.shape[0]
     dev = prompt_buf.device
@@ -273,7 +275,7 @@ def _spec_generate(params, cfg, draft_params, draft_cfg, prompt_buf: torch.Tenso
     buf = torch.zeros((b, l_max), dtype=torch.int64, device=dev)
     buf[:, :prompt_buf.shape[1]] = prompt_buf
 
-    fused = one_row and decoder_lm_fused_ok(draft_params, draft_cfg, 1)
+    fused = fused_draft and one_row and decoder_lm_fused_ok(draft_params, draft_cfg, 1)
     if fused:
         d_packed, d_head = decoder_lm_pack(draft_params, draft_cfg)
 

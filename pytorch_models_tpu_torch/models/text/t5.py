@@ -70,10 +70,15 @@ class T5Config:
     n_buckets: int = 32
     max_distance: int = 128
     norm_eps: float = 1e-5
+    # tensor-parallel serving (parallel/serving.py): each rank holds local_heads = n_heads / tp heads (and its rows
+    # of the rel-pos tables) and all-reduces over the tp process group tp_axis after the o / wo projections
+    local_heads: int | None = None
+    tp_axis: object = None
 
     @property
     def layer(self) -> tfm.LayerConfig:
-        return tfm.LayerConfig(self.dim, self.n_heads, 64, bias=False)
+        heads = self.n_heads if self.local_heads is None else self.local_heads
+        return tfm.LayerConfig(self.dim, heads, 64, bias=False, tp_axis=self.tp_axis)
 
 
 def rms_norm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -123,8 +128,10 @@ def _t5_mlp_init(gen: torch.Generator, dim: int, mlp_dim: int) -> dict:
     }
 
 
-def _t5_mlp_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
-    return linear(p["wo"], ACT_FNS["approximate_gelu"](linear(p["w"], x)) * linear(p["v"], x))
+def _t5_mlp_apply(p: dict, x: torch.Tensor, tp_axis=None) -> torch.Tensor:
+    """GEGLU: ``w`` and ``v`` column shards, ``wo`` a row shard all-reduced
+    over ``tp_axis`` under tensor parallelism."""
+    return tfm.reduce_linear(p["wo"], ACT_FNS["approximate_gelu"](linear(p["w"], x)) * linear(p["v"], x), tp_axis)
 
 
 def t5_block_init(gen: torch.Generator, cfg: T5Config, cross_attn: bool) -> dict:
@@ -169,7 +176,7 @@ def t5_block_apply(
             x = x + tfm.mha_apply(p["ca"], lc, h, attn_bias=ca_bias, cache=cross_cache)
         else:
             x = x + tfm.mha_apply(p["ca"], lc, h, memory, attn_bias=ca_bias)
-    x = x + _t5_mlp_apply(p["mlp"], rms_norm(p["mlp_norm"], x))
+    x = x + _t5_mlp_apply(p["mlp"], rms_norm(p["mlp_norm"], x), lc.tp_axis)
     return (x, new_cache) if self_cache is not None else x
 
 

@@ -32,7 +32,10 @@ int8 pools, on the fused route only as in the JAX package: ``USE_INT8_KV``
 (the self caches start as quantized zeros and every step writes quantized;
 at most 128 (row, head) pairs per group of 8 rows, the JAX package's rule)
 and ``USE_INT8_KV_CROSS`` (each prompt's cross K/V quantized once at
-admission).
+admission). The sharding hooks ``_params_cfg``, ``_encode``,
+``_init_pool`` and ``_int8_modes`` let ``parallel/cb_serving.py`` run the
+same code on a rank's head shard (per-op; int8 cross pools through the int8
+decode kernel).
 """
 
 from __future__ import annotations
@@ -62,19 +65,18 @@ from .t5 import (
 
 class _T5Pool(_CrossPool):
     """The T5 pool: the encoder-decoder pool state (cross caches for the
-    call's encoder bucket), the pool-wide decode bias table, and the fused
-    step's packed weights, untied head and key-major bias. int8 only on the
-    fused route, as in the JAX package; int8 self-KV at most 128 (row, head)
-    pairs per group of 8 rows (t5.py's rule)."""
+    call's encoder bucket, int8 where ``i8_self`` / ``i8_cross``), the
+    pool-wide decode bias table (of the rank's heads under tensor
+    parallelism), and the fused step's packed weights, untied head and
+    key-major bias (``fused``)."""
 
-    def __init__(self, params: dict, cfg, b: int, l_max: int, t_pad: int, dev) -> None:
+    def __init__(self, params: dict, cfg, b: int, l_max: int, t_pad: int, fused: bool, i8_self: bool,
+                 i8_cross: bool) -> None:
         dec = params["decoder"]
         lc = cfg.layer
         dtype = params["token_embs"].dtype
-        fused = _t5_fused_ok(params, cfg, b)
-        super().__init__(b, l_max, t_pad, cfg.n_layers, lc, dtype, dev, fused,
-                         fused and _attn.use_int8_kv(b) and min(b, 8) * lc.n_heads <= 128,
-                         fused and _attn.use_int8_kv_cross(b))
+        dev = params["token_embs"].device
+        super().__init__(b, l_max, t_pad, cfg.n_layers, lc, dtype, dev, fused, i8_self, i8_cross)
         # ONE decode bias table: a function of q_pos - k_pos only, so every shifted row reads it exactly
         self.bias_table = relative_position_bias(dec["attn_bias"], torch.arange(l_max, device=dev),
                                                  torch.arange(tfm.padded_cache_len(l_max), device=dev), False, cfg)
@@ -112,6 +114,25 @@ class T5ContinuousBatchingGenerator:
         self.pool_ctx = pool_ctx
         self.last_stats: ServingStats | None = None
 
+    # ---- sharding hooks (overridden by parallel/cb_serving.py) ----
+    def _params_cfg(self):
+        return self.model.params, self.model.cfg
+
+    def _encode(self, params, cfg, enc_tokens, n_enc):
+        return t5_encode(params, cfg, enc_tokens, _pad_bias(n_enc, enc_tokens.shape[1]))
+
+    def _init_pool(self, params, cfg, b: int, l_max: int, t_pad: int) -> _T5Pool:
+        return _T5Pool(params, cfg, b, l_max, t_pad, _t5_fused_ok(params, cfg, b),
+                       *self._int8_modes(params, cfg, b, l_max))
+
+    def _int8_modes(self, params, cfg, b: int, l_max: int) -> tuple[bool, bool]:
+        """``(i8_self, i8_cross)``: on the fused route only, as in the JAX
+        package; int8 self-KV at most 128 (row, head) pairs per group of 8
+        rows (t5.py's rule)."""
+        if cfg.layer.tp_axis is not None or not _t5_fused_ok(params, cfg, b):
+            return False, False
+        return (_attn.use_int8_kv(b) and min(b, 8) * cfg.layer.n_heads <= 128, _attn.use_int8_kv_cross(b))
+
     def generate_many(self, prompts: list[str], max_tokens: int = 100, on_tokens=None, topk: int = 1, top_p=None,
                       temperature=1.0, seed: int = 0) -> list[str]:
         """Prompts -> generated texts."""
@@ -131,18 +152,18 @@ class T5ContinuousBatchingGenerator:
         last prompt), project their cross K/V (quantized once into an int8
         pool) into the slots' cross caches, and write each leading pad token
         at ``pos - 1``."""
-        m = self.model
-        params, cfg = m.params, m.cfg
+        params, cfg = self._params_cfg()
+        dev = params["token_embs"].device
         rows = [token_lists[r] for _, r in admissions]
         rows += [rows[-1]] * (_bucket_pow2(len(rows)) - len(rows))
         enc = np.zeros((len(rows), p_pad), np.int64)
         for i, ts in enumerate(rows):
             enc[i, :len(ts)] = ts
-        n_enc = torch.tensor([len(ts) for ts in rows], device=m.device)
-        memory = t5_encode(params, cfg, torch.from_numpy(enc).to(m.device), _pad_bias(n_enc, p_pad))
+        n_enc = torch.tensor([len(ts) for ts in rows], device=dev)
+        memory = self._encode(params, cfg, torch.from_numpy(enc).to(dev), n_enc)
         _, stacked = tfm.precompute_cross_caches(params["decoder"], cfg.layer, memory, valid_lens=n_enc)
         for i, (row, _) in enumerate(admissions):
-            _commit_rows(pool.cross, row, stacked["k"][:, i], stacked["v"][:, i], pool.i8_cross)
+            _commit_rows(pool.cross, row, stacked["k"][:, i], stacked["v"][:, i], pool.i8_cross, cfg.layer.tp_axis)
             pool.cross["len"][row] = stacked["len"][i]
             pool.buf[row, pos - 1] = pad_id
 
@@ -150,8 +171,7 @@ class T5ContinuousBatchingGenerator:
                seed: int) -> int:
         """Up to ``n_steps`` decode steps over the whole pool, the self bias
         of cache position ``pos - 1`` for every row."""
-        m = self.model
-        params, cfg = m.params, m.cfg
+        params, cfg = self._params_cfg()
         dec = params["decoder"]
         b = pool.buf.shape[0]
         w_cls = params["classifier"]["w"]
@@ -212,8 +232,8 @@ class T5ContinuousBatchingGenerator:
             raise ValueError(f"max_tokens={max_tokens} cannot fit the pool context ({l_max}); raise pool_ctx")
         # one encoder bucket for the call: the per-row cross len masks the tail
         p_pad = -(-max(len(ts) for ts in token_lists) // ENC_BUCKET) * ENC_BUCKET
-        pool = _T5Pool(self.model.params, self.model.cfg, self.batch_size, l_max, tfm.padded_cache_len(p_pad),
-                       self.model.device)
+        params, cfg = self._params_cfg()
+        pool = self._init_pool(params, cfg, self.batch_size, l_max, tfm.padded_cache_len(p_pad))
         outputs, self.last_stats = _serve(
             pool, n_req, base, self.check_every,
             fits=lambda pos, r: pos + max_new <= l_max, n_prompt=lambda r: 1, budget=lambda r: max_new,

@@ -52,7 +52,7 @@ _SIGNATURES = {
     "pmt_log_mel_pass_cols": [],
     "pmt_log_mel_k_step": [],
     "pmt_log_mel_stage": [_P, _P, _I, _I, _P],
-    "pmt_int8_attention": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
+    "pmt_int8_attention": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
     "pmt_int8_attention_cluster": [_I, _I, _I],
     # these take a pointer to ops/decode_step.py's _Args structure
     "pmt_decode_step_workspace": [_P, _P],

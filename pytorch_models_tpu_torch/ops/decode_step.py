@@ -217,8 +217,9 @@ def fused_step_eligible(layers: list, cfg, batch: int, cross: bool = False, gate
     weight share fits its shared-memory ring whole; its grid is
     co-resident).
     ``dtype``: the compute dtype (default: the weights'; int8 weights need
-    it). Anything else decodes per-op."""
-    if not cfg.pre_norm or cfg.act not in _ACT_CODES or cfg.head_dim != HEAD_DIM:
+    it). A tensor-parallel layer (``cfg.tp_axis``) never: the kernel has no
+    all-reduce inside, as in the JAX package. Anything else decodes per-op."""
+    if not cfg.pre_norm or cfg.tp_axis is not None or cfg.act not in _ACT_CODES or cfg.head_dim != HEAD_DIM:
         return False
     if not 1 <= batch <= MAX_BATCH or not layers:
         return False

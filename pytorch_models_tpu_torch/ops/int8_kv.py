@@ -14,9 +14,12 @@ the padding).
 
 :func:`int8_decode_attention` launches the hand-written CUDA kernel
 ``csrc/int8_kv.cu`` (K6) on CUDA tensors and runs
-:func:`int8_decode_attention_plain` on CPU tensors. The JAX function's
-``cur_ks`` (a full-width scale for tensor-parallel shards) is not ported:
-it waits for the port's ``parallel/``.
+:func:`int8_decode_attention_plain` on CPU tensors. Tensor parallelism
+(``parallel/``): a rank holds a width shard of every K/V row, so
+:func:`quantize_rows` takes the absmax's all-reduce max over the tp group
+(``group``) and the current key's scale rides into the kernel as
+``cur_ks``: every rank quantizes with the full row's scale, bit for bit a
+single device's levels.
 """
 
 from __future__ import annotations
@@ -32,13 +35,21 @@ from .decode_attention import NEG_INF, _row_i32
 KV_BLOCK_INT8 = 128  # keys per quantization block of the probabilities
 
 
-def quantize_rows(x: torch.Tensor, dim: int = -1) -> tuple[torch.Tensor, torch.Tensor]:
+def quantize_rows(x: torch.Tensor, dim: int = -1, group=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Symmetric per-row int8 along ``dim``: ``(x_q int8, scales fp32)``, the
     scales keeping ``dim`` (size 1). ``scale = (absmax == 0 ? 1 : absmax) *
     (1/127)``, ``x_q = clip(round(x / scale), -127, 127)`` with round half
-    to even, bit for bit the JAX package's rule."""
+    to even, bit for bit the JAX package's rule. ``group``: the tp process
+    group of ranks that each hold a width shard of ``x`` (None: no
+    parallelism); the absmax is all-reduced by max over it first (the JAX
+    package's ``lax.pmax``), so every rank quantizes with the full row's
+    scale."""
     x32 = x.float()
     absmax = x32.abs().amax(dim, keepdim=True)
+    if group is not None:
+        from ..parallel.mesh import pmax
+
+        absmax = pmax(absmax, group)
     scales = torch.where(absmax == 0, torch.ones_like(absmax), absmax) * (1.0 / 127.0)
     return torch.round(x32 / scales).clamp(-127, 127).to(torch.int8), scales
 
@@ -95,7 +106,7 @@ def int8_kv_from_jax(cache: dict, batch: int, device=None) -> dict:
 
 
 def int8_decode_attention_plain(q, k_q, v_q, k_s, v_s, ends, n_heads: int, pad_lens=None, cur_k=None, cur_v=None,
-                                bias=None):
+                                bias=None, cur_ks=None):
     """The kernel's arithmetic in plain PyTorch (the JAX package's
     ``_int8_attention_oracle_impl``, op for op; int8 dot products in float64,
     where they are exact).
@@ -106,8 +117,9 @@ def int8_decode_attention_plain(q, k_q, v_q, k_s, v_s, ends, n_heads: int, pad_l
     an online softmax with the safe max, ``p * v_s`` quantized per (row,
     head, block) and ``acc = acc * alpha + ps * (p_i8 . v_i8)``. With
     ``cur_k``/``cur_v`` ``(B, H*D)`` the current position is folded in last:
-    K quantized with the cache-write rule (absmax over the whole row), V in
-    full precision, its bias row ``ends[0]``. An empty range gives zeros."""
+    K quantized with the cache-write rule (absmax over the whole row, or the
+    given ``(B, 1)`` scales ``cur_ks``), V in full precision, its bias row
+    ``ends[0]``. An empty range gives zeros."""
     b, _, hd = q.shape
     d = hd // n_heads
     dev = q.device
@@ -142,7 +154,11 @@ def int8_decode_attention_plain(q, k_q, v_q, k_s, v_s, ends, n_heads: int, pad_l
         acc = acc * alpha[..., None] + ps * pv
         m = m_new
     if cur_k is not None:
-        kc_i8, kc_s = quantize_rows(cur_k.float())  # (B, H*D), (B, 1)
+        if cur_ks is None:
+            kc_i8, kc_s = quantize_rows(cur_k.float())  # (B, H*D), (B, 1)
+        else:
+            kc_s = cur_ks.float().reshape(b, 1)
+            kc_i8 = torch.round(cur_k.float() / kc_s).clamp(-127, 127).to(torch.int8)
         dot = torch.einsum("bhd,bhd->bh", qd, kc_i8.reshape(b, n_heads, d).double()).float()
         s_cur = (dot * kc_s) * sq[..., 0]
         if bias is not None:
@@ -158,7 +174,7 @@ def int8_decode_attention_plain(q, k_q, v_q, k_s, v_s, ends, n_heads: int, pad_l
 
 
 def int8_decode_attention(q, k_q, v_q, k_s, v_s, ends, n_heads: int, pad_lens=None, cur_k=None, cur_v=None,
-                          bias=None):
+                          bias=None, cur_ks=None):
     """Single-position attention over an int8 KV cache.
 
     q: (B, 1, H*D) fp32 or bf16; k_q/v_q: (B, Lk, H*D) int8 with ``Lk`` a
@@ -167,10 +183,15 @@ def int8_decode_attention(q, k_q, v_q, k_s, v_s, ends, n_heads: int, pad_lens=No
     ``cur_k``/``cur_v`` ((B, H*D), this step's unquantized K/V, q's dtype)
     the current position is folded in after the cache (the cache holds
     ``[0, pos)``, ``ends = pos``). ``bias``: None or a key-major ``(Lk, H)``
-    fp32 bias shared by the rows. Returns the (B, 1, H*D) context in q's
-    dtype. ``launches`` counts the kernel's launches."""
+    fp32 bias shared by the rows. ``cur_ks``: None, or the current K's
+    (B, 1) fp32 per-row scales, used in place of its own absmax (a
+    tensor-parallel rank's width shard of the key, quantized with the full
+    row's scale; :func:`quantize_rows`' ``group``). Returns the (B, 1, H*D)
+    context in q's dtype. ``launches`` counts the kernel's launches,
+    ``cur_ks_launches`` those with ``cur_ks``."""
     if not q.is_cuda:
-        return int8_decode_attention_plain(q, k_q, v_q, k_s, v_s, ends, n_heads, pad_lens, cur_k, cur_v, bias)
+        return int8_decode_attention_plain(q, k_q, v_q, k_s, v_s, ends, n_heads, pad_lens, cur_k, cur_v, bias,
+                                           cur_ks)
     b, lq, hd = q.shape
     l_k = k_q.shape[-2]
     req = _build.require
@@ -187,6 +208,10 @@ def int8_decode_attention(q, k_q, v_q, k_s, v_s, ends, n_heads: int, pad_lens=No
             and cur_k.dtype == q.dtype and cur_v.dtype == q.dtype,
             "int8_decode_attention: cur_k/cur_v must be (B, H*D) in q's dtype")
         tensors += [cur_k, cur_v]
+    if cur_ks is not None:
+        req(cur_k is not None and cur_ks.shape in ((b, 1), (b,)) and cur_ks.dtype == torch.float32,
+            "int8_decode_attention: cur_ks must be (B, 1) fp32, with cur_k")
+        tensors.append(cur_ks)
     if bias is not None:
         req(tuple(bias.shape) == (l_k, n_heads) and bias.dtype == torch.float32,
             f"int8_decode_attention: bias must be ({l_k}, {n_heads}) fp32")
@@ -212,14 +237,17 @@ def int8_decode_attention(q, k_q, v_q, k_s, v_s, ends, n_heads: int, pad_lens=No
 
     code = _build.load_library().pmt_int8_attention(
         q.data_ptr(), k_q.data_ptr(), v_q.data_ptr(), k_s.data_ptr(), v_s.data_ptr(), ptr(ends_t), end_scalar,
-        ptr(pads_t), ptr(cur_k), ptr(cur_v), ptr(bias), out.data_ptr(), b, l_k, n_heads, 1.0 / math.sqrt(64),
-        _build.dtype_code(q), _build.stream_ptr(q))
+        ptr(pads_t), ptr(cur_k), ptr(cur_v), ptr(cur_ks), ptr(bias), out.data_ptr(), b, l_k, n_heads,
+        1.0 / math.sqrt(64), _build.dtype_code(q), _build.stream_ptr(q))
     _build.check("pmt_int8_attention", code)
     int8_decode_attention.launches += 1
+    if cur_ks is not None:
+        int8_decode_attention.cur_ks_launches += 1
     return out
 
 
 int8_decode_attention.launches = 0
+int8_decode_attention.cur_ks_launches = 0
 
 
 def int8_decode_attention_cluster(b: int, l_k: int, n_heads: int) -> int:

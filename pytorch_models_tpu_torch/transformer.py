@@ -27,8 +27,17 @@ An int8 KV cache (``{"k", "v"}`` int8 + ``{"ks", "vs"}`` fp32 per-key
 scales, ``ops/int8_kv.py``) sends a single-position read to the int8 decode
 kernel: self-attention attends over the cached ``[pad, pos)`` with this
 step's K/V unquantized as the current position, then writes them quantized
-at ``pos``; cross-attention reads its write-once int8 cache. Tensor
-parallelism is not ported yet.
+at ``pos``; cross-attention reads its write-once int8 cache.
+
+Tensor parallelism (Megatron head sharding, ``parallel/``): with
+``LayerConfig.tp_axis`` set to the tp process group, ``n_heads`` counts the
+rank's LOCAL heads, q/k/v and the MLP's first matrix are column shards, and
+the attention out-projection and the MLP's last matrix are row shards whose
+partial sums :func:`reduce_linear` all-reduces, the bias added after the
+sum: two all-reduces per layer. The int8 paths quantize with the absmax
+all-reduced by max over the group, so every rank writes the levels a single
+device writes for the full-width row, and the int8 decode kernel takes the
+current key's full-width scale (``cur_ks``).
 """
 
 from __future__ import annotations
@@ -67,6 +76,9 @@ class LayerConfig:
     act: str = "gelu"
     pre_norm: bool = True
     norm_eps: float = 1e-5
+    # tensor-parallel serving (parallel/): the tp ProcessGroup (None: no parallelism); n_heads / head_dim then
+    # describe the rank's local heads, and the out-projection and the MLP's last matrix all-reduce over it
+    tp_axis: object = None
 
     @staticmethod
     def make(d_model, n_heads=None, head_dim=None, **kw) -> "LayerConfig":
@@ -98,6 +110,21 @@ def merge_heads(x: torch.Tensor) -> torch.Tensor:
     """(..., H, L, D) -> (..., L, H*D)"""
     x = x.transpose(-2, -3)
     return x.reshape(*x.shape[:-2], -1)
+
+
+def reduce_linear(p: dict, x: torch.Tensor, tp_axis) -> torch.Tensor:
+    """Row-parallel linear: ``x`` (..., k/tp) @ ``w`` (k/tp, n), the partial
+    sums all-reduced over the ``tp_axis`` group, then the replicated bias,
+    added once to the complete sum. With ``tp_axis=None`` this is exactly
+    :func:`linear`."""
+    if tp_axis is None:
+        return linear(p, x)
+    from .parallel.mesh import psum
+
+    out = psum(linear({"w": p["w"]}, x), tp_axis)
+    if "b" in p:
+        out += p["b"].to(out.dtype)
+    return out
 
 
 def mha_project_kv(p: dict, cfg: LayerConfig, kv: torch.Tensor, valid_lens=None, out: dict | None = None) -> dict:
@@ -211,7 +238,7 @@ def mha_apply(
                 q_m = linear(p["q"], q)  # (B, 1, H*D) — the kernel takes merged heads
                 out = decode_attention(q_m, ck.to(q_m.dtype), cv.to(q_m.dtype), cache_pos + 1, cfg.n_heads,
                                        pad_lens, kernel_bias)
-                return linear(p["o"], out), cache
+                return reduce_linear(p["o"], out, cfg.tp_axis), cache
 
         qh = split_heads(linear(p["q"], q), cfg.n_heads, cfg.head_dim)
         kh = split_heads(ck.to(qh.dtype), cfg.n_heads, cfg.head_dim)
@@ -229,7 +256,7 @@ def mha_apply(
         if attn_bias is not None:
             bias = attn_bias + bias
         out = sdpa(qh, kh, vh, bias)
-        return linear(p["o"], merge_heads(out)), cache
+        return reduce_linear(p["o"], merge_heads(out), cfg.tp_axis), cache
 
     q_m = linear(p["q"], q)
     k_m = linear(p["k"], k)
@@ -237,11 +264,11 @@ def mha_apply(
     if _attn.use_encoder_kernel(q_m, cfg.n_heads, attn_bias):
         from .ops.encoder_attention import encoder_attention
 
-        return linear(p["o"], encoder_attention(q_m, k_m, v_m, cfg.n_heads, causal))
+        return reduce_linear(p["o"], encoder_attention(q_m, k_m, v_m, cfg.n_heads, causal), cfg.tp_axis)
     qh = split_heads(q_m, cfg.n_heads, cfg.head_dim)
     kh = split_heads(k_m, cfg.n_heads, cfg.head_dim)
     vh = split_heads(v_m, cfg.n_heads, cfg.head_dim)
-    return linear(p["o"], merge_heads(sdpa(qh, kh, vh, attn_bias, causal)))
+    return reduce_linear(p["o"], merge_heads(sdpa(qh, kh, vh, attn_bias, causal)), cfg.tp_axis)
 
 
 def _int8_self_decode_apply(p: dict, cfg: LayerConfig, k, v, q, cache: dict, pos: int, pad_lens) -> torch.Tensor:
@@ -249,20 +276,23 @@ def _int8_self_decode_apply(p: dict, cfg: LayerConfig, k, v, q, cache: dict, pos
     pos)``: the int8 decode kernel attends with this step's K/V unquantized
     as the current position (K scored with the cache-write rule, so a key
     scores the same now and later from the cache), then the K/V are written
-    quantized at ``pos``, in place."""
+    quantized at ``pos``, in place. Under tensor parallelism the rank holds
+    a width shard: the scales are the full row's (``quantize_rows`` over
+    ``cfg.tp_axis``), and the kernel scores the current key with its
+    full-width scale (``cur_ks``), as the JAX package does."""
     from .ops.int8_kv import int8_decode_attention, quantize_rows
 
     k_new = linear(p["k"], k)  # (B, 1, H*D)
     v_new = linear(p["v"], v)
     q_m = linear(p["q"], q)
+    (kq, ks), (vq, vs) = (quantize_rows(t[:, 0], group=cfg.tp_axis) for t in (k_new, v_new))
     cur_k, cur_v = (t[:, 0].to(q_m.dtype).contiguous() for t in (k_new, v_new))
     out = int8_decode_attention(q_m, cache["k"], cache["v"], cache["ks"], cache["vs"], pos, cfg.n_heads, pad_lens,
-                                cur_k, cur_v)
-    for key, new in (("k", k_new), ("v", v_new)):
-        q8, sc = quantize_rows(new[:, 0])
+                                cur_k, cur_v, cur_ks=ks)
+    for key, q8, sc in (("k", kq, ks), ("v", vq, vs)):
         cache[key][:, pos] = q8
         cache[key + "s"][:, pos] = sc[:, 0]
-    return linear(p["o"], out)
+    return reduce_linear(p["o"], out, cfg.tp_axis)
 
 
 def _int8_cross_decode_apply(p: dict, cfg: LayerConfig, q, cache: dict) -> torch.Tensor:
@@ -271,8 +301,8 @@ def _int8_cross_decode_apply(p: dict, cfg: LayerConfig, q, cache: dict) -> torch
     from .ops.int8_kv import int8_decode_attention
 
     q_m = linear(p["q"], q)
-    return linear(p["o"], int8_decode_attention(q_m, cache["k"], cache["v"], cache["ks"], cache["vs"], cache["len"],
-                                                cfg.n_heads))
+    return reduce_linear(p["o"], int8_decode_attention(q_m, cache["k"], cache["v"], cache["ks"], cache["vs"],
+                                                       cache["len"], cfg.n_heads), cfg.tp_axis)
 
 
 def _cross_cached_apply(p: dict, cfg: LayerConfig, q: torch.Tensor, cache: dict,
@@ -287,7 +317,8 @@ def _cross_cached_apply(p: dict, cfg: LayerConfig, q: torch.Tensor, cache: dict,
     if s == 1 and attn_bias is None and _attn.use_decode_kernel(ck, cfg.n_heads):
         from .ops.decode_attention import decode_attention
 
-        return linear(p["o"], decode_attention(q_m, ck.to(q_m.dtype), cv.to(q_m.dtype), lens, cfg.n_heads))
+        return reduce_linear(p["o"], decode_attention(q_m, ck.to(q_m.dtype), cv.to(q_m.dtype), lens, cfg.n_heads),
+                             cfg.tp_axis)
     qh = split_heads(q_m, cfg.n_heads, cfg.head_dim)
     kh = split_heads(ck.to(qh.dtype), cfg.n_heads, cfg.head_dim)
     vh = split_heads(cv.to(qh.dtype), cfg.n_heads, cfg.head_dim)
@@ -295,7 +326,7 @@ def _cross_cached_apply(p: dict, cfg: LayerConfig, q: torch.Tensor, cache: dict,
     zero = torch.zeros((), dtype=torch.float32, device=q.device)
     len_bias = torch.where(col < lens.to(torch.int64)[:, None], zero, -1e30)[:, None, None, :]
     bias = len_bias if attn_bias is None else attn_bias + len_bias
-    return linear(p["o"], merge_heads(sdpa(qh, kh, vh, bias)))
+    return reduce_linear(p["o"], merge_heads(sdpa(qh, kh, vh, bias)), cfg.tp_axis)
 
 
 # ---------------------------------------------------------------------------
@@ -307,8 +338,10 @@ def mlp_init(gen: torch.Generator, in_dim: int, hidden_dim: int) -> dict:
     return {"fc1": linear_init(gen, in_dim, hidden_dim), "fc2": linear_init(gen, hidden_dim, in_dim)}
 
 
-def mlp_apply(p: dict, x: torch.Tensor, act: str = "gelu") -> torch.Tensor:
-    return linear(p["fc2"], ACT_FNS[act](linear(p["fc1"], x)))
+def mlp_apply(p: dict, x: torch.Tensor, act: str = "gelu", tp_axis=None) -> torch.Tensor:
+    """fc1 (a column shard under tensor parallelism), the activation, fc2 (a
+    row shard, all-reduced over ``tp_axis``: :func:`reduce_linear`)."""
+    return reduce_linear(p["fc2"], ACT_FNS[act](linear(p["fc1"], x)), tp_axis)
 
 
 def layer_init(gen: torch.Generator, cfg: LayerConfig) -> dict:
@@ -329,10 +362,10 @@ def encoder_layer_apply(p: dict, cfg: LayerConfig, x: torch.Tensor) -> torch.Ten
     eps = cfg.norm_eps
     if cfg.pre_norm:
         x = x + mha_apply(p["sa"], cfg, layer_norm(p["sa_norm"], x, eps))
-        x = x + mlp_apply(p["mlp"], layer_norm(p["mlp_norm"], x, eps), cfg.act)
+        x = x + mlp_apply(p["mlp"], layer_norm(p["mlp_norm"], x, eps), cfg.act, cfg.tp_axis)
     else:
         x = layer_norm(p["sa_norm"], x + mha_apply(p["sa"], cfg, x), eps)
-        x = layer_norm(p["mlp_norm"], x + mlp_apply(p["mlp"], x, cfg.act), eps)
+        x = layer_norm(p["mlp_norm"], x + mlp_apply(p["mlp"], x, cfg.act, cfg.tp_axis), eps)
     return x
 
 
@@ -367,13 +400,13 @@ def decoder_layer_apply(
         x = x + out
         if cfg.cross_attn:
             x = x + ca(layer_norm(p["ca_norm"], x, eps))
-        x = x + mlp_apply(p["mlp"], layer_norm(p["mlp_norm"], x, eps), cfg.act)
+        x = x + mlp_apply(p["mlp"], layer_norm(p["mlp_norm"], x, eps), cfg.act, cfg.tp_axis)
     else:
         out, new_cache = sa(x)
         x = layer_norm(p["sa_norm"], x + out, eps)
         if cfg.cross_attn:
             x = layer_norm(p["ca_norm"], x + ca(x), eps)
-        x = layer_norm(p["mlp_norm"], x + mlp_apply(p["mlp"], x, cfg.act), eps)
+        x = layer_norm(p["mlp_norm"], x + mlp_apply(p["mlp"], x, cfg.act, cfg.tp_axis), eps)
     return (x, new_cache) if cached else x
 
 

@@ -45,6 +45,42 @@ def test_constructor_signatures_match_jax(jax_ns, ns, name):
         assert got == expected, f"{name}.{method}: {got} != {expected}"
 
 
+# the tensor- and data-parallel serving classes (parallel/), by module
+PARALLEL = [("serving", n) for n in ("TPDecoderGenerator", "TPT5Generator", "TPWhisperGenerator")] + [
+    ("cb_serving", n) for n in ("TPContinuousBatchingGenerator", "TPWhisperContinuousBatchingGenerator",
+                                "TPT5ContinuousBatchingGenerator")] + [("spec_serving", "TPSpeculativeGenerator")]
+
+
+def _matches_with_trailing_device(got, expected, what):
+    if got and got[-1][0] == "device":
+        assert got[-1][2] is None, f"{what}: device defaults to None (the CUDA card)"
+        got = got[:-1]
+    assert got == expected, f"{what}: {got} != {expected}"
+
+
+@pytest.mark.parametrize("module,name", PARALLEL, ids=[p[1] for p in PARALLEL])
+def test_parallel_constructor_signatures_match_jax(module, name):
+    import importlib
+
+    ref = getattr(importlib.import_module(f"pytorch_models_tpu.parallel.{module}"), name)
+    ours = getattr(importlib.import_module(f"pytorch_models_tpu_torch.parallel.{module}"), name)
+    _matches_with_trailing_device(_surface(ours.__init__), _surface(ref.__init__), f"{name}.__init__")
+
+
+def test_make_mesh_and_parallel_exports_match_jax():
+    """``make_mesh`` takes the JAX package's arguments (ranks for devices)
+    and a trailing ``device``; ``parallel`` exports the JAX names of what is
+    ported (the pipeline-parallel generators are not yet)."""
+    import pytorch_models_tpu.parallel as jax_parallel
+    from pytorch_models_tpu_torch import parallel
+
+    _matches_with_trailing_device(_surface(parallel.make_mesh), _surface(jax_parallel.make_mesh), "make_mesh")
+    not_ported = {"PPDecoderGenerator", "TPPPDecoderGenerator"}
+    assert sorted(parallel.__all__) == sorted(set(jax_parallel.__all__) - not_ported)
+    for name in parallel.__all__:
+        assert getattr(parallel, name).__name__ == name
+
+
 def test_every_family_is_exported_under_the_jax_names():
     assert sorted(image.__all__) == sorted(jax_image.__all__)
     assert sorted(audio.__all__) == sorted(jax_audio.__all__)

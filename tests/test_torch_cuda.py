@@ -841,6 +841,43 @@ def test_int8_attention_matches_plain(cuda, dtype, atol, rtol):
             assert not got[2].any()  # empty [pad, end) row
 
 
+# K6 with a tensor-parallel rank's current-key scale (cur_ks): GPT-2-small's tp=2 shard, 6 of its 12 heads, the
+# scale taken from the full 768-wide row so that it differs from the shard's own absmax; K6's limits
+@pytest.mark.parametrize("dtype,atol,rtol", [(torch.float32, 1e-5, 0.0), (torch.bfloat16, 1e-5, 2.0 ** -7)])
+def test_int8_attention_tp_scale_matches_plain(cuda, dtype, atol, rtol):
+    from pytorch_models_tpu_torch.ops.int8_kv import (
+        int8_decode_attention,
+        int8_decode_attention_plain,
+        quantize_kv_caches,
+        quantize_rows,
+    )
+
+    g = torch.Generator(device=cuda).manual_seed(6)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=cuda)
+
+    c = quantize_kv_caches({"k": rnd(8, 1024, 384), "v": rnd(8, 1024, 384)})
+    full_k = rnd(8, 768)
+    full_k[:, 384:] *= 3.0  # the other rank's half holds each row's absmax
+    cur_k, cur_v, q = full_k[:, :384].to(dtype).contiguous(), rnd(8, 384).to(dtype), rnd(8, 1, 384).to(dtype)
+    cur_ks = quantize_rows(full_k.to(dtype))[1]
+    assert not torch.equal(cur_ks, quantize_rows(cur_k)[1])
+    ends = torch.tensor([1024, 700, 5, 64, 1, 300, 1000, 512], dtype=torch.int32, device=cuda)
+    pads = torch.tensor([0, 10, 5, 0, 0, 299, 3, 100], dtype=torch.int32, device=cuda)
+    args = (q, c["k"], c["v"], c["ks"], c["vs"])
+    launches = int8_decode_attention.cur_ks_launches
+    for kw in ({"pad_lens": pads}, {"bias": 2 * rnd(1024, 6)}):
+        e = 700 if "bias" in kw else ends
+        got = int8_decode_attention(*args, e, 6, cur_k=cur_k, cur_v=cur_v, cur_ks=cur_ks, **kw)
+        ref = int8_decode_attention_plain(*args, e, 6, cur_k=cur_k, cur_v=cur_v, cur_ks=cur_ks, **kw)
+        torch.testing.assert_close(got.float(), ref.float(), atol=atol, rtol=rtol)
+        if "pad_lens" in kw:  # rows of few keys, where the current key weighs: the full-width scale moves them
+            own = int8_decode_attention_plain(*args, e, 6, cur_k=cur_k, cur_v=cur_v, **kw)
+            assert (own.float() - ref.float()).abs().max() > 100 * atol
+    assert int8_decode_attention.cur_ks_launches == launches + 2
+
+
 ATTN_TOL = [(torch.float32, 1e-5, 0.0), (torch.bfloat16, 1e-5, 2.0 ** -7)]
 
 
