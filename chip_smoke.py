@@ -134,6 +134,18 @@ kernel route's own x_out, K7 once per decode step, where the rows part from
 the generator driving K7's plain twin (a reading), bf16 agreement with the
 unquantized bf16 route and the routes' times.
 
+Pretrained loading (``pretrained_path``, phase "pretrained"):
+``PYTORCH_MODELS_TPU_CACHE`` points at a fresh temporary directory
+(restored and removed at the end), into which GPT-2 small (HF ``gpt2.bin``),
+Whisper-base (OpenAI ``base.pt``) and ViT-B/16 (the AugReg ``.npz``) are
+written from the models and scales of the phases above; each is loaded by
+``from_*(tag, pretrained=True)`` on the card and on the CPU (both trees
+equal to the written one bit for bit) and served in fp32: GPT-2 B=8 x 32
+new and Whisper's 8 segments token-identical on the three routes, K7 once
+per decode step, ``embed_add``, K5 and K1 launched; ViT-B/16 (B=8) on the
+K1 route within (1e-4, 1e-4) of the CPU forward, K1 once per layer; then
+GPT-2 in bf16 through ``save`` / ``load``: the same bits and fused tokens.
+
 Tensor- and data-parallel serving (``tp_path``, phase "tp"): two ranks
 spawned on the one card (``torch.multiprocessing``, start method spawn),
 a gloo group (NCCL refuses two ranks on one device) whose all-reduces are
@@ -3478,6 +3490,338 @@ def audio_path(dev, card: str, profile_dir: str | None = None) -> dict:
     return launches
 
 
+# phase "pretrained": full-width checkpoints written from a seed into a fresh cache, read back by pretrained=True
+PRE_NEW = 32  # new tokens per GPT-2 row
+PRE_VIT_B = 8
+PRE_VIT_TOL = (1e-4, 1e-4)  # ViT-B/16 fp32 on the card's K1 route vs the CPU forward of the same checkpoint
+CACHE_ENV = "PYTORCH_MODELS_TPU_CACHE"
+AUGREG_B16 = "B_16-i21k-300ep-lr_0.001-aug_medium1-wd_0.1-do_0.0-sd_0.0.npz"
+
+
+def _cpu(t):
+    return t.detach().cpu().contiguous()
+
+
+def _gpt2_hf_state_dict(params: dict) -> dict:
+    """The port's GPT-2 tree as HF's ``gpt2`` state dict: Conv1D weights
+    ``(in, out)``, q, k and v side by side in ``c_attn``; CPU tensors."""
+    import torch
+
+    sd = {"wte.weight": params["token_embs"], "wpe.weight": params["pos_embs"],
+          "ln_f.weight": params["norm"]["scale"], "ln_f.bias": params["norm"]["bias"]}
+    for i, lp in enumerate(params["decoder"]["layers"]):
+        sa, h = lp["sa"], f"h.{i}"
+        sd |= {f"{h}.ln_1.weight": lp["sa_norm"]["scale"], f"{h}.ln_1.bias": lp["sa_norm"]["bias"],
+               f"{h}.attn.c_attn.weight": torch.cat([sa[k]["w"] for k in "qkv"], 1),
+               f"{h}.attn.c_attn.bias": torch.cat([sa[k]["b"] for k in "qkv"]),
+               f"{h}.attn.c_proj.weight": sa["o"]["w"], f"{h}.attn.c_proj.bias": sa["o"]["b"],
+               f"{h}.ln_2.weight": lp["mlp_norm"]["scale"], f"{h}.ln_2.bias": lp["mlp_norm"]["bias"],
+               f"{h}.mlp.c_fc.weight": lp["mlp"]["fc1"]["w"], f"{h}.mlp.c_fc.bias": lp["mlp"]["fc1"]["b"],
+               f"{h}.mlp.c_proj.weight": lp["mlp"]["fc2"]["w"], f"{h}.mlp.c_proj.bias": lp["mlp"]["fc2"]["b"]}
+    return {k: _cpu(v) for k, v in sd.items()}
+
+
+def _whisper_openai_checkpoint(params: dict, cfg) -> dict:
+    """The port's Whisper tree as OpenAI's ``.pt`` (``dims`` and
+    ``model_state_dict``: ``nn.Linear`` weights ``(out, in)``, Conv1d ``(out,
+    in, k)``, no key bias, which must be zero in ``params``); CPU tensors."""
+    sd = {}
+
+    def lin(pfx, p, bias=True):
+        sd[f"{pfx}.weight"] = p["w"].t()
+        if bias:
+            sd[f"{pfx}.bias"] = p["b"]
+
+    def ln(pfx, p):
+        sd[f"{pfx}.weight"], sd[f"{pfx}.bias"] = p["scale"], p["bias"]
+
+    def attn(pfx, p):
+        if p["k"]["b"].any():
+            raise AssertionError("OpenAI's key projections have no bias: zero it before writing")
+        lin(f"{pfx}.query", p["q"])
+        lin(f"{pfx}.key", p["k"], bias=False)
+        lin(f"{pfx}.value", p["v"])
+        lin(f"{pfx}.out", p["o"])
+
+    enc, dec = params["encoder"], params["decoder"]
+    for i in (1, 2):
+        sd[f"encoder.conv{i}.weight"] = enc[f"conv{i}"]["w"].permute(2, 1, 0)
+        sd[f"encoder.conv{i}.bias"] = enc[f"conv{i}"]["b"]
+    sd["encoder.positional_embedding"] = enc["pos_embs"]
+    sd["decoder.token_embedding.weight"] = dec["token_embs"]
+    sd["decoder.positional_embedding"] = dec["pos_embs"]
+    ln("encoder.ln_post", enc["norm"])
+    ln("decoder.ln", dec["norm"])
+    for side, stack in (("encoder", enc), ("decoder", dec)):
+        for i, lp in enumerate(stack["layers"]):
+            pfx = f"{side}.blocks.{i}"
+            attn(f"{pfx}.attn", lp["sa"])
+            ln(f"{pfx}.attn_ln", lp["sa_norm"])
+            if "ca" in lp:
+                attn(f"{pfx}.cross_attn", lp["ca"])
+                ln(f"{pfx}.cross_attn_ln", lp["ca_norm"])
+            lin(f"{pfx}.mlp.0", lp["mlp"]["fc1"])
+            lin(f"{pfx}.mlp.2", lp["mlp"]["fc2"])
+            ln(f"{pfx}.mlp_ln", lp["mlp_norm"])
+    dims = {"n_mels": cfg.n_mels, "n_vocab": cfg.vocab_size, "n_audio_state": cfg.d_model,
+            "n_audio_layer": cfg.n_layers, "n_text_state": cfg.d_model, "n_text_layer": cfg.n_layers}
+    return {"dims": dims, "model_state_dict": {k: _cpu(v) for k, v in sd.items()}}
+
+
+def _vit_augreg_arrays(params: dict, cfg) -> dict:
+    """The port's ViT tree (cls pooling) as an AugReg Flax ``.npz``'s arrays:
+    q/k/v kernels ``(d, H, hd)``, the output's ``(H, hd, d)``, the PE with
+    a zero cls slot (the loader folds that slot into the cls token)."""
+    import torch
+
+    d, h, pe = cfg.d_model, cfg.n_heads, params["pe"]
+    w = {"cls": params["cls_token"],
+         "Transformer/posembed_input/pos_embedding": torch.cat([torch.zeros_like(pe[:, :1]), pe], 1),
+         "embedding/kernel": params["patch_embed"]["w"], "embedding/bias": params["patch_embed"]["b"],
+         "Transformer/encoder_norm/scale": params["norm"]["scale"],
+         "Transformer/encoder_norm/bias": params["norm"]["bias"]}
+    for i, lp in enumerate(params["encoder"]["layers"]):
+        blk = f"Transformer/encoderblock_{i}"
+        for name, norm in (("LayerNorm_0", "sa_norm"), ("LayerNorm_2", "mlp_norm")):
+            w[f"{blk}/{name}/scale"], w[f"{blk}/{name}/bias"] = lp[norm]["scale"], lp[norm]["bias"]
+        mha = f"{blk}/MultiHeadDotProductAttention_1"
+        for proj, key in (("query", "q"), ("key", "k"), ("value", "v")):
+            w[f"{mha}/{proj}/kernel"] = lp["sa"][key]["w"].reshape(d, h, d // h)
+            w[f"{mha}/{proj}/bias"] = lp["sa"][key]["b"].reshape(h, d // h)
+        w[f"{mha}/out/kernel"] = lp["sa"]["o"]["w"].reshape(h, d // h, d)
+        w[f"{mha}/out/bias"] = lp["sa"]["o"]["b"]
+        for j, fc in enumerate(("fc1", "fc2")):
+            w[f"{blk}/MlpBlock_3/Dense_{j}/kernel"] = lp["mlp"][fc]["w"]
+            w[f"{blk}/MlpBlock_3/Dense_{j}/bias"] = lp["mlp"][fc]["b"]
+    return {k: _cpu(v).numpy() for k, v in w.items()}
+
+
+def _trees_equal(what: str, got, expected) -> int:
+    """Raises unless the two trees hold the same structure and every leaf
+    the same dtype, shape and bits (compared on the CPU); returns the leaf count."""
+    import torch
+
+    if isinstance(expected, dict):
+        if not isinstance(got, dict) or set(got) != set(expected):
+            raise AssertionError(f"{what}: keys differ")
+        return sum(_trees_equal(f"{what}/{k}", got[k], expected[k]) for k in expected)
+    if isinstance(expected, list):
+        if not isinstance(got, list) or len(got) != len(expected):
+            raise AssertionError(f"{what}: lengths differ")
+        return sum(_trees_equal(f"{what}/{i}", g, e) for i, (g, e) in enumerate(zip(got, expected)))
+    if got.dtype != expected.dtype or got.shape != expected.shape or not torch.equal(got.cpu(), expected.cpu()):
+        raise AssertionError(f"{what}: {got.dtype} {tuple(got.shape)} differs from {expected.dtype} "
+                             f"{tuple(expected.shape)}")
+    return 1
+
+
+def pretrained_path(dev, card: str) -> dict:
+    """Phase "pretrained": ``pretrained=True`` from a local checkpoint cache.
+
+    ``PYTORCH_MODELS_TPU_CACHE`` points at a fresh temporary directory
+    (restored and removed at the end). Three full-width checkpoints are
+    written there from the seed, each from the model its own phase builds and
+    scaled as that phase scales it: GPT-2 small as HF's ``gpt2.bin``,
+    Whisper-base as OpenAI's ``base.pt`` (its key biases zeroed: the format
+    has none), ViT-B/16 as the AugReg ``.npz``. Each is loaded by
+    ``from_*(tag, pretrained=True)`` on the card and with ``device="cpu"``:
+    both trees must equal the written one bit for bit. fp32 on the card:
+    GPT-2 ``generate_tokens_batch`` (B=8, PRE_NEW new) and Whisper-base
+    ``transcribe_tokens_batch`` (8 segments) token-identical on the fused,
+    per-op and plain routes (near-ties printed), K7 once per decode step,
+    K3's ``embed_add`` once per step and per prefill, K5 and K1 launched;
+    ViT-B/16 at B=PRE_VIT_B, the K1 route within PRE_VIT_TOL of the CPU
+    model's forward, K1 once per layer. Then GPT-2 in bf16 through
+    ``save`` / ``load`` into a model of another seed: the same bits and the
+    same fused tokens. Counts from 0 over the fp32 runs; returns them."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from pytorch_models_tpu_torch.audio2text import Whisper, WhisperGenerator
+    from pytorch_models_tpu_torch.image import ViT
+    from pytorch_models_tpu_torch.ops import attention as attn
+    from pytorch_models_tpu_torch.text import GPT2, DecoderGenerator
+
+    kernels = _kernels()
+    t_phase = time.perf_counter()
+    saved_env = os.environ.get(CACHE_ENV)
+    root = tempfile.mkdtemp(prefix="pmt_cache_")
+    os.environ[CACHE_ENV] = root
+    seconds = {}
+
+    def loaded(name, fn):
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t
+        return out
+
+    try:
+        # the three checkpoints, from the models (and the scales) of phases "main", "whisper" and "vit"
+        t = time.perf_counter()
+        src = GPT2.from_hf("gpt2", rng=SEED, device=dev)
+        _make_streams_move(dev, SEED + 7, src.params, [src.params["decoder"]["layers"]])
+        torch.save(_gpt2_hf_state_dict(src.params), os.path.join(root, "gpt2.bin"))
+        gpt2_src = src.params
+        src = Whisper.from_openai("base", rng=SEED, device=dev)
+        _make_streams_move(dev, SEED + 3, src.params["decoder"],
+                           [src.params["encoder"]["layers"], src.params["decoder"]["layers"]])
+        for stack in (src.params["encoder"], src.params["decoder"]):
+            for lp in stack["layers"]:
+                for blk in ("sa", "ca"):
+                    if blk in lp:
+                        lp[blk]["k"]["b"].zero_()
+        torch.save(_whisper_openai_checkpoint(src.params, src.cfg), os.path.join(root, "base.pt"))
+        whisper_src = src.params
+        src = ViT.from_google("B/16_augreg", rng=SEED, device=dev)
+        g = torch.Generator(device=dev).manual_seed(SEED + 11)
+        for key in ("pe", "cls_token"):
+            src.params[key] = 0.02 * torch.randn(src.params[key].shape, generator=g, device=dev)
+        np.savez(os.path.join(root, AUGREG_B16), **_vit_augreg_arrays(src.params, src.cfg))
+        vit_src = src.params
+        del src
+        sizes = {n: os.path.getsize(os.path.join(root, n)) / 2**20 for n in ("gpt2.bin", "base.pt", AUGREG_B16)}
+        print(f"phase pretrained: cache {root}: " + ", ".join(f"{n} {mb:.1f} MiB" for n, mb in sizes.items())
+              + f" written from seed {SEED} in {time.perf_counter() - t:.1f} s")
+
+        gpt2 = loaded("GPT-2 small card", lambda: GPT2.from_hf("gpt2", pretrained=True, device=dev))
+        gpt2_cpu = loaded("GPT-2 small cpu", lambda: GPT2.from_hf("gpt2", pretrained=True, device="cpu"))
+        whisper = loaded("Whisper-base card", lambda: Whisper.from_openai("base", pretrained=True, device=dev))
+        whisper_cpu = loaded("Whisper-base cpu", lambda: Whisper.from_openai("base", pretrained=True, device="cpu"))
+        vit = loaded("ViT-B/16 card", lambda: ViT.from_google("B/16", pretrained=True, device=dev))
+        vit_cpu = loaded("ViT-B/16 cpu", lambda: ViT.from_google("B/16", pretrained=True, device="cpu"))
+        leaves = {}
+        for name, (card_model, cpu_model, written) in {"GPT-2": (gpt2, gpt2_cpu, gpt2_src),
+                                                       "Whisper": (whisper, whisper_cpu, whisper_src),
+                                                       "ViT": (vit, vit_cpu, vit_src)}.items():
+            _trees_equal(f"{name} card vs cpu", card_model.params, cpu_model.params)
+            leaves[name] = _trees_equal(f"{name} card vs written", card_model.params, written)
+        del gpt2_src, whisper_src, vit_src, gpt2_cpu, whisper_cpu
+        print("phase pretrained loads (from_*(tag, pretrained=True), s): "
+              + ", ".join(f"{k} {v:.2f}" for k, v in seconds.items())
+              + "; card and CPU trees equal bit for bit, and equal to the written ones ("
+              + ", ".join(f"{k} {v} leaves" for k, v in leaves.items()) + ")")
+
+        # GPT-2 fp32 through the three routes; counts from 0
+        r = np.random.default_rng(SEED + 21)
+        prompts = [r.integers(0, 50257, n).tolist() for n in PROMPT_LENS]
+        gen = DecoderGenerator(gpt2, _Tok())
+
+        def gpt2_gap(i, prefix):
+            _route("plain")
+            with torch.inference_mode():
+                return _top2(gpt2(torch.tensor(prefix))[-1])
+
+        _reset_launches()
+        outs = {}
+        for route in ("plain", "fused", "per-op"):
+            _route(route)
+            before = kernels["fused_decode_step"].launches, kernels["embed_add"].launches
+            outs[route] = gen.generate_tokens_batch(prompts, max_tokens=PRE_NEW)
+            if route == "fused":
+                k7 = kernels["fused_decode_step"].launches - before[0]
+                emb = kernels["embed_add"].launches - before[1]
+        torch.cuda.synchronize()
+        for route, rows in outs.items():
+            if any(row[:len(p)] != p or len(row) != len(p) + PRE_NEW for row, p in zip(rows, prompts)):
+                raise AssertionError(f"pretrained gpt2 ({route}): malformed row")
+        steps = _decode_steps([PRE_NEW] * len(prompts), PRE_NEW - 1, False)
+        if k7 != steps or not steps < emb <= steps + len(prompts):
+            raise AssertionError(f"pretrained gpt2 fused route: K7 {k7} and embed_add {emb} launches for {steps} "
+                                 "decode steps")
+        distinct = _check_moving("pretrained gpt2 fp32", outs["fused"], PROMPT_LENS)
+        partings = _check_routes("pretrained gpt2 fp32", outs, gpt2_gap)
+        print(f"phase pretrained gpt2 fp32 generate_tokens_batch B={len(prompts)} x {PRE_NEW} new: fused, per-op and "
+              f"plain token-identical (partings at near-ties: {partings}); fused route K7 {k7} launches = {steps} "
+              f"decode steps, embed_add {emb} (the steps and {emb - steps} prefill); distinct new tokens per row "
+              f"{distinct}")
+
+        # Whisper-base fp32 through the three routes
+        wgen = WhisperGenerator(whisper)
+        wav = torch.from_numpy(_waveforms(8, W_SECONDS, SEED + 4)).to(dev)
+        n_init, max_tokens = len(W_INIT), len(W_INIT) + N_NEW
+
+        def whisper_gap(i, prefix):
+            _route("plain")
+            with torch.inference_mode():
+                return _top2(whisper(wgen.preprocessor(wav[i:i + 1]), torch.tensor([prefix], device=dev))[0, -1])
+
+        wouts = {}
+        for route in ("plain", "fused", "per-op"):
+            _route(route)
+            before = kernels["fused_cross_decode_step"].launches
+            wouts[route] = wgen.transcribe_tokens_batch(wav, W_INIT, W_EOT, max_tokens)
+            if route == "fused":
+                k7x = kernels["fused_cross_decode_step"].launches - before
+        torch.cuda.synchronize()
+        fused = wouts["fused"]
+        if any(r[:n_init] != W_INIT or not n_init < len(r) <= max_tokens for rows in wouts.values() for r in rows):
+            raise AssertionError("pretrained whisper: malformed row")
+        wsteps = _decode_steps([len(r) - n_init for r in fused], max_tokens - n_init - 1,
+                               all(W_EOT in r[n_init:] for r in fused))
+        if k7x != wsteps:
+            raise AssertionError(f"pretrained whisper fused route: K7 launched {k7x} times for {wsteps} decode steps")
+        wdistinct = _check_moving("pretrained whisper fp32", fused, [n_init] * len(fused))
+        wpartings = _check_routes("pretrained whisper fp32", wouts, whisper_gap)
+        print(f"phase pretrained whisper fp32 transcribe_tokens_batch B=8: fused, per-op and plain token-identical "
+              f"(partings at near-ties: {wpartings}); K7 (cross) {k7x} launches = {wsteps} decode steps; generated "
+              f"lengths {[len(r) - n_init for r in fused]}, distinct tokens per row {wdistinct}")
+
+        # ViT-B/16 fp32: the card's K1 route against the CPU model's forward
+        imgs = torch.randn(PRE_VIT_B, 3, 224, 224, generator=torch.Generator().manual_seed(SEED + 13))
+        attn.USE_ENCODER_KERNEL = None
+        before = kernels["encoder_attention"].launches
+        got = vit(imgs.to(dev))
+        torch.cuda.synchronize()
+        k1 = kernels["encoder_attention"].launches - before
+        ref = vit_cpu(imgs)
+        if k1 != vit.cfg.n_layers or got.shape != (PRE_VIT_B, vit.cfg.d_model):
+            raise AssertionError(f"pretrained vit: K1 launched {k1} times, features {tuple(got.shape)}")
+        err = _check_close("pretrained vit fp32 card K1 route vs CPU", got.cpu(), ref, PRE_VIT_TOL)
+        print(f"phase pretrained vit fp32 B={PRE_VIT_B}: the card's K1 route vs the CPU forward of the same checkpoint "
+              f"max_abs_err={err:.3g} (atol, rtol)={PRE_VIT_TOL} at |x| <= {ref.abs().max().item():.3g}; K1 "
+              f"launched {k1} times = {vit.cfg.n_layers} layers")
+        _route("fused")
+        launches = _launches({"encoder_attention", "decode_attention", "embed_add", "greedy_argmax_tied",
+                              "log_mel_spectrogram", "fused_decode_step", "fused_cross_decode_step"})
+        print("phase pretrained launches: " + " ".join(f"{k}={v}" for k, v in launches.items()))
+        del whisper, wgen, vit, vit_cpu
+
+        # bf16 through save / load
+        gpt2.to_bf16()
+        out16 = gen.generate_tokens_batch(prompts, max_tokens=PRE_NEW)
+        path = os.path.join(root, "gpt2_bf16.pt")
+        t = time.perf_counter()
+        gpt2.save(path)
+        save_s = time.perf_counter() - t
+        other = GPT2.from_hf("gpt2", rng=SEED + 1, device=dev)
+        t = time.perf_counter()
+        other.load(path)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t
+        n16 = _trees_equal("GPT-2 bf16 loaded vs saved", other.params, gpt2.params)
+        if other.params["token_embs"].dtype != torch.bfloat16 or other.params["token_embs"].device.type != "cuda":
+            raise AssertionError("GPT-2 bf16 load: not bf16 on the card")
+        again = DecoderGenerator(other, _Tok()).generate_tokens_batch(prompts, max_tokens=PRE_NEW)
+        if again != out16:
+            raise AssertionError("GPT-2 bf16: the loaded model's fused tokens differ from the saved model's")
+        print(f"phase pretrained gpt2 bf16 save / load ({os.path.getsize(path) / 2**20:.1f} MiB, torch.save): "
+              f"{n16} leaves bit-identical on the card, fused tokens identical; save {save_s:.2f} s, load "
+              f"{load_s:.2f} s")
+    finally:
+        if saved_env is None:
+            os.environ.pop(CACHE_ENV, None)
+        else:
+            os.environ[CACHE_ENV] = saved_env
+        shutil.rmtree(root, ignore_errors=True)
+        _route("fused")
+    print(f"phase pretrained: {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return launches
+
+
 class _SelectionGaps:
     """Inside the block, each beam group's smallest margin at any selection
     of the beam loop (``beam._top_k``: the W first tokens, the 2W
@@ -5154,6 +5498,7 @@ def main() -> int:
              for name, fn in (("gpt2", main_path), ("whisper", whisper_path), ("t5", t5_path), ("vit", vit_path))}
     paths["families"] = timed("families", families_path, dev, card, args.profile)
     paths["audio"] = timed("audio", audio_path, dev, card, args.profile)
+    paths["pretrained"] = timed("pretrained", pretrained_path, dev, card)
     paths.update(timed("beam and sample", beam_sample_paths, dev, card))
     paths.update(timed("batch", batch_paths, dev, card))
     paths["cb"] = timed("cb", cb_path, dev, card, args.profile)
@@ -5192,7 +5537,8 @@ def main() -> int:
                               - sum(total(f"fused_decode_step_{k}") - total(f"fused_decode_step_headless_{k}")
                                     for k in ("b16", "b32"))),
         "fused_cross_decode_step": (k7_src, "pytorch_models_tpu/ops/decode_step.py:1397", "bfloat16",
-                                    paths["whisper"]["fused_cross_decode_step"]),
+                                    paths["whisper"]["fused_cross_decode_step"]
+                                    + paths["pretrained"]["fused_cross_decode_step"]),
         "fused_cross_decode_step_t5": (k7_src, "pytorch_models_tpu/ops/decode_step.py:1397", "bfloat16",
                                        paths["t5"]["fused_cross_decode_step"]),
         # int8 serving: K6 on the per-op int8 step's path, K7's variants on the int8 serving paths

@@ -22,9 +22,13 @@ BERT / RoBERTa encoder (``models.text.BERT``); the image models: ViT
 (AugReg / SigLIP / DeiT-3 / DINO loaders), MLP-Mixer, ConvNeXt, MaxViT,
 MobileViT and DETR with ``DETRPipeline`` (``models.image``), each with its
 checkpoint converter; the audio models: wav2vec2 / HuBERT, SEW,
-data2vec-audio and the EnCodec codec (``models.audio``). BERT's, ViT's,
-DETR's and the wav2vec2 family's attention runs through the
-encoder-attention kernel. With ``model.quantize_int8()`` and
+data2vec-audio and the EnCodec codec (``models.audio``). Every
+``from_*(..., pretrained=True)`` and the tokenizers' ``from_openai()`` read
+the official files through the JAX package's cache
+(``$PYTORCH_MODELS_TPU_CACHE``, ``utils/download.py``; a hit touches no
+network), and ``model.save`` / ``model.load`` keep a parameter tree with
+``torch.save``. BERT's, ViT's, DETR's and the wav2vec2 family's attention
+runs through the encoder-attention kernel. With ``model.quantize_int8()`` and
 ``ops.layers.USE_A8_LINEAR`` the linears run w8a8. The decode
 loops run each step as ONE fused kernel (``ops/decode_step.py``; headless
 when sampling or in beam search) where it serves the model and batch. The models and frontends run on the CUDA card unless the caller

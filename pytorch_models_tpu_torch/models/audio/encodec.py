@@ -12,7 +12,8 @@ package's pre-flipped ``(k, in, out)`` layout (so ``from_jax_params``
 carries it unchanged) and is un-flipped for ``F.conv_transpose1d``. Reflect
 padding indexes the signal as ``jnp.pad``'s reflect mode does, also where a
 pad reaches past the signal's length. The LSTM is torch's own LSTM op.
-No TPU kernel is on this path.
+No TPU kernel is on this path. ``from_facebook(variant, pretrained=True)``
+reads the official ``.th`` from the local cache (a miss downloads it).
 """
 
 from __future__ import annotations
@@ -25,7 +26,8 @@ import torch
 import torch.nn.functional as F
 
 from ...ops.layers import conv1d, conv1d_init
-from ...utils import StateDict, to_tensor, tree_map
+from ...utils import StateDict, hub_download, to_tensor, tree_map
+from ...utils.checkpoint import load_torch_checkpoint
 from ...utils.module import InferenceModel, resolve_device
 
 ELU = F.elu
@@ -234,10 +236,12 @@ class EnCodec(InferenceModel):
             "24khz": (1, "weight_norm", True, 32, False),
             "48khz": (2, "time_group_norm", False, 16, True),
         }[variant]
+        m = EnCodec(audio_channels, norm_type, causal, n_quantizers, normalize, device=device)
         if pretrained:
-            raise NotImplementedError("pretrained EnCodec weights need a download; load a state dict with "
-                                      "load_facebook_state_dict instead")
-        return EnCodec(audio_channels, norm_type, causal, n_quantizers, normalize, device=device)
+            ckpt = {"24khz": "encodec_24khz-d7cc33bc.th", "48khz": "encodec_48khz-7e698e3e.th"}[variant]
+            m.load_facebook_state_dict(
+                load_torch_checkpoint(hub_download("https://dl.fbaipublicfiles.com/encodec/v0/" + ckpt)))
+        return m
 
     def load_facebook_state_dict(self, state_dict: dict) -> None:
         """Convert a facebookresearch/encodec checkpoint. Weight-norm convs

@@ -12,11 +12,15 @@ Self-attention goes through ``transformer.encoder_apply``, whose auto gate
 sends head width 64 (wav2vec2-base / -large, data2vec-audio, SEW) to the
 encoder-attention kernel on the card (``ops/encoder_attention.py``, K1).
 ``Wav2Vec2.from_hf(tag, config=...)`` takes the HF ``config.json`` as a
-dict: the port fetches nothing, and ``pretrained=True`` raises.
+dict; without one it GETs the tag's ``config.json`` (uncached, as the JAX
+package does). ``pretrained=True`` reads the HF checkpoint from the local
+cache (``utils.download.load_hf_checkpoint``; a miss downloads it), its
+``wav2vec2.`` prefix stripped.
 """
 
 from __future__ import annotations
 
+import json
 from dataclasses import dataclass
 
 import numpy as np
@@ -187,13 +191,13 @@ class Wav2Vec2(InferenceModel):
 
     @classmethod
     def from_hf(cls, model_tag: str, *, pretrained: bool = False, config: dict | None = None, **kwargs):
-        """Architecture from an HF ``config.json`` passed in as ``config``
-        (the JAX package fetches it when none is given; the port raises)."""
+        """Architecture from an HF ``config.json``: ``config``, or fetched
+        for the tag when None."""
         if config is None:
-            raise NotImplementedError(f"{model_tag}: the HF config needs a download; pass config=dict(...)")
-        if pretrained:
-            raise NotImplementedError(f"pretrained {cls.__name__} weights need a download; load a state dict "
-                                      "with load_hf_state_dict instead")
+            import requests
+
+            config = json.loads(requests.get(f"https://huggingface.co/{model_tag}/raw/main/config.json",
+                                             timeout=30).content)
         if config["hidden_size"] != config["num_attention_heads"] * 64:
             raise ValueError(f"{model_tag}: head width {config['hidden_size']} / {config['num_attention_heads']} "
                              "is not 64")
@@ -203,7 +207,13 @@ class Wav2Vec2(InferenceModel):
             _kwargs["stem_legacy"] = config["feat_extract_norm"] == "group"
         if cls is Wav2Vec2 and "do_stable_layer_norm" in config:
             _kwargs["pre_norm"] = config["do_stable_layer_norm"]
-        return cls(**_kwargs, **kwargs)
+        m = cls(**_kwargs, **kwargs)
+        if pretrained:
+            from ...utils.download import load_hf_checkpoint
+
+            state_dict = load_hf_checkpoint(model_tag)
+            m.load_hf_state_dict({k.replace("wav2vec2.", ""): v for k, v in state_dict.items()})
+        return m
 
     # the key layout the whole family shares
     def _pop_stem(self, sd: StateDict) -> list[dict]:

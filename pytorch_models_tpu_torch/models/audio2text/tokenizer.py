@@ -5,8 +5,9 @@ layout (the port's own copy of
 The BPE engine is ``tiktoken``, imported when a tokenizer first encodes or
 decodes, so importing this module needs nothing beyond the standard
 library. Rank tables are openai-whisper's ``gpt2.tiktoken`` /
-``multilingual.tiktoken`` assets, read from a local file with
-:func:`load_tiktoken_ranks` (the port downloads nothing).
+``multilingual.tiktoken`` assets: :meth:`WhisperTokenizer.from_openai` reads
+them from the local cache (``whisper_tokenizer/``; a miss downloads them),
+and :func:`load_tiktoken_ranks` reads any local copy.
 
 Special tokens follow openai-whisper's layout exactly (appended after the
 base ranks, in this order): <|endoftext|>, <|startoftranscript|>, one token
@@ -33,6 +34,8 @@ LANGUAGES = (
     "uz", "fo", "ht", "ps", "tk", "nn", "mt", "sa", "lb", "my", "bo", "tl", "mg",
     "as", "tt", "haw", "ln", "ha", "ba", "jw", "su", "yue",
 )
+
+_ASSET_URL = "https://raw.githubusercontent.com/openai/whisper/main/whisper/assets"
 
 # the GPT-2 text-splitting pattern openai-whisper uses
 _PAT = r"""'s|'t|'re|'ve|'m|'ll|'d| ?\p{L}+| ?\p{N}+| ?[^\s\p{L}\p{N}]+|\s+(?!\S)|\s+"""
@@ -76,11 +79,12 @@ class WhisperTokenizer:
 
     @staticmethod
     def from_openai(multilingual: bool = True, num_languages: int = 99) -> "WhisperTokenizer":
-        """The official rank tables need a download, which the port does not
-        do: read a local ``.tiktoken`` file with :func:`load_tiktoken_ranks`
-        and construct ``WhisperTokenizer(ranks, num_languages)``."""
-        raise NotImplementedError(f"the {'multilingual' if multilingual else 'gpt2'}.tiktoken rank table needs a "
-                                  "download; pass WhisperTokenizer(load_tiktoken_ranks(path)) a local copy")
+        """The official rank table (gpt2 or multilingual), through the cache."""
+        from ...utils.download import hub_download
+
+        name = "multilingual" if multilingual else "gpt2"
+        path = hub_download(f"{_ASSET_URL}/{name}.tiktoken", "whisper_tokenizer")
+        return WhisperTokenizer(load_tiktoken_ranks(path), num_languages=num_languages)
 
     @cached_property
     def _encoding(self):

@@ -20,6 +20,8 @@ quantized once for the decode loop; the prefill reads them in full
 precision), on the fused route. Beam search (``transcribe_beam_tokens``)
 decodes its W beams through the fused step headless, or per-op. The text
 methods take a ``WhisperTokenizer`` (``models/audio2text/tokenizer.py``).
+``Whisper.from_openai(tag, pretrained=True)`` reads OpenAI's ``.pt``
+checkpoint from the local cache (a miss downloads it).
 Continuous batching is ``models/audio2text/continuous.py``.
 ``SpeculativeWhisperGenerator`` transcribes greedily with a draft Whisper
 (models/text/speculative.py's core): the target verifies k drafts in one
@@ -40,7 +42,8 @@ from ...ops.gather import embed_tokens
 from ...ops.greedy_head import greedy_argmax_tied
 from ...ops.layers import conv1d, conv1d_init
 from ...ops.mel import log_mel_spectrogram, use_mel_kernel
-from ...utils import StateDict, tree_map
+from ...utils import StateDict, hub_download, tree_map
+from ...utils.checkpoint import load_torch_checkpoint
 from ...utils.module import InferenceModel, resolve_device
 from ..audio.spectrogram import MelSpectrogram
 from ..text.generator import DONE_CHECK_EVERY
@@ -48,19 +51,19 @@ from ..text.generator import DONE_CHECK_EVERY
 ENC_MAX_LEN = 3000  # mel frames
 DEC_MAX_LEN = 448
 
-# (n_layers, d_model)
+# (layers, width, the sha256 in the checkpoint's URL)
 VARIANTS = {
-    "tiny": (4, 384),
-    "tiny.en": (4, 384),
-    "base": (8, 512),
-    "base.en": (8, 512),
-    "small": (12, 768),
-    "small.en": (12, 768),
-    "medium": (24, 1024),
-    "medium.en": (24, 1024),
-    "large-v1": (32, 1280),
-    "large-v2": (32, 1280),
-    "large-v3": (32, 1280),
+    "tiny": (4, 384, "65147644a518d12f04e32d6f3b26facc3f8dd46e5390956a9424a650c0ce22b9"),
+    "tiny.en": (4, 384, "d3dd57d32accea0b295c96e26691aa14d8822fac7d9d27d5dc00b4ca2826dd03"),
+    "base": (8, 512, "ed3a0b6b1c0edf879ad9b11b1af5a0e6ab5db9205f891f668f8b0e6c6326e34e"),
+    "base.en": (8, 512, "25a8566e1d0c1e2231d1c762132cd20e0f96a85d16145c3a00adf5d1ac670ead"),
+    "small": (12, 768, "9ecf779972d90ba49c06d968637d720dd632c55bbf19d441fb42bf17a411e794"),
+    "small.en": (12, 768, "f953ad0fd29cacd07d5a9eda5624af0f6bcf2258be67c92b79389873d91e0872"),
+    "medium": (24, 1024, "345ae4da62f9b3d59415adc60127b97c714f32e89e936602e85993674d08dcb1"),
+    "medium.en": (24, 1024, "d7440d1dc186f76616474e0ff0b3b6b879abc9d1a4926b7adfa41db2d497ab4f"),
+    "large-v1": (32, 1280, "e4b87e7e0bf463eb8e6956e646f1e277e901512310def2c24bf0e11bd3c28e9a"),
+    "large-v2": (32, 1280, "81f7c96c852ee8fc832187b0132e569d6c3065a3252ed18e56effd0b6a73e524"),
+    "large-v3": (32, 1280, "e5b1a55b89c1367dacf97e3e19bfd829a01529dbfdeefa8caeb59b3f1b81dadb"),
 }
 
 
@@ -402,15 +405,16 @@ class Whisper(InferenceModel):
 
     @staticmethod
     def from_openai(model_tag: str, *, pretrained: bool = False, **kwargs) -> "Whisper":
-        n_layers, d_model = VARIANTS[model_tag]
+        n_layers, d_model, ckpt_hash = VARIANTS[model_tag]
         if model_tag == "large-v3":
             n_mels, vocab_size = 128, 51866
         else:
             n_mels, vocab_size = 80, 51864 if model_tag.endswith(".en") else 51865
+        m = Whisper(vocab_size, n_layers, d_model, n_mels, **kwargs)
         if pretrained:
-            raise NotImplementedError("pretrained Whisper weights need a download; load a state dict with "
-                                      "load_openai_state_dict instead")
-        return Whisper(vocab_size, n_layers, d_model, n_mels, **kwargs)
+            url = f"https://openaipublic.azureedge.net/main/whisper/models/{ckpt_hash}/{model_tag}.pt"
+            m.load_openai_state_dict(load_torch_checkpoint(hub_download(url))["model_state_dict"])
+        return m
 
     def load_openai_state_dict(self, state_dict: dict) -> None:
         """OpenAI checkpoint keys (``key`` projections have no bias)."""

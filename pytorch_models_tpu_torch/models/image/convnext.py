@@ -5,7 +5,8 @@ stages > 0, then blocks: depthwise 7x7 conv (groups = d) -> LN -> Linear
 x4 -> exact GELU -> Linear, layer-scale gamma on the residual] -> global
 average pool -> LN. NHWC end to end (HWIO kernels); each stage's blocks are
 a list run as a Python loop. No attention: plain PyTorch.
-``from_facebook(pretrained=True)`` needs a download and raises.
+``from_facebook(variant, pretrained=True)`` reads the official ImageNet-22k
+``.pth`` from the local cache (a miss downloads it).
 """
 
 from __future__ import annotations
@@ -17,7 +18,8 @@ import torch
 from ... import transformer as tfm
 from ...ops import ACT_FNS, layer_norm, linear
 from ...ops.layers import conv2d, conv2d_init
-from ...utils import StateDict, to_tensor, tree_map
+from ...utils import StateDict, hub_download, to_tensor, tree_map
+from ...utils.checkpoint import load_torch_checkpoint
 from ...utils.module import InferenceModel, resolve_device
 
 NORM_EPS = 1e-6
@@ -105,10 +107,11 @@ class ConvNeXt(InferenceModel):
     @staticmethod
     def from_facebook(variant: str, *, pretrained: bool = False, device=None) -> "ConvNeXt":
         d_model, depths = VARIANTS[variant]
+        m = ConvNeXt(d_model, depths, device=device)
         if pretrained:
-            raise NotImplementedError("pretrained ConvNeXt weights need a download; load a state dict with "
-                                      "load_facebook_state_dict instead")
-        return ConvNeXt(d_model, depths, device=device)
+            url = f"https://dl.fbaipublicfiles.com/convnext/convnext_{variant}_22k_224.pth"
+            m.load_facebook_state_dict(load_torch_checkpoint(hub_download(url))["model"])
+        return m
 
     def load_facebook_state_dict(self, state_dict: dict) -> None:
         """facebookresearch/ConvNeXt keys (``downsample_layers.N``,

@@ -11,7 +11,9 @@ encoder-attention kernel on the card (``ops/encoder_attention.py``, K1):
 encoder self-attention, decoder self-attention and the decoder's
 cross-attention over the memory, 18 launches a forward.
 ``DETRPipeline`` pads, normalises and post-processes in numpy, as the JAX
-package does. ``from_facebook(pretrained=True)`` needs a download and raises.
+package does. ``from_facebook(tag, pretrained=True)`` reads the official
+``.pth`` (its ``"model"`` entry; ``args`` is an ``argparse.Namespace``) from
+the local cache (a miss downloads it).
 """
 
 from __future__ import annotations
@@ -26,7 +28,8 @@ import torch.nn.functional as F
 from ... import transformer as tfm
 from ...ops import layer_norm
 from ...ops.layers import batch_norm, bn_init, conv2d, conv2d_init, max_pool2d
-from ...utils import StateDict, to_tensor, tree_map
+from ...utils import StateDict, hub_download, to_tensor, tree_map
+from ...utils.checkpoint import load_torch_checkpoint
 from ...utils.module import InferenceModel, resolve_device
 
 
@@ -179,11 +182,15 @@ class DETR(InferenceModel):
 
     @staticmethod
     def from_facebook(model_tag: str, *, pretrained: bool = False, device=None) -> "DETR":
-        backbone_layers = dict(resnet50=[3, 4, 6, 3], resnet101=[3, 4, 23, 3])[model_tag]
+        backbone_layers, ckpt = dict(
+            resnet50=([3, 4, 6, 3], "detr-r50-e632da11.pth"),
+            resnet101=([3, 4, 23, 3], "detr-r101-2c7b67e5.pth"),
+        )[model_tag]
+        m = DETR(backbone_layers, device=device)
         if pretrained:
-            raise NotImplementedError("pretrained DETR weights need a download; load a state dict with "
-                                      "load_facebook_state_dict instead")
-        return DETR(backbone_layers, device=device)
+            sd = load_torch_checkpoint(hub_download(f"https://dl.fbaipublicfiles.com/detr/{ckpt}"))["model"]
+            m.load_facebook_state_dict(sd)
+        return m
 
     def load_facebook_state_dict(self, state_dict: dict) -> None:
         """facebookresearch/detr keys -> the port's params: each

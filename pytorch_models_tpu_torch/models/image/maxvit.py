@@ -6,8 +6,10 @@ block attention (7 x 7 non-overlapping windows) and grid attention (a
 dilated global grid), both with a learned 2D relative position bias. NHWC
 end to end. The biased window attention takes :func:`ops.sdpa` (the
 encoder-attention kernel takes no bias), as in the JAX package.
-``from_google(pretrained=True)`` needs a download and raises;
-``load_google_state_dict`` takes a TF checkpoint reader.
+``from_google(variant, pretrained=True)`` reads the official TF checkpoint
+(index and data shard) from the local cache (a miss downloads it) through
+the port's numpy bundle reader (``utils/tf_ckpt.py``);
+``load_google_state_dict`` takes any TF checkpoint reader.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import torch.nn.functional as F
 from ... import transformer as tfm
 from ...ops import ACT_FNS, layer_norm, sdpa
 from ...ops.layers import avg_pool2d, batch_norm, bn_init, conv2d, conv2d_init
-from ...utils import to_tensor, tree_map
+from ...utils import hub_download, to_tensor, tree_map
 from ...utils.module import InferenceModel, resolve_device
 
 BN_EPS = 1e-3
@@ -198,10 +200,18 @@ class MaxViT(InferenceModel):
     @staticmethod
     def from_google(variant: str, *, pretrained: bool = False, **kwargs) -> "MaxViT":
         stem_dim, n_blocks, dims = VARIANTS[variant]
+        m = MaxViT(stem_dim, n_blocks, dims, **kwargs)
         if pretrained:
-            raise NotImplementedError("pretrained MaxViT weights need a download; load a TF checkpoint reader "
-                                      "with load_google_state_dict instead")
-        return MaxViT(stem_dim, n_blocks, dims, **kwargs)
+            from ...utils.tf_ckpt import load_tf_checkpoint
+
+            ds, step = ("i1k", 92002) if variant in ("tiny", "small") else ("i21k_pt", 279498)
+            url = f"https://storage.googleapis.com/gresearch/maxvit/ckpts/maxvit{variant}/{ds}/224/model.ckpt-{step}"
+            hub_download(f"{url}.data-00000-of-00001", f"maxvit_{variant}")
+            ckpt_path = hub_download(f"{url}.index", f"maxvit_{variant}").removesuffix(".index")
+            reader = load_tf_checkpoint(ckpt_path)
+            m.load_google_state_dict(reader)
+            reader.close()
+        return m
 
     def load_google_state_dict(self, reader) -> None:
         """A TF checkpoint reader's EMA variables -> the port's params.

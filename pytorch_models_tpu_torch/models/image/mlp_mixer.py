@@ -4,20 +4,22 @@ Patch-embed conv (NHWC, HWIO) -> N x MixerBlock (a token-mixing MLP over the
 transposed token axis + a channel-mixing MLP) -> LayerNorm -> mean pool.
 The blocks are a list of per-block dicts run as a Python loop. No
 attention, so no kernel of the port: plain PyTorch.
-``from_google(pretrained=True)`` needs a download and raises;
-``load_jax_weights`` takes the Flax ``.npz`` arrays as a dict.
+``from_google(tag, pretrained=True)`` reads the official Flax ``.npz``
+from the local cache (a miss downloads it) into ``load_jax_weights``, which
+takes the arrays as a dict.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from ... import transformer as tfm
 from ...ops import layer_norm
 from ...ops.layers import conv2d, conv2d_init
-from ...utils import StateDict, to_tensor, tree_map
+from ...utils import StateDict, hub_download, to_tensor, tree_map
 from ...utils.module import InferenceModel, resolve_device
 
 NORM_EPS = 1e-6
@@ -92,13 +94,15 @@ class MLPMixer(InferenceModel):
     @staticmethod
     def from_google(model_tag: str, *, pretrained: bool = False, **kwargs) -> "MLPMixer":
         """``"B/16"`` or ``"B/16_gsam"``."""
-        model_tag, _, _ = model_tag.partition("_")
+        model_tag, _, weights = model_tag.partition("_")
+        weights = weights or "gsam"
         size, patch_size = model_tag.split("/")
         n_layers, d_model = SIZES[size]
+        m = MLPMixer(n_layers, d_model, int(patch_size), **kwargs)
         if pretrained:
-            raise NotImplementedError("pretrained Mixer weights need a download; load the .npz arrays with "
-                                      "load_jax_weights instead")
-        return MLPMixer(n_layers, d_model, int(patch_size), **kwargs)
+            url = f"https://storage.googleapis.com/mixer_models/{weights}/Mixer-{size}_{patch_size}.npz"
+            m.load_jax_weights(dict(np.load(hub_download(url))))
+        return m
 
     def load_jax_weights(self, ckpt: dict) -> None:
         """The Flax ``.npz`` layout (``stem``, ``MixerBlock_i``,

@@ -7,7 +7,8 @@ transformer encoder (4 heads, mlp_ratio 2, SiLU) -> fold back -> 1 x 1 proj
 The head widths (36, 48, 60 for MobileViT-S) are not ones the
 encoder-attention kernel is built for, so ``transformer.encoder_apply``'s
 auto gate sends them to :func:`ops.sdpa`, as in the JAX package.
-``from_apple(pretrained=True)`` needs a download and raises.
+``from_apple(variant, pretrained=True)`` reads Apple's CVNets ``.pt`` from
+the local cache (a miss downloads it).
 """
 
 from __future__ import annotations
@@ -20,7 +21,8 @@ import torch.nn.functional as F
 from ... import transformer as tfm
 from ...ops import layer_norm
 from ...ops.layers import batch_norm, bn_init, conv2d, conv2d_init
-from ...utils import StateDict, to_tensor, tree_map
+from ...utils import StateDict, hub_download, to_tensor, tree_map
+from ...utils.checkpoint import load_torch_checkpoint
 from ...utils.module import InferenceModel, resolve_device
 
 # variant -> (channels, transformer widths, out_dim, expansion)
@@ -149,10 +151,12 @@ class MobileViT(InferenceModel):
     @staticmethod
     def from_apple(variant: str, *, pretrained: bool = False, device=None) -> "MobileViT":
         channels, d_models, out_dim, expansion = VARIANTS[variant]
+        m = MobileViT(channels, d_models, out_dim, expansion, device=device)
         if pretrained:
-            raise NotImplementedError("pretrained MobileViT weights need a download; load a state dict with "
-                                      "load_apple_state_dict instead")
-        return MobileViT(channels, d_models, out_dim, expansion, device=device)
+            url = ("https://docs-assets.developer.apple.com/ml-research/models/cvnets/classification/"
+                   f"mobilevit_{variant}.pt")
+            m.load_apple_state_dict(load_torch_checkpoint(hub_download(url)))
+        return m
 
     def load_apple_state_dict(self, state_dict: dict) -> None:
         """Apple CVNets keys -> the port's params: the fused qkv split in

@@ -10,21 +10,25 @@ width the encoder-attention kernel serves (ViT-Ti..L: 64) to it on the card
 Public API as the JAX package's: ``ViT.from_google("B/16_augreg")``,
 ``ViT.from_facebook("B/16_deit3")``, ``model(imgs)`` with NCHW images,
 ``resize_pe(size)``, the ``load_flax_ckpt`` / ``load_facebook_state_dict``
-converters. ``pretrained=True`` needs a download and raises. The model runs
-on the CUDA card unless ``device="cpu"`` is passed.
+converters. ``pretrained=True`` reads the official checkpoint (AugReg or
+SigLIP ``.npz``, DeiT-3 / DINO / DINOv2 ``.pth``) from the local cache (a
+miss downloads it). The model runs on the CUDA card unless
+``device="cpu"`` is passed.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ... import transformer as tfm
 from ...ops import layer_norm
 from ...ops.layers import conv2d, conv2d_init
-from ...utils import StateDict, to_tensor, tree_map
+from ...utils import StateDict, hub_download, to_tensor, tree_map
+from ...utils.checkpoint import load_torch_checkpoint
 from ...utils.module import InferenceModel, resolve_device
 
 NORM_EPS = 1e-6
@@ -158,10 +162,33 @@ class ViT(InferenceModel):
         n_layers, d_model, n_heads = SIZES[size]
         if weights == "siglip":
             kwargs = {"cls_token": False, "pool_type": "mha", **kwargs}
+        m = ViT(n_layers, d_model, n_heads, int(patch_size), **kwargs)
         if pretrained:
-            raise NotImplementedError("pretrained ViT weights need a download; load a checkpoint with "
-                                      "load_flax_ckpt instead")
-        return ViT(n_layers, d_model, n_heads, int(patch_size), **kwargs)
+            if weights == "augreg":
+                ckpt = {
+                    "Ti/16": "Ti_16-i21k-300ep-lr_0.001-aug_none-wd_0.03-do_0.0-sd_0.0.npz",
+                    "S/32": "S_32-i21k-300ep-lr_0.001-aug_none-wd_0.1-do_0.0-sd_0.0.npz",
+                    "S/16": "S_16-i21k-300ep-lr_0.001-aug_light1-wd_0.03-do_0.0-sd_0.0.npz",
+                    "B/32": "B_32-i21k-300ep-lr_0.001-aug_light1-wd_0.1-do_0.0-sd_0.0.npz",
+                    "B/16": "B_16-i21k-300ep-lr_0.001-aug_medium1-wd_0.1-do_0.0-sd_0.0.npz",
+                    "L/16": "L_16-i21k-300ep-lr_0.001-aug_strong1-wd_0.1-do_0.0-sd_0.0.npz",
+                }[model_tag]
+                path = hub_download(f"https://storage.googleapis.com/vit_models/augreg/{ckpt}")
+                m.load_flax_ckpt(dict(np.load(path)))
+            elif weights == "siglip":
+                ckpt = {
+                    ("B/16", 224): "webli_en_b16_224_63724782.npz",
+                    ("B/16", 256): "webli_en_b16_256_60500360.npz",
+                    ("B/16", 384): "webli_en_b16_384_68578854.npz",
+                    ("B/16", 512): "webli_en_b16_512_68580893.npz",
+                    ("L/16", 256): "webli_en_l16_256_60552751.npz",
+                    ("L/16", 384): "webli_en_l16_384_63634585.npz",
+                }[(model_tag, kwargs.get("img_size", 224))]
+                path = hub_download(f"https://storage.googleapis.com/big_vision/siglip/{ckpt}")
+                m.load_flax_ckpt(dict(np.load(path)), big_vision=True, prefix="params/img/")
+            else:
+                raise ValueError(f"Unsupported weights={weights}")
+        return m
 
     def load_flax_ckpt(self, ckpt: dict, *, big_vision: bool = False, prefix: str = "") -> None:
         """A Flax .npz param dict (AugReg, or big_vision/SigLIP with its other
@@ -234,14 +261,30 @@ class ViT(InferenceModel):
         model_tag, _, weights = model_tag.partition("_")
         weights = weights or "deit3"
         size, patch_size = model_tag.split("/")
-        if weights not in ("deit3", "dino", "dinov2"):
-            raise ValueError(f"Unsupported {weights}")
+        patch_size = int(patch_size)
         kwargs["img_size"] = kwargs.get("img_size", 518 if weights == "dinov2" else 224)
+        if weights == "deit3":
+            _size = dict(S="small", M="medium", B="base", L="large", H="huge")[size]
+            url = f"https://dl.fbaipublicfiles.com/deit/deit_3_{_size}_{kwargs['img_size']}_21k.pth"
+        elif weights == "dino":
+            _tag = f"dino_deit{dict(S='small', B='base')[size]}{patch_size}_pretrain"
+            url = f"https://dl.fbaipublicfiles.com/dino/{_tag}/{_tag}.pth"
+        elif weights == "dinov2":
+            _tag = f"dinov2_vit{size.lower()}{patch_size}"
+            url = f"https://dl.fbaipublicfiles.com/dinov2/{_tag}/{_tag}_pretrain.pth"
+        else:
+            raise ValueError(f"Unsupported {weights}")
         n_layers, d_model, n_heads = SIZES[size]
+        m = ViT(n_layers, d_model, n_heads, patch_size, **kwargs)
         if pretrained:
-            raise NotImplementedError("pretrained ViT weights need a download; load a state dict with "
-                                      "load_facebook_state_dict instead")
-        return ViT(n_layers, d_model, n_heads, int(patch_size), **kwargs)
+            # the patch sizes each source publishes checkpoints for
+            allowed = {"deit3": (16,), "dino": (16, 8), "dinov2": (14,)}[weights]
+            assert patch_size in allowed, f"{weights} checkpoints only exist for patch_size {allowed}"
+            state_dict = load_torch_checkpoint(hub_download(url))
+            if "model" in state_dict:
+                state_dict = state_dict["model"]
+            m.load_facebook_state_dict(state_dict)
+        return m
 
     def load_facebook_state_dict(self, state_dict: dict) -> None:
         """timm-style keys -> the port's params: the fused qkv split in three,

@@ -7,12 +7,15 @@ RoBERTa's two unused PE rows are stripped. Self-attention goes through
 ``transformer.encoder_apply``, whose auto gate sends BERT's head width 64 to
 the encoder-attention kernel on the card (``ops/encoder_attention.py``, K1).
 
-``BERT.from_hf(tag, config=...)`` takes the HF ``config.json`` as a dict:
-the port fetches nothing, and ``pretrained=True`` raises.
+``BERT.from_hf(tag, config=...)`` takes the HF ``config.json`` as a dict;
+without one it GETs the tag's ``config.json`` (uncached, as the JAX package
+does). ``pretrained=True`` reads the HF checkpoint from the local cache
+(``utils.download.load_hf_checkpoint``; a miss downloads it).
 """
 
 from __future__ import annotations
 
+import json
 import math
 from dataclasses import dataclass
 
@@ -81,17 +84,24 @@ class BERT(InferenceModel):
 
     @staticmethod
     def from_hf(model_tag: str, *, pretrained: bool = False, config: dict | None = None, **kwargs) -> "BERT":
-        """Build from an HF ``config.json`` passed in as ``config`` (RoBERTa's
-        two offset PE rows taken off ``max_position_embeddings``)."""
+        """Build from an HF ``config.json``: ``config``, or fetched for the tag
+        (then for ``gaunernst/{tag}``) when None. RoBERTa's two offset PE rows
+        are taken off ``max_position_embeddings``."""
+        resolved_tag = model_tag
         if config is None:
-            raise NotImplementedError(f"{model_tag}: the HF config needs a download; pass config=dict(...)")
-        if pretrained:
-            raise NotImplementedError("pretrained BERT weights need a download; load a state dict with "
-                                      "load_hf_state_dict instead")
+            import requests
+
+            for resolved_tag in (model_tag, f"gaunernst/{model_tag}"):
+                resp = requests.get(f"https://huggingface.co/{resolved_tag}/raw/main/config.json", timeout=30)
+                if resp.ok:
+                    config = json.loads(resp.content)
+                    break
+            if config is None:
+                raise ValueError(f"Unsupported model {model_tag}")
         config = dict(config)
         if "roberta" in config["model_type"]:
             config["max_position_embeddings"] -= 2
-        return BERT(
+        m = BERT(
             vocab_size=config["vocab_size"],
             n_layers=config["num_hidden_layers"],
             d_model=config["hidden_size"],
@@ -99,6 +109,11 @@ class BERT(InferenceModel):
             norm_eps=config["layer_norm_eps"],
             **kwargs,
         )
+        if pretrained:
+            from ...utils.download import load_hf_checkpoint
+
+            m.load_hf_state_dict(load_hf_checkpoint(resolved_tag))
+        return m
 
     def load_hf_state_dict(self, state_dict: dict) -> None:
         """HF BERT / RoBERTa keys -> the port's params: the ``bert.`` /

@@ -4,17 +4,19 @@ Post-norm causal decoder with tanh GELU, no final norm, vocab 40478 /
 context 512, weight-tied logits. Being post-norm, it decodes per-op
 (``_decoder_lm.decoder_lm_fused_ok`` refuses it): the decode attention,
 the embedding kernel and the tied greedy head on the card.
-``from_openai(pretrained=True)`` needs a download and raises; the loader
-``load_openai_params`` takes OpenAI's ``params_shapes.json`` list and its
-flat ``.npy`` shards.
+``from_openai(pretrained=True)`` reads OpenAI's ``params_shapes.json`` and
+its 10 flat ``.npy`` shards from the local cache (``openai_gpt/``; a miss
+downloads them) into ``load_openai_params``.
 """
 
 from __future__ import annotations
 
+import json
+
 import numpy as np
 import torch
 
-from ...utils import to_tensor
+from ...utils import hub_download, to_tensor
 from ...utils.module import InferenceModel, resolve_device
 from ._decoder_lm import DecoderLMConfig, decoder_lm_apply, decoder_lm_init
 
@@ -48,10 +50,14 @@ class GPT(InferenceModel):
 
     @staticmethod
     def from_openai(*, pretrained: bool = False, **kwargs) -> "GPT":
+        m = GPT(**kwargs)
         if pretrained:
-            raise NotImplementedError("pretrained GPT-1 weights need a download; load OpenAI's shards with "
-                                      "load_openai_params instead")
-        return GPT(**kwargs)
+            base = "https://github.com/openai/finetune-transformer-lm/raw/master/model"
+            with open(hub_download(f"{base}/params_shapes.json", "openai_gpt"), "rb") as f:
+                shapes = json.loads(f.read())
+            shards = [np.load(hub_download(f"{base}/params_{i}.npy", "openai_gpt")) for i in range(10)]
+            m.load_openai_params(shapes, shards)
+        return m
 
     def load_openai_params(self, shapes: list, shards: list) -> None:
         """OpenAI's flat shards -> the port's params: the shards joined and

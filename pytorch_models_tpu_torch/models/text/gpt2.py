@@ -2,8 +2,9 @@
 
 Pre-norm causal decoder + final LayerNorm, tanh GELU, vocab 50257 / context
 1024, weight-tied logits. The HF loader handles Conv1D ``(in, out)`` weights
-and the fused ``c_attn`` split. ``from_hf(pretrained=True)`` needs a
-download and is not available in the port yet.
+and the fused ``c_attn`` split. ``from_hf(tag, pretrained=True)`` reads
+the HF checkpoint from the local cache (``utils.download.load_hf_checkpoint``;
+a miss downloads it).
 """
 
 from __future__ import annotations
@@ -48,10 +49,12 @@ class GPT2(InferenceModel):
     @staticmethod
     def from_hf(model_tag: str, *, pretrained: bool = False, **kwargs) -> "GPT2":
         n_layers, d_model = VARIANTS[model_tag]
+        m = GPT2(n_layers, d_model, **kwargs)
         if pretrained:
-            raise NotImplementedError("pretrained GPT-2 weights need a download; load a state dict with "
-                                      "load_hf_state_dict instead")
-        return GPT2(n_layers, d_model, **kwargs)
+            from ...utils.download import load_hf_checkpoint
+
+            m.load_hf_state_dict(load_hf_checkpoint(model_tag))
+        return m
 
     def load_hf_state_dict(self, state_dict: dict) -> None:
         """HF GPT-2 keys: Conv1D weights are stored ``(in, out)`` — this port's

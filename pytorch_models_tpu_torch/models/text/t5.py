@@ -25,9 +25,11 @@ decodes its W beams through the fused step headless, or per-op. Continuous
 batching is ``models/text/t5_continuous.py``. ``SpeculativeT5Generator``
 decodes greedily with a draft T5 (models/text/speculative.py's core): the
 target verifies k drafts in one per-op chunk, and a one-row call's draft
-steps are K7-T5 launches at B=1. Not ported yet: the t5x checkpoint reader
-(``from_t5x(pretrained=True)``) and the sentencepiece tokenizer: the string
-methods need a tokenizer the caller passes in.
+steps are K7-T5 launches at B=1. ``from_t5x(tag, pretrained=True)`` reads
+the t5x checkpoint through ``t5x_loader`` (its ``.npz`` cache under
+``checkpoints/`` in the working directory; a miss downloads it). The
+sentencepiece tokenizer is not ported: the string methods need a tokenizer
+the caller passes in.
 """
 
 from __future__ import annotations
@@ -558,10 +560,12 @@ class T5Model(InferenceModel):
         variant, _, size = model_tag.rpartition("-")
         dim, n_heads, n_layers, mlp_dim = SIZES[size]
         vocab_size = 250112 if variant.startswith("mt5") else 32128
+        m = T5Model(vocab_size, dim, n_heads, n_layers, mlp_dim, **kwargs)
         if pretrained:
-            raise NotImplementedError("the t5x checkpoint reader is not ported; load a flat t5x dict with "
-                                      "load_t5x_state_dict instead")
-        return T5Model(vocab_size, dim, n_heads, n_layers, mlp_dim, **kwargs)
+            from .t5x_loader import get_checkpoint_location, load_t5x_checkpoint
+
+            m.load_t5x_state_dict(load_t5x_checkpoint(get_checkpoint_location(variant, size)))
+        return m
 
     def load_t5x_state_dict(self, flat: dict) -> None:
         """Flattened t5x keys -> the parameter tree. t5x kernels are stored

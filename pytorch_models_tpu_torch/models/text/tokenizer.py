@@ -3,8 +3,10 @@
 
 The rank table is GPT-2's base vocabulary (50256 ranks) plus
 ``<|endoftext|>`` = id 50256: openai's ``gpt2.tiktoken`` file
-(:func:`load_tiktoken_ranks`) or an HF-format ``vocab.json``
-(:meth:`GPT2Tokenizer.from_hf_files`), both read from local files. The BPE
+(:meth:`GPT2Tokenizer.from_openai` through the local cache,
+``gpt2_tokenizer/``; a miss downloads it; or :func:`load_tiktoken_ranks` on
+any local copy) or an HF-format ``vocab.json``
+(:meth:`GPT2Tokenizer.from_hf_files`). The BPE
 engine is ``tiktoken``, imported at the first encode or decode.
 """
 
@@ -13,7 +15,7 @@ from __future__ import annotations
 import json
 from functools import cached_property
 
-from ..audio2text.tokenizer import _encoding, load_tiktoken_ranks
+from ..audio2text.tokenizer import _ASSET_URL, _encoding, load_tiktoken_ranks
 
 __all__ = ["EOT", "GPT2Tokenizer", "load_tiktoken_ranks"]
 
@@ -50,11 +52,11 @@ class GPT2Tokenizer:
 
     @staticmethod
     def from_openai() -> "GPT2Tokenizer":
-        """The public rank table needs a download, which the port does not
-        do: use ``GPT2Tokenizer(load_tiktoken_ranks(path))`` on a local copy,
-        or :meth:`from_hf_files`."""
-        raise NotImplementedError("the gpt2.tiktoken rank table needs a download; pass "
-                                  "GPT2Tokenizer(load_tiktoken_ranks(path)) a local copy, or use from_hf_files")
+        """The public ``gpt2.tiktoken`` rank table, through the cache."""
+        from ...utils.download import hub_download
+
+        path = hub_download(f"{_ASSET_URL}/gpt2.tiktoken", "gpt2_tokenizer")
+        return GPT2Tokenizer(load_tiktoken_ranks(path))
 
     @staticmethod
     def from_hf_files(vocab_path: str, merges_path: str | None = None) -> "GPT2Tokenizer":

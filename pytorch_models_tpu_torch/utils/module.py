@@ -36,6 +36,19 @@ class InferenceModel:
         self.params = cast_tree(self.params, torch.float32)
         return self
 
+    def save(self, path: str):
+        """Persist the parameter tree (nested dicts and lists of tensors, int8
+        ``{"w_q", "w_s"}`` leaves included) with ``torch.save``: every dtype
+        kept, bit for bit. Not JAX's orbax format."""
+        torch.save(self.params, path)
+        return self
+
+    def load(self, path: str):
+        """Read a tree written by :meth:`save` onto this model's device
+        (``torch.load(weights_only=True)``: tensors and containers only)."""
+        self.params = torch.load(path, map_location=self.device, weights_only=True)
+        return self
+
     def quantize_int8(self):
         """Weight-only int8 serving mode: every projection kernel becomes
         ``{"w_q", "w_s"}`` (``utils.params.quantize_tree_int8``); embeddings,

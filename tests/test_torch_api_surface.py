@@ -8,7 +8,6 @@ caller asks for the CPU). Annotations are not compared.
 """
 
 import inspect
-import socket
 
 import pytest
 
@@ -17,6 +16,7 @@ import pytorch_models_tpu.audio2text as jax_a2t
 import pytorch_models_tpu.image as jax_image
 import pytorch_models_tpu.text as jax_text
 from pytorch_models_tpu_torch import audio, audio2text, image, text
+from tests.torch_pretrained_cache import offline
 
 # (JAX namespace, the port's namespace, class name)
 CLASSES = [(jax_text, text, n) for n in ("GPT", "GPT2", "BERT", "T5Model")] + [
@@ -111,9 +111,10 @@ def test_dropout_at_the_jax_position():
 # asapp/sew-tiny-100k's config.json, the keys from_hf reads
 SEW_TINY = {"num_hidden_layers": 12, "hidden_size": 256, "num_attention_heads": 4, "conv_bias": False}
 
-# every from_* of the families this port added, with pretrained=True: no download, a NotImplementedError
+# every from_* of the families this port added, with pretrained=True on an empty cache: the miss (and
+# a missing config.json) goes to requests, which fails without a network
 PRETRAINED = [
-    lambda: text.GPT.from_openai(pretrained=True, device="cpu"),
+    lambda: text.GPT.from_openai(pretrained=True, n_layers=1, d_model=64, device="cpu"),
     lambda: text.BERT.from_hf("bert-base-uncased", pretrained=True, device="cpu"),
     lambda: text.BERT.from_hf("bert-base-uncased", pretrained=True, device="cpu",
                               config={"model_type": "bert", "vocab_size": 64, "num_hidden_layers": 1,
@@ -132,11 +133,56 @@ PRETRAINED = [
 
 
 @pytest.mark.parametrize("i", range(len(PRETRAINED)))
-def test_pretrained_raises_without_touching_the_network(i, monkeypatch):
-    def refuse(*a, **kw):
-        raise AssertionError("a network connection was attempted")
+def test_pretrained_raises_without_touching_the_network(i, monkeypatch, tmp_path):
+    """A cache miss asks ``requests`` (here: an unreachable host) and
+    raises its error; no socket is opened."""
+    import requests
 
-    monkeypatch.setattr(socket.socket, "connect", refuse)
-    monkeypatch.setattr(socket, "create_connection", refuse)
-    with pytest.raises(NotImplementedError):
+    offline(monkeypatch, tmp_path)
+    with pytest.raises(requests.ConnectionError):
         PRETRAINED[i]()
+
+
+# the loading layer's functions, by module: the port's against the JAX package's
+LOADING = [("utils.download", n) for n in ("cache_dir", "hub_download", "load_hf_checkpoint")] + [
+    ("utils.tf_ckpt", "load_tf_checkpoint"), ("models.text.t5x_loader", "url_join"),
+    ("models.text.t5x_loader", "get_checkpoint_location"), ("models.text.t5x_loader", "load_t5x_checkpoint")]
+
+
+@pytest.mark.parametrize("module,name", LOADING, ids=[f"{m}.{n}" for m, n in LOADING])
+def test_loading_functions_match_jax(module, name):
+    import importlib
+
+    ref = getattr(importlib.import_module(f"pytorch_models_tpu.{module}"), name)
+    ours = getattr(importlib.import_module(f"pytorch_models_tpu_torch.{module}"), name)
+    assert _surface(ours) == _surface(ref), f"{module}.{name}"
+
+
+def test_checkpoint_reader_save_load_and_tokenizers_match_jax():
+    """``load_torch_checkpoint`` (the JAX package's lives in
+    ``utils/torch_ckpt.py``, the port's in ``utils/checkpoint.py``), the TF
+    reader's methods, ``InferenceModel.save`` / ``load`` and both
+    tokenizers' ``from_openai``; ``utils`` exports ``hub_download``."""
+    import pytorch_models_tpu.models.audio2text.tokenizer as jax_wtok
+    import pytorch_models_tpu.models.text.tokenizer as jax_gtok
+    import pytorch_models_tpu.utils as jax_utils
+    import pytorch_models_tpu.utils.module as jax_module
+    import pytorch_models_tpu.utils.tf_ckpt as jax_tf_ckpt
+    import pytorch_models_tpu.utils.torch_ckpt as jax_torch_ckpt
+    from pytorch_models_tpu_torch import utils
+    from pytorch_models_tpu_torch.models.audio2text import tokenizer as wtok
+    from pytorch_models_tpu_torch.models.text import tokenizer as gtok
+    from pytorch_models_tpu_torch.utils import checkpoint, module, tf_ckpt
+
+    pairs = [(checkpoint.load_torch_checkpoint, jax_torch_ckpt.load_torch_checkpoint),
+             (module.InferenceModel.save, jax_module.InferenceModel.save),
+             (module.InferenceModel.load, jax_module.InferenceModel.load),
+             (gtok.GPT2Tokenizer.from_openai, jax_gtok.GPT2Tokenizer.from_openai),
+             (wtok.WhisperTokenizer.from_openai, jax_wtok.WhisperTokenizer.from_openai)]
+    pairs += [(getattr(tf_ckpt.TFCheckpointReader, n), getattr(jax_tf_ckpt.TFCheckpointReader, n))
+              for n in ("__init__", "get_variable_to_shape_map", "get_variable_to_dtype_map", "has_tensor",
+                        "get_tensor", "close")]
+    for ours, ref in pairs:
+        assert _surface(ours) == _surface(ref), ours.__qualname__
+    assert utils.hub_download is utils.download.hub_download and "hub_download" in utils.__all__
+    assert "hub_download" in jax_utils.__all__

@@ -131,16 +131,27 @@ def test_weight_norm_in_either_torch_naming():
      "feat_extract_norm": "layer", "do_stable_layer_norm": True},
 ])
 @pytest.mark.parametrize("name", ["Wav2Vec2", "SEW", "Data2VecAudio"])
-def test_from_hf_config_matches_jax(name, config):
-    """``from_hf`` with the config passed in (the JAX package would fetch it
-    when none is given; the port raises then)."""
+def test_from_hf_config_matches_jax(name, config, monkeypatch):
+    """``from_hf`` with the config passed in, and without one: then both
+    packages GET the tag's ``config.json`` (a fake ``requests`` answer here)."""
+    import json
+
+    import requests
+
     if name == "SEW" and config["feat_extract_norm"] == "layer":
         config = dict(config, feat_extract_norm="group")  # SEW's stem is the legacy stem
     ours = getattr(audio, name).from_hf("facebook/wav2vec2-base", config=config, device="cpu")
     ref = getattr(jax_audio, name).from_hf("facebook/wav2vec2-base", config=config)
     assert type(ours).__name__ == name and ours.cfg.__dict__ == ref.cfg.__dict__
-    with pytest.raises(NotImplementedError, match="config"):
-        getattr(audio, name).from_hf("facebook/wav2vec2-base", device="cpu")
+    asked = []
+
+    class Response:
+        content = json.dumps(config).encode()
+
+    monkeypatch.setattr(requests, "get", lambda url, timeout=None: asked.append(url) or Response())
+    fetched = getattr(audio, name).from_hf("facebook/wav2vec2-base", device="cpu")
+    assert fetched.cfg.__dict__ == ref.cfg.__dict__
+    assert asked == ["https://huggingface.co/facebook/wav2vec2-base/raw/main/config.json"]
     with pytest.raises(ValueError, match="64"):
         getattr(audio, name).from_hf("x", config=dict(config, num_attention_heads=2, hidden_size=64), device="cpu")
 

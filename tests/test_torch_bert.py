@@ -85,13 +85,23 @@ def test_hf_loader_matches_jax(roberta):
 
 
 @pytest.mark.parametrize("model_type", ["bert", "roberta"])
-def test_from_hf_config_matches_jax(model_type):
-    """``from_hf`` with the config passed in (the JAX package would fetch it
-    when none is given; the port raises then)."""
+def test_from_hf_config_matches_jax(model_type, monkeypatch):
+    """``from_hf`` with the config passed in, and without one: then both
+    packages GET the tag's ``config.json`` (a fake ``requests`` answer here)."""
+    import json
+
+    import requests
+
     config = dict(CONFIG, model_type=model_type, num_hidden_layers=1, hidden_size=64, vocab_size=1000)
     ours = BERT.from_hf("bert-base-uncased", config=config, device="cpu")
     ref = jax_text.BERT.from_hf("bert-base-uncased", config=config)
     assert ours.cfg.__dict__ == ref.cfg.__dict__
     assert ours.cfg.max_seq_len == (510 if model_type == "roberta" else 512)
-    with pytest.raises(NotImplementedError, match="config"):
-        BERT.from_hf("bert-base-uncased", device="cpu")
+    asked = []
+
+    class Response:
+        ok, content = True, json.dumps(config).encode()
+
+    monkeypatch.setattr(requests, "get", lambda url, timeout=None: asked.append(url) or Response())
+    assert BERT.from_hf("bert-base-uncased", device="cpu").cfg.__dict__ == ref.cfg.__dict__
+    assert asked == ["https://huggingface.co/bert-base-uncased/raw/main/config.json"]

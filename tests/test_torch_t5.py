@@ -208,11 +208,17 @@ def test_score_tokens_match_jax(models, jax_outputs, route):
                                jax_outputs["scores"][1], atol=SCORE_TOL, rtol=0)
 
 
-def test_entry_points(models, jax_outputs):
+def test_entry_points(models, jax_outputs, monkeypatch, tmp_path):
+    import requests
+
+    from tests.torch_pretrained_cache import offline
+
     m = T5Model.from_t5x("flan_t5-base", device="cpu")
     assert (m.cfg.dim, m.cfg.n_heads, m.cfg.n_layers, m.cfg.mlp_dim, m.cfg.vocab_size) == (768, 12, 12, 2048, 32128)
-    with pytest.raises(NotImplementedError):
-        T5Model.from_t5x("flan_t5-small", pretrained=True)
+    offline(monkeypatch, tmp_path)
+    monkeypatch.chdir(tmp_path)  # no cached .npz under checkpoints/: the miss asks the network, which fails
+    with pytest.raises(requests.ConnectionError):
+        T5Model.from_t5x("flan_t5-small", pretrained=True, device="cpu")
     _, ours, _ = models
     gen = T5Generator(model=ours)
     with pytest.raises(ValueError):

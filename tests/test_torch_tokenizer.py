@@ -60,13 +60,19 @@ def hf_files(tmp_path_factory):
     return str(d / "vocab.json"), str(d / "merges.txt")
 
 
-def test_from_openai_raises():
-    """The rank tables need a download, which the port does not do."""
-    with pytest.raises(NotImplementedError):
+def test_from_openai_raises(monkeypatch, tmp_path):
+    """On an empty cache the rank tables need a download: without a network
+    it raises (a filled cache: tests/test_torch_pretrained_utils.py)."""
+    import requests
+
+    from tests.torch_pretrained_cache import offline
+
+    offline(monkeypatch, tmp_path)
+    with pytest.raises(requests.ConnectionError):
         GPT2Tokenizer.from_openai()
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(requests.ConnectionError):
         WhisperTokenizer.from_openai()
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(requests.ConnectionError):
         WhisperTokenizer.from_openai(multilingual=False)
 
 

@@ -204,14 +204,21 @@ def test_default_device_needs_cuda(monkeypatch):
     assert ViT(**TINY, device="cpu").params["pe"].device.type == "cpu"
 
 
-def test_constructors_and_pretrained_raise():
+def test_constructors_and_pretrained_raise(monkeypatch, tmp_path):
+    """The constructors' configs; ``pretrained=True`` on an empty cache
+    without a network raises (a filled cache: test_torch_pretrained_vit.py)."""
+    import requests
+
+    from tests.torch_pretrained_cache import offline
+
     siglip = ViT.from_google("Ti/16_siglip", device="cpu")
     assert (siglip.cfg.n_layers, siglip.cfg.d_model, siglip.cfg.n_heads, siglip.cfg.patch_size) == (12, 192, 3, 16)
     assert not siglip.cfg.cls_token and siglip.cfg.pool_type == "mha" and "pooler" in siglip.params
     assert ViT.from_facebook("S/14_dinov2", device="cpu").cfg.img_size == 518
-    with pytest.raises(NotImplementedError):
-        ViT.from_google("B/16", pretrained=True, device="cpu")
-    with pytest.raises(NotImplementedError):
-        ViT.from_facebook("B/16_deit3", pretrained=True, device="cpu")
+    offline(monkeypatch, tmp_path)
+    with pytest.raises(requests.ConnectionError):
+        ViT.from_google("Ti/16", pretrained=True, device="cpu")
+    with pytest.raises(requests.ConnectionError):
+        ViT.from_facebook("S/16_deit3", pretrained=True, device="cpu")
     with pytest.raises(ValueError):
         ViT.from_facebook("B/16_mae", device="cpu")

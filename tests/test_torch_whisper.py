@@ -222,11 +222,17 @@ def test_bf16_logits_match_jax(models, jax_outputs):
     assert (got.argmax(-1) == expected.argmax(-1)).mean() >= 0.9
 
 
-def test_from_openai_and_text_entry_points(models, jax_outputs):
+def test_from_openai_and_text_entry_points(models, jax_outputs, monkeypatch, tmp_path):
+    import requests
+
+    from tests.torch_pretrained_cache import offline
+
     m = Whisper.from_openai("tiny.en", device="cpu")
     assert (m.cfg.n_layers, m.cfg.d_model, m.cfg.vocab_size, m.cfg.n_mels) == (4, 384, 51864, 80)
-    with pytest.raises(NotImplementedError):
-        Whisper.from_openai("base", pretrained=True)
+    with monkeypatch.context() as mp:  # an empty cache and no network: the download fails
+        offline(mp, tmp_path)
+        with pytest.raises(requests.ConnectionError):
+            Whisper.from_openai("tiny", pretrained=True, device="cpu")
     _, ours, _ = models
     gen = WhisperGenerator(ours)
     audio = jax_outputs["audios"][0]
