@@ -165,6 +165,23 @@ deployment's rate). K6 with ``cur_ks`` (``int8_decode_attention_tp_scale``)
 is held against its plain version at GPT-2-small's tp=2 shard in the
 kernel phase.
 
+Pipeline- and expert-parallel serving and the train step
+(``pp_ep_train_path``, phase "pp ep train"): four ranks on the one card
+over gloo, as phase "tp": ``PPDecoderGenerator`` on GPT-2 small at pp=4
+and ``TPPPDecoderGenerator`` at (pp, tp) = (2, 2) (B=8, 64 new), the
+stages moved to the card from a host copy (each rank's memory printed
+beside one rank holding the whole model); ``EPMoEGenerator`` at ep=4 on
+the MoE decoder at GPT-2 small's widths (12 layers, 8 experts x 3072,
+weights from the seed); fp32 tokens equal on every rank and the single
+device's (per-op route; ``MoEDecoderGenerator``) up to printed near-ties,
+K7 launched 0 times, K2 and ``embed_add`` more than 0 on every rank,
+all_to_all twice per layer and forward; ``make_train_step`` on the MoE LM
+at the same widths (2 stages x 6 layers, B=8 x 256, n_micro 2) on (dp,
+pp, tp) = (1, 2, 2): two SGD steps with finite, falling losses, every
+gradient leaf finite and non-zero, K1 launched 0 times; two at capacity
+factor n_experts within 1e-4 relative of the same step on a one-rank mesh;
+bf16 GPT-2 tok/s at pp=4 and on one rank in turns, tokens/s of a step.
+
 K7's time per phase (``decode_step_breakdown``): each block stamps
 %globaltimer at four points of every phase (``stamps=`` of the wrappers),
 and a line per variant (GPT-2 bf16 / fp32 / fp32 w8a16 + int8 KV, Whisper
@@ -5087,14 +5104,23 @@ TP_NEW, TP_RATE_NEW = 32, 16  # new tokens at most of T5's rows, Whisper's trans
 TP_JOIN_S = 300
 
 
+def _gpt2_moving(dev):
+    """GPT-2 small at full width from the main path's seed, rescaled so
+    greedy streams move (fp32)."""
+    from pytorch_models_tpu_torch.text import GPT2
+
+    gpt2 = GPT2.from_hf("gpt2", rng=SEED, device=dev)
+    _make_streams_move(dev, SEED + 7, gpt2.params, [gpt2.params["decoder"]["layers"]])
+    return gpt2
+
+
 def _tp_models(dev):
     """The TP phase's models at full width, from the main paths' seeds and
     scales (fp32): GPT-2 small, T5-base and Whisper-base."""
     from pytorch_models_tpu_torch.audio2text import Whisper
-    from pytorch_models_tpu_torch.text import GPT2, T5Model
+    from pytorch_models_tpu_torch.text import T5Model
 
-    gpt2 = GPT2.from_hf("gpt2", rng=SEED, device=dev)
-    _make_streams_move(dev, SEED + 7, gpt2.params, [gpt2.params["decoder"]["layers"]])
+    gpt2 = _gpt2_moving(dev)
     t5 = T5Model.from_t5x("flan_t5-base", rng=SEED, device=dev)
     _make_t5_streams_move(dev, SEED + 9, t5.params)
     whisper = Whisper.from_openai("base", rng=SEED, device=dev)
@@ -5118,10 +5144,10 @@ def _tp_inputs(t5_vocab: int) -> dict:
             "budgets": [int(m) for m in rc.integers(TP_CB_BUDGET[0], TP_CB_BUDGET[1] + 1, TP_CB_REQUESTS)]}
 
 
-def tp_rank(rank: int, init_file: str, out) -> None:
-    """One rank of the TP phase, a spawned process on the card: joins the
-    gloo group, runs ``_tp_rank_work`` and puts its result (or its
-    traceback) on ``out``."""
+def _rank_entry(rank: int, world: int, init_file: str, work: str, out, args: tuple = ()) -> None:
+    """One rank of a multi-rank phase, a spawned process on the card: joins
+    the gloo group of ``world`` ranks, runs this module's ``work(rank, dev,
+    *args)`` and puts its result (or its traceback) on ``out``."""
     import os
     import traceback
 
@@ -5134,12 +5160,57 @@ def tp_rank(rank: int, init_file: str, out) -> None:
         torch.backends.cudnn.allow_tf32 = False
         dev = torch.device("cuda", 0)
         torch.cuda.set_device(dev)
-        dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank, world_size=TP_RANKS)
-        out.put((rank, "ok", _tp_rank_work(rank, dev)))
+        dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank, world_size=world)
+        out.put((rank, "ok", globals()[work](rank, dev, *args)))
         dist.barrier()
         dist.destroy_process_group()
     except BaseException:
         out.put((rank, "error", traceback.format_exc()))
+
+
+def _spawn_ranks(world: int, work: str, init_file: str, out, args: tuple = ()) -> list:
+    import torch.multiprocessing as mp
+
+    procs = [mp.get_context("spawn").Process(target=_rank_entry, args=(r, world, init_file, work, out, args),
+                                             daemon=True)
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    return procs
+
+
+def _join_ranks(what: str, procs: list, out, t1: float, limit_s: float) -> dict:
+    """Every rank's result, by rank; raises if a rank raised, died or is not
+    done ``limit_s`` seconds after ``t1`` (the caller stops the processes)."""
+    import queue
+
+    got: dict = {}
+    while len(got) < len(procs):
+        left = t1 + limit_s - time.perf_counter()
+        if left <= 0:
+            raise AssertionError(f"{what}: ranks {sorted(set(range(len(procs))) - set(got))} hung past {limit_s} s")
+        try:
+            rank, status, value = out.get(timeout=min(left, 1.0))
+        except queue.Empty:
+            dead = [r for r, p in enumerate(procs) if r not in got and p.exitcode not in (None, 0)]
+            if dead:
+                raise AssertionError(f"{what}: rank {dead[0]} died with exit code {procs[dead[0]].exitcode}")
+            continue
+        if status != "ok":
+            raise AssertionError(f"{what}: rank {rank} raised:\n{value}")
+        got[rank] = value
+    for p in procs:
+        p.join(max(t1 + limit_s - time.perf_counter(), 1.0))
+        if p.exitcode != 0:
+            raise AssertionError(f"{what}: a rank exited with code {p.exitcode}")
+    return got
+
+
+def _stop(procs: list) -> None:
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join(10)
 
 
 def _tp_rank_work(rank: int, dev) -> dict:
@@ -5243,7 +5314,6 @@ def tp_path(dev, card: str) -> dict:
     levels turn fp32 summation-order differences into parted streams.
     Returns the ranks' summed launches."""
     import os
-    import queue
     import tempfile
 
     import torch
@@ -5253,15 +5323,10 @@ def tp_path(dev, card: str) -> dict:
     from pytorch_models_tpu_torch.ops import attention as attn
     from pytorch_models_tpu_torch.text import ContinuousBatchingGenerator, DecoderGenerator, T5Generator
 
-    ctx = mp.get_context("spawn")
-    out = ctx.Queue()
-    got: dict = {}
+    out = mp.get_context("spawn").Queue()
     t1 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
-        procs = [ctx.Process(target=tp_rank, args=(r, os.path.join(tmp, "init"), out), daemon=True)
-                 for r in range(TP_RANKS)]
-        for p in procs:
-            p.start()
+        procs = _spawn_ranks(TP_RANKS, "_tp_rank_work", os.path.join(tmp, "init"), out)
         try:
             # the single-device references, fp32 per-op, while the ranks start and build their models
             gpt2, t5, whisper = _tp_models(dev)
@@ -5289,30 +5354,9 @@ def tp_path(dev, card: str) -> dict:
             ref["spec"] = [gen.generate_tokens(prompts[0], max_tokens=TP_NEW)]
             torch.cuda.synchronize()
             ref_s = time.perf_counter() - t1
-            while len(got) < TP_RANKS:
-                left = t1 + TP_JOIN_S - time.perf_counter()
-                if left <= 0:
-                    hung = sorted(set(range(TP_RANKS)) - set(got))
-                    raise AssertionError(f"tp: ranks {hung} hung past {TP_JOIN_S} s")
-                try:
-                    rank, status, value = out.get(timeout=min(left, 1.0))
-                except queue.Empty:
-                    dead = [r for r, p in enumerate(procs) if r not in got and p.exitcode not in (None, 0)]
-                    if dead:
-                        raise AssertionError(f"tp: rank {dead[0]} died with exit code {procs[dead[0]].exitcode}")
-                    continue
-                if status != "ok":
-                    raise AssertionError(f"tp: rank {rank} raised:\n{value}")
-                got[rank] = value
-            for p in procs:
-                p.join(max(t1 + TP_JOIN_S - time.perf_counter(), 1.0))
-                if p.exitcode != 0:
-                    raise AssertionError(f"tp: a rank exited with code {p.exitcode}")
+            got = _join_ranks("tp", procs, out, t1, TP_JOIN_S)
         finally:
-            for p in procs:
-                if p.is_alive():
-                    p.kill()
-                    p.join(10)
+            _stop(procs)
     ranks_s = time.perf_counter() - t1
 
     def gpt2_gap(i, prefix):
@@ -5379,6 +5423,375 @@ def tp_path(dev, card: str) -> dict:
           f"{max(res['run_s'] for res in got.values()):.1f} s)")
     _route("fused")
     return summed
+
+
+PET_RANKS = 4  # ranks of phase "pp ep train" on the one card
+PET_TP_PP = (2, 2)  # its (pp, tp) mesh
+PET_JOIN_S = 240
+# the EP and train phases' MoE at GPT-2 small's widths (vocab, d, heads, layers) with 8 experts of GPT-2's MLP width
+PET_MOE = dict(vocab_size=50257, d_model=768, n_heads=12, n_layers=12, n_experts=8, expert_hidden=3072,
+               max_seq_len=1024)
+PET_TRAIN = dict(vocab_size=50257, d_model=768, n_heads=12, n_stages=2, layers_per_stage=6, n_experts=8,
+                 expert_hidden=3072, max_seq_len=256)
+PET_TRAIN_B, PET_TRAIN_MICRO, PET_TRAIN_MESH = 8, 2, (1, 2, 2)  # batch rows, microbatches, (dp, pp, tp)
+PET_TRAIN_TOL = 1e-6  # relative, the (1, 2, 2) losses against one rank's at capacity factor n_experts
+PET_SHARD_TOL = 2e-5  # rtol and atol, each rank's stepped shard there against its shard of one rank's parameters
+
+
+def _pet_inputs():
+    """The phase's inputs, the same in every process: the main path's GPT-2
+    prompts (B=8), the MoE decoder's parameters (seeded; position table at
+    scale 3 so streams move), the MoE LM's initial parameters and its
+    training batch (B=8 x 256 tokens), all on the host."""
+    import torch
+
+    from pytorch_models_tpu_torch.parallel.ep_serving import MoEDecoderConfig, moe_decoder_init
+    from pytorch_models_tpu_torch.parallel.train import MoELMConfig, moe_lm_init
+
+    r = np.random.default_rng(SEED)
+    prompts = [r.integers(0, 50257, n).tolist() for n in PROMPT_LENS]
+    cfg = MoEDecoderConfig(**PET_MOE)
+    moe = moe_decoder_init(torch.Generator().manual_seed(SEED + 20), cfg, device="cpu")
+    moe["pos_embs"] = 3.0 * torch.randn(moe["pos_embs"].shape, generator=torch.Generator().manual_seed(SEED + 21))
+    tcfg = MoELMConfig(**PET_TRAIN)
+    lm = moe_lm_init(torch.Generator().manual_seed(SEED + 22), tcfg, device="cpu")
+    tokens = np.random.default_rng(SEED + 23).integers(0, tcfg.vocab_size, (PET_TRAIN_B, tcfg.max_seq_len))
+    return {"prompts": prompts, "moe_cfg": cfg, "moe": moe, "lm_cfg": tcfg, "lm": lm, "tokens": tokens}
+
+
+def _pet_rank_work(rank: int, dev, tmp: str) -> dict:
+    """The rank's share of phase "pp ep train", each run's counts from 0
+    just before it: GPT-2 small at pp=4 and at (pp, tp) = (2, 2) (fp32,
+    B=8 x N_NEW new; its stage moved to the card from a host copy, memory
+    read before and during), bf16 pp=4 tok/s against rank 0 alone in turns;
+    the MoE decoder at ep=4 (fp32, B=8 x N_NEW new, all_to_all calls); two
+    SGD steps of the MoE LM on (dp, pp, tp) = (1, 2, 2) at the default
+    capacity (losses, every gradient leaf of the first, step times, K1
+    launches) and two at capacity factor n_experts (losses; the stepped
+    shard saved under ``tmp`` for the parent to hold against one rank's)."""
+    import dataclasses
+    import os
+    import types
+
+    import torch
+    import torch.distributed as dist
+
+    from pytorch_models_tpu_torch.ops import _build
+    from pytorch_models_tpu_torch.parallel import PPDecoderGenerator, TPPPDecoderGenerator, make_mesh
+    from pytorch_models_tpu_torch.parallel import mesh as pmesh
+    from pytorch_models_tpu_torch.parallel.ep_serving import EPMoEGenerator
+    from pytorch_models_tpu_torch.parallel.sharding import shard_params, tree_map_with_path
+    from pytorch_models_tpu_torch.parallel.train import _loss_and_grads, make_train_step
+    from pytorch_models_tpu_torch.text import DecoderGenerator
+    from pytorch_models_tpu_torch.utils import cast_tree, tree_map
+
+    t0 = time.perf_counter()
+    _build.load_library()  # the parent's build, loaded from build/kernels/
+    inp = _pet_inputs()
+    prompts = inp["prompts"]
+    gpt2 = _gpt2_moving(dev)
+    on_card = gpt2.params
+    gpt2.params = tree_map(lambda t: t.cpu(), on_card)  # the stages are moved to the card from the host
+    del on_card
+    torch.cuda.empty_cache()
+    pp_mesh = make_mesh(PET_RANKS, shape=(PET_RANKS,), axes=("pp",), device=dev)
+    tppp_mesh = make_mesh(PET_RANKS, shape=PET_TP_PP, axes=("pp", "tp"), device=dev)
+    ep_mesh = make_mesh(PET_RANKS, shape=(PET_RANKS,), axes=("ep",), device=dev)
+    train_mesh = make_mesh(PET_RANKS, shape=PET_TRAIN_MESH, axes=("dp", "pp", "tp"), device=dev)
+    res = {"build_s": time.perf_counter() - t0}
+
+    def serve(name, make, run):
+        """Build on the card, then the counted run; memory over the host-only baseline."""
+        base = torch.cuda.memory_allocated(dev)
+        gen = make()
+        res[f"{name} mem"] = torch.cuda.memory_allocated(dev) - base
+        torch.cuda.reset_peak_memory_stats(dev)
+        _reset_launches()
+        calls = pmesh.all_to_all.calls
+        t = time.perf_counter()
+        res[name] = run(gen)
+        torch.cuda.synchronize()
+        res[f"{name} s"] = time.perf_counter() - t
+        res[f"{name} peak"] = torch.cuda.max_memory_allocated(dev) - base
+        res[f"{name} launches"] = _launches(set())
+        res[f"{name} all_to_all"] = pmesh.all_to_all.calls - calls
+        del gen
+        torch.cuda.empty_cache()
+
+    _route("per-op")
+    serve("pp", lambda: PPDecoderGenerator(gpt2, _Tok(), pp_mesh),
+          lambda g: g.generate_tokens_batch(prompts, max_tokens=N_NEW))
+    serve("tp_pp", lambda: TPPPDecoderGenerator(gpt2, _Tok(), tppp_mesh),
+          lambda g: g.generate_tokens_batch(prompts, max_tokens=N_NEW))
+    if rank == 0:  # the whole model on one rank, for the memory line
+        serve("one rank", lambda: DecoderGenerator(types.SimpleNamespace(
+            params=tree_map(lambda t: t.to(dev), gpt2.params), cfg=gpt2.cfg, device=dev), _Tok()),
+            lambda g: g.generate_tokens_batch(prompts, max_tokens=N_NEW))
+    dist.barrier()
+
+    # bf16 GPT-2 rates: pp=4 (every rank) and rank 0 alone (the others waiting), in turns
+    gpt2.params = cast_tree(gpt2.params, torch.bfloat16)
+    gen16 = PPDecoderGenerator(gpt2, _Tok(), pp_mesh)
+    single = None
+    if rank == 0:
+        single = DecoderGenerator(types.SimpleNamespace(params=tree_map(lambda t: t.to(dev), gpt2.params),
+                                                        cfg=gpt2.cfg, device=dev), _Tok())
+
+    def timed(run) -> float:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    def pp_once() -> float:
+        dist.barrier()
+        return timed(lambda: gen16.generate_tokens_batch(prompts, max_tokens=TP_RATE_NEW))
+
+    def single_once() -> float | None:
+        s = timed(lambda: single.generate_tokens_batch(prompts, max_tokens=TP_RATE_NEW)) if rank == 0 else None
+        dist.barrier()
+        return s
+
+    pp_once(), single_once()  # warm-up
+    times = {"pp=4": [], "one rank": []}
+    for kind in ("pp=4", "one rank", "one rank", "pp=4"):
+        times[kind].append(pp_once() if kind == "pp=4" else single_once())
+    res["bf16_s"] = times
+    del gen16, single, gpt2
+    torch.cuda.empty_cache()
+
+    serve("ep", lambda: EPMoEGenerator(inp["moe"], inp["moe_cfg"], ep_mesh),
+          lambda g: g.generate_tokens_batch(prompts, max_tokens=N_NEW))
+
+    # training: two SGD steps at the default capacity, then two at capacity factor n_experts
+    tokens = torch.from_numpy(inp["tokens"]).to(dev)
+    for name, cfg in (("train", inp["lm_cfg"]),
+                      ("train high", dataclasses.replace(inp["lm_cfg"], capacity_factor=float(PET_MOE["n_experts"])))):
+        step, specs = make_train_step(cfg, train_mesh, PET_TRAIN_MICRO)
+        params = shard_params(inp["lm"], specs, train_mesh)
+        _reset_launches()
+        if name == "train":  # the first step's gradients, through the step's own first half
+            leaves = []
+            tree_map_with_path(lambda path, g: leaves.append((path, bool(torch.isfinite(g).all()),
+                                                              float(g.abs().max()))),
+                               _loss_and_grads(params, cfg, tokens, train_mesh, PET_TRAIN_MICRO)[1])
+            res["train grads"] = leaves
+        losses, secs = [], []
+        for i in range(2):
+            dist.barrier()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            params, loss = step(params, tokens)
+            losses.append(float(loss))
+            secs.append(time.perf_counter() - t)
+        res[name] = {"losses": losses, "s": secs, "launches": _launches(set())}
+        if name == "train high":
+            res["train index"] = tuple(train_mesh.index(a) for a in ("dp", "pp", "tp"))
+            res["train high params"] = os.path.join(tmp, f"train_high_{rank}.pt")
+            torch.save(tree_map(lambda t: t.cpu(), params), res["train high params"])
+        del params, step
+        torch.cuda.empty_cache()
+    return res
+
+
+def _pet_shard_err(res: dict, one_params: dict, specs, dev) -> tuple:
+    """A rank's stepped "train high" shard (saved by the rank) against the
+    same shard of one rank's stepped parameters: ``(the worst leaf's path,
+    its largest |got - want| - PET_SHARD_TOL * (1 + |want|), the largest
+    |got - want| of any leaf)``; the first is > 0 when a leaf fails."""
+    import types
+
+    import torch
+
+    from pytorch_models_tpu_torch.parallel.sharding import shard_params, tree_map_with_path
+
+    index = res["train index"]
+    mesh = types.SimpleNamespace(shape=dict(zip(("dp", "pp", "tp"), PET_TRAIN_MESH)), device=dev,
+                                 index=lambda a: index[("dp", "pp", "tp").index(a)])
+    want = shard_params(one_params, specs, mesh)
+    got = torch.load(res["train high params"], map_location=dev, weights_only=True)
+    worst = ["", -float("inf"), 0.0]
+
+    def leaf(path, w):
+        g = got
+        for part in path[1:-1].split("]["):
+            g = g[part.strip("'")] if part.startswith("'") else g[int(part)]
+        diff = (g - w).abs()
+        excess = float((diff - PET_SHARD_TOL * (1 + w.abs())).max())
+        if excess > worst[1]:
+            worst[:2] = path, excess
+        worst[2] = max(worst[2], float(diff.max()))
+
+    tree_map_with_path(leaf, want)
+    return tuple(worst)
+
+
+def pp_ep_train_path(dev, card: str) -> dict:
+    """Pipeline-, expert-parallel serving and the parallel train step
+    (``parallel/``) at full width through their entry points: PET_RANKS
+    ranks spawned on the one card over gloo (each running
+    ``_pet_rank_work``), with the single-device references computed here
+    while they start: GPT-2 small's per-op route (fp32, B=8 x N_NEW), the
+    MoE decoder's single-device ``MoEDecoderGenerator`` and the train step
+    on a one-rank mesh at capacity factor n_experts. fp32 tokens equal on
+    every rank and the single device's up to printed near-ties; K7 launched
+    0 times, K2 and ``embed_add`` more than 0 on every rank; the EP run
+    calls all_to_all twice per layer and forward; the two SGD steps' losses
+    finite and falling, at capacity factor n_experts within PET_TRAIN_TOL of
+    one rank's and each rank's stepped shard within PET_SHARD_TOL of its
+    shard of one rank's parameters, every gradient leaf finite and non-zero,
+    K1 launched 0 times in training. Returns the serving runs' summed
+    launches."""
+    import dataclasses
+    import os
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from pytorch_models_tpu_torch import transformer as tfm
+    from pytorch_models_tpu_torch.parallel import make_mesh
+    from pytorch_models_tpu_torch.parallel.ep_serving import MoEDecoderGenerator, _forward, _moe_mlp_dense
+    from pytorch_models_tpu_torch.parallel.sharding import shard_params
+    from pytorch_models_tpu_torch.parallel.train import make_train_step
+    from pytorch_models_tpu_torch.text import DecoderGenerator
+    from pytorch_models_tpu_torch.utils import tree_map
+
+    out = mp.get_context("spawn").Queue()
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = _spawn_ranks(PET_RANKS, "_pet_rank_work", os.path.join(tmp, "init"), out, (tmp,))
+        try:
+            inp = _pet_inputs()
+            prompts, cfg = inp["prompts"], inp["moe_cfg"]
+            _route("per-op")
+            gpt2 = _gpt2_moving(dev)
+            ref = {"pp": DecoderGenerator(gpt2, _Tok()).generate_tokens_batch(prompts, max_tokens=N_NEW)}
+            ref["tp_pp"] = ref["pp"]
+            moe = tree_map(lambda t: t.to(dev), inp["moe"])
+            ref["ep"] = MoEDecoderGenerator(moe, cfg).generate_tokens_batch(prompts, max_tokens=N_NEW)
+            # the train step on a one-rank mesh (a process group of its own), capacity factor n_experts
+            dist.init_process_group("gloo", init_method=f"file://{os.path.join(tmp, 'one')}", rank=0, world_size=1)
+            try:
+                one = make_mesh(1, shape=(1, 1, 1), axes=("dp", "pp", "tp"), device=dev)
+                step, specs = make_train_step(dataclasses.replace(
+                    inp["lm_cfg"], capacity_factor=float(PET_MOE["n_experts"])), one, PET_TRAIN_MICRO)
+                one_params, tokens, one_losses = shard_params(inp["lm"], specs, one), torch.from_numpy(inp["tokens"]), []
+                for _ in range(2):
+                    one_params, loss = step(one_params, tokens.to(dev))
+                    one_losses.append(float(loss))
+                del step
+            finally:
+                dist.destroy_process_group()
+            torch.cuda.synchronize()
+            ref_s = time.perf_counter() - t1
+            got = _join_ranks("pp ep train", procs, out, t1, PET_JOIN_S)
+            shard_err = {rank: _pet_shard_err(res, one_params, specs, dev) for rank, res in got.items()}
+            del one_params
+        finally:
+            _stop(procs)
+    ranks_s = time.perf_counter() - t1
+
+    def gpt2_gap(i, prefix):
+        _route("plain")
+        with torch.inference_mode():
+            return _top2(gpt2(torch.tensor(prefix, device=dev))[-1])
+
+    def moe_gap(i, prefix):
+        _route("plain")
+        with torch.inference_mode():
+            caches, _ = tfm.make_kv_cache(cfg.n_layers, (1,), cfg.n_heads, cfg.max_seq_len,
+                                          cfg.d_model // cfg.n_heads, device=dev)
+            logits = _forward(moe, cfg, torch.tensor([prefix], device=dev),
+                              torch.arange(len(prefix), device=dev)[None], caches, 0, None,
+                              lambda p, x: _moe_mlp_dense(p, x, cfg=cfg))
+            return _top2(logits[0, -1])
+
+    r0 = got[0]
+    notes = []
+    for name in ("pp", "tp_pp", "ep"):
+        for rank in range(1, PET_RANKS):
+            if got[rank][name] != r0[name]:
+                raise AssertionError(f"pp ep train {name}: rank {rank}'s tokens part from rank 0's")
+        what = f"pp ep train {name}"
+        distinct = _check_moving(what, r0[name], PROMPT_LENS)
+        partings = _check_routes(what, {"single device": ref[name], name: r0[name]},
+                                 moe_gap if name == "ep" else gpt2_gap, "single device")
+        notes.append(f"{name}: {partings} (distinct new tokens per row {distinct})")
+        for rank, res in got.items():
+            c = res[f"{name} launches"]
+            k7 = c["fused_decode_step"] + c["fused_cross_decode_step"]
+            missing = [k for k in ("decode_attention", "embed_add") if c[k] <= 0]
+            if k7 or missing:
+                raise AssertionError(f"{what} rank {rank}: K7 launched {k7} times (0 wanted); never launched: "
+                                     f"{missing}")
+    pad = -(-max(PROMPT_LENS) // 8) * 8  # the MoE generator's bucket of 8
+    forwards = min(pad + N_NEW, cfg.max_seq_len) - pad
+    for rank, res in got.items():
+        if res["ep all_to_all"] != 2 * cfg.n_layers * forwards:
+            raise AssertionError(f"pp ep train ep rank {rank}: {res['ep all_to_all']} all_to_all calls, "
+                                 f"{2 * cfg.n_layers * forwards} wanted (2 x {cfg.n_layers} layers x {forwards} "
+                                 "forwards)")
+        for name in ("train", "train high"):
+            l0, l1 = res[name]["losses"]
+            if not (np.isfinite(l0) and np.isfinite(l1) and l1 < l0):
+                raise AssertionError(f"pp ep train {name} rank {rank}: losses {l0}, {l1} (finite and falling wanted)")
+            if res[name]["launches"]["encoder_attention"]:
+                raise AssertionError(f"pp ep train {name} rank {rank}: K1 launched in training")
+        bad = [(p, finite, amax) for p, finite, amax in res["train grads"] if not finite or amax == 0]
+        if bad:
+            raise AssertionError(f"pp ep train rank {rank}: gradient leaves zero or not finite: {bad[:4]}")
+        rel = max(abs(a - b) / abs(b) for a, b in zip(res["train high"]["losses"], one_losses))
+        if rel > PET_TRAIN_TOL:
+            raise AssertionError(f"pp ep train rank {rank}: losses {res['train high']['losses']} part from one "
+                                 f"rank's {one_losses} by {rel:.3g} relative (> {PET_TRAIN_TOL})")
+        path, excess, max_abs = shard_err[rank]
+        if excess > 0:
+            raise AssertionError(f"pp ep train rank {rank}: stepped {path} parts from one rank's by more than "
+                                 f"(rtol, atol) = ({PET_SHARD_TOL}, {PET_SHARD_TOL}) (max abs {max_abs:.3g})")
+    mib = 2.0 ** 20
+    print(f"phase pp ep train fp32: {PET_RANKS} ranks on one card ({card}), gloo, collectives through host memory; "
+          f"GPT-2 small B={len(prompts)} x {N_NEW} new at pp={PET_RANKS} and (pp, tp) = {PET_TP_PP}, the MoE decoder "
+          f"(GPT-2 small's widths, {cfg.n_experts} experts x {cfg.expert_hidden}) at ep={PET_RANKS}: every rank's "
+          f"tokens equal, and the single device's up to near-ties ({'; '.join(notes)}); all_to_all "
+          f"{r0['ep all_to_all']} calls a rank (2 x {cfg.n_layers} layers x {forwards} forwards)")
+    print("phase pp ep train memory (torch.cuda.memory_allocated over each process's host-only baseline, MiB: "
+          "parameters on the card / peak in the generation): " + "; ".join(
+              f"rank {rank}: pp=4 {res['pp mem'] / mib:.0f} / {res['pp peak'] / mib:.0f}, (2, 2) "
+              f"{res['tp_pp mem'] / mib:.0f} / {res['tp_pp peak'] / mib:.0f}, ep=4 {res['ep mem'] / mib:.0f} / "
+              f"{res['ep peak'] / mib:.0f}" for rank, res in sorted(got.items()))
+          + f"; one rank, the whole GPT-2: {r0['one rank mem'] / mib:.0f} / {r0['one rank peak'] / mib:.0f} [{card}]")
+    def counts(c: dict) -> str:
+        return f"K2={c['decode_attention']} embed_add={c['embed_add']} K7={c['fused_decode_step']}"
+
+    print("phase pp ep train launches per rank: " + "; ".join(
+        f"rank {rank}: " + ", ".join(f"{name} {counts(res[f'{name} launches'])}" for name in ("pp", "tp_pp", "ep"))
+        + f", train K1={res['train']['launches']['encoder_attention']}" for rank, res in sorted(got.items())))
+    n_tok = len(prompts) * TP_RATE_NEW
+    tps = {k: n_tok / np.mean([t for t in v if t is not None]) for k, v in r0["bf16_s"].items()}
+    print(f"phase time pp ep train bf16 GPT-2 small generate_tokens_batch B={len(prompts)} x {TP_RATE_NEW} new, "
+          f"in turns (four ranks on one card, broadcasts through host memory (gloo): a reading of the mechanism, "
+          f"not a deployment's rate): pp=4 {tps['pp=4']:.1f} tok/s, one rank alone (per-op) "
+          f"{tps['one rank']:.1f} tok/s [{card}]")
+    tcfg = inp["lm_cfg"]
+    n_train = PET_TRAIN_B * tcfg.max_seq_len
+    step_s = [max(res["train"]["s"][i] for res in got.values()) for i in range(2)]
+    print(f"phase pp ep train step fp32: MoELMConfig at GPT-2 small's widths ({tcfg.n_stages} stages x "
+          f"{tcfg.layers_per_stage} layers, {tcfg.n_experts} experts x {tcfg.expert_hidden}, B={PET_TRAIN_B} x "
+          f"L={tcfg.max_seq_len}, n_micro {PET_TRAIN_MICRO}) on (dp, pp, tp) = {PET_TRAIN_MESH}: losses "
+          f"{r0['train']['losses']} (capacity factor {tcfg.capacity_factor}); at capacity factor "
+          f"{PET_MOE['n_experts']} {r0['train high']['losses']} against one rank's {one_losses}, every stepped "
+          f"shard within ({PET_SHARD_TOL}, {PET_SHARD_TOL}) of one rank's (max abs "
+          f"{max(e[2] for e in shard_err.values()):.3g}); every gradient "
+          f"leaf finite and non-zero ({len(r0['train grads'])} leaves a rank); K1 launched 0 times; step "
+          f"{step_s[0]:.3f} s then {step_s[1]:.3f} s, {n_train / step_s[1]:.0f} tokens/s [{card}]")
+    print(f"phase pp ep train clock: single-device references {ref_s:.1f} s while the ranks started; ranks "
+          f"{ranks_s:.1f} s (inputs and models {max(res['build_s'] for res in got.values()):.1f} s)")
+    _route("fused")
+    return {k: sum(res[f"{name} launches"][k] for res in got.values() for name in ("pp", "tp_pp", "ep"))
+            for k in r0["pp launches"]}
 
 
 def profile_phase(fn, what: str, fname: str, out_dir: str, card: str, steps_fn, unit: str = "decode step") -> None:
@@ -5508,6 +5921,7 @@ def main() -> int:
     i8 = timed("int8 paths", int8_paths, dev, card)
     spec = timed("spec", spec_paths, dev, card, args.profile)  # its K7 launches at one row feed the *_b1 rows only
     paths["tp"] = timed("tp", tp_path, dev, card)  # the ranks' summed launches; K6 with cur_ks only here
+    paths["pp ep train"] = timed("pp ep train", pp_ep_train_path, dev, card)  # the serving runs' summed launches
 
     # name: (source, TPU kernel it replaces, the dtype whose times are reported, its launches over the main paths;
     # the shapes are GPT-2's for K1-K4 and the fused decode step, Whisper's for K5 and the fused cross step,

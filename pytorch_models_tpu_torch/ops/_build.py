@@ -162,3 +162,23 @@ def require(cond: bool, msg: str) -> None:
     """Wrapper-side input validation (kept outside ``assert``: it must survive -O)."""
     if not cond:
         raise ValueError(msg)
+
+
+def needs_grad(*tensors) -> bool:
+    """Whether autograd would differentiate through any of ``tensors``: grad
+    mode on and a floating-point tensor that requires grad. No kernel has a
+    backward (nor has the JAX package a backward kernel), so the auto gates
+    send such inputs to the plain path, which autograd differentiates."""
+    import torch
+
+    return torch.is_grad_enabled() and any(isinstance(t, torch.Tensor) and t.is_floating_point() and t.requires_grad
+                                           for t in tensors)
+
+
+def require_no_grad(name: str, *tensors) -> None:
+    """A kernel writes its output through raw pointers, with no autograd
+    edge: an input that requires grad would lose its gradient silently, so
+    the wrapper raises instead."""
+    if needs_grad(*tensors):
+        raise RuntimeError(f"{name}: the kernel has no backward, and an input requires grad "
+                           "(the plain path differentiates; the auto gates take it)")

@@ -7,7 +7,9 @@ decode_step) are selected UPSTREAM in transformer.py and the generators on
 merged-head layouts, through the flags below.
 
 Each flag: ``None`` = auto, which means "the tensor lies on a CUDA device"
-(and, for the attention kernels, "the shape is one the kernel serves");
+(and, for the attention kernels, "the shape is one the kernel serves"), and
+no input is one that autograd differentiates (``_build.needs_grad``: no
+kernel has a backward, so a training forward takes the plain path);
 ``True`` forces the kernel's wrapper (on a CPU tensor the wrapper runs the
 kernel's plain version, which is how the CPU tests reach the dispatch);
 ``False`` forces the plain PyTorch path of the JAX package's XLA route
@@ -20,6 +22,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from . import _build
 
 # single-position self-attention decode (ops/decode_attention.py)
 USE_DECODE_KERNEL: bool | None = None
@@ -78,7 +82,7 @@ def use_greedy_head(batch: int, w: torch.Tensor, tied: bool) -> bool:
     crossover of ``GREEDY_HEAD_MAX_BATCH``; else the head matmul + argmax."""
     if USE_GREEDY_HEAD is not None:
         return USE_GREEDY_HEAD
-    if batch < 4 or not _on_cuda(w):
+    if batch < 4 or not _on_cuda(w) or _build.needs_grad(w):
         return False
     from .greedy_head import greedy_head_fits
 
@@ -110,36 +114,40 @@ def use_int8_kv_cross(batch: int) -> bool:
 
 def use_fused_step(t: torch.Tensor) -> bool:
     """Gate for the fused decode step on the model's tensor ``t``."""
-    return _on_cuda(t) if USE_FUSED_STEP is None else bool(USE_FUSED_STEP)
+    return _on_cuda(t) and not _build.needs_grad(t) if USE_FUSED_STEP is None else bool(USE_FUSED_STEP)
 
 
-def use_decode_kernel(t: torch.Tensor, n_heads: int) -> bool:
-    """Gate for the decode kernel on the merged-head cache ``t``. Auto takes
-    it on a CUDA tensor whose shape the kernel serves
-    (``decode_attention_fits``); any other shape goes to :func:`sdpa`, as in
-    the JAX package. A forced ``True`` reaches the wrapper, which raises for a
-    shape it does not serve."""
+def use_decode_kernel(t: torch.Tensor, n_heads: int, *inputs: torch.Tensor) -> bool:
+    """Gate for the decode kernel on the merged-head cache ``t`` and the
+    kernel's other ``inputs``. Auto takes it on a CUDA tensor whose shape the
+    kernel serves (``decode_attention_fits``) when autograd differentiates
+    none of them; any other call goes to :func:`sdpa`, as in the JAX package.
+    A forced ``True`` reaches the wrapper, which raises for a shape it does
+    not serve or an input that requires grad."""
     if USE_DECODE_KERNEL is not None:
         return USE_DECODE_KERNEL
-    if not _on_cuda(t):
+    if not _on_cuda(t) or _build.needs_grad(t, *inputs):
         return False
     from .decode_attention import decode_attention_fits
 
     return decode_attention_fits(t, n_heads)
 
 
-def use_encoder_kernel(q_m: torch.Tensor, n_heads: int, attn_bias: torch.Tensor | None = None) -> bool:
-    """Gate for merged-head encoder attention on (..., L, H*D) projections.
-    The kernel takes no additive bias: a call with one (T5's rel-pos and pad
-    biases) goes to :func:`sdpa` whatever the flag says, as in the JAX
-    package. Auto takes the kernel on a CUDA tensor whose shape it serves
-    (``encoder_attention_eligible``), else :func:`sdpa`; a forced ``True``
-    reaches the wrapper, which raises for a shape it does not serve."""
+def use_encoder_kernel(q_m: torch.Tensor, n_heads: int, attn_bias: torch.Tensor | None = None,
+                       *kv: torch.Tensor) -> bool:
+    """Gate for merged-head encoder attention on (..., L, H*D) projections
+    ``q_m`` [and ``kv``]. The kernel takes no additive bias: a call with one
+    (T5's rel-pos and pad biases) goes to :func:`sdpa` whatever the flag
+    says, as in the JAX package. Auto takes the kernel on a CUDA tensor whose
+    shape it serves (``encoder_attention_eligible``) when autograd
+    differentiates none of the projections, else :func:`sdpa` (a training
+    forward); a forced ``True`` reaches the wrapper, which raises for a shape
+    it does not serve or an input that requires grad."""
     if attn_bias is not None:
         return False
     if USE_ENCODER_KERNEL is not None:
         return USE_ENCODER_KERNEL
-    if not _on_cuda(q_m):
+    if not _on_cuda(q_m) or _build.needs_grad(q_m, *kv):
         return False
     from .encoder_attention import encoder_attention_eligible
 

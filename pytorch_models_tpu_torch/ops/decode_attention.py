@@ -78,6 +78,7 @@ def decode_attention(q, k_cache, v_cache, ends, n_heads: int, pad_lens=None, bia
     """
     if not q.is_cuda:
         return decode_attention_plain(q, k_cache, v_cache, ends, n_heads, pad_lens, bias)
+    _build.require_no_grad("decode_attention", q, k_cache, v_cache, bias)
     b, lq, hd = q.shape
     l_max = k_cache.shape[-2]
     d = hd // n_heads

@@ -514,6 +514,8 @@ def _unit_major(w: torch.Tensor) -> torch.Tensor:
 def _launch(x, packed, k_caches, v_caches, pos, pad_lens, n_heads, act, eps, head, cross_k, cross_v, cross_lens,
             norm="ln", gated=False, sbias=None, a8=False, emb=None, tok_ids=None, pos_rows=None, kv_scales=None,
             kv_scales_x=None, stamps=None):
+    _build.require_no_grad("fused decode step", x, k_caches, v_caches, cross_k, cross_v, sbias, *packed.values(),
+                           *(head or {}).values(), *(emb or {}).values())
     req = _build.require
     cross = cross_k is not None
     n_layers, b, l_max, hd = k_caches.shape

@@ -80,6 +80,7 @@ def encoder_attention(q, k, v, n_heads: int, causal: bool = False):
     Unbatched (L, H*D) inputs are promoted."""
     if not q.is_cuda:
         return encoder_attention_plain(q, k, v, n_heads, causal)
+    _build.require_no_grad("encoder_attention", q, k, v)
     _build.require(q.ndim in (2, 3), "encoder_attention: q must be (L, H*D) or (B, L, H*D)")
     unbatched = q.ndim == 2
     if unbatched:

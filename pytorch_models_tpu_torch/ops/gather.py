@@ -24,8 +24,14 @@ import torch
 
 from . import _build
 
-# None = auto (kernel for CUDA tensors); False forces plain indexing
+# None = auto (kernel for CUDA tensors, plain for a table that autograd differentiates); False forces plain
+# indexing; True forces the kernel's wrapper
 USE_GATHER_KERNEL: bool | None = None
+
+
+def _plain(*tables) -> bool:
+    """The gate of :func:`embed_tokens` and :func:`embed_rows`."""
+    return USE_GATHER_KERNEL is False or (USE_GATHER_KERNEL is None and _build.needs_grad(*tables))
 
 
 def gather_rows_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -37,6 +43,7 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``table`` (V, D), ``idx`` (N,) int -> (N, D) rows via the CUDA kernel."""
     if not table.is_cuda:
         return gather_rows_plain(table, idx)
+    _build.require_no_grad("gather_rows", table)
     _build.require(table.ndim == 2 and idx.ndim == 1, "gather_rows: table (V, D) and idx (N,)")
     _build.require(table.is_contiguous(), "gather_rows: table must be contiguous")
     _build.require(idx.device == table.device, "gather_rows: idx must be on the table's device")
@@ -74,6 +81,7 @@ def embed_add(tok: torch.Tensor, ids: torch.Tensor, pos: torch.Tensor | None = N
     bfloat16 tables, int32 or int64 ids)."""
     if not tok.is_cuda:
         return embed_add_plain(tok, ids, pos, pos_ids, start, period)
+    _build.require_no_grad("embed_add", tok, pos)
     _build.require(tok.ndim == 2 and ids.ndim == 1, "embed_add: tok (V, D) and ids (N,)")
     tensors = [tok, ids] + ([] if pos is None else [pos]) + ([] if pos_ids is None else [pos_ids])
     _build.require(all(t.device == tok.device and t.is_contiguous() for t in tensors),
@@ -109,7 +117,7 @@ def embed_tokens(tok: torch.Tensor, ids: torch.Tensor, pos: torch.Tensor | None 
     False``: its plain version)."""
     if pos is not None and (pos_ids is None) == (start is None):
         raise ValueError("embed_tokens: a position table takes exactly one of pos_ids and start")
-    fn = embed_add_plain if USE_GATHER_KERNEL is False else embed_add
+    fn = embed_add_plain if _plain(tok, pos) else embed_add
     period = ids.shape[-1] if ids.ndim else 1
     flat_pos = None if pos_ids is None else pos_ids.reshape(-1).contiguous()
     out = fn(tok, ids.reshape(-1).contiguous(), pos, flat_pos, start or 0, period)
@@ -118,5 +126,5 @@ def embed_tokens(tok: torch.Tensor, ids: torch.Tensor, pos: torch.Tensor | None 
 
 def embed_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Drop-in for ``jnp.take(table, idx, axis=0)`` with any ``idx`` shape."""
-    rows = gather_rows_plain if USE_GATHER_KERNEL is False else gather_rows
+    rows = gather_rows_plain if _plain(table) else gather_rows
     return rows(table, idx.reshape(-1)).reshape(*idx.shape, table.shape[-1])

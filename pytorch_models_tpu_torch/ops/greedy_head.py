@@ -77,6 +77,7 @@ def _scratch(x: torch.Tensor) -> torch.Tensor:
 
 
 def _launch(name: str, x: torch.Tensor, w: torch.Tensor, tied: bool) -> torch.Tensor:
+    _build.require_no_grad(name, x, w)
     req = _build.require
     req(x.ndim == 2 and w.ndim == 2 and x.shape[1] == w.shape[1 if tied else 0],
         f"{name}: x (B, d), " + ("emb (V, d)" if tied else "w (d, V)"))

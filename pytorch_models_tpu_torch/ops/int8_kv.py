@@ -194,6 +194,7 @@ def int8_decode_attention(q, k_q, v_q, k_s, v_s, ends, n_heads: int, pad_lens=No
                                            cur_ks)
     b, lq, hd = q.shape
     l_k = k_q.shape[-2]
+    _build.require_no_grad("int8_decode_attention", q, cur_k, cur_v, bias)
     req = _build.require
     req(lq == 1 and hd == n_heads * 64, f"int8_decode_attention: q must be (B, 1, H*64), got {tuple(q.shape)}")
     req(q.dtype in (torch.float32, torch.bfloat16), "int8_decode_attention: q fp32 or bf16")

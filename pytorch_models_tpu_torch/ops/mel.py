@@ -33,7 +33,7 @@ _INV_LN10 = 1.0 / math.log(10.0)
 
 
 def use_mel_kernel(t: torch.Tensor) -> bool:
-    return t.is_cuda if USE_MEL_KERNEL is None else USE_MEL_KERNEL
+    return t.is_cuda and not _build.needs_grad(t) if USE_MEL_KERNEL is None else USE_MEL_KERNEL
 
 
 @functools.lru_cache(maxsize=8)
@@ -151,6 +151,7 @@ def log_mel_spectrogram(x: torch.Tensor, n_fft: int = 400, hop_length: int = 160
     Hann), through the CUDA kernel for a CUDA tensor."""
     if not x.is_cuda:
         return log_mel_spectrogram_plain(x, n_fft, hop_length, n_mels, sample_rate)
+    _build.require_no_grad("log_mel_spectrogram", x)
     req = _build.require
     req(x.dtype == torch.float32, f"log_mel_spectrogram: the waveform must be float32, got {x.dtype}")
     req(x.is_contiguous(), "log_mel_spectrogram: the waveform must be contiguous")

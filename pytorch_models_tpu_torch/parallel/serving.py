@@ -77,6 +77,62 @@ def t5_serving_pspecs(params) -> dict:
     return tree_map_with_path(spec, params)
 
 
+def left_pad_prompts(token_lists: list[list[int]], max_seq_len: int, max_tokens: int, bucket: int = PROMPT_BUCKET):
+    """The prompts LEFT-padded to a ``bucket`` multiple, as the decoder
+    generators pack them: ``(buf (B, P) int64, pad_lens (B,) int32, limit)``
+    with ``limit`` the cache slot where generation stops; None when nothing
+    is generated (``max_tokens <= 0`` or the bucket fills the context)."""
+    if max_tokens <= 0:
+        return None
+    max_n = max(len(ts) for ts in token_lists)
+    pad = min(-(-max_n // bucket) * bucket, max_seq_len)
+    if max_n > pad:
+        raise ValueError(f"prompt too long for context {max_seq_len}")
+    if pad >= max_seq_len:
+        return None
+    buf = np.zeros((len(token_lists), pad), np.int64)
+    pad_lens = np.zeros((len(token_lists),), np.int32)
+    for i, ts in enumerate(token_lists):  # LEFT-pad: right-align each row
+        pad_lens[i] = pad - len(ts)
+        buf[i, pad_lens[i]:] = ts
+    return buf, pad_lens, min(pad + max_tokens, max_seq_len)
+
+
+def greedy_generate(forward, prompt_buf: torch.Tensor, pad_lens: torch.Tensor, limit: int, eos_id: int,
+                    max_seq_len: int, all_done):
+    """Greedy batched generation over LEFT-padded prompts (the loop of
+    ``generator._generate_batch``) for the stage- and expert-parallel
+    generators: ``forward(tokens (b, S), pos_ids (b, S), pos) -> logits
+    (b, S, V)`` runs the model at cache slots [pos, pos+S), writing its
+    caches in place; ``all_done(done, step)`` says before decode step
+    ``step`` whether every row is finished (finished rows stay parked on
+    EOS). Returns ``(tokens (b, max_seq_len), lengths (b,))`` on the host."""
+    b, p_len = prompt_buf.shape
+    dev = prompt_buf.device
+    pos_ids = (torch.arange(p_len, device=dev)[None, :] - pad_lens[:, None].long()).clamp_min(0)
+    nxt = torch.argmax(forward(prompt_buf, pos_ids, 0)[:, -1], dim=-1)
+    buf = torch.zeros((b, max_seq_len), dtype=torch.int64, device=dev)
+    buf[:, :p_len] = prompt_buf
+    buf[:, p_len] = nxt
+    done = nxt == eos_id
+    eos = torch.full_like(nxt, eos_id)
+    pos = p_len + 1
+    while pos < limit and not all_done(done, pos - p_len - 1):
+        p_ids = (pos - 1 - pad_lens.long())[:, None]
+        nxt = torch.where(done, eos, torch.argmax(forward(buf[:, pos - 1:pos], p_ids, pos - 1)[:, 0], dim=-1))
+        buf[:, pos] = nxt
+        done = done | (nxt == eos_id)
+        pos += 1
+    out = buf.cpu().numpy()
+    is_eos = out[:, p_len:pos] == eos_id
+    return out, np.where(is_eos.any(axis=1), p_len + is_eos.argmax(axis=1) + 1, pos)
+
+
+def unpack_rows(out: np.ndarray, lengths: np.ndarray, pad_lens: np.ndarray) -> list[list[int]]:
+    """Each row's prompt and generated tokens, its left padding dropped."""
+    return [out[i, pad_lens[i]: lengths[i]].tolist() for i in range(out.shape[0])]
+
+
 def _serving_axes(mesh, n_heads: int, axes: set) -> int:
     """The mesh's tp size, once its axes and the head count are checked."""
     if set(mesh.shape) != axes:
@@ -104,6 +160,8 @@ def _dp_rows(mesh, b: int) -> slice:
 
 def _gather_rows(mesh, out: np.ndarray, lengths: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     """Every dp shard's ``(out, lengths)`` rows, in row order, on every rank."""
+    if mesh.size("dp") == 1:
+        return out, lengths
     got = [mesh.all_gather(torch.from_numpy(np.ascontiguousarray(a)), "dp").numpy() for a in (out, lengths)]
     return got[0], got[1]
 
@@ -145,28 +203,17 @@ class TPDecoderGenerator:
         generated tokens; the rank decodes its dp shard of the rows (greedy,
         or top-k sampled from ``(seed, dp index)``)."""
         cfg = self.model.cfg
-        if max_tokens <= 0:
-            return [list(ts) for ts in token_lists]
         rows = _dp_rows(self.mesh, len(token_lists))
-        max_n = max(len(ts) for ts in token_lists)
-        pad = min(-(-max_n // PROMPT_BUCKET) * PROMPT_BUCKET, cfg.max_seq_len)
-        if max_n > pad:
-            raise ValueError(f"prompt too long for context {cfg.max_seq_len}")
-        if pad >= cfg.max_seq_len:
+        packed = left_pad_prompts(token_lists, cfg.max_seq_len, max_tokens)
+        if packed is None:
             return [list(ts) for ts in token_lists]
-        b = len(token_lists)
-        buf = np.zeros((b, pad), np.int64)
-        pad_lens = np.zeros((b,), np.int32)
-        for i, ts in enumerate(token_lists):  # LEFT-pad: right-align each row
-            pad_lens[i] = pad - len(ts)
-            buf[i, pad_lens[i]:] = ts
-        limit = min(pad + max_tokens, cfg.max_seq_len)
+        buf, pad_lens, limit = packed
         dev = self.mesh.device
         out, lengths = _generate_batch(self.params, self.cfg_local, torch.from_numpy(buf[rows]).to(dev),
                                        torch.from_numpy(pad_lens[rows]).to(dev), limit, _eos_id(self.tokenizer),
                                        topk=topk, seed=_dp_seed(seed, self.mesh))
         out, lengths = _gather_rows(self.mesh, out, lengths)
-        return [out[i, pad_lens[i]: lengths[i]].tolist() for i in range(b)]
+        return unpack_rows(out, lengths, pad_lens)
 
 
 class TPT5Generator:

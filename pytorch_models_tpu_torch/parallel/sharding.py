@@ -13,7 +13,19 @@ their own shard, where JAX places one global array over the devices.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
+
+
+class Split(NamedTuple):
+    """The spec of a LIST node split over a mesh axis (the port's stages are
+    lists, where the JAX package splits a leading stage axis): the rank keeps
+    its contiguous chunk of the list's entries, each under its spec of
+    ``items`` (one per entry)."""
+
+    axis: str
+    items: list
 
 
 def tree_map_with_path(fn, tree, path: str = ""):
@@ -59,6 +71,12 @@ def shard_params(params, specs, mesh):
         return leaf.to(mesh.device).contiguous()
 
     def walk(p, s):
+        if isinstance(s, Split):
+            n = mesh.shape[s.axis]
+            if len(p) % n:
+                raise ValueError(f"{len(p)} entries do not split over {n} ranks")
+            lo = mesh.index(s.axis) * (len(p) // n)
+            return type(p)(walk(v, sv) for v, sv in zip(p[lo:lo + len(p) // n], s.items[lo:lo + len(p) // n]))
         if isinstance(p, dict):
             return {k: walk(v, s[k]) for k, v in p.items()}
         if isinstance(p, (list, tuple)):

@@ -230,17 +230,17 @@ def mha_apply(
         ck, cv = cache["k"], cache["v"]
         l_max = ck.shape[-2]
 
-        if s == 1 and _attn.use_decode_kernel(ck, cfg.n_heads):
+        q_m = linear(p["q"], q)  # (B, S, H*D) — the decode kernel takes merged heads
+        if s == 1 and _attn.use_decode_kernel(ck, cfg.n_heads, q_m, cv):
             kernel_bias, convertible = _decode_kernel_bias(attn_bias, l_max, cfg.n_heads)
             if convertible:
                 from .ops.decode_attention import decode_attention
 
-                q_m = linear(p["q"], q)  # (B, 1, H*D) — the kernel takes merged heads
                 out = decode_attention(q_m, ck.to(q_m.dtype), cv.to(q_m.dtype), cache_pos + 1, cfg.n_heads,
                                        pad_lens, kernel_bias)
                 return reduce_linear(p["o"], out, cfg.tp_axis), cache
 
-        qh = split_heads(linear(p["q"], q), cfg.n_heads, cfg.head_dim)
+        qh = split_heads(q_m, cfg.n_heads, cfg.head_dim)
         kh = split_heads(ck.to(qh.dtype), cfg.n_heads, cfg.head_dim)
         vh = split_heads(cv.to(qh.dtype), cfg.n_heads, cfg.head_dim)
         row = torch.arange(s, device=q.device)[:, None]
@@ -261,7 +261,7 @@ def mha_apply(
     q_m = linear(p["q"], q)
     k_m = linear(p["k"], k)
     v_m = linear(p["v"], v)
-    if _attn.use_encoder_kernel(q_m, cfg.n_heads, attn_bias):
+    if _attn.use_encoder_kernel(q_m, cfg.n_heads, attn_bias, k_m, v_m):
         from .ops.encoder_attention import encoder_attention
 
         return reduce_linear(p["o"], encoder_attention(q_m, k_m, v_m, cfg.n_heads, causal), cfg.tp_axis)
@@ -314,7 +314,7 @@ def _cross_cached_apply(p: dict, cfg: LayerConfig, q: torch.Tensor, cache: dict,
     ck, cv, lens = cache["k"], cache["v"], cache["len"]
     s, l_max = q.shape[-2], ck.shape[-2]
     q_m = linear(p["q"], q)
-    if s == 1 and attn_bias is None and _attn.use_decode_kernel(ck, cfg.n_heads):
+    if s == 1 and attn_bias is None and _attn.use_decode_kernel(ck, cfg.n_heads, q_m, cv):
         from .ops.decode_attention import decode_attention
 
         return reduce_linear(p["o"], decode_attention(q_m, ck.to(q_m.dtype), cv.to(q_m.dtype), lens, cfg.n_heads),

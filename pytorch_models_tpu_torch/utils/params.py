@@ -104,6 +104,30 @@ def from_jax_params(np_tree: Any, device=None) -> Any:
     return convert(np_tree)
 
 
+def to_jax_params(tree: Any) -> Any:
+    """The port's parameter tree -> the JAX package's, as numpy arrays: the
+    inverse of :func:`from_jax_params` (each list under a ``"layers"`` or
+    ``"blocks"`` key stacked back into ``(L, ...)`` leaves; bf16 as fp32)."""
+
+    def convert(t, key=None):
+        if isinstance(t, dict):
+            return {k: convert(v, k) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            items = [convert(v) for v in t]
+            return stack_trees(items) if key in _STACKED_KEYS else items
+        return t.detach().cpu().float().numpy() if t.dtype == torch.bfloat16 else t.detach().cpu().numpy()
+
+    return convert(tree)
+
+
+def stack_trees(trees: list) -> Any:
+    """Same-structured numpy trees -> one tree of leaves stacked on a new
+    leading axis (``utils.stack_layers`` of the JAX package)."""
+    if isinstance(trees[0], dict):
+        return {k: stack_trees([t[k] for t in trees]) for k in trees[0]}
+    return np.stack(trees)
+
+
 def _stack_len(tree: dict) -> int:
     while isinstance(tree, dict):
         tree = next(iter(tree.values()))

@@ -45,10 +45,12 @@ def test_constructor_signatures_match_jax(jax_ns, ns, name):
         assert got == expected, f"{name}.{method}: {got} != {expected}"
 
 
-# the tensor- and data-parallel serving classes (parallel/), by module
+# the parallel serving classes and the train step's constructor (parallel/), by module
 PARALLEL = [("serving", n) for n in ("TPDecoderGenerator", "TPT5Generator", "TPWhisperGenerator")] + [
     ("cb_serving", n) for n in ("TPContinuousBatchingGenerator", "TPWhisperContinuousBatchingGenerator",
-                                "TPT5ContinuousBatchingGenerator")] + [("spec_serving", "TPSpeculativeGenerator")]
+                                "TPT5ContinuousBatchingGenerator")] + [("spec_serving", "TPSpeculativeGenerator")] + [
+    ("pp_serving", "PPDecoderGenerator"), ("tp_pp_serving", "TPPPDecoderGenerator")] + [
+    ("ep_serving", n) for n in ("MoEDecoderGenerator", "EPMoEGenerator")] + [("train", "make_train_step")]
 
 
 def _matches_with_trailing_device(got, expected, what):
@@ -64,19 +66,19 @@ def test_parallel_constructor_signatures_match_jax(module, name):
 
     ref = getattr(importlib.import_module(f"pytorch_models_tpu.parallel.{module}"), name)
     ours = getattr(importlib.import_module(f"pytorch_models_tpu_torch.parallel.{module}"), name)
-    _matches_with_trailing_device(_surface(ours.__init__), _surface(ref.__init__), f"{name}.__init__")
+    if inspect.isclass(ref):
+        ref, ours, name = ref.__init__, ours.__init__, f"{name}.__init__"
+    _matches_with_trailing_device(_surface(ours), _surface(ref), name)
 
 
 def test_make_mesh_and_parallel_exports_match_jax():
     """``make_mesh`` takes the JAX package's arguments (ranks for devices)
-    and a trailing ``device``; ``parallel`` exports the JAX names of what is
-    ported (the pipeline-parallel generators are not yet)."""
+    and a trailing ``device``; ``parallel`` exports the JAX package's names."""
     import pytorch_models_tpu.parallel as jax_parallel
     from pytorch_models_tpu_torch import parallel
 
     _matches_with_trailing_device(_surface(parallel.make_mesh), _surface(jax_parallel.make_mesh), "make_mesh")
-    not_ported = {"PPDecoderGenerator", "TPPPDecoderGenerator"}
-    assert sorted(parallel.__all__) == sorted(set(jax_parallel.__all__) - not_ported)
+    assert sorted(parallel.__all__) == sorted(jax_parallel.__all__)
     for name in parallel.__all__:
         assert getattr(parallel, name).__name__ == name
 

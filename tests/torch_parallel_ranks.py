@@ -1,4 +1,4 @@
-"""The ranks of the port's tensor-parallel tests (``tests/test_torch_parallel*.py``).
+"""The ranks of the port's parallel tests (``tests/test_torch_parallel*.py``).
 
 Each rank is a process spawned over gloo on the CPU (``init_method=file://``
 in the test's temporary directory, one thread each). This module imports
@@ -273,3 +273,145 @@ def int8_cache_tp4(rank: int, world: int, gpt2: tuple) -> dict:
     finally:
         attn.USE_INT8_KV = False
     return {"shapes": {k: (tuple(t.shape), str(t.dtype)) for k, t in i8.items()}, "int8_pool": gate}
+
+
+# ---------------------------------------------------------------------------
+# pipeline- and expert-parallel serving, the training step
+# ---------------------------------------------------------------------------
+
+
+def pp_ep_serving(rank: int, world: int, m: dict, c: dict) -> dict:
+    """The PP, TP x PP and EP generators of this world's meshes (2, 4 or 8
+    ranks), each on the parent's prompts; the all_to_all calls of each EP
+    run; the shard shapes of a rank's stage and caches."""
+    from pytorch_models_tpu_torch.parallel import PPDecoderGenerator, TPPPDecoderGenerator
+    from pytorch_models_tpu_torch.parallel.ep_serving import EPMoEGenerator, MoEDecoderConfig
+    from pytorch_models_tpu_torch.parallel.mesh import all_to_all
+    from pytorch_models_tpu_torch.utils import from_jax_params
+
+    r = {}
+    for key, pp in c["pp"].get(world, []):
+        gen = PPDecoderGenerator(build(m[key]), Tok(), _mesh(world, (pp,), ("pp",)))
+        r[f"pp{pp}"] = gen.generate_tokens_batch(c["prompts"], max_tokens=8)
+        r[f"pp{pp}_layers"] = [len(s) for s in gen.params["decoder"]["layers"]]
+    for shape in c["tp_pp"].get(world, []):
+        axes = ("pp", "tp") if len(shape) == 2 else ("dp", "pp", "tp")
+        gen = TPPPDecoderGenerator(build(m["gpt2_256_l4"]), Tok(), _mesh(world, shape, axes))
+        r[shape] = gen.generate_tokens_batch(c["prompts"], max_tokens=8)
+        lp = gen.params["decoder"]["layers"][0][0]
+        r[(shape, "shards")] = (len(gen.params["decoder"]["layers"]), len(gen.params["decoder"]["layers"][0]),
+                                tuple(lp["sa"]["q"]["w"].shape), tuple(lp["sa"]["o"]["w"].shape),
+                                tuple(gen.params["token_embs"].shape))
+    if world == 4:
+        gen = TPPPDecoderGenerator(build(m["gpt2_256_l4"]), Tok(c["eos"]), _mesh(world, (2, 2), ("pp", "tp")))
+        r["tp_pp_eos"] = gen.generate_tokens_batch(c["eos_prompts"], max_tokens=12)
+    for name, ep, kw in c["ep"].get(world, []):
+        cfg = MoEDecoderConfig(**c["ep_cfg"])
+        gen = EPMoEGenerator(from_jax_params(m[name]), cfg, _mesh(world, (ep,), ("ep",)))
+        before = all_to_all.calls
+        r[(name, ep)] = gen.generate_tokens_batch(c["ep_prompts"][name], **kw)
+        r[(name, ep, "all_to_all")] = all_to_all.calls - before
+        r[(name, ep, "w1")] = tuple(gen.params["layers"][0]["w1"].shape)
+    return r
+
+
+class OneRank:
+    """A mesh of one rank (no process group): the single-device trainer."""
+
+    shape: dict = {"dp": 1, "pp": 1, "tp": 1}
+    device = torch.device("cpu")
+
+    def size(self, axis: str) -> int:
+        return 1
+
+    def index(self, axis: str) -> int:
+        return 0
+
+    def group(self, axis: str):
+        return None
+
+
+def train_ranks(rank: int, world: int, c: dict) -> dict:
+    """The train step's cases on a (dp, pp, tp) mesh of this world: two SGD
+    steps from the parent's parameters (each rank's shard of the stepped
+    parameters, its gradient leaves' finiteness and non-zero share), the
+    pipelined forward's logits and the EP dispatch at high capacity."""
+    import dataclasses
+
+    from pytorch_models_tpu_torch.parallel.sharding import shard_params, tree_map_with_path
+    from pytorch_models_tpu_torch.parallel.train import (MoELMConfig, _loss_and_grads, _moe_mlp_sparse_ep,
+                                                         make_train_step, moe_lm_forward, moe_lm_from_jax,
+                                                         param_pspecs)
+
+    shape = c["shapes"][world]
+    mesh = _mesh(world, shape, ("dp", "pp", "tp"))
+    r = {"index": tuple(mesh.index(a) for a in ("dp", "pp", "tp"))}
+    if c.get("collectives"):
+        r["collectives"] = _collectives(rank, _mesh(world, (world,), ("tp",)))
+    for name, kw in c["train"].items():
+        cfg = MoELMConfig(**kw)
+        step, specs = make_train_step(cfg, mesh, n_micro=2)
+        params = shard_params(moe_lm_from_jax(c["params"][name]), specs, mesh)
+        tokens = torch.from_numpy(c["tokens"][name])
+        loss, grads = _loss_and_grads(params, cfg, tokens, mesh, 2)
+        params, loss0 = step(params, tokens)
+        params, loss1 = step(params, tokens)
+        flat = []
+        tree_map_with_path(lambda p, g: flat.append((p, bool(torch.isfinite(g).all()), float(g.abs().max()))), grads)
+        r[name] = {"losses": (float(loss0), float(loss1)), "grads_loss": float(loss), "grads": flat,
+                   "params": tree_map_with_path(lambda p, t: t.numpy(), params)}
+    high = dataclasses.replace(MoELMConfig(), capacity_factor=float(MoELMConfig.n_experts))
+    for key, cfg in (("forward", MoELMConfig()), ("forward_high", high)):
+        if key in c["params"]:
+            params = shard_params(moe_lm_from_jax(c["params"][key]), param_pspecs(cfg), mesh)
+            with torch.no_grad():
+                r[key] = moe_lm_forward(params, cfg, torch.from_numpy(c["tokens"]["forward"]), mesh, 2).numpy()
+    if "ep_x" in c:  # the first block of the rank's stage
+        cfg = high
+        lp = shard_params(moe_lm_from_jax(c["params"]["ep"]), param_pspecs(cfg), mesh)["stages"][0][0]
+        x = torch.from_numpy(c["ep_x"])
+        dp, tp = mesh.index("dp"), mesh.index("tp")
+        mb, lt = x.shape[0] // shape[0], x.shape[1] // shape[2]
+        with torch.no_grad():
+            r["ep_out"] = _moe_mlp_sparse_ep(lp, cfg, x[dp * mb:(dp + 1) * mb, tp * lt:(tp + 1) * lt], mesh).numpy()
+    return r
+
+
+def _collectives(rank: int, mesh) -> dict:
+    """Each collective of ``parallel/mesh.py`` on one line of ranks, and the
+    gradients its autograd pair sends back, on small tensors made from the
+    rank's index."""
+    from pytorch_models_tpu_torch.parallel.mesh import (all_gather_grad, all_to_all_grad, copy_to_group,
+                                                        reduce_from_group, reduce_scatter_grad)
+
+    g, n = mesh.group("tp"), mesh.shape["tp"]
+    w = torch.arange(n * n, dtype=torch.float32).reshape(n, n)
+    x = (torch.arange(n, dtype=torch.float32) + 10 * rank).requires_grad_()
+    gathered = all_gather_grad(x[None], g, dim=0)
+    (gathered * w).sum().backward()
+    y = (torch.arange(n, dtype=torch.float32) + rank).requires_grad_()
+    scattered = reduce_scatter_grad(y, g, dim=0)
+    (scattered.sum() * (rank + 1)).backward()
+    t = (torch.arange(n, dtype=torch.float32) + 100 * rank).requires_grad_()
+    exchanged = all_to_all_grad(t, g)
+    (exchanged * torch.arange(n)).sum().backward()
+    v = torch.ones(2, requires_grad=True)
+    (copy_to_group(v, g).sum() * (rank + 1)).backward()
+    u = torch.full((2,), float(rank), requires_grad=True)
+    summed = reduce_from_group(u, g)
+    summed.sum().backward()
+    absent = []
+    for what in (mesh.group, mesh.index):
+        try:
+            what("dp")
+        except KeyError:
+            absent.append(what.__name__)
+    ring = mesh.recv(x, "tp", (rank - 1) % n) if rank % 2 else None
+    mesh.send(x.detach() + 1, "tp", (rank + 1) % n)
+    if rank % 2 == 0:
+        ring = mesh.recv(x, "tp", (rank - 1) % n)
+    return {"gathered": gathered.tolist(), "x.grad": x.grad.tolist(), "scattered": scattered.tolist(),
+            "y.grad": y.grad.tolist(), "exchanged": exchanged.tolist(), "t.grad": t.grad.tolist(),
+            "v.grad": v.grad.tolist(), "summed": summed.tolist(), "u.grad": u.grad.tolist(),
+            "broadcast": mesh.broadcast(torch.tensor([float(rank)]), "tp", 2).tolist(), "ring": ring.tolist(),
+            "absent axis": (absent, mesh.size("dp"))}
