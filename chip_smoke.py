@@ -182,6 +182,29 @@ gradient leaf finite and non-zero, K1 launched 0 times; two at capacity
 factor n_experts within 1e-4 relative of the same step on a one-rank mesh;
 bf16 GPT-2 tok/s at pp=4 and on one rank in turns, tokens/s of a step.
 
+K7's MLP activations beyond GELU (``act_kernel_phases``, ``act_path``,
+phase "act"): K7 with relu, silu and identity against its plain twin at
+GPT-2 small's shape (base) and T5-base's (gated), B=8 and 32, fp32 and bf16,
+within DS_TOL; then GPT-2 small at full width whose config takes each
+activation (``dataclasses.replace(model.cfg, act=...)``) through
+``generate_tokens_batch`` (B=8, 64 new): fp32 tokens identical on the fused,
+per-op and plain routes up to printed near-ties, K7 once per decode step
+with that activation's code; bf16 tok/s of silu fused against per-op in
+turns. The ``kernels`` line has one entry per activation
+(``fused_decode_step_relu`` / ``_silu`` / ``_identity``, its other shapes
+as ``rows``).
+
+The port's five examples (``examples_path``, phase "examples"):
+``examples/torch_*.py`` through their ``main`` in this process on the card
+with random weights (serve_sharded's 8 ranks sharing the card over gloo),
+each script's launches per kernel from 0 and its seconds: text_generate K7
+and ``embed_add``, transcribe K5, K1 and K7 (cross), image_classify K1 12
+times a forward, serve_sharded K2 and ``embed_add`` on every rank and K7
+never; then the four single-card scripts with ``--pretrained`` at full
+width from a temporary cache written from the seed (GPT-2 small, Whisper-tiny,
+ViT-B/16 AugReg, EnCodec 24 kHz, and synthetic BPE rank tables of both
+tokenizers), with the same checks.
+
 K7's time per phase (``decode_step_breakdown``): each block stamps
 %globaltimer at four points of every phase (``stamps=`` of the wrappers),
 and a line per variant (GPT-2 bf16 / fp32 / fp32 w8a16 + int8 KV, Whisper
@@ -1158,11 +1181,13 @@ def _k7_key(name: str, b: int, depth: int | None = None) -> str:
     return (name if b == 8 else f"{name}_b{b}") + ("" if depth is None else f"_l{depth}")
 
 
-def decode_step_phases(dev, card: str) -> dict:
+def decode_step_phases(dev, card: str, kinds=("gpt2", "whisper", "t5"), cases=None, acts=(None,)) -> dict:
     """K7 against its plain version at the full GPT-2-small, Whisper-base and
-    T5-base shapes, B=8, 16 and 32 (K7_BATCHES) and B=1 (the speculative
+    T5-base shapes (``kinds``), B=8, 16 and 32 (K7_BATCHES) and B=1 (the speculative
     drafts: the whole stack, and its first SPEC_DRAFT_LAYERS layers; GPT-2
-    also headless), fp32 and bf16: mixed left pads with one row whose
+    also headless; ``cases``: other ``(B, depth)`` pairs), fp32 and bf16,
+    with each model's own MLP activation or (``acts``) another one, whose
+    records are named ``..._<act>`` (no per-op or headless step then): mixed left pads with one row whose
     cached range is empty until pos (every kind: T5's pools decode with
     them, masked before its self bias is added), per-row cross lengths with a short row, T5's seeded rel-pos self
     bias (which must move fp32 x_out by far more than its tolerance); x_out
@@ -1187,14 +1212,15 @@ def decode_step_phases(dev, card: str) -> dict:
 
     res = {}
     g = torch.Generator(device=dev).manual_seed(SEED + 6)
-    cases = [(b, None) for b in K7_BATCHES] + [(1, None), (1, SPEC_DRAFT_LAYERS)]
-    for kind, (b, depth) in [(kind, case) for kind in ("gpt2", "whisper", "t5") for case in cases]:
-        if b == K7_BATCHES[0]:
-            cfg32, layers32, emb32, final32 = _k7_model(dev, kind)
+    cases = cases or [(b, None) for b in K7_BATCHES] + [(1, None), (1, SPEC_DRAFT_LAYERS)]
+    for kind, (b, depth), act in [(kind, case, act) for kind in kinds for case in cases for act in acts]:
+        if b == cases[0][0] and act == acts[0]:
+            model_cfg, layers32, emb32, final32 = _k7_model(dev, kind)
+        cfg32 = model_cfg if act is None else model_cfg.with_(act=act)
         cross, t5 = kind != "gpt2", kind == "t5"
         name = {"gpt2": "fused_decode_step", "whisper": "fused_cross_decode_step",
                 "t5": "fused_cross_decode_step_t5"}[kind]
-        key = _k7_key(name, b, depth)
+        key = _k7_key(name, b, depth) + ("" if act is None else f"_{act}")
         stack = layers32[:depth]
         n_layers, d, hd = len(stack), cfg32.d_model, cfg32.n_heads * cfg32.head_dim
         l_max, pos = (1024, 127) if kind == "gpt2" else (128, 40)
@@ -1296,7 +1322,7 @@ def decode_step_phases(dev, card: str) -> dict:
 
             with torch.inference_mode():  # the host-bound twin and per-op step over fewer calls a turn
                 ms, plain_ms = _ab_ms([kernel], [plain], 10, plain_iters=3)
-                ms2, op_ms = _ab_ms([kernel], [per_op], 20, plain_iters=5)
+                ms2, op_ms = _ab_ms([kernel], [per_op], 20, plain_iters=5) if act is None else (None, None)
             item = x.element_size()
             w_el = sum(t.numel() for k, t in packed.items() if k.startswith("w"))
             small = sum(t.numel() for k, t in packed.items() if not k.startswith("w")) + 2 * d
@@ -1308,18 +1334,21 @@ def decode_step_phases(dev, card: str) -> dict:
                       + 2 * n_layers * (self_keys + cross_keys) * hd * item + 2 * n_layers * b * hd * item + 8 * b)
             flops = 2 * b * (w_el + head["emb"].numel()) + 4 * n_layers * hd * (self_keys + b + cross_keys)
             r = res[(key, dn)] = _rec(err, ms, plain_ms, nbytes, flops, dn)
-            r["per_op_ms"] = op_ms
-            print(f"phase kernel {name} {dn}: {kind} {n_layers} layers d={d} B={b} pos={pos} "
+            if op_ms is not None:
+                r["per_op_ms"] = op_ms
+            r["shape"] = f"{kind} {n_layers} layers d={d} B={b} pos={pos}"
+            print(f"phase kernel {name}{'' if act is None else '_' + act} {dn}: {kind} {n_layers} layers d={d} "
+                  f"B={b} pos={pos} act {cfg32.act} "
                   + (f"pads {pads.tolist()}" if pads is not None else "no pads")
                   + (f" cross lens {lens.tolist()} of {lx}" if cross else "")
                   + (f", rel-pos table N(0, 1) x {T5_BIAS_SCALE}, untied head" if t5 else "")
                   + f" | max |kernel - plain| (x_out, K/V at pos) {err:.3g} (atol, rtol)={tol}, x_out at {use:.2f} of its "
                   f"tolerance, layer 0 K/V at pos {kv0:.3g} (atol, rtol)={TOL[dn]}{moved}; tok {got_tok.tolist()}"
                   f" ({int(decided.sum())}/{b} decided, equal), max regret {regret.abs().max().item():.3g} | kernel "
-                  f"{ms * 1e3:.1f} us ({ms2 * 1e3:.1f} us in the second pair), plain {plain_ms * 1e3:.1f} us, "
-                  f"per-op step {op_ms * 1e3:.1f} us, bound {r['bound_ms'] * 1e3:.1f} us ({r['bound_by']}, "
-                  f"{nbytes / 1e6:.1f} MB) [{card}]")
-            if b == 1 and (kind != "gpt2" or depth is not None):
+                  f"{ms * 1e3:.1f} us" + ("" if ms2 is None else f" ({ms2 * 1e3:.1f} us in the second pair)")
+                  + f", plain {plain_ms * 1e3:.1f} us, " + ("" if op_ms is None else f"per-op step {op_ms * 1e3:.1f} us, ")
+                  + f"bound {r['bound_ms'] * 1e3:.1f} us ({r['bound_by']}, {nbytes / 1e6:.1f} MB) [{card}]")
+            if act is not None or (b == 1 and (kind != "gpt2" or depth is not None)):
                 continue  # the one-row headless step serves the sampled drafts, GPT-2's identical draft
             res.update(_headless_check(kind, name, dn, card, x, packed, kc, vc, xk, xv, lens, pos, pads, cfg32,
                                        variant, final32, head, None if b == 8 else b))
@@ -5794,6 +5823,350 @@ def pp_ep_train_path(dev, card: str) -> dict:
             for k in r0["pp launches"]}
 
 
+# ---------------------------------------------------------------------------
+# phase "act": K7's relu / silu / identity codes
+# ---------------------------------------------------------------------------
+
+K7_ACTS = ("relu", "silu", "identity")  # the MLP activations beyond GELU (K7's act codes 2-4)
+ACT_BATCHES = (8, 32)
+ACT_TURNS = ("per-op", "fused", "fused", "per-op")  # the bf16 rate's turns
+
+
+def act_kernel_phases(dev, card: str) -> dict:
+    """Phase "act", kernels: K7 with each of K7_ACTS against its plain twin at
+    GPT-2 small's shape (base: LayerNorm, tied head) and T5-base's (gated:
+    RMSNorm, GEGLU, the rel-pos self bias, untied head), B=8 and 32 (pos 127
+    and 40, left pads), fp32 and bf16, within DS_TOL (``decode_step_phases``
+    with ``acts``). A code's record is GPT-2's at B=8,
+    ``fused_decode_step_<act>``; the other shapes are its ``rows`` and their
+    errors count in its ``err``."""
+    res = decode_step_phases(dev, card, kinds=("gpt2", "t5"), cases=[(b, None) for b in ACT_BATCHES], acts=K7_ACTS)
+    out = {}
+    for act in K7_ACTS:
+        for dn in DS_TOL:
+            rec = res[(f"fused_decode_step_{act}", dn)]
+            rec["rows"] = []
+            for key in (f"fused_decode_step_b32_{act}", f"fused_cross_decode_step_t5_{act}",
+                        f"fused_cross_decode_step_t5_b32_{act}"):
+                row = res[(key, dn)]
+                rec["err"] = max(rec["err"], row["err"])
+                rec["rows"].append({"shape": row["shape"] + (", gated (T5-base)" if "_t5_" in key else ""),
+                                    "dtype": dn, "max_abs_err": row["err"],
+                                    **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}})
+            out[(f"fused_decode_step_{act}", dn)] = rec
+    return out
+
+
+def act_path(dev, card: str) -> dict:
+    """Phase "act", path: GPT-2 small at full width whose config takes each
+    of K7_ACTS (``dataclasses.replace(model.cfg, act=...)``, as the JAX
+    package's ``DecoderLMConfig.act`` allows; streams made to move as in
+    phase "main") through ``DecoderGenerator.generate_tokens_batch`` (B=8,
+    N_NEW new): fp32 tokens identical on the fused, per-op and plain routes
+    up to printed near-ties, K7 launched once per decode step, every launch
+    with that activation, ``embed_add`` launched; then bf16 tok/s fused
+    against per-op in turns (silu). Counts from 0 before each activation's
+    routes; returns ``{act: counts}``."""
+    from dataclasses import replace
+
+    import torch
+
+    from pytorch_models_tpu_torch.models.text import GPT2, DecoderGenerator
+    from pytorch_models_tpu_torch.ops import decode_step as ds
+
+    r = np.random.default_rng(SEED + 31)
+    prompts = [r.integers(0, 50257, n).tolist() for n in PROMPT_LENS]
+    model = GPT2.from_hf("gpt2", rng=SEED, device=dev)
+    _make_streams_move(dev, SEED + 7, model.params, [model.params["decoder"]["layers"]])
+    gelu_cfg = model.cfg
+    gen = DecoderGenerator(model, _Tok())
+    acts_seen, real = [], ds._act_code
+
+    def spy(act, dtype):  # the activation code of every K7 launch (the wrapper's _launch maps each call's act)
+        acts_seen.append(act)
+        return real(act, dtype)
+
+    def generate():
+        return gen.generate_tokens_batch(prompts, max_tokens=N_NEW)
+
+    def gap_fn(i, prefix):
+        _route("plain")
+        with torch.inference_mode():
+            return _top2(model(torch.tensor(prefix))[-1])
+
+    counts = {}
+    try:
+        for act in K7_ACTS:
+            model.cfg = replace(gelu_cfg, act=act)
+            _reset_launches()
+            outs = {}
+            for route in ("plain", "fused", "per-op"):
+                _route(route)
+                acts_seen.clear()
+                ds._act_code = spy
+                try:
+                    outs[route] = generate()
+                finally:
+                    ds._act_code = real
+                if route == "fused":
+                    fused_acts = set(acts_seen)
+            torch.cuda.synchronize()
+            counts[act] = _launches({"fused_decode_step", "embed_add", "decode_attention"})
+            for route, rows in outs.items():
+                if any(row[:len(p)] != p or len(row) != len(p) + N_NEW or not all(0 <= t < 50257 for t in row)
+                       for row, p in zip(rows, prompts)):
+                    raise AssertionError(f"act {act} ({route}): malformed row")
+            steps = _decode_steps([N_NEW] * len(prompts), N_NEW - 1, False)
+            if counts[act]["fused_decode_step"] != steps or fused_acts != {act}:
+                raise AssertionError(f"act {act}: K7 launched {counts[act]['fused_decode_step']} times with "
+                                     f"{fused_acts} for {steps} decode steps")
+            distinct = _check_moving(f"act {act} fp32", outs["fused"], PROMPT_LENS)
+            partings = _check_routes(f"act {act} fp32", outs, gap_fn)
+            print(f"phase act {act} fp32 generate_tokens_batch (GPT-2 small, cfg.act={act!r}): B={len(prompts)} x "
+                  f"{N_NEW} new, fused, per-op and plain token-identical (partings at near-ties: {partings}); K7 "
+                  f"{counts[act]['fused_decode_step']} launches = {steps} decode steps, all with {act}; embed_add "
+                  f"{counts[act]['embed_add']}; distinct new tokens per row {distinct}")
+        model.cfg = replace(gelu_cfg, act="silu")
+        model.to_bf16()
+        times = {}
+        for route in ACT_TURNS:
+            _route(route)
+            ms, _ = _event_ms(generate)
+            times.setdefault(route, []).append(ms)
+        n_tok = len(prompts) * N_NEW
+        print(f"phase time bf16 act silu generate_tokens_batch B={len(prompts)} x {N_NEW} new (prefill included, "
+              "CUDA events, turns " + ", ".join(ACT_TURNS) + "): "
+              + ", ".join(f"{k} {n_tok / (np.mean(v) / 1e3):.1f} tok/s ({np.mean(v):.1f} ms)" for k, v in times.items())
+              + f" [{card}]")
+    finally:
+        _route("fused")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase "examples": the port's entry points, examples/torch_*.py
+# ---------------------------------------------------------------------------
+
+EXAMPLES = ("text_generate", "transcribe", "image_classify", "encodec_roundtrip", "serve_sharded")
+ENCODEC_24K = "encodec_24khz-d7cc33bc.th"
+
+
+def _encodec_facebook_state_dict(params: dict, n_stages: int) -> dict:
+    """The port's EnCodec 24 kHz tree (weight-norm convs) as
+    facebookresearch/encodec's checkpoint: a conv's kernel as ``weight_v``
+    with ``weight_g`` its norm over the last two dims (the loader's ``g * v /
+    ||v||`` gives it back), a ConvTranspose's unflipped to ``(in, out, k)``,
+    an LSTM's bias as ``bias_ih`` beside a zero ``bias_hh``; CPU tensors."""
+    import torch
+
+    sd = {}
+
+    def conv(pfx, p, transpose=False):
+        inner = "convtr.convtr" if transpose else "conv.conv"
+        w = p["w"].flip(0).permute(1, 2, 0) if transpose else p["w"].permute(2, 1, 0)
+        sd[f"{pfx}.{inner}.weight_v"] = w
+        sd[f"{pfx}.{inner}.weight_g"] = w.square().sum((1, 2), keepdim=True).sqrt()
+        sd[f"{pfx}.{inner}.bias"] = p["b"]
+
+    def block(pfx, p):
+        for name, idx in (("conv1", "block.1"), ("conv2", "block.3"), ("shortcut", "shortcut")):
+            conv(f"{pfx}.{idx}", p[name])
+
+    def lstm(pfx, layers):
+        for i, lp in enumerate(layers):
+            sd.update({f"{pfx}.lstm.weight_ih_l{i}": lp["w_ih"].t(), f"{pfx}.lstm.weight_hh_l{i}": lp["w_hh"].t(),
+                       f"{pfx}.lstm.bias_ih_l{i}": lp["b"], f"{pfx}.lstm.bias_hh_l{i}": torch.zeros_like(lp["b"])})
+
+    enc, dec = params["encoder"], params["decoder"]
+    conv("encoder.model.0", enc["conv_in"])
+    for i, st in enumerate(enc["stages"]):
+        block(f"encoder.model.{1 + 3 * i}", st["block"])
+        conv(f"encoder.model.{3 + 3 * i}", st["down"])
+    lstm(f"encoder.model.{1 + 3 * n_stages}", enc["lstm"])
+    conv(f"encoder.model.{3 + 3 * n_stages}", enc["conv_out"])
+    conv("decoder.model.0", dec["conv_in"])
+    lstm("decoder.model.1", dec["lstm"])
+    for i, st in enumerate(dec["stages"]):
+        conv(f"decoder.model.{3 + 3 * i}", st["up"], transpose=True)
+        block(f"decoder.model.{4 + 3 * i}", st["block"])
+    conv(f"decoder.model.{3 + 3 * n_stages}", dec["conv_out"])
+    for i, e in enumerate(params["quantizer"]["embed"]):
+        sd[f"quantizer.vq.layers.{i}._codebook.embed"] = e
+    return {k: _cpu(v) for k, v in sd.items()}
+
+
+def _write_ranks(path: str, n: int) -> None:
+    """A synthetic BPE rank table of ``n`` ranks in the ``.tiktoken`` format
+    (``base64(token) rank`` a line): the 256 bytes, then byte pairs in
+    order, each mergeable from its two bytes."""
+    import base64
+
+    toks = [bytes([i]) for i in range(256)] + [bytes([a, b]) for a in range(256) for b in range(256)]
+    with open(path, "w") as f:
+        f.writelines(f"{base64.b64encode(t).decode()} {i}\n" for i, t in enumerate(toks[:n]))
+
+
+def _write_example_cache(root: str, dev) -> dict:
+    """The four single-card scripts' checkpoints and the two rank tables,
+    from the seed, under the names their ``--pretrained`` reads: GPT-2 small
+    (HF ``gpt2.bin``), Whisper-tiny (OpenAI ``tiny.pt``; key biases zero,
+    as the format has none), ViT-B/16 (AugReg ``.npz``), EnCodec 24 kHz
+    (facebook ``.th``), ``gpt2_tokenizer/gpt2.tiktoken`` (50256 ranks: GPT-2's
+    vocabulary without its EOT) and ``whisper_tokenizer/multilingual.tiktoken``
+    (50257: with the specials, Whisper's 51865). Returns MiB by file."""
+    import os
+
+    import torch
+
+    from pytorch_models_tpu_torch.audio import EnCodec
+    from pytorch_models_tpu_torch.audio2text import Whisper
+    from pytorch_models_tpu_torch.image import ViT
+    from pytorch_models_tpu_torch.text import GPT2
+
+    torch.save(_gpt2_hf_state_dict(GPT2.from_hf("gpt2", rng=SEED, device=dev).params), os.path.join(root, "gpt2.bin"))
+    src = Whisper.from_openai("tiny", rng=SEED, device=dev)
+    for stack in (src.params["encoder"], src.params["decoder"]):
+        for lp in stack["layers"]:
+            for blk in ("sa", "ca"):
+                if blk in lp:
+                    lp[blk]["k"]["b"].zero_()
+    torch.save(_whisper_openai_checkpoint(src.params, src.cfg), os.path.join(root, "tiny.pt"))
+    src = ViT.from_google("B/16_augreg", rng=SEED, device=dev)
+    np.savez(os.path.join(root, AUGREG_B16), **_vit_augreg_arrays(src.params, src.cfg))
+    src = EnCodec.from_facebook("24khz", device=dev)
+    torch.save(_encodec_facebook_state_dict(src.params, len(src.cfg.strides)), os.path.join(root, ENCODEC_24K))
+    for sub, name, n in (("gpt2_tokenizer", "gpt2.tiktoken", 50256), ("whisper_tokenizer", "multilingual.tiktoken",
+                                                                        50257)):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+        _write_ranks(os.path.join(root, sub, name), n)
+    names = ["gpt2.bin", "tiny.pt", AUGREG_B16, ENCODEC_24K, "gpt2_tokenizer/gpt2.tiktoken",
+             "whisper_tokenizer/multilingual.tiktoken"]
+    return {n: os.path.getsize(os.path.join(root, n)) / 2**20 for n in names}
+
+
+def _check_example(name: str, out: dict, pretrained: bool) -> str:
+    """Raises unless a script's outputs have its expected form; returns a
+    summary."""
+    import torch
+
+    def finite(t):
+        return bool(torch.isfinite(t.float()).all())
+
+    if name == "image_classify":
+        ok = (tuple(out["features"].shape) == (8, 768) and tuple(out["features_448"].shape) == (2, 768)
+              and out["features"].dtype == torch.bfloat16 and finite(out["features"]) and finite(out["features_448"]))
+        summary = f"features {tuple(out['features'].shape)} and {tuple(out['features_448'].shape)} bf16, finite"
+    elif name == "encodec_roundtrip":
+        codes, rec = out["codes"], out["reconstruction"]
+        ok = (tuple(codes.shape) == (1, 32, 150) and int(codes.min()) >= 0 and int(codes.max()) < 1024
+              and tuple(rec.shape) == (1, 1, 48000) and finite(rec))
+        summary = f"codes {tuple(codes.shape)} in [0, 1024), reconstruction {tuple(rec.shape)} finite"
+    elif name == "text_generate":
+        texts = [out[k] for k in ("greedy", "nucleus", "beam", "speculative")] + out["batched"] + out["best-of-3"]
+        ok = all(isinstance(t, str) and t for t in texts) and np.isfinite(out["perplexity"]) and out["perplexity"] > 0
+        if not pretrained:  # fp32: speculative decoding is exact (bf16 routes may part at a near-tie)
+            ok = ok and out["greedy"] == out["speculative"]
+        summary = f"{len(texts)} texts, perplexity {out['perplexity']:.6g}"
+    elif name == "transcribe":
+        if pretrained:
+            ok = isinstance(out["single"], str) and isinstance(out["long"], str)
+            summary = f"texts of {len(out['single'])} and {len(out['long'])} characters"
+        else:
+            ok = out["single"][:3] == [50, 51, 52] and out["speculative"] == out["single"] and len(out["long"]) == 2
+            summary = f"single {len(out['single'])} tokens, speculative equal, {len(out['long'])} long-form windows"
+    else:
+        ok = len(out["ranks"]) == 8
+        summary = f"{len(out['ranks'])} ranks token-identical to the single device"
+    if not ok:
+        raise AssertionError(f"examples {name}{' --pretrained' if pretrained else ''}: unexpected outputs ({summary})")
+    return summary
+
+
+def examples_path(dev, card: str) -> dict:
+    """Phase "examples": the port's five examples (``examples/torch_*.py``),
+    each through its ``main`` in this process on the card, random weights:
+    every count from 0 before a script, its launches per kernel read after it
+    (serve_sharded: each of its 8 ranks' own, the ranks sharing the card over
+    gloo), its seconds. Required: text_generate K7 and ``embed_add`` > 0;
+    transcribe K5, K1 and K7 (cross) > 0; image_classify K1 = 12 per forward
+    (two forwards); serve_sharded K2 and ``embed_add`` > 0 and K7 0 on every
+    rank. Then the four single-card scripts with ``--pretrained`` at full
+    width from a temporary cache written from the seed
+    (``_write_example_cache``), with the same launch checks. Each script's
+    outputs are checked for their form (``_check_example``; serve_sharded's
+    ``main`` checks every rank's rows against the single device). Returns
+    the counts by script."""
+    import contextlib
+    import importlib
+    import io
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    need = {"text_generate": {"fused_decode_step", "embed_add"},
+            "transcribe": {"log_mel_spectrogram", "encoder_attention", "fused_cross_decode_step"},
+            "image_classify": {"encoder_attention"}, "encodec_roundtrip": set()}
+
+    def run(name: str, argv: list) -> tuple[dict, dict, float]:
+        mod = importlib.import_module(f"examples.torch_{name}")
+        _reset_launches()
+        buf = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            out = mod.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        for line in buf.getvalue().splitlines():
+            print(f"phase examples {name}{' --pretrained' if argv else ''} | {line[:300]}")
+        return out, _launches(need.get(name, set())), seconds
+
+    def check(name: str, argv: list, out: dict, counts: dict, seconds: float) -> None:
+        if name == "image_classify" and counts["encoder_attention"] != 2 * 12:
+            raise AssertionError(f"image_classify: K1 launched {counts['encoder_attention']} times for 2 forwards")
+        shown = {k: v for k, v in counts.items() if v}
+        print(f"phase examples {name}{' --pretrained' if argv else ''}: {seconds:.1f} s, "
+              f"{_check_example(name, out, bool(argv))}; launches " + " ".join(f"{k}={v}" for k, v in shown.items())
+              + f" [{card}]")
+
+    counts = {}
+    _route("fused")
+    for name in EXAMPLES:
+        out, c, seconds = run(name, [])
+        if name == "serve_sharded":
+            for rank, res in out["ranks"].items():
+                lc = res["launches"]
+                if lc["decode_attention"] <= 0 or lc["embed_add"] <= 0 or lc["fused_decode_step"]:
+                    raise AssertionError(f"serve_sharded rank {rank}: launches {lc}")
+            c = {f"rank {r}": res["launches"] for r, res in sorted(out["ranks"].items())}
+            print(f"phase examples serve_sharded: {seconds:.1f} s, {_check_example(name, out, False)}; launches "
+                  "per rank: " + "; ".join(f"{r}: " + " ".join(f"{k}={v}" for k, v in lc.items() if v)
+                                           for r, lc in c.items()) + f" [{card}]")
+        else:
+            check(name, [], out, c, seconds)
+        counts[name] = c
+    saved_env = os.environ.get(CACHE_ENV)
+    root = tempfile.mkdtemp(prefix="pmt_examples_cache_")
+    os.environ[CACHE_ENV] = root
+    try:
+        t = time.perf_counter()
+        sizes = _write_example_cache(root, dev)
+        print(f"phase examples cache {root}: " + ", ".join(f"{n} {mb:.1f} MiB" for n, mb in sizes.items())
+              + f" written from seed {SEED} in {time.perf_counter() - t:.1f} s")
+        for name in EXAMPLES[:4]:
+            out, c, seconds = run(name, ["--pretrained"])
+            check(name, ["--pretrained"], out, c, seconds)
+            counts[f"{name} --pretrained"] = c
+    finally:
+        if saved_env is None:
+            os.environ.pop(CACHE_ENV, None)
+        else:
+            os.environ[CACHE_ENV] = saved_env
+        shutil.rmtree(root, ignore_errors=True)
+    return counts
+
+
 def profile_phase(fn, what: str, fname: str, out_dir: str, card: str, steps_fn, unit: str = "decode step") -> None:
     """One call of ``fn`` (after a warm-up call) under torch.profiler.
 
@@ -5922,6 +6295,9 @@ def main() -> int:
     spec = timed("spec", spec_paths, dev, card, args.profile)  # its K7 launches at one row feed the *_b1 rows only
     paths["tp"] = timed("tp", tp_path, dev, card)  # the ranks' summed launches; K6 with cur_ks only here
     paths["pp ep train"] = timed("pp ep train", pp_ep_train_path, dev, card)  # the serving runs' summed launches
+    res_act = timed("act kernels", act_kernel_phases, dev, card)
+    act_counts = timed("act", act_path, dev, card)  # K7's relu / silu / identity launches only, by code
+    timed("examples", examples_path, dev, card)  # its launches are checked and printed per script
 
     # name: (source, TPU kernel it replaces, the dtype whose times are reported, its launches over the main paths;
     # the shapes are GPT-2's for K1-K4 and the fused decode step, Whisper's for K5 and the fused cross step,
@@ -6020,6 +6396,9 @@ def main() -> int:
                                           spec["spec t5"]["fused_cross_decode_step_t5_b1"]),
         f"fused_cross_decode_step_t5_b1{l2}": (k7_src, "pytorch_models_tpu/ops/decode_step.py:1397", "bfloat16",
                                                spec["spec t5"][f"fused_cross_decode_step_t5_b1{l2}"]),
+        # the MLP activations beyond GELU: K7 (GPT-2 small, B=8) with relu, silu and identity on phase "act"'s path
+        **{f"fused_decode_step_{a}": (k7_src, "pytorch_models_tpu/ops/decode_step.py:1359", "bfloat16",
+                                      act_counts[a]["fused_decode_step"]) for a in K7_ACTS},
     }
     # each kernel's limit on max_abs_err: elementwise (atol, rtol) by dtype; for the greedy heads, whose outputs
     # are ids, the score regret is held to the top-2 gap tolerance instead
@@ -6034,13 +6413,13 @@ def main() -> int:
                  "fused_cross_decode_step_b16", "fused_cross_decode_step_t5_b32", "fused_cross_decode_step_b32",
                  "fused_decode_step_b1", f"fused_decode_step_b1{l2}", "fused_decode_step_headless_b1",
                  "fused_cross_decode_step_b1", f"fused_cross_decode_step_b1{l2}", "fused_cross_decode_step_t5_b1",
-                 f"fused_cross_decode_step_t5_b1{l2}"):
+                 f"fused_cross_decode_step_t5_b1{l2}", *(f"fused_decode_step_{a}" for a in K7_ACTS)):
         limits[name] = {dn: list(DS_TOL[dn]) for dn in DS_TOL}
     for name in ("fused_decode_step_int8", "fused_decode_step_a8", "fused_cross_decode_step_int8",
                  "fused_cross_decode_step_t5_a8", "fused_decode_step_int8_b32",
                  "fused_cross_decode_step_int8_b16"):  # on x after each layer
         limits[name] = {dn: list(I8_LAYER_TOL[dn]) for dn in I8_LAYER_TOL}
-    results = (res, res_e, res_w, res_t5, res_k7, res_i8, res_i8k7)
+    results = (res, res_e, res_w, res_t5, res_k7, res_i8, res_i8k7, res_act)
     entries = []
     for name, (src, replaces, timed, launches) in meta.items():
         if launches <= 0:

@@ -4,9 +4,10 @@
 //
 // Replaces pytorch_models_tpu/ops/decode_step.py `fused_decode_step` and
 // `fused_cross_decode_step` (both reaching the Pallas call of `_call_fused`)
-// in their base variant (pre-norm LayerNorm, biased projections, GELU exact
-// or tanh), the cross-attention phase over (L, B, Lx, H*D) caches with
-// per-row lengths, T5's variant (`norm="rms"`: RMSNorm without mean
+// in their base variant (pre-norm LayerNorm, biased projections, the MLP's
+// activation of the JAX kernel's KERNEL_ACT_FNS: GELU exact or tanh, relu,
+// silu or identity, `act_fn`), the cross-attention phase over (L, B, Lx,
+// H*D) caches with per-row lengths, T5's variant (`norm="rms"`: RMSNorm without mean
 // subtraction; `gated`: GEGLU over fc1 = [wi_0 | wi_1]; `sbias`: a key-major
 // (Lp, H) fp32 rel-pos bias added to the self-attention scores), and the
 // greedy head over a (V, d) table (tied, or an untied classifier the caller
@@ -70,10 +71,10 @@
 //       blocks costs no extra barrier.
 //   (c) O projection + bias + residual, by column run.
 //   (d) cross only: LN_c + q_c projection | cross attention | O_c + residual.
-//   (e) LN2 + fc1 + bias + GELU into (B, dff) scratch | fc2 + bias + residual.
-//       GEGLU: fc1 writes the raw (B, 2*dff) pair (a + bias | g), and the fc2
-//       phase applies round(gelu(a)) * g while it loads its input, as (b)'s
-//       partials are merged by (c): no extra barrier.
+//   (e) LN2 + fc1 + bias + activation into (B, dff) scratch | fc2 + bias +
+//       residual. GEGLU: fc1 writes the raw (B, 2*dff) pair (a + bias | g),
+//       and the fc2 phase applies round(act(a)) * g while it loads its input,
+//       as (b)'s partials are merged by (c): no extra barrier.
 // Head: final LN; each block scores a contiguous vocab chunk (rounded to
 // bf16 in bf16, as the logits of a bf16 head matmul would be) and keeps the
 // best (value, lowest index) per row | block 0 reduces the blocks' bests with

@@ -68,12 +68,22 @@ __device__ __forceinline__ void ldw(const int8_t* p, A* o) {  // exact: int8 -> 
 __device__ __forceinline__ float mac(float acc, float x, float w) { return fmaf(x, w, acc); }
 __device__ __forceinline__ int mac(int acc, int x, int w) { return acc + x * w; }
 
-__device__ __forceinline__ float gelu(float x, int tanh_form) {
-    if (tanh_form) {
-        const float inner = 0.7978845608028654f * (x + 0.044715f * x * x * x);
-        return 0.5f * x * (1.f + tanhf(inner));
+// The MLP's activation of a compute-dtype value x, in fp32 (the caller rounds): code 0 exact (erf) GELU,
+// 1 tanh GELU, 2 relu, 3 silu, 4 identity (ops/decode_step.py `_ACT_CODES`). silu is x * sigmoid(x) with the
+// sigmoid's exp, sum and reciprocal each rounded to T, as XLA expands the JAX kernel's bf16 logistic (bit for
+// bit the JAX kernel in interpret mode); in fp32 the roundings are exact.
+template <typename T>
+__device__ __forceinline__ float act_fn(float x, int code) {
+    switch (code) {
+    case 0: return 0.5f * x * (1.f + erff(x * 0.7071067811865476f));
+    case 1: return 0.5f * x * (1.f + tanhf(0.7978845608028654f * (x + 0.044715f * x * x * x)));
+    case 2: return x > 0.f ? x : 0.f;
+    case 3: {
+        const float e = pmt::round_to<T>(expf(-x));
+        return x * pmt::round_to<T>(1.f / pmt::round_to<T>(1.f + e));
     }
-    return 0.5f * x * (1.f + erff(x * 0.7071067811865476f));
+    default: return x;
+    }
 }
 
 __device__ __forceinline__ long long globaltimer() {
@@ -189,7 +199,7 @@ __device__ void quantize_xs(float* xs, int xst, int B, int K, float* rsc) {
     __syncthreads();
 }
 
-// GEGLU input of fc2: xs[b, k] = round_T(round_T(gelu(a)) * g) from the
+// GEGLU input of fc2: xs[b, k] = round_T(round_T(act(a)) * g) from the
 // (B, 2*dff) pair h[b] = [a | g] that fc1 wrote
 template <typename T>
 __device__ void load_gated(const T* h, int B, int dff, int act, float* xs, int xst) {
@@ -201,7 +211,7 @@ __device__ void load_gated(const T* h, int B, int dff, int act, float* xs, int x
         ld16cg(h + static_cast<int64_t>(b) * 2 * dff + k, a);
         ld16cg(h + static_cast<int64_t>(b) * 2 * dff + dff + k, g);
 #pragma unroll
-        for (int e = 0; e < VEC; ++e) xs[b * xst + k + e] = pmt::round_to<T>(pmt::round_to<T>(gelu(a[e], act)) * g[e]);
+        for (int e = 0; e < VEC; ++e) xs[b * xst + k + e] = pmt::round_to<T>(pmt::round_to<T>(act_fn<T>(a[e], act)) * g[e]);
     }
     __syncthreads();
 }
@@ -997,7 +1007,7 @@ __global__ void __launch_bounds__(NT, 1) decode_step_kernel(Args a, Plan p) {
             sync();
         }
 
-        // (e) LN2 + fc1 + GELU | fc2 + residual (GEGLU: fc1 writes the pair, fc2's load gates it)
+        // (e) LN2 + fc1 + activation | fc2 + residual (GEGLU: fc1 writes the pair, fc2's load gates it)
         const int act = a.act, gated = a.gated, n1 = gated ? 2 * dff : dff;
         {
             const float *bias = cur_bias(), *sc = cur_scales();
@@ -1006,7 +1016,7 @@ __global__ void __launch_bounds__(NT, 1) decode_step_kernel(Args a, Plan p) {
                 if (gated)
                     hbuf[b * n1 + c] = pmt::from_f32<T>(c < dff ? v + bias[j] : v);
                 else
-                    hbuf[b * dff + c] = pmt::from_f32<T>(gelu(pmt::round_to<T>(v + bias[j]), act));
+                    hbuf[b * dff + c] = pmt::from_f32<T>(act_fn<T>(pmt::round_to<T>(v + bias[j]), act));
             });
             then(5, l);
         }

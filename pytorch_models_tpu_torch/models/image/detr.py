@@ -19,7 +19,7 @@ the local cache (a miss downloads it).
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass, replace
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -140,7 +140,7 @@ def detr_init(gen: torch.Generator, cfg: DETRConfig, device=None) -> dict:
         "input_proj": conv2d_init(gen, 1, 1, in_dim, cfg.d_model),
         "query_embed": torch.zeros(cfg.n_queries, cfg.d_model),
         "encoder": {"layers": [tfm.layer_init(gen, lc) for _ in range(cfg.n_enc_layers)]},
-        "decoder": {"layers": [tfm.layer_init(gen, replace(lc, cross_attn=True)) for _ in range(cfg.n_dec_layers)]},
+        "decoder": {"layers": [tfm.layer_init(gen, lc.with_(cross_attn=True)) for _ in range(cfg.n_dec_layers)]},
         "norm": tfm.ln_init(cfg.d_model),
         "classifier": tfm.linear_init(gen, cfg.d_model, cfg.n_classes + 1),
         "box_head": [tfm.linear_init(gen, cfg.d_model, cfg.d_model), tfm.linear_init(gen, cfg.d_model, cfg.d_model),

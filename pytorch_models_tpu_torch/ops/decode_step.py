@@ -1,6 +1,7 @@
 """Fused greedy decode step: the whole decoder layer stack for one token in
 ONE kernel (PyTorch port of ``pytorch_models_tpu/ops/decode_step.py``: its
-base variant, pre-norm LayerNorm, biased projections, GELU; the
+base variant, pre-norm LayerNorm, biased projections, the MLP activations
+of its ``KERNEL_ACT_FNS`` (GELU exact or tanh, relu, silu, identity); the
 cross-attention phase of Whisper; T5's variant, RMSNorm, GEGLU and a
 key-major rel-pos self-attention bias; the greedy head over a tied or an
 untied table).
@@ -23,9 +24,10 @@ then attend over ``[min(pad_b, pos), pos]``, and return ``(x_out, tok)``.
 Numerics (the kernel and its plain version alike): LayerNorm (or RMSNorm:
 no mean subtraction) statistics in fp32, ``y * scale + bias`` in fp32, the
 normed input rounded once to the compute dtype (the JAX kernel's ``_norm``);
-projections accumulate in fp32, add their fp32 bias, then round once; GEGLU
-is ``round(round(gelu(round(a + b1))) * round(g))`` of the two halves of
-fc1; q is scaled in fp32 and rounded; scores [+ the fp32 self bias], softmax
+projections accumulate in fp32, add their fp32 bias, then round once; the
+activation acts on the rounded sum (:func:`_act`); GEGLU is
+``round(round(act(round(a + b1))) * round(g))`` of the two halves of fc1;
+q is scaled in fp32 and rounded; scores [+ the fp32 self bias], softmax
 and ``P @ V`` in fp32 with the safe max, an empty cross range giving zeros;
 residual adds in the compute dtype; in bf16 the head's scores are rounded to
 bf16 before the argmax, whose ties go to the lowest index. The JAX kernel also rounds ``k * q`` and the probabilities to
@@ -78,20 +80,36 @@ from .int8_kv import KV_BLOCK_INT8, int8_decode_attention_plain, quantize_rows
 
 HEAD_DIM = 64  # the kernel's head width (every family of the JAX package)
 MAX_BATCH = 32  # rows the kernel serves (in groups of 8 inside one launch); a larger batch decodes per-op
-_ACT_CODES = ("gelu", "approximate_gelu")
+_ACT_CODES = ("gelu", "approximate_gelu", "relu", "silu", "identity")  # the kernel's act codes 0-4: ACT_FNS' names
 _NORM_CODES = ("ln", "rms")
 
 
 def _act_code(act: str, dtype: torch.dtype) -> int:
-    """0: exact (erf) GELU, 1: tanh GELU. bf16 serving takes tanh-GELU for
-    "gelu" too, the port's ACT_FNS policy (ops/layers.py)."""
-    return 1 if act == "approximate_gelu" or dtype == torch.bfloat16 else 0
+    """0: exact (erf) GELU, 1: tanh GELU, 2: relu, 3: silu, 4: identity.
+    bf16 serving takes tanh-GELU for "gelu" too, the port's ACT_FNS policy
+    (ops/layers.py); the other names keep their code in every dtype."""
+    return 1 if act == "gelu" and dtype == torch.bfloat16 else _ACT_CODES.index(act)
 
 
 def _act(act: str, x: torch.Tensor) -> torch.Tensor:
-    """GELU in fp32 on compute-dtype values, rounded once."""
-    tanh = _act_code(act, x.dtype) == 1
-    return F.gelu(x.float(), approximate="tanh" if tanh else "none").to(x.dtype)
+    """The kernel's activation of compute-dtype values, in their dtype:
+    GELU in fp32, rounded once; relu and identity exact; silu as the JAX
+    kernel computes it, ``x * sigmoid(x)`` with the sigmoid's exp, sum and
+    reciprocal each rounded to the compute dtype (XLA's expansion of a bf16
+    logistic; bit for bit the JAX kernel in interpret mode; exact in fp32)."""
+    code = _act_code(act, x.dtype)
+    if code <= 1:
+        return F.gelu(x.float(), approximate="tanh" if code else "none").to(x.dtype)
+    if code == 2:
+        return torch.relu(x)
+    if code == 4:
+        return x
+
+    def rnd(t):
+        return t.to(x.dtype).float()
+
+    x32 = x.float()
+    return (x32 * rnd(1.0 / rnd(1.0 + rnd(torch.exp(-x32))))).to(x.dtype)
 
 
 def _norm_pair(p: dict) -> tuple[torch.Tensor, torch.Tensor]:
@@ -207,8 +225,9 @@ def pack_embed_tables(token_embs: torch.Tensor, pos_embs: torch.Tensor | None = 
 
 def fused_step_eligible(layers: list, cfg, batch: int, cross: bool = False, gated: bool = False,
                         dtype: torch.dtype | None = None) -> bool:
-    """What the CUDA kernel serves: pre-norm layers with a GELU MLP (a GEGLU
-    ``mlp.{w, v, wo}`` one with ``gated``), head_dim 64, widths that are
+    """What the CUDA kernel serves: pre-norm layers whose MLP activation is
+    an ``ACT_FNS`` name (its gated form, ``mlp.{w, v, wo}``, with
+    ``gated``), head_dim 64, widths that are
     multiples of 64 (16-byte loads over whole column slabs), 1 to MAX_BATCH
     (32) rows,
     every projection float or every one weight-only int8, and, for weights
@@ -372,7 +391,7 @@ def fused_decode_step_plain(x, packed, k_caches, v_caches, pos: int, pad_lens, n
                 ctx = _attend(qc, cross_k[i].to(dt), cross_v[i].to(dt), cross_valid, n_heads)
             x = x + proj(ctx, "woc", i, packed["boc"][i])
         h2 = ln(packed["ln2_s"][i], packed["ln2_b"][i], x)
-        if gated:  # GEGLU: gelu(a + b1) * g over the two halves of fc1, in the compute dtype
+        if gated:  # GEGLU: act(a + b1) * g over the two halves of fc1, in the compute dtype
             a, g = acc_of(h2, "w1", i).chunk(2, dim=-1)
             h = _act(act, (a + packed["b1"][i].float()).to(dt)) * g.to(dt)
         else:

@@ -209,6 +209,20 @@ def _generate_batch(params: dict, cfg: MoEDecoderConfig, prompt_buf, pad_lens, l
     return greedy_generate(forward, prompt_buf, pad_lens, limit, eos_id, cfg.max_seq_len, all_done)
 
 
+def _pack_prompts(token_lists, cfg: MoEDecoderConfig, max_tokens: int):
+    """The prompts LEFT-padded as ``serving.left_pad_prompts`` packs them,
+    with the JAX MoE generators' stop: their prefill writes its argmax
+    before the loop tests ``limit``, so ``max_tokens <= 0`` still returns
+    one new token a row (the dense generators return the prompts). A
+    bucket that fills the context leaves no slot for that token: JAX's
+    raise a ValueError there, and so do these."""
+    packed = left_pad_prompts(token_lists, cfg.max_seq_len, max(max_tokens, 1), PROMPT_BUCKET)
+    if packed is None:
+        raise ValueError(f"prompts pad to the whole context of {cfg.max_seq_len}: no slot for a new token")
+    buf, pad_lens, _ = packed
+    return buf, pad_lens, min(buf.shape[1] + max_tokens, cfg.max_seq_len)
+
+
 def ep_param_pspecs(cfg: MoEDecoderConfig) -> dict:
     """Specs of the MoE decoder tree: each layer's expert weights split over
     "ep" on the expert dim; everything else replicated."""
@@ -226,10 +240,7 @@ class MoEDecoderGenerator:
         self.params, self.cfg = params, cfg
 
     def generate_tokens_batch(self, token_lists, max_tokens: int = 16, eos_id: int = -1):
-        packed = left_pad_prompts(token_lists, self.cfg.max_seq_len, max_tokens, PROMPT_BUCKET)
-        if packed is None:
-            return [list(ts) for ts in token_lists]
-        buf, pad_lens, limit = packed
+        buf, pad_lens, limit = _pack_prompts(token_lists, self.cfg, max_tokens)
         dev = self.params["token_embs"].device
         out, lengths = _generate_batch(self.params, self.cfg, torch.from_numpy(buf).to(dev),
                                        torch.from_numpy(pad_lens).to(dev), limit, eos_id,
@@ -257,10 +268,7 @@ class EPMoEGenerator:
         b = len(token_lists)
         if b % self.n_ranks:
             raise ValueError(f"batch {b} not divisible by ep={self.n_ranks}")
-        packed = left_pad_prompts(token_lists, self.cfg.max_seq_len, max_tokens, PROMPT_BUCKET)
-        if packed is None:
-            return [list(ts) for ts in token_lists]
-        buf, pad_lens, limit = packed
+        buf, pad_lens, limit = _pack_prompts(token_lists, self.cfg, max_tokens)
         n = b // self.n_ranks
         rows = slice(self.mesh.index("ep") * n, (self.mesh.index("ep") + 1) * n)
         dev, group = self.mesh.device, self.mesh.group("ep")

@@ -42,7 +42,7 @@ current key's full-width scale (``cur_ks``).
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import torch
 
@@ -84,6 +84,9 @@ class LayerConfig:
     def make(d_model, n_heads=None, head_dim=None, **kw) -> "LayerConfig":
         n_heads, head_dim = resolve_heads(d_model, n_heads, head_dim)
         return LayerConfig(d_model, n_heads, head_dim, **kw)
+
+    def with_(self, **kw) -> "LayerConfig":
+        return replace(self, **kw)
 
 
 # ---------------------------------------------------------------------------

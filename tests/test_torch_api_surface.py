@@ -188,3 +188,21 @@ def test_checkpoint_reader_save_load_and_tokenizers_match_jax():
         assert _surface(ours) == _surface(ref), ours.__qualname__
     assert utils.hub_download is utils.download.hub_download and "hub_download" in utils.__all__
     assert "hub_download" in jax_utils.__all__
+
+
+def test_layer_config_with_matches_jax():
+    """``LayerConfig.with_`` takes JAX's keyword-only surface and returns a
+    copy with the fields replaced, the original unchanged (DETR's decoder
+    layers are built through it in both packages)."""
+    from pytorch_models_tpu import transformer as jax_tfm
+    from pytorch_models_tpu_torch import transformer as tfm
+
+    assert _surface(tfm.LayerConfig.with_) == _surface(jax_tfm.LayerConfig.with_)
+    lc = tfm.LayerConfig.make(256, n_heads=8)
+    got = lc.with_(cross_attn=True, act="relu")
+    ref = jax_tfm.LayerConfig.make(256, n_heads=8).with_(cross_attn=True, act="relu")
+    assert (got.d_model, got.n_heads, got.head_dim, got.cross_attn, got.act) == (
+        ref.d_model, ref.n_heads, ref.head_dim, ref.cross_attn, ref.act)
+    assert not lc.cross_attn and lc.act == "gelu"
+    with pytest.raises(TypeError):
+        lc.with_(no_such_field=1)

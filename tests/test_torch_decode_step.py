@@ -362,7 +362,8 @@ def test_fused_step_eligible_states_the_kernels_shapes():
     assert not ds.fused_step_eligible(layers, lc, 33, cross=True)  # more rows than the kernel serves
     assert not ds.fused_step_eligible(layers, tfm.LayerConfig.make(D, n_heads=4), 4)  # head_dim 32
     assert not ds.fused_step_eligible(layers, tfm.LayerConfig.make(D, n_heads=2, pre_norm=False), 4)
-    assert not ds.fused_step_eligible(layers, tfm.LayerConfig.make(D, n_heads=2, act="relu"), 4)
+    assert ds.fused_step_eligible(layers, tfm.LayerConfig.make(D, n_heads=2, act="relu"), 4)  # every ACT_FNS name
+    assert not ds.fused_step_eligible(layers, tfm.LayerConfig.make(D, n_heads=2, act="tanh"), 4)  # no other
     no_cross = [{k: v for k, v in lp.items() if k not in ("ca", "ca_norm")} for lp in layers]
     assert ds.fused_step_eligible(no_cross, lc, 4) and not ds.fused_step_eligible(no_cross, lc, 4, cross=True)
     cfg, _, t5_layers = _t5_layers()  # GEGLU mlp.{w, v, wo}: served only as gated

@@ -66,6 +66,9 @@ EP_CFG = dict(n_layers=2, n_experts=4, max_seq_len=64)
 EP_PROMPTS = {"moe0": PROMPTS, "moe1": [[i // 2 + 1, i // 2 + 2] for i in range(8)]}
 EP_KW = {"moe0": dict(max_tokens=8), "moe1": dict(max_tokens=12, eos_id=239)}
 TP_PP = {8: [(2, 4), (4, 2), (2, 2, 2)], 4: [(2, 2)]}
+# the MoE generators' stop: no new token asked for, and a prompt whose bucket of 8 fills the context of 64
+EP_SHORT = {"zero": (PROMPTS, dict(max_tokens=0)), "neg": (PROMPTS, dict(max_tokens=-1)),
+            "full": ([[3] * 60, [5, 6, 7], [9] * 20, [11, 12]], dict(max_tokens=4))}
 
 
 def _jax_gpt2(name, eos=9):
@@ -89,7 +92,8 @@ def ranks(tmp_path_factory):
     """Every rank's results, by world size (2, 4, 8), each a list over the ranks."""
     c = {"prompts": PROMPTS, "eos_prompts": EOS_PROMPTS, "eos": _eos_id(), "tp_pp": TP_PP, "ep_cfg": EP_CFG,
          "pp": {2: [("gpt2_128_l4", 2)], 4: [("gpt2_128_l4", 4)]}, "ep_prompts": EP_PROMPTS,
-         "ep": {2: [("moe0", 2, EP_KW["moe0"])], 4: [("moe0", 4, EP_KW["moe0"]), ("moe1", 4, EP_KW["moe1"])]}}
+         "ep": {2: [("moe0", 2, EP_KW["moe0"])], 4: [("moe0", 4, EP_KW["moe0"]), ("moe1", 4, EP_KW["moe1"])]},
+         "ep_short": {4: {label: ("moe0", 4, prompts, kw) for label, (prompts, kw) in EP_SHORT.items()}}}
     worlds = (2, 4, 8)
     got = run_ranks([(w, "pp_ep_serving", (MODELS, c)) for w in worlds], tmp_path_factory.mktemp("pp_ep"))
     return SimpleNamespace(eos=c["eos"], **{f"w{w}": r for w, r in zip(worlds, got)})
@@ -196,6 +200,31 @@ def test_ep_serving_eos_lockstep(ranks):
     jax_ep = JaxEP(jax.tree.map(jnp.asarray, MODELS["moe1"]), JaxMoECfg(**EP_CFG),
                    jax_make_mesh(4, shape=(4,), axes=("ep",)))
     assert jax_ep.generate_tokens_batch(EP_PROMPTS["moe1"], **EP_KW["moe1"]) == ref
+
+
+@pytest.mark.parametrize("label", list(EP_SHORT))
+def test_moe_generators_stop_as_jax_at_no_new_tokens(ranks, label):
+    """JAX's MoE generators write the prefill's argmax before their loop
+    tests the limit, so ``max_tokens`` 0 or -1 returns each prompt and one
+    token; a prompt whose bucket fills the context leaves no slot for it,
+    and JAX's raise a ValueError (an argmax over no generated column). The
+    port's dense generator returns JAX's rows, or raises where JAX's do, and
+    the EP generator at ep=4 does as the dense one."""
+    prompts, kw = EP_SHORT[label]
+    jax_gen = JaxMoEGen(jax.tree.map(jnp.asarray, MODELS["moe0"]), JaxMoECfg(**EP_CFG))
+    gen = MoEDecoderGenerator(from_jax_params(MODELS["moe0"]), MoEDecoderConfig(**EP_CFG))
+    if label == "full":
+        with pytest.raises(ValueError):
+            jax_gen.generate_tokens_batch(prompts, **kw)
+        with pytest.raises(ValueError, match="no slot for a new token") as err:
+            gen.generate_tokens_batch(prompts, **kw)
+        assert _same_on_every_rank(ranks.w4, ("short", label)) == repr(err.value)
+        return
+    ref = gen.generate_tokens_batch(prompts, **kw)
+    assert ref == jax_gen.generate_tokens_batch(prompts, **kw)
+    assert [len(row) for row in ref] == [len(p) + 1 for p in prompts]
+    assert all(row[:len(p)] == p for row, p in zip(ref, prompts))
+    assert _same_on_every_rank(ranks.w4, ("short", label)) == ref
 
 
 def test_moe_decoder_carriers_round_trip():

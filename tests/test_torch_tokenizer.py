@@ -6,8 +6,8 @@ table of tests/audio2text/test_tokenizer.py (plus three merges) and an HF
 ``vocab.json``/``merges.txt`` pair written from it. Ids must be identical
 for ASCII, Unicode and special-token text, decoding must round-trip, and
 ``sot_sequence`` must agree for several languages and tasks. The BPE engine
-is ``tiktoken``: the tests that encode skip without it (the GPU machine has
-none). Then the string methods (``generate``, ``generate_batch``,
+is ``tiktoken``: the tests that encode skip without it (it is installed on
+the CPU and the GPU test machines alike). Then the string methods (``generate``, ``generate_batch``,
 ``generate_samples``, ``beam_search{,_batch}``, Whisper's ``transcribe`` and
 ``transcribe_beam``, T5's ``generate_beam`` with a sentencepiece-style
 tokenizer) against JAX's on the same small models.

@@ -312,6 +312,12 @@ def pp_ep_serving(rank: int, world: int, m: dict, c: dict) -> dict:
         r[(name, ep)] = gen.generate_tokens_batch(c["ep_prompts"][name], **kw)
         r[(name, ep, "all_to_all")] = all_to_all.calls - before
         r[(name, ep, "w1")] = tuple(gen.params["layers"][0]["w1"].shape)
+    for label, (name, ep, prompts, kw) in c.get("ep_short", {}).get(world, {}).items():
+        gen = EPMoEGenerator(from_jax_params(m[name]), MoEDecoderConfig(**c["ep_cfg"]), _mesh(world, (ep,), ("ep",)))
+        try:
+            r[("short", label)] = gen.generate_tokens_batch(prompts, **kw)
+        except ValueError as e:
+            r[("short", label)] = repr(e)
     return r
 
 
