@@ -247,6 +247,7 @@ and ``torch.backends.cudnn.allow_tf32`` False), so fp32 means fp32.
 
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -310,7 +311,7 @@ T5_BIAS_SCALE = 2.0  # rel-pos tables, seeded N(0, 1) x this (the init's are zer
 
 # beam search and sampling: W beams a prompt, G prompts (G x W = 8 and 16 rows: the fused step headless),
 # at most BEAM_NEW new tokens; the sampled phases' settings (topk, top_p, temperature, seed)
-BEAM_W, BEAM_G, BEAM_NEW = 4, (2, 4), 32
+BEAM_W, BEAM_G, BEAM_NEW = 4, (2, 4, 9), 32  # G=9: 36 rows, K7 headless over row slices of 32 and 4
 # fp32 routes' beams: scores within the model's beam tolerance, and sequences parted only where a selection of
 # the plain route's run (the 2W candidates, the W survivors, the finished pool) had its k-th and (k+1)-th
 # scores within it. The tolerance is the main paths' near-tie tolerance at the model's top logit on the first
@@ -1129,7 +1130,9 @@ def _k7_model(dev, kind: str):
     """Full-width random layers for the K7 phase (init scale, from a seed):
     GPT-2 small (12 layers, d 768, tanh GELU, tied vocab 50257), the
     Whisper-base decoder (8 layers, d 512, cross-attention, exact GELU, tied
-    vocab 51865) or the T5-base decoder (12 layers, d 768, RMSNorm, GEGLU
+    vocab 51865), Whisper large-v3's (``whisper-large``: d 1280, 20 heads,
+    dff 5120, vocab 51866; W_LARGE_K7_LAYERS of its 32 layers) or the
+    T5-base decoder (12 layers, d 768, RMSNorm, GEGLU
     mlp 2048, cross-attention, untied (d, V) classifier, vocab 32128). Norms
     are drawn off their identity init, so the check covers their parameters.
     Returns ``(layer config, layers, head table, final norm)``."""
@@ -1140,7 +1143,11 @@ def _k7_model(dev, kind: str):
     from pytorch_models_tpu_torch.utils import tree_map
 
     gen = torch.Generator().manual_seed(SEED + 5)
-    if kind == "t5":
+    if kind == "whisper-large":  # large-v3's decoder layers, depth cut to W_LARGE_K7_LAYERS
+        n_layers, d, vocab, cross = W_LARGE_K7_LAYERS, 1280, 51866, True
+        cfg = tfm.LayerConfig.make(d, cross_attn=True, act="gelu")
+        layers = [tfm.layer_init(gen, cfg) for _ in range(n_layers)]
+    elif kind == "t5":
         t5 = T5Config(32128, 768, 12, 12, 2048)
         cfg = tfm.LayerConfig(768, 12, 64, bias=False, act="approximate_gelu")
         layers = [t5_block_init(gen, t5, True) for _ in range(t5.n_layers)]
@@ -1165,7 +1172,13 @@ def _k7_model(dev, kind: str):
     return cfg, layers, rnd(d, vocab) if kind == "t5" else rnd(vocab, d), norm()
 
 
-K7_BATCHES = (8, 16, 32)  # K7's kernel phases: one row group, two, and the most it serves (ops.decode_step.MAX_BATCH)
+# K7's kernel phases: one row group, two, the most rows of one launch (ops.decode_step.MAX_LAUNCH_ROWS), and
+# batches served over row slices (32 + 1, 32 + 8, 32 + 32: K7_SLICED)
+K7_BATCHES = (8, 16, 32, 33, 40, 64)
+K7_SLICED = (33, 40, 64)
+# Whisper large-v3's decoder width in the K7 phase (bf16 and fp32 at B=16: two launches of 8 rows, a block's
+# weight share not fitting its ring whole above 8), at this depth
+W_LARGE_K7_B, W_LARGE_K7_LAYERS = 16, 4
 # K7 at one row, the speculative drafts' batch: at the whole stack (the identical draft) and at SPEC_DRAFT_LAYERS
 SPEC_DRAFT_LAYERS = 2
 
@@ -1183,7 +1196,10 @@ def _k7_key(name: str, b: int, depth: int | None = None) -> str:
 
 def decode_step_phases(dev, card: str, kinds=("gpt2", "whisper", "t5"), cases=None, acts=(None,)) -> dict:
     """K7 against its plain version at the full GPT-2-small, Whisper-base and
-    T5-base shapes (``kinds``), B=8, 16 and 32 (K7_BATCHES) and B=1 (the speculative
+    T5-base shapes (``kinds``), B=8, 16 and 32 and over row slices at 33, 40
+    and 64 (K7_BATCHES: the launches counted, one per slice of at most
+    MAX_LAUNCH_ROWS, and the bound of reading the weights once a launch
+    beside the bound), and B=1 (the speculative
     drafts: the whole stack, and its first SPEC_DRAFT_LAYERS layers; GPT-2
     also headless; ``cases``: other ``(B, depth)`` pairs), fp32 and bf16,
     with each model's own MLP activation or (``acts``) another one, whose
@@ -1201,6 +1217,7 @@ def decode_step_phases(dev, card: str, kinds=("gpt2", "whisper", "t5"), cases=No
     from pytorch_models_tpu_torch.models.text.t5 import T5Config, _t5_decode_layers, relative_position_bias, rms_norm
     from pytorch_models_tpu_torch.ops import layer_norm
     from pytorch_models_tpu_torch.ops.decode_step import (
+        MAX_LAUNCH_ROWS,
         fused_cross_decode_step,
         fused_decode_step,
         fused_decode_step_plain,
@@ -1219,7 +1236,7 @@ def decode_step_phases(dev, card: str, kinds=("gpt2", "whisper", "t5"), cases=No
         cfg32 = model_cfg if act is None else model_cfg.with_(act=act)
         cross, t5 = kind != "gpt2", kind == "t5"
         name = {"gpt2": "fused_decode_step", "whisper": "fused_cross_decode_step",
-                "t5": "fused_cross_decode_step_t5"}[kind]
+                "whisper-large": "fused_cross_decode_step_large", "t5": "fused_cross_decode_step_t5"}[kind]
         key = _k7_key(name, b, depth) + ("" if act is None else f"_{act}")
         stack = layers32[:depth]
         n_layers, d, hd = len(stack), cfg32.d_model, cfg32.n_heads * cfg32.head_dim
@@ -1264,8 +1281,11 @@ def decode_step_phases(dev, card: str, kinds=("gpt2", "whisper", "t5"), cases=No
 
             kc_p, vc_p = kc.clone(), vc.clone()
             ref_x, ref_tok = plain(kc_p, vc_p)
+            fn = fused_cross_decode_step if cross else fused_decode_step
+            before = fn.launches
             got_x, got_tok = kernel()
             torch.cuda.synchronize()
+            n_launch = fn.launches - before  # above one launch's rows (or a plan refused whole): one per row slice
             tol = DS_TOL[dn]
             err = _check_close(f"{name} x_out {dn}", got_x, ref_x, tol)
             use = ((got_x.float() - ref_x.float()).abs() / (tol[0] + tol[1] * ref_x.float().abs())).max().item()
@@ -1321,8 +1341,10 @@ def decode_step_phases(dev, card: str, kinds=("gpt2", "whisper", "t5"), cases=No
                 return greedy_argmax_tied(layer_norm(final, h[:, 0], cfg32.norm_eps), head["emb"])
 
             with torch.inference_mode():  # the host-bound twin and per-op step over fewer calls a turn
-                ms, plain_ms = _ab_ms([kernel], [plain], 10, plain_iters=3)
-                ms2, op_ms = _ab_ms([kernel], [per_op], 20, plain_iters=5) if act is None else (None, None)
+                ms, plain_ms = _ab_ms([kernel], [plain], 10, plain_iters=1)
+                # the per-op step beside every batch one launch serves and the largest sliced one (the script's time)
+                timed_op = act is None and b not in K7_SLICED[:-1]
+                ms2, op_ms = _ab_ms([kernel], [per_op], 10, plain_iters=3) if timed_op else (None, None)
             item = x.element_size()
             w_el = sum(t.numel() for k, t in packed.items() if k.startswith("w"))
             small = sum(t.numel() for k, t in packed.items() if not k.startswith("w")) + 2 * d
@@ -1337,6 +1359,10 @@ def decode_step_phases(dev, card: str, kinds=("gpt2", "whisper", "t5"), cases=No
             if op_ms is not None:
                 r["per_op_ms"] = op_ms
             r["shape"] = f"{kind} {n_layers} layers d={d} B={b} pos={pos}"
+            # over row slices the weights and the head leave HBM once per launch: the bound of that schedule
+            r["launches_a_step"] = n_launch
+            slice_bytes = nbytes + (n_launch - 1) * (w_el + head["emb"].numel()) * item
+            r["slice_bound_ms"] = max(r["bound_ms"], slice_bytes / HBM_BYTES_PER_S * 1e3)
             print(f"phase kernel {name}{'' if act is None else '_' + act} {dn}: {kind} {n_layers} layers d={d} "
                   f"B={b} pos={pos} act {cfg32.act} "
                   + (f"pads {pads.tolist()}" if pads is not None else "no pads")
@@ -1347,8 +1373,12 @@ def decode_step_phases(dev, card: str, kinds=("gpt2", "whisper", "t5"), cases=No
                   f" ({int(decided.sum())}/{b} decided, equal), max regret {regret.abs().max().item():.3g} | kernel "
                   f"{ms * 1e3:.1f} us" + ("" if ms2 is None else f" ({ms2 * 1e3:.1f} us in the second pair)")
                   + f", plain {plain_ms * 1e3:.1f} us, " + ("" if op_ms is None else f"per-op step {op_ms * 1e3:.1f} us, ")
-                  + f"bound {r['bound_ms'] * 1e3:.1f} us ({r['bound_by']}, {nbytes / 1e6:.1f} MB) [{card}]")
-            if act is not None or (b == 1 and (kind != "gpt2" or depth is not None)):
+                  + f"bound {r['bound_ms'] * 1e3:.1f} us ({r['bound_by']}, {nbytes / 1e6:.1f} MB)"
+                  + ("" if n_launch == 1 else f"; {n_launch} launches (row slices), bound with the weights read once "
+                     f"a launch {r['slice_bound_ms'] * 1e3:.1f} us") + f" [{card}]")
+            if n_launch != -(-b // MAX_LAUNCH_ROWS) and kind != "whisper-large":
+                raise AssertionError(f"{name} B={b}: {n_launch} launches, {-(-b // MAX_LAUNCH_ROWS)} wanted")
+            if act is not None or kind == "whisper-large" or (b == 1 and (kind != "gpt2" or depth is not None)):
                 continue  # the one-row headless step serves the sampled drafts, GPT-2's identical draft
             res.update(_headless_check(kind, name, dn, card, x, packed, kc, vc, xk, xv, lens, pos, pads, cfg32,
                                        variant, final32, head, None if b == 8 else b))
@@ -1394,8 +1424,11 @@ def _headless_check(kind: str, name: str, dn: str, card: str, x, packed, kc, vc,
 
     kp, vp = hk.clone(), hv.clone()
     ref_x, ref_tok = plain(kp, vp)
+    fn = fused_cross_decode_step if cross else fused_decode_step
+    before = fn.launches
     got_x, got_tok = kernel()
     torch.cuda.synchronize()
+    n_launch = fn.launches - before
     if got_tok is not None or ref_tok is not None:
         raise AssertionError(f"{name} headless: a token came back")
     tol = DS_TOL[dn]
@@ -1410,7 +1443,7 @@ def _headless_check(kind: str, name: str, dn: str, card: str, x, packed, kc, vc,
     emb = head["emb"].to(hx.dtype)
     xn = rms_norm(final, got_x) if t5 else layer_norm(final, got_x, cfg.norm_eps)
     with torch.inference_mode():
-        ms, plain_ms = _ab_ms([kernel], [lambda: plain(hk, hv)], 10, plain_iters=3)
+        ms, plain_ms = _ab_ms([kernel], [lambda: plain(hk, hv)], 10, plain_iters=1)
         head_ms = _time_ms([lambda: torch.matmul(xn, emb.t())], 50)
     item = hx.element_size()
     w_el = sum(t.numel() for k, t in packed.items() if k.startswith("w"))
@@ -1422,10 +1455,16 @@ def _headless_check(kind: str, name: str, dn: str, card: str, x, packed, kc, vc,
     flops = 2 * b * w_el + 4 * n_layers * hd * (self_keys + b + cross_keys)
     rec = _rec(err, ms, plain_ms, nbytes, flops, dn)
     rec["head_matmul_ms"] = head_ms
+    rec["shape"] = f"{kind} {n_layers} layers B={b} pos={pos}, headless"
+    rec["launches_a_step"] = n_launch
+    rec["slice_bound_ms"] = max(rec["bound_ms"], (nbytes + (n_launch - 1) * w_el * item) / HBM_BYTES_PER_S * 1e3)
     print(f"phase kernel {name} headless {dn}: {kind} {n_layers} layers B={b} pos={pos} | max |kernel - plain| (x_out, "
           f"K/V at pos) {err:.3g} (atol, rtol)={tol} | kernel {ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, bound "
-          f"{rec['bound_ms'] * 1e3:.1f} us ({rec['bound_by']}, {nbytes / 1e6:.1f} MB, no head); the head matmul that "
-          f"follows it ({b} x {emb.shape[1]} x {emb.shape[0]}) {head_ms * 1e3:.1f} us [{card}]")
+          f"{rec['bound_ms'] * 1e3:.1f} us ({rec['bound_by']}, {nbytes / 1e6:.1f} MB, no head)"
+          + ("" if n_launch == 1 else f"; {n_launch} launches (row slices), bound with the weights read once a launch "
+             f"{rec['slice_bound_ms'] * 1e3:.1f} us")
+          + f"; the head matmul that follows it ({b} x {emb.shape[1]} x {emb.shape[0]}) {head_ms * 1e3:.1f} us "
+          f"[{card}]")
     return {(_k7_key(f"{name}_headless", rows or 8), dn): rec}
 
 
@@ -1553,6 +1592,7 @@ class _Tok:
 
 # decode routes: (every dispatch flag, USE_FUSED_STEP)
 ROUTES = {"fused": (None, None), "per-op": (None, False), "plain": (False, False)}
+FUSED_PER_OP = {k: ROUTES[k] for k in ("fused", "per-op")}  # the rates of the batched paths (the script's time limit)
 
 
 def _set_flags(on: bool | None, fused: bool | None = None) -> None:
@@ -1631,10 +1671,13 @@ def _make_streams_move(dev, seed: int, embeddings: dict, stacks: list) -> None:
         _scale_matrices(layers, 4.0)
 
 
-def _scale_matrices(layers: list, factor: float) -> None:
-    """Every linear weight ``{"w": ...}`` of the layers' blocks, times ``factor``."""
+def _scale_matrices(layers: list, factor: float, blocks: tuple | None = None) -> None:
+    """Every linear weight ``{"w": ...}`` of the layers' blocks (or of the
+    blocks named in ``blocks``), times ``factor``."""
     for lp in layers:
-        for block in lp.values():
+        for name, block in lp.items():
+            if blocks is not None and name not in blocks:
+                continue
             for lin in block.values():
                 if isinstance(lin, dict):
                     lin["w"] *= factor
@@ -1708,8 +1751,7 @@ def main_path(dev, card: str, profile_dir: str | None = None) -> dict:
     import torch
 
     from pytorch_models_tpu_torch.models.text import GPT2, DecoderGenerator
-    from pytorch_models_tpu_torch.ops import attention as attn
-    from pytorch_models_tpu_torch.ops.decode_step import MAX_BATCH
+    from pytorch_models_tpu_torch.ops.decode_step import MAX_LAUNCH_ROWS
 
     kernels = _kernels()
     r = np.random.default_rng(SEED)
@@ -1764,31 +1806,32 @@ def main_path(dev, card: str, profile_dir: str | None = None) -> dict:
           f"tokens, {N_NEW} new each: fused, per-op kernels and plain (every flag False) token-identical "
           f"(partings at near-ties: {partings}); K7 launched {k7_launches} times = {steps} decode steps; distinct "
           f"new tokens per row {distinct}")
-    # above the fused step's MAX_BATCH rows: B=33 decodes per-op (the flags auto), the tied greedy head (K4) once
-    # per decode step where its gate takes that batch, else the head matmul + argmax
-    n33 = MAX_BATCH + 1
+    # one row above what one K7 launch serves: B=33 decodes fused (the flags auto) over two row slices a step, 32
+    # rows and 1, the greedy head inside the kernel (no K4)
+    n33 = MAX_LAUNCH_ROWS + 1
     r33 = np.random.default_rng(SEED + 16)
     prompts33 = [r33.integers(0, 50257, n).tolist() for n in _cycle(list(PROMPT_LENS), n33)]
-    outs33, k4_33, k7_33 = {}, 0, 0
+    outs33, k4_33, k7_33 = {}, 0, (0, 0)
+    k7 = kernels["fused_decode_step"]
     for route in ("plain", "fused"):
         _route(route)
-        before = kernels["greedy_argmax_tied"].launches, kernels["fused_decode_step"].launches
+        before = kernels["greedy_argmax_tied"].launches, k7.launches, k7.variant_launches["b32"]
         outs33[route] = gen.generate_tokens_batch(prompts33, max_tokens=B33_NEW)
         k4_33 = kernels["greedy_argmax_tied"].launches - before[0]
-        k7_33 = kernels["fused_decode_step"].launches - before[1]
+        k7_33 = k7.launches - before[1], k7.variant_launches["b32"] - before[2]
     torch.cuda.synchronize()
     for route, rows in outs33.items():
         if any(row[:len(p)] != p or len(row) != len(p) + B33_NEW for row, p in zip(rows, prompts33)):
             raise AssertionError(f"fp32 B={n33} generation ({route}): malformed row")
-    k4_want = B33_NEW - 1 if attn.use_greedy_head(n33, model.params["token_embs"], tied=True) else 0
-    if k7_33 or k4_33 != k4_want:
-        raise AssertionError(f"flags auto at B={n33}: K7 launched {k7_33} times (0 wanted), K4 {k4_33} times for "
-                             f"{k4_want}")
+    steps33 = B33_NEW - 1
+    if k7_33 != (2 * steps33, steps33) or k4_33:
+        raise AssertionError(f"flags auto at B={n33}: K7 launched {k7_33[0]} times ({k7_33[1]} of 17-32 rows) for "
+                             f"{steps33} decode steps of 32 + 1 rows, K4 {k4_33} times (0 wanted)")
     partings33 = _check_routes(f"main fp32 B={n33}", outs33, gap_fn)
-    print(f"phase main fp32 generate_tokens_batch B={n33} (above the fused step's {MAX_BATCH} rows: per-op): "
-          f"{B33_NEW} new tokens each, flags auto (per-op kernels) and plain token-identical (partings at "
-          f"near-ties: {partings33}); K7 launched 0 times, K4 (tied) {k4_33} times ({k4_want} wanted: the gate's "
-          f"side at {n33} rows)")
+    print(f"phase main fp32 generate_tokens_batch B={n33} (one row above one K7 launch's {MAX_LAUNCH_ROWS}): "
+          f"{B33_NEW} new tokens each, flags auto (K7 over row slices) and plain token-identical (partings at "
+          f"near-ties: {partings33}); K7 launched {k7_33[0]} times = {steps33} decode steps x 2 slices (32 + 1 "
+          f"rows), K4 0 times")
     _route("fused")
     model.to_bf16()
     out16 = {"fused": generate()}
@@ -2096,6 +2139,7 @@ I8_LEVELS_EQUAL = 0.99
 # of 12; T5 w8a8 3.3e-3); bf16 layers read 0 or one bf16 step of x (up to 0.016).
 I8_LAYER_TOL = {"float32": (2e-2, 0.0), "bfloat16": (2e-2, 2.0 ** -7)}
 I8_MARGIN = 1e-3
+I8_NEW = 32  # GPT-2's new tokens in phase "int8 gpt2" (fewer than N_NEW: the script's time limit)
 # the a8 head, held exactly on the kernel's own x_out: its final norm, summed in another order than the plain
 # one, is taken as uncertain by this share of the row's absmax; an 8-bit hidden level within it of a rounding
 # boundary may be either level, and the kernel's id must be the plain argmax for one such choice (enumerated up
@@ -2437,16 +2481,18 @@ def _head_check(name: str, head: dict, x, tok, eps: float, norm: str) -> tuple[i
     return n_uncertain, 0.0
 
 
-def _qkv_replica(packed: dict, i: int, x, eps: float, norm: str, a8: bool, h_q=None):
+def _qkv_replica(packed: dict, i: int, x, eps: float, norm: str, a8: bool, h_q=None, h=None):
     """Layer ``i``'s QKV phase as the plain twin computes it, from the
     layer's input ``x``: ``(q|k|v (B, 3*H*D) in x's dtype, its w8a8 input
-    levels and row scales or None)``; ``h_q`` replaces the input levels."""
+    levels and row scales or None)``; ``h_q`` replaces the input levels,
+    ``h`` the normed input."""
     import torch
 
     from pytorch_models_tpu_torch.ops.decode_step import _norm
     from pytorch_models_tpu_torch.ops.int8_kv import quantize_rows
 
-    h = _norm(packed["ln1_s"][i], packed["ln1_b"][i], x, eps, norm)
+    if h is None:
+        h = _norm(packed["ln1_s"][i], packed["ln1_b"][i], x, eps, norm)
     w = packed["wqkv"][i]
     levels = None
     if w.dtype == torch.int8 and a8:
@@ -2477,12 +2523,20 @@ def _explain_kv(name: str, packed: dict, i: int, x, eps: float, norm: str, a8: b
     input ``x``: every differing level must be one apart and within
     I8_MARGIN of a rounding boundary of the twin's value, or of the twin's
     value with one w8a8 QKV input level near its own boundary moved (the
-    kernel's norm, summed in another order, rounding it the other way), and
-    the scales must agree to 1e-5 of the explaining value's. Returns the
-    counts of differing levels and of rows explained by a moved input
-    level."""
+    kernel's norm, summed in another order, rounding it the other way), or,
+    in bf16, with some of the row's norm outputs that lie within
+    A8_NORM_NOISE of the row's absmax of a bf16 rounding midpoint rounded
+    to their other bf16 neighbour (the same cause one step earlier, as
+    ``_ln_flip_bound`` bounds it for the float variants; up to
+    A8_MAX_UNCERTAIN such outputs, every subset tried), and the scales must
+    agree to 1e-5 of the explaining value's. Returns the counts of
+    differing levels and of rows explained by a moved input level or norm
+    output."""
+    import itertools
+
     import torch
 
+    from pytorch_models_tpu_torch.ops.decode_step import _norm
     from pytorch_models_tpu_torch.ops.int8_kv import quantize_rows
 
     qkv, levels = _qkv_replica(packed, i, x, eps, norm, a8)
@@ -2528,6 +2582,23 @@ def _explain_kv(name: str, packed: dict, i: int, x, eps: float, norm: str, a8: b
                 alt[row, j] = int(torch.floor(t[j]).item()) + (0 if alt[row, j].item() > t[j].item() else 1)
                 if fits(kv_of(_qkv_replica(packed, i, x, eps, norm, a8, h_q=alt)[0]), row):
                     ok, moved = True, moved + 1
+                    break
+        if not ok and dt == torch.bfloat16:  # norm outputs of the row rounded to their other bf16 neighbour
+            y = _norm(packed["ln1_s"][i], packed["ln1_b"][i], x[row:row + 1].float(), eps, norm)  # fp32
+            yb = y.to(dt).float()
+            _, e = torch.frexp(yb)
+            ulp = torch.where(yb == 0, torch.zeros_like(yb), torch.ldexp(torch.ones_like(yb), e - 8))
+            noise = A8_NORM_NOISE * y.abs().amax()
+            open_ = ((y - yb).abs() >= 0.5 * ulp - noise).nonzero()[:, 1].tolist()
+            other = torch.where(y >= yb, yb + ulp, yb - ulp)  # the other neighbour around y
+            for n in range(1, min(len(open_), A8_MAX_UNCERTAIN) + 1):
+                for js in itertools.combinations(open_, n):
+                    h = _norm(packed["ln1_s"][i], packed["ln1_b"][i], x, eps, norm).clone()
+                    h[row, list(js)] = other[0, list(js)].to(dt)
+                    if fits(kv_of(_qkv_replica(packed, i, x, eps, norm, a8, h=h)[0]), row):
+                        ok, moved = True, moved + 1
+                        break
+                if ok:
                     break
         if not ok:
             raise AssertionError(f"{name}: layer {i} row {row}: {diff} int8 K/V levels at pos differ from the twin's "
@@ -2583,7 +2654,8 @@ I8_VARIANTS = (
 
 def int8_decode_step_phases(dev, card: str) -> dict:
     """K7's int8 serving variants against the plain twin at full width, B=8,
-    16 and 32 (K7_BATCHES), fp32 and bf16, one step: GPT-2 small w8a16 + int8 self-KV, and w8a8 with
+    16 and 32, and over row slices at 33, 40 and 64 (K7_BATCHES), fp32 and
+    bf16, one step: GPT-2 small w8a16 + int8 self-KV, and w8a8 with
     the int8 head + int8 self-KV (pos 127 in a 1024 cache, left pads);
     Whisper-base int8 self + cross KV (pos 40, 1500 frames in 1536, per-row
     lengths); T5-base w8a8 + int8 self + cross KV with the rel-pos self bias
@@ -2671,8 +2743,11 @@ def int8_decode_step_phases(dev, card: str) -> dict:
             pre = {k: t.clone() for k, t in sc.items()}
             ref_c = {k: t.clone() for k, t in sc.items()}
             ref_x, ref_tok = run(ref_c, True)
+            fn = fused_cross_decode_step if cross else fused_decode_step
+            before = fn.launches
             got_x, got_tok = run(sc, False)
             torch.cuda.synchronize()
+            n_launch = fn.launches - before  # one per row slice
             norm = "rms" if t5 else "ln"
             for key in ("k", "v"):
                 if not torch.equal(sc[key][:, :, :pos], pre[key][:, :, :pos]):
@@ -2686,7 +2761,8 @@ def int8_decode_step_phases(dev, card: str) -> dict:
                 checked = (f"layer by layer from the kernel's own input: max |kernel - twin| on x {err:.3g} "
                            f"(atol, rtol)={tol} (per layer {', '.join(f'{e:.2g}' for e in trace['dx'])})"
                            + (f", int8 K/V levels at pos differing {trace['levels']} (each one level apart at a "
-                              f"rounding boundary; {trace['moved_inputs']} rows by a moved w8a8 input level)"
+                              f"rounding boundary; {trace['moved_inputs']} rows by a moved w8a8 input level or bf16 "
+                              f"norm output)"
                               if kv else "")
                            + f"; the whole stack bit-equal to the layers chained; whole stack vs twin (carried "
                              f"through the layers, not held): x_out max |diff| {stack:.3g}")
@@ -2700,8 +2776,8 @@ def int8_decode_step_phases(dev, card: str) -> dict:
             # the token: the plain head on the kernel's own x_out (the a8 head exactly)
             uncertain, regret = _head_check(f"{name} {dn}", head, got_x, got_tok, cfg32.norm_eps, norm)
             with torch.inference_mode():
-                # the int8 twin takes 25-80 ms a call: 3 a turn keep the phase inside the script's time aim
-                ms, plain_ms = _ab_ms([lambda: run(sc, False)], [lambda: run(ref_c, True)], 10, plain_iters=3)
+                # the int8 twin takes 25-120 ms a call: one a turn keeps the phase inside the script's time aim
+                ms, plain_ms = _ab_ms([lambda: run(sc, False)], [lambda: run(ref_c, True)], 10, plain_iters=1)
             # bytes: every weight (int8: 1 byte + an fp32 scale per column) and the head table once, the small
             # params, the cached keys' K/V (int8 + 8 bytes of scales per key) and the K/V written
             w_bytes = sum(t.numel() * t.element_size() for k, t in packed.items())
@@ -2719,6 +2795,10 @@ def int8_decode_step_phases(dev, card: str) -> dict:
             w_el = sum(t.numel() for k, t in packed.items() if k.startswith("w")) + head["emb"].numel()
             ops = 2 * b * w_el + 4 * n_layers * hd * (self_keys + b + cross_keys)
             rec = res[(rec_key, dn)] = _rec(err, ms, plain_ms, nbytes, ops, "int8" if a8 else dn)
+            rec["shape"] = f"{kind} {n_layers} layers d={d} B={b} pos={pos}"
+            rec["launches_a_step"] = n_launch
+            rec["slice_bound_ms"] = max(rec["bound_ms"],
+                                        (nbytes + (n_launch - 1) * (w_bytes + h_bytes)) / HBM_BYTES_PER_S * 1e3)
             features = [f for f, on in (("w8a8 + int8 head", a8), ("w8a16", q8 and not a8), ("int8 self-KV", kv),
                                         ("int8 cross-KV", kvx), ("embed phase (ids incl. one out of range)", embed),
                                         ("rel-pos self bias", t5)) if on]
@@ -2727,9 +2807,54 @@ def int8_decode_step_phases(dev, card: str) -> dict:
                   + (f"exact, {uncertain} hidden levels within the norm's noise" if a8 else
                      f"max score regret {regret:.3g}") + f"; the twin's own {ref_tok.tolist()})"
                   f" | kernel {ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, bound "
-                  f"{rec['bound_ms'] * 1e3:.1f} us ({rec['bound_by']}, {nbytes / 1e6:.1f} MB) [{card}]")
+                  f"{rec['bound_ms'] * 1e3:.1f} us ({rec['bound_by']}, {nbytes / 1e6:.1f} MB)"
+                  + ("" if n_launch == 1 else f"; {n_launch} launches (row slices), bound with the weights read once "
+                     f"a launch {rec['slice_bound_ms'] * 1e3:.1f} us") + f" [{card}]")
+            if n_launch != -(-b // 32):
+                raise AssertionError(f"{name} B={b}: {n_launch} launches, {-(-b // 32)} wanted")
     torch.cuda.synchronize()
     return res
+
+
+# K7 over row slices in the kernels line: entry -> (its record: B=64, Whisper large-v3's width at B=16; its other
+# rows). The int8 variants' rows at K7_SLICED join their B=8 entries instead (their limit is per layer)
+SLICED_ENTRIES = {
+    "fused_decode_step_sliced": ("fused_decode_step_b64", ["fused_decode_step_b33", "fused_decode_step_b40"]),
+    "fused_decode_step_headless_sliced": ("fused_decode_step_headless_b64", ["fused_decode_step_headless_b33",
+                                                                             "fused_decode_step_headless_b40"]),
+    "fused_cross_decode_step_sliced": (f"fused_cross_decode_step_large_b{W_LARGE_K7_B}",
+                                       [_k7_key(f"fused_cross_decode_step{h}", b) for h in ("", "_headless")
+                                        for b in K7_SLICED]),
+    "fused_cross_decode_step_t5_sliced": ("fused_cross_decode_step_t5_b64",
+                                          ["fused_cross_decode_step_t5_b33", "fused_cross_decode_step_t5_b40"]
+                                          + [_k7_key("fused_cross_decode_step_t5_headless", b) for b in K7_SLICED]),
+}
+ROW_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "slice_bound_ms", "launches_a_step")
+
+
+def sliced_records(*results) -> dict:
+    """The K7 records of the batches served over row slices, for the kernels
+    line: each SLICED_ENTRIES entry's record (bf16 and fp32) with its other
+    rows, and the int8 variants' records at K7_SLICED as rows of their B=8
+    records (changed in place); a row's error counts in its entry's."""
+    merged = {k: v for r in results for k, v in r.items()}
+
+    def row(key, dn):
+        rec = merged[(key, dn)]
+        return {"shape": rec["shape"], "dtype": dn, "max_abs_err": rec["err"],
+                **{k: rec[k] for k in ROW_KEYS if k in rec}}
+
+    out = {}
+    for dn in DS_TOL:
+        for entry, (main, others) in SLICED_ENTRIES.items():
+            rec = out[(entry, dn)] = dict(merged[(main, dn)])
+            rec["rows"] = [row(key, dn) for key in others]
+            rec["err"] = max([rec["err"]] + [r["max_abs_err"] for r in rec["rows"]])
+        for name, *_ in I8_VARIANTS:
+            rec = merged[(name, dn)]
+            rec["rows"] = [row(_k7_key(name, b), dn) for b in K7_SLICED]
+            rec["err"] = max([rec["err"]] + [r["max_abs_err"] for r in rec["rows"]])
+    return out
 
 
 class _StepSpy:
@@ -2827,9 +2952,9 @@ def int8_paths(dev, card: str) -> dict:
             m = GPT2.from_hf("gpt2", rng=SEED, device=dev)
             _make_streams_move(dev, SEED + 7, m.params, [m.params["decoder"]["layers"]])
             gen = DecoderGenerator(m, _Tok())
-            fn = (lambda: gen.generate_tokens_batch(prompts, max_tokens=N_NEW))
+            fn = (lambda: gen.generate_tokens_batch(prompts, max_tokens=I8_NEW))
             new = lambda rows: [row[len(p):] for row, p in zip(rows, prompts)]  # noqa: E731
-            steps = lambda rows: _decode_steps([N_NEW] * len(prompts), N_NEW - 1, False)  # noqa: E731
+            steps = lambda rows: _decode_steps([I8_NEW] * len(prompts), I8_NEW - 1, False)  # noqa: E731
         elif kind == "whisper":
             m = Whisper.from_openai("base", rng=SEED, device=dev)
             _make_streams_move(dev, SEED + 3, m.params["decoder"],
@@ -4005,15 +4130,15 @@ def beam_sample_paths(dev, card: str) -> dict:
     prompts x W=4; Whisper-base, one 30 s segment at W=4; T5-base, one
     prompt at W=4; at most BEAM_NEW new tokens) and sampling (GPT-2 small,
     B=8 prompts and 16 samples of one, SAMPLE's settings), fp32 on the
-    plain, fused and per-op routes (the fused step headless at <= MAX_BATCH rows,
-    once per step), then bf16 rates of the fused and per-op routes and the
+    plain, fused and per-op routes (the fused step headless once per step, over
+    row slices above 32 rows), then bf16 rates of the fused and per-op routes and the
     beam cache reorder's time a step. Models and seeds as the greedy paths'.
     Returns each path's launches (counts from 0 just before it)."""
     import torch
 
     from pytorch_models_tpu_torch.audio2text import Whisper, WhisperGenerator
     from pytorch_models_tpu_torch.models.text import GPT2, DecoderGenerator, beam
-    from pytorch_models_tpu_torch.ops.decode_step import MAX_BATCH
+    from pytorch_models_tpu_torch.ops.decode_step import MAX_LAUNCH_ROWS
     from pytorch_models_tpu_torch.text import T5Generator, T5Model
 
     kernels = _kernels()
@@ -4025,25 +4150,28 @@ def beam_sample_paths(dev, card: str) -> dict:
     gen = DecoderGenerator(model, _Tok())
     c = model.cfg
 
-    # ---- beam gpt2 fp32: G x W = 8 rows and 16 (the fused step headless: up to MAX_BATCH rows)
+    # ---- beam gpt2 fp32: G x W = 8 rows, 16 and 36 (the fused step headless; 36 rows over slices of 32 and 4)
     _route("plain")
     with torch.inference_mode():
         tol = _beam_tol(model(torch.tensor(prompts[0], device=dev))[-1])
     _reset_launches()
     for g in BEAM_G:
-        def run(g=g):
-            return gen.beam_search_tokens_batch(prompts[:g], max_tokens=BEAM_NEW, beam_width=BEAM_W, return_all=True)
+        gp = _cycle(prompts, g)
+
+        def run(gp=gp):
+            return gen.beam_search_tokens_batch(gp, max_tokens=BEAM_NEW, beam_width=BEAM_W, return_all=True)
 
         before = kernels["fused_decode_step"].variant_launches["headless"]
         outs, partings, steps = _beam_routes(f"beam gpt2 fp32 G={g}", run, _beam_rows_check(
-            "beam gpt2", prompts[:g], c.vocab_size), tol)
+            "beam gpt2", gp, c.vocab_size), tol)
         headless = kernels["fused_decode_step"].variant_launches["headless"] - before
-        want = steps if g * BEAM_W <= MAX_BATCH else 0
+        want = steps * -(-g * BEAM_W // MAX_LAUNCH_ROWS)  # a launch per row slice of at most 32 rows
         if headless != want:
-            raise AssertionError(f"beam gpt2 G={g}: K7 headless launched {headless} times for {want} fused beam steps")
+            raise AssertionError(f"beam gpt2 G={g}: K7 headless launched {headless} times for {want} (fused beam "
+                                 f"steps x row slices)")
         print(f"phase beam gpt2 fp32 G={g} x W={BEAM_W} ({g * BEAM_W} rows): fused, per-op and plain beams identical "
-              f"(partings at near-ties: {partings}); {steps} beam steps, K7 headless launched {headless} times; best "
-              f"scores {[round(s[0], 4) for s in outs['fused'][1]]}")
+              f"(partings at near-ties: {partings}); {steps} beam steps, K7 headless launched {headless} times "
+              f"({want // steps} a step); best scores {[round(s[0], 4) for s in outs['fused'][1]]}")
     launches["beam gpt2"] = _launches({"fused_decode_step", "decode_attention", "embed_add"})
 
     # ---- sample gpt2 fp32: B=8 prompts, 16 samples of one (the fused step headless)
@@ -4062,7 +4190,7 @@ def beam_sample_paths(dev, card: str) -> dict:
         for row, p in zip(got + ref, rows_p * 2):
             if row[:len(p)] != p or len(row) != len(p) + BEAM_NEW or not all(0 <= t < c.vocab_size for t in row):
                 raise AssertionError(f"sample gpt2 {name}: malformed row {row}")
-        if len(rows_p) <= MAX_BATCH and headless != BEAM_NEW - 1 or len(rows_p) > MAX_BATCH and headless:
+        if headless != (BEAM_NEW - 1) * -(-len(rows_p) // MAX_LAUNCH_ROWS):  # a launch per row slice a step
             raise AssertionError(f"sample gpt2 {name}: K7 headless launched {headless} times")
         margins = _draw_margins(model, got, ref, [len(p) for p in rows_p], SAMPLE["seed"], len(rows_p))
         for row, j, m, bound in margins:
@@ -4073,7 +4201,7 @@ def beam_sample_paths(dev, card: str) -> dict:
         print(f"phase sample gpt2 fp32 {name} ({SAMPLE}): fused and plain streams identical but {len(margins)} rows "
               f"parted at a CDF boundary; K7 headless launched {headless} times; distinct rows "
               f"{len({tuple(row) for row in got})}/{len(got)}")
-    # both cases decode through K7 (16 rows since K7 serves up to MAX_BATCH): no per-op step, so no K2, runs here
+    # both cases decode through K7 (8 and 16 rows, one launch a step): no per-op step, so no K2, runs here
     launches["sample gpt2"] = _launches({"fused_decode_step", "embed_add"})
 
     # ---- bf16 rates: GPT-2 beams G=2 x W=4 and sampled B=8, fused against per-op, in turns; the cache reorder
@@ -4191,30 +4319,50 @@ def _bucket_key(b: int) -> str:
     return "b16" if b <= 16 else "b32"
 
 
-def _batch_run(what: str, kernel, b: int, run, rows_ok, steps_of, gap_fn) -> tuple[dict, str]:
+def _k7_counts(kernel) -> dict:
+    """K7's launches, and those of each row bucket and of row slices (ops.decode_step._count)."""
+    return {"launches": kernel.launches} | {k: kernel.variant_launches[k] for k in ("b16", "b32", "sliced")}
+
+
+def _slice_counts(slices: list[int]) -> dict:
+    """What one step over these row slices adds to :func:`_k7_counts`."""
+    want = {"launches": len(slices), "b16": 0, "b32": 0, "sliced": len(slices) if len(slices) > 1 else 0}
+    for n in slices:
+        if n > 8:
+            want[_bucket_key(n)] += 1
+    return want
+
+
+def _batch_run(what: str, kernel, b: int, run, rows_ok, steps_of, gap_fn, slices=None) -> tuple[dict, str]:
     """fp32 plain, fused (flags auto: K7) and per-op routes of ``run``; rows
     checked by ``rows_ok(route, rows)``, tokens identical to plain up to
     near-ties (``_check_routes``), and K7 launched at this batch once per
-    decode step (``steps_of(fused rows)``). Returns the rows and a note."""
+    decode step (``steps_of(fused rows)``), or, given ``slices`` (the rows
+    of each launch a step makes), once per row slice, each counted under
+    its own rows. Returns the rows and a note."""
     import torch
 
-    outs, k7 = {}, 0
+    slices = slices or [b]
+    outs, k7 = {}, {}
     for route in ("plain", "fused", "per-op"):
         _route(route)
-        before = kernel.variant_launches[_bucket_key(b)]
+        before = _k7_counts(kernel)
         outs[route] = run()
         if route == "fused":
-            k7 = kernel.variant_launches[_bucket_key(b)] - before
+            k7 = {k: v - before[k] for k, v in _k7_counts(kernel).items()}
     _route("fused")
     torch.cuda.synchronize()
     for route, rows in outs.items():
         rows_ok(route, rows)
     steps = steps_of(outs["fused"])
-    if k7 != steps:
-        raise AssertionError(f"{what}: K7 launched {k7} times at B={b} for {steps} decode steps")
+    want = {k: steps * v for k, v in _slice_counts(slices).items()}
+    if k7 != want:
+        raise AssertionError(f"{what}: K7 launched {k7} at B={b}, {want} wanted for {steps} decode steps over row "
+                             f"slices of {slices}")
     partings = _check_routes(what, outs, gap_fn)
+    over = "" if len(slices) == 1 else f" x {len(slices)} row slices ({' + '.join(map(str, slices))} rows)"
     return outs, (f"fused, per-op kernels and plain token-identical (partings at near-ties: {partings}); K7 "
-                  f"launched {k7} times at B={b} = {steps} decode steps")
+                  f"launched {k7['launches']} times at B={b} = {steps} decode steps{over}")
 
 
 def _route_rates(what: str, run, n_tok_of, card: str, routes=ROUTES) -> dict:
@@ -4241,7 +4389,7 @@ def batch_paths(dev, card: str) -> dict:
     inputs) and Whisper-base at B=16 (16 waveforms of 5-30 s), models and
     scales as the main paths'. fp32: the fused, per-op and plain routes
     token-identical (``_batch_run``), K7 once per decode step at that batch;
-    bf16: generated tok/s of each route in turns at the bench shapes (GPT-2
+    bf16: generated tok/s of the fused and per-op routes in turns at the bench shapes (GPT-2
     512 new tokens, T5 64, Whisper N_NEW). Counts from 0 before each model;
     returns each model's launches."""
     import torch
@@ -4282,7 +4430,7 @@ def batch_paths(dev, card: str) -> dict:
     model.to_bf16()
     _route_rates(f"batch gpt2 generate_tokens_batch B={b} x {p_len}-token prompts, {n_new} new (bench.py's)",
                  lambda: gen.generate_tokens_batch(prompts, max_tokens=n_new),
-                 lambda rows: sum(len(x) - p_len for x in rows), card)
+                 lambda rows: sum(len(x) - p_len for x in rows), card, FUSED_PER_OP)
     out["batch gpt2"] = _launches({"fused_decode_step", "embed_add"})
     del model, gen
 
@@ -4318,7 +4466,7 @@ def batch_paths(dev, card: str) -> dict:
     model.to_bf16()
     _route_rates(f"batch t5 generate_tokens_batch B={b} x {in_len}-token inputs, {n_new} new at most (bench.py's)",
                  lambda: gen.generate_tokens_batch(inputs, n_new + 1, T5_PAD, T5_EOS),
-                 lambda rows: sum(len(x) - 1 for x in rows), card)
+                 lambda rows: sum(len(x) - 1 for x in rows), card, FUSED_PER_OP)
     out["batch t5"] = _launches({"fused_cross_decode_step"})
     del model, gen
 
@@ -4353,7 +4501,7 @@ def batch_paths(dev, card: str) -> dict:
     model.to_bf16()
     _route_rates(f"batch whisper transcribe_tokens_batch B={b} (bench.py's), {N_NEW} new at most",
                  lambda: gen.transcribe_tokens_batch(wav, W_INIT, W_EOT, w_max),
-                 lambda rows: sum(len(x) - n_init for x in rows), card)
+                 lambda rows: sum(len(x) - n_init for x in rows), card, FUSED_PER_OP)
     out["batch whisper"] = _launches({"fused_cross_decode_step"})
     return out
 
@@ -4361,7 +4509,8 @@ def batch_paths(dev, card: str) -> dict:
 # the continuous-batching engine on GPT-2 small: a pool of CB_POOL slots (K7 at its largest batch), CB_REQUESTS
 # requests of CB_PROMPT tokens (uniform) with budgets of CB_BUDGET new tokens, with and without a shared prefix
 # of CB_PREFIX tokens; the int8 pool serves the first CB_INT8_REQUESTS of them
-CB_POOL, CB_REQUESTS, CB_PROMPT, CB_BUDGET, CB_PREFIX, CB_INT8_REQUESTS = 32, 96, (5, 200), (16, 128), 48, 48
+# (phase "k7 slices" serves more requests, 128, to a pool of 64)
+CB_POOL, CB_REQUESTS, CB_PROMPT, CB_BUDGET, CB_PREFIX, CB_INT8_REQUESTS = 32, 48, (5, 200), (16, 128), 48, 24
 CB_BUCKET, CB_CHECK_EVERY = 64, 16
 
 
@@ -4471,6 +4620,186 @@ def cb_path(dev, card: str, profile_dir: str | None = None) -> dict:
     return _launches({"fused_decode_step", "embed_add"})
 
 
+# phase "k7 slices", K7 over row slices at full width: GPT-2 small at SL_GPT2 = (rows, prompt tokens (bench.py's),
+# new tokens); a GPT-2-small pool of SL_POOL slots serving SL_REQUESTS requests of CB_PROMPT tokens, budgets
+# CB_BUDGET; Whisper large-v3 (32 + 32 layers, d 1280, 20 heads, 128 mels) on SL_W_SEGMENTS segments of 5-30 s, at
+# most SL_W_NEW new tokens; T5-base at SL_T5 rows of 64-token inputs, rows of at most BATCH_FP32_NEW + 1 tokens;
+# each with the row slices a step launches (the most rows the planner takes, at most 32)
+SL_GPT2, SL_POOL, SL_REQUESTS, SL_W_SEGMENTS, SL_W_NEW, SL_T5 = (64, 32, 32), 64, 128, 16, 32, 48
+SL_SLICES = {"gpt2": [32, 32], "pool": [32, 32], "whisper": [8, 8], "t5": [32, 16]}
+
+
+def slices_path(dev, card: str) -> dict:
+    """Phase "k7 slices": the decoders through K7 over row slices, at full
+    width with random weights from the seed (scaled as the other paths'
+    so the streams move), where one launch does not serve the batch. fp32:
+    the fused, per-op and plain routes token-identical up to near-ties, K7
+    launched steps x slices (SL_SLICES), each slice under its own rows:
+    GPT-2 small ``generate_tokens_batch`` at B=64; T5-base at B=48; Whisper
+    large-v3 ``transcribe_tokens_batch`` on 16 segments (its frontend's K5
+    at 128 mels and its encoder's K1 at 20 heads run too); the GPT-2 pool of
+    64 slots, every request identical to the plain route's generation. bf16:
+    GPT-2 tok/s, the pool's tok/s and occupancy, Whisper large-v3's
+    segments/s and audio-seconds/s, fused against per-op in turns. Counts
+    from 0 before each model; returns each one's launches."""
+    import torch
+
+    from pytorch_models_tpu_torch.audio2text import Whisper, WhisperGenerator
+    from pytorch_models_tpu_torch.models.text import GPT2, DecoderGenerator
+    from pytorch_models_tpu_torch.text import ContinuousBatchingGenerator, T5Generator, T5Model
+
+    kernels = _kernels()
+    k7, k7x = kernels["fused_decode_step"], kernels["fused_cross_decode_step"]
+    out = {}
+
+    # ---- GPT-2 small, B=64
+    b, p_len, n_new = SL_GPT2
+    model = GPT2.from_hf("gpt2", rng=SEED, device=dev)
+    _make_streams_move(dev, SEED + 7, model.params, [model.params["decoder"]["layers"]])
+    gen = DecoderGenerator(model, _Tok())
+    r = np.random.default_rng(SEED + 64)
+    prompts = [r.integers(0, 50257, p_len).tolist() for _ in range(b)]
+
+    def gpt2_ok(route, rows):
+        if any(row[:p_len] != q or len(row) != p_len + n_new for row, q in zip(rows, prompts)):
+            raise AssertionError(f"k7 slices gpt2 B={b} ({route}): malformed row")
+
+    def gpt2_gap(i, prefix):
+        _route("plain")
+        with torch.inference_mode():
+            return _top2(model(torch.tensor(prefix, device=dev))[-1])
+
+    _reset_launches()
+    rows, note = _batch_run(f"k7 slices gpt2 fp32 B={b}", k7, b,
+                            lambda: gen.generate_tokens_batch(prompts, max_tokens=n_new), gpt2_ok,
+                            lambda rows: n_new - 1, gpt2_gap, SL_SLICES["gpt2"])
+    distinct = _check_moving(f"k7 slices gpt2 B={b}", rows["fused"], [p_len] * b)
+    print(f"phase k7 slices gpt2 fp32 generate_tokens_batch B={b} x {p_len}-token prompts, {n_new} new: {note}; "
+          f"distinct new tokens per row {min(distinct)}-{max(distinct)}")
+
+    # ---- the GPT-2 pool of SL_POOL slots (fp32 here, bf16 below with the B=64 rate)
+    r = np.random.default_rng(SEED + 128)
+    reqs = [r.integers(0, 50257, int(r.integers(CB_PROMPT[0], CB_PROMPT[1] + 1))).tolist()
+            for _ in range(SL_REQUESTS)]
+    budgets = [int(m) for m in r.integers(CB_BUDGET[0], CB_BUDGET[1] + 1, SL_REQUESTS)]
+    cb = ContinuousBatchingGenerator(model, _Tok(), batch_size=SL_POOL, prompt_bucket=CB_BUCKET,
+                                     check_every=CB_CHECK_EVERY)
+    _route("plain")
+    full = gen.generate_tokens_batch(reqs, max_tokens=max(budgets))
+    ref = [row[:len(q) + m] for row, q, m in zip(full, reqs, budgets)]
+    _route("fused")
+    before = _k7_counts(k7)
+    got = cb.generate_tokens_many(reqs, budgets)
+    torch.cuda.synchronize()
+    st = cb.last_stats
+    launched = {k: v - before[k] for k, v in _k7_counts(k7).items()}
+    want = {k: st.decode_steps * v for k, v in _slice_counts(SL_SLICES["pool"]).items()}
+    if launched != want:
+        raise AssertionError(f"k7 slices pool {SL_POOL}: K7 launched {launched}, {want} wanted for "
+                             f"{st.decode_steps} decode steps")
+    if any(len(row) != len(q) + m or row[:len(q)] != q for row, q, m in zip(got, reqs, budgets)):
+        raise AssertionError(f"k7 slices pool {SL_POOL}: malformed row")
+    partings = _check_routes(f"k7 slices pool {SL_POOL} fp32", {"fused": got, "plain": ref}, gpt2_gap)
+    print(f"phase k7 slices pool fp32: ContinuousBatchingGenerator pool {SL_POOL}, {SL_REQUESTS} requests of "
+          f"{CB_PROMPT[0]}-{CB_PROMPT[1]} tokens, budgets {CB_BUDGET[0]}-{CB_BUDGET[1]}: every request token-identical "
+          f"to the plain route's generation (partings at near-ties: {partings}); K7 launched {launched['launches']} "
+          f"times = {st.decode_steps} decode steps x 2 row slices (32 + 32 rows); {st.admissions} admissions, "
+          f"{st.epoch_resets} epoch resets, occupancy {st.occupancy:.3f}")
+    model.to_bf16()
+    _route_rates(f"k7 slices gpt2 generate_tokens_batch B={b} x {p_len}-token prompts, {n_new} new",
+                 lambda: gen.generate_tokens_batch(prompts, max_tokens=n_new),
+                 lambda rows: sum(len(x) - p_len for x in rows), card, FUSED_PER_OP)
+    _pool_rates(f"k7 slices pool {SL_POOL}, {SL_REQUESTS} requests",
+                lambda: (cb.generate_tokens_many(reqs, budgets), cb.last_stats)[1], SL_REQUESTS, "requests",
+                lambda st: (), card)
+    out["slices gpt2"] = _launches({"fused_decode_step", "embed_add"})
+    del model, gen, cb
+
+    # ---- T5-base, B=48
+    b, in_len = SL_T5, BATCH_T5[1]
+    model = T5Model.from_t5x("flan_t5-base", rng=SEED, device=dev)
+    _make_t5_streams_move(dev, SEED + 9, model.params)
+    gen = T5Generator(model=model)
+    r = np.random.default_rng(SEED + 48)
+    inputs = [r.integers(2, model.cfg.vocab_size, in_len).tolist() for _ in range(b)]
+    n32 = BATCH_FP32_NEW + 1  # rows hold the pad token first
+
+    def t5_ok(route, rows):
+        for row in rows:
+            if row[0] != T5_PAD or not 1 < len(row) <= n32 or not all(0 <= t < model.cfg.vocab_size for t in row):
+                raise AssertionError(f"k7 slices t5 B={b} ({route}): malformed row {row}")
+
+    def t5_gap(i, prefix):
+        _route("plain")
+        return _top2(model(torch.tensor([inputs[i]], device=dev), torch.tensor([prefix], device=dev))[0, -1])
+
+    _reset_launches()
+    rows, note = _batch_run(f"k7 slices t5 fp32 B={b}", k7x, b, lambda: gen.generate_tokens_batch(inputs, n32, T5_PAD,
+                                                                                                    T5_EOS),
+                            t5_ok, lambda rows: _decode_steps([len(x) for x in rows], n32 - 1,
+                                                              all(T5_EOS in x[1:] for x in rows)),
+                            t5_gap, SL_SLICES["t5"])
+    print(f"phase k7 slices t5 fp32 generate_tokens_batch B={b} x {in_len}-token inputs, rows of {n32} tokens at "
+          f"most: {note}")
+    out["slices t5"] = _launches({"fused_cross_decode_step"})
+    del model, gen
+
+    # ---- Whisper large-v3, B=16
+    b = SL_W_SEGMENTS
+    t0 = time.perf_counter()
+    model = Whisper.from_openai("large-v3", rng=SEED, device=dev)
+    # as Whisper-base's, but the decoder's cross-attention at the init's scale: at 4x its 32 layers pin every
+    # stream to one or two tokens (an H100 reading: 1-2 distinct of 32; 10-18 with it at 1x, fp32 fused = plain)
+    _make_streams_move(dev, SEED + 3, model.params["decoder"], [model.params["encoder"]["layers"]])
+    _scale_matrices(model.params["decoder"]["layers"], 4.0, blocks=("sa", "mlp"))
+    gen = WhisperGenerator(model)
+    c = model.cfg
+    print(f"phase k7 slices whisper: Whisper large-v3 ({c.n_layers} + {c.n_layers} layers, d {c.d_model}, "
+          f"{c.d_model // 64} heads, {c.n_mels} mels, vocab {c.vocab_size}) built from seed {SEED} on {dev} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    seconds = _cycle(list(W_SECONDS), b)
+    wav = torch.from_numpy(_waveforms(b, seconds, SEED + 35)).to(dev)
+    n_init, w_max = len(W_INIT), len(W_INIT) + SL_W_NEW
+
+    def w_ok(route, rows):
+        for row in rows:
+            if row[:n_init] != W_INIT or not n_init < len(row) <= w_max:
+                raise AssertionError(f"k7 slices whisper B={b} ({route}): malformed row {row}")
+
+    def w_gap(i, prefix):
+        _route("plain")
+        with torch.inference_mode():
+            return _top2(model(gen.preprocessor(wav[i:i + 1]), torch.tensor([prefix], device=dev))[0, -1])
+
+    _reset_launches()
+    rows, note = _batch_run(f"k7 slices whisper fp32 B={b}", k7x, b,
+                            lambda: gen.transcribe_tokens_batch(wav, W_INIT, W_EOT, w_max), w_ok,
+                            lambda rows: _decode_steps([len(x) - n_init for x in rows], w_max - n_init - 1,
+                                                       all(W_EOT in x[n_init:] for x in rows)),
+                            w_gap, SL_SLICES["whisper"])
+    distinct = _check_moving(f"k7 slices whisper B={b}", rows["fused"], [n_init] * b)
+    print(f"phase k7 slices whisper fp32 transcribe_tokens_batch B={b} ({SL_W_NEW} new at most): {note}; distinct "
+          f"new tokens per row {min(distinct)}-{max(distinct)}")
+    model.to_bf16()
+    times, toks = {}, {}
+    for route in ("fused", "per-op", "per-op", "fused"):
+        _route(route)
+        ms, rows = _event_ms(lambda: gen.transcribe_tokens_batch(wav, W_INIT, W_EOT, w_max))
+        times.setdefault(route, []).append(ms)
+        toks[route] = sum(len(x) - n_init for x in rows)
+    _route("fused")
+    print(f"phase time bf16 k7 slices whisper large-v3 transcribe_tokens_batch B={b} ({sum(seconds):.1f} s of audio, "
+          f"{SL_W_NEW} new at most; frontend and encoder included, CUDA events): "
+          + ", ".join(f"{k} {b / (np.mean(v) / 1e3):.2f} segments/s, {sum(seconds) / (np.mean(v) / 1e3):.1f} "
+                      f"audio-s/s, {toks[k] / (np.mean(v) / 1e3):.1f} generated tok/s ({np.mean(v):.1f} ms)"
+                      for k, v in times.items()) + f" [{card}]")
+    out["slices whisper"] = _launches({"fused_cross_decode_step", "log_mel_spectrogram", "encoder_attention"})
+    del model, gen
+    gc.collect()
+    torch.cuda.empty_cache()  # large-v3's tens of GB cached: give the card back to the phases that spawn ranks
+    return out
+
+
 # the Whisper and T5 continuous-batching engines at full width: Whisper-base with a pool of CBW_POOL slots
 # (bench.py's Whisper batch; the fp32 check again at CBW_POOL32, K7 cross at 17-32 rows), CBW_SEGMENTS segments
 # of 5-30 s, at most N_NEW new tokens; T5-base with a pool of CBT_POOL slots (bench.py's T5 batch),
@@ -4478,8 +4807,8 @@ def cb_path(dev, card: str, profile_dir: str | None = None) -> dict:
 # CBW_INT8 segments / CBT_INT8 prompts. Random weights never emit the real EOT / EOS: the stop id is a token the
 # fp32 streams emit after CB_STOP_AFTER new tokens (_pick_stop), so that rows end at spread lengths and
 # admissions happen while other rows decode
-CBW_POOL, CBW_POOL32, CBW_SEGMENTS, CBW_INT8 = 16, 32, 40, 24
-CBT_POOL, CBT_REQUESTS, CBT_PROMPT, CBT_NEW, CBT_INT8 = 32, 96, (5, 200), 64, 48
+CBW_POOL, CBW_POOL32, CBW_SEGMENTS, CBW_INT8 = 16, 32, 40, 16
+CBT_POOL, CBT_REQUESTS, CBT_PROMPT, CBT_NEW, CBT_INT8 = 32, 48, (5, 200), 64, 24
 CB_STOP_AFTER = 8
 
 
@@ -4771,7 +5100,7 @@ def cb_t5_path(dev, card: str, profile_dir: str | None = None) -> dict:
 # speculative decoding (spec_paths): k drafts a verify chunk; new tokens of the one-row GPT-2 runs, of the B=8
 # batch and of the sampled run (whose identity-draft check covers one iteration: k drafts and the bonus)
 SPEC_K = 4
-SPEC_NEW, SPEC_BATCH_NEW, SPEC_SAMPLE_NEW = 64, 32, 32
+SPEC_NEW, SPEC_BATCH_NEW, SPEC_SAMPLE_NEW = 32, 32, 32
 SPEC_B = 8
 
 
@@ -5129,7 +5458,9 @@ def spec_paths(dev, card: str, profile_dir: str | None = None) -> dict:
 TP_RANKS = 2
 TP_CB_POOL, TP_CB_REQUESTS, TP_CB_PROMPT, TP_CB_BUDGET = 16, 12, (5, 64), (8, 32)
 TP_W_SEGMENTS = 4
-TP_NEW, TP_RATE_NEW = 32, 16  # new tokens at most of T5's rows, Whisper's transcripts and the speculative row
+# new tokens at most of GPT-2's rows (fewer than N_NEW: the script's time limit), T5's rows, Whisper's transcripts
+# and the speculative row
+TP_NEW, TP_RATE_NEW = 32, 16
 TP_JOIN_S = 300
 
 
@@ -5285,8 +5616,8 @@ def _tp_rank_work(rank: int, dev) -> dict:
     _reset_launches()
     int8_decode_attention.cur_ks_launches = 0
     t1 = time.perf_counter()
-    res["gpt2"] = gen.generate_tokens_batch(inp["prompts"], max_tokens=N_NEW)
-    res["gpt2 dp=2"] = gen_dp.generate_tokens_batch(inp["prompts"], max_tokens=N_NEW)
+    res["gpt2"] = gen.generate_tokens_batch(inp["prompts"], max_tokens=TP_NEW)
+    res["gpt2 dp=2"] = gen_dp.generate_tokens_batch(inp["prompts"], max_tokens=TP_NEW)
     res["t5"] = gen_t5.generate_tokens_batch(inp["t5_prompts"], TP_NEW + 1, T5_PAD, T5_EOS)
     res["whisper"] = gen_w.transcribe_tokens_batch(inp["audio"], W_INIT, W_EOT, len(W_INIT) + TP_NEW)
     res["cb"] = cb.generate_tokens_many(inp["reqs"], inp["budgets"])
@@ -5364,7 +5695,7 @@ def tp_path(dev, card: str) -> dict:
             _route("per-op")
             gen = DecoderGenerator(gpt2, _Tok())
             wgen = WhisperGenerator(whisper)
-            ref = {"gpt2": gen.generate_tokens_batch(prompts, max_tokens=N_NEW)}
+            ref = {"gpt2": gen.generate_tokens_batch(prompts, max_tokens=TP_NEW)}
             ref["gpt2 dp=2"] = ref["gpt2"]
             ref["t5"] = T5Generator(model=t5).generate_tokens_batch(inp["t5_prompts"], TP_NEW + 1, T5_PAD, T5_EOS)
             wav = torch.from_numpy(inp["audio"]).to(dev)
@@ -5430,7 +5761,7 @@ def tp_path(dev, card: str) -> dict:
             raise AssertionError(f"tp rank {rank}: K7 launched {k7} times (0 wanted); never launched: {missing}")
     summed = {k: sum(res["launches"][k] for res in got.values()) for k in r0["launches"]}
     print(f"phase tp fp32: {TP_RANKS} ranks on one card ({card}), gloo, all-reduces through host memory; GPT-2 "
-          f"small B={len(prompts)} x {N_NEW} new at tp=2 and at dp=2 x tp=1, T5-base B={len(inp['t5_prompts'])} and "
+          f"small B={len(prompts)} x {TP_NEW} new at tp=2 and at dp=2 x tp=1, T5-base B={len(inp['t5_prompts'])} and "
           f"Whisper-base B={TP_W_SEGMENTS} x {TP_NEW} new at most at tp=2, the GPT-2 pool of {TP_CB_POOL} slots at "
           f"tp=2 ({TP_CB_REQUESTS} requests, full precision and int8), speculative GPT-2 at tp=2 (k={SPEC_K}, a "
           f"{SPEC_DRAFT_LAYERS}-layer draft, one row, {TP_NEW} new): every rank's tokens equal, and the single "
@@ -5455,6 +5786,7 @@ def tp_path(dev, card: str) -> dict:
 
 
 PET_RANKS = 4  # ranks of phase "pp ep train" on the one card
+PET_NEW = 32  # new tokens of its generations (fewer than N_NEW: the script's time limit)
 PET_TP_PP = (2, 2)  # its (pp, tp) mesh
 PET_JOIN_S = 240
 # the EP and train phases' MoE at GPT-2 small's widths (vocab, d, heads, layers) with 8 experts of GPT-2's MLP width
@@ -5491,9 +5823,9 @@ def _pet_inputs():
 def _pet_rank_work(rank: int, dev, tmp: str) -> dict:
     """The rank's share of phase "pp ep train", each run's counts from 0
     just before it: GPT-2 small at pp=4 and at (pp, tp) = (2, 2) (fp32,
-    B=8 x N_NEW new; its stage moved to the card from a host copy, memory
+    B=8 x PET_NEW new; its stage moved to the card from a host copy, memory
     read before and during), bf16 pp=4 tok/s against rank 0 alone in turns;
-    the MoE decoder at ep=4 (fp32, B=8 x N_NEW new, all_to_all calls); two
+    the MoE decoder at ep=4 (fp32, B=8 x PET_NEW new, all_to_all calls); two
     SGD steps of the MoE LM on (dp, pp, tp) = (1, 2, 2) at the default
     capacity (losses, every gradient leaf of the first, step times, K1
     launches) and two at capacity factor n_experts (losses; the stepped
@@ -5549,13 +5881,13 @@ def _pet_rank_work(rank: int, dev, tmp: str) -> dict:
 
     _route("per-op")
     serve("pp", lambda: PPDecoderGenerator(gpt2, _Tok(), pp_mesh),
-          lambda g: g.generate_tokens_batch(prompts, max_tokens=N_NEW))
+          lambda g: g.generate_tokens_batch(prompts, max_tokens=PET_NEW))
     serve("tp_pp", lambda: TPPPDecoderGenerator(gpt2, _Tok(), tppp_mesh),
-          lambda g: g.generate_tokens_batch(prompts, max_tokens=N_NEW))
+          lambda g: g.generate_tokens_batch(prompts, max_tokens=PET_NEW))
     if rank == 0:  # the whole model on one rank, for the memory line
         serve("one rank", lambda: DecoderGenerator(types.SimpleNamespace(
             params=tree_map(lambda t: t.to(dev), gpt2.params), cfg=gpt2.cfg, device=dev), _Tok()),
-            lambda g: g.generate_tokens_batch(prompts, max_tokens=N_NEW))
+            lambda g: g.generate_tokens_batch(prompts, max_tokens=PET_NEW))
     dist.barrier()
 
     # bf16 GPT-2 rates: pp=4 (every rank) and rank 0 alone (the others waiting), in turns
@@ -5591,7 +5923,7 @@ def _pet_rank_work(rank: int, dev, tmp: str) -> dict:
     torch.cuda.empty_cache()
 
     serve("ep", lambda: EPMoEGenerator(inp["moe"], inp["moe_cfg"], ep_mesh),
-          lambda g: g.generate_tokens_batch(prompts, max_tokens=N_NEW))
+          lambda g: g.generate_tokens_batch(prompts, max_tokens=PET_NEW))
 
     # training: two SGD steps at the default capacity, then two at capacity factor n_experts
     tokens = torch.from_numpy(inp["tokens"]).to(dev)
@@ -5661,7 +5993,7 @@ def pp_ep_train_path(dev, card: str) -> dict:
     (``parallel/``) at full width through their entry points: PET_RANKS
     ranks spawned on the one card over gloo (each running
     ``_pet_rank_work``), with the single-device references computed here
-    while they start: GPT-2 small's per-op route (fp32, B=8 x N_NEW), the
+    while they start: GPT-2 small's per-op route (fp32, B=8 x PET_NEW), the
     MoE decoder's single-device ``MoEDecoderGenerator`` and the train step
     on a one-rank mesh at capacity factor n_experts. fp32 tokens equal on
     every rank and the single device's up to printed near-ties; K7 launched
@@ -5697,10 +6029,10 @@ def pp_ep_train_path(dev, card: str) -> dict:
             prompts, cfg = inp["prompts"], inp["moe_cfg"]
             _route("per-op")
             gpt2 = _gpt2_moving(dev)
-            ref = {"pp": DecoderGenerator(gpt2, _Tok()).generate_tokens_batch(prompts, max_tokens=N_NEW)}
+            ref = {"pp": DecoderGenerator(gpt2, _Tok()).generate_tokens_batch(prompts, max_tokens=PET_NEW)}
             ref["tp_pp"] = ref["pp"]
             moe = tree_map(lambda t: t.to(dev), inp["moe"])
-            ref["ep"] = MoEDecoderGenerator(moe, cfg).generate_tokens_batch(prompts, max_tokens=N_NEW)
+            ref["ep"] = MoEDecoderGenerator(moe, cfg).generate_tokens_batch(prompts, max_tokens=PET_NEW)
             # the train step on a one-rank mesh (a process group of its own), capacity factor n_experts
             dist.init_process_group("gloo", init_method=f"file://{os.path.join(tmp, 'one')}", rank=0, world_size=1)
             try:
@@ -5757,7 +6089,7 @@ def pp_ep_train_path(dev, card: str) -> dict:
                 raise AssertionError(f"{what} rank {rank}: K7 launched {k7} times (0 wanted); never launched: "
                                      f"{missing}")
     pad = -(-max(PROMPT_LENS) // 8) * 8  # the MoE generator's bucket of 8
-    forwards = min(pad + N_NEW, cfg.max_seq_len) - pad
+    forwards = min(pad + PET_NEW, cfg.max_seq_len) - pad
     for rank, res in got.items():
         if res["ep all_to_all"] != 2 * cfg.n_layers * forwards:
             raise AssertionError(f"pp ep train ep rank {rank}: {res['ep all_to_all']} all_to_all calls, "
@@ -5782,7 +6114,7 @@ def pp_ep_train_path(dev, card: str) -> dict:
                                  f"(rtol, atol) = ({PET_SHARD_TOL}, {PET_SHARD_TOL}) (max abs {max_abs:.3g})")
     mib = 2.0 ** 20
     print(f"phase pp ep train fp32: {PET_RANKS} ranks on one card ({card}), gloo, collectives through host memory; "
-          f"GPT-2 small B={len(prompts)} x {N_NEW} new at pp={PET_RANKS} and (pp, tp) = {PET_TP_PP}, the MoE decoder "
+          f"GPT-2 small B={len(prompts)} x {PET_NEW} new at pp={PET_RANKS} and (pp, tp) = {PET_TP_PP}, the MoE decoder "
           f"(GPT-2 small's widths, {cfg.n_experts} experts x {cfg.expert_hidden}) at ep={PET_RANKS}: every rank's "
           f"tokens equal, and the single device's up to near-ties ({'; '.join(notes)}); all_to_all "
           f"{r0['ep all_to_all']} calls a rank (2 x {cfg.n_layers} layers x {forwards} forwards)")
@@ -6259,17 +6591,22 @@ def main() -> int:
 
     from pytorch_models_tpu_torch.ops.encoder_attention import SUPPORTED_HEAD_DIMS
 
+    t_sass = time.perf_counter()
     sass = _sass_tensor_core_counts(lib_path)
     served = {f"{dn} D={d}" for dn in ("fp32", "bf16") for d in SUPPORTED_HEAD_DIMS}
     if sass is not None and ({key.rsplit(" ", 1)[0] for key in sass} != served or min(sass.values()) == 0):
         raise AssertionError(f"encoder_attention: every (dtype, head width) must run on the tensor cores: {sass}")
     print("phase sass encoder_attention: tensor-core instructions (HMMA/HGMMA) per instantiation "
-          + ("not measured (no cuobjdump)" if sass is None else json.dumps(sass)))
+          + ("not measured (no cuobjdump)" if sass is None else json.dumps(sass))
+          + f" ({time.perf_counter() - t_sass:.1f} s)")
+
+    clocks = {}
 
     def timed(name, fn, *a):
         t = time.perf_counter()
         out = fn(*a)
-        print(f"phase clock {name}: {time.perf_counter() - t:.1f} s (run so far {time.perf_counter() - t0:.1f} s)")
+        clocks[name] = time.perf_counter() - t
+        print(f"phase clock {name}: {clocks[name]:.1f} s (run so far {time.perf_counter() - t0:.1f} s)")
         return out
 
     res = timed("kernel phases", kernel_phases, dev, card)
@@ -6277,9 +6614,11 @@ def main() -> int:
     res_w = timed("whisper kernels", whisper_kernel_phases, dev, card)
     res_t5 = timed("t5 kernels", t5_kernel_phases, dev, card)
     res_k7 = timed("K7", decode_step_phases, dev, card)
+    res_wl = timed("K7 whisper large-v3", decode_step_phases, dev, card, ("whisper-large",), [(W_LARGE_K7_B, None)])
     timed("K7 breakdown", decode_step_breakdown, dev, card)
     res_i8 = timed("int8 kernels", int8_kernel_phases, dev, card)
     res_i8k7 = timed("K7 int8", int8_decode_step_phases, dev, card)
+    res_sl = sliced_records(res_k7, res_wl, res_i8k7)
     paths = {name: timed(name, fn, dev, card, args.profile)
              for name, fn in (("gpt2", main_path), ("whisper", whisper_path), ("t5", t5_path), ("vit", vit_path))}
     paths["families"] = timed("families", families_path, dev, card, args.profile)
@@ -6290,6 +6629,7 @@ def main() -> int:
     paths["cb"] = timed("cb", cb_path, dev, card, args.profile)
     paths["cb whisper"] = timed("cb whisper", cb_whisper_path, dev, card, args.profile)
     paths["cb t5"] = timed("cb t5", cb_t5_path, dev, card, args.profile)
+    paths.update(timed("k7 slices", slices_path, dev, card))
     k6_path = timed("int8 stack", int8_stack_path, dev, card)
     i8 = timed("int8 paths", int8_paths, dev, card)
     spec = timed("spec", spec_paths, dev, card, args.profile)  # its K7 launches at one row feed the *_b1 rows only
@@ -6396,6 +6736,18 @@ def main() -> int:
                                           spec["spec t5"]["fused_cross_decode_step_t5_b1"]),
         f"fused_cross_decode_step_t5_b1{l2}": (k7_src, "pytorch_models_tpu/ops/decode_step.py:1397", "bfloat16",
                                                spec["spec t5"][f"fused_cross_decode_step_t5_b1{l2}"]),
+        # over row slices (batches above one launch's 32 rows, or a width whose plan refuses the batch whole): GPT-2
+        # with its head (phase "k7 slices" B=64 and its pool of 64, phase "main"'s B=33) and headless (beams of 36
+        # rows); Whisper large-v3 at B=16 and T5-base at B=48 (phase "k7 slices"); each launch also counts under its
+        # own rows above
+        "fused_decode_step_sliced": (k7_src, "pytorch_models_tpu/ops/decode_step.py:1359", "bfloat16",
+                                     total("fused_decode_step_sliced") - total("fused_decode_step_headless_sliced")),
+        "fused_decode_step_headless_sliced": (k7_src, "pytorch_models_tpu/ops/decode_step.py:1359", "bfloat16",
+                                              total("fused_decode_step_headless_sliced")),
+        "fused_cross_decode_step_sliced": (k7_src, "pytorch_models_tpu/ops/decode_step.py:1397", "bfloat16",
+                                           paths["slices whisper"]["fused_cross_decode_step_sliced"]),
+        "fused_cross_decode_step_t5_sliced": (k7_src, "pytorch_models_tpu/ops/decode_step.py:1397", "bfloat16",
+                                              paths["slices t5"]["fused_cross_decode_step_sliced"]),
         # the MLP activations beyond GELU: K7 (GPT-2 small, B=8) with relu, silu and identity on phase "act"'s path
         **{f"fused_decode_step_{a}": (k7_src, "pytorch_models_tpu/ops/decode_step.py:1359", "bfloat16",
                                       act_counts[a]["fused_decode_step"]) for a in K7_ACTS},
@@ -6413,13 +6765,13 @@ def main() -> int:
                  "fused_cross_decode_step_b16", "fused_cross_decode_step_t5_b32", "fused_cross_decode_step_b32",
                  "fused_decode_step_b1", f"fused_decode_step_b1{l2}", "fused_decode_step_headless_b1",
                  "fused_cross_decode_step_b1", f"fused_cross_decode_step_b1{l2}", "fused_cross_decode_step_t5_b1",
-                 f"fused_cross_decode_step_t5_b1{l2}", *(f"fused_decode_step_{a}" for a in K7_ACTS)):
+                 f"fused_cross_decode_step_t5_b1{l2}", *(f"fused_decode_step_{a}" for a in K7_ACTS), *SLICED_ENTRIES):
         limits[name] = {dn: list(DS_TOL[dn]) for dn in DS_TOL}
     for name in ("fused_decode_step_int8", "fused_decode_step_a8", "fused_cross_decode_step_int8",
                  "fused_cross_decode_step_t5_a8", "fused_decode_step_int8_b32",
                  "fused_cross_decode_step_int8_b16"):  # on x after each layer
         limits[name] = {dn: list(I8_LAYER_TOL[dn]) for dn in I8_LAYER_TOL}
-    results = (res, res_e, res_w, res_t5, res_k7, res_i8, res_i8k7, res_act)
+    results = (res, res_e, res_w, res_t5, res_k7, res_i8, res_i8k7, res_act, res_sl)
     entries = []
     for name, (src, replaces, timed, launches) in meta.items():
         if launches <= 0:
@@ -6432,10 +6784,12 @@ def main() -> int:
                         "replaces": replaces, "launches": launches, "max_abs_err": err, "limit": limits[name],
                         **{k: rec[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
                         **{k: rec[k] for k in ("two_gathers_ms", "embedding_add_ms", "launch_floor_ms",
-                                               "head_matmul_ms", "per_op_ms") if k in rec},
+                                               "head_matmul_ms", "per_op_ms", "slice_bound_ms", "launches_a_step")
+                           if k in rec},
                         **({"rows": rows} if rows else {})})
     print(f"phase total: {time.perf_counter() - t0:.1f} s, the kernels' build "
-          f"{_build.build_seconds if _build.build_seconds is not None else 'cached'} s of it [{card}]")
+          f"{_build.build_seconds if _build.build_seconds is not None else 'cached'} s of it; seconds by phase: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in clocks.items()) + f" [{card}]")
     print(card)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

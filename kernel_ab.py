@@ -16,8 +16,10 @@ time per call, ``chip_smoke._time_ms``):
   ``pmt_decode_attention`` and ``pmt_int8_attention``;
 - ``--k7``: ``csrc/decode_step*.cu`` (one source, or the dispatcher and
   its eight instantiations; with the headers of its own tree) at every K7
-  variant of ``chip_smoke.py`` (GPT-2, Whisper and T5 at
-  B=8, and the int8 serving variants of ``I8_VARIANTS``), bf16 and fp32.
+  variant of ``chip_smoke.py`` (GPT-2, Whisper and T5, and the int8
+  serving variants of ``I8_VARIANTS``) at B=8, 16 and 32 (``K7_AB_BATCHES``:
+  one launch each), bf16 and fp32; each case's outputs (x_out, token) of
+  the two trees are held bit-equal.
   The base tree's ``Args`` must be a prefix of this tree's ``_Args``
   (fields are only ever appended), so its library reads the same call; a
   tree whose wrapper has no ``_unit_major`` is given the packed weights as
@@ -64,6 +66,14 @@ _CURRENT = ("pmt_greedy_argmax", "pmt_greedy_split", "pmt_log_mel", "pmt_log_mel
             "pmt_log_mel_k_step", "pmt_log_mel_stage")
 
 
+# Both trees' libraries live in one process: a function-local static of a template (K7's planner caches its
+# attribute and occupancy there) is a GNU unique symbol by default, which the dynamic loader binds once per process
+# whatever the library, so the second library's planner would read the first's cache and skip setting its own
+# kernel's shared-memory attribute (its launch then fails, error 720). Built without unique symbols, each library
+# keeps its own statics.
+HOST_FLAGS = ["-Xcompiler", "-fno-gnu-unique"]
+
+
 def build_lib(csrc: Path, out_dir: Path, sources, entries):
     from pytorch_models_tpu_torch.ops import _build as b
 
@@ -73,7 +83,7 @@ def build_lib(csrc: Path, out_dir: Path, sources, entries):
     sources = [p.name for pattern in sources for p in sorted(csrc.glob(pattern))]  # K7: one source or several
     for name in sources:
         obj = out_dir / (Path(name).stem + ".o")
-        procs.append(subprocess.Popen([nvcc, *b.NVCC_FLAGS, "-c", "-o", str(obj), str(csrc / name)],
+        procs.append(subprocess.Popen([nvcc, *b.NVCC_FLAGS, *HOST_FLAGS, "-c", "-o", str(obj), str(csrc / name)],
                                       stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
         objs.append(str(obj))
     for name, p in zip(sources, procs):
@@ -223,8 +233,11 @@ def _head_mel_cases(dev, libs: dict, current: dict):
     return out
 
 
+K7_AB_BATCHES = (8, 16, 32)
+
+
 def _k7_cases(dev):
-    """(name, [call]) for every K7 variant of chip_smoke.py, bf16 and fp32."""
+    """(name, [call]) for every K7 variant of chip_smoke.py at K7_AB_BATCHES, bf16 and fp32."""
     import torch
 
     g = torch.Generator(device=dev).manual_seed(chip_smoke.SEED + 21)
@@ -235,9 +248,10 @@ def _k7_cases(dev):
                  for name, kind, a8, kv, kvx, q8, embed in chip_smoke.I8_VARIANTS]
     out = []
     for dtype in (torch.bfloat16, torch.float32):
-        for name, kind, opts in variants:
-            call, _, _ = chip_smoke._k7_step(dev, kind, dtype, g, models[kind], **opts)
-            out.append((f"K7 {name} {str(dtype).removeprefix('torch.')} B=8", [call]))
+        for b in K7_AB_BATCHES:
+            for name, kind, opts in variants:
+                call, _, _ = chip_smoke._k7_step(dev, kind, dtype, g, models[kind], **opts, b=b)
+                out.append((f"K7 {name} {str(dtype).removeprefix('torch.')} B={b}", [call]))
     return out
 
 
@@ -291,7 +305,17 @@ def main() -> int:
             calls = fns[turn] if isinstance(fns, dict) else fns
             t.setdefault(turn, []).append(chip_smoke._time_ms(calls, iters) * 1e3)
         res[name] = {k: sum(v) / len(v) for k, v in t.items()}
-        print(f"{name}: " + ", ".join(f"{k} {v[0]:.2f} / {v[1]:.2f} us" for k, v in t.items()) + f" [{card}]")
+        same = ""
+        if mode == "k7":  # one launch at these batches: the same plan, so the same bits
+            got = {}
+            for turn in ("base", "new"):
+                use(turn)
+                got[turn] = fns[0]()
+            torch.cuda.synchronize()
+            equal = all(torch.equal(a, b) for a, b in zip(got["base"], got["new"]) if a is not None)
+            res[name]["bit_equal"] = equal
+            same = f"; outputs bit-equal: {equal}"
+        print(f"{name}: " + ", ".join(f"{k} {v[0]:.2f} / {v[1]:.2f} us" for k, v in t.items()) + same + f" [{card}]")
     if mode == "k7":  # the per-phase breakdown of each tree whose kernel takes stamps
         for turn, tree in (("base", base), ("new", here)):
             if any("stamps" in f.read_text() for f in (tree / "pytorch_models_tpu_torch" / "csrc").glob("decode_step*")):
@@ -300,6 +324,9 @@ def main() -> int:
                 chip_smoke.decode_step_breakdown(dev, card, rows=(8,))  # the rows a parent tree serves
     print(card)
     print(json.dumps({"us": res, "base": str(base)}))
+    if mode == "k7" and not all(r["bit_equal"] for r in res.values()):
+        print("kernel_ab: the two trees' K7 outputs differ", file=sys.stderr)
+        return 1
     return 0
 
 

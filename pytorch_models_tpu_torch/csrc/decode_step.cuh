@@ -112,9 +112,9 @@
 // T5-base in every dtype and weight variant), so the weights leave HBM once
 // per step at any B and only the FMAs, the input loads and the epilogues
 // scale with the groups. A share that would stream in K-chunks is refused
-// above 8 rows (that batch decodes per-op) rather than re-read per group:
-// chunks outer and groups inner would need every group's input or
-// accumulators at once, which is later work. Where the batch's rows of a
+// above 8 rows rather than re-read per group: chunks outer and groups inner
+// would need every group's input or accumulators at once, which is later
+// work. Where the batch's rows of a
 // phase input fit xs at once (the norm inputs and the attention context, d
 // and H*D wide; not the MLP hidden), they are loaded together, one chain of
 // L2 round trips instead of one per group. The head keeps all B normed rows
@@ -128,6 +128,16 @@
 // on). A batch of one group runs its own instantiation, compiled without
 // the multi-group paths, which keeps its register allocation (and its
 // time, within 2-9%, PERF.md) that of the kernel before row groups.
+//
+// Row slices (any batch). Every row of a step depends only on its own
+// residual, cache rows, pad and cross length, so a batch above 32 rows, or
+// one whose launch the planner refuses (a share that would stream above 8
+// rows, a phase input that does not fit), runs as launches of this kernel
+// over row slices, each of the most rows the planner accepts
+// (ops/decode_step.py `_slice_rows`). A slice's caches are views [:, r0:r1]
+// of the (L, B, ...) buffers: their layer strides come in Args
+// (`kv_stride` ...), its per-row inputs and outputs by pointer offset. The
+// weights are then read once per slice.
 //
 // Data written inside the kernel (residual, q, partials, the MLP hidden, the
 // cache slot at `pos`) is read back with ld.global.cg (L2, never a stale L1
@@ -147,7 +157,7 @@ namespace pmt_k7 {
 constexpr int NT = 512;      // threads per block
 constexpr int NW = NT / 32;  // warps per block
 constexpr int GR = 8;        // rows per group: the batch rows of a matvec pass
-constexpr int MB = 32;       // largest batch served (groups of GR rows)
+constexpr int MB = 32;       // the most rows of one launch (groups of GR rows); a larger batch runs as row slices
 constexpr int HEAD_D = 64;   // head dim served
 constexpr int MAX_SPLIT = 16;
 constexpr int MAX_SLOTS = 8;  // ring slots: cp.async groups of weights in flight per block
@@ -188,6 +198,10 @@ struct Args {
     // readings of each block at four points of every phase (after the barrier, after the input load, after the
     // matvec or attention, before arriving at the next barrier)
     long long* stamps;
+    // appended after stamps: the caches' layer strides in elements (k/v, their int8 scales ks/vs; xk/xv, xks/xvs),
+    // so a launch can take a row slice [:, r0:r1] of the (L, B, ...) buffers, whose layer stride is the whole
+    // buffer's; 0: the launch's own batch (b * l_max * hd, b * l_max, b * lx * hd, b * lx)
+    long long kv_stride, kvs_stride, xkv_stride, xkvs_stride;
 };
 
 // One matrix shape's staging: a block's share (a run of column units, WVec) goes through the shared-memory

@@ -886,7 +886,7 @@ __global__ void __launch_bounds__(NT, 1) decode_step_kernel(Args a, Plan p) {
     for (int l = 0; l < a.n_layers; ++l) {
         const T* xp = l == 0 ? x_in : xr;  // the residual entering this layer
         const bool emb0 = l == 0 && a.embed;
-        const int64_t kv_off = static_cast<int64_t>(l) * B * Lp * hd;
+        const int64_t kv_off = l * a.kv_stride;  // the caches' layer strides: launch_groups resolves a 0
 
         // residual += round(acc + bias), in the compute dtype
         auto residual = [&](const T* src, bool from_embed) {
@@ -943,8 +943,9 @@ __global__ void __launch_bounds__(NT, 1) decode_step_kernel(Args a, Plan p) {
         if (kv_int8) {
             int8_t* kq = static_cast<int8_t*>(a.k_cache) + kv_off;
             int8_t* vq = static_cast<int8_t*>(a.v_cache) + kv_off;
-            float* ks = static_cast<float*>(a.ks) + static_cast<int64_t>(l) * B * Lp;
-            float* vs = static_cast<float*>(a.vs) + static_cast<int64_t>(l) * B * Lp;
+            const int64_t s_off = l * a.kvs_stride;
+            float* ks = static_cast<float*>(a.ks) + s_off;
+            float* vs = static_cast<float*>(a.vs) + s_off;
             int8_units(kq, vq, ks, vs, Lp, true, kq, vq, ks, vs);
         } else {
             attention<T>(qs, kc, vc, Lp, B, H, p.split, a.scale,
@@ -986,9 +987,9 @@ __global__ void __launch_bounds__(NT, 1) decode_step_kernel(Args a, Plan p) {
             sync();
             mark(1);
             const int lx = a.lx;
-            const int64_t xoff = static_cast<int64_t>(l) * B * lx * hd;
+            const int64_t xoff = l * a.xkv_stride;
             if (a.kvx_int8) {
-                const int64_t soff = static_cast<int64_t>(l) * B * lx;
+                const int64_t soff = l * a.xkvs_stride;
                 int8_units(static_cast<const int8_t*>(a.xk) + xoff, static_cast<const int8_t*>(a.xv) + xoff,
                            fp(a.xks) + soff, fp(a.xvs) + soff, lx, false, nullptr, nullptr, nullptr, nullptr);
             } else {
@@ -1269,6 +1270,11 @@ int launch_groups(const Args& a) {
     int rc = plan<T, W, MAXG>(a, p);
     if (rc != 0) return rc;
     Args args = a;
+    // a layer stride of 0: the launch's own batch, the (L, b, ...) caches whole
+    if (!args.kv_stride) args.kv_stride = static_cast<long long>(a.b) * a.l_max * a.hd;
+    if (!args.kvs_stride) args.kvs_stride = static_cast<long long>(a.b) * a.l_max;
+    if (!args.xkv_stride) args.xkv_stride = static_cast<long long>(a.b) * a.lx * a.hd;
+    if (!args.xkvs_stride) args.xkvs_stride = static_cast<long long>(a.b) * a.lx;
     void* params[] = {&args, &p};
     cudaError_t e = cudaLaunchCooperativeKernel(decode_step_kernel<T, W, MAXG>, dim3(p.grid), dim3(NT), params, p.smem,
                                                 pmt::as_stream(a.stream));

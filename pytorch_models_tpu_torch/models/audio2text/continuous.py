@@ -102,9 +102,9 @@ class WhisperContinuousBatchingGenerator:
     decoder position table: positions are per row; a larger pool context
     means fewer epoch resets); ``check_every`` is decode steps between host
     scheduling points. The pool decodes through the fused step when
-    ``_whisper_fused_ok`` holds at ``batch_size`` (on the card: up to
-    ``ops.decode_step.MAX_BATCH`` rows), else per-op; a launch that fails
-    raises. The text methods take a ``WhisperTokenizer`` passed in."""
+    ``_whisper_fused_ok`` holds at ``batch_size`` (on the card: any pool,
+    over row slices of up to ``ops.decode_step.MAX_LAUNCH_ROWS`` rows),
+    else per-op; a launch that fails raises. The text methods take a ``WhisperTokenizer`` passed in."""
 
     SAMPLE_RATE = 16_000
     N_SAMPLES = 30 * 16_000

@@ -5,8 +5,9 @@ into a running batched decode.
 A fixed pool of B cache slots runs one shared decode loop; whenever a slot
 finishes its request a new one is admitted mid-flight and the other rows
 never stop. Decode stays on the batched fast path: the fused one-kernel
-decode step (``ops/decode_step.py``, up to ``MAX_BATCH`` rows) when it
-serves the model and the pool, else the per-op step (with the greedy head
+decode step (``ops/decode_step.py``; a pool above ``MAX_LAUNCH_ROWS`` rows
+runs it over row slices, one launch each) when it serves the model, else
+the per-op step (with the greedy head
 kernel where its gate takes it). Per-row left-pad masking makes each slot's
 math that of a fresh left-padded batch row, so outputs are token-identical
 to ``DecoderGenerator.generate_tokens`` per request.
@@ -416,8 +417,9 @@ class ContinuousBatchingGenerator:
     the device-to-host copy, smaller admits waiting requests sooner (a
     finished slot parks up to ``check_every - 1`` steps). The pool decodes
     through the fused step when ``decoder_lm_fused_ok(params, cfg,
-    batch_size)`` holds (on the card: ``batch_size`` up to
-    ``ops.decode_step.MAX_BATCH``); a launch that fails raises."""
+    batch_size)`` holds (on the card: any ``batch_size``, one launch per
+    step up to ``ops.decode_step.MAX_LAUNCH_ROWS`` rows, else one per row
+    slice); a launch that fails raises."""
 
     def __init__(self, model, tokenizer, batch_size: int = 8, prompt_bucket: int = PROMPT_BUCKET,
                  check_every: int = 16) -> None:

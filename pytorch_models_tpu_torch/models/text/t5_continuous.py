@@ -98,8 +98,8 @@ class T5ContinuousBatchingGenerator:
     ``max_tokens``; a larger one means fewer epoch resets); ``check_every``
     is decode steps between host scheduling points. The pool decodes through
     the fused step when ``_t5_fused_ok`` holds at ``batch_size`` (on the
-    card: up to ``ops.decode_step.MAX_BATCH`` rows), else per-op; a launch
-    that fails raises. The string methods take a sentencepiece-style
+    card: any pool, over row slices of up to ``ops.decode_step.MAX_LAUNCH_ROWS``
+    rows), else per-op; a launch that fails raises. The string methods take a sentencepiece-style
     tokenizer passed in (``Encode(text, add_eos=True)``, ``Decode(ids)``,
     ``pad_id()``, ``eos_id()``)."""
 

@@ -35,9 +35,9 @@ USE_ENCODER_KERNEL: bool | None = None
 USE_GREEDY_HEAD: bool | None = None
 # the whole greedy decode step in one kernel (ops/decode_step.py): layer
 # stack [+ cross-attention] + final norm + greedy head. Auto takes
-# it for CUDA tensors, as the JAX package takes it on its TPU; a model or
-# batch the kernel does not serve (decode_step.fused_step_eligible) decodes
-# per-op.
+# it for CUDA tensors, as the JAX package takes it on its TPU, at any batch
+# (over row slices above one launch's rows); a model the kernel does not
+# serve (decode_step.fused_step_eligible) decodes per-op.
 USE_FUSED_STEP: bool | None = None
 # w8a8 decode (ops/decode_step.py ``a8=True``): when the fused step streams
 # int8 weights (``model.quantize_int8()``), each phase also quantizes its

@@ -10,8 +10,10 @@ untied table).
 (Whisper; T5 with ``norm="rms", gated=True, sbias=...``) launch the
 hand-written CUDA kernel ``csrc/decode_step_kernel.cuh`` (one instantiation
 per ``csrc/decode_step_*.cu`` source; the C interface in
-``csrc/decode_step.cu``) on CUDA tensors and run
-:func:`fused_decode_step_plain` on CPU tensors.
+``csrc/decode_step.cu``) on CUDA tensors, at any batch (one launch where
+its planner takes the whole batch, else one per row slice of at most
+``MAX_LAUNCH_ROWS`` rows), and run :func:`fused_decode_step_plain` on CPU
+tensors.
 
 Cache convention: the JAX kernel returns the step's ``k_new, v_new (L, B,
 H*D)`` and its caller writes them at ``pos``. The port keeps its in-place
@@ -79,7 +81,7 @@ from .greedy_head import greedy_argmax_tied_plain
 from .int8_kv import KV_BLOCK_INT8, int8_decode_attention_plain, quantize_rows
 
 HEAD_DIM = 64  # the kernel's head width (every family of the JAX package)
-MAX_BATCH = 32  # rows the kernel serves (in groups of 8 inside one launch); a larger batch decodes per-op
+MAX_LAUNCH_ROWS = 32  # the most rows of one launch (groups of 8 inside it); a larger batch runs over row slices
 _ACT_CODES = ("gelu", "approximate_gelu", "relu", "silu", "identity")  # the kernel's act codes 0-4: ACT_FNS' names
 _NORM_CODES = ("ln", "rms")
 
@@ -228,19 +230,19 @@ def fused_step_eligible(layers: list, cfg, batch: int, cross: bool = False, gate
     """What the CUDA kernel serves: pre-norm layers whose MLP activation is
     an ``ACT_FNS`` name (its gated form, ``mlp.{w, v, wo}``, with
     ``gated``), head_dim 64, widths that are
-    multiples of 64 (16-byte loads over whole column slabs), 1 to MAX_BATCH
-    (32) rows,
+    multiples of 64 (16-byte loads over whole column slabs), any batch of
+    one row or more (the wrappers launch it over row slices of at most
+    MAX_LAUNCH_ROWS rows, :func:`_slice_rows`),
     every projection float or every one weight-only int8, and, for weights
-    on a CUDA device, what the kernel's own launch planner accepts there
-    (its phase input fits in shared memory; above 8 rows, every block's
-    weight share fits its shared-memory ring whole; its grid is
-    co-resident).
+    on a CUDA device, a launch of one row that the kernel's own launch
+    planner accepts there (its phase input fits in shared memory; its grid
+    is co-resident).
     ``dtype``: the compute dtype (default: the weights'; int8 weights need
     it). A tensor-parallel layer (``cfg.tp_axis``) never: the kernel has no
     all-reduce inside, as in the JAX package. Anything else decodes per-op."""
     if not cfg.pre_norm or cfg.tp_axis is not None or cfg.act not in _ACT_CODES or cfg.head_dim != HEAD_DIM:
         return False
-    if not 1 <= batch <= MAX_BATCH or not layers:
+    if batch < 1 or not layers:
         return False
     lp = layers[0]
     try:
@@ -271,7 +273,7 @@ def fused_step_eligible(layers: list, cfg, batch: int, cross: bool = False, gate
         return True
     if cdt not in (torch.float32, torch.bfloat16):
         return False
-    args = _Args(b=batch, d=d, hd=hd, dff=dff, n_heads=cfg.n_heads, dtype=_build.dtype_code(torch.empty(0, dtype=cdt)),
+    args = _Args(b=1, d=d, hd=hd, dff=dff, n_heads=cfg.n_heads, dtype=_build.dtype_code(torch.empty(0, dtype=cdt)),
                  gated=int(gated), wt_int8=int(int8))
     with torch.cuda.device(w.device):
         return _plan(args)[0] > 0
@@ -423,23 +425,83 @@ _INTS = ("n_layers", "b", "d", "hd", "dff", "n_heads", "l_max", "lx", "pos", "vo
          "pos_rows")
 
 
+# the caches' layer strides in elements, appended after ``stamps`` (0: the launch's own batch)
+_STRIDES = ("kv_stride", "kvs_stride", "xkv_stride", "xkvs_stride")
+
+
 class _Args(ctypes.Structure):
-    """csrc/decode_step.cuh ``Args``, field for field. ``stamps`` comes last,
-    so every earlier field keeps its offset and a library built from an
-    older tree reads this structure's prefix unchanged."""
+    """csrc/decode_step.cuh ``Args``, field for field. Fields are only
+    appended (``stamps``, then the caches' layer strides ``_STRIDES``), so
+    every earlier field keeps its offset and a library built from an older
+    tree reads this structure's prefix unchanged."""
 
     _fields_ = ([(n, ctypes.c_void_p) for n in _PTRS] + [(n, ctypes.c_int) for n in _INTS]
-                + [("eps", ctypes.c_float), ("scale", ctypes.c_float), ("stamps", ctypes.c_void_p)])
+                + [("eps", ctypes.c_float), ("scale", ctypes.c_float), ("stamps", ctypes.c_void_p)]
+                + [(n, ctypes.c_longlong) for n in _STRIDES])
+
+
+# the fields of _Args the planner reads
+_PLAN_FIELDS = ("b", "d", "hd", "dff", "n_heads", "dtype", "gated", "wt_int8", "head_a8")
 
 
 def _plan(args: _Args) -> tuple[int, int]:
     """The kernel's launch planner (csrc/decode_step_kernel.cuh ``plan``) on the
     current device: ``(workspace bytes or a negated CUDA error, grid)``. It
-    reads only the shape fields, ``dtype``, ``wt_int8``, ``gated`` and
-    ``head_a8`` of ``args``."""
+    reads only the ``_PLAN_FIELDS`` of ``args``."""
     grid = ctypes.c_int(0)
     ws = _build.load_library().pmt_decode_step_workspace(ctypes.addressof(args), ctypes.addressof(grid))
     return ws, grid.value
+
+
+_SLICE_ROWS: dict[tuple, int] = {}  # (device, the planner's fields at min(B, MAX_LAUNCH_ROWS) rows) -> rows a launch
+
+
+def _slice_rows(args: _Args, b: int) -> int:
+    """The rows of one launch for a batch of ``b`` on the current device:
+    the largest ``s <= min(b, MAX_LAUNCH_ROWS)`` whose launch the kernel's
+    planner accepts, so the batch takes the fewest launches, ``ceil(b /
+    s)``; 0 where it accepts none. Cached per shape; ``args.b`` is left
+    unchanged."""
+    top = min(b, MAX_LAUNCH_ROWS)
+    key = (torch.cuda.current_device(), top, *(getattr(args, f) for f in _PLAN_FIELDS[1:]))
+    s = _SLICE_ROWS.get(key)
+    if s is None:
+        saved, s = args.b, 0
+        for rows in range(top, 0, -1):
+            args.b = rows
+            if _plan(args)[0] > 0:
+                s = rows
+                break
+        args.b = saved
+        _SLICE_ROWS[key] = s
+    return s
+
+
+# the per-row arguments of a launch: (B, ...) tensors sliced along axis 0, and the caches (L, B, ...) and their
+# scales (dicts of them) along axis 1
+_ROWS_AXIS1 = ("k_caches", "v_caches", "cross_k", "cross_v", "kv_scales", "kv_scales_x")
+
+
+def _row_view(name: str, t, r0: int, r1: int):
+    if t is None:
+        return None
+    if isinstance(t, dict):
+        return {k: v[:, r0:r1] for k, v in t.items()}
+    return t[:, r0:r1] if name in _ROWS_AXIS1 else t[r0:r1]
+
+
+def _over_row_slices(step, s: int, b: int, rows: dict) -> list[int]:
+    """``step(**views)`` once per row slice ``[r0, min(r0 + s, b))`` of a
+    batch of ``b``, in order: ``rows`` maps each per-row argument to its
+    whole-batch tensor (a dict of them, or None), passed as the slice's view
+    (``_ROWS_AXIS1`` along axis 1, the rest along axis 0), outputs
+    included, which ``step`` writes in place. Returns the slices' rows."""
+    sizes = []
+    for r0 in range(0, b, s):
+        r1 = min(b, r0 + s)
+        step(**{k: _row_view(k, t, r0, r1) for k, t in rows.items()})
+        sizes.append(r1 - r0)
+    return sizes
 
 
 MATRIX_SHAPES = ("qkv", "o", "qc", "fc1", "fc2")  # the kernel's staged matrix shapes (o_c shares o's)
@@ -548,7 +610,7 @@ def _launch(x, packed, k_caches, v_caches, pos, pad_lens, n_heads, act, eps, hea
     dff = packed["w2"].shape[-2]
     wt_int8 = packed["wqkv"].dtype == torch.int8
     req(not a8 or wt_int8, "fused decode step: a8 needs int8-packed weights")
-    req(1 <= b <= MAX_BATCH, f"fused decode step: batch {b} not in [1, {MAX_BATCH}]")
+    req(b >= 1, "fused decode step: no rows")
     req(hd == n_heads * HEAD_DIM and d % 64 == 0 and hd % 64 == 0 and dff % 64 == 0,
         f"fused decode step: d {d}, H*D {hd}, dff {dff}, {n_heads} heads unsupported")
     req(act in _ACT_CODES, f"fused decode step: activation {act!r} unsupported")
@@ -579,7 +641,7 @@ def _launch(x, packed, k_caches, v_caches, pos, pad_lens, n_heads, act, eps, hea
         for key in ("ks", "vs"):
             req(kv_scales[key].shape == (n_layers, b, l_max) and kv_scales[key].dtype == torch.float32,
                 "fused decode step: kv_scales (L, B, Lp) fp32")
-        tensors.update(ks=kv_scales["ks"], vs=kv_scales["vs"])
+        caches += [kv_scales["ks"], kv_scales["vs"]]
     if cross:
         lx = cross_k.shape[2]
         req(cross_k.shape == (n_layers, b, lx, hd) and cross_v.shape == cross_k.shape,
@@ -592,7 +654,7 @@ def _launch(x, packed, k_caches, v_caches, pos, pad_lens, n_heads, act, eps, hea
             for key in ("ks", "vs"):
                 req(kv_scales_x[key].shape == (n_layers, b, lx) and kv_scales_x[key].dtype == torch.float32,
                     "fused cross decode step: kv_scales_x (L, B, Lx) fp32")
-            tensors.update(xks=kv_scales_x["ks"], xvs=kv_scales_x["vs"])
+            caches += [kv_scales_x["ks"], kv_scales_x["vs"]]
     else:
         req(kv_scales_x is None, "fused decode step: kv_scales_x without cross caches")
     if sbias is not None:
@@ -619,63 +681,94 @@ def _launch(x, packed, k_caches, v_caches, pos, pad_lens, n_heads, act, eps, hea
         if "pos" in emb:
             req(pos_rows is not None, "fused decode step: a position table takes pos_rows")
             tensors["pos_emb"] = emb["pos"]
-            ids["pos_ids"] = _row_i32(pos_rows, b, dev)
-    everything = ([] if x is None else [x]) + [*caches, *tensors.values()]
+            ids["pos_rows"] = _row_i32(pos_rows, b, dev)
+    everything = ([] if x is None else [x]) + list(tensors.values())
     req(all(t.is_cuda and t.device == dev and t.is_contiguous() for t in everything),
         "fused decode step: contiguous tensors on one CUDA device only")
+    # the (L, B, ...) caches and their scales, in (k, v) pairs: each layer's rows contiguous (a row slice [:, r0:r1]
+    # of larger buffers passes), the pair's strides alike
+    req(all(t.is_cuda and t.device == dev and t[0].is_contiguous() for t in caches)
+        and all(k.stride() == v.stride() for k, v in zip(caches[::2], caches[1::2])),
+        "fused decode step: caches and their scales on the CUDA device, contiguous but for the layer axis")
     tensors.update({k: _unit_major(tensors[k]) for k in _STAGED if k in tensors})
 
     x_out = torch.empty((b, d), dtype=dt, device=dev)
     tok = torch.empty((b,), dtype=torch.int64, device=dev) if head is not None else None
-    pads = None if pad_lens is None else _row_i32(pad_lens, b, dev)
-    lens = _row_i32(cross_lens, b, dev) if cross else None
     args = _Args(
-        x=None if x is None else x.data_ptr(), x_out=x_out.data_ptr(), k_cache=k_caches.data_ptr(),
-        v_cache=v_caches.data_ptr(), pads=None if pads is None else pads.data_ptr(),
-        tok=None if tok is None else tok.data_ptr(),
-        xk=cross_k.data_ptr() if cross else None, xv=cross_v.data_ptr() if cross else None,
-        xlens=lens.data_ptr() if cross else None, stream=_build.stream_ptr(k_caches),
-        n_layers=n_layers, b=b, d=d, hd=hd, dff=dff, n_heads=n_heads, l_max=l_max, lx=cross_k.shape[2] if cross else 0,
-        pos=pos, vocab=head["emb"].shape[0] if head is not None else 0, act=_act_code(act, dt),
-        dtype=_build.dtype_code(x_out), has_cross=int(cross), has_head=int(head is not None),
+        stream=_build.stream_ptr(k_caches), n_layers=n_layers, b=b, d=d, hd=hd, dff=dff, n_heads=n_heads, l_max=l_max,
+        lx=cross_k.shape[2] if cross else 0, pos=pos, vocab=head["emb"].shape[0] if head is not None else 0,
+        act=_act_code(act, dt), dtype=_build.dtype_code(x_out), has_cross=int(cross), has_head=int(head is not None),
         norm=_NORM_CODES.index(norm), gated=int(gated), wt_int8=int(wt_int8), a8=int(a8),
         kv_int8=int(kv_scales is not None), kvx_int8=int(kv_scales_x is not None), head_a8=int(head_a8),
         embed=int(emb is not None), tok_rows=emb["tok"].shape[0] if emb is not None else 0,
         pos_rows=emb["pos"].shape[0] if emb is not None and "pos" in emb else 0,
-        eps=eps, scale=1.0 / math.sqrt(HEAD_DIM),
-        **{k: t.data_ptr() for k, t in (tensors | ids).items()})
-    ws, grid = _plan(args)
-    if ws <= 0:
-        raise RuntimeError(f"pmt_decode_step: CUDA error {-ws} planning the launch (shared memory too small, "
-                           "or grid not co-resident)")
+        eps=eps, scale=1.0 / math.sqrt(HEAD_DIM), **{k: t.data_ptr() for k, t in tensors.items()})
+    # one launch where the planner takes the whole batch, else launches over row slices of s rows (none accepted:
+    # the plan below reports the planner's error), sharing one workspace on the stream
+    s = _slice_rows(args, b) or min(b, MAX_LAUNCH_ROWS)
+    ws = 0
+    for n in {s, b % s or s}:
+        args.b = n
+        need, grid = _plan(args)
+        if need <= 0:
+            raise RuntimeError(f"pmt_decode_step: CUDA error {-need} planning a launch of {n} rows (shared "
+                               "memory too small, or grid not co-resident)")
+        ws = max(ws, need)
     workspace = torch.empty((ws,), dtype=torch.uint8, device=dev)
     args.workspace = workspace.data_ptr()
-    if stamps is not None:
-        st = torch.zeros((len(step_phase_kinds(n_layers, cross, head is not None)), grid, 4), dtype=torch.int64,
-                         device=dev)
-        args.stamps = st.data_ptr()
-        stamps.append(st)
-    _build.check("pmt_decode_step", _build.load_library().pmt_decode_step(ctypes.addressof(args)))
-    return x_out, tok
+    lib = _build.load_library()
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    def launch(x, x_out, tok, k_caches, v_caches, pad_lens, cross_k, cross_v, cross_lens, tok_ids, pos_rows,
+               kv_scales, kv_scales_x):
+        args.b = x_out.shape[0]
+        args.x, args.x_out, args.tok, args.pads = ptr(x), x_out.data_ptr(), ptr(tok), ptr(pad_lens)
+        args.k_cache, args.v_cache, args.kv_stride = k_caches.data_ptr(), v_caches.data_ptr(), k_caches.stride(0)
+        args.xk, args.xv, args.xlens, args.tok_ids, args.pos_ids = (ptr(t) for t in (cross_k, cross_v, cross_lens,
+                                                                                     tok_ids, pos_rows))
+        args.xkv_stride = cross_k.stride(0) if cross else 0
+        for names, sc in ((("ks", "vs", "kvs_stride"), kv_scales), (("xks", "xvs", "xkvs_stride"), kv_scales_x)):
+            if sc is not None:
+                setattr(args, names[0], sc["ks"].data_ptr())
+                setattr(args, names[1], sc["vs"].data_ptr())
+                setattr(args, names[2], sc["ks"].stride(0))
+        if stamps is not None:
+            st = torch.zeros((len(step_phase_kinds(n_layers, cross, head is not None)), grid, 4), dtype=torch.int64,
+                             device=dev)
+            args.stamps = st.data_ptr()
+            stamps.append(st)
+        _build.check("pmt_decode_step", lib.pmt_decode_step(ctypes.addressof(args)))
+
+    rows = dict(x=x, x_out=x_out, tok=tok, k_caches=k_caches, v_caches=v_caches,
+                pad_lens=None if pad_lens is None else _row_i32(pad_lens, b, dev), cross_k=cross_k, cross_v=cross_v,
+                cross_lens=_row_i32(cross_lens, b, dev) if cross else None, kv_scales=kv_scales,
+                kv_scales_x=kv_scales_x, tok_ids=ids.get("tok_ids"), pos_rows=ids.get("pos_rows"))
+    return x_out, tok, _over_row_slices(launch, s, b, rows)
 
 
 _VARIANTS = ("kv_int8", "a8", "embed", "headless")
-_ROW_BUCKETS = ("b16", "b32")  # launches of 9-16 and of 17-32 rows (two and four row groups)
+# launches of 9-16 and of 17-32 rows (two and four row groups), and those that are one row slice of several
+_ROW_BUCKETS = ("b16", "b32", "sliced")
 
 
-def _count(fn, a8: bool, kv_int8: bool, emb, head, b: int) -> None:
-    """One launch of ``fn``, and of each variant it ran: the int8 serving
+def _count(fn, a8: bool, kv_int8: bool, emb, head, b: int, sliced: bool) -> None:
+    """One launch of ``fn`` over ``b`` rows (a row slice counts as a
+    launch, under its own rows), and of each variant it ran: the int8 serving
     features (the launches of the ``..._int8``, ``..._a8`` and ``..._embed``
     kernels in chip_smoke.py's record) and the headless step (no head: the
     sampled and beam decode loops); above 8 rows also under the row bucket
-    (``b16``, ``b32``, and ``headless_b32`` and so on)."""
+    (``b16``, ``b32``, and ``headless_b32`` and so on); a slice of a batch
+    that took several launches also under ``sliced`` (``headless_sliced``,
+    ...)."""
     fn.launches += 1
-    bucket = None if b <= 8 else _ROW_BUCKETS[b > 16]
-    if bucket:
+    buckets = ([] if b <= 8 else [_ROW_BUCKETS[b > 16]]) + (["sliced"] if sliced else [])
+    for bucket in buckets:
         fn.variant_launches[bucket] += 1
     for key, on in zip(_VARIANTS, (kv_int8, a8, emb is not None, head is None)):
         fn.variant_launches[key] += int(on)
-        if bucket:
+        for bucket in buckets:
             fn.variant_launches[f"{key}_{bucket}"] += int(on)
 
 
@@ -696,18 +789,27 @@ def fused_decode_step(x, packed, k_caches, v_caches, pos: int, pad_lens, n_heads
     comparisons only). ``stamps``: a list to which the launch appends its
     ``(phases, grid, 4)`` int64 tensor of each block's %globaltimer ns at
     four points of every phase (:func:`step_phase_kinds`,
-    :func:`phase_breakdown`); for measurement only. Returns ``(x_out (B, d), tok (B,) int64 or None)``.
-    ``launches`` counts the kernel's launches; ``variant_launches`` those of
+    :func:`phase_breakdown`), one per launch; for measurement only. Returns ``(x_out (B, d), tok (B,) int64 or None)``.
+
+    Any B: the kernel runs once where its planner takes the whole batch,
+    else over row slices of the most rows it takes (at most
+    MAX_LAUNCH_ROWS, :func:`_slice_rows`), in order on the current stream;
+    the caches may be such slices themselves (views ``[:, r0:r1]`` of
+    larger buffers). A slice whose plan or launch fails raises.
+    ``launches`` counts the kernel's launches, each slice one; ``variant_launches`` those of
     each int8 serving variant and those without a head (``headless``), and
-    those of 9-16 and 17-32 rows (``b16``, ``b32``, ``headless_b32``, ...)."""
+    those of 9-16 and 17-32 rows (``b16``, ``b32``, ``headless_b32``, ...)
+    and those that were one slice of several (``sliced``, ...)."""
     ref = x if x is not None else emb["tok"]
     if plain or not ref.is_cuda:
         return fused_decode_step_plain(x, packed, k_caches, v_caches, pos, pad_lens, n_heads, act, eps, head,
                                        a8=a8, emb=emb, tok_ids=tok_ids, pos_rows=pos_rows, kv_scales=kv_scales)
-    out = _launch(x, packed, k_caches, v_caches, pos, pad_lens, n_heads, act, eps, head, None, None, None, a8=a8,
-                  emb=emb, tok_ids=tok_ids, pos_rows=pos_rows, kv_scales=kv_scales, stamps=stamps)
-    _count(fused_decode_step, a8, kv_scales is not None, emb, head, k_caches.shape[1])
-    return out
+    x_out, tok, sizes = _launch(x, packed, k_caches, v_caches, pos, pad_lens, n_heads, act, eps, head, None, None,
+                                None, a8=a8, emb=emb, tok_ids=tok_ids, pos_rows=pos_rows, kv_scales=kv_scales,
+                                stamps=stamps)
+    for n in sizes:
+        _count(fused_decode_step, a8, kv_scales is not None, emb, head, n, len(sizes) > 1)
+    return x_out, tok
 
 
 def fused_cross_decode_step(x, packed, k_caches, v_caches, cross_k, cross_v, cross_lens, pos: int, pad_lens,
@@ -730,11 +832,13 @@ def fused_cross_decode_step(x, packed, k_caches, v_caches, cross_k, cross_v, cro
         return fused_decode_step_plain(x, packed, k_caches, v_caches, pos, pad_lens, n_heads, act, eps, head,
                                        cross_k, cross_v, cross_lens, norm, gated, sbias, a8, emb, tok_ids, pos_rows,
                                        kv_scales, kv_scales_x)
-    out = _launch(x, packed, k_caches, v_caches, pos, pad_lens, n_heads, act, eps, head, cross_k, cross_v, cross_lens,
-                  norm, gated, sbias, a8, emb, tok_ids, pos_rows, kv_scales, kv_scales_x, stamps)
-    _count(fused_cross_decode_step, a8, kv_scales is not None or kv_scales_x is not None, emb, head,
-           k_caches.shape[1])
-    return out
+    x_out, tok, sizes = _launch(x, packed, k_caches, v_caches, pos, pad_lens, n_heads, act, eps, head, cross_k,
+                                cross_v, cross_lens, norm, gated, sbias, a8, emb, tok_ids, pos_rows, kv_scales,
+                                kv_scales_x, stamps)
+    for n in sizes:
+        _count(fused_cross_decode_step, a8, kv_scales is not None or kv_scales_x is not None, emb, head, n,
+               len(sizes) > 1)
+    return x_out, tok
 
 
 for _fn in (fused_decode_step, fused_cross_decode_step):

@@ -8,10 +8,11 @@ within 1e-5 absolute + 1e-5 relative (fp32 log-probs summed over a few
 steps, in other orders). Each case runs on three routes of the port: the
 fused step forced on (its plain twin, headless: the layer stack only; the
 final norm and the head in torch), the per-op kernel wrappers (their plain
-versions) and plain; on both sides of the fused step's 32 rows
-(``ops.decode_step.MAX_BATCH``: G*W = 8, 12 and 36 for GPT-2, W = 4, 12 and
-36 for Whisper and T5, where 36 rows decode per-op even with the fused step
-forced). The JAX side runs its XLA paths. W = 1
+versions) and plain; on both sides of one fused launch's 32 rows
+(``ops.decode_step.MAX_LAUNCH_ROWS``: G*W = 8, 12 and 36 for GPT-2, W = 4, 12
+and 36 for Whisper and T5; on the card 36 rows run as launches over row
+slices, here the twin takes the whole batch). The JAX side runs its XLA
+paths. W = 1
 must equal the port's greedy tokens.
 
 The models: tests/test_torch_sampling.py's GPT-2 (2 layers, d 64, vocab
@@ -146,9 +147,10 @@ def _assert_beams(got, ref, atol=ATOL, rtol=RTOL):
 
 
 def _fused_steps(name, rows, calls, steps):
-    """The fused route's twin ran headless once per beam step at <= MAX_BATCH rows,
-    never above (nor on the other routes), and never with a head."""
-    want = steps if name == "fused" and rows <= decode_step.MAX_BATCH else 0
+    """The fused route's twin ran headless once per beam step at any rows
+    (the kernel over row slices on the card above MAX_LAUNCH_ROWS), never
+    on the other routes, and never with a head."""
+    want = steps if name == "fused" else 0
     assert calls == {"headless": want, "head": 0}
 
 
@@ -164,14 +166,14 @@ def test_gpt2_beam_batch_matches_jax(route, w, with_eos, alpha):
     _assert_beams(got, jax_gpt2_beams(w, eos, alpha, 3))
     if with_eos:
         assert any(s[-1] == eos for group in got[0] for s in group)  # some beam finished at EOS
-    assert calls["head"] == 0 and (calls["headless"] > 0) == (name == "fused" and 3 * w <= decode_step.MAX_BATCH)
+    assert calls["head"] == 0 and (calls["headless"] > 0) == (name == "fused")
 
 
 @pytest.mark.parametrize("g", [2, 3, 9])
 def test_gpt2_beam_on_both_sides_of_the_fused_rows(route, monkeypatch, g):
-    """G*W = 8 and 12 rows (the fused step's twin when forced) and 36
-    (per-op on every route: above MAX_BATCH), W = 4, with EOS: the JAX
-    beams, and the twin once per step."""
+    """G*W = 8, 12 and 36 rows (the fused step's twin when forced; on the
+    card 36 rows run over row slices of at most MAX_LAUNCH_ROWS), W = 4,
+    with EOS: the JAX beams, and the twin once per step."""
     name, calls = route
     _, ours = gpt2()
     eos = eos_ids()["gpt2"]
@@ -253,7 +255,7 @@ def test_whisper_beam_matches_jax(route, w, with_eot, alpha):
         ours.params, ours.cfg, torch.from_numpy(whisper_memory().copy()), torch.tensor(W_INIT), W_MAX, eot, w, alpha))
     _assert_beams(([seqs[i, : lens[i]].tolist() for i in range(w)], scores.tolist()),
                   jax_whisper_beams(w, with_eot, alpha), atol=W_SCORE_TOL, rtol=0)
-    assert calls["head"] == 0 and (calls["headless"] > 0) == (name == "fused" and w <= decode_step.MAX_BATCH)
+    assert calls["head"] == 0 and (calls["headless"] > 0) == (name == "fused")
 
 
 def test_whisper_transcribe_beam_tokens_matches_jax(route):
@@ -289,7 +291,7 @@ def test_t5_beam_matches_jax(route, w, with_eos, alpha):
                                                        length_penalty=alpha, return_all=True)
     _assert_beams(got, jax_t5_beams(w, with_eos, alpha))
     assert all(s[0] == T5_PAD for s in got[0])
-    assert calls["head"] == 0 and (calls["headless"] > 0) == (name == "fused" and w <= decode_step.MAX_BATCH)
+    assert calls["head"] == 0 and (calls["headless"] > 0) == (name == "fused")
 
 
 def test_whisper_and_t5_width_one_is_greedy():

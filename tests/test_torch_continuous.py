@@ -6,9 +6,9 @@ context 256) from the JAX package's ``decoder_lm_init``, with position
 embeddings seeded at scale 3 and layer matrices at 4x the init's, so that
 the greedy streams move, bridged into the port through numpy. Two routes on the port's side: per-op (the CPU
 default) and fused (``USE_FUSED_STEP = True``: on CPU tensors the fused
-step's wrapper runs its plain twin, which serves pools up to
-``ops.decode_step.MAX_BATCH`` = 32 rows; a spy counts its calls and their
-rows). fp32 throughout; greedy tokens are held identical per request to
+step's wrapper runs its plain twin over the whole pool, at any size: on
+the card the kernel serves a pool above ``ops.decode_step.MAX_LAUNCH_ROWS``
+= 32 rows over row slices; a spy counts its calls and their rows). fp32 throughout; greedy tokens are held identical per request to
 the JAX package's engine, to the port's ``DecoderGenerator.generate_tokens``
 and across routes.
 
@@ -145,12 +145,14 @@ def greedy_refs(pair):
 
 
 @pytest.mark.parametrize("route", ROUTES, indirect=True)
-@pytest.mark.parametrize("pool", [1, 8, 12, 32])
+@pytest.mark.parametrize("pool", [1, 8, 12, 32, 40])
 def test_greedy_pool_matches_jax_and_plain(pair, greedy_refs, route, pool):
     """40 requests of 1-30 tokens, budgets 3-25: mid-flight admissions into
     stale slots; every request token-identical to the JAX engine's and to
     the plain generator's. On the fused route every step is one call of
-    the fused step over the whole pool (its twin above 8 rows too)."""
+    the fused step over the whole pool (its twin above 8 rows too, and
+    above one launch's 32 rows: 40 slots hold every request, as the JAX
+    engine's 40 do)."""
     name, rows = route
     _, om = pair
     cb = ContinuousBatchingGenerator(om, Tok(), batch_size=pool, prompt_bucket=16, check_every=4)
@@ -162,10 +164,11 @@ def test_greedy_pool_matches_jax_and_plain(pair, greedy_refs, route, pool):
         assert len(rows) == st.decode_steps and set(rows) == {pool}
     else:
         assert rows == []
-    if pool in (12, 32):
+    if pool in (12, 32, 40):
         jm, _ = pair
+        n = N_REQ if pool == 40 else 12
         assert JaxCB(jm, Tok(), batch_size=pool, prompt_bucket=16,
-                     check_every=4).generate_tokens_many(REQS[:12], BUDGETS[:12]) == outs[:12]
+                     check_every=4).generate_tokens_many(REQS[:n], BUDGETS[:n]) == outs[:n]
 
 
 # (name, model fixture, requests, budgets, kw of the engine, prefix, eos from the plain stream of request 0)

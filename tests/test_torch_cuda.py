@@ -780,9 +780,10 @@ def test_fused_step_planner_accepts_every_served_width(cuda, model):
 
 def test_fused_decode_step_refuses_unsupported_input(cuda):
     cfg, packed, head, x, (kc, vc), _ = _step_inputs(cuda, torch.float32, False)
-    with pytest.raises(ValueError):  # 33 rows: more than the kernel serves
-        fused_decode_step(x.repeat(9, 1)[:33].contiguous(), packed, kc.repeat(1, 9, 1, 1)[:, :33].contiguous(),
-                          vc.repeat(1, 9, 1, 1)[:, :33].contiguous(), 5, None, cfg.n_heads)
+    with pytest.raises(ValueError):  # caches whose layer rows are not contiguous (a view over the positions)
+        fused_decode_step(x, packed, kc[:, :, :64], vc[:, :, :64], 5, None, cfg.n_heads)
+    with pytest.raises(ValueError):  # k and v caches of other strides
+        fused_decode_step(x, packed, kc, vc.repeat(1, 2, 1, 1)[:, :x.shape[0]], 5, None, cfg.n_heads)
     with pytest.raises(ValueError):  # head_dim 32
         fused_decode_step(x, packed, kc, vc, 5, None, 4)
     with pytest.raises(ValueError):  # bf16 x against fp32 weights
@@ -794,14 +795,18 @@ def test_fused_decode_step_refuses_unsupported_input(cuda):
 def test_fused_step_eligible_asks_the_kernels_planner(cuda):
     """A phase input larger than a block's shared memory is refused by the
     kernel's own planner (dff 8192: 8 rows x 8192 x 4 B > 227 KiB, 1 row
-    fits), and the refusal does not fail the next launch."""
+    fits): the gate asks it about one row, so 8 rows are eligible and run
+    over row slices of the most rows it takes (fewer than 8); the refusals
+    asked on the way do not fail the next launch."""
     cfg = LayerConfig.make(128, n_heads=2, mlp_ratio=64.0)
     gen = torch.Generator().manual_seed(4)
     wide = [{blk: {name: {k: t.to(cuda) for k, t in leaf.items()} for name, leaf in sub.items()}
              if blk in ("sa", "mlp") else {k: t.to(cuda) for k, t in sub.items()}
              for blk, sub in layer_init(gen, cfg).items()}]
-    assert fused_step_eligible(wide, cfg, 1)
-    assert not fused_step_eligible(wide, cfg, 8)
+    assert fused_step_eligible(wide, cfg, 1) and fused_step_eligible(wide, cfg, 8)
+    from pytorch_models_tpu_torch.ops.decode_step import _Args, _slice_rows
+
+    assert 1 <= _slice_rows(_Args(b=8, d=128, hd=128, dff=8192, n_heads=2, dtype=0), 8) < 8
     small_cfg, packed, head, x, (kc, vc), _ = _step_inputs(cuda, torch.float32, False)
     _, tok = fused_decode_step(x, packed, kc, vc, 5, None, small_cfg.n_heads, head=head)
     torch.cuda.synchronize()
@@ -1120,12 +1125,13 @@ def test_vit_k1_route_matches_sdpa_route(cuda, pool, cls):
     torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4)
 
 
-# K7 above one row group (9 to 32 rows in one launch, groups of 8 over a share that stays in the ring): every
+# K7 above one row group (9 to 32 rows in one launch, groups of 8 over a share that stays in the ring; 33 rows and
+# more over row slices of 32, one launch each, the caches' views at the whole buffer's layer stride): every
 # variant against the plain twin at the tolerances of its family above (float: fp32 1e-4, bf16 0.05 + 2^-6;
 # int8: fp32 5e-3, bf16 0.05 + 2^-6), the token by the plain head's regret on the kernel's own x_out (float)
 # or by agreement (int8), the int8 K/V written at pos one level apart at most; T5 also with the mixed left pads
 # of a T5 pool (one row's cached range empty until pos)
-ROW_GROUP_BATCHES = [9, 16, 17, 31, 32]
+ROW_GROUP_BATCHES = [9, 16, 17, 31, 32, 33, 40, 64]
 ROW_GROUP_VARIANTS = ["base", "base-768", "cross", "t5", "headless", "embed", "w8a16-kv8", "w8a8", "whisper-kv8",
                       "t5-w8a8-kv8", "t5-pads", "t5-w8a8-kv8-pads"]
 
@@ -1211,7 +1217,7 @@ def test_fused_step_row_groups_match_plain(cuda, dtype, variant, b):
     before = fn.launches
     got_x, got_tok = fn(x, packed, kc, vc, *cross, pos, pads, n_heads, act, eps, head=head, **kw)
     torch.cuda.synchronize()
-    assert fn.launches == before + 1
+    assert fn.launches == before + -(-b // 32)  # one launch per row slice of at most 32 rows
     torch.testing.assert_close(got_x.float(), ref_x.float(), atol=atol, rtol=rtol)
     torch.testing.assert_close(kc.float(), kc2.float(), atol=atol, rtol=rtol)
     torch.testing.assert_close(vc.float(), vc2.float(), atol=atol, rtol=rtol)
@@ -1226,13 +1232,13 @@ def test_fused_step_row_groups_match_plain(cuda, dtype, variant, b):
 
 @pytest.mark.parametrize("model", ["gpt2", "whisper-base", "t5-base"])
 def test_fused_step_gate_serves_32_rows_and_refuses_33(cuda, model):
-    """fused_step_eligible's planner accepts 9 to 32 rows at the widths of
-    GPT-2 small, Whisper-base and T5-base, fp32 and bf16, float weights,
-    w8a16 and w8a8 with the int8 head; 33 rows are refused before the
-    planner is asked."""
-    from pytorch_models_tpu_torch.ops.decode_step import MAX_BATCH, _Args, _plan
+    """The kernel's planner takes 9 to 32 rows in one launch at the widths
+    of GPT-2 small, Whisper-base and T5-base, fp32 and bf16, float weights,
+    w8a16 and w8a8 with the int8 head, and refuses a launch of 33; the gate
+    serves 33 rows and more over row slices of 32 (``_slice_rows``)."""
+    from pytorch_models_tpu_torch.ops.decode_step import MAX_LAUNCH_ROWS, _Args, _plan, _slice_rows
 
-    assert MAX_BATCH == 32
+    assert MAX_LAUNCH_ROWS == 32
     d, dff, gated = SERVED_WIDTHS[model]
     for dtype in (0, 1):
         for wt_int8, head_a8 in ((0, 0), (1, 0), (1, 1)):
@@ -1240,12 +1246,14 @@ def test_fused_step_gate_serves_32_rows_and_refuses_33(cuda, model):
                 args = _Args(b=b, d=d, hd=d, dff=dff, n_heads=d // 64, dtype=dtype, gated=int(gated),
                              wt_int8=wt_int8, head_a8=head_a8)
                 assert _plan(args)[0] > 0, (model, dtype, wt_int8, head_a8, b)
+            args.b = 33
+            assert _plan(args)[0] <= 0 and _slice_rows(args, 33) == _slice_rows(args, 200) == 32
     cfg = LayerConfig.make(d, n_heads=d // 64, mlp_ratio=dff / d)
     layers = [{blk: {name: {k: t.to(cuda) for k, t in leaf.items()} for name, leaf in sub.items()}
                if blk in ("sa", "mlp") else {k: t.to(cuda) for k, t in sub.items()}
                for blk, sub in layer_init(torch.Generator().manual_seed(1), cfg).items()}]
     if not gated:
-        assert fused_step_eligible(layers, cfg, 32) and not fused_step_eligible(layers, cfg, 33)
+        assert fused_step_eligible(layers, cfg, 32) and fused_step_eligible(layers, cfg, 33)
 
 
 # K7 at one row, the speculative drafts' batch, at the two draft depths chip_smoke.py drives (a truncated

@@ -13,6 +13,7 @@ K/V written at ``pos`` (one projection) to 2e-5, and greedy tokens exactly.
 """
 
 import ctypes
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -34,7 +35,9 @@ from pytorch_models_tpu_torch.models.text import GPT2, DecoderGenerator
 from pytorch_models_tpu_torch.models.text import _decoder_lm as dlm
 from pytorch_models_tpu_torch.ops import attention as attn
 from pytorch_models_tpu_torch.ops import decode_step as ds
+from pytorch_models_tpu_torch.ops.int8_kv import quantize_kv_caches
 from pytorch_models_tpu_torch.utils import from_jax_params
+from pytorch_models_tpu_torch.utils.params import quantize_tree_int8
 
 torch.set_num_threads(1)
 
@@ -260,10 +263,11 @@ def test_fused_t5_step_matches_jax(pos, pads):
         assert np.abs(step(None)[0].numpy() - np.asarray(out[0])).max() > 100 * 3e-4
 
 
-# above one row group (the kernel serves up to ops.decode_step.MAX_BATCH = 32 rows in groups of 8): the twin
-# against the JAX kernel at B = 12 and 32, base (with its head), cross (Whisper-style, head) and T5 (RMSNorm,
-# GEGLU, the rel-pos self bias, the untied head); per-row pads, cross lengths cycled over the rows
-@pytest.mark.parametrize("b", [12, 32])
+# above one row group (one launch serves up to ops.decode_step.MAX_LAUNCH_ROWS = 32 rows in groups of 8; a larger
+# batch runs over row slices): the twin against the JAX kernel at B = 12, 32, 33 and 40, base (with its head),
+# cross (Whisper-style, head) and T5 (RMSNorm, GEGLU, the rel-pos self bias, the untied head); per-row pads,
+# cross lengths cycled over the rows
+@pytest.mark.parametrize("b", [12, 32, 33, 40])
 @pytest.mark.parametrize("kind", ["base", "cross", "t5"])
 def test_fused_step_above_one_row_group_matches_jax(kind, b):
     r = np.random.default_rng(197)
@@ -323,6 +327,138 @@ def test_fused_step_above_one_row_group_matches_jax(kind, b):
     assert tok.shape == (b,) and tok.tolist() == np.asarray(out[3]).tolist()
 
 
+# the wrapper's row-slice loop (ops.decode_step._over_row_slices, as the CUDA wrapper launches the kernel) with
+# the plain twin as the step, over views of the whole batch's caches: (model, w8a8 + the a8 head, int8 self-KV,
+# int8 cross-KV, embed phase, head)
+SLICE_VARIANTS = {
+    "gpt2": ("gpt2", False, False, False, False, True),
+    "gpt2 headless": ("gpt2", False, False, False, False, False),
+    "gpt2 w8a8 a8-head int8-kv": ("gpt2", True, True, False, False, True),
+    "gpt2 embed phase": ("gpt2", False, False, False, True, True),
+    "whisper": ("whisper", False, False, False, False, True),
+    "whisper int8 self+cross kv": ("whisper", False, True, True, False, True),
+    "t5 w8a8 a8-head int8 self+cross kv": ("t5", True, True, True, False, True),
+}
+SLICE_B, SLICE_POS, SLICE_LP, SLICE_LX = 70, 37, 128, 128  # int8 caches: multiples of the 128-key block
+
+
+@functools.cache
+def _slice_case(variant: str):
+    """(twin keyword arguments shared by every row, per-row arguments over a batch of SLICE_B) of one variant."""
+    kind, a8, kv, kvx, embed, with_head = SLICE_VARIANTS[variant]
+    r = np.random.default_rng(198)
+    t5, cross = kind == "t5", kind != "gpt2"
+    b = SLICE_B
+    if t5:
+        _, _, layers = _t5_layers()
+        n_heads, act, eps = 2, "approximate_gelu", 1e-5
+    else:
+        lc, _, layers = _layers(cross=cross, seed=1)
+        n_heads, act, eps = lc.n_heads, lc.act, lc.norm_eps
+    if a8 or kv:
+        layers = quantize_tree_int8(layers)
+    fs = _t((1 + 0.1 * r.standard_normal(D)).astype(np.float32))
+    if t5:
+        head = ds.pack_greedy_head(_t((0.3 * r.standard_normal((D, 300))).astype(np.float32)), {"scale": fs},
+                                   torch.float32, tied=False, a8=a8)
+    else:
+        head = ds.pack_greedy_head(_t(r.standard_normal((300, D)).astype(np.float32)), {"scale": fs},
+                                   torch.float32, a8=a8)
+    shared = dict(packed=ds.pack_decode_weights(layers, torch.float32, cross=cross, gated=t5), pos=SLICE_POS,
+                  n_heads=n_heads, act=act, eps=eps, head=head if with_head else None, a8=a8)
+
+    def rnd(*shape):
+        return _t(r.standard_normal(shape).astype(np.float32))
+
+    def caches(lk, int8):
+        c = {"k": rnd(N_LAYERS, b, lk, D), "v": rnd(N_LAYERS, b, lk, D)}
+        return quantize_kv_caches(c) if int8 else c
+
+    sc = caches(SLICE_LP, kv)
+    rows = dict(x=rnd(b, D), k_caches=sc["k"], v_caches=sc["v"],
+                pad_lens=torch.tensor([(0, 2, 37, 1, 5, 0)[i % 6] for i in range(b)], dtype=torch.int32),
+                kv_scales={"ks": sc["ks"], "vs": sc["vs"]} if kv else None)
+    if cross:
+        xc = caches(SLICE_LX, kvx)
+        rows.update(cross_k=xc["k"], cross_v=xc["v"], kv_scales_x={"ks": xc["ks"], "vs": xc["vs"]} if kvx else None,
+                    cross_lens=torch.tensor([(128, 9, 0, 100)[i % 4] for i in range(b)], dtype=torch.int32))
+    if t5:
+        shared.update(norm="rms", gated=True, sbias=2.0 * rnd(SLICE_LP, 2))
+    if embed:  # ids past the table clamp to it
+        shared["emb"] = ds.pack_embed_tables(rnd(300, D), rnd(SLICE_LP, D), torch.float32)
+        rows.update(x=None, tok_ids=torch.tensor([(5, 299, 0, 17, 400)[i % 5] for i in range(b)]),
+                    pos_rows=torch.tensor([(37, 30, 0, 12)[i % 4] for i in range(b)]))
+    return shared, rows
+
+
+@pytest.mark.parametrize("b", [33, 40, 70])
+@pytest.mark.parametrize("s", [32, 8, 3])
+@pytest.mark.parametrize("variant", SLICE_VARIANTS)
+def test_row_slices_of_the_twin_equal_the_whole_batch(variant, s, b):
+    """Each slice sees its rows of every per-row input and of the caches
+    (views: the layer stride of the whole buffer), writes only its own rows
+    of x_out, tok and the caches (int8: levels and scales), and the slices
+    together give the whole-batch twin's outputs and caches. Bit for bit,
+    but for the rows of a one-row slice: the CPU's one-row product (a
+    matrix-vector routine) sums in another order than a batch's, so there
+    x_out and the float caches are held to fp32 noise (2e-5), an int8 level
+    one apart at most, the token exactly."""
+    shared, whole = _slice_case(variant)
+
+    def first_rows(k, v):  # a copy of the first b rows
+        if v is None:
+            return None
+        if isinstance(v, dict):
+            return {n: first_rows(k, t) for n, t in v.items()}
+        return (v[:, :b] if k in ds._ROWS_AXIS1 else v[:b]).clone()
+
+    rows = {k: first_rows(k, v) for k, v in whole.items()}
+    ref_rows = {k: first_rows(k, v) for k, v in rows.items()}
+    ref_x, ref_tok = ds.fused_decode_step_plain(**shared, **ref_rows)
+    x_out = torch.full((b, D), float("nan"))
+    tok = torch.full((b,), -1) if shared["head"] is not None else None
+
+    def buffers(args):  # the (L, B, ...) caches and scales by name
+        return {f"{k}.{n}" if isinstance(v, dict) else k: t for k, v in args.items()
+                if k in ds._ROWS_AXIS1 and v is not None
+                for n, t in (v.items() if isinstance(v, dict) else [(None, v)])}
+
+    flat = buffers(rows)
+    done = []
+
+    def step(x_out, tok, **view):
+        r0 = sum(done)
+        n = x_out.shape[0]
+        assert view["k_caches"].stride(0) == flat["k_caches"].stride(0) and view["k_caches"][0].is_contiguous()
+        before = {k: t.clone() for k, t in flat.items()}
+        xo, tk = ds.fused_decode_step_plain(**shared, **view)
+        x_out.copy_(xo)
+        if tok is not None:
+            tok.copy_(tk)
+        for k, t in flat.items():  # no row outside the slice moved
+            assert torch.equal(t[:, :r0], before[k][:, :r0]) and torch.equal(t[:, r0 + n:], before[k][:, r0 + n:]), k
+        done.append(n)
+
+    sizes = ds._over_row_slices(step, s, b, dict(rows, x_out=x_out, tok=tok))
+    assert sizes == done == [s] * (b // s) + ([b % s] if b % s else [])
+    one = torch.zeros(b, dtype=torch.bool)
+    if sizes[-1] == 1:
+        one[-1] = True
+    assert torch.equal(x_out[~one], ref_x[~one])
+    torch.testing.assert_close(x_out[one], ref_x[one], rtol=0, atol=KV_TOL)
+    if tok is not None:
+        assert torch.equal(tok, ref_tok)
+    ref_flat = buffers(ref_rows)
+    for k, t in flat.items():
+        assert torch.equal(t[:, ~one], ref_flat[k][:, ~one]), k
+        if not one.any():
+            continue
+        if t.dtype == torch.int8:
+            assert (t[:, one].int() - ref_flat[k][:, one].int()).abs().max() <= 1, k
+        else:
+            torch.testing.assert_close(t[:, one], ref_flat[k][:, one], rtol=KV_TOL, atol=KV_TOL)
+
+
 def test_stacked_caches_are_views_of_one_buffer():
     """The per-op prefill written through the per-layer views of the stacked
     caches equals one written into separate per-layer tensors, and the
@@ -359,7 +495,8 @@ def test_fused_step_eligible_states_the_kernels_shapes():
     _, _, layers = _layers(cross=True)
     lc = tfm.LayerConfig.make(D, n_heads=2, cross_attn=True)
     assert ds.fused_step_eligible(layers, lc, 8, cross=True) and ds.fused_step_eligible(layers, lc, 32, cross=True)
-    assert not ds.fused_step_eligible(layers, lc, 33, cross=True)  # more rows than the kernel serves
+    # above one launch's rows: served over row slices
+    assert ds.fused_step_eligible(layers, lc, 33, cross=True) and ds.fused_step_eligible(layers, lc, 64, cross=True)
     assert not ds.fused_step_eligible(layers, tfm.LayerConfig.make(D, n_heads=4), 4)  # head_dim 32
     assert not ds.fused_step_eligible(layers, tfm.LayerConfig.make(D, n_heads=2, pre_norm=False), 4)
     assert ds.fused_step_eligible(layers, tfm.LayerConfig.make(D, n_heads=2, act="relu"), 4)  # every ACT_FNS name
@@ -526,8 +663,9 @@ def test_whisper_transcribe_fused_matches_jax(fused_on):
 
 
 # csrc/decode_step.cuh ``Args`` before ``stamps``, field by field: fields are only
-# ever appended (``stamps`` last), so a library built from an older tree reads
-# this structure's prefix unchanged (kernel_ab.py --k7 times both in one call)
+# ever appended (``stamps``, then the caches' layer strides), so a library built
+# from an older tree reads this structure's prefix unchanged (kernel_ab.py --k7
+# times both in one call)
 _ARGS_BEFORE_STAMPS = (
     [(n, 8) for n in ("x", "x_out", "wqkv", "bqkv", "wo", "bo", "w1", "b1", "w2", "b2", "ln1_s", "ln1_b", "ln2_s",
                       "ln2_b", "wqc", "bqc", "woc", "boc", "lnc_s", "lnc_b", "k_cache", "v_cache", "pads", "xk", "xv",
@@ -547,9 +685,11 @@ def test_step_args_keep_every_earlier_field_at_its_offset():
         off += size
     names = [f[0] for f in ds._Args._fields_]
     assert names[:len(_ARGS_BEFORE_STAMPS)] == [n for n, _ in _ARGS_BEFORE_STAMPS]
-    assert names[-1] == "stamps" and len(names) == len(_ARGS_BEFORE_STAMPS) + 1
+    assert names[len(_ARGS_BEFORE_STAMPS):] == ["stamps", "kv_stride", "kvs_stride", "xkv_stride", "xkvs_stride"]
     assert ds._Args.stamps.offset == off == 488 and ds._Args.stamps.size == 8
-    assert ctypes.sizeof(ds._Args) == 496
+    for i, name in enumerate(("kv_stride", "kvs_stride", "xkv_stride", "xkvs_stride")):  # int64 elements
+        assert getattr(ds._Args, name).offset == 496 + 8 * i and getattr(ds._Args, name).size == 8, name
+    assert ctypes.sizeof(ds._Args) == 528
 
 
 @pytest.mark.parametrize("cross,head,n", [(False, True, 12 * 5 + 2), (True, True, 8 * 8 + 2), (True, False, 24)])
