@@ -13,7 +13,9 @@ the greedy heads at B=8 to 200 beside the head matmul + argmax, with the
 side ``use_greedy_head`` takes at each;
 the encoder attention K1 also at ViT-B/16's B=128 x 197 tokens and at head
 widths 32, 80 and 128, with its tensor-core instructions per instantiation
-counted by ``cuobjdump -sass``), then drives the port's three main paths and
+counted by ``cuobjdump -sass``, as are K7's: its bf16 instantiation above one
+row group runs on the tensor cores, the others on the CUDA cores), then
+drives the port's three main paths and
 checks that each went through its kernels:
 
 - GPT-2 small at full width (12 layers, d_model 768, vocab 50257, context
@@ -620,9 +622,11 @@ def _k1_times(rec: dict) -> str:
 
 
 def _sass_tensor_core_counts(lib_path) -> dict | None:
-    """Tensor-core instructions (``HMMA`` / ``HGMMA``) in each K1
-    instantiation of the built library, from ``cuobjdump -sass``; None where
-    the toolkit has no cuobjdump."""
+    """Tensor-core instructions (``HMMA`` / ``HGMMA`` / ``IMMA``) in each
+    instantiation of K1 (``"fp32 D=64 MT=..."``) and of K7 (``"K7 bf16 w
+    g4"``: compute dtype, weight element (``w`` the compute dtype, ``i8``
+    int8), row groups) in the built library, from ``cuobjdump -sass``; None
+    where the toolkit has no cuobjdump."""
     import re
     import shutil
     from pathlib import Path
@@ -638,10 +642,16 @@ def _sass_tensor_core_counts(lib_path) -> dict | None:
     for line in sass.splitlines():
         if "Function :" in line:
             m = re.search(r"encoder_attention_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E", line)
-            cur = None if m is None else f"{'fp32' if m.group(1) == 'f' else 'bf16'} D={m.group(2)} MT={m.group(3)}"
+            k7 = re.search(r"decode_step_kernelI(f|13__nv_bfloat16)(f|a|S\d*_)Li(\d+)E", line)
+            cur = None
+            if m is not None:
+                cur = f"{'fp32' if m.group(1) == 'f' else 'bf16'} D={m.group(2)} MT={m.group(3)}"
+            elif k7 is not None:
+                cur = (f"K7 {'fp32' if k7.group(1) == 'f' else 'bf16'} {'i8' if k7.group(2) == 'a' else 'w'} "
+                       f"g{k7.group(3)}")
             if cur is not None:
                 counts[cur] = 0
-        elif cur is not None and re.search(r"\bHG?MMA\.", line):
+        elif cur is not None and re.search(r"\b(HG?MMA|IMMA)\.", line):
             counts[cur] += 1
     return counts
 
@@ -1471,7 +1481,10 @@ def _headless_check(kind: str, name: str, dn: str, card: str, x, packed, kc, vc,
 # K7's per-phase breakdown: (kind, dtype, int8 serving options of _k7_step, rows), each launched this many
 # times with stamps
 BREAKDOWN = (("gpt2", "bfloat16", {}, 8), ("gpt2", "float32", {}, 8), ("whisper", "bfloat16", {}, 8),
-             ("t5", "bfloat16", {}, 8), ("gpt2", "float32", {"q8": True, "kv": True}, 8), ("gpt2", "bfloat16", {}, 32))
+             ("t5", "bfloat16", {}, 8), ("gpt2", "float32", {"q8": True, "kv": True}, 8), ("gpt2", "bfloat16", {}, 32),
+             ("whisper", "bfloat16", {}, 32), ("t5", "bfloat16", {}, 32),
+             ("gpt2", "bfloat16", {"q8": True, "kv": True}, 32),
+             ("gpt2", "bfloat16", {"a8": True, "q8": True, "kv": True}, 32))
 BREAKDOWN_RUNS = 5
 
 
@@ -1552,10 +1565,14 @@ def decode_step_breakdown(dev, card: str, rows=K7_BATCHES) -> dict:
     busiest block's time (``ops.decode_step.phase_breakdown``); µs, the
     median over the phases of one kind, over BREAKDOWN_RUNS launches after a
     warm-up, for each of BREAKDOWN at a batch in ``rows``. Prints one line
-    per variant, with the sum over one step's phases of barrier and busy."""
+    per variant, with the sum over one step's phases of barrier and busy;
+    above one row group also the head phase's µs beside the greedy head K4
+    at the same batch and head (``k4_us``, timed in the same run)."""
     import torch
 
-    from pytorch_models_tpu_torch.ops.decode_step import phase_breakdown, step_phase_kinds
+    from pytorch_models_tpu_torch.ops import _build
+    from pytorch_models_tpu_torch.ops.decode_step import pack_greedy_head, phase_breakdown, step_phase_kinds
+    from pytorch_models_tpu_torch.ops.greedy_head import greedy_argmax, greedy_argmax_tied
 
     g = torch.Generator(device=dev).manual_seed(SEED + 20)
     models, res = {}, {}
@@ -1576,12 +1593,24 @@ def decode_step_breakdown(dev, card: str, rows=K7_BATCHES) -> dict:
         bd = res[(kind, dn, b)] = phase_breakdown(st, kinds)
         parts = ("wait", "load", "compute", "epilogue", "barrier", "busy")
         sums = {p: sum(bd[k][p] * bd[k]["n"] for k in dict.fromkeys(kinds)) for p in parts[-2:]}
+        head_vs = ""
+        # the head phase beside K4 on the same head at this batch (a library of K7 alone, kernel_ab.py's, has no K4)
+        if b > 8 and not opts and hasattr(_build.load_library(), "pmt_greedy_argmax"):
+            _, _, emb32, final32 = models[kind.split()[0]]
+            t5 = kind.startswith("t5")
+            w = pack_greedy_head(emb32, final32, getattr(torch, dn), tied=not t5)["emb"]
+            xh = torch.randn(b, w.shape[1], generator=g, device=dev).to(w.dtype)
+            wt = w.t().contiguous() if t5 else None  # the untied head as K4 reads it, (d, V)
+            k4 = ((lambda: greedy_argmax(xh, wt)) if t5 else (lambda: greedy_argmax_tied(xh, w)))
+            bd["k4_us"] = _time_ms([k4], 20) * 1e3
+            head_vs = (f"; head phase {bd['head']['busy']:.1f} us (norm {bd['head']['load']:.1f}, scores "
+                       f"{bd['head']['compute']:.1f}), K4 at B={b} on the same head {bd['k4_us']:.1f} us")
         print(f"phase breakdown K7 {kind} {dn}: B={b}, {len(kinds)} phases, step {bd['step']:.1f} us (stamped); "
               "per phase, us (median over the kind's phases; max over blocks but barrier: min) "
               "wait/load/compute/epilogue/barrier/busy: "
               + "; ".join(f"{k} x{bd[k]['n']} " + "/".join(f"{bd[k][p]:.2f}" for p in parts)
                           for k in dict.fromkeys(kinds))
-              + " | summed over the step: " + ", ".join(f"{p} {sums[p]:.1f}" for p in sums) + f" [{card}]")
+              + " | summed over the step: " + ", ".join(f"{p} {sums[p]:.1f}" for p in sums) + head_vs + f" [{card}]")
     torch.cuda.synchronize()
     return res
 
@@ -6594,11 +6623,21 @@ def main() -> int:
     t_sass = time.perf_counter()
     sass = _sass_tensor_core_counts(lib_path)
     served = {f"{dn} D={d}" for dn in ("fp32", "bf16") for d in SUPPORTED_HEAD_DIMS}
-    if sass is not None and ({key.rsplit(" ", 1)[0] for key in sass} != served or min(sass.values()) == 0):
-        raise AssertionError(f"encoder_attention: every (dtype, head width) must run on the tensor cores: {sass}")
+    k1 = None if sass is None else {k: n for k, n in sass.items() if not k.startswith("K7")}
+    if k1 is not None and ({key.rsplit(" ", 1)[0] for key in k1} != served or min(k1.values()) == 0):
+        raise AssertionError(f"encoder_attention: every (dtype, head width) must run on the tensor cores: {k1}")
     print("phase sass encoder_attention: tensor-core instructions (HMMA/HGMMA) per instantiation "
-          + ("not measured (no cuobjdump)" if sass is None else json.dumps(sass))
+          + ("not measured (no cuobjdump)" if k1 is None else json.dumps(k1))
           + f" ({time.perf_counter() - t_sass:.1f} s)")
+    # K7: the bf16 launches above one row group (g4) run their matvec passes and head on the tensor cores; the
+    # one-group (g1) and fp32 instantiations on the CUDA cores, none
+    k7 = None if sass is None else {k: n for k, n in sass.items() if k.startswith("K7")}
+    if k7 is not None:
+        want = {f"K7 {dn} {w} g{g}" for dn in ("fp32", "bf16") for w in ("w", "i8") for g in (1, 4)}
+        if set(k7) != want or any((n > 0) != (k.startswith("K7 bf16") and k.endswith("g4")) for k, n in k7.items()):
+            raise AssertionError(f"decode_step: tensor-core instructions in the bf16 g4 instantiations only: {k7}")
+    print("phase sass decode_step: tensor-core instructions (HMMA/IMMA) per instantiation "
+          + ("not measured (no cuobjdump)" if k7 is None else json.dumps(k7)))
 
     clocks = {}
 

@@ -17,9 +17,12 @@ time per call, ``chip_smoke._time_ms``):
 - ``--k7``: ``csrc/decode_step*.cu`` (one source, or the dispatcher and
   its eight instantiations; with the headers of its own tree) at every K7
   variant of ``chip_smoke.py`` (GPT-2, Whisper and T5, and the int8
-  serving variants of ``I8_VARIANTS``) at B=8, 16 and 32 (``K7_AB_BATCHES``:
-  one launch each), bf16 and fp32; each case's outputs (x_out, token) of
-  the two trees are held bit-equal.
+  serving variants of ``I8_VARIANTS``) at B=8, 16 and 32 (one launch each)
+  and 33, 40 and 64 (row slices) (``K7_AB_BATCHES``), bf16 and fp32; each
+  case's outputs (x_out, token) of the two trees are compared: bit-equal
+  where both must sum in the same order (``k7_exact``: fp32, one row group,
+  w8a8 with the int8 head), else the largest |x_out difference| and the
+  tokens that differ are printed.
   The base tree's ``Args`` must be a prefix of this tree's ``_Args``
   (fields are only ever appended), so its library reads the same call; a
   tree whose wrapper has no ``_unit_major`` is given the packed weights as
@@ -233,11 +236,20 @@ def _head_mel_cases(dev, libs: dict, current: dict):
     return out
 
 
-K7_AB_BATCHES = (8, 16, 32)
+K7_AB_BATCHES = (8, 16, 32, 33, 40, 64)
+
+
+def k7_exact(name: str, dtype: str, b: int) -> bool:
+    """The K7 cases whose outputs two trees must give bit for bit: fp32 and
+    one row group (B <= 8) keep their CUDA-core sums; w8a8 with the int8
+    head sums int8 products in int32, exact in any order. A bf16 launch
+    above one row group sums on the tensor cores, in another order."""
+    return dtype == "float32" or b <= 8 or name.endswith("_a8")
 
 
 def _k7_cases(dev):
-    """(name, [call]) for every K7 variant of chip_smoke.py at K7_AB_BATCHES, bf16 and fp32."""
+    """(name, [call], exact) for every K7 variant of chip_smoke.py at K7_AB_BATCHES, bf16 and fp32, made one at a
+    time (a case's caches are freed before the next one's are made)."""
     import torch
 
     g = torch.Generator(device=dev).manual_seed(chip_smoke.SEED + 21)
@@ -246,13 +258,12 @@ def _k7_cases(dev):
     variants = [(names[kind], kind, {}) for kind in names]
     variants += [(name, kind, dict(a8=a8, kv=kv, kvx=kvx, q8=q8, embed=embed))
                  for name, kind, a8, kv, kvx, q8, embed in chip_smoke.I8_VARIANTS]
-    out = []
     for dtype in (torch.bfloat16, torch.float32):
         for b in K7_AB_BATCHES:
             for name, kind, opts in variants:
                 call, _, _ = chip_smoke._k7_step(dev, kind, dtype, g, models[kind], **opts, b=b)
-                out.append((f"K7 {name} {str(dtype).removeprefix('torch.')} B={b}", [call]))
-    return out
+                dn = str(dtype).removeprefix("torch.")
+                yield f"K7 {name} {dn} B={b}", [call], k7_exact(name, dn, b)
 
 
 def main() -> int:
@@ -296,7 +307,7 @@ def main() -> int:
     else:
         cases = (_k7_cases if mode == "k7" else _cases)(dev)
     res = {}
-    for name, fns in cases:
+    for name, fns, *exact in cases:
         t = {}
         matmul = isinstance(fns, dict) and "matmul" in fns
         for turn in ("base", "new", "matmul", "matmul", "new", "base") if matmul else ("base", "new", "new", "base"):
@@ -306,26 +317,32 @@ def main() -> int:
             t.setdefault(turn, []).append(chip_smoke._time_ms(calls, iters) * 1e3)
         res[name] = {k: sum(v) / len(v) for k, v in t.items()}
         same = ""
-        if mode == "k7":  # one launch at these batches: the same plan, so the same bits
+        if mode == "k7":  # both trees' outputs on the same inputs (k7_exact: where they must be the same bits)
             got = {}
             for turn in ("base", "new"):
                 use(turn)
                 got[turn] = fns[0]()
             torch.cuda.synchronize()
-            equal = all(torch.equal(a, b) for a, b in zip(got["base"], got["new"]) if a is not None)
+            pairs = [(a, b) for a, b in zip(got["base"], got["new"]) if a is not None]
+            equal = all(torch.equal(a, b) for a, b in pairs)
             res[name]["bit_equal"] = equal
-            same = f"; outputs bit-equal: {equal}"
+            res[name]["must_equal"] = exact[0]
+            x_diff = (pairs[0][0].float() - pairs[0][1].float()).abs().max().item()
+            n_tok = int((pairs[1][0] != pairs[1][1]).sum()) if len(pairs) > 1 else 0
+            res[name]["x_out_max_diff"], res[name]["tokens_differ"] = x_diff, n_tok
+            same = (f"; outputs bit-equal: {equal}" + ("" if exact[0] else " (need not be)")
+                    + ("" if equal else f", x_out max |diff| {x_diff:.3g}, {n_tok} tokens differ"))
         print(f"{name}: " + ", ".join(f"{k} {v[0]:.2f} / {v[1]:.2f} us" for k, v in t.items()) + same + f" [{card}]")
     if mode == "k7":  # the per-phase breakdown of each tree whose kernel takes stamps
         for turn, tree in (("base", base), ("new", here)):
             if any("stamps" in f.read_text() for f in (tree / "pytorch_models_tpu_torch" / "csrc").glob("decode_step*")):
                 use(turn)
                 print(f"breakdown of {turn} ({tree}):")
-                chip_smoke.decode_step_breakdown(dev, card, rows=(8,))  # the rows a parent tree serves
+                chip_smoke.decode_step_breakdown(dev, card, rows=(8, 32))
     print(card)
     print(json.dumps({"us": res, "base": str(base)}))
-    if mode == "k7" and not all(r["bit_equal"] for r in res.values()):
-        print("kernel_ab: the two trees' K7 outputs differ", file=sys.stderr)
+    if mode == "k7" and not all(r["bit_equal"] for r in res.values() if r["must_equal"]):
+        print("kernel_ab: the two trees' K7 outputs differ where they must not", file=sys.stderr)
         return 1
     return 0
 

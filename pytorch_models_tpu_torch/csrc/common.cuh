@@ -19,6 +19,12 @@ constexpr float NEG_INF = -1e30f;  // finite "minus infinity", as in the JAX ker
 // true -inf (for argmax seeds; the attention kernels use the finite NEG_INF)
 __device__ __forceinline__ float neg_inf() { return __int_as_float(static_cast<int>(0xff800000u)); }
 
+// The greedy heads' total order on (score, vocab index): the larger score, then the lower index (ties go to the
+// lowest index, as jnp.argmax), so bests reduce to the same pick in any order
+__device__ __forceinline__ bool better(float s, int i, float bs, int bi) {
+    return s > bs || (s == bs && i < bi);
+}
+
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
@@ -119,6 +125,16 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b
         "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
         "{%0, %1, %2, %3};\n"
         : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c (16x8 int32) += a (16x32 s8, row) * b (32x8 s8, col): exact (no saturation; a sum of 2^17 products of
+// int8 levels fits)
+__device__ __forceinline__ void mma_s8(int* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+        "{%0, %1, %2, %3};\n"
+        : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 

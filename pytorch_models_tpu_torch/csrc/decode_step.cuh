@@ -95,8 +95,9 @@
 // it is read. The producer is not warp 0: thread 0 takes the grid barrier,
 // and its memory fence would wait for copies it had issued. The L2 prefetch
 // of earlier versions is gone: with the staging it cost time (PERF.md).
-// All products run on CUDA cores with fp32 accumulation; tensor cores and
-// fewer barriers (phases fused within clusters) are later work. Measured on
+// The one-group and fp32 instantiations sum on CUDA cores with fp32
+// accumulation; the bf16 launches above one row group on the tensor cores
+// (below); fewer barriers (phases fused within clusters) are later work. Measured on
 // an H100 80GB HBM3 (700 W; kernel_ab.py --k7, PERF.md), a matvec phase now
 // costs 7-9 us (a 3-5 us input load and epilogue, 2-5 us of FMAs), down
 // from 12-14, and a step still runs at ~8x its byte bound.
@@ -128,6 +129,27 @@
 // on). A batch of one group runs its own instantiation, compiled without
 // the multi-group paths, which keeps its register allocation (and its
 // time, within 2-9%, PERF.md) that of the kernel before row groups.
+//
+// Tensor cores (the bf16 instantiations above one row group, 9-32 rows:
+// `TC` in decode_step_kernel.cuh; fp32 keeps the groups above). Every phase
+// input is rounded to bf16 before its product (or, w8a8, is int8 levels),
+// so xs holds it in bf16, exactly, in the bytes fp32 groups of 8 took: the
+// norm inputs and the attention context of all B rows at once, GPT-2's
+// 3,072-wide MLP hidden in groups of 16 rows. A matvec pass is mma.sync:
+// m16n8k16 bf16 x bf16 -> fp32 (bf16 weights, or int8 widened to bf16 in
+// registers, exact), or m16n8k32 s8 x s8 -> s32 for w8a8 (exact, so w8a8
+// gives the CUDA-core sums' bits). The batch rows are M (ldmatrix from xs,
+// whose 16-byte chunks are XOR-swizzled by row), a column unit of the ring
+// is one n8 tile (ldmatrix.trans of its K-major rows; int8: byte gathers),
+// and each weight fragment, read once from the ring, feeds every m16 tile
+// of the group. Warp w takes unit w % nv and K-part w / nv (whole blocks of
+// 32) of the pass's nv units: the split comes from the block's share alone,
+// and the parts are added in order, so a row's sum depends neither on B
+// nor on its group. The head is K4's (csrc/greedy_head.cu) on the same
+// rows: vocab on M in tiles of 16 rows a warp, read straight from device
+// memory once per launch, the batch on N, the K order permuted alike on
+// both sides so that each operand is one 16-byte load; scores rounded to
+// bf16 (the a8 head: s8 mma, f32(dot) * row scale, exact) before `better`.
 //
 // Row slices (any batch). Every row of a step depends only on its own
 // residual, cache rows, pad and cross length, so a batch above 32 rows, or
@@ -221,6 +243,7 @@ struct Plan {
     int xs_stride;  // floats between xs rows: kmax + 4, so the rows of one column lie in different banks
     int hs_stride;  // the head's rows (all B of them): xs_stride up to GR rows, else d + 4
     int pln_off;    // the staged norm's scale and shift (2 d floats) in xs: past every normed row's d values
+                    // (the tensor-core launches: at the end of xs)
 };
 
 // The launch plan of one instantiation (0, or a CUDA error code) and its launch.

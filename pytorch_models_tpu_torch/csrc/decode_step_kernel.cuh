@@ -99,9 +99,7 @@ using pmt::mbar_expect;
 using pmt::mbar_init;
 using pmt::mbar_wait;
 
-__device__ __forceinline__ bool better(float s, int i, float bs, int bi) {
-    return s > bs || (s == bs && i < bi);
-}
+using pmt::better;
 
 // ---------------------------------------------------------------- inputs
 
@@ -267,6 +265,175 @@ __device__ void load_merge(const float* pm, const float* pl, const float* pacc, 
         }
 #pragma unroll
         for (int j = 0; j < 4; ++j) xs[(i / hd) * xst + i % hd + j] = pmt::round_to<T>(a[j]);
+    }
+    __syncthreads();
+}
+
+// The phase inputs of the tensor-core launches (bf16 above one row group, TC): the same values as the loads
+// above, into bf16 rows of K values, exact: every value a phase input holds is rounded to bf16 before the product
+// (the norms' outputs and the raw residual they read, the merged attention context, the MLP hidden and its GEGLU
+// gate; w8a8's int8 levels), so xs holds twice the rows of fp32. A lane moves one 16-byte chunk of 8 values at a
+// time. The chunks of row b are XOR-swizzled by b & 7, so the 8 rows one ldmatrix reads at one chunk sit in 8
+// distinct bank groups (k % 64 == 0: a row is a whole number of 8-chunk runs).
+__device__ __forceinline__ int xs_at(int k, int b, int c) { return b * k + (((c >> 3) ^ (b & 7)) << 3) + (c & 7); }
+__device__ __forceinline__ void xs_get8(const __nv_bfloat16* xs, int k, int b, int c, float* v) {
+    pmt::lds16(xs + xs_at(k, b, c), v);
+}
+__device__ __forceinline__ void xs_put8(__nv_bfloat16* xs, int k, int b, int c, const float* v) {
+    uint32_t w[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+        const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * e], v[2 * e + 1]);
+        w[e] = *reinterpret_cast<const uint32_t*>(&h);
+    }
+    *reinterpret_cast<uint4*>(xs + xs_at(k, b, c)) = make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// load_ln_from into TC rows (d wide): up to 2 * NW rows, a row one warp's, its statistics summed in
+// load_ln_from's order (the same bits)
+template <typename Ld, typename Ready>
+__device__ void load_ln_tc(Ld ld, const float* s, const float* bias, int B, int d, float eps, int rms,
+                           __nv_bfloat16* xs, Ready ready) {
+    constexpr int RPW = (MB + NW - 1) / NW;
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    float mean[RPW], rstd[RPW], sum[RPW];
+#pragma unroll
+    for (int i = 0; i < RPW; ++i) {
+        const int b = warp + i * NW;
+        sum[i] = 0.f;
+        if (b < B) {
+#pragma unroll 4
+            for (int c = lane * 8; c < d; c += 256) {
+                float v[8];
+                ld(b, c, v);
+                xs_put8(xs, d, b, c, v);
+#pragma unroll
+                for (int e = 0; e < 8; ++e) sum[i] += v[e];
+            }
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < RPW; ++i) {
+        const int b = warp + i * NW;
+        mean[i] = rstd[i] = 0.f;
+        if (b < B) {
+            mean[i] = rms ? 0.f : pmt::warp_sum(sum[i]) / d;
+            __syncwarp();
+            float sq = 0.f;
+            for (int c = lane; c < d; c += 32) {  // load_ln_from's order, so a row's statistics keep their bits
+                const float t = __bfloat162float(xs[xs_at(d, b, c)]) - mean[i];
+                sq += t * t;
+            }
+            rstd[i] = rsqrtf(pmt::warp_sum(sq) / d + eps);
+        }
+    }
+    ready();
+#pragma unroll
+    for (int i = 0; i < RPW; ++i) {
+        const int b = warp + i * NW;
+        if (b < B) {
+#pragma unroll 4
+            for (int c = lane * 8; c < d; c += 256) {
+                float v[8], sv[8], bv[8];
+                xs_get8(xs, d, b, c, v);
+                pmt::lds16(s + c, sv), pmt::lds16(s + c + 4, sv + 4);
+                pmt::lds16(bias + c, bv), pmt::lds16(bias + c + 4, bv + 4);
+#pragma unroll
+                for (int e = 0; e < 8; ++e)
+                    v[e] = pmt::round_to<__nv_bfloat16>((v[e] - mean[i]) * rstd[i] * sv[e] + bv[e]);
+                xs_put8(xs, d, b, c, v);
+            }
+        }
+    }
+    __syncthreads();
+}
+
+// quantize_xs over TC rows of K (the levels are exact in bf16)
+__device__ void quantize_tc(__nv_bfloat16* xs, int K, int B, float* rsc) {
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    for (int b = warp; b < B; b += NW) {
+        float am = 0.f;
+        for (int c = lane * 8; c < K; c += 256) {
+            float v[8];
+            xs_get8(xs, K, b, c, v);
+#pragma unroll
+            for (int e = 0; e < 8; ++e) am = fmaxf(am, fabsf(v[e]));
+        }
+        for (int o = 16; o > 0; o >>= 1) am = fmaxf(am, __shfl_xor_sync(0xffffffffu, am, o));
+        const float r = pmt::i8_scale(am);
+        for (int c = lane * 8; c < K; c += 256) {
+            float v[8];
+            xs_get8(xs, K, b, c, v);
+#pragma unroll
+            for (int e = 0; e < 8; ++e) v[e] = static_cast<float>(pmt::i8_level(v[e], r));
+            xs_put8(xs, K, b, c, v);
+        }
+        if (lane == 0) rsc[b] = r;
+    }
+    __syncthreads();
+}
+
+// load_gated / load_plain into TC rows (dff / n wide), more chunks in flight a thread
+__device__ void load_gated_tc(const __nv_bfloat16* h, int B, int dff, int act, __nv_bfloat16* xs) {
+#pragma unroll 4
+    for (int i = threadIdx.x * 8; i < B * dff; i += NT * 8) {
+        const int b = i / dff, k = i % dff;
+        float a[8], g[8];
+        ld16cg(h + static_cast<int64_t>(b) * 2 * dff + k, a);
+        ld16cg(h + static_cast<int64_t>(b) * 2 * dff + dff + k, g);
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+            a[e] = pmt::round_to<__nv_bfloat16>(pmt::round_to<__nv_bfloat16>(act_fn<__nv_bfloat16>(a[e], act)) * g[e]);
+        xs_put8(xs, dff, b, k, a);
+    }
+    __syncthreads();
+}
+
+__device__ void load_plain_tc(const __nv_bfloat16* h, int B, int n, __nv_bfloat16* xs) {
+#pragma unroll 8
+    for (int i = threadIdx.x * 8; i < B * n; i += NT * 8) {
+        float v[8];
+        ld16cg(h + i, v);
+        xs_put8(xs, n, i / n, i % n, v);
+    }
+    __syncthreads();
+}
+
+// load_merge into TC rows (H * 64 wide): the split weights as load_merge forms them, then 8 context values a lane
+__device__ void load_merge_tc(const float* pm, const float* pl, const float* pacc, int B, int H, int S,
+                              __nv_bfloat16* xs, float* wsm) {
+    for (int u = threadIdx.x; u < B * H; u += NT) {
+        float mx = pmt::NEG_INF;
+        for (int s = 0; s < S; ++s)
+            if (ldcg1(pl + u * S + s) > 0.f) mx = fmaxf(mx, ldcg1(pm + u * S + s));
+        float l = 0.f;
+        for (int s = 0; s < S; ++s) {
+            const float ls = ldcg1(pl + u * S + s);
+            if (ls > 0.f) l += ls * expf(ldcg1(pm + u * S + s) - mx);
+        }
+        const float inv = l > 0.f ? 1.f / l : 0.f;  // an empty range gives zeros
+        for (int s = 0; s < S; ++s) {
+            const float ls = ldcg1(pl + u * S + s);
+            wsm[u * S + s] = ls > 0.f ? expf(ldcg1(pm + u * S + s) - mx) * inv : 0.f;
+        }
+    }
+    __syncthreads();
+    const int hd = H * HEAD_D;
+#pragma unroll 4
+    for (int i = threadIdx.x * 8; i < B * hd; i += NT * 8) {
+        const int u = (i / hd) * H + (i % hd) / HEAD_D, e = i % HEAD_D;
+        float a[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+        for (int s = 0; s < S; ++s) {
+            float v[8];
+            ld16cg(pacc + static_cast<int64_t>(u * S + s) * HEAD_D + e, v);
+            ld16cg(pacc + static_cast<int64_t>(u * S + s) * HEAD_D + e + 4, v + 4);
+            const float w = wsm[u * S + s];
+#pragma unroll
+            for (int j = 0; j < 8; ++j) a[j] = fmaf(v[j], w, a[j]);
+        }
+#pragma unroll
+        for (int j = 0; j < 8; ++j) a[j] = pmt::round_to<__nv_bfloat16>(a[j]);
+        xs_put8(xs, hd, i / hd, i % hd, a);
     }
     __syncthreads();
 }
@@ -491,6 +658,153 @@ __device__ void matvec(Stream& st, int pass_units, const float* xs, int xst, int
     if (last && passes == 0) mark(2);
 }
 
+// The tensor-core matvec of the bf16 launches above one row group (B >= 9
+// rows; MAXG > 1, T = bf16): mma.sync m16n8k16 bf16 x bf16 -> fp32 (bf16 and
+// w8a16 weights, int8 widened to bf16 in registers: exact) or m16n8k32 s8 x
+// s8 -> s32 (w8a8: exact). The batch rows are M (one or two m16 tiles, the
+// rows of xs, read by ldmatrix), a column unit of the ring is one n8 tile
+// (bf16: ldmatrix.trans of its K-major rows; int8: byte gathers), K is cut in
+// blocks of 32. Warp w takes unit w % nv of the pass and K-part w / nv of
+// NW / nv (whole blocks of 32, in order): the split comes from the block's
+// share alone, not from B or the row group, and each weight fragment,
+// read once from the ring, feeds every m16 tile of the group. The (K-part,
+// unit) partials go to `red`, (warp, MB rows, 8 columns); the caller adds a
+// unit's parts in order (deterministic). Above one row group every share
+// lies whole in the ring (the planner refuses a share that would stream), so
+// a pass is one step: the first group waits for its slot to land, later
+// groups read it as the first one left it. Returns the slots' parities.
+
+// the B fragments (col layout) of unit rows [32 kb, 32 kb + 32): bf16, b0 b1 of the two k16 steps; a8, b0 b1 of the
+// k32 step, whose slots 4t..4t+3 hold K rows 2t, 2t+1, 2t+8, 2t+9 (+16 for b1), as mma_a8_frag packs the A side
+template <bool INT, typename W>
+__device__ __forceinline__ void mma_b_frags(const char* unit, int kb, int lane, uint32_t* bw) {
+    if constexpr (std::is_same<W, int8_t>::value) {  // K rows of 8 bytes: lane (g, t) takes byte g of its rows
+        const int g = lane / 4, t = lane % 4;
+        uint32_t pr[4];  // rows (2t, 2t + 1) + 8 i: byte g of each, in the low 16 bits
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            const uint4 q = *reinterpret_cast<const uint4*>(unit + (kb * 32 + 8 * i + 2 * t) * 8);
+            pr[i] = __byte_perm(g < 4 ? q.x : q.y, g < 4 ? q.z : q.w, (g & 3) | ((4 + (g & 3)) << 4));
+        }
+        if constexpr (INT) {
+            bw[0] = __byte_perm(pr[0], pr[1], 0x5410);
+            bw[1] = __byte_perm(pr[2], pr[3], 0x5410);
+        } else {  // w8a16: the levels widened to bf16, exact
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+                const __nv_bfloat162 h = __floats2bfloat162_rn(static_cast<float>(static_cast<int8_t>(pr[i] & 0xffu)),
+                                                               static_cast<float>(static_cast<int8_t>(pr[i] >> 8)));
+                bw[i] = *reinterpret_cast<const uint32_t*>(&h);
+            }
+        }
+    } else {  // K rows of 16 bytes: lane l addresses row 32 kb + l; .trans gives each lane its column's K pairs
+        pmt::ldmatrix_x4_trans(bw, unit + (kb * 32 + lane) * 16);
+    }
+}
+
+// the int8 byte of a bf16 level (an integer in [-127, 127], its bits in the high half): adding 1.5 * 2^23 leaves
+// its two's complement in the low 8 bits of the fp32 sum (exact; full-rate adds, no conversion instruction)
+__device__ __forceinline__ uint32_t s8_of(uint32_t bits) { return __float_as_uint(__uint_as_float(bits) + 12582912.f); }
+
+// four int8 bytes from two bf16 level pairs p, q (low, high halves): p.lo, p.hi, q.lo, q.hi
+__device__ __forceinline__ uint32_t s8x4(uint32_t p, uint32_t q) {
+    return __byte_perm(__byte_perm(s8_of(p << 16), s8_of(p & 0xffff0000u), 0x40),
+                       __byte_perm(s8_of(q << 16), s8_of(q & 0xffff0000u), 0x40), 0x5410);
+}
+
+// the s8 A fragment of a k32 step from the two bf16 ldmatrix fragments of its k16 halves (x0, x1): slots 4t..4t+3
+// take K columns 2t, 2t + 1, 2t + 8, 2t + 9 (+16 for a2, a3), as mma_b_frags packs the B side
+__device__ __forceinline__ void mma_a8_frag(const uint32_t* x0, const uint32_t* x1, uint32_t* a) {
+    a[0] = s8x4(x0[0], x0[2]);
+    a[1] = s8x4(x0[1], x0[3]);
+    a[2] = s8x4(x1[0], x1[2]);
+    a[3] = s8x4(x1[1], x1[3]);
+}
+
+template <bool INT, typename W>
+__device__ __forceinline__ unsigned mma_pass(const Stream& st, int pass, int nv, const __nv_bfloat16* xs, int B,
+                                             const char* ring, float* red, Bars bars, unsigned phases, bool first) {
+    using A = typename std::conditional<INT, int, float>::type;
+    constexpr int UB = WVec<W>::V * sizeof(W);
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const int K = st.K, slot = pass % st.m.slots;
+    if (first) {
+        mbar_wait(bars.slot + slot, (phases >> slot) & 1u);
+        phases ^= 1u << slot;
+    }
+    const int parts = NW / nv, u = warp % nv, part = warp / nv, mt = (B + 15) / 16;
+    if (part < parts) {
+        A acc[2][4];
+#pragma unroll
+        for (int m = 0; m < 2; ++m)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[m][e] = 0;
+        const int nkb = K / 32, kb1 = (part + 1) * nkb / parts;
+        const char* unit = ring + slot * st.m.slot_bytes + static_cast<int64_t>(u) * K * UB;
+        for (int kb = part * nkb / parts; kb < kb1; ++kb) {
+            uint32_t bw[4];
+            mma_b_frags<INT, W>(unit, kb, lane, bw);
+#pragma unroll
+            for (int m = 0; m < 2; ++m) {
+                if (m < mt) {
+                    const int r = m * 16 + (lane & 15), c = kb * 4 + (lane >> 4);
+                    uint32_t x0[4], x1[4];
+                    pmt::ldmatrix_x4(x0, xs + r * K + ((c ^ (r & 7)) << 3));
+                    pmt::ldmatrix_x4(x1, xs + r * K + (((c + 2) ^ (r & 7)) << 3));
+                    if constexpr (INT) {
+                        uint32_t a[4];
+                        mma_a8_frag(x0, x1, a);
+                        pmt::mma_s8(acc[m], a, bw[0], bw[1]);
+                    } else {
+                        pmt::mma_bf16(acc[m], x0, bw[0], bw[1]);
+                        pmt::mma_bf16(acc[m], x1, bw[2], bw[3]);
+                    }
+                }
+            }
+        }
+        A* r = reinterpret_cast<A*>(red) + warp * MB * 8;
+        const int g = lane / 4, t = lane % 4;
+#pragma unroll
+        for (int m = 0; m < 2; ++m) {
+            if (m < mt) {
+                r[(m * 16 + g) * 8 + 2 * t] = acc[m][0];
+                r[(m * 16 + g) * 8 + 2 * t + 1] = acc[m][1];
+                r[(m * 16 + g + 8) * 8 + 2 * t] = acc[m][2];
+                r[(m * 16 + g + 8) * 8 + 2 * t + 1] = acc[m][3];
+            }
+        }
+    }
+    __syncthreads();
+    return phases;
+}
+
+// out[b0 + b, n] = sum_k xs[b, k] * W[k, n] for the B <= MB rows of xs (bf16, TC rows of st.K: xs_at) on the tensor
+// cores, as `matvec` does it on the CUDA cores; epi(b0 + b, n, n - first column of the block, fp32 sum)
+template <bool INT, typename W, typename Epi, typename Mark>
+__device__ void matvec_mma(const Stream& st, int pass_units, const __nv_bfloat16* xs, int b0, int B, const char* ring,
+                           float* red, Bars bars, unsigned& phases, unsigned long long* par_bar, unsigned par_parity,
+                           bool first, bool last, Epi epi, Mark mark) {
+    using A = typename std::conditional<INT, int, float>::type;
+    constexpr int CU = WVec<W>::V;
+    const int passes = st.steps;  // one step a pass (the share is whole in the ring)
+    const A* redA = reinterpret_cast<const A*>(red);
+    for (int pass = 0; pass < passes; ++pass) {
+        const int nv = min(pass_units, st.nu - pass * pass_units), parts = NW / nv, pc = nv * CU;
+        phases = mma_pass<INT, W>(st, pass, nv, xs, B, ring, red, bars, phases, first);
+        mbar_wait(par_bar, par_parity);  // the staged bias and scales
+        if (last && pass + 1 == passes) mark(2);
+        for (int i = threadIdx.x; i < B * pc; i += NT) {
+            const int b = i / pc, c = i - b * pc, u = c / CU, j = c % CU;
+            A v = 0;
+            for (int q = 0; q < parts; ++q) v += redA[((q * nv + u) * MB + b) * CU + j];
+            const int col = pass * pass_units * CU + c;
+            epi(b0 + b, st.u0 * CU + col, col, static_cast<float>(v));
+        }
+        __syncthreads();
+    }
+    if (last && passes == 0) mark(2);
+}
+
 // ---------------------------------------------------------------- attention
 
 // Units (row b, head h, key split s) over keys [start_b, end_b) of a
@@ -709,6 +1023,123 @@ __device__ __noinline__ void head_scores(const void* emb_v, const float* emb_s, 
     }
 }
 
+// The head phase of the bf16 launches above one row group on the tensor
+// cores, as csrc/greedy_head.cu does it: vocab rows on M (a warp takes 16
+// rows at a time, its block's rows in tiles NW apart), the B <= MB normed
+// rows on N (n8 tiles), d on K. A lane loads 16 bytes of each of its two
+// vocab rows per 64-byte run straight from device memory (no staging: each
+// vocab row is read once per launch, and the loads of U runs are in
+// flight together), so within a run the K order is permuted, alike on both
+// sides: bf16, two k16 steps whose slots 2t, 2t + 1 | 2t + 8, 2t + 9 take the
+// run's elements 8t + 4s + 0, 1 | 2, 3 (step s); a8, one k32 step per 32
+// bytes whose slots 4t..4t+3 | +16 take bytes 16t + 8s + 0..3 | 4..7. The
+// batch side is one 16-byte load per run and n8 tile: the bf16 rows of xs
+// (xs_at: chunk (4 j + t) ^ (row & 7)) or the a8 head's int8 rows
+// `xq` (stride d + 16 bytes). Scores are rounded to T (bf16: as the logits
+// of a bf16 head matmul) or, a8, f32(dot_i32) * emb_s[v] (exact products,
+// the same score as the CUDA-core head). Lane (g, t) keeps the best (value,
+// lowest index) of batch columns 2t, 2t + 1 of each n8 tile; the 8 lanes of
+// a column merge by shuffles and write sv / si[(warp, column)].
+template <typename T, bool A8>
+__device__ __forceinline__ void head_tiles(const char* emb, const float* emb_s, int row_bytes, const char* xb,
+                                           int x_stride, int B, int r0, int r1, float (&bv)[4][2], int (&bi)[4][2]) {
+    using Acc = typename std::conditional<A8, int, float>::type;
+    constexpr int U = 4;  // 64-byte runs of both rows in flight
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+    const int ntn = (B + 7) / 8;
+    for (int v0 = r0 + warp * 16; v0 < r1; v0 += NW * 16) {  // warp-uniform trip count
+        const char* pa = emb + static_cast<int64_t>(min(v0 + g, r1 - 1)) * row_bytes + 16 * t;
+        const char* pb = emb + static_cast<int64_t>(min(v0 + g + 8, r1 - 1)) * row_bytes + 16 * t;
+        Acc acc[4][4];
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[n][e] = 0;
+        for (int k0 = 0; k0 < row_bytes; k0 += 64 * U) {
+            uint4 wa[U], wb[U];
+#pragma unroll
+            for (int u = 0; u < U; ++u) {
+                const bool in = k0 + 64 * u < row_bytes;
+                wa[u] = in ? __ldg(reinterpret_cast<const uint4*>(pa + k0 + 64 * u)) : make_uint4(0, 0, 0, 0);
+                wb[u] = in ? __ldg(reinterpret_cast<const uint4*>(pb + k0 + 64 * u)) : make_uint4(0, 0, 0, 0);
+            }
+#pragma unroll
+            for (int u = 0; u < U; ++u) {
+                const int j = k0 / 64 + u;  // the 64-byte run
+                if (64 * j >= row_bytes) break;
+                const uint32_t a0[4] = {wa[u].x, wb[u].x, wa[u].y, wb[u].y};
+                const uint32_t a1[4] = {wa[u].z, wb[u].z, wa[u].w, wb[u].w};
+#pragma unroll
+                for (int n = 0; n < 4; ++n) {
+                    if (n < ntn) {
+                        const int row = n * 8 + g;
+                        uint4 x = make_uint4(0, 0, 0, 0);
+                        if (row < B)
+                            x = *reinterpret_cast<const uint4*>(xb + row * x_stride +
+                                                                (((4 * j + t) ^ (A8 ? 0 : row & 7)) << 4));
+                        if constexpr (A8) {
+                            pmt::mma_s8(acc[n], a0, x.x, x.y);
+                            pmt::mma_s8(acc[n], a1, x.z, x.w);
+                        } else {
+                            pmt::mma_bf16(acc[n], a0, x.x, x.y);
+                            pmt::mma_bf16(acc[n], a1, x.z, x.w);
+                        }
+                    }
+                }
+            }
+        }
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const int row = v0 + g + (e >> 1) * 8, col = n * 8 + 2 * t + (e & 1);
+                if (n < ntn && row < r1 && col < B) {
+                    float sc;
+                    if constexpr (A8)
+                        sc = __fmul_rn(__int2float_rn(acc[n][e]), __ldg(emb_s + row));
+                    else
+                        sc = pmt::round_to<T>(acc[n][e]);
+                    if (better(sc, row, bv[n][e & 1], bi[n][e & 1])) bv[n][e & 1] = sc, bi[n][e & 1] = row;
+                }
+            }
+        }
+    }
+}
+
+// The head phase's scores of one block's vocab rows [r0, r1) on the tensor cores (head_tiles): the bf16 head
+// against the B bf16 rows of xs (xs_at, d wide), or the a8 head against `xq`; every warp's best per batch row to
+// sv / si[warp * B + row]. Not inlined, as head_scores.
+template <typename T>
+__device__ __noinline__ void head_mma(const void* emb_v, const float* emb_s, int d, const __nv_bfloat16* xs,
+                                      const int8_t* xq, int B, int r0, int r1, float* sv, int* si) {
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+    float bv[4][2];
+    int bi[4][2];
+#pragma unroll
+    for (int n = 0; n < 4; ++n) bv[n][0] = bv[n][1] = pmt::neg_inf(), bi[n][0] = bi[n][1] = INT_MAX;
+    const char* emb = static_cast<const char*>(emb_v);
+    if (xq)
+        head_tiles<T, true>(emb, emb_s, d, reinterpret_cast<const char*>(xq), d + 16, B, r0, r1, bv, bi);
+    else
+        head_tiles<T, false>(emb, emb_s, 2 * d, reinterpret_cast<const char*>(xs), 2 * d, B, r0, r1, bv, bi);
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            float v = bv[n][h];
+            int i = bi[n][h];
+#pragma unroll
+            for (int o = 4; o < 32; o <<= 1) {  // the 8 lanes of one column pair (same t)
+                const float ov = __shfl_xor_sync(0xffffffffu, v, o);
+                const int oi = __shfl_xor_sync(0xffffffffu, i, o);
+                if (better(ov, oi, v, i)) v = ov, i = oi;
+            }
+            const int col = n * 8 + 2 * t + h;
+            if (g == 0 && col < B) sv[warp * B + col] = v, si[warp * B + col] = i;
+        }
+    }
+}
+
 // ---------------------------------------------------------------- kernel
 
 // MAXG: the most row groups the instantiation serves, 1 (B <= GR) or MB / GR. The one-group kernel compiles none
@@ -717,10 +1148,13 @@ __device__ __noinline__ void head_scores(const void* emb_v, const float* emb_s, 
 template <typename T, typename W, int MAXG>
 __global__ void __launch_bounds__(NT, 1) decode_step_kernel(Args a, Plan p) {
     constexpr int RPW = MAXG == 1 ? 1 : (MB + NW - 1) / NW;  // norm rows a warp holds
+    // the bf16 launches above one row group: matvec passes and the head on the tensor cores, xs in bf16
+    constexpr bool TC = MAXG > 1 && std::is_same<T, __nv_bfloat16>::value;
     extern __shared__ float smem[];
     cg::grid_group grid = cg::this_grid();
     const int B = a.b, d = a.d, hd = a.hd, dff = a.dff, H = a.n_heads, Lp = a.l_max, pos = a.pos;
     float* xs = smem;
+    __nv_bfloat16* const xsb = reinterpret_cast<__nv_bfloat16*>(smem);  // TC: bf16 rows (xs_at)
     float* red = smem + p.xs_floats;
     float* rsc = red + p.red_bytes / 4;  // (MB) w8a8 row scales of the phase input, by batch row
     float* par = rsc + MB;               // two (bias, scales) buffers: matrices alternate between them
@@ -810,29 +1244,59 @@ __global__ void __launch_bounds__(NT, 1) decode_step_kernel(Args a, Plan p) {
         }
         matvec<false, W>(st, pu, xg, xst, b0, nb, ring, red, bars, slot_phases, pb, pp, first, last, epi, mark);
     };
-    // one matvec phase of input width K over the row groups: load(b0, nb, xst) puts rows [b0, b0 + nb) of the
-    // phase input in xs rows [0, nb) at stride xst; the block's share (resident in the ring after the first group)
-    // multiplies each group; epi finishes each output. Where the batch's rows fit below the staged norm at stride
-    // K + 4 (the norm inputs and the attention context of d and H*D columns; not the MLP hidden), the whole batch
-    // is loaded at once, one chain of L2 round trips instead of one per group
-    auto grouped = [&](int K, auto load, auto epi) {
-        if constexpr (MAXG > 1) {
-            const int wst = K + 4;
-            if (NG > 1 && (B - 1) * wst + K <= p.pln_off) {
-                load(0, B, wst);
-                mark(1);
-                for (int g = 0; g < NG; ++g) {
-                    const int b0 = g * GR;
-                    mv(epi, xs + b0 * wst, wst, b0, min(GR, B - b0), g == 0, g + 1 == NG);
-                }
+    // the same on the tensor cores (TC): rows b0 .. b0 + nb of the batch in xs as TC's bf16 rows of K
+    auto mv_mma = [&](auto epi, int K, int b0, int nb, bool first, bool last) {
+        const Stream st = describe<W>(a, p, cur_kind, cur_l, cur_issued);
+        const int pu = p.pass_cols / WVec<W>::V;
+        unsigned long long* pb = bars.par + (cur_seq & 1);
+        const unsigned pp = (cur_seq >> 1) & 1;
+        if constexpr (std::is_same<W, int8_t>::value) {
+            if (a8) {
+                quantize_tc(xsb, K, nb, rsc + b0);
+                matvec_mma<true, W>(st, pu, xsb, b0, nb, ring, red, bars, slot_phases, pb, pp, first, last, epi, mark);
                 return;
             }
         }
-        for (int g = 0; g < NG; ++g) {
-            const int b0 = g * GR, nb = min(GR, B - b0);
-            load(b0, nb, p.xs_stride);
-            if (g == 0) mark(1);
-            mv(epi, xs, p.xs_stride, b0, nb, g == 0, g + 1 == NG);
+        matvec_mma<false, W>(st, pu, xsb, b0, nb, ring, red, bars, slot_phases, pb, pp, first, last, epi, mark);
+    };
+    // one matvec phase of input width K over the row groups: load(b0, nb, xst) puts rows [b0, b0 + nb) of the
+    // phase input in xs rows [0, nb) at stride xst (TC: bf16 rows of K); the block's share (resident in the ring
+    // after the first group) multiplies each group; epi finishes each output. Where the batch's rows fit below
+    // the staged norm at stride K + 4 (the norm inputs and the attention context of d and H*D columns; not the MLP
+    // hidden), the whole batch is loaded at once, one chain of L2 round trips instead of one per group
+    auto grouped = [&](int K, auto load, auto epi) {
+        if constexpr (TC) {
+            // bf16 rows of K: the whole batch where its m16 tiles fit, else groups of 16 rows (GPT-2's 3,072-wide MLP
+            // hidden). A norm input's rows stay below the staged norm parameters (pln, the end of xs); the other
+            // inputs (K != d) may cover them: a norm's parameters are staged at the barrier before its phase and
+            // read in it only
+            const int fit = (K == d ? p.pln_off * 4 : static_cast<int>(p.xs_floats) * 4) / (2 * K);
+            const int rows = (B + 15) / 16 * 16 <= fit ? B : (fit >= 16 ? fit / 16 * 16 : fit);
+            for (int b0 = 0; b0 < B; b0 += rows) {
+                const int nb = min(rows, B - b0);
+                load(b0, nb, K);
+                if (b0 == 0) mark(1);
+                mv_mma(epi, K, b0, nb, b0 == 0, b0 + nb == B);
+            }
+        } else {
+            if constexpr (MAXG > 1) {
+                const int wst = K + 4;
+                if (NG > 1 && (B - 1) * wst + K <= p.pln_off) {
+                    load(0, B, wst);
+                    mark(1);
+                    for (int g = 0; g < NG; ++g) {
+                        const int b0 = g * GR;
+                        mv(epi, xs + b0 * wst, wst, b0, min(GR, B - b0), g == 0, g + 1 == NG);
+                    }
+                    return;
+                }
+            }
+            for (int g = 0; g < NG; ++g) {
+                const int b0 = g * GR, nb = min(GR, B - b0);
+                load(b0, nb, p.xs_stride);
+                if (g == 0) mark(1);
+                mv(epi, xs, p.xs_stride, b0, nb, g == 0, g + 1 == NG);
+            }
         }
     };
     // the embed phase's layer-0 input: round_T(tok[id] + pos[p]), the sum in fp32
@@ -901,8 +1365,12 @@ __global__ void __launch_bounds__(NT, 1) decode_step_kernel(Args a, Plan p) {
         // (a) LN1 + QKV; k/v land in the cache at pos (int8 self-KV: in scratch, quantized by the attention units)
         auto ln_rows = [&](const T* src) {  // rows of the norm input
             return [=](int b0, int nb, int xst) {
-                load_ln<T, RPW>(src + static_cast<int64_t>(b0) * d, pln, pln + d, nb, d, a.eps, a.norm, xs, xst,
-                                ln_ready);
+                if constexpr (TC)
+                    load_ln_tc([=](int b, int c, float* v) { ld16cg(src + static_cast<int64_t>(b0 + b) * d + c, v); },
+                               pln, pln + d, nb, d, a.eps, a.norm, xsb, ln_ready);
+                else
+                    load_ln<T, RPW>(src + static_cast<int64_t>(b0) * d, pln, pln + d, nb, d, a.eps, a.norm, xs, xst,
+                                    ln_ready);
             };
         };
         T* kc = static_cast<T*>(a.k_cache) + kv_off;
@@ -925,11 +1393,13 @@ __global__ void __launch_bounds__(NT, 1) decode_step_kernel(Args a, Plan p) {
                 grouped(
                     d,
                     [&](int b0, int nb, int xst) {
-                        load_ln_from<T, RPW>(
-                            [=](int b, int c, float* v) {
-                                for (int e = 0; e < 16 / static_cast<int>(sizeof(T)); ++e) v[e] = x0(b0 + b, c + e);
-                            },
-                            pln, pln + d, nb, d, a.eps, a.norm, xs, xst, ln_ready);
+                        auto ld = [=](int b, int c, float* v) {
+                            for (int e = 0; e < 16 / static_cast<int>(sizeof(T)); ++e) v[e] = x0(b0 + b, c + e);
+                        };
+                        if constexpr (TC)
+                            load_ln_tc(ld, pln, pln + d, nb, d, a.eps, a.norm, xsb, ln_ready);
+                        else
+                            load_ln_from<T, RPW>(ld, pln, pln + d, nb, d, a.eps, a.norm, xs, xst, ln_ready);
                     },
                     epi);
             else
@@ -962,10 +1432,17 @@ __global__ void __launch_bounds__(NT, 1) decode_step_kernel(Args a, Plan p) {
         // int8 units wrote it whole into qs)
         auto ctx_rows = [&](bool int8) {
             return [&, int8](int b0, int nb, int xst) {
-                if (int8) {
-                    load_plain(static_cast<const T*>(qs) + static_cast<int64_t>(b0) * hd, nb, hd, xs, xst);
+                const T* q = static_cast<const T*>(qs) + static_cast<int64_t>(b0) * hd;
+                const int u0 = b0 * H * p.split;
+                if constexpr (TC) {
+                    if (int8)
+                        load_plain_tc(q, nb, hd, xsb);
+                    else
+                        load_merge_tc(pm + u0, pl + u0, pacc + static_cast<int64_t>(u0) * HEAD_D, nb, H, p.split, xsb,
+                                      red);
+                } else if (int8) {
+                    load_plain(q, nb, hd, xs, xst);
                 } else {
-                    const int u0 = b0 * H * p.split;
                     load_merge<T>(pm + u0, pl + u0, pacc + static_cast<int64_t>(u0) * HEAD_D, nb, H, p.split, xs,
                                   xst, red);
                 }
@@ -1026,10 +1503,16 @@ __global__ void __launch_bounds__(NT, 1) decode_step_kernel(Args a, Plan p) {
             dff,
             [&](int b0, int nb, int xst) {
                 const T* h = static_cast<const T*>(hbuf) + static_cast<int64_t>(b0) * n1;
-                if (gated)
+                if constexpr (TC) {
+                    if (gated)
+                        load_gated_tc(h, nb, dff, act, xsb);
+                    else
+                        load_plain_tc(h, nb, dff, xsb);
+                } else if (gated) {
                     load_gated(h, nb, dff, act, xs, xst);
-                else
+                } else {
                     load_plain(h, nb, dff, xs, xst);
+                }
             },
             residual(xr, false));
         if (l + 1 < a.n_layers)
@@ -1043,41 +1526,67 @@ __global__ void __launch_bounds__(NT, 1) decode_step_kernel(Args a, Plan p) {
         return;
     }
 
-    // head: final LN of all B rows (at the head's stride), then each block's vocab chunk -> best
-    // (value, index) per row
+    // head: final LN of all B rows (at the head's stride; TC: bf16 rows of d), then each block's vocab chunk ->
+    // best (value, index) per row
     float* hv = reinterpret_cast<float*>(ws + p.off_hv);
     int* hi = reinterpret_cast<int*>(ws + p.off_hi);
     const int hst = p.hs_stride;
-    load_ln<T, RPW>(static_cast<const T*>(xr), pln, pln + d, B, d, a.eps, a.norm, xs, hst, ln_ready);
+    if constexpr (TC)
+        load_ln_tc([=](int b, int c, float* v) { ld16cg(xr + static_cast<int64_t>(b) * d + c, v); }, pln, pln + d, B, d,
+                   a.eps, a.norm, xsb, ln_ready);
+    else
+        load_ln<T, RPW>(static_cast<const T*>(xr), pln, pln + d, B, d, a.eps, a.norm, xs, hst, ln_ready);
     mark(1);
     {
         const int chunk = (a.vocab + gridDim.x - 1) / gridDim.x;
         const int r0 = blockIdx.x * chunk, r1 = min(a.vocab, r0 + chunk);
-        float* sv = red;                                   // (NW * 4, B)
-        int* si = reinterpret_cast<int*>(red + NW * 4 * B);  // (NW * 4, B)
-        int* xq = nullptr;                                 // a8: (B, d / 4) packed int8 rows
-        if (a.head_a8) {
-            // w8a8 head: the hidden state's int8 levels against its row absmax (the row scale is never
-            // applied: it does not move a row's argmax), packed four to an int for __dp4a
-            xq = reinterpret_cast<int*>(red + NW * 4 * B * 2);
-            quantize_xs(xs, hst, B, d, rsc);
-            for (int i = threadIdx.x; i < B * d / 4; i += NT) {
-                unsigned u = 0;
-                for (int e = 0; e < 4; ++e)
-                    u |= (static_cast<unsigned>(static_cast<int>(xs[(4 * i / d) * hst + 4 * i % d + e])) & 0xffu)
-                         << (8 * e);
-                xq[i] = static_cast<int>(u);
+        const int n_best = TC ? NW : NW * 4;                  // the bests per row: a warp's (TC) or a key group's
+        float* sv = red;                                      // (n_best, B)
+        int* si = reinterpret_cast<int*>(red + n_best * B);  // (n_best, B)
+        if constexpr (TC) {
+            int8_t* xq = nullptr;  // a8: (B, d) int8 rows at a stride of d + 16 bytes (no bank conflicts)
+            if (a.head_a8) {
+                // w8a8 head: the hidden state's int8 levels against its row absmax (the row scale is never
+                // applied: it does not move a row's argmax)
+                xq = reinterpret_cast<int8_t*>(red + 2 * n_best * B);
+                quantize_tc(xsb, d, B, rsc);
+                for (int i = threadIdx.x * 8; i < B * d; i += NT * 8) {
+                    const int b = i / d, c = i % d;
+                    float v[8];
+                    xs_get8(xsb, d, b, c, v);
+                    unsigned u[2] = {0u, 0u};
+                    for (int e = 0; e < 8; ++e)
+                        u[e / 4] |= (static_cast<unsigned>(static_cast<int>(v[e])) & 0xffu) << (8 * (e % 4));
+                    *reinterpret_cast<uint2*>(xq + b * (d + 16) + c) = make_uint2(u[0], u[1]);
+                }
+                __syncthreads();
             }
-            __syncthreads();
-        }
-        if constexpr (MAXG == 1) {
-            head_scores<T, 1>(a.emb, fp(a.emb_s), d, xs, hst, xq, B, r0, r1, sv, si);
+            head_mma<T>(a.emb, fp(a.emb_s), d, xsb, xq, B, r0, r1, sv, si);
         } else {
-            switch (NG) {  // the row groups' sums in registers: an instantiation per group count
-                case 1: head_scores<T, 1>(a.emb, fp(a.emb_s), d, xs, hst, xq, B, r0, r1, sv, si); break;
-                case 2: head_scores<T, 2>(a.emb, fp(a.emb_s), d, xs, hst, xq, B, r0, r1, sv, si); break;
-                case 3: head_scores<T, 3>(a.emb, fp(a.emb_s), d, xs, hst, xq, B, r0, r1, sv, si); break;
-                default: head_scores<T, 4>(a.emb, fp(a.emb_s), d, xs, hst, xq, B, r0, r1, sv, si); break;
+            int* xq = nullptr;  // a8: (B, d / 4) packed int8 rows
+            if (a.head_a8) {
+                // w8a8 head: the hidden state's int8 levels against its row absmax (the row scale is never
+                // applied: it does not move a row's argmax), packed four to an int for __dp4a
+                xq = reinterpret_cast<int*>(red + NW * 4 * B * 2);
+                quantize_xs(xs, hst, B, d, rsc);
+                for (int i = threadIdx.x; i < B * d / 4; i += NT) {
+                    unsigned u = 0;
+                    for (int e = 0; e < 4; ++e)
+                        u |= (static_cast<unsigned>(static_cast<int>(xs[(4 * i / d) * hst + 4 * i % d + e])) & 0xffu)
+                             << (8 * e);
+                    xq[i] = static_cast<int>(u);
+                }
+                __syncthreads();
+            }
+            if constexpr (MAXG == 1) {
+                head_scores<T, 1>(a.emb, fp(a.emb_s), d, xs, hst, xq, B, r0, r1, sv, si);
+            } else {
+                switch (NG) {  // the row groups' sums in registers: an instantiation per group count
+                    case 1: head_scores<T, 1>(a.emb, fp(a.emb_s), d, xs, hst, xq, B, r0, r1, sv, si); break;
+                    case 2: head_scores<T, 2>(a.emb, fp(a.emb_s), d, xs, hst, xq, B, r0, r1, sv, si); break;
+                    case 3: head_scores<T, 3>(a.emb, fp(a.emb_s), d, xs, hst, xq, B, r0, r1, sv, si); break;
+                    default: head_scores<T, 4>(a.emb, fp(a.emb_s), d, xs, hst, xq, B, r0, r1, sv, si); break;
+                }
             }
         }
         mark(2);
@@ -1086,7 +1595,7 @@ __global__ void __launch_bounds__(NT, 1) decode_step_kernel(Args a, Plan p) {
             const int b = threadIdx.x;
             float v = pmt::neg_inf();
             int i = INT_MAX;
-            for (int g = 0; g < NW * 4; ++g)
+            for (int g = 0; g < n_best; ++g)
                 if (better(sv[g * B + b], si[g * B + b], v, i)) v = sv[g * B + b], i = si[g * B + b];
             hv[b * gridDim.x + blockIdx.x] = v;
             hi[b * gridDim.x + blockIdx.x] = i;
@@ -1210,6 +1719,10 @@ int plan(const Args& a, Plan& p) {
         return static_cast<int>(cudaErrorInvalidValue);  // the phase input does not fit
     p.par_cols = max_cols, p.xs_floats = align16(xs * 4) / 4, p.red_bytes = red, p.xs_stride = xst;
     p.hs_stride = hst, p.pln_off = static_cast<int>(pln);
+    // the tensor-core launches (bf16 above one row group) hold bf16 rows in the same bytes: the staged norm
+    // parameters go to the end of xs, and the rows below them (decode_step_kernel's `grouped`)
+    if constexpr (MAXG > 1 && std::is_same<T, __nv_bfloat16>::value)
+        p.pln_off = static_cast<int>(p.xs_floats) - 2 * a.d;
     p.ring_bytes = (optin - fixed) / 16 * 16;
     // the ring: as large as the largest whole share where that fits, so the rest of the SM's 256 KB stays L1
     size_t need = 0;

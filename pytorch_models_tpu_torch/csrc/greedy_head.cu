@@ -88,9 +88,7 @@ __device__ __forceinline__ int swz(int r) {
     return CPR >= 8 ? (r & 7) : ((r * CPR / 8) & (CPR - 1));
 }
 
-__device__ __forceinline__ bool better(float s, int i, float bs, int bi) {
-    return s > bs || (s == bs && i < bi);
-}
+using pmt::better;
 
 // order-preserving bits of a float (-0 taken as +0, as the comparison takes it)
 __device__ __forceinline__ unsigned long long key_of(float s, int idx) {

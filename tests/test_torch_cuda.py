@@ -1125,13 +1125,14 @@ def test_vit_k1_route_matches_sdpa_route(cuda, pool, cls):
     torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4)
 
 
-# K7 above one row group (9 to 32 rows in one launch, groups of 8 over a share that stays in the ring; 33 rows and
+# K7 above one row group (9 to 32 rows in one launch over a share that stays in the ring: in bf16 on the tensor
+# cores, groups of 16 rows or the whole batch, in fp32 groups of 8; 33 rows and
 # more over row slices of 32, one launch each, the caches' views at the whole buffer's layer stride): every
 # variant against the plain twin at the tolerances of its family above (float: fp32 1e-4, bf16 0.05 + 2^-6;
 # int8: fp32 5e-3, bf16 0.05 + 2^-6), the token by the plain head's regret on the kernel's own x_out (float)
 # or by agreement (int8), the int8 K/V written at pos one level apart at most; T5 also with the mixed left pads
 # of a T5 pool (one row's cached range empty until pos)
-ROW_GROUP_BATCHES = [9, 16, 17, 31, 32, 33, 40, 64]
+ROW_GROUP_BATCHES = [9, 16, 17, 24, 31, 32, 33, 40, 64]
 ROW_GROUP_VARIANTS = ["base", "base-768", "cross", "t5", "headless", "embed", "w8a16-kv8", "w8a8", "whisper-kv8",
                       "t5-w8a8-kv8", "t5-pads", "t5-w8a8-kv8-pads"]
 
@@ -1228,6 +1229,39 @@ def test_fused_step_row_groups_match_plain(cuda, dtype, variant, b):
     else:
         regret, top = _greedy_regret(got_x, got_tok, head, eps)
         assert regret <= (1e-4 * top if f32 else 2.0 ** -5 * top)
+
+
+# The head phase of a bf16 launch above one row group runs on the tensor cores, vocab tiles of 16 rows a warp and
+# contiguous vocab chunks a block: equal top scores planted across tiles, warps and blocks (identical head rows,
+# and a final norm whose tiny scale leaves every row's normed state at its shift) must go to the lowest index,
+# as the plain head's argmax does, bf16 and w8a8 with the int8 head.
+@pytest.mark.parametrize("a8", [False, True])
+def test_fused_step_head_ties_go_to_the_lowest_index(cuda, a8):
+    from pytorch_models_tpu_torch.ops.decode_step import fused_decode_step_plain
+    from pytorch_models_tpu_torch.utils import quantize_tree_int8
+
+    b, d, vocab = 32, 128, 5000
+    gen = torch.Generator().manual_seed(5)
+    cfg = LayerConfig.make(d, n_heads=2)
+    layers = [layer_init(gen, cfg) for _ in range(2)]
+    packed = {k: t.to(cuda) for k, t in
+              pack_decode_weights(quantize_tree_int8(layers) if a8 else layers, torch.bfloat16).items()}
+    emb = torch.randn(vocab, d, generator=gen)
+    planted = [4999, 3333, 2017, 2016, 1290, 1283, 777, 416, 408, 401, 400]  # 400 / 401 / 408: one tile
+    emb[planted] = 4.0
+    head = {k: t.to(cuda) for k, t in pack_greedy_head(emb, {"scale": torch.full((d,), 1e-3), "bias": torch.ones(d)},
+                                                        torch.bfloat16, a8=a8).items()}
+    x = torch.randn(b, d, generator=gen).to(cuda, torch.bfloat16)
+    kc, vc = (torch.randn(2, b, 128, d, generator=gen).to(cuda, torch.bfloat16) for _ in range(2))
+    pads = _cycle([0, 5, 70, 3], b, cuda)
+    _, ref_tok = fused_decode_step_plain(x, packed, kc.clone(), vc.clone(), 70, pads, 2, cfg.act, cfg.norm_eps, head,
+                                         a8=a8)
+    before = fused_decode_step.launches
+    _, got_tok = fused_decode_step(x, packed, kc, vc, 70, pads, 2, cfg.act, cfg.norm_eps, head=head, a8=a8)
+    torch.cuda.synchronize()
+    assert fused_decode_step.launches == before + 1
+    assert ref_tok.tolist() == [400] * b
+    assert got_tok.tolist() == [400] * b
 
 
 @pytest.mark.parametrize("model", ["gpt2", "whisper-base", "t5-base"])
