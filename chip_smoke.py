@@ -13,7 +13,8 @@ the greedy heads at B=8 to 200 beside the head matmul + argmax, with the
 side ``use_greedy_head`` takes at each;
 the encoder attention K1 also at ViT-B/16's B=128 x 197 tokens and at head
 widths 32, 80 and 128, with its tensor-core instructions per instantiation
-counted by ``cuobjdump -sass``, as are K7's: its bf16 instantiation above one
+counted by ``cuobjdump -sass`` (HGMMA in every bf16 instantiation of its
+TMA + wgmma kernel), as are K7's: its bf16 instantiation above one
 row group runs on the tensor cores, the others on the CUDA cores), then
 drives the port's three main paths and
 checks that each went through its kernels:
@@ -592,9 +593,8 @@ def _check_k1(name: str, q, k, v, n_heads: int, causal: bool) -> tuple[float, in
 def _k1_case(name: str, q, k, v, n_heads: int, causal: bool, iters: int) -> dict:
     """K1 at one shape: the kernel against its plain twin (``_check_k1``), then
     the device times of the kernel, the twin and SDPA on the split-head view
-    (a yardstick the port never calls), and the bound: q, k, v read and the
-    output written once; 2 x 2 multiply-adds per (query, key, channel) pair
-    that the mask keeps; fp32 as 3xTF32."""
+    (a yardstick the port never calls), and the bound (``_k1_work``; fp32 as
+    3xTF32)."""
     import torch.nn.functional as F
 
     from pytorch_models_tpu_torch.ops.encoder_attention import encoder_attention, encoder_attention_plain
@@ -608,25 +608,35 @@ def _k1_case(name: str, q, k, v, n_heads: int, causal: bool, iters: int) -> dict
                           [lambda: encoder_attention_plain(q, k, v, n_heads, causal)], iters,
                           plain_iters=min(iters, 5))  # the twin is host-bound: ms a call
     lib = _time_ms([lambda: F.scaled_dot_product_attention(heads(q), heads(k), heads(v), is_causal=causal)], iters)
+    return {**_rec(err, ms, plain_ms, *_k1_work(q, k, causal), dn, lib, tf32x3=True), "flipped": flipped}
+
+
+def _k1_work(q, k, causal: bool) -> tuple[int, int]:
+    """K1's bytes and operations at one shape: q, k, v read and the output
+    written once; 2 x 2 multiply-adds per (query, key, channel) pair that the
+    mask keeps."""
     b, lq, hd = q.shape
     lk = k.shape[1]
     pairs = sum(min(i + 1, lk) for i in range(lq)) if causal else lq * lk
-    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-    return {**_rec(err, ms, plain_ms, nbytes, 4 * b * pairs * hd, dn, lib, tf32x3=True), "flipped": flipped}
+    return (2 * q.numel() + 2 * k.numel()) * q.element_size(), 4 * b * pairs * hd
 
 
 def _k1_times(rec: dict) -> str:
     return (f"{rec['flipped']} rows beyond TOL by p at a rounding boundary | kernel {rec['ms'] * 1e3:.1f} us, "
             f"plain {rec['plain_ms'] * 1e3:.1f} us, SDPA {rec['library_ms'] * 1e3:.1f} us, "
-            f"bound {rec['bound_ms'] * 1e3:.2f} us ({rec['bound_by']})")
+            f"bound {rec['bound_ms'] * 1e3:.2f} us ({rec['bound_by']}); kernel / SDPA "
+            f"{rec['ms'] / rec['library_ms']:.2f}, {rec['bound_ms'] / rec['ms']:.0%} of the bound")
 
 
 def _sass_tensor_core_counts(lib_path) -> dict | None:
     """Tensor-core instructions (``HMMA`` / ``HGMMA`` / ``IMMA``) in each
-    instantiation of K1 (``"fp32 D=64 MT=..."``) and of K7 (``"K7 bf16 w
-    g4"``: compute dtype, weight element (``w`` the compute dtype, ``i8``
-    int8), row groups) in the built library, from ``cuobjdump -sass``; None
-    where the toolkit has no cuobjdump."""
+    instantiation of K1 (the mma.sync kernel ``"fp32 D=64 MT=1"``, the TMA +
+    wgmma kernel ``"bf16 D=64 wgmma"``, and ``"... wgmma ahead"`` for its
+    instantiation that issues the scores a tile ahead, whose counts are of
+    ``HGMMA`` alone)
+    and of K7 (``"K7 bf16 w g4"``: compute dtype, weight element (``w`` the
+    compute dtype, ``i8`` int8), row groups) in the built library, from
+    ``cuobjdump -sass``; None where the toolkit has no cuobjdump."""
     import re
     import shutil
     from pathlib import Path
@@ -638,20 +648,23 @@ def _sass_tensor_core_counts(lib_path) -> dict | None:
         return None
     sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True, check=True,
                           timeout=300).stdout
-    counts, cur = {}, None
+    counts, cur, pattern = {}, None, None
     for line in sass.splitlines():
         if "Function :" in line:
             m = re.search(r"encoder_attention_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E", line)
+            wg = re.search(r"encoder_attention_wgmma_kernelILi(\d+)ELb([01])E", line)
             k7 = re.search(r"decode_step_kernelI(f|13__nv_bfloat16)(f|a|S\d*_)Li(\d+)E", line)
-            cur = None
+            cur, pattern = None, r"\b(HG?MMA|IMMA)\."
             if m is not None:
                 cur = f"{'fp32' if m.group(1) == 'f' else 'bf16'} D={m.group(2)} MT={m.group(3)}"
+            elif wg is not None:
+                cur, pattern = f"bf16 D={wg.group(1)} wgmma{' ahead' if wg.group(2) == '1' else ''}", r"\bHGMMA\."
             elif k7 is not None:
                 cur = (f"K7 {'fp32' if k7.group(1) == 'f' else 'bf16'} {'i8' if k7.group(2) == 'a' else 'w'} "
                        f"g{k7.group(3)}")
             if cur is not None:
                 counts[cur] = 0
-        elif cur is not None and re.search(r"\b(HG?MMA|IMMA)\.", line):
+        elif cur is not None and re.search(pattern, line):
             counts[cur] += 1
     return counts
 
@@ -6618,14 +6631,18 @@ def main() -> int:
           f"{torch.__version__} CUDA {torch.version.cuda}; kernels built in {time.perf_counter() - t0:.1f} s "
           f"(nvcc {_build.build_seconds if _build.build_seconds is not None else 'cached'}) -> {lib_path.name}")
 
-    from pytorch_models_tpu_torch.ops.encoder_attention import SUPPORTED_HEAD_DIMS
+    from pytorch_models_tpu_torch.ops.encoder_attention import ROUTE_WGMMA, SUPPORTED_HEAD_DIMS, kernel_route
 
     t_sass = time.perf_counter()
     sass = _sass_tensor_core_counts(lib_path)
-    served = {f"{dn} D={d}" for dn in ("fp32", "bf16") for d in SUPPORTED_HEAD_DIMS}
+    # the instantiations of each (dtype, head width) are of the kernel that the library's route names: bf16 the
+    # TMA + wgmma kernel (HGMMA counted; D <= 64 also walks a tile ahead), fp32 the mma.sync kernel
+    served = {f"{dn} D={d} " + ("wgmma" if kernel_route(dt, d) == ROUTE_WGMMA else "MT=1")
+              for dn, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)) for d in SUPPORTED_HEAD_DIMS}
     k1 = None if sass is None else {k: n for k, n in sass.items() if not k.startswith("K7")}
-    if k1 is not None and ({key.rsplit(" ", 1)[0] for key in k1} != served or min(k1.values()) == 0):
-        raise AssertionError(f"encoder_attention: every (dtype, head width) must run on the tensor cores: {k1}")
+    if k1 is not None and ({k.removesuffix(" ahead") for k in k1} != served or min(k1.values()) == 0):
+        raise AssertionError(f"encoder_attention: every (dtype, head width) must run on the tensor cores of its "
+                             f"route's kernel, HGMMA in every bf16 instantiation: {k1} (routes {sorted(served)})")
     print("phase sass encoder_attention: tensor-core instructions (HMMA/HGMMA) per instantiation "
           + ("not measured (no cuobjdump)" if k1 is None else json.dumps(k1))
           + f" ({time.perf_counter() - t_sass:.1f} s)")

@@ -4,6 +4,7 @@
     python3 kernel_ab.py BASE_DIR              # K2 and K6; BASE_DIR: a checkout of another commit (git archive)
     python3 kernel_ab.py --k7 BASE_DIR         # K7, the fused decode step
     python3 kernel_ab.py --head-mel BASE_DIR   # K4 (the greedy head, tied and untied) and K5 (log-mel)
+    python3 kernel_ab.py --k1 BASE_DIR         # K1, the encoder attention
 
 Builds the mode's sources of this checkout and of ``BASE_DIR`` (one ``nvcc``
 per source, ``sm_90a``), each tree into a shared library of its own, and
@@ -38,7 +39,18 @@ time per call, ``chip_smoke._time_ms``):
   takes the matmul), and the log-mel frontend at B=8 x 30 s (80 mels). A
   tree with the two-pass head (``pmt_greedy_argmax_tied`` / ``_untied`` with partials scratch) or the
   CUDA-core log-mel kernel (``pmt_log_mel`` on the unsplit bases) is called
-  through its own C interface (``_LEGACY``), as its wrappers called it.
+  through its own C interface (``_LEGACY``), as its wrappers called it;
+- ``--k1``: ``csrc/encoder_attention.cu`` (with its tree's ``common.cuh``)
+  at every K1 shape of ``chip_smoke.py`` (GPT-2's causal prefill, ViT-B/16
+  at B=128, Whisper-base's encoder dense and cross, ``K1_FAMILY_SHAPES``)
+  and at head widths 32, 80 and 128 (``K1_WIDTH_SHAPES``), bf16 and fp32,
+  each beside ``F.scaled_dot_product_attention`` on the split-head view (in
+  the same turns: base, new, SDPA, SDPA, new, base), with each tree's time
+  over SDPA's and its share of the bound (``chip_smoke._k1_work``). The two
+  trees' outputs on the same inputs: fp32 must be bit-equal, as must the
+  SASS of the fp32 instantiations (``encoder_attention_kernel<float, D,
+  1>``, from ``cuobjdump -sass``, addresses and names aside); bf16 prints
+  the largest difference and the rows beyond ``chip_smoke.TOL``.
 
 Prints one line per shape, the card, and a JSON line of the times in µs.
 Without a CUDA device it exits with code 2.
@@ -58,7 +70,15 @@ import chip_smoke
 # mode: (sources, C entry points, timed calls per turn)
 MODES = {"attn": (("decode_attention.cu", "int8_kv.cu"), ("pmt_decode_attention", "pmt_int8_attention"), 50),
          "k7": (("decode_step*.cu",), ("pmt_decode_step_workspace", "pmt_decode_step"), 20),
-         "head-mel": (("greedy_head.cu", "mel.cu"), (), 30)}
+         "head-mel": (("greedy_head.cu", "mel.cu"), (), 30),
+         "k1": (("encoder_attention.cu",), ("pmt_encoder_attention",), 20)}
+
+# K1 at head widths other than 64: ViT-H/14's 257 tokens of 16 heads of 80, 16 heads of 128 over 512 tokens, and
+# chip_smoke.py's head-width cases at L=300 (dense and causal); (name, B, Lq, Lk, heads, head width, causal)
+K1_WIDTH_SHAPES = (("ViT-H/14", 32, 257, 257, 16, 80, False), ("D=128", 16, 512, 512, 16, 128, False),
+                   ("D=32 L=300", 2, 300, 300, 8, 32, False), ("D=32 L=300 causal", 2, 300, 300, 8, 32, True),
+                   ("D=80 L=300", 2, 300, 300, 16, 80, False), ("D=80 L=300 causal", 2, 300, 300, 16, 80, True),
+                   ("D=128 L=300", 2, 300, 300, 4, 128, False), ("D=128 L=300 causal", 2, 300, 300, 4, 128, True))
 
 # the C interfaces of the two-pass greedy head and the CUDA-core log-mel kernel
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -236,6 +256,79 @@ def _head_mel_cases(dev, libs: dict, current: dict):
     return out
 
 
+def _k1_shapes():
+    """(name, B, Lq, Lk, heads, head width, causal) of every K1 shape that chip_smoke.py times, then
+    K1_WIDTH_SHAPES."""
+    shapes = [("GPT-2 causal", 2, 1024, 1024, 12, 64, True), ("ViT-B/16", 128, 197, 197, 12, 64, False),
+              ("Whisper-base encoder", 8, 1500, 1500, 8, 64, False), ("Whisper-base cross", 8, 448, 1500, 8, 64, False)]
+    shapes += [(name, b, lq, lk, h, d, False) for name, b, lq, lk, h, d in chip_smoke.K1_FAMILY_SHAPES]
+    return shapes + list(K1_WIDTH_SHAPES)
+
+
+def _k1_cases(dev):
+    """(name, {turn: [call]}, outputs) at every K1 shape, bf16 then fp32; ``outputs()`` gives both trees' outputs
+    on the case's inputs."""
+    import torch
+    import torch.nn.functional as F
+
+    from pytorch_models_tpu_torch.ops.encoder_attention import encoder_attention
+
+    g = torch.Generator(device=dev).manual_seed(chip_smoke.SEED + 41)
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).removeprefix("torch.")
+        for name, b, lq, lk, h, d, causal in _k1_shapes():
+            q = torch.randn(b, lq, h * d, generator=g, device=dev).to(dtype)
+            k, v = (torch.randn(b, lk, h * d, generator=g, device=dev).to(dtype) for _ in range(2))
+
+            def heads(t, h=h):  # (B, L, H*D) -> the split-head (B, H, L, D) view SDPA takes
+                return t.unflatten(-1, (h, -1)).transpose(1, 2)
+
+            call = [lambda q=q, k=k, v=v, h=h, c=causal: encoder_attention(q, k, v, h, c)]
+            sdpa = [lambda q=q, k=k, v=v, c=causal: F.scaled_dot_product_attention(heads(q), heads(k), heads(v),
+                                                                                   is_causal=c)]
+            yield (f"K1 {name} B={b} Lq={lq} Lk={lk} H={h} D={d} {dn}", {"base": call, "new": call, "sdpa": sdpa},
+                   (q, k, causal))
+
+
+def _k1_compare(name: str, got: dict, dn: str) -> dict:
+    """The two trees' outputs of one K1 case: fp32 bit-equal or not; bf16 the largest difference and the rows
+    (batch row, query, head) beyond chip_smoke.TOL of the base's output."""
+    import torch
+
+    a, b = got["base"].float(), got["new"].float()
+    if dn == "float32":
+        return {"bit_equal": bool(torch.equal(got["base"], got["new"])), "max_diff": (a - b).abs().max().item()}
+    atol, rtol = chip_smoke.TOL[dn]
+    d = int(name.split(" D=")[1].split()[0])
+    beyond = ((a - b).abs() > atol + rtol * a.abs()).unflatten(-1, (-1, d)).any(-1)
+    return {"max_diff": (a - b).abs().max().item(), "rows_beyond_tol": int(beyond.sum())}
+
+
+def _k1_fp32_sass(lib_path: Path) -> dict:
+    """The SASS of each fp32 instantiation of K1 (``encoder_attention_kernel<float, D, 1>``) in a library, by head
+    width, with addresses, encodings and symbol names left out."""
+    import re
+    import shutil
+
+    from pytorch_models_tpu_torch.ops import _build as b
+
+    tool = shutil.which("cuobjdump") or str(Path(b._find_nvcc()).parent / "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    out, cur = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            m = re.search(r"encoder_attention_kernelIfLi(\d+)ELi1E", line)
+            cur = f"D={m.group(1)}" if m else None
+            if cur:
+                out[cur] = []
+        elif cur is not None:
+            ins = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;", line)
+            if ins:
+                out[cur].append(re.sub(r"\(\*\"[^\"]*\"\*\)|_Z\w+", "", ins.group(1)))
+    return out
+
+
 K7_AB_BATCHES = (8, 16, 32, 33, 40, 64)
 
 
@@ -270,7 +363,7 @@ def main() -> int:
     import torch
 
     argv = sys.argv[1:]
-    mode = {"--k7": "k7", "--head-mel": "head-mel"}.get(argv[0] if argv else "", "attn")
+    mode = {"--k7": "k7", "--head-mel": "head-mel", "--k1": "k1"}.get(argv[0] if argv else "", "attn")
     argv = argv[1:] if mode != "attn" else argv
     if len(argv) != 1:
         print(__doc__, file=sys.stderr)
@@ -304,19 +397,40 @@ def main() -> int:
     if mode == "head-mel":
         current = {turn: _bind_head_mel(lib) for turn, lib in libs.items()}
         cases = _head_mel_cases(dev, libs, current)
+    elif mode == "k1":
+        cases = _k1_cases(dev)
     else:
         cases = (_k7_cases if mode == "k7" else _cases)(dev)
     res = {}
     for name, fns, *exact in cases:
         t = {}
-        matmul = isinstance(fns, dict) and "matmul" in fns
-        for turn in ("base", "new", "matmul", "matmul", "new", "base") if matmul else ("base", "new", "new", "base"):
+        lib_call = next((k for k in ("matmul", "sdpa") if isinstance(fns, dict) and k in fns), None)
+        for turn in ("base", "new", lib_call, lib_call, "new", "base") if lib_call else ("base", "new", "new", "base"):
             if turn in libs:
                 use(turn)
             calls = fns[turn] if isinstance(fns, dict) else fns
             t.setdefault(turn, []).append(chip_smoke._time_ms(calls, iters) * 1e3)
         res[name] = {k: sum(v) / len(v) for k, v in t.items()}
         same = ""
+        if mode == "k1":  # both trees' outputs on the same inputs; times over SDPA's and shares of the bound
+            q, k, causal = exact[0]
+            dn = str(q.dtype).removeprefix("torch.")
+            got = {}
+            for turn in ("base", "new"):
+                use(turn)
+                got[turn] = fns[turn][0]()
+            torch.cuda.synchronize()
+            res[name].update(_k1_compare(name, got, dn))
+            nbytes, flops = chip_smoke._k1_work(q, k, causal)
+            bound = chip_smoke._rec(0.0, 1.0, 1.0, nbytes, flops, dn, tf32x3=True)
+            res[name]["bound_us"], res[name]["bound_by"] = bound["bound_ms"] * 1e3, bound["bound_by"]
+            same = ("; " + ", ".join(f"{turn} / SDPA {res[name][turn] / res[name]['sdpa']:.2f}, "
+                                     f"{res[name]['bound_us'] / res[name][turn]:.0%} of the bound"
+                                     for turn in ("base", "new"))
+                    + f" ({res[name]['bound_us']:.2f} us, {res[name]['bound_by']}); outputs: "
+                    + (f"bit-equal {res[name]['bit_equal']}" if dn == "float32"
+                       else f"max |new - base| {res[name]['max_diff']:.3g}, "
+                            f"{res[name]['rows_beyond_tol']} rows beyond TOL"))
         if mode == "k7":  # both trees' outputs on the same inputs (k7_exact: where they must be the same bits)
             got = {}
             for turn in ("base", "new"):
@@ -339,10 +453,20 @@ def main() -> int:
                 use(turn)
                 print(f"breakdown of {turn} ({tree}):")
                 chip_smoke.decode_step_breakdown(dev, card, rows=(8, 32))
+    sass_equal = None
+    if mode == "k1":  # the fp32 instantiations' SASS of the two trees
+        sass = {turn: _k1_fp32_sass(here / "build" / "ab" / mode / turn / "libab.so") for turn in libs}
+        sass_equal = {d: sass["new"].get(d) == code for d, code in sass["base"].items()}
+        print("K1 fp32 SASS identical to the base's: " + ", ".join(f"{d} {eq}" for d, eq in sass_equal.items())
+              + f" ({', '.join(f'{d} {len(c)} instructions' for d, c in sass['new'].items())})")
     print(card)
-    print(json.dumps({"us": res, "base": str(base)}))
+    print(json.dumps({"us": res, "base": str(base), **({"k1_fp32_sass_equal": sass_equal} if sass_equal else {})}))
     if mode == "k7" and not all(r["bit_equal"] for r in res.values() if r["must_equal"]):
         print("kernel_ab: the two trees' K7 outputs differ where they must not", file=sys.stderr)
+        return 1
+    if mode == "k1" and not (all(r["bit_equal"] for r in res.values() if "bit_equal" in r)
+                             and sass_equal and all(sass_equal.values())):
+        print("kernel_ab: the two trees' fp32 K1 outputs or SASS differ", file=sys.stderr)
         return 1
     return 0
 

@@ -48,6 +48,7 @@ _SIGNATURES = {
     "pmt_greedy_split": [_I, _I, _I, _I, _P],
     "pmt_encoder_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P],
     "pmt_encoder_attention_k_tile": [_I],
+    "pmt_encoder_attention_route": [_I, _I],
     "pmt_log_mel": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "pmt_log_mel_pass_cols": [],
     "pmt_log_mel_k_step": [],

@@ -1,13 +1,20 @@
 """Merged-head encoder attention, dense or causal, no bias (PyTorch port of
 ``pytorch_models_tpu/ops/encoder_attention.py``).
 
-:func:`encoder_attention` launches the hand-written CUDA flash kernel
-(``csrc/encoder_attention.cu``, tensor cores: bf16 ``mma.sync``, fp32 in
-3xTF32) on CUDA tensors and runs :func:`encoder_attention_plain` on CPU
-tensors. q/k/v stay in the projections' ``(B, L, H*D)`` layout; the softmax
-is fp32 with the finite NEG_INF / safe-max rule of the JAX kernel, so a
-fully masked row is zeros. :func:`encoder_attention_eligible` is the shape
-rule the auto gate (``ops/attention.py`` ``use_encoder_kernel``) asks.
+:func:`encoder_attention` launches a hand-written CUDA flash kernel
+(``csrc/encoder_attention.cu``) on CUDA tensors and runs
+:func:`encoder_attention_plain` on CPU tensors. bf16 runs Hopper's form: a
+persistent grid of one block per SM, a producer warp feeding Q and a ring of
+K / V tiles by TMA (tensor maps over the merged-head tensors, encoded on the
+host at each call), two consumer warpgroups of 64 query rows taking turns
+between their ``wgmma`` products and their softmax, over key tiles of 128
+(``K_TILE``). fp32 runs the ``mma.sync`` kernel in 3xTF32.
+:func:`kernel_route` says which kernel serves a (dtype, head width). q/k/v
+stay in the projections' ``(B, L, H*D)`` layout; the softmax is fp32 with
+the finite NEG_INF / safe-max rule of the JAX kernel, so a fully masked row
+is zeros.
+:func:`encoder_attention_eligible` is the shape rule the auto gate
+(``ops/attention.py`` ``use_encoder_kernel``) asks.
 """
 
 from __future__ import annotations
@@ -23,7 +30,18 @@ NEG_INF = -1e30
 SUPPORTED_HEAD_DIMS = (32, 64, 80, 128)
 # keys per tile of the online softmax, per dtype; the kernel walks the same tiles
 # (csrc/encoder_attention.cu, reported by pmt_encoder_attention_k_tile)
-K_TILE = {torch.float32: 32, torch.bfloat16: 64}
+K_TILE = {torch.float32: 32, torch.bfloat16: 128}
+# the kernel that serves a (dtype, head width) (kernel_route): the TMA + wgmma kernel serves bf16 at every
+# supported head width, the mma.sync kernel fp32
+ROUTE_WGMMA, ROUTE_MMA_SYNC = 1, 0
+
+
+def kernel_route(dtype: torch.dtype, head_dim: int) -> int:
+    """The library's own answer (``pmt_encoder_attention_route``, the width
+    table its dispatch follows): ``ROUTE_WGMMA``, ``ROUTE_MMA_SYNC``, or -1
+    where no kernel serves the width. Builds the library on first use."""
+    return _build.load_library().pmt_encoder_attention_route(_build.dtype_code(torch.zeros(1, dtype=dtype)),
+                                                            head_dim)
 
 
 def encoder_attention_eligible(q: torch.Tensor, n_heads: int, attn_bias=None) -> bool:
@@ -99,6 +117,8 @@ def encoder_attention(q, k, v, n_heads: int, causal: bool = False):
     code = lib.pmt_encoder_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, lq, lk,
                                      n_heads, d, 1.0 / math.sqrt(d), int(causal), _build.dtype_code(q),
                                      _build.stream_ptr(q))
+    if code < 0:  # minus the driver's CUresult; 1000: the driver has no cuTensorMapEncodeTiled
+        raise RuntimeError(f"pmt_encoder_attention: a tensor map did not encode (CUresult {-code})")
     _build.check("pmt_encoder_attention", code)
     encoder_attention.launches += 1
     return out[0] if unbatched else out

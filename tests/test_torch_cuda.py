@@ -19,9 +19,12 @@ from pytorch_models_tpu_torch.ops.decode_step import (
 )
 from pytorch_models_tpu_torch.ops.encoder_attention import (
     K_TILE,
+    ROUTE_MMA_SYNC,
+    ROUTE_WGMMA,
     SUPPORTED_HEAD_DIMS,
     encoder_attention,
     encoder_attention_plain,
+    kernel_route,
 )
 from pytorch_models_tpu_torch.ops.gather import embed_add, embed_add_plain, gather_rows, gather_rows_plain
 from pytorch_models_tpu_torch.ops.greedy_head import (
@@ -563,9 +566,9 @@ def test_encoder_attention_matches_plain_at_each_head_width(cuda, dtype, atol, r
 @pytest.mark.parametrize("dtype,atol,rtol", K1_TOL)
 @pytest.mark.parametrize("d", [32, 64])
 def test_encoder_attention_fills_the_card(cuda, dtype, atol, rtol, d):
-    """B * H = 256 (head, row) pairs of 512 queries: 1,024 to 2,048 blocks,
-    many waves over 132 SMs (bf16 takes two m-tiles per warp at this size),
-    every block's output checked."""
+    """B * H = 256 (head, row) pairs of 512 queries, every output checked:
+    bf16 1,024 work items of 128 queries, eight rounds of the persistent grid
+    of one block per SM; fp32 2,048 blocks, many waves over 132 SMs."""
     g = torch.Generator(device=cuda).manual_seed(8)
     q, k, v = (torch.randn(16, 512, 16 * d, generator=g, device=cuda).to(dtype) for _ in range(3))
     for causal in (False, True):
@@ -596,6 +599,42 @@ def test_encoder_attention_k_tile_is_the_kernels(cuda):
     lib = _build.load_library()
     for dt, k_tile in K_TILE.items():
         assert lib.pmt_encoder_attention_k_tile(_build.dtype_code(torch.zeros(1, dtype=dt))) == k_tile
+
+
+def test_encoder_attention_route_is_the_width_table(cuda):
+    """bf16 at every supported head width on the TMA + wgmma kernel, fp32 on
+    the mma.sync kernel, any other width on none."""
+    for d in (*SUPPORTED_HEAD_DIMS, 16, 48, 96, 256):
+        served = d in SUPPORTED_HEAD_DIMS
+        assert kernel_route(torch.bfloat16, d) == (ROUTE_WGMMA if served else -1)
+        assert kernel_route(torch.float32, d) == (ROUTE_MMA_SYNC if served else -1)
+
+
+K1_EDGES = (1, 63, 64, 65, 127, 128, 129, 197, 499, 850)
+
+
+@pytest.mark.parametrize("d", SUPPORTED_HEAD_DIMS)
+@pytest.mark.parametrize("causal", [False, True])
+def test_encoder_attention_at_the_tile_edges(cuda, d, causal):
+    """bf16, the TMA + wgmma kernel, at every (Lq, Lk) of K1_EDGES: one row
+    or key, one under, at and over the 64 query rows of a consumer warpgroup
+    and the 128 queries and keys of a work item and a key tile, ViT's 197,
+    wav2vec2's 499 and DETR's 850; Lq == Lk and cross both ways. B * H = 272
+    (head, row) pairs, over twice the 132 SMs, so that the persistent grid
+    takes several rounds; K1 launched once per call. (fp32 runs the mma.sync
+    kernel, whose 32-key tiles the tests above cover.)"""
+    dtype, atol, rtol = K1_TOL[1]
+    g = torch.Generator(device=cuda).manual_seed(10)
+    b, h = 17, 16
+    for lq in K1_EDGES:
+        for lk in K1_EDGES:
+            q = torch.randn(b, lq, h * d, generator=g, device=cuda).to(dtype)
+            k, v = (torch.randn(b, lk, h * d, generator=g, device=cuda).to(dtype) for _ in range(2))
+            launches = encoder_attention.launches
+            got = encoder_attention(q, k, v, h, causal)
+            assert encoder_attention.launches == launches + 1 and got.shape == q.shape
+            _assert_k1_close(got, encoder_attention_plain(q, k, v, h, causal), q, k, v, h, causal, atol, rtol)
+    torch.cuda.synchronize()
 
 
 def _step_inputs(cuda, dtype, cross: bool, b=4, d=128, n_layers=2, l_max=128, lx=96, vocab=1000):

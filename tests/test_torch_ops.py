@@ -123,7 +123,8 @@ def _p_rounding_bound(q, k, v, n_heads, causal, o_ref):
 
 
 @pytest.mark.parametrize("b,l,h,d,causal", [
-    (2, 197, 2, 64, False),  # one JAX block (_kernel_single)
+    (2, 197, 2, 64, False),  # one JAX block (_kernel_single); ViT's 197 tokens, two key tiles of 128
+    (1, 512, 2, 64, False),  # BERT's 512 tokens: one JAX block, four key tiles
     (2, 600, 2, 64, True),   # two JAX blocks of 512 (_kernel)
     (2, 600, 4, 32, False),  # DETR's head width
     (1, 600, 8, 80, True),   # ViT-H's head width
